@@ -1,0 +1,414 @@
+"""The ColibriES closed control loop: acquire -> preprocess -> infer -> act.
+
+Port of ``repro.core.pipeline``. :class:`BatchedClosedLoop` voxelizes and
+infers a padded batch of ``B`` event windows on its device (the card
+unless the caller asks for the CPU), then accounts each stream's Kraken
+latency and energy on the host from its true event count and firing
+rates. :class:`ClosedLoopPipeline` is the paper's single-window loop, a
+B=1 view of it.
+
+Every per-stream operation on the path -- integer voxel sums, pools of
+spikes, ascending-k fc sums, elementwise LIF dynamics, per-row reductions
+-- is row-independent by construction, so a stream's result does not
+depend on the batch it rides in. The convolutions are the one library
+call on the path; whether cuDNN keeps rows independent is checked on the
+card by ``chip_smoke.py``.
+
+``infer_dispatch`` only queues work on the device's current stream and
+never synchronises; ``infer_collect`` is the one point that waits.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import events as ev
+from repro_torch.core._api import EngineConfig
+from repro_torch.core.energy import KrakenModel
+from repro_torch.core.snn import (SNN_STATE_LAYERS, SNNConfig, snn_apply,
+                                  snn_init_state, snn_logits)
+from repro_torch.core.tiling import SNE_NEURON_CAPACITY, plan_network
+
+__all__ = ["ClosedLoopResult", "BatchedClosedLoop", "ClosedLoopPipeline",
+           "pwm_from_logits", "export_state_slot", "import_state_slot"]
+
+PWM_CHANNELS = 4
+
+
+def export_state_slot(state: Dict[str, torch.Tensor], slot: int
+                      ) -> Dict[str, np.ndarray]:
+    """One slot's row of a slot-major carried state, as host numpy arrays
+    (a copy: this waits for the device)."""
+    return {k: v[slot].detach().cpu().numpy().copy()
+            for k, v in state.items()}
+
+
+def import_state_slot(state: Dict[str, torch.Tensor], slot: int,
+                      payload) -> Dict[str, torch.Tensor]:
+    """A new slot-major state equal to ``state`` with row ``slot``
+    replaced by ``payload`` (an :func:`export_state_slot`-shaped dict).
+    The exact inverse of export for f32 planes."""
+    out = {}
+    for k, a in state.items():
+        a = a.clone()
+        a[slot] = torch.as_tensor(np.asarray(payload[k]), dtype=a.dtype,
+                                  device=a.device)
+        out[k] = a
+    return out
+
+
+def _mix_matrix(n_cls: int, num_channels: int) -> np.ndarray:
+    mix = (np.arange(n_cls)[:, None] * np.arange(1, num_channels + 1)[None, :])
+    return np.cos(mix / n_cls * np.pi).astype(np.float32)
+
+
+def pwm_from_logits(logits: torch.Tensor,
+                    num_channels: int = PWM_CHANNELS) -> torch.Tensor:
+    """Map classifier logits to PWM duty cycles in [0, 1].
+
+    A fixed linear map from class posteriors to ``num_channels``
+    actuation channels, with the JAX package's numpy f32 mixing matrix.
+    Broadcast-multiply, then a sum over classes in ascending order (not
+    ``probs @ mix``, whose order changes with the row count), so each row
+    is batch-size invariant.
+    """
+    probs = torch.softmax(logits.float(), dim=-1)
+    n_cls = probs.shape[-1]
+    mix = torch.from_numpy(_mix_matrix(n_cls, num_channels)).to(
+        probs.device)
+    terms = probs[..., :, None] * mix
+    duty = terms[..., 0, :]
+    for c in range(1, n_cls):
+        duty = duty + terms[..., c, :]
+    return torch.clamp(0.5 + 0.5 * duty, 0.0, 1.0)
+
+
+def _refuse_unported(config: EngineConfig) -> None:
+    """Fail loudly on EngineConfig fields this slice does not serve."""
+    if config.mesh is not None:
+        raise NotImplementedError(
+            "EngineConfig.mesh: slot sharding over several GPUs is not "
+            "ported yet (ROADMAP queue 1, item 11)")
+
+
+@dataclasses.dataclass
+class ClosedLoopResult:
+    label_pred: np.ndarray
+    pwm: np.ndarray
+    latency_ms: float
+    energy_mj: float
+    breakdown: Dict[str, Any]
+    realtime: bool
+    sustained_rate_hz: float
+    # Pre-actuation classifier logits, (1, num_classes).
+    logits: Optional[np.ndarray] = None
+
+
+class BatchedClosedLoop:
+    """Batched event-window -> actuation engine with per-stream accounting.
+
+    The event wing of the :class:`~repro_torch.core.engine.InferenceEngine`
+    protocol. One call voxelizes and infers a whole
+    :class:`~repro_torch.core.events.PaddedEventBatch` on ``device``
+    (``None`` = ``cuda``; without a card only ``device="cpu"`` works).
+    ``duration_us`` is the one-bin-width-per-engine contract (pinned at
+    construction or latched from the first validated window).
+
+    The network runs layer-serial: the conv scans through kernel K1 and
+    fc1/fc2 through kernel K2 (the JAX package's ``fuse_fc=True``; its
+    unfused path computes the same function, so the port has this one).
+
+    Carried state is a dict of slot-major (B, ...) f32 membrane tensors on
+    the device, one per LIF layer: ``init_state(B)`` is the cold start,
+    ``infer(batch, state)`` returns ``(results, new_state)``, and feeding
+    ``new_state`` back chains windows into one uninterrupted scan.
+    """
+
+    modality = "event"
+
+    def __init__(
+        self,
+        params,
+        cfg: SNNConfig,
+        *,
+        model: Optional[KrakenModel] = None,
+        window_ms: float = 300.0,
+        duration_us: Optional[int] = None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.params = {name: {k: v.to(self.device, torch.float32)
+                              for k, v in layer.items()}
+                       for name, layer in params.items()}
+        self.cfg = cfg
+        self.model = model or KrakenModel()
+        self.window_ms = window_ms
+        self.duration_us = duration_us
+        sizes = cfg.spatial_sizes()
+        # SNE executes conv1/conv2/fc1/fc2; tile plans sized by each layer's
+        # output volume against SNE's neuron capacity.
+        self.plans = plan_network(
+            [("conv1", sizes["conv1"]), ("conv2", sizes["conv2"]),
+             ("fc1", sizes["fc1"]), ("fc2", sizes["fc2"])],
+            SNE_NEURON_CAPACITY,
+        )
+        self.fanouts = (
+            9.0 * cfg.conv1_features,         # 3x3 kernel into conv1 features
+            9.0 * cfg.conv2_features,
+            float(cfg.hidden),
+            float(cfg.num_classes),
+        )
+        self._keys: set = set()
+        self._zero_state: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    @classmethod
+    def from_config(cls, params, cfg: SNNConfig, config: EngineConfig, *,
+                    model: Optional[KrakenModel] = None, device=None):
+        """Construct from the :class:`EngineConfig` surface (its serving
+        fields belong to ``StreamEngine``); ``mesh`` is refused. Both
+        values of ``fuse_fc`` run fc1/fc2 through K2: they name two
+        executions of one function in the JAX package, and the port has
+        the fused one only."""
+        _refuse_unported(config)
+        return cls(params, cfg, model=model, window_ms=config.window_ms,
+                   duration_us=config.duration_us, device=device)
+
+    # -- InferenceEngine protocol ----------------------------------------
+
+    def init_state(self, batch_size: int) -> Dict[str, torch.Tensor]:
+        """The zero carried state for ``batch_size`` slots, on the device."""
+        return snn_init_state(self.cfg, batch_size, device=self.device)
+
+    def _zero_state_for(self, batch_size: int):
+        st = self._zero_state.get(batch_size)
+        if st is None:
+            st = self._zero_state[batch_size] = self.init_state(batch_size)
+        return st
+
+    def validate(self, window: ev.EventWindow) -> None:
+        """Submission-time check: latch/enforce the engine bin width."""
+        if self.duration_us is None:
+            self.duration_us = window.duration_us
+        elif window.duration_us != self.duration_us:
+            raise ValueError(
+                f"window duration {window.duration_us} != engine duration "
+                f"{self.duration_us} (one bin width per engine)")
+
+    def prepare(self, items: Sequence[Optional[ev.EventWindow]], *,
+                batch_size: int) -> ev.PaddedEventBatch:
+        """Pad one window per slot into the engine's fixed batch buffer,
+        with event counts padded to power-of-two buckets."""
+        bucket = ev.next_pow2(max(
+            (w.num_events for w in items if w is not None), default=1))
+        return ev.pad_event_windows(
+            items, max_events=bucket, batch_size=batch_size,
+            duration_us=self.duration_us)
+
+    def shape_key(self, batch: ev.PaddedEventBatch):
+        return (batch.batch_size, batch.max_events, batch.duration_us)
+
+    def _run(self, events: torch.Tensor, duration_us: int,
+             state: Dict[str, torch.Tensor]):
+        """Voxelize + infer + readout on the device. ``events`` is the
+        (5, B, N) int32 stack of x, y, t, p, valid. Returns one packed
+        (B, 1 + channels + classes + 4) f32 tensor -- prediction, PWM,
+        logits, per-layer rates -- and the new state."""
+        cfg = self.cfg
+        x, y, t, p, valid = events
+        vox = ev.voxelize_batch(
+            x, y, t, p, valid.bool(), duration_us=duration_us,
+            time_bins=cfg.time_bins, height=cfg.height, width=cfg.width)
+        out = snn_apply(self.params, vox, cfg, mode="layer_serial",
+                        state=state)
+        logits = snn_logits(out, cfg) * 10.0
+        rates = out["firing_rates_per_stream"]
+        packed = torch.cat([
+            torch.argmax(logits, -1).float()[:, None],
+            pwm_from_logits(logits), logits,
+            torch.stack([rates[k].float() for k in SNN_STATE_LAYERS], 1),
+        ], dim=1)
+        return packed, out["state"]
+
+    def warmup(self, shape_keys) -> None:
+        """Run one empty batch per shape key so the kernels are built and
+        memory is allocated before serving. A key is
+        ``(batch_size, max_events[, duration_us])``; the 2-tuple form uses
+        the engine's latched ``duration_us``."""
+        for key in shape_keys:
+            key = tuple(key)
+            if len(key) == 2:
+                if self.duration_us is None:
+                    raise ValueError(
+                        "2-tuple shape key needs a latched duration_us; "
+                        "pass (batch, max_events, duration_us) or pin "
+                        "duration_us at construction")
+                key = (*key, self.duration_us)
+            if len(key) != 3:
+                raise ValueError(
+                    f"shape key must be (batch_size, max_events[, "
+                    f"duration_us]), got {key}")
+            b, n_ev, duration_us = (int(k) for k in key)
+            batch = ev.pad_event_windows(
+                [None] * b, max_events=n_ev, batch_size=b,
+                duration_us=duration_us)
+            self.infer_collect(self.infer_dispatch(batch))
+
+    def compiled_shape_keys(self) -> set:
+        """Shape keys warmed or served so far."""
+        return set(self._keys)
+
+    def _account(self, num_events: int,
+                 rates: Dict[str, float]) -> Dict[str, Any]:
+        """Kraken latency/energy for one stream's window (pure float math)."""
+        cfg = self.cfg
+        t = cfg.time_bins
+        sizes = cfg.spatial_sizes()
+        vol = lambda s: float(np.prod(sizes[s]))
+        layer_in_spikes = (
+            float(num_events),                        # into conv1
+            rates["conv1"] * vol("conv1") * t,        # into conv2
+            rates["conv2"] * vol("conv2") * t,        # into fc1
+            rates["fc1"] * vol("fc1") * t,            # into fc2
+        )
+        acct = self.model.closed_loop(
+            events=float(num_events),
+            layer_in_spikes=layer_in_spikes,
+            layer_fanout=self.fanouts,
+            layer_passes=[p.passes for p in self.plans],
+        )
+        acct["firing_rates"] = dict(rates)
+        return acct
+
+    def infer_dispatch(self, batch: ev.PaddedEventBatch, state=None):
+        """Queue a padded batch on the device without waiting for it.
+
+        Returns a pending handle for :meth:`infer_collect` -- or, with
+        ``state``, ``(pending, new_state)``, where ``new_state`` is a dict
+        of device tensors the caller can feed to the next dispatch with no
+        host round-trip. The event arrays go up in one copy from pinned
+        host memory, so the copy does not wait for earlier device work.
+        """
+        stateless = state is None
+        if stateless:
+            state = self._zero_state_for(batch.batch_size)
+        key = self.shape_key(batch)
+        host = np.stack([batch.x, batch.y, batch.t, batch.p,
+                         batch.valid.astype(np.int32)])
+        events = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            events = events.pin_memory().to(self.device, non_blocking=True)
+        with torch.no_grad():
+            packed, new_state = self._run(events, int(batch.duration_us),
+                                          state)
+        self._keys.add(key)
+        pending = (batch, packed)
+        return pending if stateless else (pending, new_state)
+
+    def infer_collect(self, pending) -> List[Optional[ClosedLoopResult]]:
+        """Fetch a dispatched batch's outputs and account each stream.
+
+        The only point that waits for the device (one device-to-host copy).
+        """
+        batch, packed = pending
+        arr = packed.cpu().numpy()
+        c = self.cfg.num_classes
+        preds = arr[:, 0].astype(np.int32)
+        pwm = arr[:, 1:1 + PWM_CHANNELS]
+        logits = arr[:, 1 + PWM_CHANNELS:1 + PWM_CHANNELS + c]
+        rates = arr[:, 1 + PWM_CHANNELS + c:]
+
+        results: List[Optional[ClosedLoopResult]] = []
+        for b in range(batch.batch_size):
+            if not batch.occupied[b]:
+                results.append(None)
+                continue
+            # A real-but-quiet window (zero events) is still occupied and
+            # gets a result; only window=None slots yield None.
+            n_ev = int(batch.num_events[b])
+            acct = self._account(
+                n_ev, {k: float(rates[b, i])
+                       for i, k in enumerate(SNN_STATE_LAYERS)})
+            latency = float(acct["total_time_ms"])
+            # Double-buffered acquisition: the sustained period is
+            # max(window period, preprocessing + inference).
+            proc_ms = (acct["stages"]["preprocessing"]["time_ms"]
+                       + acct["stages"]["snn_inference"]["time_ms"])
+            period_ms = max(self.window_ms, proc_ms)
+            results.append(ClosedLoopResult(
+                label_pred=preds[b:b + 1],
+                pwm=pwm[b:b + 1],
+                latency_ms=latency,
+                energy_mj=float(acct["total_energy_mj"]),
+                breakdown=acct,
+                realtime=latency <= self.window_ms,
+                sustained_rate_hz=1000.0 / period_ms,
+                logits=logits[b:b + 1],
+            ))
+        return results
+
+    def export_state(self, state, slot: int):
+        """Host-serializable copy of one slot's carried state."""
+        return export_state_slot(state, slot)
+
+    def import_state(self, state, slot: int, payload):
+        """Splice an exported carry back into row ``slot``."""
+        return import_state_slot(state, slot, payload)
+
+    def infer(self, batch: ev.PaddedEventBatch, state=None):
+        """Dispatch + collect back to back. With ``state`` returns
+        ``(results, new_state)``; without it, the results of a run from
+        the zero state."""
+        if state is None:
+            return self.infer_collect(self.infer_dispatch(batch))
+        pending, new_state = self.infer_dispatch(batch, state)
+        return self.infer_collect(pending), new_state
+
+    def infer_windows(self, windows: Sequence[Optional[ev.EventWindow]],
+                      *, max_events: Optional[int] = None,
+                      batch_size: Optional[int] = None,
+                      duration_us: Optional[int] = None,
+                      ) -> List[Optional[ClosedLoopResult]]:
+        """Convenience: pad a window list and run it as one batch."""
+        if not windows and not batch_size:
+            return []
+        if max_events is None:
+            counts = [w.num_events for w in windows if w is not None]
+            max_events = ev.next_pow2(max(counts) if counts else 1)
+        batch = ev.pad_event_windows(
+            windows, max_events=max_events, batch_size=batch_size,
+            duration_us=duration_us)
+        return self.infer(batch)
+
+
+class ClosedLoopPipeline:
+    """The paper's single-window loop: a B=1 view of the batched engine.
+
+    Event counts are padded to power-of-two buckets (padding never changes
+    a result; voxel sums are exact).
+    """
+
+    def __init__(
+        self,
+        params,
+        cfg: SNNConfig,
+        *,
+        model: Optional[KrakenModel] = None,
+        window_ms: float = 300.0,
+        device=None,
+    ):
+        self.batched = BatchedClosedLoop(
+            params, cfg, model=model, window_ms=window_ms, device=device)
+
+    params = property(lambda self: self.batched.params)
+    cfg = property(lambda self: self.batched.cfg)
+    model = property(lambda self: self.batched.model)
+    window_ms = property(lambda self: self.batched.window_ms)
+    plans = property(lambda self: self.batched.plans)
+    fanouts = property(lambda self: self.batched.fanouts)
+
+    def __call__(self, window: ev.EventWindow) -> ClosedLoopResult:
+        return self.batched.infer_windows([window])[0]

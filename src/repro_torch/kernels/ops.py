@@ -1,0 +1,135 @@
+"""Differentiable public wrappers around the kernels (port of
+``repro.kernels.ops``).
+
+``lif_scan``    -- fused LIF scan with the STBP surrogate gradient.
+``fc_lif_scan`` -- fused ``spikes @ w`` + LIF scan for the fc layers.
+
+The forward of each is the CUDA kernel on a CUDA tensor and the kernel's
+plain version on a CPU tensor (see ``lif_scan_fwd``/``fc_lif_scan_fwd``).
+The backward recomputes the plain reference under autograd, as the JAX
+package's custom VJPs do -- a remat policy, not an approximation: the
+forward values are the kernel's. No backward kernel exists to port.
+``ternary_matmul`` and ``pack_ternary_weights`` arrive with the frame wing.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.lif import LIFParams, lif_scan_reference
+from repro_torch.kernels.fc_lif_scan import fc_lif_scan_fwd
+from repro_torch.kernels.lif_scan import lif_scan_fwd
+
+__all__ = ["lif_scan", "lif_scan_batched", "fc_lif_scan",
+           "fc_lif_scan_batched"]
+
+
+def _recompute_grads(fn, inputs, grads_out):
+    """Gradients of ``fn(*inputs)`` (the plain reference) for the
+    cotangents ``grads_out``; ``None`` inputs get ``None``."""
+    with torch.enable_grad():
+        live = [None if x is None else x.detach().requires_grad_()
+                for x in inputs]
+        outs = fn(*live)
+        want = [x for x in live if x is not None]
+        got = iter(torch.autograd.grad(outs, want, grads_out,
+                                       allow_unused=True))
+        return [None if x is None else next(got) for x in live]
+
+
+class _LifScan(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, currents, v0, p: LIFParams):
+        ctx.p = p
+        ctx.save_for_backward(currents, v0)
+        return lif_scan_fwd(currents, p, v0)
+
+    @staticmethod
+    def backward(ctx, g_spikes, g_vfin):
+        currents, v0 = ctx.saved_tensors
+        p = ctx.p
+        g_c, g_v0 = _recompute_grads(
+            lambda c, v: lif_scan_reference(c, p, v), (currents, v0),
+            (g_spikes, g_vfin))
+        return g_c, g_v0, None
+
+
+def lif_scan(
+    currents: torch.Tensor,
+    p: LIFParams = LIFParams(),
+    v0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused LIF scan over (T, ...) currents -> (spikes, v_final).
+
+    Drop-in for :func:`repro_torch.core.lif.lif_scan_reference` (same
+    values bit for bit, same STBP surrogate gradients), with the temporal
+    scan in one kernel launch on the card.
+    """
+    return _LifScan.apply(currents.contiguous(), v0, p)
+
+
+def lif_scan_batched(
+    currents: torch.Tensor,
+    p: LIFParams = LIFParams(),
+    v0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stream-major LIF scan: (B, T, ...) -> ((B, T, ...), (B, ...)).
+
+    One launch scans every stream: the batch folds into the neuron axis of
+    the time-major layout, and since the dynamics are elementwise each
+    stream's result equals its own :func:`lif_scan` bit for bit.
+    """
+    if currents.ndim < 2:
+        raise ValueError(f"need (B, T, ...) currents, got "
+                         f"{tuple(currents.shape)}")
+    spikes, v_fin = lif_scan(currents.transpose(0, 1), p, v0)
+    return spikes.transpose(0, 1), v_fin
+
+
+class _FcLifScan(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, spikes, w, v0, p: LIFParams):
+        ctx.p = p
+        ctx.save_for_backward(spikes, w, v0)
+        return fc_lif_scan_fwd(spikes, w, p, v0)
+
+    @staticmethod
+    def backward(ctx, g_spikes, g_vfin):
+        spikes, w, v0 = ctx.saved_tensors
+        p = ctx.p
+        g_s, g_w, g_v0 = _recompute_grads(
+            lambda s, w_, v: lif_scan_reference(torch.matmul(s, w_), p, v),
+            (spikes, w, v0), (g_spikes, g_vfin))
+        return g_s, g_w, g_v0, None
+
+
+def fc_lif_scan(
+    spikes: torch.Tensor,
+    w: torch.Tensor,
+    p: LIFParams = LIFParams(),
+    v0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused ``spikes @ w`` + LIF scan -> (out_spikes, v_final).
+
+    ``spikes``: (T, B, K) or (T, K); ``w``: (K, N); ``v0``: (B, N)/(N,).
+    The currents are ascending-k f32 sums (see
+    :func:`repro_torch.kernels.fc_lif_scan.fc_currents`) and never reach
+    device memory on the card.
+    """
+    return _FcLifScan.apply(spikes.contiguous(), w.contiguous(), v0, p)
+
+
+def fc_lif_scan_batched(
+    spikes: torch.Tensor,
+    w: torch.Tensor,
+    p: LIFParams = LIFParams(),
+    v0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stream-major fused fc+LIF: (B, T, K) -> ((B, T, N), (B, N))."""
+    if spikes.ndim != 3:
+        raise ValueError(f"need (B, T, K) spikes, got {tuple(spikes.shape)}")
+    out, v_fin = fc_lif_scan(spikes.transpose(0, 1), w, p, v0)
+    return out.transpose(0, 1), v_fin

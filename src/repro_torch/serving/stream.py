@@ -1,0 +1,648 @@
+"""Continuous batching of event-camera streams over one engine's slots.
+
+Port of the event-lane subset of ``repro.serving.stream``. A stream is
+opened (``StreamEngine.open`` -> :class:`StreamHandle`), windows are
+submitted to it, and ``step()`` serves the head window of every slotted
+stream in one engine call per step. Slots are assigned by a
+:class:`SlotPolicy` (:class:`FairQuantumPolicy` by default: pin a slot
+while its stream has work, rotate after ``fair_quantum`` windows when
+others wait). Windows of one stream are served strictly in order, at most
+one per step.
+
+Stateful streams carry the engine's state (the LIF membranes) from window
+to window. The lane keeps a slot-major dict of device tensors beside its
+slots; state follows the STREAM, not the slot: when a stream moves, its
+row is gathered along (``torch.stack`` per layer); when it loses its slot
+the row is parked; a slot admitting a new stream starts from zero.
+
+``pipeline_depth >= 1`` dispatches each step without waiting for the
+device and returns the results of the step dispatched ``pipeline_depth``
+steps earlier: the same results, in the same order and bit for bit, as
+the synchronous engine, with host packing of step k+1 overlapping the
+device's work on step k. Carried state chains from dispatch to dispatch
+on the device.
+
+Not in this slice (see ROADMAP): checkpoint/restore, ``DeadlinePolicy``
+and per-window deadlines, telemetry, ``resize_lane``/``drain_lane``,
+fault recovery, fusion pairing and the megastep, the mesh, the frame
+wing, and the legacy id-keyed call forms. The ``EngineConfig`` fields
+that select them are refused at construction.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import (Any, Deque, Dict, Hashable, List, Optional)
+
+import torch
+
+from repro_torch.core._api import EngineConfig
+from repro_torch.core.energy import KrakenModel
+from repro_torch.core.engine import InferenceEngine
+from repro_torch.core.pipeline import (BatchedClosedLoop, ClosedLoopResult,
+                                       _refuse_unported)
+from repro_torch.core.snn import SNNConfig
+
+__all__ = ["StreamResult", "StreamStats", "EngineLane", "SlotPolicy",
+           "FairQuantumPolicy", "StreamHandle", "StreamEngine",
+           "EngineConfig"]
+
+
+@dataclasses.dataclass
+class StreamResult:
+    """One served window: which stream, which window index (the
+    submission-time sequence number), and the closed-loop outcome."""
+
+    stream_id: Hashable
+    seq: int
+    result: Optional[ClosedLoopResult]
+    modality: str = "event"
+
+
+@dataclasses.dataclass
+class StreamStats:
+    """Per-stream accounting, accumulated as windows complete."""
+
+    windows: int = 0
+    energy_mj: float = 0.0
+    latency_ms_sum: float = 0.0
+    realtime_windows: int = 0
+    queued: int = 0               # still waiting in this stream's queue
+
+    @property
+    def mean_latency_ms(self) -> float:
+        return self.latency_ms_sum / self.windows if self.windows else 0.0
+
+    @property
+    def realtime_fraction(self) -> float:
+        return self.realtime_windows / self.windows if self.windows else 0.0
+
+    @property
+    def mean_power_mw(self) -> float:
+        """Average power while processing (energy over busy time)."""
+        return (self.energy_mj / (self.latency_ms_sum * 1e-3)
+                if self.latency_ms_sum else 0.0)
+
+
+class _FreeSlot:
+    """Sentinel for an unassigned batch slot (distinct from any stream id,
+    including ``None``)."""
+
+    def __repr__(self):
+        return "<free slot>"
+
+
+_FREE = _FreeSlot()
+
+
+@dataclasses.dataclass
+class _Queued:
+    """One queued submission: the item plus its sequence number."""
+
+    item: Any
+    seq: int
+
+
+@dataclasses.dataclass
+class _InflightLane:
+    """One lane's share of a dispatched, not yet collected step.
+
+    ``entries`` is slot-aligned: ``(stream_id, seq)`` per served slot,
+    ``None`` per empty one. ``kind`` is ``"results"`` (synchronous mode:
+    finished results) or ``"handle"`` (the engine's pending handle)."""
+
+    lane: "EngineLane"
+    key: Hashable
+    entries: List[Optional[tuple]]
+    kind: str
+    pending: Any
+
+
+@dataclasses.dataclass
+class EngineLane:
+    """One engine's scheduling state: its slots, queues and waiting line.
+
+    ``state`` is the slot-major dict of device tensors fed to the next
+    dispatch; ``state_streams`` says, per row, which stateful stream's
+    carry the row holds (rows of stateless or free slots are dead);
+    ``parked`` holds the carries of stateful streams without a slot.
+    A stateful stream's carry lives in exactly one of a state row or
+    ``parked`` (or nowhere: cold start).
+    """
+
+    modality: str
+    engine: InferenceEngine
+    slots: List[Hashable]
+    slot_runs: List[int]
+    waiting: Deque[Hashable]
+    queues: Dict[Hashable, Deque[_Queued]]
+    shape_keys: set
+    stateful: set = dataclasses.field(default_factory=set)
+    state: Any = None
+    state_streams: List[Hashable] = dataclasses.field(default_factory=list)
+    parked: Dict[Hashable, Any] = dataclasses.field(default_factory=dict)
+    zero_state: Any = None
+
+    def pending(self) -> int:
+        return sum(len(q) for q in self.queues.values())
+
+
+class SlotPolicy:
+    """Decides which streams hold an engine's batch slots each step.
+
+    ``assign(lane)`` runs once per step before the batch is gathered: it
+    frees slots and fills free slots from the waiting line, keeping every
+    schedulable stream in exactly one of a held slot or the waiting line.
+    """
+
+    def assign(self, lane: EngineLane) -> None:
+        raise NotImplementedError
+
+
+class FairQuantumPolicy(SlotPolicy):
+    """The default: pin-until-drained with a fairness quantum.
+
+    A slot stays pinned to its stream while the stream has queued windows;
+    it goes to the next waiting stream when the stream drains, or after
+    ``fair_quantum`` consecutive windows when others wait (the pinned
+    stream moves to the back of the line). Free slots fill in arrival
+    order. No stream starves under continuous submission.
+    """
+
+    def __init__(self, fair_quantum: int = 4):
+        if fair_quantum < 1:
+            raise ValueError(
+                f"fair_quantum must be >= 1, got {fair_quantum}")
+        self.fair_quantum = fair_quantum
+
+    def assign(self, lane: EngineLane) -> None:
+        contended = any(lane.queues[s] for s in lane.waiting)
+        for i, sid in enumerate(lane.slots):
+            if sid is _FREE:
+                continue
+            if not lane.queues[sid]:
+                lane.slots[i] = _FREE
+                lane.slot_runs[i] = 0
+            elif contended and lane.slot_runs[i] >= self.fair_quantum:
+                lane.waiting.append(sid)
+                lane.slots[i] = _FREE
+                lane.slot_runs[i] = 0
+        for i, sid in enumerate(lane.slots):
+            if sid is _FREE:
+                cand = self._take(lane)
+                if cand is None:
+                    break
+                lane.slots[i] = cand
+                lane.slot_runs[i] = 0
+
+    def _take(self, lane: EngineLane) -> Optional[Hashable]:
+        """Pop the next waiting stream with queued work; drained entries
+        are dropped (they re-enter on their next submit)."""
+        while lane.waiting:
+            cand = lane.waiting.popleft()
+            if lane.queues[cand]:
+                return cand
+        return None
+
+
+class StreamHandle:
+    """One stream's lifecycle: what ``StreamEngine.open`` returns.
+
+    ``submit(window)`` queues a window and returns its sequence number;
+    ``reset_state()`` zeroes a stateful stream's carry; ``close()``
+    retires the stream. Results come from the engine's ``step``/``run``/
+    ``flush``.
+    """
+
+    def __init__(self, engine: "StreamEngine", lane: EngineLane,
+                 stream_id: Hashable, stateful: bool):
+        self._engine = engine
+        self._lane = lane
+        self.stream_id = stream_id
+        self.stateful = bool(stateful)
+        self.closed = False
+
+    def __repr__(self):
+        state = "closed" if self.closed else "open"
+        return (f"<StreamHandle {self.stream_id!r} {self._lane.modality} "
+                f"stateful={self.stateful} {state}>")
+
+    @property
+    def stats(self) -> StreamStats:
+        return self._engine.stream_stats[self.stream_id]
+
+    @property
+    def queued(self) -> int:
+        return 0 if self.closed else len(self._lane.queues[self.stream_id])
+
+    def _check_open(self) -> None:
+        if self.closed:
+            raise ValueError(
+                f"handle for stream {self.stream_id!r} is closed")
+
+    def submit(self, window: Any) -> int:
+        """Queue one window; returns its per-stream sequence number. The
+        engine validates the window before any queue state moves, so a
+        rejected submit burns no sequence number."""
+        self._check_open()
+        lane, sid, eng = self._lane, self.stream_id, self._engine
+        lane.engine.validate(window)
+        seq = eng._seq[sid]
+        eng._seq[sid] = seq + 1
+        lane.queues[sid].append(_Queued(window, seq))
+        if sid not in lane.slots and sid not in lane.waiting:
+            lane.waiting.append(sid)
+        eng.stream_stats[sid].queued += 1
+        return seq
+
+    def reset_state(self) -> None:
+        """Zero the carried state (a gesture boundary). Applies from the
+        next dispatch; windows already in flight keep the old carry."""
+        self._check_open()
+        lane, sid = self._lane, self.stream_id
+        if not self.stateful:
+            raise ValueError(f"stream {sid!r} is not stateful")
+        lane.parked.pop(sid, None)
+        for j, owner in enumerate(lane.state_streams):
+            if owner is not _FREE and owner == sid:
+                lane.state_streams[j] = _FREE
+
+    def close(self) -> int:
+        """Retire the stream: queue, slot, waiting entry and carry. Returns
+        the number of windows discarded, in-flight ones included (their
+        results are never emitted). Closing a closed handle returns 0."""
+        if self.closed:
+            return 0
+        lane, sid, eng = self._lane, self.stream_id, self._engine
+        dropped = 0
+        for step_recs in eng._inflight:
+            for rec in step_recs:
+                if rec.lane is not lane:
+                    continue
+                for i, entry in enumerate(rec.entries):
+                    if entry is not None and entry[0] == sid:
+                        rec.entries[i] = None
+                        dropped += 1
+        queued_dropped = len(lane.queues.pop(sid))
+        dropped += queued_dropped
+        if sid in lane.waiting:
+            lane.waiting.remove(sid)
+        for i, owner in enumerate(lane.slots):
+            if owner is not _FREE and owner == sid:
+                lane.slots[i] = _FREE
+                lane.slot_runs[i] = 0
+        for j, owner in enumerate(lane.state_streams):
+            if owner is not _FREE and owner == sid:
+                lane.state_streams[j] = _FREE
+        lane.parked.pop(sid, None)
+        lane.stateful.discard(sid)
+        del eng._stream_lane[sid]
+        eng._seq.pop(sid, None)
+        eng._handles.pop(sid, None)
+        eng.stream_stats[sid].queued -= queued_dropped
+        self.closed = True
+        return dropped
+
+
+class StreamEngine:
+    """Continuous batching of event windows over one engine's batch slots.
+
+    ``StreamEngine(params, cfg, EngineConfig(...), device=None)`` builds
+    one
+    :class:`~repro_torch.core.pipeline.BatchedClosedLoop` on ``device``
+    (``None`` = ``cuda``; without a card only ``device="cpu"`` works).
+    ``EngineConfig`` supplies ``max_streams`` (slots), ``duration_us``,
+    ``policy``/``fair_quantum``, ``pipeline_depth`` and ``window_ms``;
+    ``fuse_fc`` selects nothing (fc1/fc2 always run through kernel K2,
+    which is what either value computes); ``mesh``, ``megastep``, ``recovery`` and a policy that
+    is not a port :class:`SlotPolicy` raise ``NotImplementedError``.
+    """
+
+    def __init__(
+        self,
+        params,
+        cfg: SNNConfig,
+        config: Optional[EngineConfig] = None,
+        *,
+        model: Optional[KrakenModel] = None,
+        device=None,
+    ):
+        config = EngineConfig() if config is None else config
+        if not isinstance(config, EngineConfig):
+            raise TypeError(f"config must be an EngineConfig, got "
+                            f"{type(config).__name__}")
+        _refuse_unported(config)
+        if config.megastep:
+            raise NotImplementedError(
+                "EngineConfig.megastep: the cross-wing megastep arrives "
+                "with the frame wing and fusion (ROADMAP queue 1, item 8)")
+        if config.recovery is not None:
+            raise NotImplementedError(
+                "EngineConfig.recovery: fault recovery is not ported yet "
+                "(ROADMAP queue 1, item 7(b))")
+        if config.policy is not None and not isinstance(config.policy,
+                                                        SlotPolicy):
+            raise NotImplementedError(
+                f"policy {type(config.policy).__name__}: only the port's "
+                f"SlotPolicy subclasses are served; DeadlinePolicy is not "
+                f"ported yet (ROADMAP queue 1, item 7(a))")
+        slots = config.max_streams
+        if not isinstance(slots, int) or isinstance(slots, bool):
+            raise NotImplementedError(
+                "per-modality max_streams mappings need several engine "
+                "lanes, which arrive with the frame wing (ROADMAP queue 1, "
+                "item 8)")
+        if slots < 1:
+            raise ValueError(f"max_streams must be >= 1, got {slots}")
+        self.config = config
+        self.pipeline_depth = config.pipeline_depth
+        engine = BatchedClosedLoop.from_config(
+            params, cfg, config, model=model, device=device)
+        self.policy = config.policy or FairQuantumPolicy(
+            4 if config.fair_quantum is None else config.fair_quantum)
+        self._lanes: Dict[str, EngineLane] = {
+            engine.modality: EngineLane(
+                modality=engine.modality, engine=engine,
+                slots=[_FREE] * slots, slot_runs=[0] * slots,
+                waiting=deque(), queues={}, shape_keys=set(),
+                state_streams=[_FREE] * slots)}
+        self._inflight: Deque[List[_InflightLane]] = deque()
+        self._stream_lane: Dict[Hashable, str] = {}
+        self._seq: Dict[Hashable, int] = {}
+        self._handles: Dict[Hashable, StreamHandle] = {}
+        self._auto_id = 0
+        self.stream_stats: Dict[Hashable, StreamStats] = {}
+        self.stats: Dict[str, float] = {
+            "steps": 0, "windows": 0, "wall_s": 0.0,
+        }
+
+    # -- introspection ---------------------------------------------------
+
+    @property
+    def loop(self) -> BatchedClosedLoop:
+        """The event engine."""
+        return self._lanes["event"].engine
+
+    def compiled_shapes(self) -> set:
+        """Distinct shape keys the engine has been stepped with."""
+        return set(self._lanes["event"].shape_keys)
+
+    def warmup(self, shape_keys) -> None:
+        """Run the engine once per shape key before serving (see
+        :meth:`BatchedClosedLoop.warmup`)."""
+        self.loop.warmup(shape_keys)
+
+    @property
+    def handles(self) -> Dict[Hashable, StreamHandle]:
+        """Open handles by stream id (a copy; close via the handle)."""
+        return dict(self._handles)
+
+    # -- streams -----------------------------------------------------------
+
+    def open(self, *, stream_id: Optional[Hashable] = None,
+             stateful: bool = False) -> StreamHandle:
+        """Open a new stream and return its :class:`StreamHandle`.
+
+        ``stateful=True`` carries the LIF membranes across the stream's
+        windows until ``reset_state`` or ``close``. ``stream_id`` names
+        the stream (``"event-<n>"`` when omitted); an id that is already
+        open raises.
+        """
+        lane = self._lanes["event"]
+        if stream_id is None:
+            while True:
+                stream_id = f"{lane.modality}-{self._auto_id}"
+                self._auto_id += 1
+                if stream_id not in self._stream_lane:
+                    break
+        elif stream_id in self._stream_lane:
+            raise ValueError(
+                f"stream {stream_id!r} is already open; close() it before "
+                f"reopening the id")
+        lane.queues[stream_id] = deque()
+        self._stream_lane[stream_id] = lane.modality
+        self._seq[stream_id] = 0
+        self.stream_stats[stream_id] = StreamStats()
+        if stateful:
+            lane.stateful.add(stream_id)
+        handle = StreamHandle(self, lane, stream_id, stateful)
+        self._handles[stream_id] = handle
+        return handle
+
+    def pending(self) -> int:
+        """Windows queued across all streams."""
+        return sum(lane.pending() for lane in self._lanes.values())
+
+    @property
+    def in_flight(self) -> int:
+        """Dispatched-but-uncollected pipeline steps."""
+        return len(self._inflight)
+
+    # -- carried state ---------------------------------------------------
+
+    def _lane_state_in(self, lane: EngineLane):
+        """Plan one lane's state for a dispatch.
+
+        Returns ``(state_in, commit)``: the slot-major state to dispatch
+        with (``None`` when no stream of the lane is stateful, which
+        serves the lane from the engine's zero state) and a
+        ``commit(new_state)`` thunk that advances the lane's tracking once
+        the dispatch succeeded.
+        """
+        if not lane.stateful:
+            return None, None
+        if lane.state is None:       # first stateful dispatch: zero state
+            lane.zero_state = lane.engine.init_state(len(lane.slots))
+            lane.state = lane.zero_state
+
+        slots = list(lane.slots)
+        pos = {owner: j for j, owner in enumerate(lane.state_streams)
+               if owner is not _FREE}
+        # Per slot: ("row", j) = carry already in the buffer at row j;
+        # ("parked", sid) = carry parked off-buffer; None = zero row.
+        src: List[Any] = []
+        for sid in slots:
+            if sid is _FREE or sid not in lane.stateful:
+                src.append(None)
+            elif sid in pos:
+                src.append(("row", pos[sid]))
+            elif sid in lane.parked:
+                src.append(("parked", sid))
+            else:
+                src.append(None)
+        # Fast path: every occupied slot's carry already sits in its row
+        # (free slots' rows are dead and never force a rebuild).
+        if all(sid is _FREE or s == ("row", i)
+               for i, (sid, s) in enumerate(zip(slots, src))):
+            state_in = lane.state
+        else:
+            state_in = {}
+            for name, plane in lane.state.items():
+                rows = []
+                for s in src:
+                    if s is None:
+                        rows.append(lane.zero_state[name][0])
+                    elif s[0] == "row":
+                        rows.append(plane[s[1]])
+                    else:
+                        rows.append(lane.parked[s[1]][name])
+                state_in[name] = torch.stack(rows)
+
+        old_state = lane.state
+        old_owners = list(lane.state_streams)
+        scheduled = {sid for sid in slots if sid is not _FREE}
+
+        def commit(new_state):
+            for j, owner in enumerate(old_owners):
+                if owner is _FREE or owner in scheduled:
+                    continue
+                # The stream lost its slot this step: park its carry (from
+                # the pre-dispatch buffer) so it follows the stream.
+                lane.parked[owner] = {k: a[j] for k, a in old_state.items()}
+            for sid in scheduled:
+                lane.parked.pop(sid, None)
+            lane.state = new_state
+            lane.state_streams = [
+                sid if (sid is not _FREE and sid in lane.stateful)
+                else _FREE
+                for sid in slots]
+
+        return state_in, commit
+
+    # -- scheduling ------------------------------------------------------
+
+    def step(self) -> List[StreamResult]:
+        """Serve one batch: the head window of every slotted stream.
+
+        Synchronous (``pipeline_depth == 0``): returns this step's
+        results; queues are only peeked until the engine has returned, so
+        a failed step consumes nothing and can be retried. Pipelined:
+        dispatches without waiting and returns the results of the step
+        dispatched ``pipeline_depth`` steps ago.
+        """
+        t0 = time.perf_counter()
+        if self.pipeline_depth == 0:
+            ran = self._dispatch(eager=True)
+            if not ran:
+                return []
+            out = self._collect(ran)
+        else:
+            ran = self._dispatch(eager=False)
+            if ran:
+                self._inflight.append(ran)
+            out = []
+            while len(self._inflight) > self.pipeline_depth:
+                out.extend(self._collect(self._inflight.popleft()))
+            if not ran and self._inflight:
+                # No new work: drain one in-flight step so a caller
+                # looping on step() always makes progress.
+                out.extend(self._collect(self._inflight.popleft()))
+            if not ran and not out:
+                return []
+        self.stats["steps"] += 1
+        self.stats["wall_s"] += time.perf_counter() - t0
+        return out
+
+    def _dispatch(self, *, eager: bool) -> List[_InflightLane]:
+        """Assign slots and run (``eager``) or queue every lane's batch;
+        pop the served heads only after every lane succeeded."""
+        ran: List[_InflightLane] = []
+        commits = []
+        for lane in self._lanes.values():
+            self.policy.assign(lane)
+            heads = [lane.queues[sid][0].item if sid is not _FREE else None
+                     for sid in lane.slots]
+            if all(w is None for w in heads):
+                continue
+            rec, commit = self._dispatch_lane(lane, heads, eager)
+            ran.append(rec)
+            if commit is not None:
+                commits.append(commit)
+        for commit, new_state in commits:
+            commit(new_state)
+        for rec in ran:
+            lane = rec.lane
+            for i, slot in enumerate(rec.entries):
+                if slot is None:
+                    continue
+                sid = lane.slots[slot]
+                entry = lane.queues[sid].popleft()
+                lane.slot_runs[slot] += 1
+                self.stream_stats[sid].queued -= 1
+                rec.entries[i] = (sid, entry.seq)
+        return ran
+
+    def _dispatch_lane(self, lane: EngineLane, heads: List, eager: bool):
+        """One lane's dispatch: ``(record, (commit, new_state) or None)``;
+        raises with the lane's queues untouched."""
+        engine = lane.engine
+        batch = engine.prepare(heads, batch_size=len(lane.slots))
+        key = engine.shape_key(batch)
+        state_in, state_commit = self._lane_state_in(lane)
+        new_state = None
+        if eager:
+            if state_in is None:
+                kind, pending = "results", engine.infer(batch)
+            else:
+                results, new_state = engine.infer(batch, state_in)
+                kind, pending = "results", results
+        elif state_in is None:
+            kind, pending = "handle", engine.infer_dispatch(batch)
+        else:
+            # new_state is device tensors still being computed; the next
+            # dispatch consumes them in stream order, with no host wait.
+            pending, new_state = engine.infer_dispatch(batch, state_in)
+            kind = "handle"
+        rec = _InflightLane(
+            lane=lane, key=key,
+            entries=[None if w is None else slot
+                     for slot, w in enumerate(heads)],
+            kind=kind, pending=pending)
+        commit = ((state_commit, new_state)
+                  if state_commit is not None else None)
+        return rec, commit
+
+    def _collect(self, ran: List[_InflightLane]) -> List[StreamResult]:
+        """Wait for a dispatched step's results and emit them."""
+        out: List[StreamResult] = []
+        for rec in ran:
+            lane = rec.lane
+            results = (rec.pending if rec.kind == "results"
+                       else lane.engine.infer_collect(rec.pending))
+            lane.shape_keys.add(rec.key)
+            for slot, entry in enumerate(rec.entries):
+                if entry is None:
+                    continue
+                sid, seq = entry
+                res = results[slot]
+                st = self.stream_stats[sid]
+                st.windows += 1
+                st.energy_mj += res.energy_mj
+                st.latency_ms_sum += res.latency_ms
+                st.realtime_windows += int(res.realtime)
+                out.append(StreamResult(stream_id=sid, seq=seq, result=res,
+                                        modality=lane.modality))
+                self.stats["windows"] += 1
+        return out
+
+    def flush(self) -> List[StreamResult]:
+        """Collect every in-flight pipelined step (oldest first)."""
+        out: List[StreamResult] = []
+        while self._inflight:
+            out.extend(self._collect(self._inflight.popleft()))
+        return out
+
+    def run(self) -> List[StreamResult]:
+        """Drain every queue and the pipeline; results in completion
+        order, the same for any ``pipeline_depth``."""
+        out: List[StreamResult] = []
+        while self.pending() or self._inflight:
+            out.extend(self.step())
+        return out
+
+    @property
+    def mean_occupancy(self) -> float:
+        """Average served windows per step (batching efficiency)."""
+        return (self.stats["windows"] / self.stats["steps"]
+                if self.stats["steps"] else 0.0)

@@ -65,6 +65,11 @@ except ImportError:
 import jax  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (skips without one)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)

@@ -1,0 +1,118 @@
+"""Hygiene of the port: its imports, its devices, its kernel wrappers.
+
+  * ``repro_torch`` and every submodule import without pulling in ``jax``
+    or any module of the JAX package (checked in a fresh subprocess);
+  * entry points default to the card and raise without one unless the
+    caller passes ``device="cpu"`` -- nothing moves to the CPU by itself;
+  * the kernel wrappers refuse a wrong dtype, shape or device, and the
+    dispatchers send CPU tensors to the plain versions.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import SMOKE  # noqa: E402
+from repro_torch.core.lif import LIFParams  # noqa: E402
+from repro_torch.core.pipeline import (BatchedClosedLoop,  # noqa: E402
+                                       ClosedLoopPipeline)
+from repro_torch.kernels import fc_lif_scan as k2  # noqa: E402
+from repro_torch.kernels import lif_scan as k1  # noqa: E402
+from repro_torch.serving import StreamEngine  # noqa: E402
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+P = LIFParams()
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for first in names:
+    # A fresh import of the port with ``first`` imported first: an import
+    # cycle shows up as an ImportError here.
+    for m in [m for m in sys.modules if m.startswith("repro_torch")]:
+        del sys.modules[m]
+    importlib.import_module(first)
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Every module of the port imports cleanly when it is the first one
+    imported, and the whole package pulls in neither jax nor repro."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[0]) >= 14
+
+
+def _params():
+    rng = np.random.default_rng(0)
+    mk = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    return {"conv1": {"w": mk(4, 2, 3, 3)}, "conv2": {"w": mk(8, 4, 3, 3)},
+            "fc1": {"w": mk(SMOKE.flat_dim, 32)}, "fc2": {"w": mk(32, 11)}}
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card path is moot")
+    for make in (lambda: BatchedClosedLoop(_params(), SMOKE),
+                 lambda: ClosedLoopPipeline(_params(), SMOKE),
+                 lambda: StreamEngine(_params(), SMOKE)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert BatchedClosedLoop(_params(), SMOKE, device="cpu").device.type \
+        == "cpu"
+
+
+def test_lif_wrapper_refuses_bad_inputs():
+    before = k1.launches
+    cur = torch.zeros(4, 8)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        k1.lif_scan_cuda(cur.double(), P)
+    with pytest.raises(ValueError, match="v0 shape"):
+        k1.lif_scan_cuda(cur, P, torch.zeros(7))
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.lif_scan_cuda(torch.zeros(8, 4).t(), P)
+    with pytest.raises(ValueError, match="CUDA"):
+        k1.lif_scan_cuda(cur, P)                     # a CPU tensor
+    assert k1.launches == before
+
+
+def test_fc_wrapper_refuses_bad_inputs():
+    before = k2.launches
+    s, w = torch.zeros(4, 2, 16), torch.zeros(16, 8)
+    with pytest.raises(TypeError, match="spikes"):
+        k2.fc_lif_scan_cuda(s.half(), w, P)
+    with pytest.raises(TypeError, match="weights"):
+        k2.fc_lif_scan_cuda(s, w.double(), P)
+    with pytest.raises(ValueError, match="do not match"):
+        k2.fc_lif_scan_cuda(s, torch.zeros(15, 8), P)
+    with pytest.raises(ValueError, match="v0 shape"):
+        k2.fc_lif_scan_cuda(s, w, P, torch.zeros(3, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        k2.fc_lif_scan_cuda(s, w, P)                 # CPU tensors
+    assert k2.launches == before
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    before = (k1.launches, k2.launches)
+    cur = torch.rand(4, 8)
+    assert all(torch.equal(a, b) for a, b in zip(
+        k1.lif_scan_fwd(cur, P), k1.lif_scan_plain(cur, P)))
+    s, w = torch.rand(4, 2, 16), torch.rand(16, 8)
+    assert all(torch.equal(a, b) for a, b in zip(
+        k2.fc_lif_scan_fwd(s, w, P), k2.fc_lif_scan_plain(s, w, P)))
+    assert (k1.launches, k2.launches) == before
