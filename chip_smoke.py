@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one GPU and check them.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -9,28 +9,42 @@ Phases, one JSON line each; any failed check raises, so the script exits
 non-zero:
 
   1. device and build: the card (as nvidia-smi reports it), the torch and
-     CUDA versions, and the time to build kernels K1 and K2 with nvcc;
+     CUDA versions, and the time to build kernels K1, K2 and K3 with nvcc
+     (one nvcc per source, all started together);
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (full Table II width, B=8), bit for bit: K1 at
-     conv1/conv2 in f32 and bf16 with v0 above threshold and chaining, K2
-     at fc1/fc2, and B=1 rows against the rows of B=8;
-  3. the slice: a full-width StreamEngine built as a user builds it
+     main paths' shapes, bit for bit: K1 at conv1/conv2 in f32 and bf16
+     with v0 above threshold and chaining, K2 at fc1/fc2, K3 at the frame
+     wing's fc1 (M in {1, 8}, K=2048, N=512) on the 1/4 grid, at random
+     f32 and bf16 and at ragged shapes; B=1 rows against the rows of B=8;
+  3. the event slice: a full-width StreamEngine built as a user builds it
      (EngineConfig(fuse_fc=True, pipeline_depth=1), no kernel arguments)
      serves 8 streams (4 stateful) x 3 windows of ~60k events; launch
-     counters prove the kernels ran; results are held against the port's
+     counters prove K1 and K2 ran; results are held against the port's
      own CPU run; one ClosedLoopPipeline window (B=1);
-  4. times from CUDA events: each kernel, its plain version, its bound and
+  4. the frame and fusion slice: a heterogeneous StreamEngine (one event
+     and one frame lane, 8 slots each, pipeline_depth=1) serves
+     8 FusionSessions x 3 ticks and 4 stand-alone frame streams; launch
+     counters prove K1, K2 and K3 ran; labels are held against the port's
+     CPU run, logits and PWM within a stated tolerance; frame-lane rows at
+     B=1 against B=8; ternary activations that flip between the card and
+     the CPU; cuDNN's B=1-vs-B=8 rows for both TCN convs;
+  5. times from CUDA events: each kernel, its plain version, its bound and
      the library yardstick, each call read from a cold L2 cache; windows/s
      end to end at B=1 and B=8 over 20 samples of 16 engine steps each;
-     a profiler trace of 64 steady-state B=8 steps;
-  5. the ``kernels`` line, then the card line, then the ``ok`` line.
+     a profiler trace of 64 steady-state B=8 steps; frame-lane windows/s
+     and fused ticks/s at B=8 over 20 samples of 16 steps, and a profile
+     of 16 fused steps;
+  6. the ``kernels`` line, then the card line, then the ``ok`` line.
 
-Weights are random from a numpy seed. For the served comparison they are
-rounded to multiples of 2**-8: every conv and fc current is then exact in
-f32 whatever the summation order, so the card and the CPU must agree bit
-for bit unless an algorithm rounds inside the sum (a Winograd or FFT
-convolution would). A run with the unrounded He-init weights is reported
-beside it, as is cuDNN's batch invariance.
+Weights are random from a numpy seed. For the event wing's served
+comparison they are rounded to multiples of 2**-8: every conv and fc
+current is then exact in f32 whatever the summation order, so the card
+and the CPU must agree bit for bit unless an algorithm rounds inside the
+sum (a Winograd or FFT convolution would). A run with the unrounded
+He-init weights is reported beside it, as is cuDNN's batch invariance.
+The frame wing's convs sum normalized pixels, which no weight grid makes
+exact, so a few of its ternary activations may flip between devices;
+the phase counts them and bounds their effect on the logits.
 """
 import json
 import os
@@ -77,6 +91,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import fc_lif_scan as k2
     from repro_torch.kernels import lif_scan as k1
+    from repro_torch.kernels import ternary_matmul as k3
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -85,7 +100,7 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    _build.build_all([k1.KERNEL, k2.KERNEL])
+    _build.build_all([k1.KERNEL, k2.KERNEL, k3.KERNEL])
     build_s = time.perf_counter() - t0
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -94,8 +109,12 @@ def main() -> int:
                torch.backends.cudnn.allow_tf32])
 
     err = kernel_checks(torch, dev, k1, k2)
+    err["ternary_matmul"] = k3_checks(torch, dev, k3)
     served = slice_run(torch, dev, k1, k2)
+    fused = frame_slice(torch, dev, k1, k2, k3)
     times = timings(torch, dev, k1, k2)
+    times["ternary_matmul"] = k3_timings(torch, dev, k3)
+    frame_end_to_end(torch, dev)
 
     kernels = [
         dict(name="lif_scan", route="cuda",
@@ -108,6 +127,12 @@ def main() -> int:
              replaces="src/repro/kernels/fc_lif_scan.py:131",
              launches=served["launches"]["fc_lif_scan"],
              max_abs_err=err["fc_lif_scan"], **times["fc_lif_scan"]),
+        dict(name="ternary_matmul", route="cuda",
+             source="src/repro_torch/csrc/ternary_matmul.cu",
+             replaces="src/repro/kernels/ternary_matmul.py:92",
+             launches=fused["launches"]["ternary_matmul"],
+             max_abs_err=err["ternary_matmul"],
+             **times["ternary_matmul"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -194,8 +219,46 @@ def kernel_checks(torch, dev, k1, k2):
     return errs
 
 
+def k3_checks(torch, dev, k3):
+    """K3 against its plain version: the frame wing's fc1 (K=2048, N=512)
+    at M=8 and M=1 on the 1/4 grid its input lies on (where the library
+    matmul of the unpacked weights is exact too), at random f32 and bf16,
+    and at ragged shapes; B=1 rows against the rows of the batch."""
+    from repro_torch.configs import TCN_CONFIG
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ternary_matmul_ref
+    g = torch.Generator().manual_seed(SEED + 4)
+    k, n = TCN_CONFIG.flat_dim, TCN_CONFIG.hidden
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(8, k, n, f32, True), (1, k, n, f32, True), (8, k, n, f32, False),
+             (8, k, n, bf16, False), (5, 260, 130, f32, False),
+             (129, 512, 1000, f32, False), (64, 260, 130, bf16, False)]
+    err, rows = 0.0, []
+    for m, kk, nn, dtype, grid in cases:
+        x = (torch.randint(-4, 5, (m, kk), generator=g) / 4.0 if grid
+             else torch.randn(m, kk, generator=g)).to(dtype).to(dev)
+        wp, scale = ops.pack_ternary_weights(torch.randn(kk, nn, generator=g))
+        wp, scale = wp.to(dev), scale.to(dev)
+        want = k3.ternary_matmul_plain(x, wp, scale)
+        got = k3.ternary_matmul_cuda(x, wp, scale)
+        one = k3.ternary_matmul_cuda(x[m - 1:].contiguous(), wp, scale)
+        torch.cuda.synchronize()
+        ok = dict(plain=bool(torch.equal(want, got)),
+                  b1_rows=bool(torch.equal(one[0], got[m - 1])))
+        if grid:
+            ok["library_bitwise"] = bool(torch.equal(
+                ternary_matmul_ref(x, wp, scale), got))
+        err = max(err, _max_err([want], [got]))
+        rows.append(dict(kernel="ternary_matmul", shape=[m, kk, nn],
+                         dtype=str(dtype), x="quarter_grid" if grid
+                         else "normal", **ok))
+        check(all(ok.values()), f"K3 {m}x{kk}x{nn} {dtype}: {ok}")
+    emit("k3_vs_plain", tolerance="bitwise", checks=rows, max_abs_err=err)
+    return err
+
+
 # ----------------------------------------------------------------------
-# Phase 3: the slice, served end to end.
+# Phase 3: the event slice, served end to end.
 # ----------------------------------------------------------------------
 
 def _np_params(cfg, dyadic):
@@ -261,7 +324,9 @@ def _compare(gpu, cpu):
                 logits_bitwise_fraction=float(np.mean(lg == lc)),
                 pwm_bitwise_fraction=float(np.mean(pg == pc)),
                 logits_max_abs_diff=float(np.abs(lg - lc).max()),
-                pwm_max_abs_diff=float(np.abs(pg - pc).max()))
+                pwm_max_abs_diff=float(np.abs(pg - pc).max()),
+                energy_equal_fraction=float(np.mean(
+                    [gpu[k].energy_mj == cpu[k].energy_mj for k in keys])))
 
 
 # Given equal spikes, logits (spike counts x 10 / T) are exact and PWM
@@ -354,7 +419,204 @@ def slice_run(torch, dev, k1, k2):
 
 
 # ----------------------------------------------------------------------
-# Phase 4: times.
+# Phase 4: the frame and fusion slice.
+# ----------------------------------------------------------------------
+
+def _np_tcn_params(cfg):
+    """He-init float TCN weights in the JAX package's layout (HWIO convs),
+    from a numpy seed; the frame engine ternarizes and packs them."""
+    rng = np.random.default_rng(SEED + 5)
+
+    def he(shape, fan_in):
+        return (rng.normal(size=shape) * cfg.init_gain
+                * np.sqrt(2.0 / fan_in)).astype(np.float32)
+
+    return {
+        "conv1": {"w": he((3, 3, cfg.in_channels, cfg.conv1_features),
+                          9 * cfg.in_channels)},
+        "conv2": {"w": he((3, 3, cfg.conv1_features, cfg.conv2_features),
+                          9 * cfg.conv1_features)},
+        "fc1": {"w": he((cfg.flat_dim, cfg.hidden), cfg.flat_dim)},
+        "fc2": {"w": he((cfg.hidden, cfg.num_classes), cfg.hidden)},
+    }
+
+
+def _frames(n_streams, n_frames, seed):
+    from repro_torch.core.frames import synthetic_gesture_frames
+    rng = np.random.default_rng(seed)
+    return [[synthetic_gesture_frames(rng, (s + 5 * k) % 11)
+             for k in range(n_frames)] for s in range(n_streams)]
+
+
+def _hetero(params, tparams, device, slots=8):
+    """The heterogeneous engine as a user builds it: one event and one
+    frame lane, ``slots`` slots each, pipelined one step deep."""
+    from repro_torch.configs import CONFIG, TCN_CONFIG
+    from repro_torch.core._api import EngineConfig
+    from repro_torch.core.engine import FrameTCNEngine
+    from repro_torch.core.pipeline import BatchedClosedLoop
+    from repro_torch.serving import StreamEngine
+    return StreamEngine(
+        engines=[BatchedClosedLoop(params, CONFIG, device=device),
+                 FrameTCNEngine(tparams, TCN_CONFIG, device=device)],
+        config=EngineConfig(max_streams={"event": slots, "frame": slots},
+                            pipeline_depth=1))
+
+
+def _open_fused(eng, n_sessions, n_solo):
+    from repro_torch.serving import FusionSession
+    return ([FusionSession(eng, session_id=f"s{i}")
+             for i in range(n_sessions)],
+            [eng.open(modality="frame", stream_id=f"cam{i}")
+             for i in range(n_solo)])
+
+
+def _step_fused(eng, sessions, n_ticks, n_rows):
+    """Step ``eng`` until ``n_ticks`` fused ticks and ``n_rows`` other
+    rows are out, routing each step's rows through every session; returns
+    ({(session, seq): result}, {(stream, seq): result})."""
+    fused, other = {}, {}
+    for _ in range(100 * (n_ticks + n_rows) + 10):
+        if len(fused) >= n_ticks and len(other) >= n_rows:
+            break
+        rows = eng.step()
+        for s in sessions:
+            rows = s.absorb(rows)
+            fused.update({(r.stream_id, r.seq): r.result
+                          for r in s.drain()})
+        other.update({(r.stream_id, r.seq): r.result for r in rows})
+    check(len(fused) == n_ticks and len(other) == n_rows,
+          f"fused {len(fused)}/{n_ticks} ticks, {len(other)}/{n_rows} rows")
+    return fused, other
+
+
+def _serve_fused(eng, sessions, solo):
+    """8 FusionSessions over ``sessions`` (event windows, frames) and one
+    frame stream per list in ``solo``, every tick queued up front."""
+    sess, cams = _open_fused(eng, len(sessions), len(solo))
+    ticks = len(sessions[0][0])
+    for k in range(ticks):
+        for s, (evs, frs) in zip(sess, sessions):
+            s.submit(evs[k], frs[k])
+        for h, frs in zip(cams, solo):
+            h.submit(frs[k])
+    return _step_fused(eng, sess, len(sess) * ticks, len(cams) * ticks)
+
+
+def frame_slice(torch, dev, k1, k2, k3):
+    from repro_torch.configs import CONFIG, TCN_CONFIG
+    from repro_torch.convert import snn_params_from_numpy, \
+        tcn_params_from_numpy
+    from repro_torch.core import tcn as tcn_mod
+    from repro_torch.core.frames import normalize_frames, pad_frame_windows
+
+    params = snn_params_from_numpy(_np_params(CONFIG, dyadic=True))
+    tparams = tcn_params_from_numpy(_np_tcn_params(TCN_CONFIG))
+    frames = _frames(12, 3, SEED + 7)
+    sessions = list(zip(_windows(8, 3, SEED + 6), frames[:8]))
+    solo = frames[8:]
+    eng = _hetero(params, tparams, dev)
+    eng.warmup([(8, 65_536, 300_000)], modality="event")
+    eng.warmup([(8, 128, 128, 300_000)], modality="frame")
+    torch.cuda.synchronize()
+    k1.launches = k2.launches = k3.launches = 0
+    fused, cams = _serve_fused(eng, sessions, solo)
+    torch.cuda.synchronize()
+    launches = {"lif_scan": k1.launches, "fc_lif_scan": k2.launches,
+                "ternary_matmul": k3.launches}
+    steps = eng.stats["steps"]
+    # 8 sessions over 8 event slots: 3 event-lane steps of 2 K1 and 2 K2
+    # launches each. 36 frames over 8 frame slots: at least 5 frame-lane
+    # steps, one K3 launch each.
+    check(launches["lif_scan"] == launches["fc_lif_scan"] == 6,
+          f"event lane launches {launches}, expected 6 of K1 and K2")
+    check(5 <= launches["ternary_matmul"] <= steps,
+          f"K3 launched {launches['ternary_matmul']} times in {steps} "
+          f"engine steps")
+    check(eng.compiled_shapes("frame") == {(8, 128, 128, 300_000)},
+          f"frame shape keys {eng.compiled_shapes('frame')}")
+    ticks = [fused[k] for k in sorted(fused)]
+    logits = np.concatenate([t.logits for t in ticks])
+    pwm = np.concatenate([t.pwm for t in ticks])
+    check(logits.shape == (24, CONFIG.num_classes), "fused logit shape")
+    check(bool(np.isfinite(logits).all()), "non-finite fused logits")
+    check(bool(((pwm >= 0) & (pwm <= 1)).all()), "fused pwm outside [0, 1]")
+    paired = [eng.stream_stats[f"s{i}:{m}"].paired_tick_rate
+              for i in range(8) for m in ("event", "frame")]
+
+    cpu_eng = _hetero(params, tparams, "cpu")
+    cpu_fused, cpu_cams = _serve_fused(cpu_eng, sessions, solo)
+    vs_fused, vs_frame = _compare(fused, cpu_fused), _compare(cams, cpu_cams)
+    # The event wing is exact (2**-8 weights). cuDNN and the CPU's conv
+    # differ by ulps, which the ternary threshold absorbs: no activation may
+    # flip. Given equal activations the frame logits (fc2's ascending-k sum
+    # of exact products), the fused logits (an elementwise 0.5/0.5 mix) and
+    # the energy are exact, and PWM differs only by the rounding of exp and
+    # the softmax sum, as on the event wing.
+    tol = dict(label="equal", flipped_activations=0.0,
+               logits_atol=LOGITS_ATOL, energy="equal", pwm_atol=PWM_ATOL)
+
+    # Ternary activations that flip between the card and the CPU, on the
+    # first tick's 8 session frames at B=8.
+    batch = pad_frame_windows([frs[0] for _, frs in sessions])
+    px = torch.from_numpy(batch.pixels)
+    on_card = tcn_mod.tcn_apply(eng.engines["frame"].packed,
+                                normalize_frames(px.to(dev)), TCN_CONFIG)
+    on_cpu = tcn_mod.tcn_apply(cpu_eng.engines["frame"].packed,
+                               normalize_frames(px), TCN_CONFIG)
+    flipped = {k: float((on_card["activations"][k].cpu()
+                         != on_cpu["activations"][k]).float().mean())
+               for k in on_cpu["activations"]}
+
+    # Frame-lane rows at B=1 against B=8 on the card, through the engine.
+    fe = eng.engines["frame"]
+    first = [frs[0] for _, frs in sessions]
+    r8 = fe.infer_frames(first)
+    r1 = [fe.infer_frames([f])[0] for f in first]
+    rows_b1 = dict(
+        logits_bitwise=all(np.array_equal(a.logits, b.logits)
+                           for a, b in zip(r1, r8)),
+        pwm_bitwise=all(np.array_equal(a.pwm, b.pwm)
+                        for a, b in zip(r1, r8)),
+        energy_equal=all(a.energy_mj == b.energy_mj
+                         for a, b in zip(r1, r8)))
+
+    # cuDNN's rows at B=1 against B=8 for both ternary convs.
+    x0 = tcn_mod._avg_pool(normalize_frames(px.to(dev)), TCN_CONFIG.pool0)
+    x1 = tcn_mod._avg_pool(on_card["activations"]["conv1"], 2)
+    conv_rows = {}
+    for name, x in (("conv1", x0), ("conv2", x1)):
+        layer = fe.packed[name]
+        big = tcn_mod._ternary_conv(x, layer)
+        same = [(tcn_mod._ternary_conv(x[b:b + 1].contiguous(), layer)[0]
+                 == big[b]).float().mean() for b in range(x.shape[0])]
+        conv_rows[name] = float(torch.stack(same).mean())
+
+    emit("frame_slice", config="CONFIG + TCN_CONFIG (full width)",
+         slots={"event": 8, "frame": 8}, sessions=8, ticks=3,
+         solo_frame_streams=4, pipeline_depth=1, engine_steps=steps,
+         launches=launches, fused_ticks=len(fused), solo_frames=len(cams),
+         paired_tick_rate_min=min(paired),
+         labels=[int(t.label_pred[0]) for t in ticks],
+         fused_vs_cpu=vs_fused, solo_frames_vs_cpu=vs_frame, tolerance=tol,
+         flipped_activation_fraction=flipped,
+         frame_rows_b1_vs_b8=rows_b1,
+         cudnn_rows_b1_vs_b8_bitwise_fraction=conv_rows)
+    check(max(flipped.values()) == 0.0,
+          f"ternary activations flipped between card and CPU: {flipped}")
+    for name, cmp in (("fused", vs_fused), ("frame", vs_frame)):
+        check(cmp["label_equal_fraction"] == 1.0, f"{name} labels: {cmp}")
+        check(cmp["logits_max_abs_diff"] <= LOGITS_ATOL,
+              f"{name} logits: {cmp}")
+        check(cmp["energy_equal_fraction"] == 1.0, f"{name} energy: {cmp}")
+        check(cmp["pwm_max_abs_diff"] <= PWM_ATOL, f"{name} pwm: {cmp}")
+    check(all(rows_b1.values()), f"frame rows B=1 vs B=8: {rows_b1}")
+    check(min(paired) == 1.0, f"paired tick rate {min(paired)} < 1")
+    return {"launches": launches}
+
+
+# ----------------------------------------------------------------------
+# Phase 5: times.
 # ----------------------------------------------------------------------
 
 def _graph(torch, fn, calls=1):
@@ -540,13 +802,9 @@ def _submit_steps(handles, pool, steps, start):
     return i
 
 
-def throughput(torch, dev, params, slots, pool):
-    """Windows/s of one warmed B=``slots`` engine with ``slots`` stateless
-    streams: ``E2E_SAMPLES`` runs of ``E2E_STEPS`` full engine steps."""
-    from repro_torch.configs import CONFIG
-    eng = _engine(params, CONFIG, dev, slots)
-    handles = [eng.open(stream_id=i) for i in range(slots)]
-    eng.warmup([(slots, 65_536, 300_000)])
+def _rate(torch, eng, handles, pool):
+    """Windows/s of a warmed engine whose ``handles`` fill every slot:
+    ``E2E_SAMPLES`` runs of ``E2E_STEPS`` full engine steps."""
     pos = _submit_steps(handles, pool, 2, 0)
     eng.run()
     rates, step_ms, total_w, total_s = [], [], 0, 0.0
@@ -559,8 +817,9 @@ def throughput(torch, dev, params, slots, pool):
         dt = time.perf_counter() - t0
         # Every stream holds a slot throughout, so each engine step
         # serves one window per slot.
-        check(len(res) == slots * E2E_STEPS,
-              f"B={slots}: {len(res)} of {slots * E2E_STEPS} windows")
+        check(len(res) == len(handles) * E2E_STEPS,
+              f"B={len(handles)}: {len(res)} of "
+              f"{len(handles) * E2E_STEPS} windows")
         rates.append(len(res) / dt)
         step_ms.append(dt * 1e3 / E2E_STEPS)
         total_w += len(res)
@@ -572,14 +831,61 @@ def throughput(torch, dev, params, slots, pool):
                 windows=total_w, steps=E2E_SAMPLES * E2E_STEPS)
 
 
+def throughput(torch, dev, params, slots, pool):
+    """Windows/s of one warmed B=``slots`` event engine with ``slots``
+    stateless streams."""
+    from repro_torch.configs import CONFIG
+    eng = _engine(params, CONFIG, dev, slots)
+    eng.warmup([(slots, 65_536, 300_000)])
+    return _rate(torch, eng, [eng.open(stream_id=i) for i in range(slots)],
+                 pool)
+
+
+def _trace(torch, run):
+    """``run()`` under torch.profiler: (its result, wall ms, device busy
+    ms by kernel name, the host ops with the most self time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    n_ops = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+            n_ops += 1
+    check(n_ops > 0, "the trace shows no device work")
+    host = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total,
+                  reverse=True)[:8]
+    return res, wall_ms, by_name, n_ops, host
+
+
+def _trace_fields(wall_ms, by_name, n_ops, host, steps, step_ms_untraced):
+    busy = sum(by_name.values())
+    return dict(
+        steps=steps, wall_ms=wall_ms, device_busy_ms=busy,
+        device_busy_share_traced=busy / wall_ms,
+        device_busy_ms_per_step=busy / steps,
+        device_busy_share_untraced=busy / steps / step_ms_untraced,
+        device_ops_per_step=n_ops / steps,
+        top_device_ms_per_step={k[:60]: v / steps for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:8]},
+        top_host_self_ms_per_step={
+            a.key[:60]: a.self_cpu_time_total / 1e3 / steps for a in host})
+
+
 def profile_run(torch, dev, params, pool, step_ms_untraced):
     """Where the time of ``PROFILE_STEPS`` steady-state B=8 steps goes:
     device busy time and the largest kernels and host ops, from
     torch.profiler. Tracing slows the host, so the traced wall time is
     longer than untraced; the busy share is also given against the
     untraced step time of the end_to_end phase."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import CONFIG
     eng = _engine(params, CONFIG, dev, 8)
     handles = [eng.open(stream_id=i) for i in range(8)]
@@ -587,34 +893,123 @@ def profile_run(torch, dev, params, pool, step_ms_untraced):
     pos = _submit_steps(handles, pool, 4, 0)
     eng.run()                               # reach the steady state
     _submit_steps(handles, pool, PROFILE_STEPS, pos)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = eng.run()
+    res, *trace = _trace(torch, eng.run)
+    check(len(res) == 8 * PROFILE_STEPS,
+          f"profiled {len(res)} of {8 * PROFILE_STEPS} windows")
+    emit("profile", windows=len(res),
+         **_trace_fields(*trace, PROFILE_STEPS, step_ms_untraced))
+
+
+# ----------------------------------------------------------------------
+# Phase 5 (frame wing): K3's times, frame-lane and fused throughput.
+# ----------------------------------------------------------------------
+
+def k3_timings(torch, dev, k3):
+    """K3 at the frame wing's fc1, one launch per frame-lane step: M=8
+    slots (and M=1), K=2048, N=512, x on the 1/4 grid."""
+    from repro_torch.configs import TCN_CONFIG
+    from repro_torch.core.ternary import unpack2bit
+    from repro_torch.kernels import ops
+    g = torch.Generator().manual_seed(SEED + 8)
+    k, n = TCN_CONFIG.flat_dim, TCN_CONFIG.hidden
+    wp, scale = ops.pack_ternary_weights(torch.randn(k, n, generator=g))
+    wp, scale = wp.to(dev), scale.to(dev)
+    wq = unpack2bit(wp.t(), out_dtype=torch.float32).t().contiguous()
+    flush = torch.ones(FLUSH_BYTES // 4, device=dev)
+    rows = {}
+    for m in (8, 1):
+        x = (torch.randint(-4, 5, (m, k), generator=g) / 4.0).to(dev)
+        run = lambda: k3.ternary_matmul_cuda(x, wp, scale)
+        # x, the packed weights and the scale read once, out written once;
+        # every product and add of the dense (M, K) x (K, N) product.
+        bound, by = _bound_ms(4 * m * k + k // 4 * n + 4 * n + 4 * m * n,
+                              2 * m * k * n)
+        rows[f"M{m}"] = dict(
+            ms=_device_ms(torch, run, flush), warm_l2_ms=_warm_ms(torch, run),
+            call_ms=_call_ms(torch, run),
+            plain_ms=_device_ms(torch, lambda: k3.ternary_matmul_plain(
+                x, wp, scale), flush, reps=5),
+            library_ms=_device_ms(torch, lambda: torch.matmul(x, wq), flush),
+            bound_ms=bound, bound_by=by)
+    del flush
+    emit("k3_times", shape={"M": [8, 1], "K": k, "N": n},
+         unit="ms of device time per call from a cold L2 (CUDA graph of "
+              "one call, CUDA events, median); warm_l2_ms: inputs left in "
+              "L2 by the call before; call_ms: one call timed from the host",
+         library_note="torch.matmul of x with the unpacked f32 weights "
+                      "(no scale): the yardstick, called nowhere in the port",
+         **rows)
+    r = rows["M8"]
+    return {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}
+
+
+def frame_end_to_end(torch, dev):
+    """Frame-lane windows/s at B=8 (a frame-only StreamEngine) and fused
+    ticks/s of 8 FusionSessions on the heterogeneous engine, each over
+    ``E2E_SAMPLES`` samples of ``E2E_STEPS`` steps (host clock, ending in
+    torch.cuda.synchronize); then a profile of ``E2E_STEPS`` fused
+    steps."""
+    from repro_torch.configs import CONFIG, TCN_CONFIG
+    from repro_torch.convert import snn_params_from_numpy, \
+        tcn_params_from_numpy
+    from repro_torch.core._api import EngineConfig
+    from repro_torch.core.engine import FrameTCNEngine
+    from repro_torch.serving import StreamEngine
+    params = snn_params_from_numpy(_np_params(CONFIG, dyadic=True))
+    tparams = tcn_params_from_numpy(_np_tcn_params(TCN_CONFIG))
+    frames = [f for fs in _frames(8, 4, SEED + 9) for f in fs]
+    events = [w for ws in _windows(8, 4, SEED + 3) for w in ws]
+
+    fr_eng = StreamEngine(engines=[FrameTCNEngine(tparams, TCN_CONFIG)],
+                          config=EngineConfig(max_streams=8,
+                                              pipeline_depth=1))
+    fr_eng.warmup([(8, 128, 128, 300_000)])
+    frame_lane = _rate(
+        torch, fr_eng, [fr_eng.open(stream_id=i) for i in range(8)], frames)
+
+    eng = _hetero(params, tparams, dev)
+    eng.warmup([(8, 65_536, 300_000)], modality="event")
+    eng.warmup([(8, 128, 128, 300_000)], modality="frame")
+    sess, _ = _open_fused(eng, 8, 0)
+    pos = [0]
+
+    def queue(steps):
+        for _ in range(steps):
+            for s in sess:
+                s.submit(events[pos[0] % len(events)],
+                         frames[pos[0] % len(frames)])
+                pos[0] += 1
+
+    def drain(steps):
+        return _step_fused(eng, sess, len(sess) * steps, 0)[0]
+
+    queue(2)
+    drain(2)
+    rates, step_ms, total_t, total_s = [], [], 0, 0.0
+    for _ in range(E2E_SAMPLES):
+        queue(E2E_STEPS)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    steps = PROFILE_STEPS
-    check(len(res) == 8 * steps,
-          f"profiled {len(res)} of {8 * steps} windows")
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(len(kernels) > 0, "the trace shows no device work")
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy_us = sum(by_name.values())
-    host = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total,
-                  reverse=True)[:8]
-    emit("profile", windows=len(res), steps=steps, wall_ms=wall_us / 1e3,
-         device_busy_ms=busy_us / 1e3,
-         device_busy_share_traced=busy_us / wall_us,
-         device_busy_ms_per_step=busy_us / 1e3 / steps,
-         device_busy_share_untraced=busy_us / 1e3 / steps / step_ms_untraced,
-         device_ops_per_step=len(kernels) / steps,
-         top_device_ms_per_step={k[:60]: v / 1e3 / steps for k, v in sorted(
-             by_name.items(), key=lambda kv: -kv[1])[:8]},
-         top_host_self_ms_per_step={
-             a.key[:60]: a.self_cpu_time_total / 1e3 / steps for a in host})
+        t0 = time.perf_counter()
+        n = len(drain(E2E_STEPS))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates.append(n / dt)
+        step_ms.append(dt * 1e3 / E2E_STEPS)
+        total_t += n
+        total_s += dt
+    fused = dict(ticks_per_s_median=statistics.median(rates),
+                 ticks_per_s_min=min(rates), ticks_per_s_max=max(rates),
+                 ticks_per_s_all=total_t / total_s, ticks=total_t,
+                 step_ms_median=statistics.median(step_ms))
+    queue(E2E_STEPS)
+    _, *trace = _trace(torch, lambda: drain(E2E_STEPS))
+    emit("frame_end_to_end", samples=E2E_SAMPLES, steps_per_sample=E2E_STEPS,
+         metric="host clock ending in torch.cuda.synchronize; a fused tick "
+                "is one event window and one frame of one session",
+         frame_lane_B8=frame_lane, fused_B8=fused,
+         fused_profile=_trace_fields(*trace, E2E_STEPS,
+                                     fused["step_ms_median"]))
 
 
 if __name__ == "__main__":

@@ -2,8 +2,10 @@
 
   * ``lif_scan``    -- K1, the fused LIF scan (``csrc/lif_scan.cu``).
   * ``fc_lif_scan`` -- K2, fused ``spikes @ W`` + LIF (``csrc/fc_lif_scan.cu``).
+  * ``ternary_matmul`` -- K3, packed-ternary matmul
+    (``csrc/ternary_matmul.cu``).
 
-``ops`` holds the differentiable wrappers the model calls. The package
-re-exports no function, so ``repro_torch.kernels.lif_scan`` always names
-the kernel's module (with its ``launches`` counter).
+``ops`` holds the wrappers the models call, ``ref`` the plain oracles.
+The package re-exports no function, so ``repro_torch.kernels.lif_scan``
+always names the kernel's module (with its ``launches`` counter).
 """

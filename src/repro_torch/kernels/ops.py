@@ -1,15 +1,18 @@
 """Differentiable public wrappers around the kernels (port of
 ``repro.kernels.ops``).
 
-``lif_scan``    -- fused LIF scan with the STBP surrogate gradient.
-``fc_lif_scan`` -- fused ``spikes @ w`` + LIF scan for the fc layers.
+``lif_scan``             -- fused LIF scan with the STBP surrogate gradient.
+``fc_lif_scan``          -- fused ``spikes @ w`` + LIF scan for the fc layers.
+``ternary_matmul``       -- packed-ternary matmul (forward only, K3).
+``pack_ternary_weights`` -- (K, N) float weights -> K3's packed layout.
 
 The forward of each is the CUDA kernel on a CUDA tensor and the kernel's
-plain version on a CPU tensor (see ``lif_scan_fwd``/``fc_lif_scan_fwd``).
-The backward recomputes the plain reference under autograd, as the JAX
-package's custom VJPs do -- a remat policy, not an approximation: the
-forward values are the kernel's. No backward kernel exists to port.
-``ternary_matmul`` and ``pack_ternary_weights`` arrive with the frame wing.
+plain version on a CPU tensor (see ``lif_scan_fwd``/``fc_lif_scan_fwd``/
+``ternary_matmul_fwd``). The backward of the two scans recomputes the
+plain reference under autograd, as the JAX package's custom VJPs do -- a
+remat policy, not an approximation: the forward values are the kernel's.
+No backward kernel exists to port; ``ternary_matmul`` is a serving op with
+no gradient, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -18,11 +21,13 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.lif import LIFParams, lif_scan_reference
+from repro_torch.core.ternary import pack2bit, ternarize
 from repro_torch.kernels.fc_lif_scan import fc_lif_scan_fwd
 from repro_torch.kernels.lif_scan import lif_scan_fwd
+from repro_torch.kernels.ternary_matmul import ternary_matmul_fwd
 
 __all__ = ["lif_scan", "lif_scan_batched", "fc_lif_scan",
-           "fc_lif_scan_batched"]
+           "fc_lif_scan_batched", "pack_ternary_weights", "ternary_matmul"]
 
 
 def _recompute_grads(fn, inputs, grads_out):
@@ -133,3 +138,26 @@ def fc_lif_scan_batched(
         raise ValueError(f"need (B, T, K) spikes, got {tuple(spikes.shape)}")
     out, v_fin = fc_lif_scan(spikes.transpose(0, 1), w, p, v0)
     return out.transpose(0, 1), v_fin
+
+
+def pack_ternary_weights(w: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize (K, N) float weights to K3's packed layout.
+
+    Returns ``(w_packed (K//4, N) uint8, scale (N,) f32)``: per-output-
+    channel TWN quantization (the N axis), packed along K.
+    """
+    k, n = w.shape
+    if k % 4:
+        raise ValueError(f"K={k} must be a multiple of 4 for 2-bit packing")
+    q, scale = ternarize(w, axis=-1)           # q int8 (K, N); scale (1, N)
+    packed = pack2bit(q.t()).t().contiguous()  # pack along K -> (K//4, N)
+    return packed, scale.reshape(n).float()
+
+
+def ternary_matmul(x: torch.Tensor, w_packed: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """``x`` (M, K) @ ternary (K, N) with in-kernel unpacking, f32
+    accumulation in ascending k, then the per-channel scale (K3)."""
+    return ternary_matmul_fwd(x.contiguous(), w_packed.contiguous(),
+                              scale.reshape(-1).contiguous())

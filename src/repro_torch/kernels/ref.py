@@ -1,7 +1,7 @@
 """Plain-PyTorch oracles for the kernels (port of ``repro.kernels.ref``).
 
-Only ``lif_scan_ref`` is ported in this slice; ``ternary_matmul_ref`` and
-``wkv6_ref`` arrive with their kernels.
+``lif_scan_ref`` (K1's oracle) and ``ternary_matmul_ref`` (K3's);
+``wkv6_ref`` arrives with K4.
 """
 from __future__ import annotations
 
@@ -10,8 +10,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.lif import LIFParams
+from repro_torch.core.ternary import unpack2bit
 
-__all__ = ["lif_scan_ref"]
+__all__ = ["lif_scan_ref", "ternary_matmul_ref"]
 
 
 def lif_scan_ref(
@@ -39,3 +40,21 @@ def lif_scan_ref(
         v = alpha * v * (v < v_th).float() + i_t.float()
         spikes.append((v >= v_th).to(dt))
     return torch.stack(spikes), v.to(dt)
+
+
+def ternary_matmul_ref(
+    x: torch.Tensor,
+    w_packed: torch.Tensor,
+    scale: torch.Tensor,
+) -> torch.Tensor:
+    """Packed-ternary matmul oracle: unpack, an f32 product, then scale.
+
+    ``x`` (M, K) f32/bf16; ``w_packed`` (K // 4, N) uint8, packed along K
+    (see :func:`repro_torch.core.ternary.pack2bit`); ``scale`` (N,).
+    Returns (M, N) in ``x``'s dtype. The product is a library matmul, so
+    its summation order is the library's: K3 and its plain version fix the
+    order instead (ascending k) and agree with this within rounding.
+    """
+    w_q = unpack2bit(w_packed.t()).t()          # (K, N) int8 in {-1, 0, 1}
+    acc = torch.matmul(x.float(), w_q.float())
+    return (acc * scale.reshape(1, -1).float()).to(x.dtype)

@@ -1,19 +1,34 @@
-"""Continuous batching of event-camera streams over one engine's slots.
+"""Continuous batching of sensor streams over per-engine batch slots.
 
-Port of the event-lane subset of ``repro.serving.stream``. A stream is
-opened (``StreamEngine.open`` -> :class:`StreamHandle`), windows are
-submitted to it, and ``step()`` serves the head window of every slotted
-stream in one engine call per step. Slots are assigned by a
-:class:`SlotPolicy` (:class:`FairQuantumPolicy` by default: pin a slot
-while its stream has work, rotate after ``fair_quantum`` windows when
-others wait). Windows of one stream are served strictly in order, at most
-one per step.
+Port of ``repro.serving.stream``. A stream is opened on one engine lane
+(``StreamEngine.open(modality=...)`` -> :class:`StreamHandle`), windows
+are submitted to it, and ``step()`` serves the head window of every
+slotted stream in one engine call per lane per step. A lane is one
+engine (the event wing, :class:`~repro_torch.core.pipeline.
+BatchedClosedLoop`, or the frame wing, :class:`~repro_torch.core.engine.
+FrameTCNEngine`) with its own slots: ``StreamEngine(params, cfg,
+config)`` builds one event lane, ``StreamEngine(engines=[...],
+config=...)`` one lane per engine, keyed by its ``modality``. Slots are
+assigned by a :class:`SlotPolicy` (:class:`FairQuantumPolicy` by default:
+pin a slot while its stream has work, rotate after ``fair_quantum``
+windows when others wait). Windows of one stream are served strictly in
+order, at most one per step.
 
-Stateful streams carry the engine's state (the LIF membranes) from window
-to window. The lane keeps a slot-major dict of device tensors beside its
-slots; state follows the STREAM, not the slot: when a stream moves, its
-row is gathered along (``torch.stack`` per layer); when it loses its slot
-the row is parked; a slot admitting a new stream starts from zero.
+Stateful streams carry the engine's state (the event wing's LIF
+membranes; the frame wing carries nothing) from window to window. The
+lane keeps a slot-major dict of device tensors beside its slots; state
+follows the STREAM, not the slot: when a stream moves, its row is
+gathered along (``torch.stack`` per layer); when it loses its slot the
+row is parked; a slot admitting a new stream starts from zero.
+
+Fusion pairs. ``pair_streams(a, b)`` binds two streams on different
+lanes as the wings of one control tick (a
+:class:`~repro_torch.serving.session.FusionSession` pairs its wings
+itself). With ``EngineConfig.coschedule`` on, whenever one wing holds a
+slot with work, its partner is pulled into its own lane for the same
+step, so both halves of a tick land together; scheduling only, results
+are unchanged. ``StreamStats.fusion_ticks``/``fusion_ticks_paired``
+count the paired ticks and those whose wings shared one step.
 
 ``pipeline_depth >= 1`` dispatches each step without waiting for the
 device and returns the results of the step dispatched ``pipeline_depth``
@@ -24,16 +39,17 @@ on the device.
 
 Not in this slice (see ROADMAP): checkpoint/restore, ``DeadlinePolicy``
 and per-window deadlines, telemetry, ``resize_lane``/``drain_lane``,
-fault recovery, fusion pairing and the megastep, the mesh, the frame
-wing, and the legacy id-keyed call forms. The ``EngineConfig`` fields
-that select them are refused at construction.
+fault recovery, the cross-wing megastep, the mesh, and the legacy
+id-keyed call forms. The ``EngineConfig`` fields that select them are
+refused at construction.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import (Any, Deque, Dict, Hashable, List, Optional)
+from typing import (Any, Deque, Dict, Hashable, List, Mapping, Optional,
+                    Sequence, Union)
 
 import torch
 
@@ -69,6 +85,15 @@ class StreamStats:
     latency_ms_sum: float = 0.0
     realtime_windows: int = 0
     queued: int = 0               # still waiting in this stream's queue
+    fusion_ticks: int = 0         # ticks of a paired (fusion) stream seen
+    fusion_ticks_paired: int = 0  # ... both wings dispatched the same step
+
+    @property
+    def paired_tick_rate(self) -> float:
+        """Fraction of this stream's fusion ticks whose two wings shared
+        one engine step (1.0 when it saw none)."""
+        return (self.fusion_ticks_paired / self.fusion_ticks
+                if self.fusion_ticks else 1.0)
 
     @property
     def mean_latency_ms(self) -> float:
@@ -229,6 +254,11 @@ class StreamHandle:
                 f"stateful={self.stateful} {state}>")
 
     @property
+    def modality(self) -> str:
+        """The lane (engine modality) serving this stream."""
+        return self._lane.modality
+
+    @property
     def stats(self) -> StreamStats:
         return self._engine.stream_stats[self.stream_id]
 
@@ -236,10 +266,23 @@ class StreamHandle:
     def queued(self) -> int:
         return 0 if self.closed else len(self._lane.queues[self.stream_id])
 
+    @property
+    def next_seq(self) -> int:
+        """The sequence number the next ``submit`` will return."""
+        self._check_open()
+        return self._engine._seq[self.stream_id]
+
     def _check_open(self) -> None:
         if self.closed:
             raise ValueError(
                 f"handle for stream {self.stream_id!r} is closed")
+
+    def validate(self, window: Any) -> None:
+        """Check ``window`` against this stream's engine without queueing
+        it (raises what ``submit`` would), so a caller submitting to
+        several handles can validate every window before queueing any."""
+        self._check_open()
+        self._lane.engine.validate(window)
 
     def submit(self, window: Any) -> int:
         """Queue one window; returns its per-stream sequence number. The
@@ -297,6 +340,7 @@ class StreamHandle:
                 lane.state_streams[j] = _FREE
         lane.parked.pop(sid, None)
         lane.stateful.discard(sid)
+        eng.unpair_streams(sid)
         del eng._stream_lane[sid]
         eng._seq.pop(sid, None)
         eng._handles.pop(sid, None)
@@ -306,25 +350,38 @@ class StreamHandle:
 
 
 class StreamEngine:
-    """Continuous batching of event windows over one engine's batch slots.
+    """Continuous batching of sensor windows over per-engine batch slots.
 
-    ``StreamEngine(params, cfg, EngineConfig(...), device=None)`` builds
-    one
-    :class:`~repro_torch.core.pipeline.BatchedClosedLoop` on ``device``
-    (``None`` = ``cuda``; without a card only ``device="cpu"`` works).
-    ``EngineConfig`` supplies ``max_streams`` (slots), ``duration_us``,
-    ``policy``/``fair_quantum``, ``pipeline_depth`` and ``window_ms``;
-    ``fuse_fc`` selects nothing (fc1/fc2 always run through kernel K2,
-    which is what either value computes); ``mesh``, ``megastep``, ``recovery`` and a policy that
-    is not a port :class:`SlotPolicy` raise ``NotImplementedError``.
+    Two construction forms, both configured by one
+    :class:`~repro_torch.core._api.EngineConfig`:
+
+      * ``StreamEngine(params, cfg, config, device=None)`` builds one
+        :class:`~repro_torch.core.pipeline.BatchedClosedLoop` on
+        ``device`` (``None`` = ``cuda``; without a card only
+        ``device="cpu"`` works);
+      * ``StreamEngine(engines=[event_engine, frame_engine],
+        config=...)`` serves any set of engines, one lane (slots and one
+        engine call per step) per engine, keyed by its ``modality``; the
+        engines carry their own device.
+
+    ``EngineConfig`` supplies ``max_streams`` (slots per lane, or a
+    ``{modality: count}`` mapping whose missing lanes get 8),
+    ``duration_us``, ``policy``/``fair_quantum``, ``pipeline_depth``,
+    ``window_ms`` and ``coschedule``; ``fuse_fc`` selects nothing for the
+    built event engine (fc1/fc2 always run through kernel K2, which is
+    what either value computes) and, as in the JAX package, is refused
+    with ``engines=``. ``mesh``, ``megastep``, ``recovery`` and a policy
+    that is not a port :class:`SlotPolicy` raise ``NotImplementedError``.
     """
 
     def __init__(
         self,
-        params,
-        cfg: SNNConfig,
+        params=None,
+        cfg: Optional[SNNConfig] = None,
         config: Optional[EngineConfig] = None,
         *,
+        engines: Union[None, InferenceEngine, Sequence[InferenceEngine],
+                       Mapping[str, InferenceEngine]] = None,
         model: Optional[KrakenModel] = None,
         device=None,
     ):
@@ -335,8 +392,9 @@ class StreamEngine:
         _refuse_unported(config)
         if config.megastep:
             raise NotImplementedError(
-                "EngineConfig.megastep: the cross-wing megastep arrives "
-                "with the frame wing and fusion (ROADMAP queue 1, item 8)")
+                "EngineConfig.megastep: the cross-wing megastep (one CUDA "
+                "graph per (event key, frame key)) is not ported yet "
+                "(ROADMAP queue 1, item 8)")
         if config.recovery is not None:
             raise NotImplementedError(
                 "EngineConfig.recovery: fault recovery is not ported yet "
@@ -347,26 +405,71 @@ class StreamEngine:
                 f"policy {type(config.policy).__name__}: only the port's "
                 f"SlotPolicy subclasses are served; DeadlinePolicy is not "
                 f"ported yet (ROADMAP queue 1, item 7(a))")
-        slots = config.max_streams
-        if not isinstance(slots, int) or isinstance(slots, bool):
-            raise NotImplementedError(
-                "per-modality max_streams mappings need several engine "
-                "lanes, which arrive with the frame wing (ROADMAP queue 1, "
-                "item 8)")
-        if slots < 1:
-            raise ValueError(f"max_streams must be >= 1, got {slots}")
+        if engines is None:
+            if params is None or cfg is None:
+                raise ValueError("give (params, cfg) or engines=")
+            engines = [BatchedClosedLoop.from_config(
+                params, cfg, config, model=model, device=device)]
+        else:
+            if params is not None or cfg is not None:
+                raise ValueError("(params, cfg) and engines= are mutually "
+                                 "exclusive")
+            if device is not None or model is not None:
+                raise ValueError("device= and model= configure the built "
+                                 "event engine; engines= carry their own")
+            if config.fuse_fc:
+                raise ValueError(
+                    "fuse_fc configures the internally-built event "
+                    "engine; with engines= build the BatchedClosedLoop "
+                    "yourself")
+            if isinstance(engines, Mapping):
+                engines = list(engines.values())
+            elif not isinstance(engines, Sequence):
+                engines = [engines]
+            for e in engines:
+                if config.duration_us is None:
+                    continue
+                if e.duration_us is None:
+                    e.duration_us = config.duration_us
+                elif e.duration_us != config.duration_us:
+                    raise ValueError(
+                        f"engine {e.modality!r} duration {e.duration_us} != "
+                        f"duration_us={config.duration_us}")
+        if not engines:
+            raise ValueError("engines= must name at least one engine")
+        max_streams = config.max_streams
+        if isinstance(max_streams, Mapping):
+            unknown = set(max_streams) - {e.modality for e in engines}
+            if unknown:
+                raise ValueError(
+                    f"max_streams keys {sorted(unknown)} match no engine "
+                    f"modality (have "
+                    f"{sorted(e.modality for e in engines)})")
         self.config = config
         self.pipeline_depth = config.pipeline_depth
-        engine = BatchedClosedLoop.from_config(
-            params, cfg, config, model=model, device=device)
         self.policy = config.policy or FairQuantumPolicy(
             4 if config.fair_quantum is None else config.fair_quantum)
-        self._lanes: Dict[str, EngineLane] = {
-            engine.modality: EngineLane(
-                modality=engine.modality, engine=engine,
+        self._lanes: Dict[str, EngineLane] = {}
+        for e in engines:
+            if e.modality in self._lanes:
+                raise ValueError(f"duplicate engine modality {e.modality!r}")
+            slots = (max_streams.get(e.modality, 8)
+                     if isinstance(max_streams, Mapping) else max_streams)
+            if slots < 1:
+                raise ValueError(f"max_streams must be >= 1, got {slots}")
+            self._lanes[e.modality] = EngineLane(
+                modality=e.modality, engine=e,
                 slots=[_FREE] * slots, slot_runs=[0] * slots,
                 waiting=deque(), queues={}, shape_keys=set(),
-                state_streams=[_FREE] * slots)}
+                state_streams=[_FREE] * slots)
+        # Fusion pairing: ``_pairs`` maps each paired stream to its
+        # partner (both directions); ``_pair_dispatch`` holds the step a
+        # paired window was dispatched at until its partner's same-seq
+        # window dispatches.
+        self.coschedule = bool(config.coschedule)
+        self._pairs: Dict[Hashable, Hashable] = {}
+        self._pair_dispatch: Dict[tuple, int] = {}
+        self._dispatch_no = 0
         self._inflight: Deque[List[_InflightLane]] = deque()
         self._stream_lane: Dict[Hashable, str] = {}
         self._seq: Dict[Hashable, int] = {}
@@ -380,36 +483,106 @@ class StreamEngine:
     # -- introspection ---------------------------------------------------
 
     @property
-    def loop(self) -> BatchedClosedLoop:
-        """The event engine."""
-        return self._lanes["event"].engine
+    def engines(self) -> Dict[str, InferenceEngine]:
+        """Engines by modality."""
+        return {m: lane.engine for m, lane in self._lanes.items()}
 
-    def compiled_shapes(self) -> set:
-        """Distinct shape keys the engine has been stepped with."""
-        return set(self._lanes["event"].shape_keys)
+    @property
+    def loop(self) -> InferenceEngine:
+        """The single engine of a one-lane StreamEngine; raises with
+        several (use ``engines[modality]``)."""
+        if len(self._lanes) != 1:
+            raise AttributeError(
+                "StreamEngine.loop is ambiguous with multiple engines; "
+                "use .engines[modality]")
+        return next(iter(self._lanes.values())).engine
 
-    def warmup(self, shape_keys) -> None:
-        """Run the engine once per shape key before serving (see
-        :meth:`BatchedClosedLoop.warmup`)."""
-        self.loop.warmup(shape_keys)
+    def modality_of(self, stream_id: Hashable) -> str:
+        return self._stream_lane[stream_id]
+
+    def _lane_named(self, modality: Optional[str]) -> EngineLane:
+        """A lane by modality (optional when there is only one)."""
+        if modality is None:
+            if len(self._lanes) != 1:
+                raise ValueError(
+                    f"modality required with multiple engines; have "
+                    f"{sorted(self._lanes)}")
+            return next(iter(self._lanes.values()))
+        if modality not in self._lanes:
+            raise ValueError(f"no engine for modality {modality!r}; "
+                             f"have {sorted(self._lanes)}")
+        return self._lanes[modality]
+
+    def compiled_shapes(self, modality: Optional[str] = None) -> set:
+        """Distinct shape keys a lane has been stepped with."""
+        return set(self._lane_named(modality).shape_keys)
+
+    def warmup(self, shape_keys, modality: Optional[str] = None) -> None:
+        """Run a lane's engine once per shape key before serving (see
+        :meth:`BatchedClosedLoop.warmup` and
+        :meth:`~repro_torch.core.engine.FrameTCNEngine.warmup`)."""
+        engine = self._lane_named(modality).engine
+        warm = getattr(engine, "warmup", None)
+        if warm is None:
+            raise ValueError(
+                f"engine {type(engine).__name__} does not implement "
+                f"warmup()")
+        warm(shape_keys)
 
     @property
     def handles(self) -> Dict[Hashable, StreamHandle]:
         """Open handles by stream id (a copy; close via the handle)."""
         return dict(self._handles)
 
+    # -- fusion pairing ----------------------------------------------------
+
+    def pair_streams(self, a: Hashable, b: Hashable) -> None:
+        """Declare two open streams on different lanes the wings of one
+        fusion tick: with ``coschedule`` on, both land in the same engine
+        step whenever either wins a slot. Idempotent for the same pair;
+        re-pairing a stream to another partner needs
+        :meth:`unpair_streams` first."""
+        for sid in (a, b):
+            if sid not in self._stream_lane:
+                raise KeyError(f"unknown stream {sid!r}")
+        if self._stream_lane[a] == self._stream_lane[b]:
+            raise ValueError(
+                f"paired streams must live on different lanes; both "
+                f"{a!r} and {b!r} are {self._stream_lane[a]!r}")
+        if self._pairs.get(a) == b:
+            return
+        for sid in (a, b):
+            if sid in self._pairs:
+                raise ValueError(
+                    f"stream {sid!r} is already paired with "
+                    f"{self._pairs[sid]!r}; unpair_streams() first")
+        self._pairs[a] = b
+        self._pairs[b] = a
+
+    def unpair_streams(self, stream_id: Hashable) -> None:
+        """Dissolve a stream's pairing (a no-op for unpaired streams);
+        closing either wing calls it."""
+        partner = self._pairs.pop(stream_id, None)
+        if partner is not None:
+            self._pairs.pop(partner, None)
+        for key in [k for k in self._pair_dispatch
+                    if k[0] == stream_id or k[0] == partner]:
+            del self._pair_dispatch[key]
+
     # -- streams -----------------------------------------------------------
 
-    def open(self, *, stream_id: Optional[Hashable] = None,
+    def open(self, modality: Optional[str] = None, *,
+             stream_id: Optional[Hashable] = None,
              stateful: bool = False) -> StreamHandle:
         """Open a new stream and return its :class:`StreamHandle`.
 
-        ``stateful=True`` carries the LIF membranes across the stream's
-        windows until ``reset_state`` or ``close``. ``stream_id`` names
-        the stream (``"event-<n>"`` when omitted); an id that is already
-        open raises.
+        ``modality`` selects the lane (optional when there is one).
+        ``stateful=True`` carries the engine state (the event wing's LIF
+        membranes) across the stream's windows until ``reset_state`` or
+        ``close``. ``stream_id`` names the stream (``"<modality>-<n>"``
+        when omitted); an id that is already open raises.
         """
-        lane = self._lanes["event"]
+        lane = self._lane_named(modality)
         if stream_id is None:
             while True:
                 stream_id = f"{lane.modality}-{self._auto_id}"
@@ -418,7 +591,8 @@ class StreamEngine:
                     break
         elif stream_id in self._stream_lane:
             raise ValueError(
-                f"stream {stream_id!r} is already open; close() it before "
+                f"stream {stream_id!r} is already open (bound to modality "
+                f"{self._stream_lane[stream_id]!r}); close() it before "
                 f"reopening the id")
         lane.queues[stream_id] = deque()
         self._stream_lane[stream_id] = lane.modality
@@ -545,12 +719,17 @@ class StreamEngine:
         return out
 
     def _dispatch(self, *, eager: bool) -> List[_InflightLane]:
-        """Assign slots and run (``eager``) or queue every lane's batch;
+        """Assign every lane's slots (then, with fusion pairs, seat paired
+        wings together), run (``eager``) or queue every lane's batch, and
         pop the served heads only after every lane succeeded."""
+        self._dispatch_no += 1
+        for lane in self._lanes.values():
+            self.policy.assign(lane)
+        if self._pairs and self.coschedule:
+            self._coschedule()
         ran: List[_InflightLane] = []
         commits = []
         for lane in self._lanes.values():
-            self.policy.assign(lane)
             heads = [lane.queues[sid][0].item if sid is not _FREE else None
                      for sid in lane.slots]
             if all(w is None for w in heads):
@@ -571,7 +750,67 @@ class StreamEngine:
                 lane.slot_runs[slot] += 1
                 self.stream_stats[sid].queued -= 1
                 rec.entries[i] = (sid, entry.seq)
+                if self._pairs:
+                    self._note_pair_dispatch(sid, entry.seq)
         return ran
+
+    def _coschedule(self) -> None:
+        """After slot assignment: for every paired stream holding a slot
+        with queued work, pull its partner into the partner's lane for
+        this same step -- into a free slot, else by evicting a seated
+        stream that is not itself half of a seated pair (the evictee goes
+        to the front of its waiting line). Scheduling only: which step
+        serves a window moves, its result does not."""
+        for lane in self._lanes.values():
+            for sid in lane.slots:
+                if sid is _FREE or not lane.queues.get(sid):
+                    continue
+                partner = self._pairs.get(sid)
+                if partner is None:
+                    continue
+                plane = self._lanes[self._stream_lane[partner]]
+                if partner in plane.slots or not plane.queues.get(partner):
+                    continue
+                self._seat_partner(plane, partner)
+
+    def _seat_partner(self, lane: EngineLane, sid: Hashable) -> bool:
+        """Seat ``sid`` in ``lane`` for this step; returns whether a slot
+        was won."""
+        free = next((i for i, cur in enumerate(lane.slots)
+                     if cur is _FREE), None)
+        if free is None:
+            for i, cur in enumerate(lane.slots):
+                p = self._pairs.get(cur)
+                if p is None or p not in self._lanes[
+                        self._stream_lane[p]].slots:
+                    free = i
+                    break
+            if free is None:
+                return False
+            evicted = lane.slots[free]
+            if lane.queues.get(evicted):
+                lane.waiting.appendleft(evicted)
+        lane.slots[free] = sid
+        lane.slot_runs[free] = 0
+        if sid in lane.waiting:
+            lane.waiting.remove(sid)
+        return True
+
+    def _note_pair_dispatch(self, sid: Hashable, seq: int) -> None:
+        """When both wings of a paired tick have dispatched, credit a
+        fusion tick to both streams (paired when they shared a step)."""
+        partner = self._pairs.get(sid)
+        if partner is None:
+            return
+        other_step = self._pair_dispatch.pop((partner, seq), None)
+        if other_step is None:
+            self._pair_dispatch[(sid, seq)] = self._dispatch_no
+            return
+        paired = int(other_step == self._dispatch_no)
+        for s in (sid, partner):
+            st = self.stream_stats[s]
+            st.fusion_ticks += 1
+            st.fusion_ticks_paired += paired
 
     def _dispatch_lane(self, lane: EngineLane, heads: List, eager: bool):
         """One lane's dispatch: ``(record, (commit, new_state) or None)``;

@@ -14,13 +14,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import events as ev  # noqa: E402
+from repro_torch.configs import TCN_SMOKE  # noqa: E402
+from repro_torch.core import frames as fr  # noqa: E402
 from repro_torch.core._api import EngineConfig  # noqa: E402
+from repro_torch.core.engine import FrameTCNEngine  # noqa: E402
 from repro_torch.core.lif import LIFParams  # noqa: E402
+from repro_torch.core.pipeline import BatchedClosedLoop  # noqa: E402
 from repro_torch.core.snn import SNNConfig  # noqa: E402
 from repro_torch.kernels import fc_lif_scan as k2  # noqa: E402
 from repro_torch.kernels import lif_scan as k1  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.serving import StreamEngine  # noqa: E402
+from repro_torch.kernels import ternary_matmul as k3  # noqa: E402
+from repro_torch.serving import FusionSession, StreamEngine  # noqa: E402
 
 P = LIFParams()
 pytestmark = pytest.mark.cuda
@@ -71,17 +76,82 @@ def test_ops_count_launches_on_the_card(card):
     assert (k1.launches, k2.launches) == (before[0] + 1, before[1] + 1)
 
 
+CFG = SNNConfig(height=32, width=32, time_bins=4, conv1_features=4,
+                conv2_features=8, hidden=32, num_classes=11)
+
+
+def _mk(rng):
+    return lambda *s: torch.from_numpy(
+        (rng.normal(size=s) * 0.5).astype(np.float32))
+
+
+def _snn_params(rng):
+    mk = _mk(rng)
+    return {"conv1": {"w": mk(4, 2, 3, 3)}, "conv2": {"w": mk(8, 4, 3, 3)},
+            "fc1": {"w": mk(CFG.flat_dim, 32)}, "fc2": {"w": mk(32, 11)}}
+
+
+def _tcn_params(rng):
+    mk = _mk(rng)
+    return {"conv1": {"w": mk(4, 1, 3, 3)}, "conv2": {"w": mk(8, 4, 3, 3)},
+            "fc1": {"w": mk(TCN_SMOKE.flat_dim, 32)},
+            "fc2": {"w": mk(32, 11)}}
+
+
+@pytest.mark.parametrize("m,k,n,dtype,grid", [
+    (1, 2048, 512, torch.float32, True), (8, 2048, 512, torch.float32, True),
+    (8, 2048, 512, torch.float32, False),
+    (8, 2048, 512, torch.bfloat16, False),
+    (5, 260, 130, torch.float32, False), (129, 512, 1000, torch.float32,
+                                          False)])
+def test_k3_matches_plain_and_rows_are_batch_invariant(card, m, k, n, dtype,
+                                                       grid):
+    g = torch.Generator().manual_seed(2)
+    x = (torch.randint(-4, 5, (m, k), generator=g) / 4.0 if grid
+         else torch.randn(m, k, generator=g)).to(dtype).to(card)
+    wp = torch.randint(0, 256, (k // 4, n), generator=g,
+                       dtype=torch.uint8).to(card)
+    scale = (torch.rand(n, generator=g) + 0.1).to(card)
+    want = k3.ternary_matmul_plain(x, wp, scale)
+    got = k3.ternary_matmul_cuda(x, wp, scale)
+    assert got.dtype == dtype and torch.equal(want, got)
+    one = k3.ternary_matmul_cuda(x[m - 1:].contiguous(), wp, scale)
+    assert torch.equal(one[0], got[m - 1])
+
+
+def test_default_hetero_engine_launches_all_three_kernels(card):
+    """A heterogeneous StreamEngine of default-built wings serves fusion
+    ticks on the card through K1, K2 and K3: one K3 launch per frame-lane
+    step."""
+    rng = np.random.default_rng(3)
+    eng = StreamEngine(engines=[BatchedClosedLoop(_snn_params(rng), CFG),
+                                FrameTCNEngine(_tcn_params(rng), TCN_SMOKE)],
+                       config=EngineConfig(max_streams=2))
+    sess = [FusionSession(eng, session_id=i) for i in range(2)]
+    for k in range(2):
+        for s in sess:
+            s.submit(ev.synthetic_gesture_events(
+                rng, k, mean_events=800, height=32, width=32),
+                fr.synthetic_gesture_frames(rng, k, height=32, width=32))
+    before = (k1.launches, k2.launches, k3.launches)
+    out = []
+    while len(out) < 4:
+        rows = eng.step()
+        for s in sess:
+            rows = s.absorb(rows)
+            out += s.drain()
+    steps = eng.stats["steps"]
+    assert (k1.launches - before[0], k2.launches - before[1],
+            k3.launches - before[2]) == (2 * steps, 2 * steps, steps)
+
+
 def test_default_stream_engine_launches_both_kernels(card):
     """A StreamEngine built with no device, no config and no kernel
     arguments serves on the card through K1 and K2: two launches of each
     per engine step."""
-    cfg = SNNConfig(height=32, width=32, time_bins=4, conv1_features=4,
-                    conv2_features=8, hidden=32, num_classes=11)
+    cfg = CFG
     rng = np.random.default_rng(0)
-    mk = lambda *s: torch.from_numpy(
-        (rng.normal(size=s) * 0.5).astype(np.float32))
-    params = {"conv1": {"w": mk(4, 2, 3, 3)}, "conv2": {"w": mk(8, 4, 3, 3)},
-              "fc1": {"w": mk(cfg.flat_dim, 32)}, "fc2": {"w": mk(32, 11)}}
+    params = _snn_params(rng)
     eng = StreamEngine(params, cfg)
     assert eng.loop.device.type == "cuda"
     hs = [eng.open(stateful=i == 0) for i in range(2)]

@@ -16,12 +16,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import SMOKE  # noqa: E402
+from repro_torch.configs import SMOKE, TCN_SMOKE  # noqa: E402
+from repro_torch.core.engine import FrameTCNEngine  # noqa: E402
 from repro_torch.core.lif import LIFParams  # noqa: E402
 from repro_torch.core.pipeline import (BatchedClosedLoop,  # noqa: E402
                                        ClosedLoopPipeline)
 from repro_torch.kernels import fc_lif_scan as k2  # noqa: E402
 from repro_torch.kernels import lif_scan as k1  # noqa: E402
+from repro_torch.kernels import ternary_matmul as k3  # noqa: E402
 from repro_torch.serving import StreamEngine  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -55,7 +57,7 @@ def test_port_imports_neither_jax_nor_repro():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 14
+    assert int(proc.stdout.split()[0]) >= 25
 
 
 def _params():
@@ -65,16 +67,27 @@ def _params():
             "fc1": {"w": mk(SMOKE.flat_dim, 32)}, "fc2": {"w": mk(32, 11)}}
 
 
+def _tcn_params():
+    rng = np.random.default_rng(1)
+    mk = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    return {"conv1": {"w": mk(4, 1, 3, 3)}, "conv2": {"w": mk(8, 4, 3, 3)},
+            "fc1": {"w": mk(TCN_SMOKE.flat_dim, 32)},
+            "fc2": {"w": mk(32, 11)}}
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-card path is moot")
     for make in (lambda: BatchedClosedLoop(_params(), SMOKE),
                  lambda: ClosedLoopPipeline(_params(), SMOKE),
-                 lambda: StreamEngine(_params(), SMOKE)):
+                 lambda: StreamEngine(_params(), SMOKE),
+                 lambda: FrameTCNEngine(_tcn_params(), TCN_SMOKE)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert BatchedClosedLoop(_params(), SMOKE, device="cpu").device.type \
         == "cpu"
+    assert FrameTCNEngine(_tcn_params(), TCN_SMOKE,
+                          device="cpu").device.type == "cpu"
 
 
 def test_lif_wrapper_refuses_bad_inputs():
@@ -108,11 +121,16 @@ def test_fc_wrapper_refuses_bad_inputs():
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    before = (k1.launches, k2.launches)
+    before = (k1.launches, k2.launches, k3.launches)
     cur = torch.rand(4, 8)
     assert all(torch.equal(a, b) for a, b in zip(
         k1.lif_scan_fwd(cur, P), k1.lif_scan_plain(cur, P)))
     s, w = torch.rand(4, 2, 16), torch.rand(16, 8)
     assert all(torch.equal(a, b) for a, b in zip(
         k2.fc_lif_scan_fwd(s, w, P), k2.fc_lif_scan_plain(s, w, P)))
-    assert (k1.launches, k2.launches) == before
+    x = torch.rand(3, 16)
+    wp = torch.randint(0, 255, (4, 8), dtype=torch.uint8)
+    scale = torch.rand(8)
+    assert torch.equal(k3.ternary_matmul_fwd(x, wp, scale),
+                       k3.ternary_matmul_plain(x, wp, scale))
+    assert (k1.launches, k2.launches, k3.launches) == before

@@ -257,3 +257,14 @@ def test_unported_config_fields_raise(params):
         w = _windows(1, seed=2)[0]
         w.duration_us = 100_000
         h.submit(w)
+
+
+def test_max_streams_mapping_names_known_modalities(params):
+    """A per-modality ``max_streams`` mapping sizes each lane; a key that
+    names no engine's modality is refused, as in the JAX package."""
+    eng = StreamEngine(params, CFG, EngineConfig(max_streams={"event": 3}),
+                       device="cpu")
+    assert len(eng._lanes["event"].slots) == 3
+    with pytest.raises(ValueError, match="match no engine modality"):
+        StreamEngine(params, CFG, EngineConfig(
+            max_streams={"event": 2, "frame": 2}), device="cpu")
