@@ -9,8 +9,8 @@ Phases, one JSON line each; any failed check raises, so the script exits
 non-zero:
 
   1. device and build: the card (as nvidia-smi reports it), the torch and
-     CUDA versions, and the time to build kernels K1, K2 and K3 with nvcc
-     (one nvcc per source, all started together);
+     CUDA versions, and the time to build kernels K1, K2, K3 and K4 with
+     nvcc (one nvcc per source, all started together);
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes, bit for bit: K1 at conv1/conv2 in f32 and bf16
      with v0 above threshold and chaining, K2 at fc1/fc2, K3 at the frame
@@ -34,7 +34,17 @@ non-zero:
      a profiler trace of 64 steady-state B=8 steps; frame-lane windows/s
      and fused ticks/s at B=8 over 20 samples of 16 steps, and a profile
      of 16 fused steps;
-  6. the ``kernels`` line, then the card line, then the ``ok`` line.
+  6. the LM slice (``lm_slice``): K4 against its plain version on the
+     card bit for bit (prefill and decode calls, chaining, hd=16, B=1
+     rows); the rwkv6-7b widths at a depth of 2 layers in f32 on the card
+     against the port's CPU run (forward logits, stepped decode, greedy
+     tokens, ternary greedy tokens); the full rwkv6-7b (32 layers, bf16)
+     served through BatchScheduler, generate and the prefill step with
+     K4's launch counts asserted (32 per decode step and per prefill), then
+     ternary-quantized and served with K3's counted (8 per layer per
+     step); then K4's and K3's times at the LM shapes, decode and prefill
+     tokens/s and a profile of decode steps;
+  7. the ``kernels`` line, then the card line, then the ``ok`` line.
 
 Weights are random from a numpy seed. For the event wing's served
 comparison they are rounded to multiples of 2**-8: every conv and fc
@@ -59,6 +69,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12           # fp32 outside the tensor cores
+H100_BF16_FLOPS = 989e12          # bf16 on the tensor cores, dense
 REPS = 20
 FLUSH_BYTES = 512 << 20           # read between timed calls: 10x the L2
 E2E_SAMPLES = 20                  # end-to-end samples per batch size
@@ -92,6 +103,7 @@ def main() -> int:
     from repro_torch.kernels import fc_lif_scan as k2
     from repro_torch.kernels import lif_scan as k1
     from repro_torch.kernels import ternary_matmul as k3
+    from repro_torch.kernels import wkv6_scan as k4
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -100,7 +112,7 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    _build.build_all([k1.KERNEL, k2.KERNEL, k3.KERNEL])
+    _build.build_all([k1.KERNEL, k2.KERNEL, k3.KERNEL, k4.KERNEL])
     build_s = time.perf_counter() - t0
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -115,6 +127,7 @@ def main() -> int:
     times = timings(torch, dev, k1, k2)
     times["ternary_matmul"] = k3_timings(torch, dev, k3)
     frame_end_to_end(torch, dev)
+    lm = lm_slice(torch, dev, k3, k4)
 
     kernels = [
         dict(name="lif_scan", route="cuda",
@@ -130,9 +143,17 @@ def main() -> int:
         dict(name="ternary_matmul", route="cuda",
              source="src/repro_torch/csrc/ternary_matmul.cu",
              replaces="src/repro/kernels/ternary_matmul.py:92",
-             launches=fused["launches"]["ternary_matmul"],
-             max_abs_err=err["ternary_matmul"],
+             launches=(fused["launches"]["ternary_matmul"]
+                       + lm["launches"]["ternary_matmul"]),
+             max_abs_err=max(err["ternary_matmul"],
+                             lm["max_abs_err"]["ternary_matmul"]),
              **times["ternary_matmul"]),
+        dict(name="wkv6_scan", route="cuda",
+             source="src/repro_torch/csrc/wkv6_scan.cu",
+             replaces="src/repro/kernels/wkv6_scan.py:69",
+             launches=lm["launches"]["wkv6_scan"],
+             max_abs_err=lm["max_abs_err"]["wkv6_scan"],
+             **lm["times"]["wkv6_scan"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -693,9 +714,9 @@ def _call_ms(torch, fn, reps=REPS):
     return statistics.median(samples)
 
 
-def _bound_ms(nbytes, flops):
+def _bound_ms(nbytes, flops, peak=H100_FP32_FLOPS):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -854,22 +875,40 @@ def _trace(torch, run):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    n_ops = 0
+    spans = []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
-            n_ops += 1
+            spans.append((e.time_range.start, e.time_range.end))
+    n_ops = len(spans)
     check(n_ops > 0, "the trace shows no device work")
     host = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total,
                   reverse=True)[:8]
-    return res, wall_ms, by_name, n_ops, host
+    return res, wall_ms, by_name, n_ops, host, _gaps_us(sorted(spans))
 
 
-def _trace_fields(wall_ms, by_name, n_ops, host, steps, step_ms_untraced):
+def _gaps_us(spans):
+    """Idle gaps (us) between consecutive device operations of a trace:
+    where the device waited for the host."""
+    gaps, end = [], spans[0][1]
+    for a, b in spans[1:]:
+        if a > end:
+            gaps.append(a - end)
+        end = max(end, b)
+    return gaps
+
+
+def _trace_fields(wall_ms, by_name, n_ops, host, gaps, steps,
+                  step_ms_untraced):
     busy = sum(by_name.values())
     return dict(
         steps=steps, wall_ms=wall_ms, device_busy_ms=busy,
+        device_idle_gaps_per_step=len(gaps) / steps,
+        device_idle_gap_ms_per_step=sum(gaps) / 1e3 / steps,
+        device_idle_gaps_over_100us_per_step=sum(
+            g > 100 for g in gaps) / steps,
+        largest_device_idle_gaps_us=sorted(gaps, reverse=True)[:5],
         device_busy_share_traced=busy / wall_ms,
         device_busy_ms_per_step=busy / steps,
         device_busy_share_untraced=busy / steps / step_ms_untraced,
@@ -1010,6 +1049,485 @@ def frame_end_to_end(torch, dev):
          frame_lane_B8=frame_lane, fused_B8=fused,
          fused_profile=_trace_fields(*trace, E2E_STEPS,
                                      fused["step_ms_median"]))
+
+
+# ----------------------------------------------------------------------
+# Phase 6: the LM slice -- RWKV-6 serving through K4 (and K3 on the
+# ternary path).
+# ----------------------------------------------------------------------
+
+LM_CUT_LAYERS = 2            # depth of the f32 comparison with the CPU
+# f32 logits (std ~1) on the card against the CPU: cuBLAS and the CPU's
+# BLAS sum the d=4096 and d_ff=14336 products in other orders, and exp
+# rounds differently, so ~1e-5 is expected; 1e-3 leaves room and still
+# catches any real fault (a wrong term moves logits by O(0.1)).
+LM_LOGITS_ATOL = 1e-3
+# The bf16 lm_head product with an f32 output against the f32 product of
+# the casts: the same exact terms summed in another order (f32 ulps of
+# O(1) logits); a bf16-rounded output would miss it by ~1e-2.
+LM_HEAD_ATOL = 1e-4
+LM_SERVE_REQUESTS, LM_PROMPT, LM_NEW = 6, 8, 16     # as launch/serve.py
+LM_BATCH = 4
+LM_PREFILL_S = 2048
+DECODE_SAMPLES, DECODE_STEPS = 20, 16     # decode tokens/s at B=4
+
+
+def _lm_params(torch, model, seed, dev):
+    """Parameters of ``model`` drawn by ``model.init`` from a seeded
+    generator on ``dev``, with nonzero ``u``, ``mu``, ``mu_k`` and ``mu_r``
+    from a numpy seed (zero at init: the bonus term and the ddlerp would
+    never be exercised)."""
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    tm, cm = params["layers"]["tm"], params["layers"]["cm"]
+    for tree, key, a in _mix_values(np.random.default_rng(seed), tm, cm):
+        tree[key] = tree[key].new_tensor(a)
+    return params
+
+
+def _mix_values(rng, tm, cm):
+    """(tree, key, f32 array) for u ~ N(0, 0.25) and mu, mu_k, mu_r ~
+    U(0, 1), shaped like the leaves of ``tm``/``cm``."""
+    shape = lambda x: tuple(x.shape)
+    return [(tm, "u", (rng.normal(size=shape(tm["u"])) * 0.5).astype(
+                np.float32))] + [
+        (tree, key, rng.uniform(0.0, 1.0, shape(tree[key])).astype(
+            np.float32))
+        for tree, key in ((tm, "mu"), (cm, "mu_k"), (cm, "mu_r"))]
+
+
+def _wkv_inputs(torch, g, dev, b, t, h, hd, dtype, state=False):
+    """r, k, v, logw (f32, clamped to >= -4 as the model does), u and an
+    optional nonzero state0, on ``dev``."""
+    r, k, v = (torch.randn(b, t, h, hd, generator=g) for _ in range(3))
+    logw = torch.clamp(-torch.exp(torch.randn(b, t, h, hd, generator=g)
+                                  * 0.5 - 0.5), min=-4.0)
+    u = torch.randn(h, hd, generator=g) * 0.5
+    s0 = (torch.randn(b, h, hd, hd, generator=g) * 0.1).to(dev) if state \
+        else None
+    return ([x.to(dtype).to(dev) for x in (r, k, v)]
+            + [logw.to(dev), u.to(dtype).to(dev), s0])
+
+
+def _rows(x, lo, hi):
+    return None if x is None else x[lo:hi].contiguous()
+
+
+def k4_checks(torch, dev, k4):
+    """K4 against its plain version on the card, bit for bit: the LM
+    widths (H=64, hd=64) at T=256 and at T=2048 (the length
+    make_prefill_step hands K4) in bf16 (f32 logw), at T=256 in f32, the
+    decode call (T=1 from a nonzero state), SMOKE's hd=16; two halves
+    chained through state0 against one unbroken scan; B=1 rows against
+    B=4."""
+    g = torch.Generator().manual_seed(SEED + 10)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("prefill_bf16", 4, 256, 64, 64, bf16, False),
+             ("prefill_bf16_T2048", 4, LM_PREFILL_S, 64, 64, bf16, False),
+             ("prefill_f32", 4, 256, 64, 64, f32, False),
+             ("decode_bf16", 4, 1, 64, 64, bf16, True),
+             ("smoke_hd16", 4, 256, 4, 16, f32, False)]
+    rows, err = [], 0.0
+    for name, b, t, h, hd, dtype, state in cases:
+        r, k, v, lw, u, s0 = _wkv_inputs(torch, g, dev, b, t, h, hd, dtype,
+                                         state)
+        seq = (r, k, v, lw)
+        want = k4.wkv6_scan_plain(r, k, v, lw, u, s0)
+        got = k4.wkv6_scan_cuda(r, k, v, lw, u, s0)
+        one = k4.wkv6_scan_cuda(*[_rows(x, b - 1, b) for x in seq], u,
+                                _rows(s0, b - 1, b))
+        ok = dict(plain=_bitwise(torch, want, got),
+                  b1_rows=bool(torch.equal(one[0][0], got[0][b - 1])
+                               and torch.equal(one[1][0], got[1][b - 1])))
+        if t > 1:
+            half = t // 2
+            a = k4.wkv6_scan_cuda(
+                *[x[:, :half].contiguous() for x in seq], u, s0)
+            z = k4.wkv6_scan_cuda(
+                *[x[:, half:].contiguous() for x in seq], u, a[1])
+            ok["chained"] = bool(
+                torch.equal(torch.cat([a[0], z[0]], dim=1), got[0])
+                and torch.equal(z[1], got[1]))
+        torch.cuda.synchronize()
+        err = max(err, _max_err(want, got))
+        rows.append(dict(kernel="wkv6_scan", case=name, shape=[b, t, h, hd],
+                         dtype=str(dtype), logw="torch.float32",
+                         state0=state, **ok))
+        check(all(ok.values()), f"K4 {name}: {ok}")
+    emit("k4_vs_plain", tolerance="bitwise", checks=rows, max_abs_err=err)
+    return err
+
+
+def _greedy_gaps(torch, model, params, prompts, tokens, dev):
+    """The smallest top-2 logit gap over the generating steps, replaying
+    decode over prompt + generated tokens."""
+    seq = torch.from_numpy(np.concatenate([prompts, tokens], 1)).to(dev)
+    cache = model.init_cache(seq.shape[0], seq.shape[1], device=dev)
+    gaps = []
+    for i in range(seq.shape[1] - 1):
+        logits, cache = model.decode(params, cache, seq[:, i:i + 1])
+        if i >= prompts.shape[1] - 1:
+            top2 = torch.topk(logits[:, -1], 2).values
+            gaps.append(float((top2[:, 0] - top2[:, 1]).min()))
+    return min(gaps)
+
+
+def lm_depth_cut(torch, dev, k3):
+    """rwkv6-7b widths at LM_CUT_LAYERS layers in f32, params from a numpy
+    seed: the card against the port's CPU run -- Model.apply logits at
+    B=2, S=64, decode stepped over an 8-token prompt, greedy generate
+    (8 new tokens), and the same model ternary-quantized on each device
+    (greedy tokens equal, K3 counted)."""
+    import dataclasses
+    from repro_torch.configs.rwkv6_7b import CONFIG
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import (ServeConfig, generate,
+                                     quantize_for_serving)
+    cfg = dataclasses.replace(CONFIG, num_layers=LM_CUT_LAYERS,
+                              dtype="float32")
+    model = build_model(cfg)
+    cpu = _lm_params(torch, model, SEED + 11, "cpu")
+    gpu = tree_map(lambda x: x.to(dev), cpu)
+    rng = np.random.default_rng(SEED + 12)
+    toks = rng.integers(0, cfg.vocab_size, (2, 64))
+    lg = model.apply(gpu, {"tokens": torch.from_numpy(toks).to(dev)})[0]
+    lc = model.apply(cpu, {"tokens": torch.from_numpy(toks)})[0]
+    apply_diff = float((lg.cpu() - lc).abs().max())
+    logit_std = float(lc.std())
+
+    prompt = toks[:, :8]
+    cg = model.init_cache(2, 8, device=dev)
+    cc = model.init_cache(2, 8, device="cpu")
+    dec_diff = 0.0
+    for i in range(prompt.shape[1]):
+        t = torch.from_numpy(prompt[:, i:i + 1])
+        a, cg = model.decode(gpu, cg, t.to(dev))
+        b, cc = model.decode(cpu, cc, t)
+        dec_diff = max(dec_diff, float((a.cpu() - b).abs().max()))
+    state_diff = float((cg["state"].cpu() - cc["state"]).abs().max())
+
+    sc = ServeConfig(max_new_tokens=8)
+    tg, _ = generate(model, gpu, prompt, sc, device=dev)
+    tc, _ = generate(model, cpu, prompt, sc, device="cpu")
+    gap = _greedy_gaps(torch, model, gpu, prompt, tg, dev)
+
+    qg, stats_g = quantize_for_serving(gpu)
+    qc, stats_c = quantize_for_serving(cpu)
+    packed = [(qg["layers"][grp][n]["packed"].cpu(),
+               qc["layers"][grp][n]["packed"])
+              for grp, names in (("tm", ("wr", "wk", "wv", "wg", "wo")),
+                                 ("cm", ("wk", "wv", "wr")))
+              for n in names]
+    same_bytes = sum(int((a == b).sum()) for a, b in packed) / sum(
+        b.numel() for _, b in packed)
+    qprompt, qsc = prompt[:, :4], ServeConfig(max_new_tokens=6)
+    k3.launches = 0
+    qtg, _ = generate(model, qg, qprompt, qsc, device=dev)
+    torch.cuda.synchronize()
+    k3_launches = k3.launches
+    qtc, _ = generate(model, qc, qprompt, qsc, device="cpu")
+    qsteps = qprompt.shape[1] + qsc.max_new_tokens
+    out = dict(
+        config=f"rwkv6-7b widths, num_layers={LM_CUT_LAYERS}, float32",
+        apply_shape=[2, 64], apply_logits_max_abs_diff=apply_diff,
+        logits_std=logit_std, decode_logits_max_abs_diff=dec_diff,
+        decode_state_max_abs_diff=state_diff,
+        greedy_tokens_equal=bool(np.array_equal(tg, tc)),
+        greedy_min_top2_gap=gap, tokens_card=tg.tolist(),
+        ternary_stats_equal=stats_g == stats_c, ternary_stats=stats_g,
+        ternary_packed_equal_fraction=same_bytes,
+        ternary_tokens_equal=bool(np.array_equal(qtg, qtc)),
+        ternary_k3_launches=k3_launches, ternary_decode_steps=qsteps,
+        tolerance=dict(logits_atol=LM_LOGITS_ATOL, tokens="equal"))
+    emit("lm_vs_cpu", **out)
+    check(apply_diff <= LM_LOGITS_ATOL, f"apply logits: {apply_diff}")
+    check(dec_diff <= LM_LOGITS_ATOL, f"decode logits: {dec_diff}")
+    check(out["greedy_tokens_equal"], f"greedy tokens {tg} vs {tc}")
+    check(out["ternary_tokens_equal"], f"ternary tokens {qtg} vs {qtc}")
+    check(k3_launches == 8 * LM_CUT_LAYERS * qsteps,
+          f"K3 launched {k3_launches} times in {qsteps} 2-layer steps")
+
+
+def _lm_head_diff(torch, dev, params, cfg):
+    """The decode step's lm_head product (bf16 operands, f32 output) at
+    B=4 against the f32 product of the casts."""
+    from repro_torch.models import rwkv6
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    h = torch.randn(LM_BATCH, 1, cfg.d_model, generator=g, device=dev).to(
+        torch.bfloat16)
+    got = rwkv6._unembed(params, h, cfg)
+    hn = rwkv6.L.layer_norm(h, params["ln_f_s"], params["ln_f_b"],
+                            cfg.norm_eps)
+    want = torch.matmul(hn.float(), params["lm_head"].float())
+    diff = float((got - want).abs().max())
+    check(got.dtype == torch.float32 and diff <= LM_HEAD_ATOL,
+          f"lm_head product: {got.dtype}, max abs diff {diff}")
+    return diff
+
+
+def lm_serve(torch, dev, k4, model, params):
+    """The full rwkv6-7b served as a user serves it: BatchScheduler over
+    requests built as launch/serve.py builds them, generate at B=4 and the
+    prefill step at B=4, S=2048. K4's counter must show one launch per
+    layer per decode step and per prefill call."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.serving import (BatchScheduler, Request, ServeConfig,
+                                     generate)
+    cfg = model.cfg
+    nl, vocab = cfg.num_layers, cfg.vocab_size
+    rng = np.random.default_rng(0)
+    reqs = [Request(id=i, prompt=rng.integers(
+                2, vocab, size=rng.integers(2, LM_PROMPT + 1)),
+                max_new_tokens=LM_NEW) for i in range(LM_SERVE_REQUESTS)]
+    sched = BatchScheduler(model, params, max_batch=LM_BATCH,
+                           cache_len=LM_PROMPT + LM_NEW + 1, device=dev)
+    k4.launches = 0
+    done = sched.run(reqs)
+    torch.cuda.synchronize()
+    sched_launches = k4.launches
+    steps = sched.stats["decode_steps"]
+    outs = [t for r in done for t in r.output]
+    check(all(len(r.output) == LM_NEW for r in done), "short outputs")
+    check(all(0 <= t < vocab for t in outs), "token out of range")
+    check(sched_launches == nl * steps,
+          f"K4 launched {sched_launches} times in {steps} decode steps")
+
+    prompts = rng.integers(2, vocab, (LM_BATCH, 32))
+    k4.launches = 0
+    toks, gstats = generate(model, params, prompts,
+                            ServeConfig(max_new_tokens=32), device=dev)
+    gen_launches = k4.launches
+    check(gen_launches == nl * (32 + 32),
+          f"K4 launched {gen_launches} times in generate's 64 steps")
+    check(toks.shape == (LM_BATCH, 32) and bool(((toks >= 0)
+                                                 & (toks < vocab)).all()),
+          "generate tokens")
+    step_logits, _ = model.decode(
+        params, model.init_cache(LM_BATCH, 1, device=dev),
+        torch.from_numpy(toks[:, :1]).to(dev))
+    check(bool(torch.isfinite(step_logits).all()), "decode logits")
+    head_diff = _lm_head_diff(torch, dev, params, cfg)
+
+    prefill = make_prefill_step(cfg)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, vocab, (LM_BATCH, LM_PREFILL_S))).to(dev)}
+    k4.launches = 0
+    last = prefill(params, batch)
+    torch.cuda.synchronize()
+    pre_launches = k4.launches
+    check(pre_launches == nl, f"K4 launched {pre_launches} times in one "
+          f"prefill call of {nl} layers")
+    check(tuple(last.shape) == (LM_BATCH, vocab)
+          and bool(torch.isfinite(last).all()), "prefill logits")
+    emit("lm_serve", config="rwkv6-7b CONFIG (32 layers, d=4096, bf16)",
+         requests=len(done), batches=sched.stats["batches"],
+         decode_steps=steps, k4_launches=dict(
+             scheduler=sched_launches, generate=gen_launches,
+             prefill=pre_launches, per_decode_step=sched_launches / steps),
+         first_outputs=[r.output[:8] for r in done[:2]],
+         lm_head_f32_out_vs_f32_cast=dict(max_abs_diff=head_diff,
+                                          atol=LM_HEAD_ATOL),
+         generate=dict(batch=LM_BATCH, prompt=32, new=32,
+                       tokens_per_s_host=gstats.tokens_per_s,
+                       prefill_s=gstats.prefill_s),
+         prefill=dict(batch=LM_BATCH, seq=LM_PREFILL_S,
+                      logits_abs_max=float(last.abs().max())))
+    return sched_launches + gen_launches + pre_launches
+
+
+def lm_ternary(torch, dev, k3, k4, model, params):
+    """The full rwkv6-7b ternary-quantized on the card and served by
+    generate at B=4 (prompt 8, 8 new tokens): K3 counted 8 launches per
+    layer per decode step, K4 one."""
+    from repro_torch.serving import (ServeConfig, generate,
+                                     quantize_for_serving)
+    t0 = time.perf_counter()
+    q, stats = quantize_for_serving(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    nl, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    prompts = np.random.default_rng(SEED + 14).integers(2, vocab,
+                                                        (LM_BATCH, 8))
+    k3.launches = k4.launches = 0
+    toks, gstats = generate(model, q, prompts, ServeConfig(max_new_tokens=8),
+                            device=dev)
+    launches = {"ternary_matmul": k3.launches, "wkv6_scan": k4.launches}
+    steps = 8 + 8
+    check(launches["ternary_matmul"] == 8 * nl * steps,
+          f"K3 launched {launches['ternary_matmul']} times in {steps} "
+          f"steps of {nl} layers")
+    check(launches["wkv6_scan"] == nl * steps, f"K4 in ternary: {launches}")
+    check(bool(((toks >= 0) & (toks < vocab)).all()), "ternary tokens")
+    emit("lm_ternary", stats=stats, quantize_s=quant_s, launches=launches,
+         decode_steps=steps, tokens=toks.tolist(),
+         tokens_per_s_host=gstats.tokens_per_s,
+         step_ms_host=gstats.decode_s * 1e3 / 8)
+    return q, launches
+
+
+def _k4_cost(b, t, h, hd, state):
+    """Bytes (bf16 r/k/v/u and o, f32 logw, f32 state0/state out) and f32
+    operations of one K4 call. Per (b, h, t) the recurrence needs
+    5 hd^2 + 6 hd of them: r.S (2 hd^2), the state update w*S + k v^T
+    (3 hd^2), and, since the bonus term diag(u) k v^T is rank one, the
+    dot (r*u).k and its v-scaled add (5 hd) and exp(logw) (hd)."""
+    n = b * t * h * hd
+    nbytes = 2 * 3 * n + 4 * n + 2 * h * hd + 2 * n + 4 * b * h * hd * hd * (
+        2 if state else 1)
+    return nbytes, b * h * t * (5 * hd * hd + 6 * hd)
+
+
+def lm_times(torch, dev, k3, k4, model, params, qparams):
+    """K4 at the prefill (T=2048), T=256 and decode (T=1) calls and K3 at
+    the LM's decode products, from a cold L2; decode and prefill tokens/s
+    of the full model; a profile of decode steps."""
+    from repro_torch.core.ternary import unpack2bit
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    g = torch.Generator().manual_seed(SEED + 13)
+    flush = torch.ones(FLUSH_BYTES // 4, device=dev)
+    bf16 = torch.bfloat16
+    k4_rows = {}
+    for name, t, state in (("prefill_T2048", LM_PREFILL_S, False),
+                           ("T256", 256, False), ("decode_T1", 1, True)):
+        r, k, v, lw, u, s0 = _wkv_inputs(torch, g, dev, LM_BATCH, t, 64, 64,
+                                         bf16, state)
+        run = lambda: k4.wkv6_scan_cuda(r, k, v, lw, u, s0)
+        bound, by = _bound_ms(*_k4_cost(LM_BATCH, t, 64, 64, state))
+        row = dict(ms=_device_ms(torch, run, flush),
+                   warm_l2_ms=_warm_ms(torch, run),
+                   call_ms=_call_ms(torch, run), bound_ms=bound,
+                   bound_by=by, library_ms=None)
+        if t <= 256:
+            row["plain_ms"] = _device_ms(
+                torch, lambda: k4.wkv6_scan_plain(r, k, v, lw, u, s0),
+                flush, reps=3)
+        k4_rows[name] = row
+        del r, k, v, lw, u, s0
+
+    k3_rows, k3_err = {}, 0.0
+    for k, n in ((4096, 4096), (4096, 14336), (14336, 4096)):
+        wp, scale = ops.pack_ternary_weights(torch.randn(k, n, generator=g))
+        wp, scale = wp.to(dev), scale.to(dev)
+        wq = unpack2bit(wp.t(), out_dtype=bf16).t().contiguous()
+        x = torch.randn(LM_BATCH, k, generator=g).to(bf16).to(dev)
+        run = lambda: k3.ternary_matmul_cuda(x, wp, scale)
+        want, got = k3.ternary_matmul_plain(x, wp, scale), run()
+        check(bool(torch.equal(want, got)), f"K3 at M={LM_BATCH}, K={k}, "
+              f"N={n} differs from its plain version")
+        k3_err = max(k3_err, _max_err([want], [got]))
+        # bf16 x times ternary weights (exact in bf16) is a bf16
+        # tensor-core product.
+        bound, by = _bound_ms(2 * LM_BATCH * k + k // 4 * n + 4 * n
+                              + 2 * LM_BATCH * n, 2 * LM_BATCH * k * n,
+                              peak=H100_BF16_FLOPS)
+        k3_rows[f"K{k}_N{n}"] = dict(
+            ms=_device_ms(torch, run, flush), call_ms=_call_ms(torch, run),
+            plain_ms=_device_ms(torch, lambda: k3.ternary_matmul_plain(
+                x, wp, scale), flush, reps=3),
+            library_ms=_device_ms(torch, lambda: torch.matmul(x, wq), flush),
+            bound_ms=bound, bound_by=by)
+    del flush
+    emit("lm_kernel_times", batch=LM_BATCH, heads=64, head_dim=64,
+         k4_dtypes="bf16 r/k/v/u/o, f32 logw, f32 state",
+         unit="ms of device time per call from a cold L2 (CUDA graph of "
+              "one call, CUDA events, median); warm_l2_ms: inputs left in "
+              "L2 by the call before; call_ms: one call timed from the host",
+         k4=k4_rows, k4_library="none (no single call)",
+         k3_decode_M4_bf16=k3_rows, k3_vs_plain="bitwise",
+         k3_max_abs_err=k3_err,
+         k3_library_note="torch.matmul of bf16 x with the unpacked bf16 "
+                         "weights (no scale): the yardstick only")
+
+    serve_step = make_serve_step(model.cfg)
+    vocab = model.cfg.vocab_size
+
+    def decode_rate(p, samples, steps):
+        cache = model.init_cache(LM_BATCH, 64, device=dev)
+        tok = torch.ones((LM_BATCH, 1), dtype=torch.long, device=dev)
+        for _ in range(3):
+            tok, cache = serve_step(p, cache, tok)
+        rates, step_ms = [], []
+        for _ in range(samples):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                tok, cache = serve_step(p, cache, tok)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rates.append(LM_BATCH * steps / dt)
+            step_ms.append(dt * 1e3 / steps)
+        check(bool(((tok >= 0) & (tok < vocab)).all()), "decode tokens")
+        return dict(tokens_per_s_median=statistics.median(rates),
+                    tokens_per_s_min=min(rates),
+                    tokens_per_s_max=max(rates),
+                    step_ms_median=statistics.median(step_ms),
+                    samples=samples, steps_per_sample=steps), (p, cache, tok)
+
+    fp, state = decode_rate(params, DECODE_SAMPLES, DECODE_STEPS)
+    tern, _ = decode_rate(qparams, 3, 4)
+
+    prefill = make_prefill_step(model.cfg)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(
+        SEED + 15).integers(0, vocab, (LM_BATCH, LM_PREFILL_S))).to(dev)}
+    prefill(params, batch)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    pre_s = statistics.median(times)
+    torch.cuda.reset_peak_memory_stats()
+    prefill(params, batch)
+    peak = torch.cuda.max_memory_allocated()
+
+    p, cache, tok = state
+    box = [cache, tok]
+
+    def steps4():
+        for _ in range(4):
+            box[1], box[0] = serve_step(p, box[0], box[1])
+    _, *trace = _trace(torch, steps4)
+    emit("lm_end_to_end", batch=LM_BATCH,
+         metric="host clock ending in torch.cuda.synchronize",
+         decode_bf16=fp, decode_ternary=tern,
+         prefill=dict(seq=LM_PREFILL_S, s_median=pre_s, s_all=times,
+                      tokens_per_s=LM_BATCH * LM_PREFILL_S / pre_s,
+                      peak_memory_gb=peak / 1e9),
+         decode_profile=_trace_fields(*trace, 4, fp["step_ms_median"]))
+    return k4_rows, k3_err
+
+
+def lm_slice(torch, dev, k3, k4):
+    """Phase 6 end to end; returns the launches, errors and times the
+    ``kernels`` line needs."""
+    from repro_torch.configs.rwkv6_7b import CONFIG
+    from repro_torch.models import build_model
+    err = k4_checks(torch, dev, k4)
+    lm_depth_cut(torch, dev, k3)
+    torch.cuda.empty_cache()
+
+    model = build_model(CONFIG)
+    t0 = time.perf_counter()
+    params = _lm_params(torch, model, SEED + 16, dev)
+    torch.cuda.synchronize()
+    emit("lm_params", config="rwkv6-7b CONFIG", params=model.num_params(),
+         analytic=CONFIG.param_count(), init_s=time.perf_counter() - t0,
+         memory_gb=torch.cuda.memory_allocated() / 1e9)
+    k4_launches = lm_serve(torch, dev, k4, model, params)
+    qparams, tern = lm_ternary(torch, dev, k3, k4, model, params)
+    k4_rows, k3_err = lm_times(torch, dev, k3, k4, model, params, qparams)
+    del params, qparams
+    torch.cuda.empty_cache()
+    dec = k4_rows["decode_T1"]
+    return {"launches": {"wkv6_scan": k4_launches,
+                         "ternary_matmul": tern["ternary_matmul"]},
+            "max_abs_err": {"wkv6_scan": err, "ternary_matmul": k3_err},
+            "times": {"wkv6_scan": {key: dec[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}}
 
 
 if __name__ == "__main__":

@@ -4,6 +4,8 @@ The JAX package's ``init_snn``/``init_tcn`` make conv kernels in HWIO
 layout and fc weights as (K, N) with fc1's rows in NHWC flatten order. The
 port runs its convs with OIHW kernels and flattens NHWC too
 (``core/snn.py``, ``core/tcn.py``), so only the conv tensors change layout.
+The LM parameter trees (``repro.models``) keep their layouts in the port
+(projection weights (K, N) in both), so they carry across bit for bit.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["snn_params_from_numpy", "tcn_params_from_numpy"]
+__all__ = ["snn_params_from_numpy", "tcn_params_from_numpy",
+           "lm_params_from_numpy"]
 
 
 def snn_params_from_numpy(tree: Mapping[str, Mapping[str, Any]]
@@ -78,3 +81,27 @@ def tcn_params_from_numpy(tree: Mapping[str, Mapping[str, Any]]
         out["fc1"] = {"w": _tensor(tree["fc1"]["w"], np.float32)}
     out["fc2"] = {"w": _tensor(tree["fc2"]["w"], np.float32)}
     return out
+
+
+def _lm_leaf(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy refuses: carry the
+        # bits across through a uint16 view.
+        bits = np.ascontiguousarray(a).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True, order="C"))
+
+
+def lm_params_from_numpy(tree: Any) -> Any:
+    """An LM parameter tree of numpy arrays (e.g. JAX ``Model.init``
+    output through ``np.asarray``) -> the same nesting of CPU tensors,
+    bit for bit, layouts unchanged.
+
+    bfloat16 arrays (``ml_dtypes.bfloat16``, what ``np.asarray`` gives for
+    a JAX bf16 array) become ``torch.bfloat16``; ternary-packed
+    ``{"packed", "scale"}`` leaves come across as they are.
+    """
+    if isinstance(tree, Mapping):
+        return {k: lm_params_from_numpy(v) for k, v in tree.items()}
+    return _lm_leaf(tree)

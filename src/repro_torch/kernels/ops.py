@@ -5,14 +5,17 @@
 ``fc_lif_scan``          -- fused ``spikes @ w`` + LIF scan for the fc layers.
 ``ternary_matmul``       -- packed-ternary matmul (forward only, K3).
 ``pack_ternary_weights`` -- (K, N) float weights -> K3's packed layout.
+``wkv6_scan``            -- the RWKV-6 WKV recurrence (forward only, K4).
 
 The forward of each is the CUDA kernel on a CUDA tensor and the kernel's
 plain version on a CPU tensor (see ``lif_scan_fwd``/``fc_lif_scan_fwd``/
-``ternary_matmul_fwd``). The backward of the two scans recomputes the
-plain reference under autograd, as the JAX package's custom VJPs do -- a
-remat policy, not an approximation: the forward values are the kernel's.
+``ternary_matmul_fwd``/``wkv6_scan_fwd``). The backward of the two LIF
+scans recomputes the plain reference under autograd, as the JAX package's
+custom VJPs do -- a remat policy, not an approximation: the forward values
+are the kernel's.
 No backward kernel exists to port; ``ternary_matmul`` is a serving op with
-no gradient, as in the JAX package.
+no gradient, as in the JAX package, and ``wkv6_scan`` gets its backward
+with training.
 """
 from __future__ import annotations
 
@@ -25,9 +28,11 @@ from repro_torch.core.ternary import pack2bit, ternarize
 from repro_torch.kernels.fc_lif_scan import fc_lif_scan_fwd
 from repro_torch.kernels.lif_scan import lif_scan_fwd
 from repro_torch.kernels.ternary_matmul import ternary_matmul_fwd
+from repro_torch.kernels.wkv6_scan import wkv6_scan_fwd
 
 __all__ = ["lif_scan", "lif_scan_batched", "fc_lif_scan",
-           "fc_lif_scan_batched", "pack_ternary_weights", "ternary_matmul"]
+           "fc_lif_scan_batched", "pack_ternary_weights", "ternary_matmul",
+           "wkv6_scan"]
 
 
 def _recompute_grads(fn, inputs, grads_out):
@@ -161,3 +166,17 @@ def ternary_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     accumulation in ascending k, then the per-channel scale (K3)."""
     return ternary_matmul_fwd(x.contiguous(), w_packed.contiguous(),
                               scale.reshape(-1).contiguous())
+
+
+def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              logw: torch.Tensor, u: torch.Tensor,
+              state0: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 WKV over (B, T, H, hd) ``r, k, v, logw`` and (H, hd) ``u``
+    from ``state0`` (B, H, hd, hd) f32, or zeros (K4).
+
+    Returns ``(o (B, T, H, hd) in r's dtype, state (B, H, hd, hd) f32)``.
+    """
+    return wkv6_scan_fwd(r.contiguous(), k.contiguous(), v.contiguous(),
+                         logw.contiguous(), u.contiguous(),
+                         None if state0 is None else state0.contiguous())

@@ -1,7 +1,7 @@
 """Plain-PyTorch oracles for the kernels (port of ``repro.kernels.ref``).
 
-``lif_scan_ref`` (K1's oracle) and ``ternary_matmul_ref`` (K3's);
-``wkv6_ref`` arrives with K4.
+``lif_scan_ref`` (K1's oracle), ``ternary_matmul_ref`` (K3's) and
+``wkv6_ref`` (K4's, one head).
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import torch
 from repro_torch.core.lif import LIFParams
 from repro_torch.core.ternary import unpack2bit
 
-__all__ = ["lif_scan_ref", "ternary_matmul_ref"]
+__all__ = ["lif_scan_ref", "ternary_matmul_ref", "wkv6_ref"]
 
 
 def lif_scan_ref(
@@ -58,3 +58,36 @@ def ternary_matmul_ref(
     w_q = unpack2bit(w_packed.t()).t()          # (K, N) int8 in {-1, 0, 1}
     acc = torch.matmul(x.float(), w_q.float())
     return (acc * scale.reshape(1, -1).float()).to(x.dtype)
+
+
+def wkv6_ref(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 (Finch) WKV recurrence oracle, one head.
+
+        S_t = diag(w_t) S_{t-1} + k_t v_t^T
+        o_t = r_t (S_{t-1} + diag(u) k_t v_t^T)        (bonus-u form)
+
+    ``r, k, w`` (T, Dk); ``v`` (T, Dv); ``u`` (Dk,); ``w`` is the per-step
+    decay in (0, 1), already exponentiated. ``state0`` optional (Dk, Dv).
+    Returns ``(o (T, Dv) in r's dtype, state_final f32)``; the products
+    are library matmuls, so their order is the library's.
+    """
+    dk, dv = k.shape[1], v.shape[1]
+    f32 = torch.float32
+    s = (torch.zeros((dk, dv), dtype=f32, device=r.device)
+         if state0 is None else state0.float())
+    uf = u.float()
+    outs = []
+    for r_t, k_t, v_t, w_t in zip(r, k, v, w):
+        kv = torch.outer(k_t, v_t).float()
+        outs.append(r_t.float() @ (s + uf[:, None] * kv))
+        s = w_t.float()[:, None] * s + kv
+    o = (torch.stack(outs) if outs
+         else torch.zeros((0, dv), dtype=f32, device=r.device))
+    return o.to(r.dtype), s

@@ -1,0 +1,9 @@
+"""Model substrate of the port: the RWKV-6 family on tensors (port of
+``repro.models``)."""
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import Model, build_model
+from repro_torch.models.params import (ParamDef, abstract, materialize,
+                                       tree_num_params)
+
+__all__ = ["ModelConfig", "Model", "build_model", "ParamDef", "abstract",
+           "materialize", "tree_num_params"]

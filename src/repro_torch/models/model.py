@@ -1,0 +1,65 @@
+"""Unified model API (port of ``repro.models.model``) for the families the
+port has: ``rwkv6`` so far.
+
+``build_model(cfg)`` returns a :class:`Model` bundle exposing:
+
+  defs()                               -> ParamDef tree
+  init(generator, dtype, device)       -> parameter tree on the device
+  apply(params, batch)                 -> (logits, aux) full-sequence forward
+  init_cache(batch, cache_len, dtype, device) -> decode cache (zeros)
+  decode(params, cache, tok)           -> (logits, new cache) one serve step
+
+Entry points run on the card unless given ``device="cpu"``. ``lm_loss``
+and ``Model.loss`` come with training (ROADMAP queue 1, item 12).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Tuple
+
+import torch
+
+from repro_torch.models import params as P
+from repro_torch.models import rwkv6 as RW
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["Model", "build_model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    defs: Callable[[], Any]
+    apply: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+    init_cache: Callable[..., Any]
+    decode: Callable[..., Tuple[torch.Tensor, Any]]
+
+    def init(self, generator: torch.Generator | None = None, dtype=None,
+             device=None) -> Any:
+        """Parameters drawn on ``device`` (the card by default) from
+        ``generator`` (seeded with 0 when None), in ``dtype`` (the
+        config's by default)."""
+        dt = P.as_dtype(dtype or self.cfg.dtype)
+        return P.materialize(self.defs(), generator, dt, device)
+
+    def abstract_params(self, dtype=None) -> Any:
+        return P.abstract(self.defs(), P.as_dtype(dtype or self.cfg.dtype))
+
+    def num_params(self) -> int:
+        return P.tree_num_params(self.defs())
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    fam = cfg.family
+    if fam == "rwkv6":
+        def apply_fn(params, batch, *, remat=False):
+            return RW.rwkv6_apply(params, batch["tokens"], cfg, remat=remat)
+        return Model(cfg, lambda: RW.rwkv6_defs(cfg), apply_fn,
+                     lambda b, s, dtype=None, device=None: RW.init_rwkv_cache(
+                         cfg, b, s, dtype, device),
+                     lambda p, c, t: RW.rwkv6_decode(p, c, t, cfg))
+    if fam in ("dense", "moe", "vlm", "zamba2", "encdec"):
+        raise NotImplementedError(
+            f"the port has no {fam!r} family yet (ROADMAP queue 1, item 13: "
+            f"the transformer, MoE, VLM, zamba2 and enc-dec families)")
+    raise ValueError(f"unknown family: {fam}")

@@ -1,0 +1,315 @@
+"""RWKV-6 "Finch" (arXiv:2404.05892): attention-free LM with token-shift
+and data-dependent per-channel decay (port of ``repro.models.rwkv6``).
+
+Every WKV recurrence of the served path -- the full-sequence forward
+(``rwkv6_apply``, from a zero state) and each decode step (``T=1`` from
+the cache's state) -- runs through ``kernels.ops.wkv6_scan``, kernel K4
+on the card. ``wkv6_chunked`` (the JAX package's chunked-parallel form)
+and ``_wkv6_step`` (its stepwise decode) stay as plain functions: oracles
+for the tests, on no path.
+
+Parameters are a nested dict of tensors with the layers stacked on a
+leading axis, in the JAX package's layouts (projection weights (K, N)),
+and the layers run as a Python loop over that axis. The JAX package's
+sharding annotations (``constrain``, ``unshard_fsdp``) have no
+counterpart: there is no mesh.
+
+Numerics note (as in the JAX package): the per-step log-decay is clamped
+to >= -4, so the chunked form's exp(-cumsum) stays in f32 range at chunk
+16; the clamp binds only in the far tail of official RWKV-6 decays.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import ParamDef, as_dtype, tree_map
+
+__all__ = ["rwkv6_defs", "rwkv6_apply", "rwkv6_decode", "init_rwkv_cache",
+           "wkv6_chunked"]
+
+_LOGW_MIN = -4.0
+_WKV_CHUNK = 16
+
+
+def rwkv6_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, v, nl, r = cfg.d_model, cfg.vocab_size, cfg.num_layers, \
+        cfg.rwkv_lora_rank
+    h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+
+    def pd(shape, axes, **kw):
+        return ParamDef((nl,) + shape, ("layers",) + axes, **kw)
+
+    layer = {
+        "ln1_s": pd((d,), ("norm",), init="ones"),
+        "ln1_b": pd((d,), ("norm",), init="zeros"),
+        "ln2_s": pd((d,), ("norm",), init="ones"),
+        "ln2_b": pd((d,), ("norm",), init="zeros"),
+        "tm": {
+            # ddlerp: 5 interpolation targets (r, k, v, w, g).
+            "mu": pd((5, d), (None, "norm"), init="zeros"),
+            "lora_a": pd((d, 5, r), ("embed", None, "lora"),
+                         fan_in_axes=(2,)),
+            "lora_b": pd((5, r, d), (None, "lora", "embed"),
+                         fan_in_axes=(2,), scale=0.1),
+            # data-dependent decay lora + base.
+            "w0": pd((d,), ("norm",), init="constant", constant=-0.6),
+            "wa": pd((d, r), ("embed", "lora"), fan_in_axes=(1,)),
+            "wb": pd((r, d), ("lora", "embed"), fan_in_axes=(1,),
+                     scale=0.1),
+            "u": pd((h, hd), ("heads", "head_dim"), init="zeros"),
+            "wr": pd((d, d), ("embed", "heads_x"), fan_in_axes=(1,)),
+            "wk": pd((d, d), ("embed", "heads_x"), fan_in_axes=(1,)),
+            "wv": pd((d, d), ("embed", "heads_x"), fan_in_axes=(1,)),
+            "wg": pd((d, d), ("embed", "heads_x"), fan_in_axes=(1,)),
+            "wo": pd((d, d), ("heads_x", "embed"), fan_in_axes=(1,)),
+            "gn_s": pd((d,), ("norm",), init="ones"),
+            "gn_b": pd((d,), ("norm",), init="zeros"),
+        },
+        "cm": {
+            "mu_k": pd((d,), ("norm",), init="zeros"),
+            "mu_r": pd((d,), ("norm",), init="zeros"),
+            "wk": pd((d, cfg.d_ff), ("embed", "mlp"), fan_in_axes=(1,)),
+            "wv": pd((cfg.d_ff, d), ("mlp", "embed"), fan_in_axes=(1,)),
+            "wr": pd((d, d), ("embed", "heads_x"), fan_in_axes=(1,)),
+        },
+    }
+    return {
+        "embed": ParamDef((v, d), ("vocab", "embed"), fan_in_axes=(1,)),
+        "ln0_s": ParamDef((d,), ("norm",), init="ones"),
+        "ln0_b": ParamDef((d,), ("norm",), init="zeros"),
+        "layers": layer,
+        "ln_f_s": ParamDef((d,), ("norm",), init="ones"),
+        "ln_f_b": ParamDef((d,), ("norm",), init="zeros"),
+        "lm_head": ParamDef((d, v), ("embed", "vocab"), fan_in_axes=(0,)),
+    }
+
+
+# ----------------------------------------------------------------------
+# WKV recurrence -- plain oracles (the served path runs K4)
+# ----------------------------------------------------------------------
+
+
+def wkv6_chunked(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+    u: torch.Tensor, state0: Optional[torch.Tensor] = None,
+    chunk: int = _WKV_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked WKV-6. r/k/v/logw: (B, S, H, hd); u: (H, hd).
+
+    Returns (o (B,S,H,hd), state (B,H,hd,hd)). f32 internally.
+    o_t = r_t (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(w_t) S_{t-1}
+          + k_t v_t^T, with w = exp(logw).
+    """
+    b, s, h, hd = r.shape
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"seq {s} not divisible by chunk {c}")
+    nc = s // c
+    rc, kc, vc, wc = (x.reshape(b, nc, c, h, hd).float()
+                      for x in (r, k, v, logw))
+    state = (torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                         device=r.device) if state0 is None
+             else state0.float())
+    uf = u.float()
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                      diagonal=-1)
+    outs = []
+    for n in range(nc):
+        r_, k_, v_, lw = rc[:, n], kc[:, n], vc[:, n], wc[:, n]
+        cum = torch.cumsum(lw, dim=1)            # inclusive
+        cum_prev = cum - lw                      # cum_{t-1}
+        r_dec = r_ * torch.exp(cum_prev)
+        k_dec = k_ * torch.exp(-cum)
+        att = torch.einsum("bthi,bshi->bhts", r_dec, k_dec)
+        att = torch.where(mask, att, 0.0)
+        intra = torch.einsum("bhts,bshj->bthj", att, v_)
+        bonus = torch.einsum("bthi,hi,bthi->bth", r_, uf, k_)
+        intra = intra + bonus[..., None] * v_
+        cross = torch.einsum("bthi,bhij->bthj", r_dec, state)
+        outs.append(cross + intra)
+        cum_end = cum[:, -1:]                    # (b, 1, h, hd)
+        k_tail = k_ * torch.exp(cum_end - cum)
+        state = (torch.exp(cum_end[:, 0])[..., None] * state
+                 + torch.einsum("bshi,bshj->bhij", k_tail, v_))
+    o = torch.stack(outs, dim=1).reshape(b, s, h, hd)
+    return o.to(r.dtype), state
+
+
+def _wkv6_step(r, k, v, logw, u, state):
+    """Single-token WKV step. r/k/v/logw (B,H,hd); state (B,H,hd,hd)."""
+    r_, k_, v_, w_ = (x.float() for x in (r, k, v, torch.exp(logw)))
+    kv = torch.einsum("bhi,bhj->bhij", k_, v_)
+    o = torch.einsum("bhi,bhij->bhj", r_,
+                     state + u.float()[None, :, :, None] * kv)
+    state = w_[..., None] * state + kv
+    return o.to(r.dtype), state
+
+
+# ----------------------------------------------------------------------
+# Blocks
+# ----------------------------------------------------------------------
+
+
+def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor] = None):
+    """Previous-token tensor; ``last`` (B, D) seeds position 0 (decode)."""
+    first = torch.zeros_like(x[:, :1]) if last is None else last[:, None]
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _ddlerp(tm, x, sx):
+    """Data-dependent interpolation producing (r,k,v,w,g) inputs."""
+    xx = sx - x
+    base = x + xx * tm["mu"][:, None, None]            # (5, B, S, D)
+    lora = torch.tanh(torch.einsum("bsd,dkr->bskr", x + xx * 0.5,
+                                   tm["lora_a"]))
+    adj = torch.einsum("bskr,krd->kbsd", lora, tm["lora_b"])
+    return base + xx[None] * adj                        # (5, B, S, D)
+
+
+def _time_mix(tm, x, cfg: ModelConfig, *, sx=None, state0=None):
+    """The time mix of one layer. The WKV runs through K4 in both modes:
+    the whole sequence from a zero state (``state0`` None), or a decode
+    step from the cache's ``state0`` and token-shift ``sx``. Returns
+    (output, final WKV state)."""
+    b, s, d = x.shape
+    h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    sx = _token_shift(x, sx)
+    xr, xk, xv, xw, xg = _ddlerp(tm, x, sx)
+    r = L.dense(xr, tm["wr"]).reshape(b, s, h, hd)
+    k = L.dense(xk, tm["wk"]).reshape(b, s, h, hd)
+    v = L.dense(xv, tm["wv"]).reshape(b, s, h, hd)
+    g = L.dense(xg, tm["wg"])
+    dec = torch.tanh(xw @ tm["wa"]) @ tm["wb"]
+    logw = -torch.exp((tm["w0"] + dec).float())
+    logw = torch.clamp(logw, min=_LOGW_MIN).reshape(b, s, h, hd)
+    o, state = ops.wkv6_scan(r, k, v, logw, tm["u"], state0)
+    # Per-head group norm (population variance, as jnp.var), then the
+    # SiLU(g) gate (RWKV-6 output block).
+    mu = o.mean(dim=-1, keepdim=True)
+    var = torch.var(o, dim=-1, keepdim=True, correction=0)
+    o = ((o - mu) * torch.rsqrt(var + 64e-5)).reshape(b, s, d)
+    o = o * tm["gn_s"] + tm["gn_b"]
+    o = o * F.silu(g)
+    return L.dense(o, tm["wo"], role="down"), state
+
+
+def _channel_mix(cm, x, *, sx=None):
+    sx = _token_shift(x, sx)
+    xx = sx - x
+    xk = x + xx * cm["mu_k"]
+    xr = x + xx * cm["mu_r"]
+    kk = torch.square(torch.relu(L.dense(xk, cm["wk"])))
+    kv = L.dense(kk, cm["wv"], role="down")
+    return torch.sigmoid(L.dense(xr, cm["wr"])) * kv
+
+
+def _layer(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
+    return tree_map(lambda x: x[i], layers)
+
+
+def _embed(params, tokens, cfg: ModelConfig):
+    h = params["embed"][tokens.long()].to(as_dtype(cfg.dtype))
+    return L.layer_norm(h, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
+
+
+def _unembed(params, h, cfg: ModelConfig):
+    """Final norm and f32 logits. The JAX package multiplies its operands
+    with an f32 result (``preferred_element_type``); a bf16 matmul would
+    round the logits to bf16 and move greedy argmaxes. On the card, bf16
+    operands go to one product with an f32 output (f32 accumulation, no
+    f32 copy of lm_head); elsewhere both operands are cast to f32 first.
+    A product of two bf16 values is exact in f32, so both are the same
+    sum up to its order."""
+    h = L.layer_norm(h, params["ln_f_s"], params["ln_f_b"], cfg.norm_eps)
+    w = params["lm_head"]
+    if h.is_cuda and h.dtype == w.dtype == torch.bfloat16:
+        flat = torch.mm(h.reshape(-1, h.shape[-1]), w,
+                        out_dtype=torch.float32)
+        return flat.reshape(*h.shape[:-1], w.shape[-1])
+    return torch.matmul(h.float(), w.float())
+
+
+def rwkv6_apply(params: Dict[str, Any], tokens: torch.Tensor,
+                cfg: ModelConfig, *, scan_layers: bool = True,
+                remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward over (B, S) tokens. Returns (logits f32,
+    aux=0).
+
+    S must be a multiple of min(16, S), as the JAX package's chunked form
+    requires, so both packages accept the same inputs. ``scan_layers`` is
+    accepted and ignored (the layers always run as a loop); ``remat``
+    belongs to training and raises.
+    """
+    del scan_layers
+    if remat:
+        raise NotImplementedError(
+            "remat is a training option; training is not ported yet "
+            "(ROADMAP queue 1, item 12)")
+    s = tokens.shape[1]
+    c = min(_WKV_CHUNK, s)
+    if c and s % c:
+        raise ValueError(f"seq {s} not divisible by chunk {c}")
+    h = _embed(params, tokens, cfg)
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        x = L.layer_norm(h, lp["ln1_s"], lp["ln1_b"], cfg.norm_eps)
+        tm_out, _ = _time_mix(lp["tm"], x, cfg)
+        h = h + tm_out
+        x = L.layer_norm(h, lp["ln2_s"], lp["ln2_b"], cfg.norm_eps)
+        h = h + _channel_mix(lp["cm"], x)
+    logits = _unembed(params, h, cfg)
+    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def init_rwkv_cache(cfg: ModelConfig, batch: int, cache_len: int = 0,
+                    dtype=None, device=None) -> Dict[str, torch.Tensor]:
+    """O(1) recurrent cache: WKV state + token-shift states per layer, on
+    ``device`` (the card by default).
+
+    ``cache_len`` is ignored (constant-size state).
+    """
+    del cache_len
+    dev = resolve_device(device)
+    nl, d = cfg.num_layers, cfg.d_model
+    h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    dt = as_dtype(dtype or cfg.dtype)
+    return {
+        "state": torch.zeros((nl, batch, h, hd, hd), dtype=torch.float32,
+                             device=dev),
+        "tm_x": torch.zeros((nl, batch, d), dtype=dt, device=dev),
+        "cm_x": torch.zeros((nl, batch, d), dtype=dt, device=dev),
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def rwkv6_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
+                 tokens: torch.Tensor, cfg: ModelConfig,
+                 *, scan_layers: bool = True
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step. tokens (B, 1). Returns (logits f32, new cache);
+    the cache passed in is not modified."""
+    del scan_layers
+    h = _embed(params, tokens, cfg)
+    states, tm_xs, cm_xs = [], [], []
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        x = L.layer_norm(h, lp["ln1_s"], lp["ln1_b"], cfg.norm_eps)
+        tm_out, state = _time_mix(lp["tm"], x, cfg, sx=cache["tm_x"][i],
+                                  state0=cache["state"][i])
+        h = h + tm_out
+        x2 = L.layer_norm(h, lp["ln2_s"], lp["ln2_b"], cfg.norm_eps)
+        h = h + _channel_mix(lp["cm"], x2, sx=cache["cm_x"][i])
+        states.append(state)
+        tm_xs.append(x[:, 0])
+        cm_xs.append(x2[:, 0])
+    logits = _unembed(params, h, cfg)
+    return logits, {"state": torch.stack(states),
+                    "tm_x": torch.stack(tm_xs), "cm_x": torch.stack(cm_xs),
+                    "pos": cache["pos"] + 1}

@@ -25,6 +25,8 @@ from repro_torch.kernels import fc_lif_scan as k2  # noqa: E402
 from repro_torch.kernels import lif_scan as k1  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ternary_matmul as k3  # noqa: E402
+from repro_torch.kernels import wkv6_scan as k4  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.serving import FusionSession, StreamEngine  # noqa: E402
 
 P = LIFParams()
@@ -165,3 +167,82 @@ def test_default_stream_engine_launches_both_kernels(card):
     assert len(out) == 6 and steps >= 1
     assert (k1.launches - before[0], k2.launches - before[1]) == \
         (2 * steps, 2 * steps)
+
+
+def _wkv(card, b, t, h, hd, dtype, lw_dtype=torch.float32, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(b, t, h, hd, generator=g) for _ in range(3))
+    logw = torch.clamp(-torch.exp(torch.randn(b, t, h, hd, generator=g)
+                                  * 0.5), min=-4.0)
+    u = torch.randn(h, hd, generator=g) * 0.5
+    return [x.to(dtype).to(card) for x in (r, k, v)] + [
+        logw.to(lw_dtype).to(card), u.to(dtype).to(card)]
+
+
+@pytest.mark.parametrize("b,t,h,hd,dtype,lw_dtype", [
+    (4, 32, 64, 64, torch.bfloat16, torch.float32),
+    (4, 32, 64, 64, torch.float32, torch.float32),
+    (2, 24, 4, 64, torch.bfloat16, torch.bfloat16),
+    (2, 16, 4, 16, torch.float32, torch.float32),
+    (2, 16, 4, 32, torch.float32, torch.float32)])
+def test_k4_matches_plain_chains_and_rows_are_batch_invariant(
+        card, b, t, h, hd, dtype, lw_dtype):
+    """K4 against its plain version, bit for bit: from zeros, as one-token
+    decode calls from a nonzero state, chained in two halves, and with one
+    row alone."""
+    r, k, v, logw, u = _wkv(card, b, t, h, hd, dtype, lw_dtype)
+    want = k4.wkv6_scan_plain(r, k, v, logw, u)
+    got = k4.wkv6_scan_cuda(r, k, v, logw, u)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    assert _same(want, got)
+    s0 = torch.randn(b, h, hd, hd, generator=torch.Generator().manual_seed(
+        6)).to(card)
+    one = [x[:, :1].contiguous() for x in (r, k, v, logw)]
+    assert _same(k4.wkv6_scan_plain(*one, u, s0),
+                 k4.wkv6_scan_cuda(*one, u, s0))
+    half = t // 2
+    a = k4.wkv6_scan_cuda(*[x[:, :half].contiguous()
+                            for x in (r, k, v, logw)], u)
+    z = k4.wkv6_scan_cuda(*[x[:, half:].contiguous()
+                            for x in (r, k, v, logw)], u, a[1])
+    assert torch.equal(torch.cat([a[0], z[0]], dim=1), got[0])
+    assert torch.equal(z[1], got[1])
+    row = k4.wkv6_scan_cuda(*[x[b - 1:].contiguous()
+                              for x in (r, k, v, logw)], u)
+    assert torch.equal(row[0][0], got[0][b - 1])
+    assert torch.equal(row[1][0], got[1][b - 1])
+
+
+def test_dense_sends_packed_weights_through_k3(card):
+    g = torch.Generator().manual_seed(7)
+    wp, scale = ops.pack_ternary_weights(torch.randn(512, 256, generator=g))
+    w = {"packed": wp.to(card), "scale": scale.to(card)}
+    x = torch.randn(2, 3, 512, generator=g).to(card)
+    before = k3.launches
+    got = layers.dense(x, w)
+    assert k3.launches == before + 1 and got.shape == (2, 3, 256)
+    want = k3.ternary_matmul_plain(x.reshape(6, 512), w["packed"],
+                                   w["scale"]).reshape(2, 3, 256)
+    assert torch.equal(got, want)
+
+
+def test_unembed_gives_f32_logits_of_bf16_operands_on_the_card(card):
+    """The bf16 lm_head product on the card has an f32 output and no f32
+    copy of lm_head; it is the f32 product of the casts up to the order
+    of its f32 sum (the logits are O(1): 1e-4 is ~100 f32 ulps of them,
+    and a bf16 rounding of the output would miss it by ~1e-2)."""
+    from repro_torch.configs.rwkv6_7b import SMOKE
+    from repro_torch.models import rwkv6
+    g = torch.Generator().manual_seed(8)
+    d, v = SMOKE.d_model, SMOKE.vocab_size
+    params = {"ln_f_s": torch.ones(d, dtype=torch.bfloat16, device=card),
+              "ln_f_b": torch.zeros(d, dtype=torch.bfloat16, device=card),
+              "lm_head": (torch.randn(d, v, generator=g) / d ** 0.5).to(
+                  torch.bfloat16).to(card)}
+    h = torch.randn(2, 3, d, generator=g).to(torch.bfloat16).to(card)
+    got = rwkv6._unembed(params, h, SMOKE)
+    hn = rwkv6.L.layer_norm(h, params["ln_f_s"], params["ln_f_b"],
+                            SMOKE.norm_eps)
+    want = torch.matmul(hn.float(), params["lm_head"].float())
+    assert got.dtype == torch.float32 and got.shape == (2, 3, v)
+    assert torch.allclose(got, want, rtol=0, atol=1e-4)

@@ -4,8 +4,8 @@
     or any module of the JAX package (checked in a fresh subprocess);
   * entry points default to the card and raise without one unless the
     caller passes ``device="cpu"`` -- nothing moves to the CPU by itself;
-  * the kernel wrappers refuse a wrong dtype, shape or device, and the
-    dispatchers send CPU tensors to the plain versions.
+  * the kernel wrappers refuse a wrong dtype, shape (or K4 head dim) or
+    device, and the dispatchers send CPU tensors to the plain versions.
 """
 import os
 import subprocess
@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import SMOKE, TCN_SMOKE  # noqa: E402
+from repro_torch.configs.rwkv6_7b import SMOKE as LM_SMOKE  # noqa: E402
 from repro_torch.core.engine import FrameTCNEngine  # noqa: E402
 from repro_torch.core.lif import LIFParams  # noqa: E402
 from repro_torch.core.pipeline import (BatchedClosedLoop,  # noqa: E402
@@ -24,7 +25,11 @@ from repro_torch.core.pipeline import (BatchedClosedLoop,  # noqa: E402
 from repro_torch.kernels import fc_lif_scan as k2  # noqa: E402
 from repro_torch.kernels import lif_scan as k1  # noqa: E402
 from repro_torch.kernels import ternary_matmul as k3  # noqa: E402
-from repro_torch.serving import StreamEngine  # noqa: E402
+from repro_torch.kernels import wkv6_scan as k4  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serving import (BatchScheduler, StreamEngine,  # noqa: E402
+                                 generate)
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 P = LIFParams()
@@ -57,7 +62,7 @@ def test_port_imports_neither_jax_nor_repro():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 25
+    assert int(proc.stdout.split()[0]) >= 38
 
 
 def _params():
@@ -90,6 +95,24 @@ def test_entry_points_default_to_the_card():
                           device="cpu").device.type == "cpu"
 
 
+def test_lm_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card path is moot")
+    model = build_model(LM_SMOKE)
+    params = model.init(device="cpu")
+    assert params["embed"].device.type == "cpu"
+    prompts = np.ones((1, 2), np.int64)
+    for make in (lambda: model.init(),
+                 lambda: model.init_cache(1, 4),
+                 lambda: generate(model, params, prompts),
+                 lambda: BatchScheduler(model, params),
+                 lambda: serve_cli.main([])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert BatchScheduler(model, params, device="cpu").device.type == "cpu"
+    assert generate(model, params, prompts, device="cpu")[0].shape == (1, 32)
+
+
 def test_lif_wrapper_refuses_bad_inputs():
     before = k1.launches
     cur = torch.zeros(4, 8)
@@ -120,8 +143,43 @@ def test_fc_wrapper_refuses_bad_inputs():
     assert k2.launches == before
 
 
+def _wkv_inputs(b=2, t=3, h=2, hd=16, dtype=torch.float32):
+    g = torch.Generator().manual_seed(0)
+    r, k, v = (torch.randn(b, t, h, hd, generator=g).to(dtype)
+               for _ in range(3))
+    logw = -torch.rand(b, t, h, hd, generator=g)
+    return r, k, v, logw, (torch.randn(h, hd, generator=g) * 0.1).to(dtype)
+
+
+def test_wkv6_wrapper_refuses_bad_inputs():
+    before = k4.launches
+    r, k, v, logw, u = _wkv_inputs()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        k4.wkv6_scan_cuda(r.double(), k, v, logw, u)
+    with pytest.raises(TypeError, match="logw"):
+        k4.wkv6_scan_cuda(r, k, v, logw.bfloat16(), u)
+    with pytest.raises(TypeError, match="k dtype"):
+        k4.wkv6_scan_cuda(r, k.bfloat16(), v, logw, u)
+    with pytest.raises(TypeError, match="state0"):
+        k4.wkv6_scan_cuda(r, k, v, logw, u, torch.zeros(2, 2, 16, 16).half())
+    with pytest.raises(ValueError, match="v shape"):
+        k4.wkv6_scan_cuda(r, k, v[:, :2], logw, u)
+    with pytest.raises(ValueError, match="u shape"):
+        k4.wkv6_scan_cuda(r, k, v, logw, u[:1])
+    with pytest.raises(ValueError, match="state0 shape"):
+        k4.wkv6_scan_cuda(r, k, v, logw, u, torch.zeros(2, 2, 16, 8))
+    with pytest.raises(ValueError, match="head dim 8"):
+        k4.wkv6_scan_cuda(*_wkv_inputs(hd=8))
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.wkv6_scan_cuda(r.transpose(0, 1).contiguous().transpose(0, 1),
+                          k, v, logw, u)
+    with pytest.raises(ValueError, match="CUDA"):
+        k4.wkv6_scan_cuda(r, k, v, logw, u)          # CPU tensors
+    assert k4.launches == before
+
+
 def test_cpu_tensors_take_the_plain_versions():
-    before = (k1.launches, k2.launches, k3.launches)
+    before = (k1.launches, k2.launches, k3.launches, k4.launches)
     cur = torch.rand(4, 8)
     assert all(torch.equal(a, b) for a, b in zip(
         k1.lif_scan_fwd(cur, P), k1.lif_scan_plain(cur, P)))
@@ -133,4 +191,8 @@ def test_cpu_tensors_take_the_plain_versions():
     scale = torch.rand(8)
     assert torch.equal(k3.ternary_matmul_fwd(x, wp, scale),
                        k3.ternary_matmul_plain(x, wp, scale))
-    assert (k1.launches, k2.launches, k3.launches) == before
+    r, k, v, logw, u = _wkv_inputs(dtype=torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(
+        k4.wkv6_scan_fwd(r, k, v, logw, u),
+        k4.wkv6_scan_plain(r, k, v, logw, u)))
+    assert (k1.launches, k2.launches, k3.launches, k4.launches) == before
