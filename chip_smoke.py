@@ -13,9 +13,14 @@ non-zero:
      nvcc (one nvcc per source, all started together);
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes, bit for bit: K1 at conv1/conv2 in f32 and bf16
-     with v0 above threshold and chaining, K2 at fc1/fc2, K3 at the frame
-     wing's fc1 (M in {1, 8}, K=2048, N=512) on the 1/4 grid, at random
-     f32 and bf16 and at ragged shapes; B=1 rows against the rows of B=8;
+     with v0 above threshold and chaining; K2 at fc1/fc2 and at ragged
+     shapes (B in {1, 3, 8, 13}, T in {5, 16, 17}, K=100, N in {11, 40},
+     plus shapes that take its wide tiles, odd K and several T chunks) in
+     f32 and bf16, with v0 absent and above threshold, chained in two T
+     halves; K2's currents entry at the frame wing's fc2 and ragged
+     shapes; K3 at the frame wing's fc1 (M in {1, 8}, K=2048, N=512) on
+     the 1/4 grid, at random f32 and bf16 and at ragged shapes; B=1 rows
+     against the rows of B=8;
   3. the event slice: a full-width StreamEngine built as a user builds it
      (EngineConfig(fuse_fc=True, pipeline_depth=1), no kernel arguments)
      serves 8 streams (4 stateful) x 3 windows of ~60k events; launch
@@ -24,7 +29,8 @@ non-zero:
   4. the frame and fusion slice: a heterogeneous StreamEngine (one event
      and one frame lane, 8 slots each, pipeline_depth=1) serves
      8 FusionSessions x 3 ticks and 4 stand-alone frame streams; launch
-     counters prove K1, K2 and K3 ran; labels are held against the port's
+     counters prove K1, K2, K3 and K2's currents entry (frame fc2, one
+     launch per frame-lane step) ran; labels are held against the port's
      CPU run, logits and PWM within a stated tolerance; frame-lane rows at
      B=1 against B=8; ternary activations that flip between the card and
      the CPU; cuDNN's B=1-vs-B=8 rows for both TCN convs;
@@ -68,7 +74,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
-H100_FP32_FLOPS = 67e12           # fp32 outside the tensor cores
+# fp32 outside the tensor cores, each multiply and each add one
+# instruction: the kernels are built with -fmad=false, so the data sheet's
+# 67 TFLOP/s (an FMA counted as two operations) is out of their reach.
+H100_FP32_OPS = 33.5e12
 H100_BF16_FLOPS = 989e12          # bf16 on the tensor cores, dense
 REPS = 20
 FLUSH_BYTES = 512 << 20           # read between timed calls: 10x the L2
@@ -140,6 +149,12 @@ def main() -> int:
              replaces="src/repro/kernels/fc_lif_scan.py:131",
              launches=served["launches"]["fc_lif_scan"],
              max_abs_err=err["fc_lif_scan"], **times["fc_lif_scan"]),
+        dict(name="fc_currents", entry_of="fc_lif_scan", route="cuda",
+             source="src/repro_torch/csrc/fc_lif_scan.cu",
+             replaces="src/repro/core/tcn.py:196",
+             note="no TPU kernel: the JAX package leaves s3 @ w to XLA",
+             launches=fused["launches"]["fc_currents"],
+             max_abs_err=err["fc_currents"], **times["fc_currents"]),
         dict(name="ternary_matmul", route="cuda",
              source="src/repro_torch/csrc/ternary_matmul.cu",
              replaces="src/repro/kernels/ternary_matmul.py:92",
@@ -223,21 +238,107 @@ def kernel_checks(torch, dev, k1, k2):
                         torch.zeros_like(s), s).to(dev)
         w = (torch.randn(k, n, generator=g) * 2.0 * (2.0 / k) ** 0.5).to(dev)
         v0 = torch.rand(b, n, generator=g).to(dev)
-        want = k2.fc_lif_scan_plain(s, w, p, v0)
-        got = k2.fc_lif_scan_cuda(s, w, p, v0)
-        one = k2.fc_lif_scan_cuda(s[:, 2:3].contiguous(), w, p, v0[2:3])
-        torch.cuda.synchronize()
-        ok = dict(plain=_bitwise(torch, want, got),
-                  b1_rows=bool(torch.equal(one[0][:, 0], got[0][:, 2])
-                               and torch.equal(one[1][0], got[1][2])),
-                  spiking=float(got[0].float().mean()))
-        errs["fc_lif_scan"] = max(errs["fc_lif_scan"], _max_err(want, got))
+        ok, err = _k2_case(torch, k2, p, s, w, v0, row=2)
+        ok["spiking"] = float(k2.fc_lif_scan_cuda(s, w, p, v0)[0].mean())
+        errs["fc_lif_scan"] = max(errs["fc_lif_scan"], err)
         rows.append(dict(kernel="fc_lif_scan", layer=layer,
                          shape=[t, b, k, n], **ok))
-        check(ok["plain"] and ok["b1_rows"], f"K2 {layer}: {ok}")
+        check(ok["plain"] and ok["b1_rows"] and ok["chained"],
+              f"K2 {layer}: {ok}")
+    ragged = [dict(b=bb, t=tt, k=100, n=nn) for bb in (1, 3, 8, 13)
+              for tt in (5, 16, 17) for nn in (11, 40)]
+    ragged += K2_TILE_SHAPES
+    failed = []
+    for shape in ragged:
+        for dtype in (torch.float32, torch.bfloat16):
+            for v0_kind in ("none", "above_threshold"):
+                bt, bb, kk, nn = shape["t"], shape["b"], shape["k"], \
+                    shape["n"]
+                s = torch.randn(bt, bb, kk, generator=g).to(dtype).to(dev)
+                w = (torch.randn(kk, nn, generator=g) * kk ** -0.5).to(dev)
+                v0 = None if v0_kind == "none" else (
+                    torch.rand(bb, nn, generator=g) * 1.4 - 0.2).to(dev)
+                ok, err = _k2_case(torch, k2, p, s, w, v0, row=bb - 1)
+                errs["fc_lif_scan"] = max(errs["fc_lif_scan"], err)
+                if not all(ok.values()):
+                    failed.append(dict(shape, dtype=str(dtype), v0=v0_kind,
+                                       **ok))
+    rows.append(dict(kernel="fc_lif_scan", layer="ragged",
+                     shapes=len(ragged), cases=4 * len(ragged),
+                     failed=failed))
+    check(not failed, f"K2 at ragged shapes: {failed}")
+    errs["fc_currents"] = currents_checks(torch, dev, k2, g, rows)
     emit("kernels_vs_plain", tolerance="bitwise", checks=rows,
          max_abs_err=errs)
     return errs
+
+
+# Shapes beyond the ragged grid that take K2's other code paths: its wide
+# tiles (>= 32,768 outputs) with ragged edges, several T chunks, and an
+# odd K (4-byte copies of f32 rows, element copies of bf16 rows).
+K2_TILE_SHAPES = [dict(b=13, t=17, k=100, n=520), dict(b=8, t=5, k=37, n=1000),
+                  dict(b=4, t=40, k=64, n=300), dict(b=3, t=16, k=37, n=40)]
+
+
+def _k2_case(torch, k2, p, s, w, v0, row):
+    """K2 against its plain version on one input: the whole call, batch row
+    ``row`` alone, and (f32 only: a bf16 v_final is rounded by contract)
+    two T halves chained through v_final. Returns (checks, max error)."""
+    want = k2.fc_lif_scan_plain(s, w, p, v0)
+    got = k2.fc_lif_scan_cuda(s, w, p, v0)
+    one = k2.fc_lif_scan_cuda(s[:, row:row + 1].contiguous(), w, p,
+                              None if v0 is None else v0[row:row + 1])
+    ok = dict(plain=_bitwise(torch, want, got),
+              b1_rows=bool(torch.equal(one[0][:, 0], got[0][:, row])
+                           and torch.equal(one[1][0], got[1][row])))
+    if s.dtype == torch.float32:
+        half = s.shape[0] // 2
+        o_a, v_a = k2.fc_lif_scan_cuda(s[:half].contiguous(), w, p, v0)
+        o_b, v_b = k2.fc_lif_scan_cuda(s[half:].contiguous(), w, p, v_a)
+        ok["chained"] = bool(torch.equal(torch.cat([o_a, o_b]), got[0])
+                             and torch.equal(v_b, got[1]))
+    torch.cuda.synchronize()
+    return ok, _max_err(want, got)
+
+
+def currents_checks(torch, dev, k2, g, rows):
+    """K2's currents entry (through the ``fc_currents`` dispatcher, as the
+    frame wing calls it) against the ascending-k loop: the frame wing's
+    fc2 (8 ternary rows, K=512, N=11) with each row alone, a (T, B, K)
+    input, and ragged and wide shapes in f32 and bf16."""
+    from repro_torch.configs import TCN_CONFIG
+    k, n = TCN_CONFIG.hidden, TCN_CONFIG.num_classes
+    x = torch.randint(-1, 2, (8, k), generator=g).float().to(dev)
+    w = torch.randn(k, n, generator=g).to(dev)
+    got = k2.fc_currents(x, w)
+    torch.cuda.synchronize()
+    ok = dict(plain=bool(torch.equal(got, k2.fc_currents_plain(x, w))),
+              b1_rows=all(bool(torch.equal(k2.fc_currents(x[r:r + 1], w)[0],
+                                           got[r])) for r in range(8)))
+    err = _max_err([k2.fc_currents_plain(x, w)], [got])
+    cases = [(8, k, n, torch.float32), (1, 2048, 512, torch.float32)]
+    cases += [(m, kk, nn, dt) for m in (1, 13, 300)
+              for kk, nn in ((37, 11), (100, 40), (512, 520))
+              for dt in (torch.float32, torch.bfloat16)]
+    failed = []
+    for m, kk, nn, dt in cases:
+        xs = torch.randn(m, kk, generator=g).to(dt).to(dev)
+        ws = (torch.randn(kk, nn, generator=g) * kk ** -0.5).to(dev)
+        want, have = k2.fc_currents_plain(xs, ws), k2.fc_currents(xs, ws)
+        torch.cuda.synchronize()
+        err = max(err, _max_err([want], [have]))
+        if not torch.equal(want, have):
+            failed.append(dict(m=m, k=kk, n=nn, dtype=str(dt)))
+    x3 = torch.randn(16, 8, 512, generator=g).to(dev)
+    w3 = torch.randn(512, 40, generator=g).to(dev)
+    ok["tbk_input"] = bool(torch.equal(k2.fc_currents(x3, w3),
+                                       k2.fc_currents_plain(x3, w3)))
+    ok["ragged"] = not failed
+    rows.append(dict(kernel="fc_currents", layer="frame fc2",
+                     shape=[8, k, n], ragged_cases=len(cases),
+                     failed=failed, **ok))
+    check(all(ok.values()), f"K2 currents entry: {ok}, failed {failed}")
+    return err
 
 
 def k3_checks(torch, dev, k3):
@@ -540,20 +641,24 @@ def frame_slice(torch, dev, k1, k2, k3):
     eng.warmup([(8, 65_536, 300_000)], modality="event")
     eng.warmup([(8, 128, 128, 300_000)], modality="frame")
     torch.cuda.synchronize()
-    k1.launches = k2.launches = k3.launches = 0
+    k1.launches = k2.launches = k3.launches = k2.currents_launches = 0
     fused, cams = _serve_fused(eng, sessions, solo)
     torch.cuda.synchronize()
     launches = {"lif_scan": k1.launches, "fc_lif_scan": k2.launches,
-                "ternary_matmul": k3.launches}
+                "ternary_matmul": k3.launches,
+                "fc_currents": k2.currents_launches}
     steps = eng.stats["steps"]
     # 8 sessions over 8 event slots: 3 event-lane steps of 2 K1 and 2 K2
     # launches each. 36 frames over 8 frame slots: at least 5 frame-lane
-    # steps, one K3 launch each.
+    # steps, one K3 launch (fc1) and one of K2's currents entry (fc2) each.
     check(launches["lif_scan"] == launches["fc_lif_scan"] == 6,
           f"event lane launches {launches}, expected 6 of K1 and K2")
     check(5 <= launches["ternary_matmul"] <= steps,
           f"K3 launched {launches['ternary_matmul']} times in {steps} "
           f"engine steps")
+    check(launches["fc_currents"] == launches["ternary_matmul"],
+          f"frame fc2 launches {launches}: expected one per frame-lane "
+          f"step, as K3")
     check(eng.compiled_shapes("frame") == {(8, 128, 128, 300_000)},
           f"frame shape keys {eng.compiled_shapes('frame')}")
     ticks = [fused[k] for k in sorted(fused)]
@@ -714,7 +819,7 @@ def _call_ms(torch, fn, reps=REPS):
     return statistics.median(samples)
 
 
-def _bound_ms(nbytes, flops, peak=H100_FP32_FLOPS):
+def _bound_ms(nbytes, flops, peak=H100_FP32_OPS):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -722,7 +827,7 @@ def _bound_ms(nbytes, flops, peak=H100_FP32_FLOPS):
 
 
 def timings(torch, dev, k1, k2):
-    from repro_torch.configs import CONFIG
+    from repro_torch.configs import CONFIG, TCN_CONFIG
     from repro_torch.convert import snn_params_from_numpy
     p = CONFIG.lif
     t, b = CONFIG.time_bins, 8
@@ -757,46 +862,68 @@ def timings(torch, dev, k1, k2):
         tot["bound_ms"] += bound
     out["lif_scan"] = dict(tot, bound_by="bytes", library_ms=None)
 
-    # K2 at fc1 and fc2.
-    fc = [(CONFIG.flat_dim, CONFIG.hidden), (CONFIG.hidden,
-                                             CONFIG.num_classes)]
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-    t_ops_all = t_bytes_all = 0.0
-    for k, n in fc:
-        s = (torch.rand(t, b, k, generator=g) < 0.2).float().to(dev)
+    # K2 at fc1 and fc2, one engine step = both launches. fc1 takes a 2x2
+    # average pool of spikes (multiples of 1/4), fc2 takes spikes. Beside
+    # the B=8 step: fc1 on a dense input (no zero) and the B=1 step, the
+    # latency of one sensor's window.
+    fc1 = (CONFIG.flat_dim, CONFIG.hidden)
+    fc2 = (CONFIG.hidden, CONFIG.num_classes)
+    pooled = lambda b_, k: ((torch.rand(t, b_, k, 4, generator=g) < 0.2)
+                            .sum(-1).float() / 4.0)
+    spikes = lambda b_, k: (torch.rand(t, b_, k, generator=g) < 0.2).float()
+    dense = lambda b_, k: torch.randint(1, 5, (t, b_, k), generator=g) / 4.0
+    k2_rows = {}
+    for name, b_, make, (k, n) in (
+            ("fc1", b, pooled, fc1), ("fc2", b, spikes, fc2),
+            ("fc1_dense", b, dense, fc1), ("fc1_B1", 1, pooled, fc1),
+            ("fc2_B1", 1, spikes, fc2)):
+        s = make(b_, k).to(dev)
         w = (torch.randn(k, n, generator=g) * (2.0 / k) ** 0.5).to(dev)
-        v0 = torch.zeros(b, n, device=dev)
+        v0 = torch.zeros(b_, n, device=dev)
         run = lambda: k2.fc_lif_scan_cuda(s, w, p, v0)
-        ms = _device_ms(torch, run, flush)
-        warm = _warm_ms(torch, run)
-        call = _call_ms(torch, run)
-        plain = _device_ms(torch, lambda: k2.fc_lif_scan_plain(s, w, p, v0),
-                           flush, reps=5)
-        s2 = s.reshape(t * b, k)
-        lib = _device_ms(torch, lambda: torch.matmul(s2, w), flush)
+        s2 = s.reshape(t * b_, k)
         # Every product and add of the dense sum (the kernel skips no
         # zero), plus the LIF update; bytes: spikes, W and v0 read once,
         # output spikes and v_final written once.
-        flops = 2 * t * b * k * n + 3 * t * b * n
-        nbytes = 4 * (t * b * k + k * n + b * n + t * b * n + b * n)
-        bound, by = _bound_ms(nbytes, flops)
-        t_ops_all += flops / H100_FP32_FLOPS
-        t_bytes_all += nbytes / H100_BYTES_PER_S
-        rows.append(dict(kernel="fc_lif_scan", shape=[t, b, k, n], ms=ms,
-                         warm_l2_ms=warm, call_ms=call, plain_ms=plain,
-                         bound_ms=bound, bound_by=by, library_ms=lib))
-        for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
-                       ("library_ms", lib)):
-            tot[key] += v
-    out["fc_lif_scan"] = dict(
-        tot, bound_by="operations" if t_ops_all >= t_bytes_all else "bytes")
+        bound, by = _bound_ms(
+            4 * (t * b_ * k + k * n + b_ * n + t * b_ * n + b_ * n),
+            2 * t * b_ * k * n + 3 * t * b_ * n)
+        k2_rows[name] = dict(
+            shape=[t, b_, k, n], nonzero=float((s != 0).float().mean()),
+            ms=_device_ms(torch, run, flush), warm_l2_ms=_warm_ms(torch, run),
+            call_ms=_call_ms(torch, run),
+            plain_ms=_device_ms(torch, lambda: k2.fc_lif_scan_plain(
+                s, w, p, v0), flush, reps=5),
+            library_ms=_device_ms(torch, lambda: torch.matmul(s2, w), flush),
+            bound_ms=bound, bound_by=by)
+    step = {key: k2_rows["fc1"][key] + k2_rows["fc2"][key]
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    out["fc_lif_scan"] = dict(step, bound_by=k2_rows["fc1"]["bound_by"])
+    step_b1 = {key: k2_rows["fc1_B1"][key] + k2_rows["fc2_B1"][key]
+               for key in ("ms", "bound_ms", "library_ms")}
+
+    # K2's currents entry at the frame wing's fc2: 8 ternary rows.
+    k, n = TCN_CONFIG.hidden, TCN_CONFIG.num_classes
+    x = torch.randint(-1, 2, (b, k), generator=g).float().to(dev)
+    w = torch.randn(k, n, generator=g).to(dev)
+    run = lambda: k2.fc_currents_cuda(x, w)
+    bound, by = _bound_ms(4 * (b * k + k * n + b * n), 2 * b * k * n)
+    out["fc_currents"] = dict(
+        ms=_device_ms(torch, run, flush),
+        plain_ms=_device_ms(torch, lambda: k2.fc_currents_plain(x, w), flush,
+                            reps=5),
+        library_ms=_device_ms(torch, lambda: torch.matmul(x, w), flush),
+        bound_ms=bound, bound_by=by)
     del flush
     emit("kernel_times",
          unit="ms of device time per call from a cold L2 (CUDA graph of "
               "one call, CUDA events, median); warm_l2_ms: inputs left in "
               "L2 by the call before; call_ms: one call timed from the host",
-         reps=REPS, flush_mb=FLUSH_BYTES >> 20, per_shape=rows,
+         reps=REPS, flush_mb=FLUSH_BYTES >> 20, k1_per_shape=rows,
+         k2_per_shape=k2_rows,
          per_engine_step={k: v for k, v in out.items()},
+         k2_per_engine_step_B1=step_b1,
+         fc_currents_frame_fc2=dict(out["fc_currents"], shape=[b, k, n]),
          library_note="torch.matmul of the fc currents alone: computes "
                       "less than K2 (no LIF, currents stored)")
 

@@ -26,7 +26,8 @@ follows its launch shape: the pools add their k*k taps in row-major order,
 the per-sample ``mean|x|`` of the activation threshold is a pairwise
 halving sum over the row padded with zeros to a power of two, fc1 is K3's
 ascending-k sum, and fc2 is the ascending-k sum of
-``kernels.fc_lif_scan.fc_currents`` (exact products: ``s3`` is ternary).
+``kernels.fc_lif_scan.fc_currents`` (exact products: ``s3`` is ternary),
+one launch of K2's currents entry on the card.
 The two convolutions are the one library call (cuDNN on the card);
 ``chip_smoke.py`` reports whether their rows keep the same bits across
 batch sizes.

@@ -1,41 +1,93 @@
-// K2: fused synapse + LIF scan for the fully connected layers.
+// K2: fused synapse + LIF scan for the fully connected layers, and the
+// same current sum on its own (fc_currents).
 //
-// Replaces fc_lif_scan_pallas (repro/kernels/fc_lif_scan.py):
+// Replaces fc_lif_scan_pallas (src/repro/kernels/fc_lif_scan.py:131):
 //
 //   I[t] = S_in[t] @ W            S_in (T, B, K), W (K, N)
 //   V[t] = alpha * V[t-1] * (V[t-1] < v_th) + I[t]
 //   S[t] = V[t] >= v_th
 //
-// The currents never reach device memory: a block computes them for a
-// (T chunk x batch group x 32 outputs) tile into shared memory, then one
-// warp runs the LIF update over the chunk with the membrane in registers.
+// fc_currents_* computes I alone for (M, K) inputs. The frame wing's fc2
+// uses it: the JAX package leaves that product to XLA (s3 @ w), but the
+// port's frame rows must keep their bits across batch sizes, which takes
+// this fixed order.
 //
 // Numerics are part of the function. Each current is an fp32 sum over k in
 // ascending order, each product and add rounded on its own (no TF32, no
-// FMA: __fmul_rn/__fadd_rn and -fmad=false). fc1's input is an average pool
-// of spikes, so products round; the fixed order is what makes the kernel
-// equal its plain version bit for bit and a stream's rows independent of
-// the batch it rides in.
+// FMA: __fmul_rn/__fadd_rn and -fmad=false), starting from +0. fc1's input
+// is an average pool of spikes, so products round; the fixed order is what
+// makes the kernel equal its plain version bit for bit and a stream's rows
+// independent of the batch it rides in. It rules out splitting K and the
+// tensor cores, so all parallelism comes from the (t, b, n) outputs.
 //
-// Bound on the H100: at fc1 (B=8, T=16, K=2048, N=512) the 268 MFLOP of
-// the sums on the fp32 CUDA cores. The sequential k order forbids splitting
-// K, so parallelism comes from the (t, b, n) outputs: threads in a warp own
-// 32 neighbouring n (W loads coalesce, S_in loads broadcast), the warps of a
-// block own the T steps of a chunk, and each thread sums BG batch rows so a
-// W value is loaded once for BG products.
+// What bounds it on the H100. The operations: at fc1 (B=8, T=16, K=2048,
+// N=512) 268 M separate fp32 multiplies and adds, 8.0 us at 33.5 T
+// instructions/s. Before that, shared memory: it delivers 128 bytes a
+// cycle to an SM's registers, and a thread that owns an RT x CT tile of
+// outputs needs RT + CT floats a k step. 65,536 outputs on 132 SMs fill
+// the 528 warp schedulers only at <= 4 outputs a thread, so the tile is
+// 2 x 2 (Wide: a block of 128 threads computes 32 rows x 16 columns), and
+// the loads cost ~16 cycles a k step an SM against 8 for the arithmetic.
+// Below kWideMinOutputs a thread owns one output (Narrow: 16 x 8), where
+// the 4-cycle dependent add chain of each sum is the floor (K=2048: ~4 us).
+//
+// The design: K is walked in chunks of KC that cp.async stages into
+// shared memory NSTAGE deep, so the copies of the next chunks overlap the
+// sums of this one and the inner loop reads only shared memory and
+// registers. A thread's copies are found once per T chunk, so staging a
+// chunk costs a few instructions a vector. Rows of a block are (t, b)
+// pairs that cover whole T chunks of its batch rows, so after the K loop
+// the block writes the chunk's currents to shared memory and runs the LIF
+// update over them, one thread per neuron, the membranes in registers
+// across chunks: the currents never reach device memory.
+//
+// Ragged T, B, K and N are padded with zeros in shared memory (cp.async's
+// zero fill). A padded k adds 0 * 0 = +0, which leaves every partial sum
+// unchanged (a sum that starts at +0 is never -0), so padding is exact.
+#include <algorithm>
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 namespace {
 
-constexpr int NT = 32;  // outputs per block (one warp wide)
-constexpr int TT = 16;  // time steps per chunk (warps per block)
-constexpr int BG = 4;   // batch rows per thread
+constexpr int NTHREADS = 128;
+constexpr int NSTAGE = 4;
+// Wide tiles (4 outputs a thread) once they still give >= 2 warps per SM
+// on 132 SMs: 128 threads x 4 outputs x 66 blocks.
+constexpr long long kWideMinOutputs = 32768;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+template <int RT_, int CT_, int TC_, int KC_, int BATCH_>
+struct Tile {
+  static constexpr int RT = RT_;             // rows per thread
+  static constexpr int CT = CT_;             // columns per thread
+  static constexpr int TC = TC_;             // threads along the columns
+  static constexpr int TR = NTHREADS / TC_;  // threads along the rows
+  static constexpr int ROWS = TR * RT_, COLS = TC_ * CT_, KC = KC_;
+  static constexpr int BATCH = BATCH_;       // groups of products formed ahead
+};
+using Wide = Tile<2, 2, 8, 64, 2>;     // 32 x 16 outputs a block
+using Narrow = Tile<1, 1, 8, 128, 8>;  // 16 x 8 outputs a block
+
+// Shared-memory row stride of a spike tile, in elements: KC plus 16 bytes,
+// which keeps rows 16-byte aligned for cp.async and spreads the rows a warp
+// reads over the banks.
+template <class C, typename T>
+__host__ __device__ constexpr int spike_ld() {
+  return C::KC + 16 / (int)sizeof(T);
 }
+
+// A stage: the spike tile (ROWS rows of spike_ld), then the weight tile
+// (KC rows of COLS floats).
+template <class C, typename T>
+__host__ __device__ constexpr int spike_bytes() {
+  return C::ROWS * spike_ld<C, T>() * (int)sizeof(T);
+}
+template <class C, typename T>
+__host__ __device__ constexpr int stage_bytes() {
+  return spike_bytes<C, T>() + C::KC * C::COLS * 4;
+}
+
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
@@ -45,86 +97,356 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT * TT)
-fc_lif_scan_kernel(const T* __restrict__ spk, const float* __restrict__ w,
-                   const float* __restrict__ v0, T* __restrict__ out,
-                   T* __restrict__ vfin, int steps, int b, int k, int n,
-                   float alpha, float v_th) {
-  __shared__ float cur_s[TT][BG][NT];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int col = blockIdx.x * NT + tx;
-  const int b0 = blockIdx.y * BG;
-  const bool col_ok = col < n;
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
-  float v[BG];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four consecutive k values of one spike row in shared memory, as f32.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                      float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
+template <int CT>
+__device__ __forceinline__ void loadw(const float* p, float (&v)[CT]) {
+  if constexpr (CT == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  } else {
 #pragma unroll
-  for (int j = 0; j < BG; ++j) {
-    const int row = b0 + j;
-    v[j] = (v0 != nullptr && col_ok && row < b)
-               ? v0[(long long)row * n + col] : 0.0f;
+    for (int c = 0; c < CT; ++c) v[c] = p[c];
+  }
+}
+
+// The block's rows: r -> (tt, bb) = (r / bb_n, r % bb_n), the global row
+// (t0 + tt) * B + b0 + bb of the (T, B, K) spikes, or -1 past an edge.
+struct Rows {
+  int t0, tt_n, bb_n, b0, b;
+  __device__ __forceinline__ long long at(int r) const {
+    const int tt = r / bb_n, bb = r - tt * bb_n;
+    if (tt >= tt_n || b0 + bb >= b) return -1;
+    return (long long)(t0 + tt) * b + b0 + bb;
+  }
+};
+
+// Copy modes, chosen on the host from sizes and alignment: 16-byte or
+// 4-byte cp.async, or (bf16 rows of odd length) plain loads and stores.
+enum { COPY_SYNC = 0, COPY_4 = 4, COPY_16 = 16 };
+
+// The spike tile's cp.async copies, ROWS x KC elements a chunk. In 16-byte
+// mode a thread's vectors share one k offset and their rows are found once
+// per T chunk; the other modes find each element's row as they go.
+template <class C, typename T>
+struct SpikeStager {
+  static constexpr int LD = spike_ld<C, T>();
+  static constexpr int EPV = 16 / sizeof(T), VPR = C::KC / EPV;
+  static constexpr int PER = C::ROWS * VPR / NTHREADS;   // vectors a thread
+  static constexpr int RSTEP = NTHREADS / VPR;           // rows between them
+  const T* spk;
+  const T* src[PER];   // row start + the thread's k offset; null past an edge
+  Rows rows;
+  int k, mode, q, r0;
+
+  __device__ __forceinline__ SpikeStager(const T* spk_, const Rows& rows_,
+                                         int k_, int mode_)
+      : spk(spk_), rows(rows_), k(k_), mode(mode_) {
+    q = (threadIdx.x % VPR) * EPV;
+    r0 = threadIdx.x / VPR;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const long long g = rows.at(r0 + i * RSTEP);
+      src[i] = g >= 0 ? spk + g * k + q : nullptr;
+    }
   }
 
-  for (int t0 = 0; t0 < steps; t0 += TT) {
-    const int t = t0 + ty;
-    float acc[BG];
+  __device__ __forceinline__ void stage(T* dst, int k0) const {
+    if (mode == COPY_16) {
+      const bool k_ok = k0 + q < k;
 #pragma unroll
-    for (int j = 0; j < BG; ++j) acc[j] = 0.0f;
-    if (t < steps && col_ok) {
-      const T* s_t = spk + ((long long)t * b + b0) * k;
-      for (int kk = 0; kk < k; ++kk) {
-        const float wv = w[(long long)kk * n + col];
+      for (int i = 0; i < PER; ++i) {
+        const bool ok = k_ok && src[i] != nullptr;
+        cp_async16(dst + (r0 + i * RSTEP) * LD + q, ok ? src[i] + k0 : spk,
+                   ok ? 16 : 0);
+      }
+    } else if (mode == COPY_4) {
+      constexpr int E4 = 4 / sizeof(T), V4 = C::KC / E4;
+      for (int v = threadIdx.x; v < C::ROWS * V4; v += NTHREADS) {
+        const int r = v / V4, kq = (v - r * V4) * E4, kk = k0 + kq;
+        const long long g = rows.at(r);
+        const bool ok = g >= 0 && kk < k;
+        cp_async4(dst + r * LD + kq, ok ? spk + g * k + kk : spk,
+                  ok ? 4 : 0);
+      }
+    } else {
+      for (int e = threadIdx.x; e < C::ROWS * C::KC; e += NTHREADS) {
+        const int r = e / C::KC, kq = e - r * C::KC, kk = k0 + kq;
+        const long long g = rows.at(r);
+        dst[r * LD + kq] = (g >= 0 && kk < k) ? spk[g * k + kk]
+                                              : from_f32<T>(0.0f);
+      }
+    }
+  }
+};
+
+// The weight tile's cp.async copies, KC x COLS floats a chunk in W's own
+// row layout, as vectors of VW (4 when n % 4 == 0 and W is 16-byte
+// aligned, else 1): a thread's vectors share one column and are KSTEP
+// rows apart.
+template <class C, int VW>
+__device__ __forceinline__ void stage_weights(float* dst, const float* w,
+                                              int k0, int k, int n0, int n) {
+  constexpr int VPR = C::COLS / VW, PER = C::KC * VPR / NTHREADS;
+  constexpr int KSTEP = NTHREADS / VPR;
+  const int cq = (threadIdx.x % VPR) * VW, kr0 = threadIdx.x / VPR;
+  const bool col_ok = n0 + cq < n;
+  const float* src = w + (long long)(k0 + kr0) * n + n0 + cq;
 #pragma unroll
-        for (int j = 0; j < BG; ++j) {
-          if (b0 + j < b) {
-            const float s = to_f32(s_t[(long long)j * k + kk]);
-            acc[j] = __fadd_rn(acc[j], __fmul_rn(s, wv));
-          }
-        }
+  for (int i = 0; i < PER; ++i) {
+    const bool ok = col_ok && k0 + kr0 + i * KSTEP < k;
+    float* d = dst + (kr0 + i * KSTEP) * C::COLS + cq;
+    const float* p = ok ? src + (long long)i * KSTEP * n : w;
+    if constexpr (VW == 4) cp_async16(d, p, ok ? 16 : 0);
+    else cp_async4(d, p, ok ? 4 : 0);
+  }
+}
+
+// One staged chunk into the thread's RT x CT sums, k ascending. The
+// thread's rows are tr + i * TR, its columns tc * CT + c. A group is four
+// k: one 16-byte (bf16: 8-byte) load per row and one CT-wide load per k.
+// The products of a batch of groups are formed before the batch's adds.
+template <class C, typename T>
+__device__ __forceinline__ void sum_chunk(const T* s, const float* w, int tr,
+                                          int tc,
+                                          float (&acc)[C::RT][C::CT]) {
+  constexpr int LD = spike_ld<C, T>();
+  constexpr int G = C::KC / 4, BATCH = C::BATCH;
+#pragma unroll
+  for (int g0 = 0; g0 < G; g0 += BATCH) {
+    float p[BATCH][4][C::RT][C::CT];
+#pragma unroll
+    for (int g = 0; g < BATCH; ++g) {
+      float sv[C::RT][4];
+#pragma unroll
+      for (int i = 0; i < C::RT; ++i)
+        load4(s + (tr + i * C::TR) * LD + 4 * (g0 + g), sv[i]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float wv[C::CT];
+        loadw<C::CT>(w + (4 * (g0 + g) + j) * C::COLS + tc * C::CT, wv);
+#pragma unroll
+        for (int i = 0; i < C::RT; ++i)
+#pragma unroll
+          for (int c = 0; c < C::CT; ++c)
+            p[g][j][i][c] = __fmul_rn(sv[i][j], wv[c]);
       }
     }
 #pragma unroll
-    for (int j = 0; j < BG; ++j) cur_s[ty][j][tx] = acc[j];
-    __syncthreads();
-    if (ty == 0 && col_ok) {
-      for (int tt = 0; tt < TT && t0 + tt < steps; ++tt) {
+    for (int g = 0; g < BATCH; ++g)
 #pragma unroll
-        for (int j = 0; j < BG; ++j) {
-          const int row = b0 + j;
-          if (row < b) {
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < C::RT; ++i)
+#pragma unroll
+          for (int c = 0; c < C::CT; ++c)
+            acc[i][c] = __fadd_rn(acc[i][c], p[g][j][i][c]);
+  }
+}
+
+// The block's currents for the rows of ``rows``, into ``acc``: K walked in
+// chunks, NSTAGE - 1 chunks in flight ahead of the one being summed. The
+// copies of chunk c + NSTAGE - 1 go into the stage that chunk c - 1 left,
+// after the barrier that ends its sums.
+template <class C, typename T>
+__device__ __forceinline__ void block_currents(
+    unsigned char* smem, const T* spk, const float* w, const Rows& rows,
+    int k, int n0, int n, int s_mode, bool w16, int tr, int tc,
+    float (&acc)[C::RT][C::CT]) {
+  const int chunks = (k + C::KC - 1) / C::KC;
+  const SpikeStager<C, T> spikes(spk, rows, k, s_mode);
+  auto stage = [&](int c) {
+    unsigned char* s = smem + (c % NSTAGE) * stage_bytes<C, T>();
+    float* wt = reinterpret_cast<float*>(s + spike_bytes<C, T>());
+    spikes.stage(reinterpret_cast<T*>(s), c * C::KC);
+    if (w16) stage_weights<C, 4>(wt, w, c * C::KC, k, n0, n);
+    else stage_weights<C, 1>(wt, w, c * C::KC, k, n0, n);
+  };
+#pragma unroll
+  for (int i = 0; i < C::RT; ++i)
+#pragma unroll
+    for (int c = 0; c < C::CT; ++c) acc[i][c] = 0.0f;
+  for (int c = 0; c < NSTAGE - 1; ++c) {
+    if (c < chunks) stage(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<NSTAGE - 2>();   // chunk c has landed (this thread's part)
+    __syncthreads();               // ... everyone's; slot c - 1 is free
+    if (c + NSTAGE - 1 < chunks) stage(c + NSTAGE - 1);
+    cp_async_commit();
+    const unsigned char* s = smem + (c % NSTAGE) * stage_bytes<C, T>();
+    sum_chunk<C, T>(reinterpret_cast<const T*>(s),
+                    reinterpret_cast<const float*>(s + spike_bytes<C, T>()),
+                    tr, tc, acc);
+  }
+  __syncthreads();                 // the slots may be staged again
+}
+
+template <class C, typename T, bool LIF>
+constexpr int smem_bytes() {
+  return NSTAGE * stage_bytes<C, T>() +
+         (LIF ? C::ROWS * (C::COLS + 1) * 4 : 0);
+}
+
+// LIF = true: the fused K2 kernel over (T, B, K) spikes. LIF = false:
+// currents of (M, K) inputs (steps = 1, b = M) written to ``cur_out``.
+template <class C, typename T, bool LIF>
+__global__ void __launch_bounds__(NTHREADS)
+fc_kernel(const T* __restrict__ spk, const float* __restrict__ w,
+          const float* __restrict__ v0, T* __restrict__ out,
+          T* __restrict__ vfin, float* __restrict__ cur_out, int steps,
+          int b, int k, int n, int tt_n, int bb_n, float alpha, float v_th,
+          int s_mode, bool w16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int CUR_LD = C::COLS + 1;
+  float* cur_s = reinterpret_cast<float*>(smem + NSTAGE * stage_bytes<C, T>());
+  const int tid = threadIdx.x, tc = tid % C::TC, tr = tid / C::TC;
+  const int n0 = blockIdx.x * C::COLS, b0 = blockIdx.y * bb_n;
+
+  // LIF neurons of the block: i = tid + j * NTHREADS -> (bb, c) =
+  // (i / COLS, i % COLS); bb_n * COLS <= ROWS * COLS = NTHREADS * NV.
+  constexpr int NV = C::RT * C::CT;
+  const int neurons = bb_n * C::COLS;
+  float v[NV];
+  if constexpr (LIF) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int i = tid + j * NTHREADS;
+      const int row = b0 + i / C::COLS, col = n0 + i % C::COLS;
+      v[j] = (v0 != nullptr && i < neurons && row < b && col < n)
+                 ? v0[(long long)row * n + col] : 0.0f;
+    }
+  }
+
+  for (int t0 = 0; t0 < steps; t0 += tt_n) {
+    const Rows rows{t0, min(tt_n, steps - t0), bb_n, b0, b};
+    float acc[C::RT][C::CT];
+    block_currents<C, T>(smem, spk, w, rows, k, n0, n, s_mode, w16, tr, tc,
+                         acc);
+    if constexpr (!LIF) {
+#pragma unroll
+      for (int i = 0; i < C::RT; ++i) {
+        const long long g = rows.at(tr + i * C::TR);
+#pragma unroll
+        for (int c = 0; c < C::CT; ++c) {
+          const int col = n0 + tc * C::CT + c;
+          if (g >= 0 && col < n) cur_out[g * n + col] = acc[i][c];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < C::RT; ++i)
+#pragma unroll
+        for (int c = 0; c < C::CT; ++c)
+          cur_s[(tr + i * C::TR) * CUR_LD + tc * C::CT + c] = acc[i][c];
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int i = tid + j * NTHREADS;
+        const int bb = i / C::COLS, c = i % C::COLS;
+        const int row = b0 + bb, col = n0 + c;
+        if (i < neurons && row < b && col < n) {
+          for (int tt = 0; tt < rows.tt_n; ++tt) {
             const float live = v[j] < v_th ? 1.0f : 0.0f;
             v[j] = __fadd_rn(__fmul_rn(__fmul_rn(alpha, v[j]), live),
-                             cur_s[tt][j][tx]);
+                             cur_s[(tt * bb_n + bb) * CUR_LD + c]);
             out[((long long)(t0 + tt) * b + row) * n + col] =
                 from_f32<T>(v[j] >= v_th ? 1.0f : 0.0f);
           }
         }
       }
+      __syncthreads();             // cur_s may be written again
     }
-    __syncthreads();
   }
 
-  if (ty == 0 && col_ok) {
+  if constexpr (LIF) {
 #pragma unroll
-    for (int j = 0; j < BG; ++j) {
-      const int row = b0 + j;
-      if (row < b) vfin[(long long)row * n + col] = from_f32<T>(v[j]);
+    for (int j = 0; j < NV; ++j) {
+      const int i = tid + j * NTHREADS;
+      const int row = b0 + i / C::COLS, col = n0 + i % C::COLS;
+      if (i < neurons && row < b && col < n)
+        vfin[(long long)row * n + col] = from_f32<T>(v[j]);
     }
   }
 }
 
 template <typename T>
-int launch(const void* spk, const void* w, const void* v0, void* out,
-           void* vfin, int steps, int b, int k, int n, float alpha,
-           float v_th, void* stream) {
-  if (b > 0 && n > 0) {
-    const dim3 block(NT, TT);
-    const dim3 grid((n + NT - 1) / NT, (b + BG - 1) / BG);
-    fc_lif_scan_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const T*)spk, (const float*)w, (const float*)v0, (T*)out, (T*)vfin,
-        steps, b, k, n, alpha, v_th);
-  }
+int copy_mode(const void* p, long long row_elems) {
+  const unsigned long long a = (unsigned long long)p;
+  const long long row_bytes = row_elems * (long long)sizeof(T);
+  if (a % 16 == 0 && row_bytes % 16 == 0) return COPY_16;
+  if (a % 4 == 0 && row_bytes % 4 == 0) return COPY_4;
+  return COPY_SYNC;
+}
+
+template <class C, typename T, bool LIF>
+int run(const void* spk, const void* w, const void* v0, void* out,
+        void* vfin, void* cur, int steps, int b, int k, int n, float alpha,
+        float v_th, cudaStream_t stream) {
+  constexpr int SMEM = smem_bytes<C, T, LIF>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fc_kernel<C, T, LIF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  // A block covers tt_n time steps of bb_n batch rows: the whole of T
+  // when it fits in the tile's rows, with as many batch rows as fit.
+  const int tt_n = steps < 1 ? 1 : (steps < C::ROWS ? steps : C::ROWS);
+  const int bb_n = std::max(1, std::min(b, C::ROWS / tt_n));
+  const dim3 grid((n + C::COLS - 1) / C::COLS, (b + bb_n - 1) / bb_n);
+  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
+  // The copy widths follow from the row lengths and base pointers.
+  fc_kernel<C, T, LIF><<<grid, NTHREADS, SMEM, stream>>>(
+      (const T*)spk, (const float*)w, (const float*)v0, (T*)out, (T*)vfin,
+      (float*)cur, steps, b, k, n, tt_n, bb_n, alpha, v_th,
+      copy_mode<T>(spk, k), copy_mode<float>(w, n) == COPY_16);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool LIF>
+int launch(const void* spk, const void* w, const void* v0, void* out,
+           void* vfin, void* cur, int steps, int b, int k, int n,
+           float alpha, float v_th, void* stream) {
+  if (b <= 0 || n <= 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if ((long long)steps * b * n >= kWideMinOutputs)
+    return run<Wide, T, LIF>(spk, w, v0, out, vfin, cur, steps, b, k, n,
+                             alpha, v_th, s);
+  return run<Narrow, T, LIF>(spk, w, v0, out, vfin, cur, steps, b, k, n,
+                             alpha, v_th, s);
 }
 
 }  // namespace
@@ -132,14 +454,28 @@ int launch(const void* spk, const void* w, const void* v0, void* out,
 extern "C" int fc_lif_scan_f32(const void* spk, const void* w, const void* v0,
                                void* out, void* vfin, int steps, int b, int k,
                                int n, float alpha, float v_th, void* stream) {
-  return launch<float>(spk, w, v0, out, vfin, steps, b, k, n, alpha, v_th,
-                       stream);
+  return launch<float, true>(spk, w, v0, out, vfin, nullptr, steps, b, k, n,
+                             alpha, v_th, stream);
 }
 
 extern "C" int fc_lif_scan_bf16(const void* spk, const void* w,
                                 const void* v0, void* out, void* vfin,
                                 int steps, int b, int k, int n, float alpha,
                                 float v_th, void* stream) {
-  return launch<__nv_bfloat16>(spk, w, v0, out, vfin, steps, b, k, n, alpha,
-                               v_th, stream);
+  return launch<__nv_bfloat16, true>(spk, w, v0, out, vfin, nullptr, steps,
+                                     b, k, n, alpha, v_th, stream);
+}
+
+// Currents alone: x (M, K) f32 or bf16, w (K, N) f32 -> cur (M, N) f32,
+// the same sums as the fused kernel (one time step of M batch rows).
+extern "C" int fc_currents_f32(const void* x, const void* w, void* cur, int m,
+                               int k, int n, void* stream) {
+  return launch<float, false>(x, w, nullptr, nullptr, nullptr, cur, 1, m, k,
+                              n, 0.0f, 0.0f, stream);
+}
+
+extern "C" int fc_currents_bf16(const void* x, const void* w, void* cur,
+                                int m, int k, int n, void* stream) {
+  return launch<__nv_bfloat16, false>(x, w, nullptr, nullptr, nullptr, cur,
+                                      1, m, k, n, 0.0f, 0.0f, stream);
 }

@@ -1,25 +1,32 @@
-"""K2: fused synapse (``spikes @ W``) + LIF scan, as a CUDA kernel.
+"""K2: fused synapse (``spikes @ W``) + LIF scan, as a CUDA kernel, and the
+same current sum on its own.
 
 Replaces ``fc_lif_scan_pallas`` (``repro/kernels/fc_lif_scan.py``), which
 keeps the weight panel and the membrane plane in VMEM across the temporal
-scan so the (T, B, N) currents never reach HBM. Here a block of 16 warps
-computes one T-chunk of currents for 32 outputs and a group of batch rows
-into shared memory, and one warp then runs the LIF update over the chunk
-with the membranes in registers (``csrc/fc_lif_scan.cu``).
+scan so the (T, B, N) currents never reach HBM. Here each block owns whole
+T chunks of a few batch rows and a strip of outputs: it stages K chunks of
+spikes and weights into shared memory with ``cp.async``, four deep, sums
+them into small register tiles, and runs the LIF update over the chunk's
+currents from shared memory (``csrc/fc_lif_scan.cu``).
 
 Each current is defined as an fp32 sum over k in ascending order, every
-product and add rounded on its own. The kernel and its plain version
-(:func:`fc_currents` + the LIF loop) both follow that order, so they agree
-bit for bit, and a stream's rows never depend on the batch around it. At
-fc1 (B=8, T=16, 2048 -> 512) the kernel is bound by those fp32 operations
-on the CUDA cores; the fixed order rules out splitting K, so the design
-spreads the (t, b, n) outputs over threads and reuses each W load across
-a thread's batch rows. ``choose_fc_blocks`` (a VMEM-budget chooser) has no
-Hopper meaning and is not ported.
+product and add rounded on its own (:func:`fc_currents_plain`). The kernel
+and its plain version follow that order, so they agree bit for bit, and a
+stream's rows never depend on the batch around it. The order rules out
+splitting K and the tensor cores, so the parallelism is the (t, b, n)
+outputs; at fc1 (B=8, T=16, 2048 -> 512) the kernel is bound by the
+shared-memory loads that feed those fp32 operations, about twice their
+instruction time.
+
+:func:`fc_currents` is that sum without the LIF: on a CUDA tensor one
+launch of the source's ``fc_currents`` entry, on a CPU tensor the loop.
+The frame wing's fc2 calls it. ``choose_fc_blocks`` (a VMEM-budget
+chooser) has no Hopper meaning and is not ported.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -29,13 +36,16 @@ from repro_torch.kernels._build import load_library
 from repro_torch.kernels.lif_scan import lif_loop
 
 __all__ = ["fc_lif_scan_cuda", "fc_lif_scan_plain", "fc_lif_scan_fwd",
-           "fc_currents", "launches", "KERNEL"]
+           "fc_currents", "fc_currents_cuda", "fc_currents_plain",
+           "launches", "currents_launches", "KERNEL"]
 
 KERNEL = "fc_lif_scan"
 
-# Launches of the CUDA kernel since import (or since a caller reset it to
-# 0). Only fc_lif_scan_cuda adds to it, once per launch.
+# Launches since import (or since a caller reset them to 0): of the fused
+# kernel, only by fc_lif_scan_cuda, and of the currents entry, only by
+# fc_currents_cuda; once per launch each.
 launches = 0
+currents_launches = 0
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -49,7 +59,31 @@ def _fn(dtype: torch.dtype):
     return fn
 
 
-def fc_currents(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _currents_fn(dtype: torch.dtype):
+    lib = load_library(KERNEL)
+    fn = getattr(lib, f"fc_currents_{_SUFFIX[dtype]}")
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_weights(spikes, w):
+    if w.ndim != 2 or w.shape[0] != spikes.shape[-1]:
+        raise ValueError(f"weights {tuple(w.shape)} do not match spikes K="
+                         f"{spikes.shape[-1]}")
+
+
+def _check_cuda_operands(name, spikes, w):
+    if spikes.dtype not in _SUFFIX:
+        raise TypeError(f"{name} takes float32 or bfloat16 spikes, got "
+                        f"{spikes.dtype}")
+    if w.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 weights, got {w.dtype}")
+
+
+def fc_currents_plain(spikes: torch.Tensor, w: torch.Tensor
+                      ) -> torch.Tensor:
     """``spikes @ w`` as the port defines it: an f32 sum over k in
     ascending order, each product and add rounded on its own.
 
@@ -57,6 +91,7 @@ def fc_currents(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     what K2 computes; a library matmul sums in another order and is not
     row-invariant across batch sizes.
     """
+    _check_weights(spikes, w)
     s = spikes.float()
     w = w.float()
     acc = torch.zeros((*s.shape[:-1], w.shape[1]), dtype=torch.float32,
@@ -66,13 +101,50 @@ def fc_currents(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def fc_currents_cuda(spikes: torch.Tensor, w: torch.Tensor
+                     ) -> torch.Tensor:
+    """Launch K2's currents entry: contiguous f32 or bf16 ``spikes``
+    (..., K) and contiguous f32 ``w`` (K, N) on one CUDA device ->
+    (..., N) float32, queued on the current stream."""
+    global currents_launches
+    _check_cuda_operands("fc_currents_cuda", spikes, w)
+    _check_weights(spikes, w)
+    if not (spikes.is_contiguous() and w.is_contiguous()):
+        raise ValueError("fc_currents_cuda needs contiguous spikes and w")
+    if not spikes.is_cuda or w.device != spikes.device:
+        raise ValueError(f"fc_currents_cuda needs CUDA tensors on one "
+                         f"device, got spikes on {spikes.device}")
+    k, n = w.shape
+    m = math.prod(spikes.shape[:-1])
+    out = torch.empty((*spikes.shape[:-1], n), dtype=torch.float32,
+                      device=spikes.device)
+    with torch.cuda.device(spikes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _currents_fn(spikes.dtype)(
+            spikes.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, stream)
+    if rc != 0:
+        raise RuntimeError(f"fc_currents kernel launch failed: CUDA error "
+                           f"{rc}")
+    currents_launches += 1
+    return out
+
+
+def fc_currents(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The ascending-k currents ``spikes @ w`` (see
+    :func:`fc_currents_plain`): K2's currents entry on CUDA tensors, the
+    plain loop on CPU tensors."""
+    if spikes.is_cuda:
+        return fc_currents_cuda(spikes.contiguous(), w.contiguous())
+    if spikes.device.type == "cpu":
+        return fc_currents_plain(spikes, w)
+    raise ValueError(f"unsupported device {spikes.device}")
+
+
 def _check_shapes(spikes, w, v0):
     if spikes.ndim not in (2, 3):
         raise ValueError(f"need (T, B, K) or (T, K) spikes, got "
                          f"{tuple(spikes.shape)}")
-    if w.ndim != 2 or w.shape[0] != spikes.shape[-1]:
-        raise ValueError(f"weights {tuple(w.shape)} do not match spikes K="
-                         f"{spikes.shape[-1]}")
+    _check_weights(spikes, w)
     want = (*spikes.shape[1:-1], w.shape[1])
     if v0 is not None and tuple(v0.shape) != want:
         raise ValueError(f"v0 shape {tuple(v0.shape)} != {want}")
@@ -87,7 +159,7 @@ def fc_lif_scan_plain(spikes: torch.Tensor, w: torch.Tensor, p: LIFParams,
     Returns (out_spikes, v_final) in the spikes' dtype.
     """
     _check_shapes(spikes, w, v0)
-    return lif_loop(fc_currents(spikes, w), p, v0, spikes.dtype)
+    return lif_loop(fc_currents_plain(spikes, w), p, v0, spikes.dtype)
 
 
 def fc_lif_scan_cuda(spikes: torch.Tensor, w: torch.Tensor, p: LIFParams,
@@ -98,12 +170,7 @@ def fc_lif_scan_cuda(spikes: torch.Tensor, w: torch.Tensor, p: LIFParams,
     (B, N) or (N,). Returns (out_spikes, v_final) in the spikes' dtype,
     queued on the current stream (no synchronisation)."""
     global launches
-    if spikes.dtype not in _SUFFIX:
-        raise TypeError(f"fc_lif_scan_cuda takes float32 or bfloat16 "
-                        f"spikes, got {spikes.dtype}")
-    if w.dtype != torch.float32:
-        raise TypeError(f"fc_lif_scan_cuda takes float32 weights, got "
-                        f"{w.dtype}")
+    _check_cuda_operands("fc_lif_scan_cuda", spikes, w)
     _check_shapes(spikes, w, v0)
     if not (spikes.is_contiguous() and w.is_contiguous()):
         raise ValueError("fc_lif_scan_cuda needs contiguous spikes and w")

@@ -57,17 +57,57 @@ def test_k1_matches_plain(card, dtype):
         assert _same(want, got)
 
 
-def test_k2_matches_plain_and_rows_are_batch_invariant(card):
+@pytest.mark.parametrize("t,b,k,n,dtype", [
+    (16, 8, 256, 40, torch.float32), (16, 8, 2048, 512, torch.float32),
+    (16, 8, 512, 11, torch.float32), (5, 1, 100, 11, torch.float32),
+    (16, 3, 100, 40, torch.bfloat16), (17, 13, 100, 11, torch.float32),
+    (17, 8, 100, 40, torch.bfloat16), (17, 13, 100, 520, torch.float32),
+    (40, 4, 64, 300, torch.float32), (5, 8, 37, 1000, torch.bfloat16),
+    (16, 3, 37, 40, torch.float32)])
+def test_k2_matches_plain_and_rows_are_batch_invariant(card, t, b, k, n,
+                                                       dtype):
+    """K2 against its plain version, bit for bit, at the main path's and
+    ragged shapes (both tile shapes, odd K, several T chunks): from rest
+    and from a membrane partly above threshold, with the last row alone,
+    and (f32, whose v_final chains exactly) in two T halves."""
     g = torch.Generator().manual_seed(1)
-    s = (torch.randint(0, 5, (16, 8, 256), generator=g) / 4.0).to(card)
-    w = (torch.randn(256, 40, generator=g) * 0.1).to(card)
-    v0 = torch.rand(8, 40, generator=g).to(card)
-    want = k2.fc_lif_scan_plain(s, w, P, v0)
-    got = k2.fc_lif_scan_cuda(s, w, P, v0)
-    assert _same(want, got)
-    one = k2.fc_lif_scan_cuda(s[:, 3:4].contiguous(), w, P, v0[3:4])
-    assert torch.equal(one[0][:, 0], got[0][:, 3])
-    assert torch.equal(one[1][0], got[1][3])
+    s = (torch.randint(0, 5, (t, b, k), generator=g) / 4.0).to(dtype).to(
+        card)
+    w = (torch.randn(k, n, generator=g) * k ** -0.5).to(card)
+    v0 = (torch.rand(b, n, generator=g) * 1.4 - 0.2).to(card)
+    for v in (None, v0):
+        want = k2.fc_lif_scan_plain(s, w, P, v)
+        got = k2.fc_lif_scan_cuda(s, w, P, v)
+        assert got[0].dtype == dtype and _same(want, got)
+        one = k2.fc_lif_scan_cuda(s[:, b - 1:].contiguous(), w, P,
+                                  None if v is None else v[b - 1:])
+        assert torch.equal(one[0][:, 0], got[0][:, b - 1])
+        assert torch.equal(one[1][0], got[1][b - 1])
+        if dtype == torch.float32:
+            a = k2.fc_lif_scan_cuda(s[:t // 2].contiguous(), w, P, v)
+            z = k2.fc_lif_scan_cuda(s[t // 2:].contiguous(), w, P, a[1])
+            assert torch.equal(torch.cat([a[0], z[0]]), got[0])
+            assert torch.equal(z[1], got[1])
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (8, 512, 11, torch.float32), (1, 512, 11, torch.float32),
+    (13, 100, 40, torch.bfloat16), (300, 512, 520, torch.float32),
+    (7, 37, 11, torch.bfloat16)])
+def test_k2_currents_entry_matches_plain_and_rows_are_batch_invariant(
+        card, m, k, n, dtype):
+    """``fc_currents`` on the card is one launch of K2's currents entry,
+    bit for bit the ascending-k loop, each row as it is alone."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randint(-1, 2, (m, k), generator=g).to(dtype).to(card)
+    w = torch.randn(k, n, generator=g).to(card)
+    before = k2.currents_launches
+    got = k2.fc_currents(x, w)
+    assert k2.currents_launches == before + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, k2.fc_currents_plain(x, w))
+    for r in {0, m // 2, m - 1}:
+        assert torch.equal(k2.fc_currents(x[r:r + 1], w)[0], got[r])
 
 
 def test_ops_count_launches_on_the_card(card):
@@ -123,8 +163,8 @@ def test_k3_matches_plain_and_rows_are_batch_invariant(card, m, k, n, dtype,
 
 def test_default_hetero_engine_launches_all_three_kernels(card):
     """A heterogeneous StreamEngine of default-built wings serves fusion
-    ticks on the card through K1, K2 and K3: one K3 launch per frame-lane
-    step."""
+    ticks on the card through K1, K2 and K3: one K3 launch (fc1) and one
+    of K2's currents entry (fc2) per frame-lane step."""
     rng = np.random.default_rng(3)
     eng = StreamEngine(engines=[BatchedClosedLoop(_snn_params(rng), CFG),
                                 FrameTCNEngine(_tcn_params(rng), TCN_SMOKE)],
@@ -135,7 +175,7 @@ def test_default_hetero_engine_launches_all_three_kernels(card):
             s.submit(ev.synthetic_gesture_events(
                 rng, k, mean_events=800, height=32, width=32),
                 fr.synthetic_gesture_frames(rng, k, height=32, width=32))
-    before = (k1.launches, k2.launches, k3.launches)
+    before = (k1.launches, k2.launches, k3.launches, k2.currents_launches)
     out = []
     while len(out) < 4:
         rows = eng.step()
@@ -144,7 +184,8 @@ def test_default_hetero_engine_launches_all_three_kernels(card):
             out += s.drain()
     steps = eng.stats["steps"]
     assert (k1.launches - before[0], k2.launches - before[1],
-            k3.launches - before[2]) == (2 * steps, 2 * steps, steps)
+            k3.launches - before[2], k2.currents_launches - before[3]) == (
+                2 * steps, 2 * steps, steps, steps)
 
 
 def test_default_stream_engine_launches_both_kernels(card):

@@ -1,7 +1,8 @@
 """Kernel K2 (fused ``spikes @ W`` + LIF) against the JAX package, on the CPU.
 
 On a CPU tensor ``ops.fc_lif_scan`` runs K2's plain version: ascending-k
-f32 currents, then the LIF loop. Two weight sets:
+f32 currents, then the LIF loop, and ``fc_currents`` (the currents alone,
+the frame wing's fc2) runs the loop. Two weight sets:
 
   * dyadic weights (He-init rounded to multiples of 2**-8): with fc1-like
     inputs (multiples of 1/4) every product and partial sum is exact in
@@ -145,3 +146,53 @@ def test_fc_lif_scan_grads_match_jax():
     for want, got in zip(jg, (ts.grad, tw.grad, tv.grad)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("shape", [(8, 64), (1, 64), (4, 3, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fc_currents_on_cpu_is_the_loop(shape, dtype):
+    """The dispatcher sends CPU tensors to the ascending-k loop, bit for
+    bit, whatever the leading dims, and launches nothing."""
+    rng = np.random.default_rng(8)
+    s = torch.from_numpy(_pooled_spikes(rng, shape)).to(dtype)
+    w = torch.from_numpy(_he(rng, shape[-1], 11))
+    before = (k2.launches, k2.currents_launches)
+    got = k2.fc_currents(s, w)
+    assert got.dtype == torch.float32 and got.shape == (*shape[:-1], 11)
+    assert torch.equal(got, k2.fc_currents_plain(s, w))
+    assert (k2.launches, k2.currents_launches) == before
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_fc_currents_ternary_bitwise_vs_jax(b):
+    """The frame wing's fc2: ternary activations times dyadic weights are
+    exact products and sums, so the port's ascending-k currents equal the
+    JAX package's ``s3 @ w`` bit for bit."""
+    rng = np.random.default_rng(20 + b)
+    s3 = rng.integers(-1, 2, size=(b, 96)).astype(np.float32)
+    w = _dyadic(_he(rng, 96, 11))
+    want = np.asarray(jnp.asarray(s3) @ jnp.asarray(w))
+    got = k2.fc_currents(torch.from_numpy(s3), torch.from_numpy(w))
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+def test_fc_currents_refuses_bad_inputs():
+    s, w = torch.zeros(4, 16), torch.zeros(16, 8)
+    with pytest.raises(ValueError, match="do not match"):
+        k2.fc_currents(s, torch.zeros(15, 8))
+    with pytest.raises(ValueError, match="do not match"):
+        k2.fc_currents(s, torch.zeros(16))
+    with pytest.raises(ValueError, match="unsupported device"):
+        k2.fc_currents(s.to("meta"), w.to("meta"))
+    before = k2.currents_launches
+    with pytest.raises(TypeError, match="spikes"):
+        k2.fc_currents_cuda(s.half(), w)
+    with pytest.raises(TypeError, match="weights"):
+        k2.fc_currents_cuda(s, w.double())
+    with pytest.raises(ValueError, match="do not match"):
+        k2.fc_currents_cuda(s, torch.zeros(15, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.fc_currents_cuda(torch.zeros(16, 4).t(), w)
+    with pytest.raises(ValueError, match="CUDA"):
+        k2.fc_currents_cuda(s, w)                    # CPU tensors
+    assert k2.currents_launches == before
