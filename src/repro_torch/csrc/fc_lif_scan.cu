@@ -7,7 +7,7 @@
 //   V[t] = alpha * V[t-1] * (V[t-1] < v_th) + I[t]
 //   S[t] = V[t] >= v_th
 //
-// fc_currents_* computes I alone for (M, K) inputs. The frame wing's fc2
+// fc_currents_f32 computes I alone for (M, K) inputs. The frame wing's fc2
 // uses it: the JAX package leaves that product to XLA (s3 @ w), but the
 // port's frame rows must keep their bits across batch sizes, which takes
 // this fixed order.
@@ -20,16 +20,23 @@
 // independent of the batch it rides in. It rules out splitting K and the
 // tensor cores, so all parallelism comes from the (t, b, n) outputs.
 //
-// What bounds it on the H100. The operations: at fc1 (B=8, T=16, K=2048,
-// N=512) 268 M separate fp32 multiplies and adds, 8.0 us at 33.5 T
-// instructions/s. Before that, shared memory: it delivers 128 bytes a
-// cycle to an SM's registers, and a thread that owns an RT x CT tile of
-// outputs needs RT + CT floats a k step. 65,536 outputs on 132 SMs fill
-// the 528 warp schedulers only at <= 4 outputs a thread, so the tile is
-// 2 x 2 (Wide: a block of 128 threads computes 32 rows x 16 columns), and
-// the loads cost ~16 cycles a k step an SM against 8 for the arithmetic.
-// Below kWideMinOutputs a thread owns one output (Narrow: 16 x 8), where
-// the 4-cycle dependent add chain of each sum is the floor (K=2048: ~4 us).
+// What bounds it on the H100 (measured by tools/k2_probe.py). The
+// operations: at fc1 (B=8, T=16, K=2048, N=512) 268 M separate fp32
+// multiplies and adds, 8.0 us at 33.5 T instructions/s. 65,536 outputs on
+// 132 SMs fill the 528 warp schedulers only at <= 4 outputs a thread, so
+// the tile is 2 x 2 (Wide: a block of 128 threads computes 32 rows x 16
+// columns) and each scheduler holds one warp. That warp issues ~11
+// instructions a k step (8 fp32, 1.5 shared loads, its share of the
+// staging) in ~18 cycles: with no other warp to switch to, its waits on
+// shared loads and barriers show. Fewer outputs a thread (more warps, more
+// loads an output), other chunk lengths and depths, loads issued a group
+// ahead and spikes held in 16 bits all measured slower or no faster.
+// Shared memory serves a warp's 4- or 8-byte load in one cycle and a
+// 16-byte load in two when the lanes that share an address sit in aligned
+// groups, twice that when they interleave (lane % 4, lane % 8); the lane
+// map in fc_kernel keeps both of a warp's loads in the first form. Below
+// kWideMinOutputs a thread owns one output (Narrow: 16 x 8), where the
+// 4-cycle dependent add chain of each sum is the floor (K=2048: ~4 us).
 //
 // The design: K is walked in chunks of KC that cp.async stages into
 // shared memory NSTAGE deep, so the copies of the next chunks overlap the
@@ -154,13 +161,10 @@ struct Rows {
   }
 };
 
-// Copy modes, chosen on the host from sizes and alignment: 16-byte or
-// 4-byte cp.async, or (bf16 rows of odd length) plain loads and stores.
-enum { COPY_SYNC = 0, COPY_4 = 4, COPY_16 = 16 };
-
-// The spike tile's cp.async copies, ROWS x KC elements a chunk. In 16-byte
-// mode a thread's vectors share one k offset and their rows are found once
-// per T chunk; the other modes find each element's row as they go.
+// The spike tile's copies, ROWS x KC elements a chunk: 16-byte cp.async
+// when the rows and the base are 16-byte aligned (``vec``; a thread's
+// vectors share one k offset and their rows are found once per T chunk),
+// else plain loads and stores, one element at a time.
 template <class C, typename T>
 struct SpikeStager {
   static constexpr int LD = spike_ld<C, T>();
@@ -170,11 +174,12 @@ struct SpikeStager {
   const T* spk;
   const T* src[PER];   // row start + the thread's k offset; null past an edge
   Rows rows;
-  int k, mode, q, r0;
+  int k, q, r0;
+  bool vec;
 
   __device__ __forceinline__ SpikeStager(const T* spk_, const Rows& rows_,
-                                         int k_, int mode_)
-      : spk(spk_), rows(rows_), k(k_), mode(mode_) {
+                                         int k_, bool vec_)
+      : spk(spk_), rows(rows_), k(k_), vec(vec_) {
     q = (threadIdx.x % VPR) * EPV;
     r0 = threadIdx.x / VPR;
 #pragma unroll
@@ -185,22 +190,13 @@ struct SpikeStager {
   }
 
   __device__ __forceinline__ void stage(T* dst, int k0) const {
-    if (mode == COPY_16) {
+    if (vec) {
       const bool k_ok = k0 + q < k;
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
         const bool ok = k_ok && src[i] != nullptr;
         cp_async16(dst + (r0 + i * RSTEP) * LD + q, ok ? src[i] + k0 : spk,
                    ok ? 16 : 0);
-      }
-    } else if (mode == COPY_4) {
-      constexpr int E4 = 4 / sizeof(T), V4 = C::KC / E4;
-      for (int v = threadIdx.x; v < C::ROWS * V4; v += NTHREADS) {
-        const int r = v / V4, kq = (v - r * V4) * E4, kk = k0 + kq;
-        const long long g = rows.at(r);
-        const bool ok = g >= 0 && kk < k;
-        cp_async4(dst + r * LD + kq, ok ? spk + g * k + kk : spk,
-                  ok ? 4 : 0);
       }
     } else {
       for (int e = threadIdx.x; e < C::ROWS * C::KC; e += NTHREADS) {
@@ -284,10 +280,10 @@ __device__ __forceinline__ void sum_chunk(const T* s, const float* w, int tr,
 template <class C, typename T>
 __device__ __forceinline__ void block_currents(
     unsigned char* smem, const T* spk, const float* w, const Rows& rows,
-    int k, int n0, int n, int s_mode, bool w16, int tr, int tc,
+    int k, int n0, int n, bool s16, bool w16, int tr, int tc,
     float (&acc)[C::RT][C::CT]) {
   const int chunks = (k + C::KC - 1) / C::KC;
-  const SpikeStager<C, T> spikes(spk, rows, k, s_mode);
+  const SpikeStager<C, T> spikes(spk, rows, k, s16);
   auto stage = [&](int c) {
     unsigned char* s = smem + (c % NSTAGE) * stage_bytes<C, T>();
     float* wt = reinterpret_cast<float*>(s + spike_bytes<C, T>());
@@ -330,11 +326,17 @@ fc_kernel(const T* __restrict__ spk, const float* __restrict__ w,
           const float* __restrict__ v0, T* __restrict__ out,
           T* __restrict__ vfin, float* __restrict__ cur_out, int steps,
           int b, int k, int n, int tt_n, int bb_n, float alpha, float v_th,
-          int s_mode, bool w16) {
+          bool s16, bool w16) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int CUR_LD = C::COLS + 1;
   float* cur_s = reinterpret_cast<float*>(smem + NSTAGE * stage_bytes<C, T>());
-  const int tid = threadIdx.x, tc = tid % C::TC, tr = tid / C::TC;
+  // The lane map: a thread's column group tc is lane bits 1-3, its row
+  // group tr the warp and lane bits 0 and 4. Lanes that load the same
+  // weights, and lanes that load the same spike row, then sit in the
+  // aligned groups that shared memory serves at full rate.
+  static_assert(C::TC == 8 && C::TR == 16, "the lane map takes 8 x 16");
+  const int tid = threadIdx.x, tc = (tid >> 1) & 7,
+            tr = (tid / 32) * 4 + (tid & 1) + ((tid >> 4) & 1) * 2;
   const int n0 = blockIdx.x * C::COLS, b0 = blockIdx.y * bb_n;
 
   // LIF neurons of the block: i = tid + j * NTHREADS -> (bb, c) =
@@ -355,7 +357,7 @@ fc_kernel(const T* __restrict__ spk, const float* __restrict__ w,
   for (int t0 = 0; t0 < steps; t0 += tt_n) {
     const Rows rows{t0, min(tt_n, steps - t0), bb_n, b0, b};
     float acc[C::RT][C::CT];
-    block_currents<C, T>(smem, spk, w, rows, k, n0, n, s_mode, w16, tr, tc,
+    block_currents<C, T>(smem, spk, w, rows, k, n0, n, s16, w16, tr, tc,
                          acc);
     if constexpr (!LIF) {
 #pragma unroll
@@ -404,13 +406,10 @@ fc_kernel(const T* __restrict__ spk, const float* __restrict__ w,
   }
 }
 
-template <typename T>
-int copy_mode(const void* p, long long row_elems) {
-  const unsigned long long a = (unsigned long long)p;
-  const long long row_bytes = row_elems * (long long)sizeof(T);
-  if (a % 16 == 0 && row_bytes % 16 == 0) return COPY_16;
-  if (a % 4 == 0 && row_bytes % 4 == 0) return COPY_4;
-  return COPY_SYNC;
+// 16-byte copies need a 16-byte aligned base and rows of a multiple of 16
+// bytes.
+bool aligned16(const void* p, long long row_bytes) {
+  return (unsigned long long)p % 16 == 0 && row_bytes % 16 == 0;
 }
 
 template <class C, typename T, bool LIF>
@@ -418,7 +417,8 @@ int run(const void* spk, const void* w, const void* v0, void* out,
         void* vfin, void* cur, int steps, int b, int k, int n, float alpha,
         float v_th, cudaStream_t stream) {
   constexpr int SMEM = smem_bytes<C, T, LIF>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // Set on every launch: the attribute belongs to the current device.
+  const cudaError_t attr = cudaFuncSetAttribute(
       fc_kernel<C, T, LIF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM);
   if (attr != cudaSuccess) return (int)attr;
@@ -428,11 +428,10 @@ int run(const void* spk, const void* w, const void* v0, void* out,
   const int bb_n = std::max(1, std::min(b, C::ROWS / tt_n));
   const dim3 grid((n + C::COLS - 1) / C::COLS, (b + bb_n - 1) / bb_n);
   if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
-  // The copy widths follow from the row lengths and base pointers.
   fc_kernel<C, T, LIF><<<grid, NTHREADS, SMEM, stream>>>(
       (const T*)spk, (const float*)w, (const float*)v0, (T*)out, (T*)vfin,
       (float*)cur, steps, b, k, n, tt_n, bb_n, alpha, v_th,
-      copy_mode<T>(spk, k), copy_mode<float>(w, n) == COPY_16);
+      aligned16(spk, (long long)k * sizeof(T)), aligned16(w, 4LL * n));
   return (int)cudaGetLastError();
 }
 
@@ -466,16 +465,10 @@ extern "C" int fc_lif_scan_bf16(const void* spk, const void* w,
                                      b, k, n, alpha, v_th, stream);
 }
 
-// Currents alone: x (M, K) f32 or bf16, w (K, N) f32 -> cur (M, N) f32,
-// the same sums as the fused kernel (one time step of M batch rows).
+// Currents alone: x (M, K) f32, w (K, N) f32 -> cur (M, N) f32, the same
+// sums as the fused kernel (one time step of M batch rows).
 extern "C" int fc_currents_f32(const void* x, const void* w, void* cur, int m,
                                int k, int n, void* stream) {
   return launch<float, false>(x, w, nullptr, nullptr, nullptr, cur, 1, m, k,
                               n, 0.0f, 0.0f, stream);
-}
-
-extern "C" int fc_currents_bf16(const void* x, const void* w, void* cur,
-                                int m, int k, int n, void* stream) {
-  return launch<__nv_bfloat16, false>(x, w, nullptr, nullptr, nullptr, cur,
-                                      1, m, k, n, 0.0f, 0.0f, stream);
 }

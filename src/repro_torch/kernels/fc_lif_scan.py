@@ -14,9 +14,10 @@ product and add rounded on its own (:func:`fc_currents_plain`). The kernel
 and its plain version follow that order, so they agree bit for bit, and a
 stream's rows never depend on the batch around it. The order rules out
 splitting K and the tensor cores, so the parallelism is the (t, b, n)
-outputs; at fc1 (B=8, T=16, 2048 -> 512) the kernel is bound by the
-shared-memory loads that feed those fp32 operations, about twice their
-instruction time.
+outputs; at fc1 (B=8, T=16, 2048 -> 512) they fill the card only at four
+a thread, one warp a scheduler, and that warp's stalls on its
+shared-memory loads and barriers hold it to about 0.6 instructions a
+cycle (``tools/k2_probe.py``).
 
 :func:`fc_currents` is that sum without the LIF: on a CUDA tensor one
 launch of the source's ``fc_currents`` entry, on a CPU tensor the loop.
@@ -59,9 +60,9 @@ def _fn(dtype: torch.dtype):
     return fn
 
 
-def _currents_fn(dtype: torch.dtype):
+def _currents_fn():
     lib = load_library(KERNEL)
-    fn = getattr(lib, f"fc_currents_{_SUFFIX[dtype]}")
+    fn = lib.fc_currents_f32
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -103,10 +104,13 @@ def fc_currents_plain(spikes: torch.Tensor, w: torch.Tensor
 
 def fc_currents_cuda(spikes: torch.Tensor, w: torch.Tensor
                      ) -> torch.Tensor:
-    """Launch K2's currents entry: contiguous f32 or bf16 ``spikes``
-    (..., K) and contiguous f32 ``w`` (K, N) on one CUDA device ->
-    (..., N) float32, queued on the current stream."""
+    """Launch K2's currents entry: contiguous f32 ``spikes`` (..., K) and
+    contiguous f32 ``w`` (K, N) on one CUDA device -> (..., N) float32,
+    queued on the current stream."""
     global currents_launches
+    if spikes.dtype != torch.float32:
+        raise TypeError(f"fc_currents_cuda takes float32 spikes, got "
+                        f"{spikes.dtype}")
     _check_cuda_operands("fc_currents_cuda", spikes, w)
     _check_weights(spikes, w)
     if not (spikes.is_contiguous() and w.is_contiguous()):
@@ -120,7 +124,7 @@ def fc_currents_cuda(spikes: torch.Tensor, w: torch.Tensor
                       device=spikes.device)
     with torch.cuda.device(spikes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _currents_fn(spikes.dtype)(
+        rc = _currents_fn()(
             spikes.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, stream)
     if rc != 0:
         raise RuntimeError(f"fc_currents kernel launch failed: CUDA error "

@@ -187,6 +187,8 @@ def test_fc_currents_refuses_bad_inputs():
     before = k2.currents_launches
     with pytest.raises(TypeError, match="spikes"):
         k2.fc_currents_cuda(s.half(), w)
+    with pytest.raises(TypeError, match="float32 spikes"):
+        k2.fc_currents_cuda(s.bfloat16(), w)       # the entry takes f32
     with pytest.raises(TypeError, match="weights"):
         k2.fc_currents_cuda(s, w.double())
     with pytest.raises(ValueError, match="do not match"):
