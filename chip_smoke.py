@@ -19,8 +19,11 @@ non-zero:
      f32 and bf16, with v0 absent and above threshold, chained in two T
      halves; K2's currents entry at the frame wing's fc2 and ragged
      shapes; K3 at the frame wing's fc1 (M in {1, 8}, K=2048, N=512) on
-     the 1/4 grid, at random f32 and bf16 and at ragged shapes; B=1 rows
-     against the rows of B=8;
+     the 1/4 grid, at random f32 and bf16 and at ragged shapes, and at
+     the LM's widths on both of its launch paths (split, up to 64 rows:
+     decode M=4 and prompt M=32; serial: M=128 and M=4096), with a
+     short last 512-k segment (K=1300) and with bytes that hold the
+     unused field 3, each called twice; B=1 rows against the batch's;
   3. the event slice: a full-width StreamEngine built as a user builds it
      (EngineConfig(fuse_fc=True, pipeline_depth=1), no kernel arguments)
      serves 8 streams (4 stateful) x 3 windows of ~60k events; launch
@@ -44,12 +47,16 @@ non-zero:
      card bit for bit (prefill and decode calls, chaining, hd=16, B=1
      rows); the rwkv6-7b widths at a depth of 2 layers in f32 on the card
      against the port's CPU run (forward logits, stepped decode, greedy
-     tokens, ternary greedy tokens); the full rwkv6-7b (32 layers, bf16)
+     tokens, ternary greedy tokens, and the card must pack the CPU's
+     ternary bytes); the full rwkv6-7b (32 layers, bf16)
      served through BatchScheduler, generate and the prefill step with
      K4's launch counts asserted (32 per decode step and per prefill), then
      ternary-quantized and served with K3's counted (8 per layer per
-     step); then K4's and K3's times at the LM shapes, decode and prefill
-     tokens/s and a profile of decode steps;
+     step); then K4's and K3's
+     times at the LM shapes (K3 at M=4 decode and M=32 prompt rows, and
+     at M=8,192 prefill rows on its serial path),
+     decode and prefill tokens/s, and profiles of bf16 and ternary decode
+     steps (busy share, K3's device ms a step);
   7. the ``kernels`` line, then the card line, then the ``ok`` line.
 
 Weights are random from a numpy seed. For the event wing's served
@@ -80,6 +87,8 @@ H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_FP32_OPS = 33.5e12
 H100_BF16_FLOPS = 989e12          # bf16 on the tensor cores, dense
 REPS = 20
+# Rows K3 gets from a prompt of 8 tokens at B=4 (generate's prefill).
+LM_PROMPT_ROWS = 32
 FLUSH_BYTES = 512 << 20           # read between timed calls: 10x the L2
 E2E_SAMPLES = 20                  # end-to-end samples per batch size
 E2E_STEPS = 16                    # engine steps per sample
@@ -344,27 +353,52 @@ def k3_checks(torch, dev, k3):
     """K3 against its plain version: the frame wing's fc1 (K=2048, N=512)
     at M=8 and M=1 on the 1/4 grid its input lies on (where the library
     matmul of the unpacked weights is exact too), at random f32 and bf16,
-    and at ragged shapes; B=1 rows against the rows of the batch."""
+    and at ragged shapes; then both launch paths at the LM's widths --
+    the split path (decode, M=4 at K=4096 and K=14,336; M=32 prompts),
+    the serial path (M=128 at K=N=4096; M=4096) -- and a short
+    last segment (K=1300), on random bytes that hold the unused field 3
+    (+2) where ``fields3``. Each case is called twice (the same bits)
+    and its last row alone."""
     from repro_torch.configs import TCN_CONFIG
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ternary_matmul_ref
     g = torch.Generator().manual_seed(SEED + 4)
     k, n = TCN_CONFIG.flat_dim, TCN_CONFIG.hidden
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(8, k, n, f32, True), (1, k, n, f32, True), (8, k, n, f32, False),
-             (8, k, n, bf16, False), (5, 260, 130, f32, False),
-             (129, 512, 1000, f32, False), (64, 260, 130, bf16, False)]
+    # (M, K, N, x dtype, x on the 1/4 grid, random bytes with field 3)
+    cases = [(8, k, n, f32, True, False), (1, k, n, f32, True, False),
+             (8, k, n, f32, False, False), (8, k, n, bf16, False, False),
+             (5, 260, 130, f32, False, False),
+             (129, 512, 1000, f32, False, False),
+             (64, 260, 130, bf16, False, False),
+             (4, 4096, 4096, bf16, False, False),
+             (4, 14336, 4096, bf16, False, False),
+             (4, 4096, 14336, bf16, False, True),
+             (32, 4096, 4096, bf16, False, True),
+             (32, 4096, 14336, bf16, False, False),
+             (128, 4096, 4096, bf16, False, True),
+             (4, 1300, 130, f32, False, True),
+             (33, 1300, 1000, bf16, False, True),
+             (4096, 1024, 256, f32, False, True)]
     err, rows = 0.0, []
-    for m, kk, nn, dtype, grid in cases:
+    for m, kk, nn, dtype, grid, fields3 in cases:
         x = (torch.randint(-4, 5, (m, kk), generator=g) / 4.0 if grid
              else torch.randn(m, kk, generator=g)).to(dtype).to(dev)
-        wp, scale = ops.pack_ternary_weights(torch.randn(kk, nn, generator=g))
+        if fields3:
+            wp = torch.randint(0, 256, (kk // 4, nn), generator=g,
+                               dtype=torch.uint8)
+            scale = torch.rand(nn, generator=g) + 0.1
+        else:
+            wp, scale = ops.pack_ternary_weights(
+                torch.randn(kk, nn, generator=g))
         wp, scale = wp.to(dev), scale.to(dev)
         want = k3.ternary_matmul_plain(x, wp, scale)
         got = k3.ternary_matmul_cuda(x, wp, scale)
+        again = k3.ternary_matmul_cuda(x, wp, scale)
         one = k3.ternary_matmul_cuda(x[m - 1:].contiguous(), wp, scale)
         torch.cuda.synchronize()
         ok = dict(plain=bool(torch.equal(want, got)),
+                  repeat=bool(torch.equal(again, got)),
                   b1_rows=bool(torch.equal(one[0], got[m - 1])))
         if grid:
             ok["library_bitwise"] = bool(torch.equal(
@@ -372,9 +406,14 @@ def k3_checks(torch, dev, k3):
         err = max(err, _max_err([want], [got]))
         rows.append(dict(kernel="ternary_matmul", shape=[m, kk, nn],
                          dtype=str(dtype), x="quarter_grid" if grid
-                         else "normal", **ok))
+                         else "normal", field3_bytes=fields3,
+                         segments=-(-kk // k3.KS),
+                         **_k3_path(k3, m, kk, nn), **ok))
         check(all(ok.values()), f"K3 {m}x{kk}x{nn} {dtype}: {ok}")
-    emit("k3_vs_plain", tolerance="bitwise", checks=rows, max_abs_err=err)
+    check({r["path"] for r in rows} == {"split", "serial"},
+          "K3's checks must reach both launch paths")
+    emit("k3_vs_plain", tolerance="bitwise", segment=k3.KS, checks=rows,
+         max_abs_err=err)
     return err
 
 
@@ -1071,7 +1110,8 @@ def profile_run(torch, dev, params, pool, step_ms_untraced):
 
 def k3_timings(torch, dev, k3):
     """K3 at the frame wing's fc1, one launch per frame-lane step: M=8
-    slots (and M=1), K=2048, N=512, x on the 1/4 grid."""
+    slots (and M=1, and M=32 rows as the LM's prompts give K3), K=2048,
+    N=512, x on the 1/4 grid. ``vs_library`` is ms / library_ms."""
     from repro_torch.configs import TCN_CONFIG
     from repro_torch.core.ternary import unpack2bit
     from repro_torch.kernels import ops
@@ -1082,7 +1122,7 @@ def k3_timings(torch, dev, k3):
     wq = unpack2bit(wp.t(), out_dtype=torch.float32).t().contiguous()
     flush = torch.ones(FLUSH_BYTES // 4, device=dev)
     rows = {}
-    for m in (8, 1):
+    for m in (8, 1, LM_PROMPT_ROWS):
         x = (torch.randint(-4, 5, (m, k), generator=g) / 4.0).to(dev)
         run = lambda: k3.ternary_matmul_cuda(x, wp, scale)
         # x, the packed weights and the scale read once, out written once;
@@ -1097,9 +1137,11 @@ def k3_timings(torch, dev, k3):
             plain_ms=_device_ms(torch, lambda: k3.ternary_matmul_plain(
                 x, wp, scale), flush, reps=5),
             library_ms=_device_ms(torch, lambda: torch.matmul(x, wq), flush),
-            bound_ms=bound, bound_by=by)
+            bound_ms=bound, bound_by=by, path=_k3_path(k3, m, k, n))
+        rows[f"M{m}"]["vs_library"] = (rows[f"M{m}"]["ms"]
+                                       / rows[f"M{m}"]["library_ms"])
     del flush
-    emit("k3_times", shape={"M": [8, 1], "K": k, "N": n},
+    emit("k3_times", shape={"M": [8, 1, LM_PROMPT_ROWS], "K": k, "N": n},
          unit="ms of device time per call from a cold L2 (CUDA graph of "
               "one call, CUDA events, median); warm_l2_ms: inputs left in "
               "L2 by the call before; call_ms: one call timed from the host",
@@ -1109,6 +1151,13 @@ def k3_timings(torch, dev, k3):
     r = rows["M8"]
     return {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}
+
+
+def _k3_path(k3, m, k, n):
+    """K3's launch plan for an (M, K) x (K, N) product, as a dict."""
+    p = k3.plan(m, k, n)
+    return dict(path=p.path, rows_a_thread=p.rows, segments_a_warp=p.group,
+                warps_a_block=p.warps, blocks=p.blocks)
 
 
 def frame_end_to_end(torch, dev):
@@ -1197,7 +1246,8 @@ LM_HEAD_ATOL = 1e-4
 LM_SERVE_REQUESTS, LM_PROMPT, LM_NEW = 6, 8, 16     # as launch/serve.py
 LM_BATCH = 4
 LM_PREFILL_S = 2048
-DECODE_SAMPLES, DECODE_STEPS = 20, 16     # decode tokens/s at B=4
+# Decode tokens/s at B=4, bf16 and ternary samples in turn.
+DECODE_SAMPLES, DECODE_STEPS = 20, 16
 
 
 def _lm_params(torch, model, seed, dev):
@@ -1373,6 +1423,8 @@ def lm_depth_cut(torch, dev, k3):
     check(dec_diff <= LM_LOGITS_ATOL, f"decode logits: {dec_diff}")
     check(out["greedy_tokens_equal"], f"greedy tokens {tg} vs {tc}")
     check(out["ternary_tokens_equal"], f"ternary tokens {qtg} vs {qtc}")
+    check(same_bytes == 1.0, f"the card packed {same_bytes} of the bytes "
+          f"the CPU packs (ternarize's means are fixed-order sums)")
     check(k3_launches == 8 * LM_CUT_LAYERS * qsteps,
           f"K3 launched {k3_launches} times in {qsteps} 2-layer steps")
 
@@ -1534,67 +1586,111 @@ def lm_times(torch, dev, k3, k4, model, params, qparams):
         k4_rows[name] = row
         del r, k, v, lw, u, s0
 
-    k3_rows, k3_err = {}, 0.0
+    k3_rows, k3_prompt_rows, k3_err = {}, {}, 0.0
     for k, n in ((4096, 4096), (4096, 14336), (14336, 4096)):
         wp, scale = ops.pack_ternary_weights(torch.randn(k, n, generator=g))
         wp, scale = wp.to(dev), scale.to(dev)
         wq = unpack2bit(wp.t(), out_dtype=bf16).t().contiguous()
-        x = torch.randn(LM_BATCH, k, generator=g).to(bf16).to(dev)
-        run = lambda: k3.ternary_matmul_cuda(x, wp, scale)
-        want, got = k3.ternary_matmul_plain(x, wp, scale), run()
-        check(bool(torch.equal(want, got)), f"K3 at M={LM_BATCH}, K={k}, "
-              f"N={n} differs from its plain version")
-        k3_err = max(k3_err, _max_err([want], [got]))
-        # bf16 x times ternary weights (exact in bf16) is a bf16
-        # tensor-core product.
-        bound, by = _bound_ms(2 * LM_BATCH * k + k // 4 * n + 4 * n
-                              + 2 * LM_BATCH * n, 2 * LM_BATCH * k * n,
-                              peak=H100_BF16_FLOPS)
-        k3_rows[f"K{k}_N{n}"] = dict(
-            ms=_device_ms(torch, run, flush), call_ms=_call_ms(torch, run),
-            plain_ms=_device_ms(torch, lambda: k3.ternary_matmul_plain(
-                x, wp, scale), flush, reps=3),
-            library_ms=_device_ms(torch, lambda: torch.matmul(x, wq), flush),
-            bound_ms=bound, bound_by=by)
-    del flush
+        for m, table in ((LM_BATCH, k3_rows), (LM_PROMPT_ROWS,
+                                               k3_prompt_rows)):
+            x = torch.randn(m, k, generator=g).to(bf16).to(dev)
+            run = lambda: k3.ternary_matmul_cuda(x, wp, scale)
+            want, got = k3.ternary_matmul_plain(x, wp, scale), run()
+            check(bool(torch.equal(want, got)), f"K3 at M={m}, K={k}, "
+                  f"N={n} differs from its plain version")
+            k3_err = max(k3_err, _max_err([want], [got]))
+            # bf16 x times ternary weights (exact in bf16) is a bf16
+            # tensor-core product.
+            bound, by = _bound_ms(2 * m * k + k // 4 * n + 4 * n
+                                  + 2 * m * n, 2 * m * k * n,
+                                  peak=H100_BF16_FLOPS)
+            row = table[f"K{k}_N{n}"] = dict(
+                ms=_device_ms(torch, run, flush),
+                call_ms=_call_ms(torch, run),
+                plain_ms=_device_ms(torch, lambda: k3.ternary_matmul_plain(
+                    x, wp, scale), flush, reps=3),
+                library_ms=_device_ms(torch, lambda: torch.matmul(x, wq),
+                                      flush),
+                bound_ms=bound, bound_by=by, path=_k3_path(k3, m, k, n))
+            row["vs_library"] = row["ms"] / row["library_ms"]
+    # The serial path at the rows of a prefill (B=4, S=2048), where the
+    # plan takes it. The plain version (seconds a call here) is held
+    # against the first and last 8 rows and not timed.
+    m, k, n = LM_BATCH * LM_PREFILL_S, 14336, 4096
+    wp, scale = ops.pack_ternary_weights(torch.randn(k, n, generator=g))
+    wp, scale = wp.to(dev), scale.to(dev)
+    wq = unpack2bit(wp.t(), out_dtype=bf16).t().contiguous()
+    x = torch.randn(m, k, generator=g).to(bf16).to(dev)
+    run = lambda: k3.ternary_matmul_cuda(x, wp, scale)
+    got = run()
+    want = k3.ternary_matmul_plain(torch.cat([x[:8], x[-8:]]), wp, scale)
+    check(bool(torch.equal(want, torch.cat([got[:8], got[-8:]]))),
+          f"K3 at M={m}, K={k}, N={n} differs from its plain version")
+    bound, by = _bound_ms(2 * m * k + k // 4 * n + 4 * n + 2 * m * n,
+                          2 * m * k * n, peak=H100_BF16_FLOPS)
+    k3_prefill = dict(
+        shape=[m, k, n], ms=_device_ms(torch, run, flush, reps=5),
+        call_ms=_call_ms(torch, run, reps=5),
+        library_ms=_device_ms(torch, lambda: torch.matmul(x, wq), flush,
+                              reps=5),
+        bound_ms=bound, bound_by=by, path=_k3_path(k3, m, k, n),
+        plain="held against the first and last 8 rows, not timed")
+    k3_prefill["vs_library"] = k3_prefill["ms"] / k3_prefill["library_ms"]
+    check(k3_prefill["path"]["path"] == "serial",
+          f"K3's prefill rows took {k3_prefill['path']}")
+    del flush, x, got, wq
     emit("lm_kernel_times", batch=LM_BATCH, heads=64, head_dim=64,
          k4_dtypes="bf16 r/k/v/u/o, f32 logw, f32 state",
          unit="ms of device time per call from a cold L2 (CUDA graph of "
               "one call, CUDA events, median); warm_l2_ms: inputs left in "
               "L2 by the call before; call_ms: one call timed from the host",
          k4=k4_rows, k4_library="none (no single call)",
-         k3_decode_M4_bf16=k3_rows, k3_vs_plain="bitwise",
+         k3_decode_M4_bf16=k3_rows, k3_prompt_M32_bf16=k3_prompt_rows,
+         k3_prefill_bf16=k3_prefill,
+         k3_vs_plain="bitwise",
          k3_max_abs_err=k3_err,
          k3_library_note="torch.matmul of bf16 x with the unpacked bf16 "
-                         "weights (no scale): the yardstick only")
+                         "weights (no scale): the yardstick only; "
+                         "vs_library = ms / library_ms")
 
     serve_step = make_serve_step(model.cfg)
     vocab = model.cfg.vocab_size
 
-    def decode_rate(p, samples, steps):
-        cache = model.init_cache(LM_BATCH, 64, device=dev)
-        tok = torch.ones((LM_BATCH, 1), dtype=torch.long, device=dev)
-        for _ in range(3):
-            tok, cache = serve_step(p, cache, tok)
-        rates, step_ms = [], []
-        for _ in range(samples):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(steps):
+    def decode_rates(plist, samples=DECODE_SAMPLES, steps=DECODE_STEPS):
+        """Decode tokens/s of each weight set in ``plist``, whose samples
+        are taken in turn, so that a drift of the host's speed during
+        the run falls on each alike."""
+        states = []
+        for p in plist:
+            cache = model.init_cache(LM_BATCH, 64, device=dev)
+            tok = torch.ones((LM_BATCH, 1), dtype=torch.long, device=dev)
+            for _ in range(3):
                 tok, cache = serve_step(p, cache, tok)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            rates.append(LM_BATCH * steps / dt)
-            step_ms.append(dt * 1e3 / steps)
-        check(bool(((tok >= 0) & (tok < vocab)).all()), "decode tokens")
-        return dict(tokens_per_s_median=statistics.median(rates),
-                    tokens_per_s_min=min(rates),
-                    tokens_per_s_max=max(rates),
-                    step_ms_median=statistics.median(step_ms),
-                    samples=samples, steps_per_sample=steps), (p, cache, tok)
+            states.append([p, cache, tok])
+        rates = [[] for _ in plist]
+        step_ms = [[] for _ in plist]
+        for _ in range(samples):
+            for st, rate, ms in zip(states, rates, step_ms):
+                p, cache, tok = st
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    tok, cache = serve_step(p, cache, tok)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                st[1:] = cache, tok
+                rate.append(LM_BATCH * steps / dt)
+                ms.append(dt * 1e3 / steps)
+        for _, _, tok in states:
+            check(bool(((tok >= 0) & (tok < vocab)).all()), "decode tokens")
+        return [dict(tokens_per_s_median=statistics.median(rate),
+                     tokens_per_s_min=min(rate), tokens_per_s_max=max(rate),
+                     step_ms_median=statistics.median(ms), samples=samples,
+                     steps_per_sample=steps, tokens_per_s_samples=rate)
+                for rate, ms in zip(rates, step_ms)], [tuple(st)
+                                                       for st in states]
 
-    fp, state = decode_rate(params, DECODE_SAMPLES, DECODE_STEPS)
-    tern, _ = decode_rate(qparams, 3, 4)
+    (fp, tern), (state, tstate) = decode_rates([params, qparams])
 
     prefill = make_prefill_step(model.cfg)
     batch = {"tokens": torch.from_numpy(np.random.default_rng(
@@ -1612,20 +1708,34 @@ def lm_times(torch, dev, k3, k4, model, params, qparams):
     prefill(params, batch)
     peak = torch.cuda.max_memory_allocated()
 
-    p, cache, tok = state
-    box = [cache, tok]
+    def profile(st, step_ms):
+        """Four decode steps from ``st`` under the profiler."""
+        p, cache, tok = st
+        box = [cache, tok]
 
-    def steps4():
-        for _ in range(4):
-            box[1], box[0] = serve_step(p, box[0], box[1])
-    _, *trace = _trace(torch, steps4)
+        def steps4():
+            for _ in range(4):
+                box[1], box[0] = serve_step(p, box[0], box[1])
+        _, *trace = _trace(torch, steps4)
+        fields = _trace_fields(*trace, 4, step_ms)
+        fields["k3_device_ms_per_step"] = sum(
+            ms for name, ms in trace[1].items()
+            if "ternary_matmul" in name) / 4
+        return fields
+
     emit("lm_end_to_end", batch=LM_BATCH,
          metric="host clock ending in torch.cuda.synchronize",
          decode_bf16=fp, decode_ternary=tern,
+         ternary_vs_bf16_tokens_per_s=(tern["tokens_per_s_median"]
+                                       / fp["tokens_per_s_median"]),
+         ternary_vs_bf16_paired_median=statistics.median(
+             t / f for t, f in zip(tern["tokens_per_s_samples"],
+                                   fp["tokens_per_s_samples"])),
          prefill=dict(seq=LM_PREFILL_S, s_median=pre_s, s_all=times,
                       tokens_per_s=LM_BATCH * LM_PREFILL_S / pre_s,
                       peak_memory_gb=peak / 1e9),
-         decode_profile=_trace_fields(*trace, 4, fp["step_ms_median"]))
+         decode_profile=profile(state, fp["step_ms_median"]),
+         decode_ternary_profile=profile(tstate, tern["step_ms_median"]))
     return k4_rows, k3_err
 
 

@@ -25,7 +25,8 @@ elementwise operations rather than left to a reduction kernel whose order
 follows its launch shape: the pools add their k*k taps in row-major order,
 the per-sample ``mean|x|`` of the activation threshold is a pairwise
 halving sum over the row padded with zeros to a power of two, fc1 is K3's
-ascending-k sum, and fc2 is the ascending-k sum of
+segmented sum (ascending k within 512-k segments, the segments in
+ascending order), and fc2 is the ascending-k sum of
 ``kernels.fc_lif_scan.fc_currents`` (exact products: ``s3`` is ternary),
 one launch of K2's currents entry on the card.
 The two convolutions are the one library call (cuDNN on the card);
@@ -38,10 +39,9 @@ import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.snn import _conv
-from repro_torch.core.ternary import ternarize
+from repro_torch.core.ternary import pairwise_sum, ternarize
 from repro_torch.kernels import ops
 from repro_torch.kernels.fc_lif_scan import fc_currents
 
@@ -144,18 +144,10 @@ def _avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _row_mean_abs(x: torch.Tensor) -> torch.Tensor:
-    """Per-sample ``mean|x|`` over every non-batch axis, (B,): the row is
-    padded with zeros to a power of two and summed by pairwise halving
-    (elementwise adds only), then divided by the true count."""
+    """Per-sample ``mean|x|`` over every non-batch axis, (B,): a
+    :func:`pairwise_sum` of the row, divided by the true count."""
     a = x.abs().reshape(x.shape[0], -1)
-    count = a.shape[1]
-    width = 1 << max(count - 1, 0).bit_length()
-    if width > count:
-        a = F.pad(a, (0, width - count))
-    while a.shape[1] > 1:
-        half = a.shape[1] // 2
-        a = a[:, :half] + a[:, half:]
-    return a[:, 0] / float(count)
+    return pairwise_sum(a) / float(a.shape[1])
 
 
 def _ternarize_act(x: torch.Tensor, threshold: float) -> torch.Tensor:

@@ -8,6 +8,15 @@ Port of ``repro.core.ternary``:
   * 2-bit packing, 4 weights per byte, the storage format kernel K3
     (``kernels/ternary_matmul``) consumes.
 
+The two means are :func:`pairwise_sum` trees of elementwise adds in
+float64, divided by their count and rounded to the weight's dtype once,
+not reduction kernels: the card then packs the same bytes as the CPU (a
+CUDA reduction sums in another order, and a weight at the threshold
+would flip). In float64 the tree's rounding stays far below a float32
+ulp, so the mean is in practice the correctly rounded one, and agrees
+with the reference's float32 reduction wherever that one is correctly
+rounded too. The mask count is an exact integer sum.
+
 ``ternary_ste`` (straight-through QAT) waits for the training slice.
 """
 from __future__ import annotations
@@ -15,10 +24,26 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["ternarize", "pack2bit", "unpack2bit", "TERNARY_DELTA_FACTOR"]
+__all__ = ["ternarize", "pack2bit", "unpack2bit", "pairwise_sum",
+           "TERNARY_DELTA_FACTOR"]
 
 TERNARY_DELTA_FACTOR = 0.7  # TWN threshold heuristic
+
+
+def pairwise_sum(a: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed order: pad with zeros to a power
+    of two, then add the two halves elementwise until one value is left.
+    The same bits on every device and whatever the other axes hold."""
+    count = a.shape[-1]
+    width = 1 << max(count - 1, 0).bit_length()
+    if width > count:
+        a = F.pad(a, (0, width - count))
+    while a.shape[-1] > 1:
+        half = a.shape[-1] // 2
+        a = a[..., :half] + a[..., half:]
+    return a[..., 0]
 
 
 def ternarize(w: torch.Tensor, axis: Optional[int] = -1
@@ -27,23 +52,26 @@ def ternarize(w: torch.Tensor, axis: Optional[int] = -1
     int8 and ``scale`` in ``w``'s dtype.
 
     ``axis`` is the output-channel axis (per-channel scale, kept as a
-    size-1-elsewhere tensor); ``None`` gives one per-tensor scale.
+    size-1-elsewhere tensor); ``None`` gives one per-tensor scale. The
+    means are float64 :func:`pairwise_sum` trees over each channel's
+    weights divided by their count, then cast to ``w``'s dtype.
     """
     absw = w.abs()
     if axis is None:
-        delta = TERNARY_DELTA_FACTOR * absw.mean()
-        mask = absw > delta
-        denom = mask.sum().clamp(min=1)
-        scale = torch.where(mask, absw, 0.0).sum() / denom
+        rows, keep = absw.reshape(1, -1), ()
     else:
-        dims = tuple(i for i in range(w.ndim) if i != axis % w.ndim)
-        delta = TERNARY_DELTA_FACTOR * absw.mean(dim=dims, keepdim=True)
-        mask = absw > delta
-        denom = mask.sum(dim=dims, keepdim=True).clamp(min=1)
-        scale = torch.where(mask, absw, 0.0).sum(dim=dims,
-                                                 keepdim=True) / denom
+        ax = axis % w.ndim
+        rows = absw.movedim(ax, 0).reshape(w.shape[ax], -1)
+        keep = [1] * w.ndim
+        keep[ax] = -1
+    mean = (pairwise_sum(rows.double()) / rows.shape[1]).to(w.dtype)
+    delta = (TERNARY_DELTA_FACTOR * mean).reshape(keep)
+    mask = absw > delta
+    row_mask = rows > delta.reshape(-1, 1)                # mask, as rows
+    denom = row_mask.sum(dim=1).clamp(min=1)              # exact integers
+    scale = pairwise_sum(torch.where(row_mask, rows, 0.0).double()) / denom
     q = torch.where(mask, torch.sign(w), 0.0).to(torch.int8)
-    return q, scale.to(w.dtype)
+    return q, scale.reshape(keep).to(w.dtype)
 
 
 def pack2bit(q: torch.Tensor) -> torch.Tensor:

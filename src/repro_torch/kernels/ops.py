@@ -162,10 +162,14 @@ def pack_ternary_weights(w: torch.Tensor
 
 def ternary_matmul(x: torch.Tensor, w_packed: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
-    """``x`` (M, K) @ ternary (K, N) with in-kernel unpacking, f32
-    accumulation in ascending k, then the per-channel scale (K3)."""
+    """``x`` (..., K) @ ternary (K, N) with in-kernel unpacking, then the
+    per-channel scale (K3). The f32 sum is segmented as the TPU kernel
+    tiles K: ascending k within each 512-k segment, the segments' partials
+    added in ascending order (``kernels.ternary_matmul.KS``)."""
+    if scale.ndim != 1:
+        scale = scale.reshape(-1)
     return ternary_matmul_fwd(x.contiguous(), w_packed.contiguous(),
-                              scale.reshape(-1).contiguous())
+                              scale.contiguous())
 
 
 def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

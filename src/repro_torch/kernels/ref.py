@@ -53,7 +53,8 @@ def ternary_matmul_ref(
     (see :func:`repro_torch.core.ternary.pack2bit`); ``scale`` (N,).
     Returns (M, N) in ``x``'s dtype. The product is a library matmul, so
     its summation order is the library's: K3 and its plain version fix the
-    order instead (ascending k) and agree with this within rounding.
+    order instead (ascending k within each 512-k segment, the segments in
+    ascending order) and agree with this within rounding.
     """
     w_q = unpack2bit(w_packed.t()).t()          # (K, N) int8 in {-1, 0, 1}
     acc = torch.matmul(x.float(), w_q.float())

@@ -2,28 +2,35 @@
 
 Replaces ``ternary_matmul_pallas`` (``repro/kernels/ternary_matmul.py``),
 which unpacks 2-bit weight tiles in VMEM and feeds the MXU with an f32
-accumulator carried across a sequential K grid axis. Here each CUDA
-thread owns one output column for a block of 4 rows of ``x`` and walks K
-in ascending order with the accumulators in registers, the x and weight
-chunks staged in shared memory (``csrc/ternary_matmul.cu``). At the frame
-wing's fc1 (M = 8, K = 2048, N = 512) it is bound by latency and launch,
-not by bytes or operations. ``choose_blocks_tmm`` (a VMEM-budget chooser)
-has no Hopper meaning and is not ported.
+accumulator carried across a sequential K grid axis. ``choose_blocks_tmm``
+(a VMEM-budget chooser) has no Hopper meaning and is not ported.
 
     out = (x @ unpack2bit(w_packed)) * scale
 
-``x`` (M, K) f32 or bf16; ``w_packed`` (K/4, N) uint8, byte ``j`` holding
-k = 4j..4j+3 as 2-bit fields of value + 1; ``scale`` (N,) f32; ``out``
-(M, N) in ``x``'s dtype. Each output is an f32 sum over k in ascending
-order, each product and add rounded on its own, then one multiply by the
-scale: :func:`ternary_matmul_plain` repeats that arithmetic, so the kernel
-equals it bit for bit for any finite ``x``, and a row never depends on the
-rows around it. :func:`ternary_matmul_fwd` picks between the two by the
-tensor's device alone.
+``x`` (..., K) f32 or bf16, its leading dims M rows; ``w_packed`` (K/4, N)
+uint8, byte ``j`` holding k = 4j..4j+3 as 2-bit fields of value + 1;
+``scale`` (N,) f32; ``out`` (..., N) in ``x``'s dtype.
+
+The sum has a fixed order, which mirrors the TPU kernel's K tiling (its
+``block_k`` is at most 512, and it adds one K tile's product into the
+accumulator at a time, in ascending tile order): K is cut into segments
+of :data:`KS` = 512 k, the last one possibly short; each segment's partial
+is an f32 sum in ascending k from +0; the partials are added into an f32
+accumulator in ascending segment order; the accumulator is multiplied by
+the scale once. Each product and add is rounded on its own. For K <= 512
+that is the plain ascending-k sum. :func:`ternary_matmul_plain` repeats
+that arithmetic, so the kernel (``csrc/ternary_matmul.cu``) equals it bit
+for bit for any finite ``x``, and a row never depends on the rows around
+it. The order leaves the kernel free to sum the segments of one output in
+parallel warps when there are few rows (:func:`plan`), with the same
+bits. :func:`ternary_matmul_fwd` picks between kernel and plain version by
+the tensor's device alone.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -31,7 +38,8 @@ from repro_torch.core.ternary import unpack2bit
 from repro_torch.kernels._build import load_library
 
 __all__ = ["ternary_matmul_cuda", "ternary_matmul_plain",
-           "ternary_matmul_fwd", "launches", "KERNEL"]
+           "ternary_matmul_fwd", "plan", "launch_plan", "Plan", "launches",
+           "KERNEL", "KS"]
 
 KERNEL = "ternary_matmul"
 
@@ -39,26 +47,110 @@ KERNEL = "ternary_matmul"
 # 0). Only ternary_matmul_cuda adds to it, once per launch.
 launches = 0
 
+# k per segment of the sum. csrc/ternary_matmul.cu names the same
+# constexpr KS: the two must agree, or the kernel and its plain version
+# part bits.
+KS = 512
+
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_MAX_M = 65_535 * 4             # grid.y limit x rows per block
+# The kernel's geometry, as csrc/ternary_matmul.cu lays it out (checked
+# against its ternary_matmul_geometry when the library loads): a warp's
+# tile is R rows by _COLS columns; a split-path block is up to _MAX_WARPS
+# warps on one tile, a serial-path block _SERIAL_WARPS tiles.
+_COLS = 32
+_MAX_WARPS = 16
+_SERIAL_WARPS = 4
+_MAX_BLOCKS = 2 ** 31 - 1
+_SPLIT_MAX_SEGMENTS = 32        # a split block's shared memory stays < 227 KB
+# The most rows the split path takes. tools/k3_probe.py (k3_paths) timed
+# both paths at the rwkv6-7b products on an H100 80GB HBM3 at 700 W: the
+# split path is 9-45% faster at M <= 48 and ties or wins at M = 64; from
+# M = 96 the serial path is up to 16% faster (2.8% slower at K x N =
+# 4096 x 14,336, M = 96).
+_SPLIT_MAX_ROWS = 64
+_H100_SMS = 132
 
 
+class Plan(NamedTuple):
+    """One launch of the kernel: ``rows`` R a thread, ``group`` segments
+    a warp, ``warps`` a block, ``blocks`` in the grid, and ``path``,
+    "split" (a tile's segments spread over the warps of one block) or
+    "serial" (one warp walks every segment of its tile)."""
+    rows: int
+    group: int
+    warps: int
+    blocks: int
+    path: str
+
+
+def launch_plan(m: int, k: int, n: int, rows: int, group: int) -> Plan:
+    """The launch the kernel makes of an (M, K) x (K, N) product with R =
+    ``rows`` and G = ``group``: the split path when G is below the
+    number of segments, else the serial path."""
+    segs = max(1, -(-k // KS))
+    tiles = -(-m // rows) * -(-n // _COLS)
+    if group < segs:
+        return Plan(rows, group, -(-segs // group), tiles, "split")
+    return Plan(rows, group, _SERIAL_WARPS, -(-tiles // _SERIAL_WARPS),
+                "serial")
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, k: int, n: int, sms: int = _H100_SMS,
+         path: Optional[str] = None) -> Plan:
+    """The kernel's launch for an (M, K) x (K, N) product on a card of
+    ``sms`` SMs.
+
+    The split path puts ceil(S / G) warps on one tile, each summing G
+    segments, and combines them in the block; the serial path has one
+    warp walk all S segments of its tile. The split path is taken up to
+    :data:`_SPLIT_MAX_ROWS` rows, and ``path`` ("split" or "serial")
+    forces one where it can run. R is the largest of 8, 4 and 2 (at most
+    M rounded up to a power of two) that still gives the ``sms`` SMs one
+    warp a scheduler, else 1. The bits do not depend on the plan.
+    """
+    segs = max(1, -(-k // KS))
+    fill = sms * 128                # lanes of one warp a scheduler
+    top = min(8, 1 << max(m - 1, 0).bit_length())
+    split = m <= _SPLIT_MAX_ROWS if path is None else path == "split"
+    warps = 1
+    if split and 1 < segs <= _SPLIT_MAX_SEGMENTS:
+        warps = -(-segs // -(-segs // _MAX_WARPS))
+    group = -(-segs // warps)
+    r = next((c for c in (8, 4, 2)
+              if c <= top and -(-m // c) * n * warps >= fill), 1)
+    return launch_plan(m, k, n, r, group)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _fn(dtype: torch.dtype):
     lib = load_library(KERNEL)
+    geometry = (ctypes.c_int * 4)()
+    lib.ternary_matmul_geometry(geometry)
+    if tuple(geometry) != (KS, _COLS, _MAX_WARPS, _SERIAL_WARPS):
+        raise RuntimeError(
+            f"csrc/ternary_matmul.cu's (KS, COLS, MAX_WARPS, SERIAL_WARPS) "
+            f"{tuple(geometry)} differ from the wrapper's "
+            f"{(KS, _COLS, _MAX_WARPS, _SERIAL_WARPS)}")
     fn = getattr(lib, f"ternary_matmul_{_SUFFIX[dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _check(x, w_packed, scale):
-    if x.ndim != 2 or w_packed.ndim != 2:
-        raise ValueError(f"need (M, K) x and (K/4, N) w_packed, got "
+    if x.ndim < 2 or w_packed.ndim != 2:
+        raise ValueError(f"need (..., K) x and (K/4, N) w_packed, got "
                          f"{tuple(x.shape)} and {tuple(w_packed.shape)}")
-    if w_packed.shape[0] * 4 != x.shape[1]:
+    if w_packed.shape[0] * 4 != x.shape[-1]:
         raise ValueError(f"w_packed rows {w_packed.shape[0]} != K/4 for "
-                         f"K={x.shape[1]}")
+                         f"K={x.shape[-1]}")
     if scale.numel() != w_packed.shape[1]:
         raise ValueError(f"scale has {scale.numel()} values for N="
                          f"{w_packed.shape[1]}")
@@ -66,22 +158,30 @@ def _check(x, w_packed, scale):
 
 def ternary_matmul_plain(x: torch.Tensor, w_packed: torch.Tensor,
                          scale: torch.Tensor) -> torch.Tensor:
-    """K3's plain version: the ascending-k f32 sum, then the scale."""
+    """K3's plain version: per segment of :data:`KS` k an ascending-k f32
+    sum from +0, the partials added into the accumulator in ascending
+    segment order, then the scale."""
     _check(x, w_packed, scale)
     wq = unpack2bit(w_packed.t(), out_dtype=torch.float32).t()  # (K, N)
-    xf = x.float()
-    acc = torch.zeros((x.shape[0], wq.shape[1]), dtype=torch.float32,
+    xf = x.reshape(-1, x.shape[-1]).float()
+    acc = torch.zeros((xf.shape[0], wq.shape[1]), dtype=torch.float32,
                       device=x.device)
-    for k in range(wq.shape[0]):
-        acc = acc + xf[:, k, None] * wq[k]
-    return (acc * scale.reshape(-1).float()).to(x.dtype)
+    for k0 in range(0, wq.shape[0], KS):
+        part = torch.zeros_like(acc)
+        for k in range(k0, min(k0 + KS, wq.shape[0])):
+            part = part + xf[:, k, None] * wq[k]
+        acc = acc + part
+    out = (acc * scale.reshape(-1).float()).to(x.dtype)
+    return out.reshape(*x.shape[:-1], out.shape[1])
 
 
 def ternary_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
                         scale: torch.Tensor) -> torch.Tensor:
-    """Launch K3: contiguous f32 or bf16 ``x`` (M, K), uint8 ``w_packed``
-    (K/4, N) and f32 ``scale`` (N,) on one CUDA device. Returns (M, N) in
-    ``x``'s dtype, queued on the current stream (no synchronisation)."""
+    """Launch K3: contiguous f32 or bf16 ``x`` (..., K), uint8
+    ``w_packed`` (K/4, N) and f32 ``scale`` (N,) on one CUDA device.
+    Returns (..., N) in ``x``'s dtype, queued on the device's current
+    stream (no synchronisation). A decode step makes 256 of these calls,
+    so the host work here is kept to checks and one ``torch.empty``."""
     global launches
     if x.dtype not in _SUFFIX:
         raise TypeError(f"ternary_matmul_cuda takes float32 or bfloat16 x, "
@@ -94,19 +194,25 @@ def ternary_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
     if not (x.is_contiguous() and w_packed.is_contiguous()
             and scale.is_contiguous()):
         raise ValueError("ternary_matmul_cuda needs contiguous tensors")
-    if not x.is_cuda or w_packed.device != x.device \
-            or scale.device != x.device:
+    idx = x.get_device()
+    if idx < 0 or w_packed.get_device() != idx or scale.get_device() != idx:
         raise ValueError(f"ternary_matmul_cuda needs CUDA tensors on one "
                          f"device, got x on {x.device}")
-    m, k = x.shape
-    n = w_packed.shape[1]
-    if m > _MAX_M:
-        raise ValueError(f"M={m} rows exceed the kernel's grid ({_MAX_M})")
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _fn(x.dtype)(x.data_ptr(), w_packed.data_ptr(),
-                          scale.data_ptr(), out.data_ptr(), m, k, n, stream)
+    k, n = x.shape[-1], w_packed.shape[1]
+    m = x.shape[:-1].numel()
+    p = plan(m, k, n, _sms(idx))
+    if p.blocks > _MAX_BLOCKS:
+        raise ValueError(f"M={m} rows exceed the kernel's grid "
+                         f"({_MAX_BLOCKS} blocks at N={n})")
+    out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    args = (x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), m, k, n, p.rows, p.group,
+            torch.cuda.current_stream(idx).cuda_stream)
+    if idx == torch.cuda.current_device():
+        rc = _fn(x.dtype)(*args)
+    else:
+        with torch.cuda.device(idx):
+            rc = _fn(x.dtype)(*args)
     if rc != 0:
         raise RuntimeError(f"ternary_matmul kernel launch failed: CUDA "
                            f"error {rc}")

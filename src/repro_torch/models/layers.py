@@ -30,17 +30,15 @@ def dense(x: torch.Tensor, w: Any, role: str = "up") -> torch.Tensor:
     """``x @ w`` against a float (K, N) weight or a ternary-packed dict.
 
     A ``{"packed": (K//4, N) uint8, "scale": (N,)}`` weight is the CUTIE
-    serving format: ``x`` flattened to (M, K) goes through kernel K3
-    (``kernels.ops.ternary_matmul``: in-kernel unpacking, an f32 sum over
-    k in ascending order, then the scale) and comes back in ``x``'s dtype.
+    serving format: ``x``'s rows go through kernel K3
+    (``kernels.ops.ternary_matmul``: in-kernel unpacking, an f32 sum in
+    ascending k within each 512-k segment and over the segments in
+    ascending order, then the scale) and comes back in ``x``'s dtype.
     A float weight is a library matmul, as the JAX package leaves it to
     XLA. ``role`` (the tensor-parallel orientation in the JAX package) is
     accepted and ignored: there is no mesh.
     """
     del role
     if isinstance(w, dict) and "packed" in w:
-        lead = x.shape[:-1]
-        y = ops.ternary_matmul(x.reshape(-1, x.shape[-1]), w["packed"],
-                               w["scale"])
-        return y.reshape(*lead, y.shape[-1])
+        return ops.ternary_matmul(x, w["packed"], w["scale"])
     return torch.matmul(x, w)

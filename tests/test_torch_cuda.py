@@ -146,9 +146,19 @@ def _tcn_params(rng):
     (8, 2048, 512, torch.float32, False),
     (8, 2048, 512, torch.bfloat16, False),
     (5, 260, 130, torch.float32, False), (129, 512, 1000, torch.float32,
-                                          False)])
+                                          False),
+    (4, 1300, 130, torch.float32, False), (32, 1300, 520, torch.bfloat16,
+                                           False),
+    (4, 4096, 4096, torch.bfloat16, False),
+    (4, 14336, 4096, torch.bfloat16, False),
+    (32, 4096, 1000, torch.float32, False),
+    (4096, 1024, 256, torch.float32, False)])
 def test_k3_matches_plain_and_rows_are_batch_invariant(card, m, k, n, dtype,
                                                        grid):
+    """K3 against its plain version, bit for bit, on random bytes (field 3
+    included): the split path (up to 64 rows: the 512-k segments of a tile
+    in the warps of one block), a short last segment (K=1300), the serial
+    path (M=4096), twice in a row, and the last row alone."""
     g = torch.Generator().manual_seed(2)
     x = (torch.randint(-4, 5, (m, k), generator=g) / 4.0 if grid
          else torch.randn(m, k, generator=g)).to(dtype).to(card)
@@ -158,6 +168,7 @@ def test_k3_matches_plain_and_rows_are_batch_invariant(card, m, k, n, dtype,
     want = k3.ternary_matmul_plain(x, wp, scale)
     got = k3.ternary_matmul_cuda(x, wp, scale)
     assert got.dtype == dtype and torch.equal(want, got)
+    assert torch.equal(k3.ternary_matmul_cuda(x, wp, scale), got)
     one = k3.ternary_matmul_cuda(x[m - 1:].contiguous(), wp, scale)
     assert torch.equal(one[0], got[m - 1])
 

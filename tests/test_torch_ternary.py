@@ -8,7 +8,12 @@
     at the JAX tests' shapes: within the JAX tests' own tolerances (f32
     1e-4: summation order; bf16 2e-2: the output's bf16 rounding), and
     bit for bit when ``x`` lies on the 1/4 grid (every partial sum is then
-    exact in any order), as it does at the frame wing's fc1.
+    exact in any order), as it does at the frame wing's fc1;
+  * K3's plain version bit for bit against a float32 numpy model of its
+    segmented order (ascending k within 512-k segments, the partials in
+    ascending segment order), which at K <= 512 is the ascending-k sum,
+    on random bytes that include the unused field 3 (+2); its rows at any
+    M; and the kernel's launch plan (split or serial path).
 """
 import numpy as np
 import pytest
@@ -145,3 +150,99 @@ def test_wrapper_refuses_bad_inputs_and_cpu_takes_plain():
     assert torch.equal(k3.ternary_matmul_fwd(x, wp, sc),
                        k3.ternary_matmul_plain(x, wp, sc))
     assert k3.launches == before
+
+
+def _np_unpack(wp):
+    """(K/4, N) uint8 -> (K, N) float32 field values - 1 (field 3 is +2)."""
+    f = np.stack([(wp >> (2 * i)) & 3 for i in range(4)], axis=1)
+    return f.reshape(-1, wp.shape[1]).astype(np.float32) - 1.0
+
+
+def _np_sum(x, q, segment):
+    """Float32 numpy model of K3's order: per ``segment`` k an ascending
+    sum from +0, each product and add rounded on its own, the partials
+    added in ascending order."""
+    acc = np.zeros((x.shape[0], q.shape[1]), np.float32)
+    for k0 in range(0, q.shape[0], segment):
+        part = np.zeros_like(acc)
+        for k in range(k0, min(k0 + segment, q.shape[0])):
+            part = part + x[:, k, None] * q[k]
+        acc = acc + part
+    return acc
+
+
+def _random_case(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    wp = rng.integers(0, 256, size=(k // 4, n), dtype=np.uint8)
+    scale = (rng.random(n) + 0.1).astype(np.float32)
+    return x, wp, scale
+
+
+@pytest.mark.parametrize("k", [260, 1024, 1300, 2048])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_is_the_segmented_sum(k, dtype):
+    x, wp, scale = _random_case(3, k, 40, 10 + k)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = _np_sum(tx.float().numpy(), _np_unpack(wp), k3.KS) * scale
+    got = k3.ternary_matmul_plain(tx, torch.from_numpy(wp),
+                                  torch.from_numpy(scale))
+    assert got.dtype == tx.dtype
+    assert torch.equal(got, torch.from_numpy(want).to(tx.dtype))
+
+
+@pytest.mark.parametrize("k", [4, 260, 512])
+def test_plain_is_the_ascending_sum_up_to_one_segment(k):
+    x, wp, scale = _random_case(5, k, 24, 20 + k)
+    want = _np_sum(x, _np_unpack(wp), k) * scale
+    got = k3.ternary_matmul_plain(torch.from_numpy(x), torch.from_numpy(wp),
+                                  torch.from_numpy(scale))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 33])
+def test_plain_rows_do_not_depend_on_m(m):
+    x, wp, scale = _random_case(33, 1300, 36, 30)
+    wp, scale = torch.from_numpy(wp), torch.from_numpy(scale)
+    full = k3.ternary_matmul_plain(torch.from_numpy(x), wp, scale)
+    got = k3.ternary_matmul_plain(torch.from_numpy(x[:m]), wp, scale)
+    assert torch.equal(got, full[:m])
+    last = k3.ternary_matmul_plain(torch.from_numpy(x[m - 1:m]), wp, scale)
+    assert torch.equal(last[0], full[m - 1])
+
+
+@pytest.mark.parametrize("lead", [(2, 3), (4, 1), (1, 2, 3)])
+def test_plain_takes_leading_dims(lead):
+    """``x`` (..., K) gives (..., N): the rows of the (M, K) product."""
+    m = int(np.prod(lead))
+    x, wp, scale = _random_case(m, 1300, 36, 31)
+    wp, scale = torch.from_numpy(wp), torch.from_numpy(scale)
+    flat = k3.ternary_matmul_plain(torch.from_numpy(x), wp, scale)
+    got = ops.ternary_matmul(torch.from_numpy(x).reshape(*lead, 1300), wp,
+                             scale)
+    assert got.shape == (*lead, 36)
+    assert torch.equal(got.reshape(m, 36), flat)
+
+
+@pytest.mark.parametrize("m,k,n,path", [
+    (4, 4096, 4096, "split"), (4, 4096, 14336, "split"),
+    (4, 14336, 4096, "split"), (8, 2048, 512, "split"),
+    (1, 2048, 512, "split"), (4, 1300, 130, "split"),
+    (32, 4096, 4096, "split"), (32, 14336, 4096, "split"),
+    (32, 4096, 14336, "split"), (64, 14336, 4096, "split"),
+    (96, 4096, 4096, "serial"), (4096, 1024, 256, "serial"),
+    (8192, 4096, 4096, "serial"), (129, 512, 1000, "serial"),
+    (8, 512, 512, "serial"), (1, 4, 1, "serial"),
+    (4, 1 << 20, 4096, "serial")])
+def test_plan_splits_only_small_products(m, k, n, path):
+    """Up to 64 rows take the split path (the segments of a tile spread
+    over the warps of one block, at most 16), more the serial one (one
+    warp walks every segment of its tile), as do one segment and more
+    than 32; a thread holds at most M rows rounded up to a power of
+    two."""
+    p = k3.plan(m, k, n)
+    assert p.path == path
+    assert p.rows in (1, 2, 4, 8) and (p.rows == 1 or p.rows < 2 * m)
+    assert p == k3.launch_plan(m, k, n, p.rows, p.group)
+    if path == "split":
+        assert p.warps <= 16 and p.warps * p.group >= -(-k // k3.KS)
