@@ -44,8 +44,8 @@ non-zero:
      and fused ticks/s at B=8 over 20 samples of 16 steps, and a profile
      of 16 fused steps;
   6. the LM slice (``lm_slice``): K4 against its plain version on the
-     card bit for bit (prefill and decode calls, chaining, hd=16, B=1
-     rows); the rwkv6-7b widths at a depth of 2 layers in f32 on the card
+     card bit for bit (prefill and decode calls, T=4, ragged T, chaining
+     inside a time chunk, hd=32 and hd=16, unaligned inputs, B=1 rows); the rwkv6-7b widths at a depth of 2 layers in f32 on the card
      against the port's CPU run (forward logits, stepped decode, greedy
      tokens, ternary greedy tokens, and the card must pack the CPU's
      ternary bytes); the full rwkv6-7b (32 layers, bf16)
@@ -1291,24 +1291,43 @@ def _rows(x, lo, hi):
     return None if x is None else x[lo:hi].contiguous()
 
 
+def _misaligned(torch, x):
+    """A contiguous copy of ``x`` starting one element past a 16-byte
+    boundary (K4 then stages by element loads, not cp.async)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def k4_checks(torch, dev, k4):
     """K4 against its plain version on the card, bit for bit: the LM
     widths (H=64, hd=64) at T=256 and at T=2048 (the length
     make_prefill_step hands K4) in bf16 (f32 logw), at T=256 in f32, the
-    decode call (T=1 from a nonzero state), SMOKE's hd=16; two halves
-    chained through state0 against one unbroken scan; B=1 rows against
-    B=4."""
+    decode call (T=1 from a nonzero state) and T=4 (the kernel's
+    short-call instance), T not a multiple of the kernel's time chunk (37,
+    and 17 = one chunk and one step), hd=32 and
+    SMOKE's hd=16, and inputs off a 16-byte boundary; two halves chained
+    through state0 (split inside a time chunk) against one unbroken scan;
+    B=1 rows against B=4."""
     g = torch.Generator().manual_seed(SEED + 10)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [("prefill_bf16", 4, 256, 64, 64, bf16, False),
              ("prefill_bf16_T2048", 4, LM_PREFILL_S, 64, 64, bf16, False),
              ("prefill_f32", 4, 256, 64, 64, f32, False),
              ("decode_bf16", 4, 1, 64, 64, bf16, True),
-             ("smoke_hd16", 4, 256, 4, 16, f32, False)]
+             ("short_T4_bf16", 4, 4, 64, 64, bf16, True),
+             ("ragged_T37_bf16", 4, 37, 64, 64, bf16, True),
+             ("chunk_plus_one_T17_f32", 4, 17, 64, 64, f32, False),
+             ("hd32_T37_bf16", 4, 37, 8, 32, bf16, False),
+             ("smoke_hd16", 4, 256, 4, 16, f32, False),
+             ("unaligned_T37_bf16", 4, 37, 64, 64, bf16, True)]
     rows, err = [], 0.0
     for name, b, t, h, hd, dtype, state in cases:
         r, k, v, lw, u, s0 = _wkv_inputs(torch, g, dev, b, t, h, hd, dtype,
                                          state)
+        if name.startswith("unaligned"):
+            r, k, v, lw = (_misaligned(torch, x) for x in (r, k, v, lw))
         seq = (r, k, v, lw)
         want = k4.wkv6_scan_plain(r, k, v, lw, u, s0)
         got = k4.wkv6_scan_cuda(r, k, v, lw, u, s0)
@@ -1318,7 +1337,7 @@ def k4_checks(torch, dev, k4):
                   b1_rows=bool(torch.equal(one[0][0], got[0][b - 1])
                                and torch.equal(one[1][0], got[1][b - 1])))
         if t > 1:
-            half = t // 2
+            half = t // 2 + (3 if t >= 8 else 0)
             a = k4.wkv6_scan_cuda(
                 *[x[:, :half].contiguous() for x in seq], u, s0)
             z = k4.wkv6_scan_cuda(
@@ -1330,9 +1349,12 @@ def k4_checks(torch, dev, k4):
         err = max(err, _max_err(want, got))
         rows.append(dict(kernel="wkv6_scan", case=name, shape=[b, t, h, hd],
                          dtype=str(dtype), logw="torch.float32",
-                         state0=state, **ok))
+                         state0=state, chained_at=half if t > 1 else None,
+                         **ok))
         check(all(ok.values()), f"K4 {name}: {ok}")
-    emit("k4_vs_plain", tolerance="bitwise", checks=rows, max_abs_err=err)
+    geometry = {hd: k4.geometry(hd) for hd in k4.HEAD_DIMS}
+    emit("k4_vs_plain", tolerance="bitwise", checks=rows, max_abs_err=err,
+         geometry=geometry)
     return err
 
 
@@ -1585,6 +1607,12 @@ def lm_times(torch, dev, k3, k4, model, params, qparams):
                 flush, reps=3)
         k4_rows[name] = row
         del r, k, v, lw, u, s0
+    # The fixed cost of any call under this harness, beside which K4's
+    # decode call (bytes bound 2.57 us) is read.
+    x1 = torch.zeros(1, device=dev)
+    empty_call = dict(ms=_device_ms(torch, lambda: x1.add_(1), flush),
+                      warm_l2_ms=_warm_ms(torch, lambda: x1.add_(1)),
+                      what="x.add_(1) on one element")
 
     k3_rows, k3_prompt_rows, k3_err = {}, {}, 0.0
     for k, n in ((4096, 4096), (4096, 14336), (14336, 4096)):
@@ -1645,6 +1673,7 @@ def lm_times(torch, dev, k3, k4, model, params, qparams):
               "one call, CUDA events, median); warm_l2_ms: inputs left in "
               "L2 by the call before; call_ms: one call timed from the host",
          k4=k4_rows, k4_library="none (no single call)",
+         empty_call=empty_call,
          k3_decode_M4_bf16=k3_rows, k3_prompt_M32_bf16=k3_prompt_rows,
          k3_prefill_bf16=k3_prefill,
          k3_vs_plain="bitwise",

@@ -180,6 +180,9 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from ``state0`` (B, H, hd, hd) f32, or zeros (K4).
 
     Returns ``(o (B, T, H, hd) in r's dtype, state (B, H, hd, hd) f32)``.
+    The sums follow K4's fixed order (``kernels/wkv6_scan.py``): r.S in
+    ``IS``-wide i-segments added in ascending order, then the bonus term
+    as the rank-one ((r*u).k) v; the same on the card and the CPU.
     """
     return wkv6_scan_fwd(r.contiguous(), k.contiguous(), v.contiguous(),
                          logw.contiguous(), u.contiguous(),

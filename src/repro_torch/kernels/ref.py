@@ -77,7 +77,10 @@ def wkv6_ref(
     ``r, k, w`` (T, Dk); ``v`` (T, Dv); ``u`` (Dk,); ``w`` is the per-step
     decay in (0, 1), already exponentiated. ``state0`` optional (Dk, Dv).
     Returns ``(o (T, Dv) in r's dtype, state_final f32)``; the products
-    are library matmuls, so their order is the library's.
+    are library matmuls, so their order is the library's. K4 and its
+    plain version fix the order instead (r.S in ``IS``-wide i-segments
+    added in ascending order, then the bonus as ((r*u).k) v) and agree
+    with this within rounding.
     """
     dk, dv = k.shape[1], v.shape[1]
     f32 = torch.float32

@@ -3,10 +3,14 @@
 Replaces ``wkv6_scan_pallas`` (``repro/kernels/wkv6_scan.py``), which
 keeps a block of per-head ``hd x hd`` states in VMEM scratch across a
 sequential T grid axis after transposing r/k/v/logw to (T, B*H, hd). Here
-one CUDA block owns one (b, h) for the whole sequence, thread ``j`` holds
-column ``j`` of the f32 state in registers, and the (B, T, H, hd) inputs
-are read in place (``csrc/wkv6_scan.cu``). ``block_t``/``block_bh`` are
-VMEM-budget choices with no Hopper meaning and are not ported.
+one CUDA block owns one (b, h) for the whole sequence; its state threads
+hold the f32 state in registers, one segment of :data:`IS` rows of two
+columns each, while two helper warps stage the (B, T, H, hd) inputs in
+time chunks into shared memory by asynchronous copies, take the bonus
+term and write o (``csrc/wkv6_scan.cu``; ``tools/k4_probe.py`` times its
+variants).
+``block_t``/``block_bh`` are VMEM-budget choices with no Hopper meaning
+and are not ported.
 
     o_t = r_t (S + diag(u) k_t v_t^T)
     S  <- diag(exp(logw_t)) S + k_t v_t^T          (S starts at state0 or 0)
@@ -14,15 +18,28 @@ VMEM-budget choices with no Hopper meaning and are not ported.
 ``r, k, v`` (B, T, H, hd) and ``u`` (H, hd) are all f32 or all bf16;
 ``logw`` (B, T, H, hd) is f32 or ``r``'s dtype; ``state0`` (B, H, hd, hd)
 f32 or None. Returns ``o`` (B, T, H, hd) in ``r``'s dtype and the final
-f32 state. hd is 16, 32 or 64. Each output is an f32 sum over i in
-ascending order, each multiply and add rounded on its own:
-:func:`wkv6_scan_plain` repeats that arithmetic, so the kernel equals it
-bit for bit on the card. :func:`wkv6_scan_fwd` picks between the two by
-the tensor's device alone.
+f32 state. hd is 16, 32 or 64.
+
+The order of every sum is part of the function. For each (b, h, t), with
+S the state before the step and each multiply and add rounded on its own:
+
+    p_g,j = sum over i in [g*IS, (g+1)*IS), ascending, from +0: r_i S_ij
+    beta  = sum over i = 0..hd-1, ascending, from +0: (r_i u_i) k_i
+    o_j   = (((+0 + p_0,j) + p_1,j) ... + p_last,j) + beta v_j
+    S_ij <- exp(logw_i) S_ij + k_i v_j
+
+``beta`` is the bonus term taken as a rank-one dot: r diag(u) k v^T is
+((r*u).k) v. The order depends on (b, h, t) alone, never on T, the batch
+or the kernel's time chunks, so rows do not depend on the batch and a
+scan chained through ``state0`` equals the unbroken one bit for bit.
+:func:`wkv6_scan_plain` follows it exactly, so the kernel equals it bit
+for bit on the card; :func:`wkv6_scan_fwd` picks between the two by the
+tensor's device alone.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -30,7 +47,7 @@ import torch
 from repro_torch.kernels._build import load_library
 
 __all__ = ["wkv6_scan_cuda", "wkv6_scan_plain", "wkv6_scan_fwd",
-           "launches", "KERNEL", "HEAD_DIMS"]
+           "launches", "KERNEL", "HEAD_DIMS", "IS", "geometry"]
 
 KERNEL = "wkv6_scan"
 
@@ -39,13 +56,38 @@ KERNEL = "wkv6_scan"
 launches = 0
 
 HEAD_DIMS = (16, 32, 64)
+# Width of the i-segments of r.S (Tentpole order above). csrc/wkv6_scan.cu
+# has the same constexpr IS and reports it through wkv6_scan_geometry,
+# which _fn checks when the library loads: the two must agree, or the
+# kernel and its plain version part bits.
+IS = 16
 # (dtype of r/k/v/u, dtype of logw) -> exported C function.
 _FN = {(torch.float32, torch.float32): "wkv6_scan_f32",
        (torch.bfloat16, torch.bfloat16): "wkv6_scan_bf16",
        (torch.bfloat16, torch.float32): "wkv6_scan_bf16_lwf32"}
 
 
+_GEOMETRY = ("IS", "TC", "threads", "smem_bytes", "blocks_per_sm")
+
+
+def geometry(hd: int = 64) -> dict:
+    """The kernel's launch geometry at head dim ``hd`` for the bf16 model's
+    call (bf16 r/k/v/u, f32 logw), as the built library reports it: IS,
+    TC (steps a staged time chunk), threads and dynamic shared bytes a
+    block, and resident blocks an SM. Builds the library (card only)."""
+    out = (ctypes.c_int * len(_GEOMETRY))()
+    rc = load_library(KERNEL).wkv6_scan_geometry(hd, out)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_scan_geometry failed: CUDA error {rc}")
+    return dict(zip(_GEOMETRY, out))
+
+
+@functools.lru_cache(maxsize=None)
 def _fn(name: str):
+    found = geometry()["IS"]
+    if found != IS:
+        raise RuntimeError(f"csrc/wkv6_scan.cu's IS {found} differs from "
+                           f"the wrapper's {IS}")
     fn = getattr(load_library(KERNEL), name)
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
@@ -73,29 +115,38 @@ def _check(r, k, v, logw, u, state0):
 
 def wkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     logw: torch.Tensor, u: torch.Tensor,
-                    state0: Optional[torch.Tensor] = None
+                    state0: Optional[torch.Tensor] = None, *, seg: int = IS
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4's plain version: steps over t and over i in ascending order,
-    vectorised over (b, h, j), with the kernel's operations in its
-    order."""
+    """K4's plain version: the module's order, step by step over t,
+    vectorised over (b, h, j) and over the segments (``seg`` wide, :data:`IS`
+    unless a probe of another kernel geometry asks otherwise). Every
+    multiply and add is its own elementwise op, so each rounds alone."""
     _check(r, k, v, logw, u, state0)
     b, t, h, hd = r.shape
+    seg = min(seg, hd)
+    n_seg = hd // seg
     rf, kf, vf = r.float(), k.float(), v.float()
     wf = torch.exp(logw.float())
-    uf = u.float()
+    q = (rf * u.float()) * kf                            # (b, t, h, hd)
+    beta = torch.zeros((b, t, h), dtype=torch.float32, device=r.device)
+    for i in range(hd):
+        beta = beta + q[..., i]
     s = (torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
          if state0 is None else state0.float().clone())
     o = torch.empty((b, t, h, hd), dtype=torch.float32, device=r.device)
     for step in range(t):
-        r_t, k_t, v_t, w_t = rf[:, step], kf[:, step], vf[:, step], \
-            wf[:, step]                                  # (b, h, hd)
+        r_t = rf[:, step].reshape(b, h, n_seg, seg)
+        s_g = s.reshape(b, h, n_seg, seg, hd)
+        p = torch.zeros((b, h, n_seg, hd), dtype=torch.float32,
+                        device=r.device)
+        for ii in range(seg):
+            p = p + r_t[..., ii, None] * s_g[:, :, :, ii]
         acc = torch.zeros((b, h, hd), dtype=torch.float32, device=r.device)
-        for i in range(hd):
-            kv = k_t[..., i, None] * v_t                 # (b, h, hd_j)
-            s_i = s[:, :, i]
-            acc = acc + r_t[..., i, None] * (s_i + uf[:, i, None] * kv)
-            s[:, :, i] = w_t[..., i, None] * s_i + kv
-        o[:, step] = acc
+        for g in range(n_seg):
+            acc = acc + p[:, :, g]
+        o[:, step] = acc + beta[:, step, :, None] * vf[:, step]
+        s = (wf[:, step, :, :, None] * s
+             + kf[:, step, :, :, None] * vf[:, step, :, None, :])
     return o.to(r.dtype), s
 
 

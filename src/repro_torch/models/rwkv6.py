@@ -4,9 +4,12 @@ and data-dependent per-channel decay (port of ``repro.models.rwkv6``).
 Every WKV recurrence of the served path -- the full-sequence forward
 (``rwkv6_apply``, from a zero state) and each decode step (``T=1`` from
 the cache's state) -- runs through ``kernels.ops.wkv6_scan``, kernel K4
-on the card. ``wkv6_chunked`` (the JAX package's chunked-parallel form)
-and ``_wkv6_step`` (its stepwise decode) stay as plain functions: oracles
-for the tests, on no path.
+on the card. K4 fixes the order of its sums (r.S in 16-wide i-segments,
+the bonus term as the rank-one ((r*u).k) v; ``kernels/wkv6_scan.py``),
+and its state update keeps the rounding of the stepwise form.
+``wkv6_chunked`` (the JAX package's chunked-parallel form) and
+``_wkv6_step`` (its stepwise decode) stay as plain functions: oracles for
+the tests, on no path; they agree with K4 within rounding.
 
 Parameters are a nested dict of tensors with the layers stacked on a
 leading axis, in the JAX package's layouts (projection weights (K, N)),

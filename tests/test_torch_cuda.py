@@ -237,12 +237,20 @@ def _wkv(card, b, t, h, hd, dtype, lw_dtype=torch.float32, seed=5):
     (4, 32, 64, 64, torch.float32, torch.float32),
     (2, 24, 4, 64, torch.bfloat16, torch.bfloat16),
     (2, 16, 4, 16, torch.float32, torch.float32),
-    (2, 16, 4, 32, torch.float32, torch.float32)])
+    (2, 16, 4, 32, torch.float32, torch.float32),
+    # T not a multiple of the kernel's 16-step time chunk: ragged last
+    # chunks, a chunk of one step, halves that split a chunk.
+    (4, 37, 8, 64, torch.bfloat16, torch.float32),
+    (2, 17, 4, 64, torch.float32, torch.float32),
+    (2, 37, 4, 32, torch.bfloat16, torch.float32),
+    (3, 37, 4, 16, torch.float32, torch.float32),
+    # The longest call of the short-chunk instance (4 steps).
+    (2, 4, 4, 64, torch.bfloat16, torch.float32)])
 def test_k4_matches_plain_chains_and_rows_are_batch_invariant(
         card, b, t, h, hd, dtype, lw_dtype):
     """K4 against its plain version, bit for bit: from zeros, as one-token
-    decode calls from a nonzero state, chained in two halves, and with one
-    row alone."""
+    decode calls from a nonzero state, chained in two halves (split
+    inside a time chunk where T allows), and with one row alone."""
     r, k, v, logw, u = _wkv(card, b, t, h, hd, dtype, lw_dtype)
     want = k4.wkv6_scan_plain(r, k, v, logw, u)
     got = k4.wkv6_scan_cuda(r, k, v, logw, u)
@@ -253,7 +261,7 @@ def test_k4_matches_plain_chains_and_rows_are_batch_invariant(
     one = [x[:, :1].contiguous() for x in (r, k, v, logw)]
     assert _same(k4.wkv6_scan_plain(*one, u, s0),
                  k4.wkv6_scan_cuda(*one, u, s0))
-    half = t // 2
+    half = t // 2 + (3 if t >= 8 else 0)
     a = k4.wkv6_scan_cuda(*[x[:, :half].contiguous()
                             for x in (r, k, v, logw)], u)
     z = k4.wkv6_scan_cuda(*[x[:, half:].contiguous()
@@ -264,6 +272,26 @@ def test_k4_matches_plain_chains_and_rows_are_batch_invariant(
                               for x in (r, k, v, logw)], u)
     assert torch.equal(row[0][0], got[0][b - 1])
     assert torch.equal(row[1][0], got[1][b - 1])
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose data starts one element past a
+    16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_unaligned_inputs_match_plain(card, dtype):
+    """Inputs off a 16-byte boundary take K4's element loads in place of
+    cp.async; the bits stay the plain version's."""
+    r, k, v, logw, u = _wkv(card, 2, 21, 4, 64, dtype, seed=9)
+    args = [_misaligned(x) for x in (r, k, v, logw)] + [u]
+    assert args[0].data_ptr() % 16 != 0
+    assert _same(k4.wkv6_scan_plain(r, k, v, logw, u),
+                 k4.wkv6_scan_cuda(*args))
 
 
 def test_dense_sends_packed_weights_through_k3(card):

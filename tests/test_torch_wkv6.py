@@ -151,3 +151,99 @@ def test_bf16_inputs_with_f32_logw():
     np.testing.assert_allclose(o.float().numpy(),
                                np.asarray(o_j.astype(jnp.float32)),
                                rtol=2 ** -8, atol=2e-4)
+
+
+def _np_order(r, k, v, w, u, s0):
+    """The order K4 defines, in float32 numpy, one (b, h) and step at a
+    time: segment partials of r.S in ascending i, the partials added in
+    ascending segment order from +0, then beta v with beta the ascending
+    dot (r*u).k; the state update as it always was. ``w`` is
+    exp(logw) from the same elementwise exp as the plain version: the
+    exp is no part of the order."""
+    f32 = np.float32
+    b, t, h, hd = r.shape
+    seg = min(k4.IS, hd)
+    o = np.zeros((b, t, h, hd), f32)
+    s_out = np.zeros((b, h, hd, hd), f32)
+    for bi in range(b):
+        for hi in range(h):
+            s = (np.zeros((hd, hd), f32) if s0 is None
+                 else s0[bi, hi].astype(f32).copy())
+            for ti in range(t):
+                rt, kt, vt, wt = (x[bi, ti, hi] for x in (r, k, v, w))
+                beta = f32(0)
+                for i in range(hd):
+                    beta = f32(beta + f32(f32(rt[i] * u[hi, i]) * kt[i]))
+                acc = np.zeros(hd, f32)
+                for g0 in range(0, hd, seg):
+                    p = np.zeros(hd, f32)
+                    for i in range(g0, g0 + seg):
+                        p = p + rt[i] * s[i]
+                    acc = acc + p
+                o[bi, ti, hi] = acc + beta * vt
+                s = wt[:, None] * s + kt[:, None] * vt[None, :]
+            s_out[bi, hi] = s
+    return o, s_out
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("t", [1, 5, 37])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_plain_is_the_segmented_order(hd, t, dtype, with_state):
+    """wkv6_scan_plain equals the numpy model of its order bit for bit,
+    bf16 inputs taken at their f32 values."""
+    np_in = _inputs(2, t, 2, hd, seed=8 + hd + t)
+    s0 = (np.random.default_rng(9).normal(size=(2, 2, hd, hd)).astype(
+        np.float32) * 0.1 if with_state else None)
+    r, k, v, logw, u = _t(*np_in)
+    if dtype == "bfloat16":
+        r, k, v, u = (x.to(torch.bfloat16) for x in (r, k, v, u))
+    o, s = k4.wkv6_scan_plain(r, k, v, logw, u,
+                              None if s0 is None else torch.from_numpy(s0))
+    w = torch.exp(logw).numpy()
+    o_np, s_np = _np_order(*(x.float().numpy() for x in (r, k, v)), w,
+                           u.float().numpy(), s0)
+    assert o.dtype == r.dtype
+    np.testing.assert_array_equal(s.numpy(), s_np)
+    want_o = torch.from_numpy(o_np).to(r.dtype)
+    assert torch.equal(o, want_o)
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+def test_final_state_keeps_its_rounding(hd):
+    """The state update is the one K4 always had, element by element:
+    S_ij <- exp(logw_i) * S_ij + k_i * v_j, each op rounded alone."""
+    r, k, v, logw, u = _t(*_inputs(2, 9, 3, hd, seed=10))
+    s0 = torch.randn(2, 3, hd, hd, generator=torch.Generator().manual_seed(
+        11))
+    _, s = k4.wkv6_scan_plain(r, k, v, logw, u, s0)
+    want = s0.clone()
+    w = torch.exp(logw)
+    for t in range(r.shape[1]):
+        for i in range(hd):
+            kv = k[:, t, :, i, None] * v[:, t]
+            want[:, :, i] = w[:, t, :, i, None] * want[:, :, i] + kv
+    assert torch.equal(s, want)
+
+
+def test_segment_width_matches_the_cuda_source():
+    """The plain version's IS is the .cu's constexpr IS (the library also
+    reports it when it loads, checked by the wrapper on the card)."""
+    import re
+    from pathlib import Path
+    src = (Path(k4.__file__).resolve().parents[1] / "csrc"
+           / "wkv6_scan.cu").read_text()
+    found = re.search(r"constexpr int IS = (\d+);", src)
+    assert found is not None and int(found.group(1)) == k4.IS
+
+
+@pytest.mark.parametrize("seg", [16, 32])
+def test_plain_segment_width_only_moves_o(seg):
+    """Another segment width (a probe's kernel variant) changes o only by
+    rounding and leaves the state's bits alone."""
+    r, k, v, logw, u = _t(*_inputs(2, 7, 2, 64, seed=12))
+    o, s = k4.wkv6_scan_plain(r, k, v, logw, u)
+    o2, s2 = k4.wkv6_scan_plain(r, k, v, logw, u, seg=seg)
+    assert torch.equal(s, s2)
+    torch.testing.assert_close(o2, o, **TOL)
