@@ -12,8 +12,10 @@ non-zero:
      CUDA versions, and the time to build kernels K1, K2, K3 and K4 with
      nvcc (one nvcc per source, all started together);
   2. each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes, bit for bit: K1 at conv1/conv2 in f32 and bf16
-     with v0 above threshold and chaining; K2 at fc1/fc2 and at ragged
+     main paths' shapes, bit for bit: K1 at conv1/conv2 in f32 and bf16,
+     from rest and from v0 above threshold, chained at T//2 + 3 (inside a
+     time chunk), at ragged rows (n % 4, n % 8, narrower than a block),
+     T = 1, T = 17 and misaligned storage; K2 at fc1/fc2 and at ragged
      shapes (B in {1, 3, 8, 13}, T in {5, 16, 17}, K=100, N in {11, 40},
      plus shapes that take its wide tiles, odd K and several T chunks) in
      f32 and bf16, with v0 absent and above threshold, chained in two T
@@ -28,7 +30,10 @@ non-zero:
      (EngineConfig(fuse_fc=True, pipeline_depth=1), no kernel arguments)
      serves 8 streams (4 stateful) x 3 windows of ~60k events; launch
      counters prove K1 and K2 ran; results are held against the port's
-     own CPU run; one ClosedLoopPipeline window (B=1);
+     own CPU run; one ClosedLoopPipeline window (B=1); reported, not
+     gated: He-init weights against the CPU and cuDNN's batch invariance
+     for the currents K1 reads (conv1 and conv2 rows at B=1..7 against
+     B=8);
   4. the frame and fusion slice: a heterogeneous StreamEngine (one event
      and one frame lane, 8 slots each, pipeline_depth=1) serves
      8 FusionSessions x 3 ticks and 4 stand-alone frame streams; launch
@@ -38,7 +43,9 @@ non-zero:
      B=1 against B=8; ternary activations that flip between the card and
      the CPU; cuDNN's B=1-vs-B=8 rows for both TCN convs;
   5. times from CUDA events: each kernel, its plain version, its bound and
-     the library yardstick, each call read from a cold L2 cache; windows/s
+     the library yardstick, each call read from a cold L2 cache (K1 also
+     warm, beside an empty call timed the same way, with the host time a
+     call of ``ops.lif_scan`` and of its wrapper); windows/s
      end to end at B=1 and B=8 over 20 samples of 16 engine steps each;
      a profiler trace of 64 steady-state B=8 steps; frame-lane windows/s
      and fused ticks/s at B=8 over 20 samples of 16 steps, and a profile
@@ -93,6 +100,7 @@ FLUSH_BYTES = 512 << 20           # read between timed calls: 10x the L2
 E2E_SAMPLES = 20                  # end-to-end samples per batch size
 E2E_STEPS = 16                    # engine steps per sample
 PROFILE_STEPS = 64
+HOST_CALLS = 200                  # calls queued a sample of host time
 
 
 def emit(phase, **fields):
@@ -212,30 +220,38 @@ def kernel_checks(torch, dev, k1, k2):
     rows = []
     for layer, feat in k1_shapes.items():
         for dtype in (torch.float32, torch.bfloat16):
-            cur = (torch.randn(t, b, *feat, generator=g) * 0.6 + 0.3).to(
-                dtype).to(dev)
-            v0 = (torch.rand(b, *feat, generator=g) * 1.4 - 0.2).to(dev)
-            want = k1.lif_scan_plain(cur, p, v0)
-            got = k1.lif_scan_cuda(cur, p, v0)
-            half = t // 2
-            s_a, v_a = k1.lif_scan_cuda(cur[:half].contiguous(), p, v0)
-            s_b, v_b = k1.lif_scan_cuda(cur[half:].contiguous(), p, v_a)
-            one = k1.lif_scan_cuda(cur[:, 5:6].contiguous(), p, v0[5:6])
-            torch.cuda.synchronize()
-            ok = dict(
-                plain=_bitwise(torch, want, got),
-                b1_rows=bool(torch.equal(one[0][:, 0], got[0][:, 5])
-                             and torch.equal(one[1][0], got[1][5])))
-            if dtype == torch.float32:
-                # v_final comes back in the input dtype, so only an f32
-                # carry chains exactly (a bf16 one is rounded by contract).
-                ok["chained"] = bool(
-                    torch.equal(torch.cat([s_a, s_b]), got[0])
-                    and torch.equal(v_b, got[1]))
-            errs["lif_scan"] = max(errs["lif_scan"], _max_err(want, got))
-            rows.append(dict(kernel="lif_scan", layer=layer,
-                             shape=list(cur.shape), dtype=str(dtype), **ok))
-            check(all(ok.values()), f"K1 {layer} {dtype}: {ok}")
+            for v0_kind in ("none", "above_threshold"):
+                cur = (torch.randn(t, b, *feat, generator=g) * 0.6 + 0.3).to(
+                    dtype).to(dev)
+                v0 = None if v0_kind == "none" else (
+                    torch.rand(b, *feat, generator=g) * 1.4 - 0.2).to(dev)
+                ok, err = _k1_case(torch, k1, p, cur, v0, row=5)
+                errs["lif_scan"] = max(errs["lif_scan"], err)
+                rows.append(dict(kernel="lif_scan", layer=layer,
+                                 shape=list(cur.shape), dtype=str(dtype),
+                                 v0=v0_kind, **ok))
+                check(all(ok.values()), f"K1 {layer} {dtype} {v0_kind}: {ok}")
+    failed, cases = [], 0
+    for shape, misaligned in K1_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for v0_kind in ("none", "above_threshold"):
+                cur = (torch.randn(*shape, generator=g) * 0.6 + 0.3).to(
+                    dtype).to(dev)
+                v0 = None if v0_kind == "none" else (
+                    torch.rand(*shape[1:], generator=g) * 1.4 - 0.2).to(dev)
+                if misaligned:
+                    cur = _misaligned(torch, cur)
+                    v0 = None if v0 is None else _misaligned(torch, v0)
+                ok, err = _k1_case(torch, k1, p, cur, v0, row=shape[1] - 1)
+                cases += 1
+                errs["lif_scan"] = max(errs["lif_scan"], err)
+                if not all(ok.values()):
+                    failed.append(dict(shape=list(shape), dtype=str(dtype),
+                                       v0=v0_kind, misaligned=misaligned,
+                                       **ok))
+    rows.append(dict(kernel="lif_scan", layer="ragged", shapes=len(K1_SHAPES),
+                     cases=cases, failed=failed))
+    check(not failed, f"K1 at ragged shapes: {failed}")
     fc = {"fc1": (CONFIG.flat_dim, CONFIG.hidden, 4),
           "fc2": (CONFIG.hidden, CONFIG.num_classes, 1)}
     for layer, (k, n, levels) in fc.items():
@@ -280,6 +296,38 @@ def kernel_checks(torch, dev, k1, k2):
     emit("kernels_vs_plain", tolerance="bitwise", checks=rows,
          max_abs_err=errs)
     return errs
+
+
+# K1 beyond the main path's shapes, (T, B, n) with a flag for storage
+# one element past a 16-byte boundary: ragged rows (n % 4, n % 8), rows
+# narrower than one block, one step, a chunk and a step (T = 17), a
+# window of two and a half chunks, and misaligned currents and v0.
+K1_SHAPES = [((17, 3, 37), False), ((16, 1, 5), False), ((1, 8, 1000), False),
+             ((17, 2, 64), False), ((5, 3, 12), False), ((40, 2, 96), False),
+             ((16, 8, 8192), True), ((17, 3, 40), True)]
+
+
+def _k1_case(torch, k1, p, cur, v0, row):
+    """K1 against its plain version on one (T, B, ...) input: the whole
+    call, batch row ``row`` alone, and (f32 only: a bf16 v_final is
+    rounded by contract) chained through v_final at step T//2 + 3, which
+    splits a time chunk. Returns (checks, max error)."""
+    t = cur.shape[0]
+    want = k1.lif_scan_plain(cur, p, v0)
+    got = k1.lif_scan_cuda(cur, p, v0)
+    one = k1.lif_scan_cuda(cur[:, row:row + 1].contiguous(), p,
+                           None if v0 is None else v0[row:row + 1])
+    ok = dict(plain=_bitwise(torch, want, got),
+              b1_rows=bool(torch.equal(one[0][:, 0], got[0][:, row])
+                           and torch.equal(one[1][0], got[1][row])))
+    cut = t // 2 + 3
+    if cur.dtype == torch.float32 and cut < t:
+        s_a, v_a = k1.lif_scan_cuda(cur[:cut], p, v0)
+        s_b, v_b = k1.lif_scan_cuda(cur[cut:], p, v_a)
+        ok["chained"] = bool(torch.equal(torch.cat([s_a, s_b]), got[0])
+                             and torch.equal(v_b, got[1]))
+    torch.cuda.synchronize()
+    return ok, _max_err(want, got)
 
 
 # Shapes beyond the ragged grid that take K2's other code paths: its wide
@@ -560,21 +608,35 @@ def slice_run(torch, dev, k1, k2):
     check(b1["pwm_max_abs_diff"] <= PWM_ATOL, f"B=1 pwm: {b1}")
 
     # Reported, not gated: unrounded He-init weights (order-dependent
-    # conv sums) on the card against the CPU, and cuDNN's conv rows at
-    # B=1 against B=8.
+    # conv sums) on the card against the CPU, and cuDNN's batch
+    # invariance for the currents K1 reads: each conv's rows of a B=b call
+    # (T*b images) against the same rows of the B=8 call, b = 1..7.
     he = snn_params_from_numpy(_np_params(CONFIG, dyadic=False))
     he_gpu = _by_key(_serve(he, CONFIG, streams, dev).run())
     he_cpu = _by_key(_serve(he, CONFIG, streams, "cpu").run())
-    x = (torch.rand(CONFIG.time_bins * 8, 32, 32, 2,
-                    generator=torch.Generator().manual_seed(SEED))
-         < 0.3).float().to(dev)
-    w1 = he["conv1"]["w"].to(dev)
-    big = snn_mod._conv(x, w1)
+    gen = torch.Generator().manual_seed(SEED)
+    h0, w0 = CONFIG.post_pool0
     rows = CONFIG.time_bins
-    small = snn_mod._conv(x[:rows].contiguous(), w1)
+    inputs = {
+        # conv1 reads pooled input spikes, conv2 a 2x2 pool of conv1's
+        # spikes (multiples of 1/4).
+        "conv1": (torch.rand(rows * 8, h0, w0, CONFIG.in_channels,
+                             generator=gen) < 0.3).float(),
+        "conv2": torch.randint(0, 5, (rows * 8, h0 // 2, w0 // 2,
+                                      CONFIG.conv1_features),
+                               generator=gen) / 4.0}
+    invariance = {}
+    for name, x in inputs.items():
+        x = x.to(dev)
+        w = he[name]["w"].to(dev)
+        big = snn_mod._conv(x, w)
+        invariance[name] = {
+            f"B{bb}": float((snn_mod._conv(x[:rows * bb].contiguous(), w)
+                             == big[:rows * bb]).float().mean())
+            for bb in range(1, 8)}
     emit("reported", he_init_vs_cpu=_compare(he_gpu, he_cpu),
-         conv1_rows_b1_vs_b8_bitwise_fraction=float(
-             (small == big[:rows]).float().mean()))
+         conv_rows_vs_b8_bitwise_fraction=invariance,
+         conv1_rows_b1_vs_b8_bitwise_fraction=invariance["conv1"]["B1"])
     return {"launches": launches}
 
 
@@ -857,6 +919,22 @@ def _call_ms(torch, fn, reps=REPS):
     return statistics.median(samples)
 
 
+def _host_us(torch, fn, calls=HOST_CALLS, samples=5):
+    """Host microseconds a call of ``fn``: ``calls`` calls queued with no
+    synchronisation between them, median of ``samples``."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def _bound_ms(nbytes, flops, peak=H100_FP32_OPS):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -875,11 +953,15 @@ def timings(torch, dev, k1, k2):
     out = {}
     rows = []
 
-    # K1 at conv1 and conv2, one engine step = both launches.
+    # K1 at conv1 and conv2, one engine step = both launches, beside an
+    # empty call timed the same way (the harness's fixed cost) and the
+    # host time a call of what the engine calls.
+    from repro_torch.kernels import ops
     k1_shapes = [(h0, w0, CONFIG.conv1_features),
                  (h0 // 2, w0 // 2, CONFIG.conv2_features)]
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    for feat in k1_shapes:
+    tot = dict(ms=0.0, warm_l2_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    host = {}
+    for layer, feat in zip(("conv1", "conv2"), k1_shapes):
         cur = (torch.randn(t, b, *feat, generator=g) * 0.6 + 0.3).to(dev)
         v0 = torch.zeros(b, *feat, device=dev)
         n = cur[0].numel()
@@ -892,13 +974,26 @@ def timings(torch, dev, k1, k2):
         # currents read + spikes written + v0 read + v_final written;
         # per neuron-step: two multiplies and one add.
         bound, by = _bound_ms(4 * (2 * t * n + 2 * n), 3 * t * n)
-        rows.append(dict(kernel="lif_scan", shape=list(cur.shape), ms=ms,
+
+        def engine_call():
+            with torch.no_grad():
+                return ops.lif_scan(cur, p, v0)
+        host[layer] = dict(ops_lif_scan_no_grad=_host_us(torch, engine_call),
+                           lif_scan_cuda=_host_us(torch, run))
+        rows.append(dict(kernel="lif_scan", layer=layer,
+                         shape=list(cur.shape), ms=ms,
                          warm_l2_ms=warm, call_ms=call, plain_ms=plain,
-                         bound_ms=bound, bound_by=by))
-        tot["ms"] += ms
-        tot["plain_ms"] += plain
-        tot["bound_ms"] += bound
-    out["lif_scan"] = dict(tot, bound_by="bytes", library_ms=None)
+                         bound_ms=bound, bound_by=by, host_us=host[layer]))
+        for key, val in (("ms", ms), ("warm_l2_ms", warm),
+                         ("plain_ms", plain), ("bound_ms", bound)):
+            tot[key] += val
+    one = torch.zeros(1, device=dev)
+    empty = dict(ms=_device_ms(torch, lambda: one.add_(1), flush),
+                 warm_l2_ms=_warm_ms(torch, lambda: one.add_(1)))
+    out["lif_scan"] = dict(tot, bound_by="bytes", library_ms=None,
+                           empty_call_ms=empty["ms"],
+                           empty_call_warm_l2_ms=empty["warm_l2_ms"],
+                           host_us=host)
 
     # K2 at fc1 and fc2, one engine step = both launches. fc1 takes a 2x2
     # average pool of spikes (multiples of 1/4), fc2 takes spikes. Beside
@@ -958,6 +1053,9 @@ def timings(torch, dev, k1, k2):
               "one call, CUDA events, median); warm_l2_ms: inputs left in "
               "L2 by the call before; call_ms: one call timed from the host",
          reps=REPS, flush_mb=FLUSH_BYTES >> 20, k1_per_shape=rows,
+         empty_call=dict(empty, what="x.add_(1) on one element"),
+         host_unit=f"host microseconds a call, {HOST_CALLS} calls queued "
+                   f"without a synchronisation, median of 5",
          k2_per_shape=k2_rows,
          per_engine_step={k: v for k, v in out.items()},
          k2_per_engine_step_B1=step_b1,

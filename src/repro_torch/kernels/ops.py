@@ -75,9 +75,15 @@ def lif_scan(
 
     Drop-in for :func:`repro_torch.core.lif.lif_scan_reference` (same
     values bit for bit, same STBP surrogate gradients), with the temporal
-    scan in one kernel launch on the card.
+    scan in one kernel launch on the card. Where no gradient is wanted
+    (the serving engines run under ``no_grad``) it calls the forward
+    directly, without the autograd node.
     """
-    return _LifScan.apply(currents.contiguous(), v0, p)
+    currents = currents.contiguous()
+    if torch.is_grad_enabled() and (
+            currents.requires_grad or (v0 is not None and v0.requires_grad)):
+        return _LifScan.apply(currents, v0, p)
+    return lif_scan_fwd(currents, p, v0)
 
 
 def lif_scan_batched(

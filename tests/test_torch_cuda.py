@@ -45,16 +45,38 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k1_matches_plain(card, dtype):
+@pytest.mark.parametrize("shape,misaligned", [
+    ((16, 8, 32, 32, 16), False), ((16, 8, 16, 16, 32), False),
+    ((17, 3, 37), False), ((16, 1, 5), False), ((1, 8, 1000), False),
+    ((17, 2, 64), False), ((16, 8, 8192), True), ((17, 3, 40), True),
+    ((7, 3, 12), False), ((40, 2, 96), False)])
+def test_k1_matches_plain(card, dtype, shape, misaligned):
+    """K1 against its plain version, bit for bit: the event wing's conv1
+    and conv2, ragged rows (n % 4, n % 8), a row narrower than a block,
+    T = 1, 7, 17 and 40 (every loop of the kernel: chunks of 16 and of 4
+    steps, single steps), and storage one element off a 16-byte boundary;
+    from rest and from a membrane partly above threshold; the last row
+    alone; and (f32) chained at T//2 + 3, which splits a time chunk."""
     g = torch.Generator().manual_seed(0)
-    cur = (torch.randn(16, 8, 32, 32, 16, generator=g) * 0.6 + 0.3).to(dtype)
-    v0 = torch.rand(8, 32, 32, 16, generator=g) * 1.4 - 0.2
+    cur = (torch.randn(*shape, generator=g) * 0.6 + 0.3).to(dtype).to(card)
+    v0 = (torch.rand(*shape[1:], generator=g) * 1.4 - 0.2).to(card)
+    if misaligned:
+        cur, v0 = _misaligned(cur), _misaligned(v0)
+    t, b = shape[0], shape[1]
     for v in (None, v0):
-        want = k1.lif_scan_plain(cur.to(card), P,
-                                 None if v is None else v.to(card))
-        got = k1.lif_scan_cuda(cur.to(card), P,
-                               None if v is None else v.to(card))
-        assert _same(want, got)
+        want = k1.lif_scan_plain(cur, P, v)
+        got = k1.lif_scan_cuda(cur, P, v)
+        assert got[0].dtype == dtype and _same(want, got)
+        one = k1.lif_scan_cuda(cur[:, b - 1:].contiguous(), P,
+                               None if v is None else v[b - 1:])
+        assert torch.equal(one[0][:, 0], got[0][:, b - 1])
+        assert torch.equal(one[1][0], got[1][b - 1])
+        cut = t // 2 + 3
+        if dtype == torch.float32 and cut < t:
+            a = k1.lif_scan_cuda(cur[:cut], P, v)
+            z = k1.lif_scan_cuda(cur[cut:], P, a[1])
+            assert torch.equal(torch.cat([a[0], z[0]]), got[0])
+            assert torch.equal(z[1], got[1])
 
 
 @pytest.mark.parametrize("t,b,k,n,dtype", [

@@ -6,6 +6,9 @@ rounded on its own). Given the same currents, the LIF scan is exact in
 both frameworks, so values are compared bit for bit; gradients go through
 different autodiff machinery and are compared within a tolerance.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -42,7 +45,7 @@ def _eq(a, b):
 
 
 @pytest.mark.parametrize("with_v0", [False, True], ids=["cold", "v0"])
-@pytest.mark.parametrize("shape", [(8, 37), (6, 3, 5, 4)])
+@pytest.mark.parametrize("shape", [(8, 37), (6, 3, 5, 4), (17, 37), (1, 37)])
 def test_lif_scan_bitwise_vs_jax(shape, with_v0):
     cur = _currents(0, shape)
     v0 = None
@@ -78,6 +81,70 @@ def test_lif_scan_bf16_plain_matches_jax_oracle():
                                   got_s.float().numpy())
     np.testing.assert_array_equal(np.asarray(want_v.astype(jnp.float32)),
                                   got_v.float().numpy())
+
+
+def test_lif_scan_bf16_with_v0_plain_matches_jax_oracle():
+    """bf16 currents with an f32 v0 partly above threshold: the membrane
+    starts from v0 in f32, spikes and v_final come back in bf16."""
+    cur = _currents(11, (17, 3, 37))
+    v0 = np.random.default_rng(12).uniform(-0.2, 1.2,
+                                           size=(3, 37)).astype(np.float32)
+    jc = jnp.asarray(cur).astype(jnp.bfloat16)
+    tc = torch.from_numpy(cur).to(torch.bfloat16)
+    want_s, want_v = j_lif_scan_ref(jc, JP, jnp.asarray(v0))
+    for got_s, got_v in (k1.lif_scan_plain(tc, P, torch.from_numpy(v0)),
+                         ops.lif_scan(tc, P, torch.from_numpy(v0))):
+        assert got_s.dtype == torch.bfloat16
+        assert got_v.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            np.asarray(want_s.astype(jnp.float32)), got_s.float().numpy())
+        np.testing.assert_array_equal(
+            np.asarray(want_v.astype(jnp.float32)), got_v.float().numpy())
+
+
+@pytest.mark.parametrize("key", ["TC", "TAIL", "THREADS"])
+def test_cu_geometry_matches_the_wrapper(key):
+    """The wrapper's geometry constants are the .cu's constexprs (the
+    library also reports them through lif_scan_geometry when it loads)."""
+    src = (Path(k1.__file__).resolve().parents[1] / "csrc"
+           / "lif_scan.cu").read_text()
+    found = re.search(rf"constexpr int {key} = (\d+);", src)
+    assert found is not None and int(found.group(1)) == getattr(k1, key)
+
+
+def test_grad_through_v0_alone_matches_jax():
+    """With grad on and only v0 requiring it, ``ops.lif_scan`` keeps the
+    autograd node: v0's STBP gradient matches JAX's."""
+    cur = _currents(17, (6, 20))
+    v0 = np.random.default_rng(18).uniform(0, 1, size=(20,)).astype(
+        np.float32)
+    gv = np.random.default_rng(19).normal(size=v0.shape).astype(np.float32)
+
+    def j_loss(v):
+        return jnp.sum(jops.lif_scan(jnp.asarray(cur), JP, v)[1] * gv)
+
+    want = jax.grad(j_loss)(jnp.asarray(v0))
+    tv = torch.from_numpy(v0).requires_grad_()
+    s, vf = ops.lif_scan(torch.from_numpy(cur), P, tv)
+    assert s.grad_fn is not None
+    (vf * torch.from_numpy(gv)).sum().backward()
+    np.testing.assert_allclose(tv.grad.numpy(), np.asarray(want),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_no_grad_call_skips_autograd_with_the_same_values():
+    """``ops.lif_scan`` under no_grad (how the engines call it) calls the
+    forward directly: no autograd node, the same bits."""
+    cur = torch.from_numpy(_currents(13, (9, 4, 6)))
+    v0 = torch.from_numpy(_currents(14, (4, 6)))
+    with torch.no_grad():
+        s, v = ops.lif_scan(cur.requires_grad_(), P, v0)
+    assert s.grad_fn is None and v.grad_fn is None
+    want_s, want_v = k1.lif_scan_plain(cur.detach(), P, v0)
+    assert torch.equal(s, want_s) and torch.equal(v, want_v)
+    s, v = ops.lif_scan(cur, P, v0)
+    assert s.grad_fn is not None
+    assert torch.equal(s.detach(), want_s)
 
 
 def test_two_chained_windows_equal_one_scan():

@@ -259,25 +259,8 @@ def paths_phase(torch, out):
         raise AssertionError(f"paths that differ: {bad}")
 
 
-def _host_us(torch, fn, calls=200, samples=5):
-    """Host microseconds a call of ``fn``: ``calls`` calls queued with no
-    synchronisation between them, median of ``samples``."""
-    import statistics
-    import time
-    for _ in range(20):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(samples):
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        times.append((time.perf_counter() - t0) / calls * 1e6)
-        torch.cuda.synchronize()
-    return statistics.median(times)
-
-
 def host_phase(torch, libs, out):
+    from chip_smoke import _host_us
     from repro_torch.core.ternary import unpack2bit
     from repro_torch.kernels import ops
     from repro_torch.kernels import ternary_matmul as k3
