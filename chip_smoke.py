@@ -27,7 +27,9 @@ non-zero:
      short last 512-k segment (K=1300) and with bytes that hold the
      unused field 3, each called twice; B=1 rows against the batch's;
   3. the event slice: a full-width StreamEngine built as a user builds it
-     (EngineConfig(fuse_fc=True, pipeline_depth=1), no kernel arguments)
+     (EngineConfig(fuse_fc=True, pipeline_depth=1), no kernel arguments;
+     on the card every engine step is a replay of its shape key's CUDA
+     graph, captured by ``warmup``)
      serves 8 streams (4 stateful) x 3 windows of ~60k events; launch
      counters prove K1 and K2 ran; results are held against the port's
      own CPU run; one ClosedLoopPipeline window (B=1); reported, not
@@ -48,8 +50,15 @@ non-zero:
      call of ``ops.lif_scan`` and of its wrapper); windows/s
      end to end at B=1 and B=8 over 20 samples of 16 engine steps each;
      a profiler trace of 64 steady-state B=8 steps; frame-lane windows/s
-     and fused ticks/s at B=8 over 20 samples of 16 steps, and a profile
-     of 16 fused steps;
+     and fused ticks/s at B=8 over 20 samples of 16 steps, with the
+     cross-wing megastep off and on, and a profile of 16 fused steps of
+     each; then the ``graphs`` phase: capture ms, pool bytes and launch
+     tally per shape key; replays against eager calls of the same step
+     bit for bit (event wing over three chained stateful windows, frame
+     wing); 8 stateful FusionSessions x 3 ticks through the megastep,
+     pipelined, with launch counts asserted, against the megastep off (bit
+     for bit) and the CPU; and the rates and per-step device ops, host
+     launches and busy share of the end-to-end phases side by side;
   6. the LM slice (``lm_slice``): K4 against its plain version on the
      card bit for bit (prefill and decode calls, T=4, ragged T, chaining
      inside a time chunk, hd=32 and hd=16, unaligned inputs, B=1 rows); the rwkv6-7b widths at a depth of 2 layers in f32 on the card
@@ -152,7 +161,8 @@ def main() -> int:
     fused = frame_slice(torch, dev, k1, k2, k3)
     times = timings(torch, dev, k1, k2)
     times["ternary_matmul"] = k3_timings(torch, dev, k3)
-    frame_end_to_end(torch, dev)
+    fe = frame_end_to_end(torch, dev)
+    graphs_phase(torch, dev, k1, k2, k3, smi, times["end_to_end"], fe)
     lm = lm_slice(torch, dev, k3, k4)
 
     kernels = [
@@ -670,9 +680,10 @@ def _frames(n_streams, n_frames, seed):
              for k in range(n_frames)] for s in range(n_streams)]
 
 
-def _hetero(params, tparams, device, slots=8):
+def _hetero(params, tparams, device, slots=8, megastep=False):
     """The heterogeneous engine as a user builds it: one event and one
-    frame lane, ``slots`` slots each, pipelined one step deep."""
+    frame lane, ``slots`` slots each, pipelined one step deep, with or
+    without the cross-wing megastep."""
     from repro_torch.configs import CONFIG, TCN_CONFIG
     from repro_torch.core._api import EngineConfig
     from repro_torch.core.engine import FrameTCNEngine
@@ -682,12 +693,12 @@ def _hetero(params, tparams, device, slots=8):
         engines=[BatchedClosedLoop(params, CONFIG, device=device),
                  FrameTCNEngine(tparams, TCN_CONFIG, device=device)],
         config=EngineConfig(max_streams={"event": slots, "frame": slots},
-                            pipeline_depth=1))
+                            pipeline_depth=1, megastep=megastep))
 
 
-def _open_fused(eng, n_sessions, n_solo):
+def _open_fused(eng, n_sessions, n_solo, stateful=False):
     from repro_torch.serving import FusionSession
-    return ([FusionSession(eng, session_id=f"s{i}")
+    return ([FusionSession(eng, session_id=f"s{i}", stateful=stateful)
              for i in range(n_sessions)],
             [eng.open(modality="frame", stream_id=f"cam{i}")
              for i in range(n_solo)])
@@ -712,10 +723,10 @@ def _step_fused(eng, sessions, n_ticks, n_rows):
     return fused, other
 
 
-def _serve_fused(eng, sessions, solo):
+def _serve_fused(eng, sessions, solo, stateful=False):
     """8 FusionSessions over ``sessions`` (event windows, frames) and one
     frame stream per list in ``solo``, every tick queued up front."""
-    sess, cams = _open_fused(eng, len(sessions), len(solo))
+    sess, cams = _open_fused(eng, len(sessions), len(solo), stateful)
     ticks = len(sessions[0][0])
     for k in range(ticks):
         for s, (evs, frs) in zip(sess, sessions):
@@ -1070,8 +1081,8 @@ def timings(torch, dev, k1, k2):
     emit("end_to_end", metric="windows/s through StreamEngine.run, host "
          "clock ending in torch.cuda.synchronize", samples=E2E_SAMPLES,
          steps_per_sample=E2E_STEPS, **e2e)
-    profile_run(torch, dev, params, pool,
-                e2e["B8"]["step_ms_median"])
+    out["end_to_end"] = dict(e2e, profile_B8=profile_run(
+        torch, dev, params, pool, e2e["B8"]["step_ms_median"]))
     return out
 
 
@@ -1139,16 +1150,20 @@ def _trace(torch, run):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     spans = []
+    api = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
             spans.append((e.time_range.start, e.time_range.end))
+        elif e.name.startswith("cuda"):
+            api[e.name] = api.get(e.name, 0) + 1
     n_ops = len(spans)
     check(n_ops > 0, "the trace shows no device work")
     host = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total,
                   reverse=True)[:8]
-    return res, wall_ms, by_name, n_ops, host, _gaps_us(sorted(spans))
+    return (res, wall_ms, by_name, n_ops, host, _gaps_us(sorted(spans)),
+            api)
 
 
 def _gaps_us(spans):
@@ -1162,10 +1177,20 @@ def _gaps_us(spans):
     return gaps
 
 
-def _trace_fields(wall_ms, by_name, n_ops, host, gaps, steps,
+def _trace_fields(wall_ms, by_name, n_ops, host, gaps, api, steps,
                   step_ms_untraced):
+    """A trace's numbers a step. Kernels that a CUDA graph replay runs
+    count as device ops like any other; the host's CUDA runtime calls
+    (``cudaLaunchKernel`` a kernel launched from the host,
+    ``cudaGraphLaunch`` a replay) say what the host queued."""
     busy = sum(by_name.values())
+    launches = sum(n for name, n in api.items()
+                   if name.startswith("cudaLaunchKernel"))
     return dict(
+        host_kernel_launches_per_step=launches / steps,
+        host_graph_launches_per_step=api.get("cudaGraphLaunch", 0) / steps,
+        host_cuda_calls_per_step={k[:40]: n / steps for k, n in sorted(
+            api.items(), key=lambda kv: -kv[1])[:6]},
         steps=steps, wall_ms=wall_ms, device_busy_ms=busy,
         device_idle_gaps_per_step=len(gaps) / steps,
         device_idle_gap_ms_per_step=sum(gaps) / 1e3 / steps,
@@ -1198,8 +1223,9 @@ def profile_run(torch, dev, params, pool, step_ms_untraced):
     res, *trace = _trace(torch, eng.run)
     check(len(res) == 8 * PROFILE_STEPS,
           f"profiled {len(res)} of {8 * PROFILE_STEPS} windows")
-    emit("profile", windows=len(res),
-         **_trace_fields(*trace, PROFILE_STEPS, step_ms_untraced))
+    fields = _trace_fields(*trace, PROFILE_STEPS, step_ms_untraced)
+    emit("profile", windows=len(res), **fields)
+    return fields
 
 
 # ----------------------------------------------------------------------
@@ -1258,33 +1284,18 @@ def _k3_path(k3, m, k, n):
                 warps_a_block=p.warps, blocks=p.blocks)
 
 
-def frame_end_to_end(torch, dev):
-    """Frame-lane windows/s at B=8 (a frame-only StreamEngine) and fused
-    ticks/s of 8 FusionSessions on the heterogeneous engine, each over
-    ``E2E_SAMPLES`` samples of ``E2E_STEPS`` steps (host clock, ending in
-    torch.cuda.synchronize); then a profile of ``E2E_STEPS`` fused
-    steps."""
-    from repro_torch.configs import CONFIG, TCN_CONFIG
-    from repro_torch.convert import snn_params_from_numpy, \
-        tcn_params_from_numpy
-    from repro_torch.core._api import EngineConfig
-    from repro_torch.core.engine import FrameTCNEngine
-    from repro_torch.serving import StreamEngine
-    params = snn_params_from_numpy(_np_params(CONFIG, dyadic=True))
-    tparams = tcn_params_from_numpy(_np_tcn_params(TCN_CONFIG))
-    frames = [f for fs in _frames(8, 4, SEED + 9) for f in fs]
-    events = [w for ws in _windows(8, 4, SEED + 3) for w in ws]
-
-    fr_eng = StreamEngine(engines=[FrameTCNEngine(tparams, TCN_CONFIG)],
-                          config=EngineConfig(max_streams=8,
-                                              pipeline_depth=1))
-    fr_eng.warmup([(8, 128, 128, 300_000)])
-    frame_lane = _rate(
-        torch, fr_eng, [fr_eng.open(stream_id=i) for i in range(8)], frames)
-
-    eng = _hetero(params, tparams, dev)
-    eng.warmup([(8, 65_536, 300_000)], modality="event")
-    eng.warmup([(8, 128, 128, 300_000)], modality="frame")
+def _fused_rates(torch, dev, params, tparams, events, frames, megastep):
+    """Fused ticks/s of 8 FusionSessions on a warmed heterogeneous engine
+    over ``E2E_SAMPLES`` samples of ``E2E_STEPS`` steps (host clock,
+    ending in torch.cuda.synchronize), then a profile of ``E2E_STEPS``
+    fused steps; the megastep on or off."""
+    ev_key, fr_key = (8, 65_536, 300_000), (8, 128, 128, 300_000)
+    eng = _hetero(params, tparams, dev, megastep=megastep)
+    if megastep:
+        eng.warmup_megastep([(ev_key, fr_key)])
+    else:
+        eng.warmup([ev_key], modality="event")
+        eng.warmup([fr_key], modality="frame")
     sess, _ = _open_fused(eng, 8, 0)
     pos = [0]
 
@@ -1318,12 +1329,177 @@ def frame_end_to_end(torch, dev):
                  step_ms_median=statistics.median(step_ms))
     queue(E2E_STEPS)
     _, *trace = _trace(torch, lambda: drain(E2E_STEPS))
+    check(eng.compiled_megastep_keys() == ({(ev_key, fr_key)} if megastep
+                                           else set()),
+          f"megastep keys {eng.compiled_megastep_keys()}")
+    return fused, _trace_fields(*trace, E2E_STEPS, fused["step_ms_median"])
+
+
+def frame_end_to_end(torch, dev):
+    """Frame-lane windows/s at B=8 (a frame-only StreamEngine) and fused
+    ticks/s of 8 FusionSessions on the heterogeneous engine, with the
+    megastep off and on, each over ``E2E_SAMPLES`` samples of
+    ``E2E_STEPS`` steps (host clock, ending in torch.cuda.synchronize);
+    then a profile of ``E2E_STEPS`` fused steps of each."""
+    from repro_torch.configs import CONFIG, TCN_CONFIG
+    from repro_torch.convert import snn_params_from_numpy, \
+        tcn_params_from_numpy
+    from repro_torch.core._api import EngineConfig
+    from repro_torch.core.engine import FrameTCNEngine
+    from repro_torch.serving import StreamEngine
+    params = snn_params_from_numpy(_np_params(CONFIG, dyadic=True))
+    tparams = tcn_params_from_numpy(_np_tcn_params(TCN_CONFIG))
+    frames = [f for fs in _frames(8, 4, SEED + 9) for f in fs]
+    events = [w for ws in _windows(8, 4, SEED + 3) for w in ws]
+
+    fr_eng = StreamEngine(engines=[FrameTCNEngine(tparams, TCN_CONFIG)],
+                          config=EngineConfig(max_streams=8,
+                                              pipeline_depth=1))
+    fr_eng.warmup([(8, 128, 128, 300_000)])
+    frame_lane = _rate(
+        torch, fr_eng, [fr_eng.open(stream_id=i) for i in range(8)], frames)
+    fused, profile = _fused_rates(torch, dev, params, tparams, events,
+                                  frames, megastep=False)
+    mega, mega_profile = _fused_rates(torch, dev, params, tparams, events,
+                                      frames, megastep=True)
+    out = dict(frame_lane_B8=frame_lane, fused_B8=fused,
+               fused_profile=profile, fused_B8_megastep=mega,
+               fused_megastep_profile=mega_profile)
     emit("frame_end_to_end", samples=E2E_SAMPLES, steps_per_sample=E2E_STEPS,
          metric="host clock ending in torch.cuda.synchronize; a fused tick "
                 "is one event window and one frame of one session",
-         frame_lane_B8=frame_lane, fused_B8=fused,
-         fused_profile=_trace_fields(*trace, E2E_STEPS,
-                                     fused["step_ms_median"]))
+         **out)
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 5 (graphs): captured steps, the megastep, and what they changed.
+# ----------------------------------------------------------------------
+
+def _capture_stats(steps):
+    """Capture ms, pool bytes and launch tally of each captured step."""
+    return {str(k): dict(capture_ms=st.capture_ms, pool_bytes=st.pool_bytes,
+                         launch_tally=list(st.tally))
+            for k, st in steps.items()}
+
+
+def _eager_args(engine, batch, state):
+    args = engine._mega_args(batch, state)
+    return (args[0].to(engine.device), *args[1:])
+
+
+def graphs_phase(torch, dev, k1, k2, k3, smi, e2e, fe):
+    """One CUDA graph per shape key and the cross-wing megastep at full
+    width: capture ms and pool bytes per key; replays against eager calls
+    of the same run function, bit for bit (the event wing over three
+    chained stateful windows at B=8, the frame wing at B=8); 8 stateful
+    FusionSessions x 3 ticks through the megastep, pipelined, against the
+    megastep off (bit for bit) and the CPU; then the rates and profiles
+    of the end-to-end phases side by side."""
+    from repro_torch.configs import CONFIG, TCN_CONFIG
+    from repro_torch.convert import snn_params_from_numpy, \
+        tcn_params_from_numpy
+    from repro_torch.core.engine import FrameTCNEngine
+    from repro_torch.core.pipeline import BatchedClosedLoop
+
+    params = snn_params_from_numpy(_np_params(CONFIG, dyadic=True))
+    tparams = tcn_params_from_numpy(_np_tcn_params(TCN_CONFIG))
+    loop = BatchedClosedLoop(params, CONFIG, device=dev)
+    loop.warmup([(8, 65_536, 300_000), (1, 65_536, 300_000)])
+    fe_eng = FrameTCNEngine(tparams, TCN_CONFIG, device=dev,
+                            duration_us=300_000)
+    fe_eng.warmup([(8, 128, 128, 300_000)])
+
+    # Replays against eager calls of the same run function.
+    streams = _windows(8, 3, SEED + 11)
+    state_g, state_e = loop.init_state(8), loop.init_state(8)
+    event_equal = []
+    for k in range(3):
+        batch = loop.prepare([ws[k] for ws in streams], batch_size=8)
+        key = loop.shape_key(batch)
+        (_, got), state_g = loop.infer_dispatch(batch, state_g)
+        want = loop._build_run(key)(_eager_args(loop, batch, state_e))
+        state_e = dict(zip(state_g, want[1:]))
+        event_equal.append(bool(torch.equal(got, want[0])) and all(
+            bool(torch.equal(state_g[n], state_e[n])) for n in state_g))
+    fbatch = fe_eng.prepare([fs[0] for fs in _frames(8, 1, SEED + 12)],
+                            batch_size=8)
+    _, fgot = fe_eng.infer_dispatch(fbatch)
+    fwant = fe_eng._build_run()(_eager_args(fe_eng, fbatch, None))
+    frame_equal = bool(torch.equal(fgot, fwant[0]))
+    check(loop.compiled_shape_keys() == {(8, 65_536, 300_000),
+                                         (1, 65_536, 300_000)},
+          f"event keys {loop.compiled_shape_keys()}")
+
+    # The megastep: 8 stateful sessions x 3 ticks, pipelined.
+    frames = _frames(8, 3, SEED + 13)
+    sessions = list(zip(_windows(8, 3, SEED + 14), frames))
+    pair = ((8, 65_536, 300_000), (8, 128, 128, 300_000))
+    mega = _hetero(params, tparams, dev, megastep=True)
+    mega.warmup_megastep([pair])
+    torch.cuda.synchronize()
+    k1.launches = k2.launches = k3.launches = k2.currents_launches = 0
+    on, _ = _serve_fused(mega, sessions, [], stateful=True)
+    torch.cuda.synchronize()
+    launches = {"lif_scan": k1.launches, "fc_lif_scan": k2.launches,
+                "ternary_matmul": k3.launches,
+                "fc_currents": k2.currents_launches}
+    steps = mega.stats["steps"]
+    # 8 sessions over 8 slots a lane: 3 fused dispatches (the pipelined
+    # engine's last step() only collects), each one replay of 2 K1, 2 K2,
+    # 1 K3 and 1 currents-entry launches.
+    check(launches == {"lif_scan": 6, "fc_lif_scan": 6,
+                       "ternary_matmul": 3, "fc_currents": 3},
+          f"megastep: {launches} launches in {steps} steps, expected 2 K1, "
+          f"2 K2, 1 K3 and 1 currents entry a dispatch over 3 dispatches")
+    check(mega.compiled_megastep_keys() == {pair}
+          and all(e.compiled_shape_keys() == set()
+                  for e in mega.engines.values()),
+          f"megastep keys {mega.compiled_megastep_keys()}")
+    off, _ = _serve_fused(_hetero(params, tparams, dev), sessions, [],
+                          stateful=True)
+    cpu, _ = _serve_fused(_hetero(params, tparams, "cpu", megastep=True),
+                          sessions, [], stateful=True)
+    on_vs_off = _compare(on, off)
+    on_vs_cpu = _compare(on, cpu)
+
+    def rates(d, key):
+        return {k: d[key][k] for k in d[key] if "per_s" in k or "ms" in k}
+
+    def ops(p):
+        return {k: p[k] for k in (
+            "device_ops_per_step", "device_busy_ms_per_step",
+            "device_busy_share_untraced", "host_kernel_launches_per_step",
+            "host_graph_launches_per_step", "host_cuda_calls_per_step",
+            "top_host_self_ms_per_step")}
+
+    emit("graphs", nvidia_smi=smi,
+         captures={"event": _capture_stats(loop._graphs.steps),
+                   "frame": _capture_stats(fe_eng._graphs.steps),
+                   "megastep": _capture_stats(mega._mega_graphs.steps)},
+         replay_vs_eager_bitwise=dict(event_chained_B8=event_equal,
+                                      frame_B8=frame_equal),
+         megastep=dict(sessions=8, ticks=3, stateful=True, pipeline_depth=1,
+                       engine_steps=steps, launches=launches,
+                       vs_megastep_off=on_vs_off, vs_cpu=on_vs_cpu),
+         rates=dict(event_B1=rates(e2e, "B1"), event_B8=rates(e2e, "B8"),
+                    frame_B8=rates(fe, "frame_lane_B8"),
+                    fused_B8=rates(fe, "fused_B8"),
+                    fused_B8_megastep=rates(fe, "fused_B8_megastep")),
+         per_step=dict(event_B8=ops(e2e["profile_B8"]),
+                       fused_B8=ops(fe["fused_profile"]),
+                       fused_B8_megastep=ops(fe["fused_megastep_profile"])))
+    check(all(event_equal) and frame_equal,
+          f"replays differ from eager calls: event {event_equal}, frame "
+          f"{frame_equal}")
+    for what, cmp in (("megastep off", on_vs_off), ("the CPU", on_vs_cpu)):
+        check(cmp["label_equal_fraction"] == 1.0, f"vs {what}: {cmp}")
+        check(cmp["logits_max_abs_diff"] <= LOGITS_ATOL, f"vs {what}: {cmp}")
+        check(cmp["energy_equal_fraction"] == 1.0, f"vs {what}: {cmp}")
+        check(cmp["pwm_max_abs_diff"] <= PWM_ATOL, f"vs {what}: {cmp}")
+    check(on_vs_off["logits_bitwise_fraction"] == 1.0
+          and on_vs_off["pwm_bitwise_fraction"] == 1.0,
+          f"megastep on differs from off: {on_vs_off}")
 
 
 # ----------------------------------------------------------------------

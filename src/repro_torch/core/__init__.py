@@ -2,7 +2,8 @@
 (``events``), the spiking CNN (``snn``), the batched closed loop
 (``pipeline``); frame acquisition (``frames``), ternary quantization and
 2-bit packing (``ternary``), the CUTIE ternary CNN (``tcn``); the engine
-protocol and the frame-wing engine (``engine``); and the copied
+protocol and the frame-wing engine (``engine``); one captured CUDA graph
+per shape key (``graphs``); and the copied
 pure-Python modules (``_api``, ``energy``, ``tiling``).
 
 The package imports none of its modules, so a kernel module can import

@@ -142,11 +142,10 @@ class EngineConfig:
         synapse+LIF Pallas kernel.
       * ``window_ms`` -- the control-tick window length for the
         real-time accounting.
-      * ``mesh`` -- a :class:`jax.sharding.Mesh` (see
-        :func:`repro.distributed.make_mesh`): the engines shard their
-        slot axis over the mesh's data axis, one collective-free jit'd
-        step per lane across all devices, bitwise-identical to the
-        single-device engine.
+      * ``mesh`` -- slot sharding over several GPUs: the engines would
+        shard their slot axis over the mesh's data axis, bitwise-identical
+        to the single-device engine. Not ported yet: the port's engines
+        refuse any value but ``None`` (ROADMAP queue 1, item 11).
       * ``recovery`` -- a :class:`RecoveryConfig` opting the engine
         into fault recovery (bounded retry with deterministic backoff,
         poison-window quarantine, dead-lane fail-fast). ``None`` (the
@@ -160,15 +159,16 @@ class EngineConfig:
         tick land together instead of drifting across independently
         contended lanes. Scheduling-only: per-window results are bitwise
         unchanged.
-      * ``megastep`` -- fuse the event and frame wings' kernels (the
-        ``fc_lif_scan`` SNN scan and the ``ternary_matmul`` conv stack)
-        into ONE jit'd dispatch per step when both lanes have work
-        (default off). Requires exactly one event and one frame lane and
-        is single-device only (incompatible with ``mesh``). Results stay
-        bitwise-identical to the two separate per-engine calls; a lane
-        without work this step (drained, dead, or backing off) falls
-        back to the ordinary per-lane dispatch, so degraded single-wing
-        ticks keep their semantics.
+      * ``megastep`` -- serve both wings' steps (the event wing's K1/K2
+        SNN and the frame wing's ternary CNN with K3) as ONE call per
+        step when both lanes have work (default off): on the card one
+        captured CUDA graph per ``(event key, frame key)`` pair, replayed
+        once a step; on the CPU the two run functions back to back.
+        Requires exactly one event and one frame lane, both on one
+        device, and is single-device only (incompatible with ``mesh``).
+        Results stay bitwise-identical to the two separate per-engine
+        calls; a lane without work this step falls back to the ordinary
+        per-lane dispatch, so single-wing ticks keep their semantics.
 
     Frozen: a config is a value, shareable between engines and safe to
     put in tests' parametrize tables. ``replace`` derives variants
@@ -182,7 +182,7 @@ class EngineConfig:
     pipeline_depth: int = 0
     fuse_fc: bool = False
     window_ms: float = 300.0
-    mesh: Optional[Any] = None             # jax.sharding.Mesh
+    mesh: Optional[Any] = None             # refused: not ported yet
     recovery: Optional["RecoveryConfig"] = None
     coschedule: bool = True
     megastep: bool = False

@@ -3,8 +3,10 @@ of ``repro.core.engine``).
 
 An engine declares ``modality`` and ``duration_us`` and implements
 ``validate``/``prepare``/``init_state``/``infer``/``shape_key``; the
-optional ``infer_dispatch``/``infer_collect`` split, ``warmup`` and
-``export_state``/``import_state`` are probed with ``getattr``. Two
+optional ``infer_dispatch``/``infer_collect`` split, ``warmup``,
+``export_state``/``import_state`` and the megastep adapters
+(``_mega_parts``/``_mega_args``/``_mega_split``) are probed with
+``getattr``/``hasattr``. Two
 engines implement it: the event wing,
 :class:`~repro_torch.core.pipeline.BatchedClosedLoop`, and the frame wing,
 :class:`FrameTCNEngine` (here): frame normalization (``core/frames.py``),
@@ -15,8 +17,8 @@ per-stream CUTIE latency/energy accounting
 """
 from __future__ import annotations
 
-from typing import (Any, Dict, Hashable, List, Optional, Protocol, Sequence,
-                    runtime_checkable)
+from typing import (Any, Callable, Dict, Hashable, List, Optional, Protocol,
+                    Sequence, runtime_checkable)
 
 import numpy as np
 import torch
@@ -25,6 +27,7 @@ from repro_torch import resolve_device
 from repro_torch.core import frames as fr
 from repro_torch.core._api import EngineConfig
 from repro_torch.core.energy import KrakenModel
+from repro_torch.core.graphs import GraphCache
 from repro_torch.core.pipeline import (PWM_CHANNELS, ClosedLoopResult,
                                        _refuse_unported, export_state_slot,
                                        import_state_slot, pwm_from_logits)
@@ -81,10 +84,11 @@ class FrameTCNEngine:
     :func:`repro_torch.convert.tcn_params_from_numpy`). The wing is
     feedforward per frame: its carried state is the empty dict.
 
-    ``infer_dispatch`` only queues work on the device's current stream;
-    ``infer_collect`` is the one point that waits (one device-to-host
-    copy). Slot sharding over several GPUs (``mesh``) and the cross-wing
-    megastep are not ported yet.
+    On the card each shape key's step is one captured CUDA graph, as on
+    the event wing. ``infer_dispatch`` only queues work on the device's
+    current stream; ``infer_collect`` is the one point that waits (one
+    device-to-host copy). Slot sharding over several GPUs (``mesh``) is
+    not ported yet.
     """
 
     modality = "frame"
@@ -115,7 +119,7 @@ class FrameTCNEngine:
         self.window_ms = window_ms
         self.layer_macs = tcn_layer_macs(cfg)
         self.total_macs = float(sum(self.layer_macs))
-        self._keys: set = set()
+        self._graphs = GraphCache(self.device)
 
     @classmethod
     def from_config(cls, params, cfg: TCNConfig, config: EngineConfig, *,
@@ -171,11 +175,29 @@ class FrameTCNEngine:
             torch.stack([act[k] for k in TCN_LAYERS], 1),
         ], dim=1)
 
+    def _build_run(self, key=None) -> Callable:
+        """The step of a frame batch: ``run((pixels,))`` -> ``(packed,)``.
+        The same function is captured on the card and called on the
+        CPU."""
+
+        def run(args):
+            with torch.no_grad():
+                return (self._run(args[0]),)
+
+        return run
+
+    def _forward(self, key, args) -> tuple:
+        """One step's outputs: a replay of the key's graph on the card,
+        the run function itself on the CPU."""
+        step = self._graphs.get(key, lambda: self._mega_parts(key))
+        return self._build_run(key)(args) if step is None else step(args)
+
     def warmup(self, shape_keys) -> None:
-        """Run one empty batch per ``(batch_size, height, width[,
-        duration_us])`` key so the kernels are built and memory is
-        allocated before serving. A 3-tuple key borrows the engine's
-        latched ``duration_us`` and therefore requires one."""
+        """Prepare each ``(batch_size, height, width[, duration_us])`` key
+        before serving: on the card, capture its CUDA graph (the eager
+        call before the capture builds the kernels); on the CPU, record
+        it. A 3-tuple key borrows the engine's latched ``duration_us`` and
+        therefore requires one."""
         for key in shape_keys:
             key = tuple(key)
             if len(key) == 3:
@@ -190,34 +212,59 @@ class FrameTCNEngine:
                 raise ValueError(
                     f"shape key must be (batch, height, width[, "
                     f"duration_us]), got {key}")
-            b, h, w, duration_us = (int(k) for k in key)
-            if (h, w) != (self.cfg.height, self.cfg.width):
+            key = tuple(int(k) for k in key)
+            if key[1:3] != (self.cfg.height, self.cfg.width):
                 raise ValueError(
-                    f"shape key geometry {(h, w)} != engine geometry "
+                    f"shape key geometry {key[1:3]} != engine geometry "
                     f"({self.cfg.height}, {self.cfg.width})")
-            batch = fr.pad_frame_windows(
-                [None] * b, batch_size=b, duration_us=duration_us,
-                height=h, width=w)
-            self.infer_collect(self.infer_dispatch(batch))
+            self._graphs.get(key, lambda: self._mega_parts(key))
 
     def compiled_shape_keys(self) -> set:
-        """Shape keys warmed or served so far."""
-        return set(self._keys)
+        """Shape keys with a captured graph on the card (warmed or
+        served); on the CPU, the keys warmed or served."""
+        return self._graphs.keys()
+
+    # -- cross-wing megastep adapters ------------------------------------
+    # Counterparts of BatchedClosedLoop's: the serving layer's fused
+    # megastep captures this wing's run next to the event wing's in one
+    # CUDA graph (see EngineConfig.megastep).
+
+    def _mega_parts(self, key):
+        """``(run, inputs)`` for a shape key: the run function and a fresh
+        static (B, H, W, 1) f32 pixel buffer on the device, for capture."""
+        b, h, w = int(key[0]), int(key[1]), int(key[2])
+        pixels = torch.zeros((b, h, w, 1), dtype=torch.float32,
+                             device=self.device)
+        return self._build_run(key), (pixels,)
+
+    def _mega_args(self, batch: fr.PaddedFrameBatch, state):
+        """The concrete arguments matching :meth:`_mega_parts` (in a
+        pinned staging buffer of the key on the card); the CUTIE wing
+        carries no state, so ``state`` is ignored."""
+        if self.device.type != "cuda":
+            return (torch.from_numpy(batch.pixels),)
+        pixels = self._graphs.staging(self.shape_key(batch),
+                                      batch.pixels.shape, torch.float32)
+        pixels.numpy()[...] = batch.pixels
+        return (pixels,)
+
+    def _mega_split(self, out, batch: fr.PaddedFrameBatch, state):
+        """Split a step's outputs into the ``(pending, state)`` pair
+        :meth:`infer_dispatch` returns (no-op carry passthrough)."""
+        return (batch, out[0]), state
 
     def infer_dispatch(self, batch: fr.PaddedFrameBatch, state=None):
         """Queue a frame batch on the device without waiting for it.
 
         Returns a pending handle for :meth:`infer_collect` -- or, with
-        ``state`` (the empty dict), ``(pending, state)``. The pixels go up
-        in one copy from pinned host memory.
+        ``state`` (the empty dict), ``(pending, state)``. On the card the
+        pixels go up in one copy from a pinned staging buffer and the
+        key's graph is replayed (captured first if the key was not
+        warmed).
         """
-        pixels = torch.from_numpy(batch.pixels)
-        if self.device.type == "cuda":
-            pixels = pixels.pin_memory().to(self.device, non_blocking=True)
-        with torch.no_grad():
-            packed = self._run(pixels)
-        self._keys.add(self.shape_key(batch))
-        pending = (batch, packed)
+        out = self._forward(self.shape_key(batch),
+                            self._mega_args(batch, state))
+        pending, state = self._mega_split(out, batch, state)
         return pending if state is None else (pending, state)
 
     def infer_collect(self, pending) -> List[Optional[ClosedLoopResult]]:

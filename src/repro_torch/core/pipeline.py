@@ -14,13 +14,19 @@ depend on the batch it rides in. The convolutions are the one library
 call on the path; whether cuDNN keeps rows independent is checked on the
 card by ``chip_smoke.py``.
 
+On the card each shape key's step is one captured CUDA graph
+(``core/graphs.py``, the counterpart of the JAX package's AOT executable
+per key): ``warmup`` captures it, and every dispatch copies the batch's
+events (staged in pinned host memory) and the carried state into the
+graph's inputs and replays it. On the CPU the same step runs eagerly.
 ``infer_dispatch`` only queues work on the device's current stream and
 never synchronises; ``infer_collect`` is the one point that waits.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+import functools
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.core import events as ev
 from repro_torch.core._api import EngineConfig
 from repro_torch.core.energy import KrakenModel
+from repro_torch.core.graphs import GraphCache
 from repro_torch.core.snn import (SNN_STATE_LAYERS, SNNConfig, snn_apply,
                                   snn_init_state, snn_logits)
 from repro_torch.core.tiling import SNE_NEURON_CAPACITY, plan_network
@@ -66,6 +73,14 @@ def _mix_matrix(n_cls: int, num_channels: int) -> np.ndarray:
     return np.cos(mix / n_cls * np.pi).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _mix_on(n_cls: int, num_channels: int,
+            device: torch.device) -> torch.Tensor:
+    """The mixing matrix on ``device``, copied there once: a copy from
+    pageable host memory inside a step cannot be captured in a graph."""
+    return torch.from_numpy(_mix_matrix(n_cls, num_channels)).to(device)
+
+
 def pwm_from_logits(logits: torch.Tensor,
                     num_channels: int = PWM_CHANNELS) -> torch.Tensor:
     """Map classifier logits to PWM duty cycles in [0, 1].
@@ -78,8 +93,7 @@ def pwm_from_logits(logits: torch.Tensor,
     """
     probs = torch.softmax(logits.float(), dim=-1)
     n_cls = probs.shape[-1]
-    mix = torch.from_numpy(_mix_matrix(n_cls, num_channels)).to(
-        probs.device)
+    mix = _mix_on(n_cls, num_channels, probs.device)
     terms = probs[..., :, None] * mix
     duty = terms[..., 0, :]
     for c in range(1, n_cls):
@@ -162,7 +176,7 @@ class BatchedClosedLoop:
             float(cfg.hidden),
             float(cfg.num_classes),
         )
-        self._keys: set = set()
+        self._graphs = GraphCache(self.device)
         self._zero_state: Dict[int, Dict[str, torch.Tensor]] = {}
 
     @classmethod
@@ -233,11 +247,34 @@ class BatchedClosedLoop:
         ], dim=1)
         return packed, out["state"]
 
+    def _build_run(self, key) -> Callable:
+        """The step of a shape key ``(batch_size, max_events,
+        duration_us)``: ``run((events, state))`` -> ``(packed, *new
+        state planes in SNN_STATE_LAYERS order)``, f32 tensors that
+        :meth:`_mega_split` takes apart. The same function is captured on
+        the card and called on the CPU."""
+        duration_us = int(key[2])
+
+        def run(args):
+            events, state = args
+            with torch.no_grad():
+                packed, new_state = self._run(events, duration_us, state)
+            return (packed, *(new_state[k] for k in SNN_STATE_LAYERS))
+
+        return run
+
+    def _forward(self, key, args) -> tuple:
+        """One step's outputs: a replay of the key's graph on the card,
+        the run function itself on the CPU."""
+        step = self._graphs.get(key, lambda: self._mega_parts(key))
+        return self._build_run(key)(args) if step is None else step(args)
+
     def warmup(self, shape_keys) -> None:
-        """Run one empty batch per shape key so the kernels are built and
-        memory is allocated before serving. A key is
-        ``(batch_size, max_events[, duration_us])``; the 2-tuple form uses
-        the engine's latched ``duration_us``."""
+        """Prepare each shape key before serving: on the card, capture its
+        CUDA graph (the eager call before the capture builds the kernels),
+        so no window pays for it mid-stream; on the CPU, record it. A key
+        is ``(batch_size, max_events[, duration_us])``; the 2-tuple form
+        uses the engine's latched ``duration_us``."""
         for key in shape_keys:
             key = tuple(key)
             if len(key) == 2:
@@ -251,15 +288,54 @@ class BatchedClosedLoop:
                 raise ValueError(
                     f"shape key must be (batch_size, max_events[, "
                     f"duration_us]), got {key}")
-            b, n_ev, duration_us = (int(k) for k in key)
-            batch = ev.pad_event_windows(
-                [None] * b, max_events=n_ev, batch_size=b,
-                duration_us=duration_us)
-            self.infer_collect(self.infer_dispatch(batch))
+            key = tuple(int(k) for k in key)
+            self._graphs.get(key, lambda: self._mega_parts(key))
 
     def compiled_shape_keys(self) -> set:
-        """Shape keys warmed or served so far."""
-        return set(self._keys)
+        """Shape keys with a captured graph on the card (warmed or
+        served); on the CPU, the keys warmed or served."""
+        return self._graphs.keys()
+
+    # -- cross-wing megastep adapters ------------------------------------
+    # The serving layer's fused megastep (EngineConfig.megastep) captures
+    # this wing's run function NEXT TO the frame wing's in one CUDA graph,
+    # so one replay launches both wings' kernels. The run is exactly what
+    # this wing's own graph captures, which keeps the fused step's bits.
+
+    def _mega_parts(self, key):
+        """``(run, inputs)`` for a shape key: the run function and fresh
+        static device buffers shaped like its arguments (``(events,
+        state)``), for capture."""
+        b, n_ev, _ = key
+        events = torch.zeros((5, b, n_ev), dtype=torch.int32,
+                             device=self.device)
+        return self._build_run(key), (events, self.init_state(b))
+
+    def _mega_args(self, batch: ev.PaddedEventBatch, state):
+        """The concrete arguments matching :meth:`_mega_parts`'s inputs:
+        the batch's event arrays as one (5, B, N) int32 tensor (in a
+        pinned staging buffer of the key on the card) and the state
+        (``None`` = the cached zero state, as the stateless dispatch)."""
+        if state is None:
+            state = self._zero_state_for(batch.batch_size)
+        if self.device.type == "cuda":
+            events = self._graphs.staging(self.shape_key(batch),
+                                          (5, *batch.x.shape), torch.int32)
+            host = events.numpy()
+            for i, a in enumerate((batch.x, batch.y, batch.t, batch.p,
+                                   batch.valid)):
+                host[i] = a
+        else:
+            events = torch.from_numpy(np.stack([
+                batch.x, batch.y, batch.t, batch.p,
+                batch.valid.astype(np.int32)]))
+        return events, state
+
+    def _mega_split(self, out, batch: ev.PaddedEventBatch, state):
+        """Split a step's outputs into the ``(pending, new_state)`` pair
+        :meth:`infer_dispatch` returns (on the card, views of one fresh
+        copy, which no later step writes)."""
+        return (batch, out[0]), dict(zip(SNN_STATE_LAYERS, out[1:]))
 
     def _account(self, num_events: int,
                  rates: Dict[str, float]) -> Dict[str, Any]:
@@ -289,24 +365,15 @@ class BatchedClosedLoop:
         Returns a pending handle for :meth:`infer_collect` -- or, with
         ``state``, ``(pending, new_state)``, where ``new_state`` is a dict
         of device tensors the caller can feed to the next dispatch with no
-        host round-trip. The event arrays go up in one copy from pinned
-        host memory, so the copy does not wait for earlier device work.
+        host round-trip. On the card the event arrays go up in one copy
+        from a pinned staging buffer, so the copy does not wait for
+        earlier device work, and the key's graph is replayed (captured
+        first if the key was not warmed).
         """
-        stateless = state is None
-        if stateless:
-            state = self._zero_state_for(batch.batch_size)
-        key = self.shape_key(batch)
-        host = np.stack([batch.x, batch.y, batch.t, batch.p,
-                         batch.valid.astype(np.int32)])
-        events = torch.from_numpy(host)
-        if self.device.type == "cuda":
-            events = events.pin_memory().to(self.device, non_blocking=True)
-        with torch.no_grad():
-            packed, new_state = self._run(events, int(batch.duration_us),
-                                          state)
-        self._keys.add(key)
-        pending = (batch, packed)
-        return pending if stateless else (pending, new_state)
+        out = self._forward(self.shape_key(batch),
+                            self._mega_args(batch, state))
+        pending, new_state = self._mega_split(out, batch, state)
+        return pending if state is None else (pending, new_state)
 
     def infer_collect(self, pending) -> List[Optional[ClosedLoopResult]]:
         """Fetch a dispatched batch's outputs and account each stream.

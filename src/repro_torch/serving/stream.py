@@ -37,25 +37,33 @@ the synchronous engine, with host packing of step k+1 overlapping the
 device's work on step k. Carried state chains from dispatch to dispatch
 on the device.
 
+The cross-wing megastep. With ``EngineConfig.megastep`` (exactly one
+event and one frame lane), a step in which both lanes have work runs both
+wings' steps in one fused call: on the card one CUDA graph per ``(event
+key, frame key)`` pair, captured next to the engines' own graphs and
+replayed once per step; on the CPU the two run functions back to back.
+Results are bitwise those of the two per-lane calls; a step with work on
+one lane only takes the per-lane path.
+
 Not in this slice (see ROADMAP): checkpoint/restore, ``DeadlinePolicy``
 and per-window deadlines, telemetry, ``resize_lane``/``drain_lane``,
-fault recovery, the cross-wing megastep, the mesh, and the legacy
-id-keyed call forms. The ``EngineConfig`` fields that select them are
-refused at construction.
+fault recovery, the mesh, and the legacy id-keyed call forms. The
+``EngineConfig`` fields that select them are refused at construction.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import (Any, Deque, Dict, Hashable, List, Mapping, Optional,
-                    Sequence, Union)
+from typing import (Any, Callable, Deque, Dict, Hashable, List, Mapping,
+                    Optional, Sequence, Union)
 
 import torch
 
 from repro_torch.core._api import EngineConfig
 from repro_torch.core.energy import KrakenModel
 from repro_torch.core.engine import InferenceEngine
+from repro_torch.core.graphs import GraphCache
 from repro_torch.core.pipeline import (BatchedClosedLoop, ClosedLoopResult,
                                        _refuse_unported)
 from repro_torch.core.snn import SNNConfig
@@ -367,11 +375,12 @@ class StreamEngine:
     ``EngineConfig`` supplies ``max_streams`` (slots per lane, or a
     ``{modality: count}`` mapping whose missing lanes get 8),
     ``duration_us``, ``policy``/``fair_quantum``, ``pipeline_depth``,
-    ``window_ms`` and ``coschedule``; ``fuse_fc`` selects nothing for the
-    built event engine (fc1/fc2 always run through kernel K2, which is
-    what either value computes) and, as in the JAX package, is refused
-    with ``engines=``. ``mesh``, ``megastep``, ``recovery`` and a policy
-    that is not a port :class:`SlotPolicy` raise ``NotImplementedError``.
+    ``window_ms``, ``coschedule`` and ``megastep`` (see the module
+    docstring); ``fuse_fc`` selects nothing for the built event engine
+    (fc1/fc2 always run through kernel K2, which is what either value
+    computes) and, as in the JAX package, is refused with ``engines=``.
+    ``mesh``, ``recovery`` and a policy that is not a port
+    :class:`SlotPolicy` raise ``NotImplementedError``.
     """
 
     def __init__(
@@ -390,11 +399,6 @@ class StreamEngine:
             raise TypeError(f"config must be an EngineConfig, got "
                             f"{type(config).__name__}")
         _refuse_unported(config)
-        if config.megastep:
-            raise NotImplementedError(
-                "EngineConfig.megastep: the cross-wing megastep (one CUDA "
-                "graph per (event key, frame key)) is not ported yet "
-                "(ROADMAP queue 1, item 8)")
         if config.recovery is not None:
             raise NotImplementedError(
                 "EngineConfig.recovery: fault recovery is not ported yet "
@@ -470,6 +474,31 @@ class StreamEngine:
         self._pairs: Dict[Hashable, Hashable] = {}
         self._pair_dispatch: Dict[tuple, int] = {}
         self._dispatch_no = 0
+        # The fused cross-wing megastep: one captured step serving both
+        # wings' kernels, cached per (event shape key, frame shape key)
+        # apart from the engines' own graphs.
+        self.megastep = bool(config.megastep)
+        self._mega_graphs: Optional[GraphCache] = None
+        if self.megastep:
+            if sorted(self._lanes) != ["event", "frame"]:
+                raise ValueError(
+                    f"EngineConfig.megastep needs exactly one event and "
+                    f"one frame lane; this engine has "
+                    f"{sorted(self._lanes)}")
+            for lane in self._lanes.values():
+                if not hasattr(lane.engine, "_mega_parts"):
+                    raise ValueError(
+                        f"engine for modality {lane.modality!r} "
+                        f"({type(lane.engine).__name__}) does not "
+                        f"support the fused megastep")
+            devices = {str(lane.engine.device)
+                       for lane in self._lanes.values()}
+            if len(devices) != 1:
+                raise ValueError(
+                    f"EngineConfig.megastep needs both engines on one "
+                    f"device; they are on {sorted(devices)}")
+            self._mega_graphs = GraphCache(
+                self._lanes["event"].engine.device)
         self._inflight: Deque[List[_InflightLane]] = deque()
         self._stream_lane: Dict[Hashable, str] = {}
         self._seq: Dict[Hashable, int] = {}
@@ -528,6 +557,33 @@ class StreamEngine:
                 f"engine {type(engine).__name__} does not implement "
                 f"warmup()")
         warm(shape_keys)
+
+    def warmup_megastep(self, key_pairs) -> None:
+        """Prepare fused megastep steps before serving (on the card,
+        capture each pair's graph).
+
+        ``key_pairs`` is an iterable of ``(event_shape_key,
+        frame_shape_key)`` pairs -- each wing's full shape-key tuple
+        (``(batch, max_events, duration_us)`` / ``(batch, height, width,
+        duration_us)``). The megastep keeps its own cache, separate from
+        the per-engine ones, so warm it explicitly before serving a fused
+        workload.
+        """
+        if not self.megastep:
+            raise ValueError(
+                "warmup_megastep on an engine without "
+                "EngineConfig.megastep=True")
+        ev_lane, fr_lane = self._lanes["event"], self._lanes["frame"]
+        for ev_key, fr_key in key_pairs:
+            self._mega_executable(ev_lane, fr_lane, tuple(ev_key),
+                                  tuple(fr_key))
+
+    def compiled_megastep_keys(self) -> set:
+        """``(event_key, frame_key)`` pairs with a captured fused graph on
+        the card (stepped or warmed); on the CPU, the pairs stepped or
+        warmed."""
+        return set() if self._mega_graphs is None \
+            else self._mega_graphs.keys()
 
     @property
     def handles(self) -> Dict[Hashable, StreamHandle]:
@@ -720,20 +776,30 @@ class StreamEngine:
 
     def _dispatch(self, *, eager: bool) -> List[_InflightLane]:
         """Assign every lane's slots (then, with fusion pairs, seat paired
-        wings together), run (``eager``) or queue every lane's batch, and
-        pop the served heads only after every lane succeeded."""
+        wings together), run (``eager``) or queue every lane's batch --
+        with ``megastep``, both wings through one fused call when both
+        have work -- and pop the served heads only after every lane
+        succeeded."""
         self._dispatch_no += 1
         for lane in self._lanes.values():
             self.policy.assign(lane)
         if self._pairs and self.coschedule:
             self._coschedule()
-        ran: List[_InflightLane] = []
-        commits = []
+        work = []
         for lane in self._lanes.values():
             heads = [lane.queues[sid][0].item if sid is not _FREE else None
                      for sid in lane.slots]
-            if all(w is None for w in heads):
-                continue
+            if any(w is not None for w in heads):
+                work.append((lane, heads))
+        ran: List[_InflightLane] = []
+        commits = []
+        if self.megastep and len(work) == 2:
+            # Both wings have work (the megastep has exactly the event and
+            # frame lanes): one fused call serves the step. A step with
+            # work on one lane takes the per-lane path below.
+            ran, commits = self._mega_dispatch(work, eager)
+            work = []
+        for lane, heads in work:
             rec, commit = self._dispatch_lane(lane, heads, eager)
             ran.append(rec)
             if commit is not None:
@@ -841,6 +907,81 @@ class StreamEngine:
         commit = ((state_commit, new_state)
                   if state_commit is not None else None)
         return rec, commit
+
+    def _mega_executable(self, ev_lane: EngineLane, fr_lane: EngineLane,
+                         ev_key, fr_key) -> Callable:
+        """The fused two-wing step for a pair of per-wing shape keys:
+        ``exe(ev_args, fr_args)`` -> ``(ev_out, fr_out)``. On the card it
+        replays one CUDA graph that holds the wings' OWN run functions side
+        by side (captured once per pair), so each wing's half keeps the
+        bits of that wing's own graph; on the CPU it calls the two run
+        functions."""
+        ev_eng, fr_eng = ev_lane.engine, fr_lane.engine
+
+        def parts():
+            ev_run, ev_in = ev_eng._mega_parts(ev_key)
+            fr_run, fr_in = fr_eng._mega_parts(fr_key)
+            return (lambda inputs: (ev_run(inputs[0]), fr_run(inputs[1])),
+                    (ev_in, fr_in))
+
+        step = self._mega_graphs.get((ev_key, fr_key), parts)
+        if step is not None:
+            return lambda ev_args, fr_args: step((ev_args, fr_args))
+        ev_run, fr_run = ev_eng._build_run(ev_key), fr_eng._build_run(fr_key)
+        return lambda ev_args, fr_args: (ev_run(ev_args), fr_run(fr_args))
+
+    def _mega_dispatch(self, work: List[tuple], eager: bool) -> tuple:
+        """Both wings' dispatch through one fused call; returns
+        ``(records, state_commits)`` shaped exactly as two ordinary
+        per-lane dispatches, so collection and pipelining downstream are
+        unchanged. Raises with every queue untouched."""
+        by_mod = {lane.modality: (lane, heads) for lane, heads in work}
+        ev_lane, ev_heads = by_mod["event"]
+        fr_lane, fr_heads = by_mod["frame"]
+        ev_batch = ev_lane.engine.prepare(
+            ev_heads, batch_size=len(ev_lane.slots))
+        ev_key = ev_lane.engine.shape_key(ev_batch)
+        fr_batch = fr_lane.engine.prepare(
+            fr_heads, batch_size=len(fr_lane.slots))
+        fr_key = fr_lane.engine.shape_key(fr_batch)
+        ev_state, ev_commit = self._lane_state_in(ev_lane)
+        fr_state, fr_commit = self._lane_state_in(fr_lane)
+        exe = self._mega_executable(ev_lane, fr_lane, ev_key, fr_key)
+        ev_out, fr_out = exe(
+            ev_lane.engine._mega_args(ev_batch, ev_state),
+            fr_lane.engine._mega_args(fr_batch, fr_state))
+        ev_pending, ev_new = ev_lane.engine._mega_split(
+            ev_out, ev_batch, ev_state)
+        fr_pending, fr_new = fr_lane.engine._mega_split(
+            fr_out, fr_batch, fr_state)
+        if eager:
+            # Synchronous mode stays retry-safe: materialize BOTH wings'
+            # results before any queue state moves.
+            ev_kind, ev_pending = "results", ev_lane.engine.infer_collect(
+                ev_pending)
+            fr_kind, fr_pending = "results", fr_lane.engine.infer_collect(
+                fr_pending)
+        else:
+            ev_kind = fr_kind = "handle"
+        recs: List[_InflightLane] = []
+        commits: List[tuple] = []
+        for lane, heads, key, kind, pending, commit, new in (
+                (ev_lane, ev_heads, ev_key, ev_kind, ev_pending, ev_commit,
+                 ev_new),
+                (fr_lane, fr_heads, fr_key, fr_kind, fr_pending, fr_commit,
+                 fr_new)):
+            recs.append(_InflightLane(
+                lane=lane, key=key,
+                entries=[None if w is None else slot
+                         for slot, w in enumerate(heads)],
+                kind=kind, pending=pending))
+            if commit is not None:
+                commits.append((commit, new))
+        # Records in lane declaration order, exactly as the per-lane path
+        # emits them, so result ordering is unchanged.
+        order = {m: i for i, m in enumerate(self._lanes)}
+        recs.sort(key=lambda r: order[r.lane.modality])
+        return recs, commits
 
     def _collect(self, ran: List[_InflightLane]) -> List[StreamResult]:
         """Wait for a dispatched step's results and emit them."""

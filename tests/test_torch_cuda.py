@@ -17,6 +17,7 @@ from repro_torch.core import events as ev  # noqa: E402
 from repro_torch.configs import TCN_SMOKE  # noqa: E402
 from repro_torch.core import frames as fr  # noqa: E402
 from repro_torch.core._api import EngineConfig  # noqa: E402
+from repro_torch.core import graphs  # noqa: E402
 from repro_torch.core.engine import FrameTCNEngine  # noqa: E402
 from repro_torch.core.lif import LIFParams  # noqa: E402
 from repro_torch.core.pipeline import BatchedClosedLoop  # noqa: E402
@@ -27,7 +28,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ternary_matmul as k3  # noqa: E402
 from repro_torch.kernels import wkv6_scan as k4  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
-from repro_torch.serving import FusionSession, StreamEngine  # noqa: E402
+from repro_torch.serving import (FairQuantumPolicy,  # noqa: E402
+                                 FusionSession, StreamEngine)
 
 P = LIFParams()
 pytestmark = pytest.mark.cuda
@@ -198,7 +200,9 @@ def test_k3_matches_plain_and_rows_are_batch_invariant(card, m, k, n, dtype,
 def test_default_hetero_engine_launches_all_three_kernels(card):
     """A heterogeneous StreamEngine of default-built wings serves fusion
     ticks on the card through K1, K2 and K3: one K3 launch (fc1) and one
-    of K2's currents entry (fc2) per frame-lane step."""
+    of K2's currents entry (fc2) per frame-lane step, each step a replay
+    of its key's graph, and one more set per key for the eager call
+    before the key's capture."""
     rng = np.random.default_rng(3)
     eng = StreamEngine(engines=[BatchedClosedLoop(_snn_params(rng), CFG),
                                 FrameTCNEngine(_tcn_params(rng), TCN_SMOKE)],
@@ -217,15 +221,18 @@ def test_default_hetero_engine_launches_all_three_kernels(card):
             rows = s.absorb(rows)
             out += s.drain()
     steps = eng.stats["steps"]
+    ev_runs = steps + len(eng.engines["event"].compiled_shape_keys())
+    fr_runs = steps + len(eng.engines["frame"].compiled_shape_keys())
     assert (k1.launches - before[0], k2.launches - before[1],
             k3.launches - before[2], k2.currents_launches - before[3]) == (
-                2 * steps, 2 * steps, steps, steps)
+                2 * ev_runs, 2 * ev_runs, fr_runs, fr_runs)
 
 
 def test_default_stream_engine_launches_both_kernels(card):
     """A StreamEngine built with no device, no config and no kernel
     arguments serves on the card through K1 and K2: two launches of each
-    per engine step."""
+    per engine step (a replay of its key's graph), and two more per key
+    for the eager call before the key's capture."""
     cfg = CFG
     rng = np.random.default_rng(0)
     params = _snn_params(rng)
@@ -239,9 +246,10 @@ def test_default_stream_engine_launches_both_kernels(card):
     before = (k1.launches, k2.launches)
     out = eng.run()
     steps = eng.stats["steps"]
+    runs = steps + len(eng.loop.compiled_shape_keys())
     assert len(out) == 6 and steps >= 1
     assert (k1.launches - before[0], k2.launches - before[1]) == \
-        (2 * steps, 2 * steps)
+        (2 * runs, 2 * runs)
 
 
 def _wkv(card, b, t, h, hd, dtype, lw_dtype=torch.float32, seed=5):
@@ -349,3 +357,166 @@ def test_unembed_gives_f32_logits_of_bf16_operands_on_the_card(card):
     want = torch.matmul(hn.float(), params["lm_head"].float())
     assert got.dtype == torch.float32 and got.shape == (2, 3, v)
     assert torch.allclose(got, want, rtol=0, atol=1e-4)
+
+
+# -- captured CUDA graphs (one per shape key) ---------------------------------
+
+def _event_windows(rng, streams, n):
+    return [[ev.synthetic_gesture_events(rng, (s + k) % 11, mean_events=1500,
+                                         height=32, width=32)
+             for k in range(n)] for s in range(streams)]
+
+
+def _frame_windows(rng, streams, n):
+    return [[fr.synthetic_gesture_frames(rng, (s + 3 * k) % 11, height=32,
+                                         width=32)
+             for k in range(n)] for s in range(streams)]
+
+
+def _eager(engine, key, batch, state):
+    """The key's run function called eagerly on the batch, with the
+    staged host arrays moved to the card."""
+    args = engine._mega_args(batch, state)
+    args = (args[0].to(engine.device), *args[1:])
+    return engine._build_run(key)(args)
+
+
+def test_captured_steps_equal_eager_runs(card):
+    """A replay of a key's graph equals an eager call of the same run
+    function bit for bit: the event wing over three chained stateful
+    windows (its state planes too), and the frame wing."""
+    rng = np.random.default_rng(11)
+    loop = BatchedClosedLoop(_snn_params(rng), CFG)
+    ws = _event_windows(rng, 4, 3)
+    state_g, state_e = loop.init_state(4), loop.init_state(4)
+    for k in range(3):
+        batch = loop.prepare([w[k] for w in ws], batch_size=4)
+        key = loop.shape_key(batch)
+        (_, got), state_g = loop.infer_dispatch(batch, state_g)
+        want = _eager(loop, key, batch, state_e)
+        state_e = dict(zip(state_g, want[1:]))
+        assert key in loop.compiled_shape_keys()
+        assert torch.equal(got, want[0])
+        for name in state_g:
+            assert torch.equal(state_g[name], state_e[name])
+    fe = FrameTCNEngine(_tcn_params(rng), TCN_SMOKE, duration_us=300_000)
+    batch = fe.prepare([f[0] for f in _frame_windows(rng, 3, 1)],
+                       batch_size=4)
+    _, got = fe.infer_dispatch(batch)
+    want = _eager(fe, fe.shape_key(batch), batch, None)
+    assert torch.equal(got, want[0])
+
+
+def test_launch_counters_follow_replays(card):
+    """Each replay adds its graph's captured tally to the kernels'
+    counters: two K1 and two K2 launches an event step, one K3 and one
+    of K2's currents entry a frame step; the capture itself adds none."""
+    rng = np.random.default_rng(12)
+    loop = BatchedClosedLoop(_snn_params(rng), CFG)
+    fe = FrameTCNEngine(_tcn_params(rng), TCN_SMOKE, duration_us=300_000)
+    ekey, fkey = (2, 2048, 300_000), (2, 32, 32, 300_000)
+    loop.warmup([ekey])
+    fe.warmup([fkey])
+    assert loop._graphs.steps[ekey].tally == (2, 2, 0, 0, 0)
+    assert fe._graphs.steps[fkey].tally == (0, 0, 1, 1, 0)
+    before = graphs.launch_counts()
+    ws = _event_windows(rng, 2, 1)
+    frames = _frame_windows(rng, 2, 1)
+    n = 5
+    for _ in range(n):
+        loop.infer(loop.prepare([w[0] for w in ws], batch_size=2))
+        fe.infer(fe.prepare([f[0] for f in frames], batch_size=2))
+    after = graphs.launch_counts()
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        2 * n, 2 * n, n, n, 0)
+
+
+def test_warmed_keys_capture_nothing_new(card):
+    """``compiled_shape_keys``/``compiled_megastep_keys`` list exactly the
+    keys holding a graph, and serving a warmed key captures nothing."""
+    rng = np.random.default_rng(13)
+    loop = BatchedClosedLoop(_snn_params(rng), CFG)
+    fe = FrameTCNEngine(_tcn_params(rng), TCN_SMOKE)
+    eng = StreamEngine(engines=[loop, fe], config=EngineConfig(
+        max_streams=2, megastep=True, duration_us=300_000))
+    pair = ((2, 2048, 300_000), (2, 32, 32, 300_000))
+    eng.warmup_megastep([pair])
+    assert eng.compiled_megastep_keys() == {pair}
+    assert loop.compiled_shape_keys() == fe.compiled_shape_keys() == set()
+    held = eng._mega_graphs.steps[pair]
+    sess = [FusionSession(eng, session_id=i) for i in range(2)]
+    for s, w, f in zip(sess, _event_windows(rng, 2, 1),
+                       _frame_windows(rng, 2, 1)):
+        s.submit(w[0], f[0])
+    out = []
+    while len(out) < 2:
+        rows = eng.step()
+        for s in sess:
+            rows = s.absorb(rows)
+            out += s.drain()
+    assert eng.compiled_megastep_keys() == {pair}
+    assert eng._mega_graphs.steps[pair] is held
+    loop.warmup([pair[0]])
+    step = loop._graphs.steps[pair[0]]
+    loop.infer(loop.prepare([w[0] for w in _event_windows(rng, 2, 1)],
+                            batch_size=2))
+    assert loop.compiled_shape_keys() == {pair[0]}
+    assert loop._graphs.steps[pair[0]] is step
+
+
+def _contended_event_run(params, depth):
+    eng = StreamEngine(params, CFG, EngineConfig(
+        max_streams=4, pipeline_depth=depth, policy=FairQuantumPolicy(1)))
+    hs = [eng.open(stream_id=i, stateful=True) for i in range(8)]
+    ws = _event_windows(np.random.default_rng(14), 8, 3)
+    for k in range(3):
+        for h, w in zip(hs, ws):
+            h.submit(w[k])
+    return {(r.stream_id, r.seq): r.result for r in eng.run()}, eng
+
+
+def _contended_fused_run(params, tparams, depth, megastep):
+    eng = StreamEngine(
+        engines=[BatchedClosedLoop(params, CFG),
+                 FrameTCNEngine(tparams, TCN_SMOKE)],
+        config=EngineConfig(max_streams=4, pipeline_depth=depth,
+                            policy=FairQuantumPolicy(1), megastep=megastep))
+    sess = [FusionSession(eng, session_id=i, stateful=True)
+            for i in range(8)]
+    rng = np.random.default_rng(15)
+    data = zip(_event_windows(rng, 8, 3), _frame_windows(rng, 8, 3))
+    data = list(data)
+    for k in range(3):
+        for s, (w, f) in zip(sess, data):
+            s.submit(w[k], f[k])
+    out = {}
+    for _ in range(100):
+        rows = eng.step()
+        for s in sess:
+            rows = s.absorb(rows)
+            out.update({(r.stream_id, r.seq): r.result for r in s.drain()})
+        if len(out) == 24:
+            break
+    return out, eng
+
+
+def test_pipelined_contention_keeps_the_bits(card):
+    """8 stateful streams over 4 slots (quantum 1) pipelined one step deep
+    equal the synchronous run bit for bit: each step's readout and carry
+    are fresh memory (a replay overwrites the graph's own outputs), and a
+    staging buffer is not rewritten while its copy may still be queued.
+    The same for fusion sessions with the megastep on."""
+    rng = np.random.default_rng(16)
+    params, tparams = _snn_params(rng), _tcn_params(rng)
+    sync, _ = _contended_event_run(params, 0)
+    piped, eng = _contended_event_run(params, 1)
+    assert eng._lanes["event"].parked and sorted(sync) == sorted(piped)
+    for k in sync:
+        np.testing.assert_array_equal(sync[k].logits, piped[k].logits)
+        np.testing.assert_array_equal(sync[k].pwm, piped[k].pwm)
+    ref, _ = _contended_fused_run(params, tparams, 0, False)
+    fused, feng = _contended_fused_run(params, tparams, 1, True)
+    assert len(ref) == len(fused) == 24 and feng.compiled_megastep_keys()
+    for k in ref:
+        np.testing.assert_array_equal(ref[k].logits, fused[k].logits)
+        np.testing.assert_array_equal(ref[k].pwm, fused[k].pwm)

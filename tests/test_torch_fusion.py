@@ -11,13 +11,19 @@ the CPU at a small size:
   * foreign rows go to ``unclaimed``; ``submit`` is atomic and detects
     desynchronized wings before queueing anything;
   * co-scheduling keeps both wings of a tick in one engine step under slot
-    contention (``fusion_ticks_paired``).
+    contention (``fusion_ticks_paired``);
+  * the cross-wing megastep (``EngineConfig.megastep``) serves the same
+    bits as the per-lane path and as separate engines, keeps its own
+    cache of ``(event key, frame key)`` pairs that ``warmup_megastep``
+    fills, refuses what the JAX package refuses, and agrees with the JAX
+    package's megastep engine on the same inputs.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 
 from repro.core import snn as jsnn  # noqa: E402
 from repro.core import tcn as jtcn  # noqa: E402
@@ -194,15 +200,24 @@ def test_hetero_lanes_open_and_submit_by_modality(params, tparams):
                                              device="cpu")] * 2)
 
 
+@pytest.mark.parametrize("megastep", [False, True],
+                         ids=["lanes", "megastep"])
 @pytest.mark.parametrize("stateful", [False, True],
                          ids=["stateless", "stateful"])
 @pytest.mark.parametrize("depth", [0, 1], ids=["sync", "pipelined"])
 @pytest.mark.parametrize("sessions", [1, 4, 8])
 def test_fused_bitwise_vs_separate(params, tparams, sessions, depth,
-                                   stateful):
+                                   stateful, megastep):
     data = _tick_data(sessions)
     fused, eng = _run_fused(params, tparams, data, stateful=stateful,
-                            max_streams=sessions, pipeline_depth=depth)
+                            max_streams=sessions, pipeline_depth=depth,
+                            megastep=megastep)
+    # Every step had work on both lanes: with the megastep on, all of
+    # them went through the fused call and none through an engine's own.
+    fused_keys = eng.compiled_megastep_keys()
+    lane_keys = [e.compiled_shape_keys() for e in eng.engines.values()]
+    assert bool(fused_keys) == megastep
+    assert all(bool(k) != megastep for k in lane_keys)
     sep = _run_separate(params, tparams, data, stateful=stateful)
     for sid, ticks in fused.items():
         res_e, res_f = sep[sid]
@@ -328,3 +343,187 @@ def test_unpaired_streams_report_unit_rate(params, tparams):
     eng.run()
     st = eng.stream_stats[h.stream_id]
     assert st.fusion_ticks == 0 and st.paired_tick_rate == 1.0
+
+
+# -- the cross-wing megastep ---------------------------------------------------
+
+def test_megastep_off_is_bitwise_identical_to_megastep_on(params, tparams):
+    """The megastep is a pure dispatch fusion: same engine, same sessions,
+    megastep on vs off -- byte-equal fused ticks (stateful, pipelined)."""
+    data = _tick_data(2)
+    on, _ = _run_fused(params, tparams, data, stateful=True, max_streams=2,
+                       megastep=True, pipeline_depth=1)
+    off, _ = _run_fused(params, tparams, data, stateful=True, max_streams=2,
+                        megastep=False, pipeline_depth=1)
+    for sid in on:
+        assert [t.seq for t in on[sid]] == [t.seq for t in off[sid]]
+        for a, b in zip(on[sid], off[sid]):
+            np.testing.assert_array_equal(a.result.logits, b.result.logits)
+            np.testing.assert_array_equal(a.result.pwm, b.result.pwm)
+            assert a.result.energy_mj == b.result.energy_mj
+
+
+def test_megastep_single_winged_steps_take_the_lane_path(params, tparams):
+    """Frames of no session queued ahead of the sessions' ticks: steps
+    with frame work only take the frame lane's own path, steps with both
+    the fused one, and every tick still equals separate serving."""
+    data = _tick_data(2)
+    fused, eng = _run_fused(params, tparams, data, solo=TICKS,
+                            max_streams={"event": 2, "frame": 1},
+                            policy=FairQuantumPolicy(1), megastep=True,
+                            pipeline_depth=1)
+    assert eng.compiled_megastep_keys()
+    assert eng.engines["frame"].compiled_shape_keys()
+    sep = _run_separate(params, tparams, data)
+    for sid, ticks in fused.items():
+        for tick, e, f in zip(ticks, *sep[sid]):
+            _assert_fused(tick, e, f)
+
+
+def test_megastep_parks_and_restores_carries(params, tparams):
+    """8 stateful sessions over 4 slots a lane, quantum 1, pipelined: the
+    wings' carries are parked and restored as sessions lose and regain
+    slots, and every tick equals the synchronous per-lane run."""
+    data = _tick_data(8)
+    kw = dict(stateful=True, max_streams=4, policy=FairQuantumPolicy(1))
+    fused, eng = _run_fused(params, tparams, data, megastep=True,
+                            pipeline_depth=1, **kw)
+    ref, _ = _run_fused(params, tparams, data, megastep=False,
+                        pipeline_depth=0, **kw)
+    assert eng.compiled_megastep_keys()
+    assert eng._lanes["event"].parked and eng.stats["steps"] > TICKS
+    for sid in ref:
+        for a, b in zip(fused[sid], ref[sid]):
+            np.testing.assert_array_equal(a.result.logits, b.result.logits)
+
+
+def test_megastep_refusals(params, tparams):
+    with pytest.raises(ValueError, match="single-device"):
+        EngineConfig(megastep=True, mesh=object())
+    with pytest.raises(ValueError, match="event and one frame"):
+        StreamEngine(engines=[BatchedClosedLoop(params, CFG, device="cpu")],
+                     config=EngineConfig(max_streams=1, megastep=True))
+
+    class NoMega:
+        duration_us = None
+
+        def __init__(self, modality):
+            self.modality = modality
+
+    with pytest.raises(ValueError, match="does not support the fused "
+                                         "megastep"):
+        StreamEngine(engines=[NoMega("event"), NoMega("frame")],
+                     config=EngineConfig(max_streams=1, megastep=True))
+    plain = _hetero(params, tparams, max_streams=1)
+    assert plain.compiled_megastep_keys() == set()
+    with pytest.raises(ValueError, match="megastep"):
+        plain.warmup_megastep([((1, 2048, 300_000), (1, 32, 32, 300_000))])
+
+
+def test_megastep_warmup_precompiles(params, tparams):
+    def mk():
+        return _hetero(params, tparams, max_streams=1, megastep=True)
+
+    (evs, frs), = _tick_data(1, ticks=1)
+    # Discover the workload's fused key pair by serving it once...
+    probe = mk()
+    s0 = FusionSession(probe, session_id="s0")
+    s0.submit(evs[0], frs[0])
+    [r] = s0.run()
+    assert r.modality == "fusion"
+    [key] = probe.compiled_megastep_keys()
+    ev_key, fr_key = key
+    assert ev_key[0] == fr_key[0] == 1 and fr_key[1:] == (32, 32, 300_000)
+    # ...then warm a fresh engine with it: serving hits the cache (no new
+    # entry) and leaves the engines' own caches empty.
+    eng = mk()
+    assert eng.compiled_megastep_keys() == set()
+    eng.warmup_megastep([key])
+    assert eng.compiled_megastep_keys() == {key}
+    s1 = FusionSession(eng, session_id="s0")
+    s1.submit(evs[0], frs[0])
+    [r1] = s1.run()
+    np.testing.assert_array_equal(r1.result.logits, r.result.logits)
+    assert eng.compiled_megastep_keys() == {key}
+    assert all(e.compiled_shape_keys() == set()
+               for e in eng.engines.values())
+
+
+# Fused logits are 0.5 x event + 0.5 x frame logits: the event wing's are
+# exact against JAX given equal spikes (test_torch_pipeline.py), the frame
+# wing's within test_torch_tcn.py's LOGITS_ATOL where no fc1 activation
+# flipped.
+JAX_LOGITS_ATOL = 1e-5
+
+
+def test_megastep_matches_the_jax_megastep_engine():
+    """The same numpy weights and windows through the JAX package's
+    megastep engine and the port's: labels equal, fused logits within
+    ``JAX_LOGITS_ATOL`` (2 stateful sessions x 3 ticks, pipelined)."""
+    from repro.core import EngineConfig as JConfig
+    from repro.core import FrameTCNEngine as JFrame
+    from repro.core import events as jev
+    from repro.core import frames as jfr
+    from repro.core.pipeline import BatchedClosedLoop as JLoop
+    from repro.kernels import ops as jops
+    from repro.serving import FusionSession as JSession
+    from repro.serving import StreamEngine as JStream
+
+    jcfg = jsnn.SNNConfig(height=32, width=32, time_bins=4,
+                          conv1_features=4, conv2_features=8, hidden=32,
+                          num_classes=11)
+    jtcfg = jtcn.TCNConfig(height=32, width=32, conv1_features=4,
+                           conv2_features=8, hidden=32, num_classes=11)
+    np_snn = jax.tree_util.tree_map(
+        np.asarray, jsnn.init_snn(jax.random.PRNGKey(0), jcfg))
+    np_tcn = jax.tree_util.tree_map(
+        np.asarray, jtcn.init_tcn(jax.random.PRNGKey(1), jtcfg))
+
+    def run(eng, make_session, gen_ev, gen_fr):
+        """Both packages' generators are the same numpy code: the same
+        seeds give the same windows and frames."""
+        sess = [make_session(eng, f"s{i}") for i in range(2)]
+        data = []
+        for i in range(2):
+            rng_e = np.random.default_rng(10 + i)
+            rng_f = np.random.default_rng(20 + i)
+            data.append(([gen_ev(rng_e, (10 + i + k) % 11, mean_events=1200,
+                                 height=32, width=32) for k in range(TICKS)],
+                         [gen_fr(rng_f, (20 + i + k) % 11, height=32,
+                                 width=32) for k in range(TICKS)]))
+        for t in range(TICKS):
+            for s, (evs, frs) in zip(sess, data):
+                s.submit(evs[t], frs[t])
+        out = {s.session_id: [] for s in sess}
+        for _ in range(10 * TICKS):
+            rows = eng.step()
+            for s in sess:
+                rows = s.absorb(rows)
+                out[s.session_id] += s.drain()
+        return {sid: sorted(r, key=lambda r: r.seq)
+                for sid, r in out.items()}
+
+    jeng = JStream(
+        engines=[JLoop(jax.tree_util.tree_map(jnp.asarray, np_snn), jcfg,
+                       lif_scan_fn=jops.lif_scan, fuse_fc=True),
+                 JFrame(jax.tree_util.tree_map(jnp.asarray, np_tcn), jtcfg)],
+        config=JConfig(max_streams=2, megastep=True, pipeline_depth=1))
+    want = run(jeng, lambda e, sid: JSession(e, session_id=sid,
+                                             stateful=True),
+               jev.synthetic_gesture_events, jfr.synthetic_gesture_frames)
+    teng = _hetero(snn_params_from_numpy(np_snn),
+                   tcn_params_from_numpy(np_tcn), max_streams=2,
+                   megastep=True, pipeline_depth=1)
+    got = run(teng, lambda e, sid: FusionSession(e, session_id=sid,
+                                                 stateful=True),
+              ev.synthetic_gesture_events, fr.synthetic_gesture_frames)
+    assert jeng.compiled_megastep_keys() == teng.compiled_megastep_keys()
+    for sid in want:
+        assert [r.seq for r in got[sid]] == [r.seq for r in want[sid]] \
+            == list(range(TICKS))
+        for a, b in zip(want[sid], got[sid]):
+            assert a.status == "ok" and b.modality == "fusion"
+            np.testing.assert_array_equal(a.result.label_pred,
+                                          b.result.label_pred)
+            np.testing.assert_allclose(b.result.logits, a.result.logits,
+                                       rtol=0, atol=JAX_LOGITS_ATOL)

@@ -136,3 +136,35 @@ def test_warmup_records_keys(np_params):
                                           (4, 2048, 300_000)}
     with pytest.raises(ValueError):
         loop.warmup([(1, 2, 3, 4)])
+
+
+def test_pwm_mix_matrix_is_made_once_per_device():
+    from repro_torch.core import pipeline as tpipe
+    a = tpipe._mix_on(11, 4, torch.device("cpu"))
+    assert a is tpipe._mix_on(11, 4, torch.device("cpu"))
+    np.testing.assert_array_equal(a.numpy(), tpipe._mix_matrix(11, 4))
+
+
+def test_megastep_adapters_compose_to_the_dispatch(np_params):
+    """``_mega_split(run(_mega_args(...)))`` -- what the fused megastep
+    does with this wing -- gives infer_dispatch's bits, stateless and
+    chained; the keys served are the keys compiled."""
+    ws = _windows(6, 3)
+    loop = _port_loop(np_params)
+    batch = ev.pad_event_windows(ws, max_events=4096)
+    key = loop.shape_key(batch)
+    assert loop.compiled_shape_keys() == set()
+    state = None
+    for _ in range(2):
+        run, inputs = loop._mega_parts(key)
+        assert inputs[0].shape == (5, 3, 4096)
+        assert set(inputs[1]) == set(loop.init_state(3))
+        pending, new = loop._mega_split(run(loop._mega_args(batch, state)),
+                                        batch, state)
+        want = loop.infer_dispatch(batch, state)
+        want_pending, want_new = want if state is not None else (want, new)
+        assert torch.equal(pending[1], want_pending[1])
+        for k in want_new:
+            assert torch.equal(new[k], want_new[k])
+        state = new
+    assert loop.compiled_shape_keys() == {key}

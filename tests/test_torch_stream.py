@@ -241,8 +241,6 @@ def test_fuse_fc_values_serve_the_same_bits(params, streams, served):
 
 def test_unported_config_fields_raise(params):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamEngine(params, CFG, EngineConfig(megastep=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamEngine(params, CFG, EngineConfig(recovery=RecoveryConfig()),
                      device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -268,3 +266,18 @@ def test_max_streams_mapping_names_known_modalities(params):
     with pytest.raises(ValueError, match="match no engine modality"):
         StreamEngine(params, CFG, EngineConfig(
             max_streams={"event": 2, "frame": 2}), device="cpu")
+
+
+def test_warmed_keys_are_the_served_keys(params):
+    """``StreamEngine.warmup`` forwards to the engine's cache, whose keys
+    are the ones the lane serves: a warmed key served again adds no key
+    (on the card, no capture)."""
+    eng = _engine(params, 1)
+    key = (4, 2048, 300_000)
+    eng.warmup([key])
+    assert eng.loop.compiled_shape_keys() == {key}
+    hs = [eng.open(stateful=i == 0) for i in range(2)]
+    for k, w in enumerate(_windows(4, seed=30)):
+        hs[k % 2].submit(w)
+    assert len(eng.run()) == 4
+    assert eng.compiled_shapes() == eng.loop.compiled_shape_keys() == {key}

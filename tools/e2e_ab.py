@@ -9,9 +9,10 @@ commit, unpack it with ``git archive`` into a directory that .gitignore
 lists, and give the roots in the order parent, change, change, parent).
 For each ROOT in turn, a fresh process imports that checkout's
 ``chip_smoke.py`` and port, builds its kernels, and measures what its
-``chip_smoke.py`` measures: the event lane's windows/s at B=8
+``chip_smoke.py`` measures: the event lane's windows/s at B=8 and B=1
 (``throughput``), then frame-lane windows/s at B=8 and fused ticks/s of
-8 FusionSessions (``frame_end_to_end``). With ``--lm`` it then builds the
+8 FusionSessions (``frame_end_to_end``; with the cross-wing megastep off
+and, where the checkout has it, on). With ``--lm`` it then builds the
 full rwkv6-7b in bf16 from chip_smoke's seed and measures decode tokens/s
 at B=4 (20 samples of 16 ``make_serve_step`` steps) and prefill tokens/s
 at B=4, S=2048 (``make_prefill_step``, median of 3), as chip_smoke's
@@ -42,6 +43,7 @@ def one(root, lm):
     params = snn_params_from_numpy(cs._np_params(CONFIG, dyadic=True))
     pool = [w for ws in cs._windows(8, 4, cs.SEED + 3) for w in ws]
     cs.emit("event_B8", **cs.throughput(torch, dev, params, 8, pool))
+    cs.emit("event_B1", **cs.throughput(torch, dev, params, 1, pool))
     cs.frame_end_to_end(torch, dev)
     if lm:
         cs.emit("lm", **lm_rates(torch, cs, dev))
@@ -123,12 +125,16 @@ def main():
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
         fe = got["frame_end_to_end"]
+        mega = fe.get("fused_B8_megastep")
         summary = dict(
             run=i, root=root,
             event_windows_per_s_B8=got["event_B8"]["windows_per_s_median"],
+            event_windows_per_s_B1=got["event_B1"]["windows_per_s_median"],
             frame_windows_per_s_B8=fe["frame_lane_B8"][
                 "windows_per_s_median"],
-            fused_ticks_per_s_B8=fe["fused_B8"]["ticks_per_s_median"])
+            fused_ticks_per_s_B8=fe["fused_B8"]["ticks_per_s_median"],
+            fused_ticks_per_s_B8_megastep=(
+                None if mega is None else mega["ticks_per_s_median"]))
         if args.lm:
             summary.update(
                 decode_tokens_per_s_B4=got["lm"]["decode_tokens_per_s_median"],
