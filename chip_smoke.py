@@ -59,7 +59,23 @@ non-zero:
      pipelined, with launch counts asserted, against the megastep off (bit
      for bit) and the CPU; and the rates and per-step device ops, host
      launches and busy share of the end-to-end phases side by side;
-  6. the LM slice (``lm_slice``): K4 against its plain version on the
+  6. the serving surface (``serving_surface``), at full width with 8 + 8
+     slots and graphs on, every gate bit for bit: checkpoint -> restore
+     into a fresh engine -> continue against the uninterrupted run (4
+     stateful streams and 2 FusionSessions, depths 0 and 1) and against
+     the port's CPU run; resize_lane 8 -> 4 -> 8 mid-stream (the new key
+     captured inside resize_lane, repeated cycles adding no graph); a
+     scripted step fault under recovery (retried), a NaN-poisoned window
+     (quarantined, its stream then the clean run without it; rollback
+     carries never in graph or staging memory) and a fault in a fused
+     megastep (served through the per-lane graphs); abort_lane +
+     replace_lane_engine + restore (the megastep's graphs dropped, memory
+     allocated falls); DeadlinePolicy against FairQuantumPolicy over 8
+     fused sessions, pairing kept. Reported: host us a stream of
+     checkpoint and restore, capture ms and pool bytes after the resize
+     cycles, memory allocated around replace_lane_engine, the ms of a
+     retried step; K1, K2, K3 and the currents entry must launch;
+  7. the LM slice (``lm_slice``): K4 against its plain version on the
      card bit for bit (prefill and decode calls, T=4, ragged T, chaining
      inside a time chunk, hd=32 and hd=16, unaligned inputs, B=1 rows); the rwkv6-7b widths at a depth of 2 layers in f32 on the card
      against the port's CPU run (forward logits, stepped decode, greedy
@@ -73,7 +89,7 @@ non-zero:
      at M=8,192 prefill rows on its serial path),
      decode and prefill tokens/s, and profiles of bf16 and ternary decode
      steps (busy share, K3's device ms a step);
-  7. the ``kernels`` line, then the card line, then the ``ok`` line.
+  8. the ``kernels`` line, then the card line, then the ``ok`` line.
 
 Weights are random from a numpy seed. For the event wing's served
 comparison they are rounded to multiples of 2**-8: every conv and fc
@@ -163,6 +179,7 @@ def main() -> int:
     times["ternary_matmul"] = k3_timings(torch, dev, k3)
     fe = frame_end_to_end(torch, dev)
     graphs_phase(torch, dev, k1, k2, k3, smi, times["end_to_end"], fe)
+    surface = serving_surface(torch, dev, k1, k2, k3, smi)
     lm = lm_slice(torch, dev, k3, k4)
 
     kernels = [
@@ -170,23 +187,27 @@ def main() -> int:
              source="src/repro_torch/csrc/lif_scan.cu",
              replaces="src/repro/kernels/lif_scan.py:111",
              launches=served["launches"]["lif_scan"],
+             serving_surface_launches=surface["lif_scan"],
              max_abs_err=err["lif_scan"], **times["lif_scan"]),
         dict(name="fc_lif_scan", route="cuda",
              source="src/repro_torch/csrc/fc_lif_scan.cu",
              replaces="src/repro/kernels/fc_lif_scan.py:131",
              launches=served["launches"]["fc_lif_scan"],
+             serving_surface_launches=surface["fc_lif_scan"],
              max_abs_err=err["fc_lif_scan"], **times["fc_lif_scan"]),
         dict(name="fc_currents", entry_of="fc_lif_scan", route="cuda",
              source="src/repro_torch/csrc/fc_lif_scan.cu",
              replaces="src/repro/core/tcn.py:196",
              note="no TPU kernel: the JAX package leaves s3 @ w to XLA",
              launches=fused["launches"]["fc_currents"],
+             serving_surface_launches=surface["fc_currents"],
              max_abs_err=err["fc_currents"], **times["fc_currents"]),
         dict(name="ternary_matmul", route="cuda",
              source="src/repro_torch/csrc/ternary_matmul.cu",
              replaces="src/repro/kernels/ternary_matmul.py:92",
              launches=(fused["launches"]["ternary_matmul"]
                        + lm["launches"]["ternary_matmul"]),
+             serving_surface_launches=surface["ternary_matmul"],
              max_abs_err=max(err["ternary_matmul"],
                              lm["max_abs_err"]["ternary_matmul"]),
              **times["ternary_matmul"]),
@@ -1503,7 +1524,581 @@ def graphs_phase(torch, dev, k1, k2, k3, smi, e2e, fe):
 
 
 # ----------------------------------------------------------------------
-# Phase 6: the LM slice -- RWKV-6 serving through K4 (and K3 on the
+# Phase 6: the serving surface -- checkpoint/restore, lane control, fault
+# recovery and deadlines through the engines' graphs.
+# ----------------------------------------------------------------------
+
+def _surface_full():
+    """What ``serving_surface`` serves at Table II width: the event
+    slice's 2**-8 weights, the frame slice's TCN, ~60k-event windows and
+    128x128 frames, and the shape keys at b slots."""
+    from repro_torch.configs import CONFIG, TCN_CONFIG
+    from repro_torch.convert import snn_params_from_numpy, \
+        tcn_params_from_numpy
+    return dict(cfg=CONFIG, tcfg=TCN_CONFIG,
+                params=snn_params_from_numpy(_np_params(CONFIG, dyadic=True)),
+                tparams=tcn_params_from_numpy(_np_tcn_params(TCN_CONFIG)),
+                windows=_windows, frames=_frames,
+                ev_key=lambda b: (b, 65_536, 300_000),
+                fr_key=lambda b: (b, 128, 128, 300_000))
+
+
+def _surface_engine(sf, device, *, lanes=("event", "frame"), wrap=None,
+                    slots=8, **config):
+    """A StreamEngine as a user builds it, one lane per entry of
+    ``lanes`` with ``slots`` slots each, its keys prepared (on the card,
+    captured) before serving."""
+    from repro_torch.core._api import EngineConfig
+    from repro_torch.core.engine import FrameTCNEngine
+    from repro_torch.core.pipeline import BatchedClosedLoop
+    from repro_torch.serving import StreamEngine
+    make = {"event": lambda: BatchedClosedLoop(sf["params"], sf["cfg"],
+                                               device=device),
+            "frame": lambda: FrameTCNEngine(sf["tparams"], sf["tcfg"],
+                                            device=device)}
+    engines = [make[m]() for m in lanes]
+    if wrap is not None:
+        engines = [wrap(e) for e in engines]
+    eng = StreamEngine(engines=engines, config=EngineConfig(
+        max_streams=slots, duration_us=300_000, **config))
+    if config.get("megastep"):
+        eng.warmup_megastep([(sf["ev_key"](slots), sf["fr_key"](slots))])
+    else:
+        for m in lanes:
+            eng.warmup([sf["ev_key" if m == "event" else "fr_key"](slots)],
+                       modality=m)
+    return eng
+
+
+def _drain(eng, sessions=(), steps=None):
+    """Run ``eng`` dry; {(stream or session, seq): StreamResult}, fused
+    ticks filed by session. With ``steps``, also fill steps[(stream, seq)]
+    with the number of the step() call that returned each window."""
+    if steps is None:
+        rows = eng.run()
+    else:
+        rows, n = [], 0
+        while eng.pending() or eng.in_flight:
+            got = eng.step()
+            steps.update({(r.stream_id, r.seq): n for r in got})
+            rows.extend(got)
+            n += 1
+    out = {}
+    for s in sessions:
+        rows = s.absorb(rows)
+        out.update({(r.stream_id, r.seq): r for r in s.drain()})
+    out.update({(r.stream_id, r.seq): r for r in rows})
+    return out
+
+
+def _results(rows):
+    check(all(r.ok for r in rows.values()),
+          f"failed rows: {[k for k, r in rows.items() if not r.ok]}")
+    return {k: r.result for k, r in rows.items()}
+
+
+def _same_bits(cmp):
+    return (cmp["label_equal_fraction"] == 1.0
+            and cmp["logits_bitwise_fraction"] == 1.0
+            and cmp["pwm_bitwise_fraction"] == 1.0
+            and cmp["energy_equal_fraction"] == 1.0)
+
+
+def _surface_migrate(torch, sf, device, depth, n=4, cut=2):
+    """(a): 4 stateful event streams and 2 stateful FusionSessions on one
+    engine. Windows [0, cut) served, window ``cut`` queued, every stream
+    and session checkpointed (through pickle), restored into a fresh
+    engine and served on. Returns (rows, checkpoints, host us a stream of
+    checkpoint and restore)."""
+    import pickle
+
+    from repro_torch.serving import FusionSession
+    evs = sf["windows"](6, n, SEED + 20)
+    frs = sf["frames"](2, n, SEED + 21)
+
+    def submit(hs, sess, k):
+        for i, h in enumerate(hs):
+            h.submit(evs[i][k])
+        for j, s in enumerate(sess):
+            s.submit(evs[4 + j][k], frs[j][k])
+
+    eng_a = _surface_engine(sf, device, pipeline_depth=depth)
+    hs = [eng_a.open("event", stream_id=f"e{i}", stateful=True)
+          for i in range(4)]
+    sess = [FusionSession(eng_a, session_id=f"f{j}", stateful=True)
+            for j in range(2)]
+    for k in range(cut):
+        submit(hs, sess, k)
+    rows = _drain(eng_a, sess)
+    submit(hs, sess, cut)
+    ckpts = pickle.loads(pickle.dumps(
+        ({h.stream_id: h.checkpoint() for h in hs},
+         {s.session_id: s.checkpoint() for s in sess})))
+    eng_b = _surface_engine(sf, device, pipeline_depth=depth)
+    hb = [eng_b.restore(ckpts[0][h.stream_id]) for h in hs]
+    sb = [FusionSession.restore(eng_b, ckpts[1][s.session_id])
+          for s in sess]
+    for k in range(cut + 1, n):
+        submit(hb, sb, k)
+    rows.update(_drain(eng_b, sb))
+    # Host time of one stream's checkpoint (its carry a row of the lane's
+    # state: one device-to-host copy) and of its restore into a fresh
+    # handle (one host-to-device copy a layer), median of 20 each.
+    ck_us, rs_us = [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        ck = hb[0].checkpoint()
+        ck_us.append((time.perf_counter() - t0) * 1e6)
+    scratch = _surface_engine(sf, device, lanes=("event",))
+    for i in range(20):
+        t0 = time.perf_counter()
+        scratch.restore(ck, stream_id=f"r{i}")
+        if device != "cpu":
+            torch.cuda.synchronize()
+        rs_us.append((time.perf_counter() - t0) * 1e6)
+    return rows, ckpts, dict(
+        checkpoint_us_per_stream=statistics.median(ck_us),
+        restore_us_per_stream=statistics.median(rs_us),
+        carry_bytes_per_stream=sum(a.nbytes for a in ck.state.values()))
+
+
+def _surface_whole(sf, device, n=4):
+    """(a)'s streams and sessions served uninterrupted."""
+    from repro_torch.serving import FusionSession
+    evs = sf["windows"](6, n, SEED + 20)
+    frs = sf["frames"](2, n, SEED + 21)
+    eng = _surface_engine(sf, device)
+    hs = [eng.open("event", stream_id=f"e{i}", stateful=True)
+          for i in range(4)]
+    sess = [FusionSession(eng, session_id=f"f{j}", stateful=True)
+            for j in range(2)]
+    for k in range(n):
+        for i, h in enumerate(hs):
+            h.submit(evs[i][k])
+        for j, s in enumerate(sess):
+            s.submit(evs[4 + j][k], frs[j][k])
+    return _drain(eng, sess)
+
+
+def _surface_resize(torch, sf, device, windows, resize=True, cycles=3):
+    """(b): 8 stateful streams over 8 slots, resized 8 -> 4 -> 8 between
+    steps (pipelined), then ``cycles`` more 4/8 cycles without serving."""
+    eng = _surface_engine(sf, device, lanes=("event",), pipeline_depth=1)
+    hs = [eng.open(stream_id=f"r{i}", stateful=True) for i in range(8)]
+    for k in range(len(windows[0])):
+        for h, ws in zip(hs, windows):
+            h.submit(ws[k])
+    info = {}
+    rows = {(r.stream_id, r.seq): r for r in eng.step()}
+    if resize:
+        loop = eng.loop
+        t0 = time.perf_counter()
+        evicted = eng.resize_lane(slots=4)
+        info["resize_8_to_4_ms"] = (time.perf_counter() - t0) * 1e3
+        info["evicted"] = evicted
+        info["keys_after_shrink"] = sorted(loop.compiled_shape_keys())
+        check(sf["ev_key"](4) in loop.compiled_shape_keys(),
+              f"resize_lane did not prepare {sf['ev_key'](4)}: "
+              f"{loop.compiled_shape_keys()}")
+        for _ in range(2):
+            rows.update({(r.stream_id, r.seq): r for r in eng.step()})
+        eng.resize_lane(slots=8)
+    rows.update(_drain(eng))
+    if resize and device != "cpu":
+        steps = loop._graphs.steps
+        info["capture_ms"] = {str(k): st.capture_ms
+                              for k, st in steps.items()}
+        torch.cuda.synchronize()
+        info["reserved_bytes_after_first_cycle"] = \
+            torch.cuda.memory_reserved()
+        for _ in range(cycles):
+            eng.resize_lane(slots=4)
+            eng.resize_lane(slots=8)
+        torch.cuda.synchronize()
+        info["reserved_bytes_after_cycles"] = torch.cuda.memory_reserved()
+        info["graph_keys_after_cycles"] = len(steps)
+        info["pool_bytes_after_cycles"] = sum(st.pool_bytes
+                                              for st in steps.values())
+        check(len(steps) == 2 and info["reserved_bytes_after_cycles"]
+              <= info["reserved_bytes_after_first_cycle"],
+              f"resize cycles grew the graphs: {info}")
+    return rows, info
+
+
+def _tensors(tree):
+    """The tensors of a tree of tuples, lists and dicts."""
+    if hasattr(tree, "untyped_storage"):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = tree.values()
+    return [t for sub in tree for t in _tensors(sub)]
+
+
+def _forbidden_storages(engine):
+    """Storages of a card engine's graphs (static inputs, outputs, the flat
+    output buffer) and its pinned staging buffers."""
+    ptrs = set()
+    for st in engine._graphs.steps.values():
+        for t in _tensors((st.inputs, st.outputs, st.flat)):
+            ptrs.add(t.untyped_storage().data_ptr())
+    for stage in engine._graphs._staging.values():
+        ptrs.update(b.untyped_storage().data_ptr() for b in stage._bufs)
+    return ptrs
+
+
+def _carries_before(lane):
+    """Clones of the carry each stateful stream of ``lane`` would be
+    dispatched from now: its row of the lane's state, else its parked
+    carry, else the zero state (as ``_lane_state_in`` picks them)."""
+    from repro_torch.serving.stream import _FREE
+    if lane.state is None:
+        zero = lane.engine.init_state(1)
+        return {sid: {k: a[0].clone() for k, a in zero.items()}
+                for sid in lane.stateful}
+    pos = {o: j for j, o in enumerate(lane.state_streams) if o is not _FREE}
+    out = {}
+    for sid in lane.stateful:
+        if sid in pos:
+            src = {k: a[pos[sid]] for k, a in lane.state.items()}
+        else:
+            src = lane.parked.get(sid) or {
+                k: a[0] for k, a in lane.zero_state.items()}
+        out[sid] = {k: t.clone() for k, t in src.items()}
+    return out
+
+
+def _surface_fault(torch, sf, device, windows, fault, skip=None):
+    """(c): 8 stateful streams (pipelined, recovery on, engine wrapped by a
+    FaultInjector), a scripted ``fault`` ("error" or "nan") armed after
+    the first step; ``skip`` = (stream, window index) leaves one window
+    out (the clean run without a quarantined window). Returns (rows, per
+    step() wall ms, fault log, dead letters, rollback carries checked)."""
+    from repro_torch.core._api import RecoveryConfig
+    from repro_torch.fleet import FaultInjector
+    inj = FaultInjector()
+    eng = _surface_engine(sf, device, lanes=("event",), wrap=inj.wrap,
+                          pipeline_depth=1,
+                          recovery=RecoveryConfig(backoff_steps=0))
+    hs = [eng.open(stream_id=f"q{i}", stateful=True) for i in range(8)]
+    for k in range(len(windows[0])):
+        for i, (h, ws) in enumerate(zip(hs, windows)):
+            if skip != (i, k):
+                h.submit(ws[k])
+    lane = eng._lanes["event"]
+    step_ms, rows, held, seen = [], {}, [], set()
+    while eng.pending() or eng.in_flight:
+        before = _carries_before(lane)
+        t0 = time.perf_counter()
+        got = eng.step()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        rows.update({(r.stream_id, r.seq): r for r in got})
+        if len(step_ms) == 1 and fault:
+            inj.fail_next(kind=fault)
+        # Every rollback carry this step dispatched: none may lie in a
+        # graph's or a staging buffer's memory, and each must still hold
+        # the carry cloned before the step (the replay that read it wrote
+        # nothing into it) when the run is over.
+        bad = (_forbidden_storages(eng.engines["event"])
+               if device != "cpu" else set())
+        for step_recs in eng._inflight:
+            for rec in step_recs:
+                if id(rec) in seen:
+                    continue
+                seen.add(id(rec))
+                for sid, carry in (rec.prev_carry or {}).items():
+                    for k, t in carry.items():
+                        check(t.untyped_storage().data_ptr() not in bad,
+                              "a rollback carry aliases graph or "
+                              "staging memory")
+                        held.append((t, before[sid][k]))
+    changed = sum(not torch.equal(t, c) for t, c in held)
+    check(changed == 0, f"{changed} rollback carries differ from the "
+          f"carries cloned before their dispatch")
+    return (rows, step_ms, list(eng.fault_log),
+            [(d.stream_id, d.seq) for d in eng.dead_letters()], len(held))
+
+
+def _surface_mega_fault(sf, device, fault):
+    """(c) under the megastep: 4 stateful sessions (sync, recovery on, both
+    engines wrapped), one scripted step fault on the event wing before the
+    first step."""
+    from repro_torch.core._api import RecoveryConfig
+    from repro_torch.fleet import FaultInjector
+    from repro_torch.serving import FusionSession
+    evs = sf["windows"](4, 2, SEED + 30)
+    frs = sf["frames"](4, 2, SEED + 31)
+    inj = FaultInjector()
+    eng = _surface_engine(sf, device, wrap=inj.wrap, megastep=True,
+                          recovery=RecoveryConfig(backoff_steps=0))
+    sess = [FusionSession(eng, session_id=f"m{j}", stateful=True)
+            for j in range(4)]
+    for k in range(2):
+        for j, s in enumerate(sess):
+            s.submit(evs[j][k], frs[j][k])
+    if fault:
+        inj.fail_next("event", kind="error")
+    rows = _drain(eng, sess)
+    return rows, list(eng.fault_log), {
+        m: sorted(e.compiled_shape_keys()) for m, e in eng.engines.items()}
+
+
+def _surface_replace(torch, sf, device, abort=True, n=4):
+    """(d): 4 stateful event streams and 4 frame streams under the
+    megastep, pipelined; after two windows the event streams are
+    checkpointed, window 2 is dispatched, the event lane is aborted with
+    it in flight, a rebuilt engine installed, the checkpoints restored
+    into fresh handles, and the rest served."""
+    from repro_torch.core.pipeline import BatchedClosedLoop
+    evs = sf["windows"](4, n, SEED + 40)
+    frs = sf["frames"](4, n, SEED + 41)
+    eng = _surface_engine(sf, device, megastep=True, pipeline_depth=1)
+    hs = [eng.open("event", stream_id=f"d{i}", stateful=True)
+          for i in range(4)]
+    cams = [eng.open("frame", stream_id=f"c{i}") for i in range(4)]
+
+    def submit(hs, k):
+        for i, h in enumerate(hs):
+            h.submit(evs[i][k])
+        for i, c in enumerate(cams):
+            c.submit(frs[i][k])
+
+    info = {}
+    for k in range(2):
+        submit(hs, k)
+    rows = _drain(eng)
+    if not abort:
+        for k in range(2, n):
+            submit(hs, k)
+        rows.update(_drain(eng))
+        return rows, info
+    ckpts = {h.stream_id: h.checkpoint() for h in hs}
+    submit(hs, 2)
+    rows.update({(r.stream_id, r.seq): r for r in eng.step()})
+    info["requeued"] = eng.abort_lane("event")
+    info["megastep_keys_before"] = len(eng.compiled_megastep_keys())
+    if device != "cpu":
+        import gc
+        gc.collect()
+        torch.cuda.synchronize()
+        info["allocated_bytes_before_replace"] = \
+            torch.cuda.memory_allocated()
+    new = BatchedClosedLoop(sf["params"], sf["cfg"], device=device)
+    eng.replace_lane_engine("event", engine=new)
+    if device != "cpu":
+        gc.collect()
+        info["allocated_bytes_after_replace"] = \
+            torch.cuda.memory_allocated()
+        info["new_engine_param_bytes"] = sum(
+            t.nbytes for layer in new.params.values()
+            for t in layer.values())
+    del new
+    info["megastep_keys_after"] = len(eng.compiled_megastep_keys())
+    for h in hs:
+        h.close()
+        r = eng.restore(ckpts[h.stream_id])
+        for k in range(2, n):
+            r.submit(evs[int(h.stream_id[1:])][k])
+    for i, c in enumerate(cams):
+        c.submit(frs[i][3])
+    rows.update(_drain(eng))
+    info["megastep_keys_at_end"] = len(eng.compiled_megastep_keys())
+    return rows, info
+
+
+def _surface_deadline(sf, device, policy, ticks=3):
+    """(e): 8 fused sessions with deadlines 7..0 (the last opened most
+    urgent) and, on each lane, 4 more urgent stand-alone streams, over
+    8 + 8 slots (pipelined): the sessions contend for 4 slots a lane, and
+    DeadlinePolicy seats them in the reverse of FairQuantumPolicy's
+    order. Returns (rows, the least paired-tick rate of a session wing,
+    {(stream, seq): number of the step() call that returned it}); at
+    depth 1 a window returns one call after its dispatch, so the calls
+    order the dispatches."""
+    from repro_torch.serving import FusionSession
+    evs = sf["windows"](12, ticks, SEED + 50)
+    frs = sf["frames"](12, ticks, SEED + 51)
+    eng = _surface_engine(sf, device, pipeline_depth=1, policy=policy)
+    sess = [FusionSession(eng, session_id=f"s{j}", stateful=True,
+                          deadline=float(7 - j)) for j in range(8)]
+    solo = [(eng.open("event", stream_id=f"ue{i}", deadline=-1.0),
+             eng.open("frame", stream_id=f"uf{i}", deadline=-1.0))
+            for i in range(4)]
+    for k in range(ticks):
+        for i, (he, hf) in enumerate(solo):
+            he.submit(evs[8 + i][k])
+            hf.submit(frs[8 + i][k])
+        for j, s in enumerate(sess):
+            s.submit(evs[j][k], frs[j][k])
+    steps = {}
+    rows = _drain(eng, sess, steps)
+    paired = min(eng.stream_stats[f"s{j}:{m}"].paired_tick_rate
+                 for j in range(8) for m in ("event", "frame"))
+    return rows, paired, steps
+
+
+def serving_surface(torch, dev, k1, k2, k3, smi):
+    """The serving surface at Table II width (8 + 8 slots, graphs on),
+    gated bit for bit: (a) checkpoint -> restore into a fresh engine ->
+    continue equals the uninterrupted run (4 stateful streams and 2
+    FusionSessions, depths 0 and 1); (b) resize_lane 8 -> 4 -> 8
+    mid-stream equals it, the new key prepared inside resize_lane and
+    repeated cycles adding no graph; (c) a scripted step fault under
+    recovery equals the clean run after the retry, a NaN-poisoned window
+    is quarantined and its stream equals the clean run without it (both
+    pipelined, rollback carries held apart from graph memory), and a
+    fault in a synchronous fused megastep falls back to the per-lane
+    graphs; (d) abort_lane + replace_lane_engine + restore equals the
+    uninterrupted run and drops the megastep's graphs; (e) DeadlinePolicy
+    over 8 fused sessions gives FairQuantumPolicy's bits with the pairing
+    kept, and serves the urgent streams and the last-opened sessions
+    first where the fair run serves the first-opened ones first; (f) the card equals the port's CPU run for (a). Reported: host
+    us a stream of checkpoint and restore, capture ms and pool bytes
+    after the resize cycles, memory allocated around
+    replace_lane_engine, and the ms of a retried step."""
+    from repro_torch.serving import DeadlinePolicy, FairQuantumPolicy
+    sf = _surface_full()
+    on_card = dev != "cpu" and torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    k1.launches = k2.launches = k3.launches = k2.currents_launches = 0
+    t_phase = time.perf_counter()
+    gates, report = {}, {"nvidia_smi": smi}
+
+    # (a) and (f).
+    whole = _results(_surface_whole(sf, dev))
+    migrated = {}
+    for depth in (0, 1):
+        rows, ckpts, times = _surface_migrate(torch, sf, dev, depth)
+        migrated[depth] = (_results(rows), ckpts)
+        gates[f"a_restore_vs_uninterrupted_depth{depth}"] = _same_bits(
+            _compare(whole, migrated[depth][0]))
+        if depth == 0:
+            report["checkpoint_restore"] = times
+    cpu_rows, cpu_ckpts, _ = _surface_migrate(torch, sf, "cpu", 0)
+    vs_cpu = _compare(migrated[0][0], _results(cpu_rows))
+    carries_equal = all(
+        np.array_equal(migrated[0][1][0][sid].state[k],
+                       cpu_ckpts[0][sid].state[k])
+        for sid in cpu_ckpts[0] for k in cpu_ckpts[0][sid].state)
+    gates["f_card_vs_cpu"] = (
+        vs_cpu["label_equal_fraction"] == 1.0
+        and vs_cpu["logits_max_abs_diff"] <= LOGITS_ATOL
+        and vs_cpu["energy_equal_fraction"] == 1.0
+        and vs_cpu["pwm_max_abs_diff"] <= PWM_ATOL and carries_equal)
+    report["a_vs_cpu"] = vs_cpu
+
+    # (b).
+    rwin = sf["windows"](8, 4, SEED + 22)
+    resized, rinfo = _surface_resize(torch, sf, dev, rwin)
+    plain, _ = _surface_resize(torch, sf, dev, rwin, resize=False)
+    gates["b_resize_vs_uninterrupted"] = (
+        rinfo["evicted"] == ["r4", "r5", "r6", "r7"]
+        and _same_bits(_compare(_results(plain), _results(resized))))
+    report["resize"] = rinfo
+
+    # (c).
+    fwin = sf["windows"](8, 3, SEED + 23)
+    clean, clean_ms, _, _, _ = _surface_fault(torch, sf, dev, fwin, None)
+    clean = _results(clean)
+    retried, retry_ms, log, _, _ = _surface_fault(torch, sf, dev, fwin,
+                                                  "error")
+    at = next(f["step"] for f in log if f["kind"] == "retry")
+    gates["c_retry_vs_clean"] = (
+        sum(f["kind"] == "retry" for f in log) == 8
+        and _same_bits(_compare(clean, _results(retried))))
+    report["retry"] = dict(
+        step_ms=retry_ms, failed_collect_step=at,
+        failed_step_ms=retry_ms[at], retried_step_ms=retry_ms[at + 1],
+        clean_step_ms=clean_ms,
+        fault_kinds=[f["kind"] for f in log])
+    poisoned, _, plog, letters, n_held = _surface_fault(
+        torch, sf, dev, fwin, "nan")
+    (sid, seq), = letters
+    i = int(sid[1:])
+    no_window, _, _, _, _ = _surface_fault(torch, sf, dev, fwin, None,
+                                           skip=(i, seq))
+    survivors = {k: r for k, r in poisoned.items() if r.ok}
+    mine = sorted((k for k in survivors if k[0] == sid),
+                  key=lambda k: k[1])
+    want = sorted((k for k in no_window if k[0] == sid), key=lambda k: k[1])
+    others = {k: r.result for k, r in survivors.items() if k[0] != sid}
+    gates["c_quarantine_vs_clean_without_window"] = (
+        poisoned[(sid, seq)].status == "failed"
+        and len(mine) == len(want) == len(fwin[i]) - 1
+        and _same_bits(_compare({k: survivors[k].result for k in mine},
+                              {m: no_window[w].result
+                               for m, w in zip(mine, want)}))
+        and _same_bits(_compare(others, {k: clean[k] for k in others})))
+    report["quarantine"] = dict(
+        dead_letter=[sid, seq],
+        fault_kinds=[f["kind"] for f in plog],
+        rollback_carries_checked=n_held)
+    mclean, _, _ = _surface_mega_fault(sf, dev, False)
+    mrows, mlog, mkeys = _surface_mega_fault(sf, dev, True)
+    gates["c_megastep_fault_vs_clean"] = (
+        mlog == [] and all(mkeys.values())
+        and _same_bits(_compare(_results(mclean), _results(mrows))))
+    report["megastep_fault"] = dict(
+        fault_log=mlog, per_lane_keys_after_fallback={
+            m: [list(k) for k in v] for m, v in mkeys.items()})
+
+    # (d).
+    replaced, dinfo = _surface_replace(torch, sf, dev)
+    unbroken, _ = _surface_replace(torch, sf, dev, abort=False)
+    gates["d_replace_vs_uninterrupted"] = (
+        dinfo["requeued"] == 4 and dinfo["megastep_keys_before"] == 1
+        and dinfo["megastep_keys_after"] == 0
+        and _same_bits(_compare(_results(unbroken), _results(replaced))))
+    if on_card:
+        gates["d_memory_falls"] = (dinfo["allocated_bytes_after_replace"]
+                                   < dinfo["allocated_bytes_before_replace"])
+    report["replace"] = dinfo
+
+    # (e).
+    edf, paired, edf_at = _surface_deadline(sf, dev, DeadlinePolicy())
+    fair, _, fair_at = _surface_deadline(sf, dev, FairQuantumPolicy())
+    gates["e_deadline_vs_fair"] = (
+        paired == 1.0 and _same_bits(_compare(_results(fair), _results(edf))))
+    # Which step() returned each window, by group: the stand-alone urgent
+    # streams, the sessions opened last (deadlines 3..0) and first (7..4).
+    # EDF serves the urgent streams and the last-opened sessions before
+    # any window of the first-opened ones; the fair run does the reverse
+    # for the sessions.
+    groups = {"urgent": lambda s: s[0] == "u",
+              "last_opened": lambda s: s[0] == "s" and int(s[1]) >= 4,
+              "first_opened": lambda s: s[0] == "s" and int(s[1]) < 4}
+    at = {run: {g: sorted(n for (sid, _), n in steps.items() if f(sid))
+                for g, f in groups.items()}
+          for run, steps in (("deadline", edf_at), ("fair", fair_at))}
+    gates["e_deadline_order_vs_fair"] = (
+        max(at["deadline"]["urgent"] + at["deadline"]["last_opened"])
+        < min(at["deadline"]["first_opened"])
+        and max(at["fair"]["first_opened"]) < min(at["fair"]["last_opened"]))
+    report["deadline_paired_tick_rate_min"] = paired
+    report["deadline_return_steps"] = at
+
+    if on_card:
+        torch.cuda.synchronize()
+    launches = {"lif_scan": k1.launches, "fc_lif_scan": k2.launches,
+                "ternary_matmul": k3.launches,
+                "fc_currents": k2.currents_launches}
+    emit("serving_surface", config="CONFIG + TCN_CONFIG (full width)",
+         slots={"event": 8, "frame": 8},
+         launches=launches, gates=gates,
+         phase_s=time.perf_counter() - t_phase, **report)
+    if on_card:
+        check(all(n > 0 for n in launches.values()),
+              f"serving_surface: a kernel of the path never ran: "
+              f"{launches}")
+    failed = [g for g, ok in gates.items() if not ok]
+    check(not failed, f"serving_surface gates failed: {failed}")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# Phase 7: the LM slice -- RWKV-6 serving through K4 (and K3 on the
 # ternary path).
 # ----------------------------------------------------------------------
 
@@ -2043,7 +2638,7 @@ def lm_times(torch, dev, k3, k4, model, params, qparams):
 
 
 def lm_slice(torch, dev, k3, k4):
-    """Phase 6 end to end; returns the launches, errors and times the
+    """Phase 7 end to end; returns the launches, errors and times the
     ``kernels`` line needs."""
     from repro_torch.configs.rwkv6_7b import CONFIG
     from repro_torch.models import build_model

@@ -13,13 +13,23 @@ convex combination of the wings' logits) and emits ONE fused
 :class:`~repro_torch.serving.stream.StreamResult` per tick, with the
 combined PWM actuation and a per-wing latency/energy breakdown.
 
-Not in this slice (see ROADMAP): ``StreamCheckpoint`` and session
-checkpoint/restore (with item 7(a)), and ``wing_health`` and degraded
-ticks, which need fault recovery (item 7(b)).
+:class:`StreamCheckpoint` is the migration payload behind
+``StreamHandle.checkpoint()``/``restore()``: a picklable host snapshot of
+one stream (its carry as numpy arrays, its still-queued windows and its
+sequence position) that restores into a handle on another engine, after
+which the remaining windows complete bitwise as in the uninterrupted run.
+``FusionSession.checkpoint()``/``restore()`` (and ``checkpoint_to``/
+``restore_from`` through a :class:`~repro_torch.fleet.store.
+CheckpointStore`) move a whole session: both wings and its tick cursor.
+
+With fault recovery on the engine, a session whose wing failed a tick
+emits a degraded tick (the surviving wing's result, flagged) instead of
+stalling; ``wing_health()`` reports each wing's lane health.
 """
 from __future__ import annotations
 
-from typing import Callable, Hashable, List, Optional
+import dataclasses
+from typing import Any, Callable, Hashable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +37,29 @@ import torch
 from repro_torch.core.pipeline import ClosedLoopResult, pwm_from_logits
 from repro_torch.serving.stream import StreamEngine, StreamHandle, StreamResult
 
-__all__ = ["FusionSession", "late_logit_fusion"]
+__all__ = ["StreamCheckpoint", "FusionSession", "late_logit_fusion"]
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamCheckpoint:
+    """One stream, frozen for migration between engines.
+
+    Everything inside is host-resident and picklable: ``state`` is the
+    engine's exported carry (numpy arrays by layer; ``None`` = cold
+    start), ``queued`` holds the unserved windows as ``(window, seq,
+    deadline)`` tuples, and ``next_seq`` is where numbering resumes.
+    ``duration_us`` pins the one-bin-width-per-engine contract across the
+    migration. Accounting (``StreamStats``) does not migrate.
+    """
+
+    stream_id: Hashable
+    modality: str
+    stateful: bool
+    next_seq: int
+    duration_us: Optional[int]
+    state: Optional[Any]
+    deadline: Optional[float] = None
+    queued: Tuple[Tuple[Any, int, Optional[float]], ...] = ()
 
 
 def late_logit_fusion(event_weight: float = 0.5,
@@ -50,6 +82,8 @@ def late_logit_fusion(event_weight: float = 0.5,
 
 
 def _rule_name(rule: Callable) -> Optional[str]:
+    """A rule's identity for checkpoints: its ``name``, else its
+    ``__name__``."""
     return getattr(rule, "name", getattr(rule, "__name__", None))
 
 
@@ -71,7 +105,15 @@ class FusionSession:
     in. Results of OTHER streams on the engine are never swallowed: they
     accumulate on ``unclaimed``. ``stateful=True`` opts both wings into
     carried state (the event wing's LIF membranes chain across ticks; the
-    frame wing's carry is empty).
+    frame wing's carry is empty); ``deadline`` is both wings' default
+    per-window deadline.
+
+    With ``EngineConfig.recovery`` set, a wing's quarantined window or
+    dead lane surfaces as a ``failed`` wing row, and the tick is emitted
+    with ``status="degraded"`` (the surviving wing's result, the downed
+    wing named in the breakdown); both wings failing emits a ``failed``
+    tick. Every tick emits exactly one row, in order; ``ticks_degraded``,
+    ``ticks_failed`` and ``wing_failures`` count the damage.
     """
 
     def __init__(
@@ -80,6 +122,7 @@ class FusionSession:
         *,
         session_id: Optional[Hashable] = None,
         stateful: bool = False,
+        deadline: Optional[float] = None,
         fusion: Optional[Callable] = None,
         event_handle: Optional[StreamHandle] = None,
         frame_handle: Optional[StreamHandle] = None,
@@ -104,21 +147,26 @@ class FusionSession:
                     f"{handle.modality!r}")
         self.event = event_handle or engine.open(
             modality="event", stream_id=f"{session_id}:event",
-            stateful=stateful)
+            stateful=stateful, deadline=deadline)
         self.frame = frame_handle or engine.open(
             modality="frame", stream_id=f"{session_id}:frame",
-            stateful=stateful)
+            stateful=stateful, deadline=deadline)
         engine.pair_streams(self.event.stream_id, self.frame.stream_id)
         self._pending = {"event": {}, "frame": {}}
         self._emit_next = 0
         self.ticks_fused = 0
+        self.ticks_degraded = 0
+        self.ticks_failed = 0
+        self.wing_failures = {"event": 0, "frame": 0}
         self.unclaimed: List[StreamResult] = []
 
     # -- submission ------------------------------------------------------
 
-    def submit(self, event_window, frame_window) -> int:
-        """Queue one control tick: the paired event and frame windows.
-        Returns the tick's sequence number (shared by both wings).
+    def submit(self, event_window, frame_window, *,
+               deadline: Optional[float] = None) -> int:
+        """Queue one control tick: the paired event and frame windows
+        (``deadline`` overrides the wings' default for this tick). Returns
+        the tick's sequence number (shared by both wings).
 
         Atomic: desynchronized wings are detected and both windows are
         validated before either is queued, so a rejected tick queues
@@ -133,8 +181,8 @@ class FusionSession:
                 f"session?)")
         self.event.validate(event_window)
         self.frame.validate(frame_window)
-        seq = self.event.submit(event_window)
-        self.frame.submit(frame_window)
+        seq = self.event.submit(event_window, deadline=deadline)
+        self.frame.submit(frame_window, deadline=deadline)
         return seq
 
     # -- completion ------------------------------------------------------
@@ -162,12 +210,41 @@ class FusionSession:
                and self._emit_next in self._pending["frame"]):
             e = self._pending["event"].pop(self._emit_next)
             f = self._pending["frame"].pop(self._emit_next)
-            out.append(StreamResult(
-                stream_id=self.session_id, seq=self._emit_next,
-                result=self._fuse(e.result, f.result), modality="fusion"))
-            self.ticks_fused += 1
+            out.append(self._emit_tick(e, f))
             self._emit_next += 1
         return out
+
+    def _emit_tick(self, e: StreamResult, f: StreamResult) -> StreamResult:
+        """One tick's row: fused, degraded (one wing failed) or failed."""
+        seq = self._emit_next
+        for wing, row in (("event", e), ("frame", f)):
+            if not row.ok:
+                self.wing_failures[wing] += 1
+        if e.ok and f.ok:
+            self.ticks_fused += 1
+            return StreamResult(
+                stream_id=self.session_id, seq=seq,
+                result=self._fuse(e.result, f.result), modality="fusion")
+        if e.ok or f.ok:
+            ok_wing, ok_row = ("event", e) if e.ok else ("frame", f)
+            bad_wing, bad_row = ("frame", f) if e.ok else ("event", e)
+            self.ticks_degraded += 1
+            degraded = dataclasses.replace(
+                ok_row.result,
+                breakdown={**ok_row.result.breakdown,
+                           "degraded_wing": bad_wing,
+                           "surviving_wing": ok_wing,
+                           "wing_error": bad_row.error})
+            return StreamResult(
+                stream_id=self.session_id, seq=seq, result=degraded,
+                modality="fusion", status="degraded",
+                error=f"{bad_wing} wing failed: {bad_row.error}")
+        self.ticks_failed += 1
+        return StreamResult(
+            stream_id=self.session_id, seq=seq, result=None,
+            modality="fusion", status="failed",
+            error=(f"both wings failed: event: {e.error}; "
+                   f"frame: {f.error}"))
 
     def _fuse(self, e: ClosedLoopResult,
               f: ClosedLoopResult) -> ClosedLoopResult:
@@ -210,9 +287,27 @@ class FusionSession:
 
     @property
     def stats(self) -> dict:
-        """Per-wing accounting plus the fused tick count."""
+        """Per-wing accounting plus the fused/degraded tick counts."""
         return {"event": self.event.stats, "frame": self.frame.stats,
-                "ticks_fused": self.ticks_fused}
+                "ticks_fused": self.ticks_fused,
+                "ticks_degraded": self.ticks_degraded,
+                "ticks_failed": self.ticks_failed,
+                "wing_failures": dict(self.wing_failures)}
+
+    def wing_health(self) -> dict:
+        """Per wing: its lane's fault telemetry (dead, retries,
+        quarantined, fault rate) and this session's failures seen."""
+        out = {}
+        for wing, handle in (("event", self.event), ("frame", self.frame)):
+            tel = self.engine.telemetry(handle.modality)
+            out[wing] = {
+                "dead": tel.dead,
+                "retries": tel.retries,
+                "quarantined": tel.quarantined,
+                "fault_rate": tel.fault_rate,
+                "failures_seen": self.wing_failures[wing],
+            }
+        return out
 
     def reset_state(self) -> None:
         """Gesture boundary across the whole session: zero both wings'
@@ -220,6 +315,70 @@ class FusionSession:
         for handle in (self.event, self.frame):
             if handle.stateful:
                 handle.reset_state()
+
+    def checkpoint(self) -> dict:
+        """Both wings' checkpoints and the session's tick cursor (host
+        values; see :meth:`restore`). Raises while half-fused ticks are
+        buffered (run or step until drained first)."""
+        if self._pending["event"] or self._pending["frame"]:
+            raise ValueError(
+                f"fusion session {self.session_id!r} has half-fused "
+                f"ticks buffered; run()/step() until drained before "
+                f"checkpointing")
+        return {"session_id": self.session_id,
+                "next_tick": self._emit_next,
+                "fusion_rule": _rule_name(self.fusion),
+                "event": self.event.checkpoint(),
+                "frame": self.frame.checkpoint()}
+
+    def checkpoint_to(self, store, ckpt_id: Optional[str] = None) -> str:
+        """Put this session's checkpoint into a
+        :class:`~repro_torch.fleet.store.CheckpointStore` as ONE blob (both
+        wings restore or neither); returns its id."""
+        return store.put(self.checkpoint(), ckpt_id)
+
+    @classmethod
+    def restore_from(cls, engine: StreamEngine, store, ckpt_id: str, *,
+                     fusion: Optional[Callable] = None) -> "FusionSession":
+        """Restore a stored session checkpoint into ``engine`` and consume
+        its id; a failed restore leaves the checkpoint in the store."""
+        session = cls.restore(engine, store.get(ckpt_id), fusion=fusion)
+        store.consume(ckpt_id)
+        return session
+
+    @classmethod
+    def restore(cls, engine: StreamEngine, ckpt: dict, *,
+                fusion: Optional[Callable] = None) -> "FusionSession":
+        """Rebuild a checkpointed session on ``engine``: both wing handles
+        are restored and the tick cursor resumes, so fused ticks continue
+        bitwise as in the uninterrupted run. A rule other than the default
+        must be passed again as ``fusion`` (rules are code): a name that
+        differs from the recorded one raises. A failed restore leaves no
+        stream behind on ``engine``."""
+        rule = fusion or late_logit_fusion()
+        recorded = ckpt.get("fusion_rule")
+        supplied = _rule_name(rule)
+        if recorded is not None and recorded != supplied:
+            raise ValueError(
+                f"checkpoint was fused with rule {recorded!r} but "
+                f"restore got {supplied!r}; pass fusion= matching the "
+                f"original rule (rules are code, not data)")
+        event_handle = engine.restore(ckpt["event"])
+        try:
+            frame_handle = engine.restore(ckpt["frame"])
+        except Exception:
+            event_handle.close()
+            raise
+        try:
+            session = cls(engine, session_id=ckpt["session_id"],
+                          fusion=rule, event_handle=event_handle,
+                          frame_handle=frame_handle)
+        except Exception:
+            event_handle.close()
+            frame_handle.close()
+            raise
+        session._emit_next = int(ckpt["next_tick"])
+        return session
 
     def close(self) -> int:
         """Close both wing handles (which unpairs them); returns the

@@ -6,20 +6,31 @@ are submitted to it, and ``step()`` serves the head window of every
 slotted stream in one engine call per lane per step. A lane is one
 engine (the event wing, :class:`~repro_torch.core.pipeline.
 BatchedClosedLoop`, or the frame wing, :class:`~repro_torch.core.engine.
-FrameTCNEngine`) with its own slots: ``StreamEngine(params, cfg,
-config)`` builds one event lane, ``StreamEngine(engines=[...],
-config=...)`` one lane per engine, keyed by its ``modality``. Slots are
-assigned by a :class:`SlotPolicy` (:class:`FairQuantumPolicy` by default:
-pin a slot while its stream has work, rotate after ``fair_quantum``
-windows when others wait). Windows of one stream are served strictly in
-order, at most one per step.
+FrameTCNEngine`, or any engine of the protocol) with its own slots:
+``StreamEngine(params, cfg, config)`` builds one event lane,
+``StreamEngine(engines=[...], config=...)`` one lane per engine, keyed by
+its ``modality``. Slots are assigned by a :class:`SlotPolicy`
+(:class:`FairQuantumPolicy` by default: pin a slot while its stream has
+work, rotate after ``fair_quantum`` windows when others wait;
+:class:`DeadlinePolicy` adds earliest-deadline-first with aging and a
+hard wait bound). Windows of one stream are served strictly in order, at
+most one per step.
 
 Stateful streams carry the engine's state (the event wing's LIF
 membranes; the frame wing carries nothing) from window to window. The
 lane keeps a slot-major dict of device tensors beside its slots; state
 follows the STREAM, not the slot: when a stream moves, its row is
 gathered along (``torch.stack`` per layer); when it loses its slot the
-row is parked; a slot admitting a new stream starts from zero.
+row is parked; a slot admitting a new stream starts from zero. No state
+tensor is ever written in place: a dispatch reads the lane's state and
+returns new tensors, so a row kept aside (parked, checkpointed, or held
+for a rollback) keeps its value.
+
+Checkpoints. ``StreamHandle.checkpoint()`` captures a stream as a host
+:class:`~repro_torch.serving.session.StreamCheckpoint` (its carry as
+numpy arrays, still-queued windows, its sequence position);
+``StreamEngine.restore(ckpt)`` replays it into a fresh engine, after
+which the stream's results are bitwise those of the uninterrupted run.
 
 Fusion pairs. ``pair_streams(a, b)`` binds two streams on different
 lanes as the wings of one control tick (a
@@ -45,56 +56,163 @@ replayed once per step; on the CPU the two run functions back to back.
 Results are bitwise those of the two per-lane calls; a step with work on
 one lane only takes the per-lane path.
 
-Not in this slice (see ROADMAP): checkpoint/restore, ``DeadlinePolicy``
-and per-window deadlines, telemetry, ``resize_lane``/``drain_lane``,
-fault recovery, the mesh, and the legacy id-keyed call forms. The
-``EngineConfig`` fields that select them are refused at construction.
+Fleet hooks. Every completed window feeds a sliding-horizon sample on
+its :class:`StreamStats` (``snapshot()`` derives windows/s, queue-depth
+p95 and deadline-miss rate); ``telemetry(modality)`` aggregates a lane
+into a :class:`LaneTelemetry` row. A finite deadline is an instant on
+``StreamEngine.deadline_clock`` (``time.perf_counter`` by default): a
+window collected after it counts as missed. ``resize_lane`` changes a
+lane's slot count live (carries are parked, evicted streams rejoin the
+front of the waiting line, and the new batch size's graphs are captured
+at once through the engine's ``warmup``); ``drain_lane`` collects one
+lane's in-flight steps; ``abort_lane`` drops them and re-queues their
+windows; ``replace_lane_engine`` installs a rebuilt engine.
+
+Fault recovery (``EngineConfig.recovery``, a
+:class:`~repro_torch.core._api.RecoveryConfig`): a failed lane step is
+retried after ``backoff_steps`` steps of cooldown (synchronous steps
+leave the queues untouched; a pipelined collect failure re-queues the
+record's windows with each stream's carry rolled back to its pre-window
+value); a window failing ``max_retries`` times, or returning non-finite
+logits, is quarantined to the lane's dead letters and emitted with
+``status="failed"``, its stream kept alive from the pre-window carry;
+``dead_after`` consecutive failed steps declare the lane dead, and it
+fails queued windows fast until ``replace_lane_engine``. Each transition
+is appended to ``StreamEngine.fault_log``. A failed fused megastep falls
+back to the per-lane graphs for that step. Recovery retries and
+quarantines windows; it never moves work off the card. With
+``recovery=None`` an engine exception propagates.
+
+Not ported: the mesh (``EngineConfig.mesh`` is refused at construction)
+and the JAX package's legacy id-keyed call forms (``submit(stream_id,
+window)``, ``retire``, ``handle``; see ROADMAP).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import (Any, Callable, Deque, Dict, Hashable, List, Mapping,
                     Optional, Sequence, Union)
 
+import numpy as np
 import torch
 
-from repro_torch.core._api import EngineConfig
+from repro_torch.core._api import EngineConfig, RecoveryConfig
 from repro_torch.core.energy import KrakenModel
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.graphs import GraphCache
 from repro_torch.core.pipeline import (BatchedClosedLoop, ClosedLoopResult,
-                                       _refuse_unported)
+                                       _refuse_unported, export_state_slot,
+                                       import_state_slot)
 from repro_torch.core.snn import SNNConfig
 
-__all__ = ["StreamResult", "StreamStats", "EngineLane", "SlotPolicy",
-           "FairQuantumPolicy", "StreamHandle", "StreamEngine",
-           "EngineConfig"]
+__all__ = ["StreamResult", "StreamStats", "StreamStatsSnapshot",
+           "LaneTelemetry", "DeadLetter", "EngineLane", "SlotPolicy",
+           "FairQuantumPolicy", "DeadlinePolicy", "StreamHandle",
+           "StreamEngine", "EngineConfig", "RecoveryConfig"]
 
 
 @dataclasses.dataclass
 class StreamResult:
     """One served window: which stream, which window index (the
-    submission-time sequence number), and the closed-loop outcome."""
+    submission-time sequence number), and the closed-loop outcome.
+
+    ``status`` is ``"ok"`` for a served window. Under fault recovery a
+    quarantined or dead-lane window is still emitted, with
+    ``status="failed"``, ``result=None`` and the reason in ``error``; a
+    :class:`~repro_torch.serving.session.FusionSession` emits
+    ``status="degraded"`` ticks when one wing failed."""
 
     stream_id: Hashable
     seq: int
     result: Optional[ClosedLoopResult]
     modality: str = "event"
+    status: str = "ok"            # "ok" | "failed" | "degraded"
+    error: Optional[str] = None
+
+    @property
+    def ok(self) -> bool:
+        return self.status == "ok"
+
+
+@dataclasses.dataclass(frozen=True)
+class DeadLetter:
+    """One quarantined window on its lane's dead-letter queue: the window,
+    its stream and sequence position, and why it was poisoned."""
+
+    stream_id: Hashable
+    seq: int
+    modality: str
+    item: Any
+    deadline: Optional[float]
+    error: str
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamStatsSnapshot:
+    """A frozen host view of one stream's accounting. Cumulative fields
+    mirror :class:`StreamStats`; the ``horizon_*`` fields and the derived
+    rates cover only the last ``horizon`` completions."""
+
+    windows: int
+    queued: int
+    energy_mj: float
+    mean_latency_ms: float
+    realtime_fraction: float
+    deadline_windows: int         # completed windows that carried a deadline
+    deadline_missed: int          # ... collected after their deadline
+    horizon: int                  # completions the sliding fields cover (max)
+    horizon_windows: int          # completions actually in the window
+    horizon_deadline_windows: int
+    horizon_missed: int
+    windows_per_s: float          # completion rate over the sliding window
+    queue_depth_p95: float        # p95 of at-completion queue depths
+    deadline_miss_rate: float     # horizon_missed / horizon_deadline_windows
+    retries: int = 0              # failed dispatch/collect attempts
+    quarantined: int = 0          # windows moved to the dead-letter queue
+    fusion_ticks: int = 0         # paired-stream ticks observed at dispatch
+    fusion_ticks_paired: int = 0  # ... whose wings shared one engine step
+    paired_tick_rate: float = 1.0  # paired / observed (1.0 when unpaired)
 
 
 @dataclasses.dataclass
 class StreamStats:
-    """Per-stream accounting, accumulated as windows complete."""
+    """Per-stream accounting, accumulated as windows complete.
+
+    Besides the cumulative counters, every completion is sampled into a
+    sliding window of the ``horizon`` most recent completions (wall time,
+    queue depth left behind, deadline outcome), from which
+    :meth:`snapshot` derives the recent rates."""
 
     windows: int = 0
     energy_mj: float = 0.0
     latency_ms_sum: float = 0.0
     realtime_windows: int = 0
     queued: int = 0               # still waiting in this stream's queue
+    deadline_windows: int = 0     # completed windows that had a deadline
+    deadline_missed: int = 0      # ... that completed past it
+    retries: int = 0              # failed attempts charged to this stream
+    quarantined: int = 0          # windows dead-lettered
     fusion_ticks: int = 0         # ticks of a paired (fusion) stream seen
     fusion_ticks_paired: int = 0  # ... both wings dispatched the same step
+    horizon: int = 64             # sliding-window length (completions)
+    samples: Deque = dataclasses.field(default_factory=deque, repr=False)
+
+    def __post_init__(self):
+        self.samples = deque(self.samples, maxlen=self.horizon)
+
+    def note_completion(self, wall_t: float, queue_depth: int,
+                        missed: Optional[bool]) -> None:
+        """Record one completed window: wall-clock instant, the queue depth
+        it left behind, and its deadline outcome (``None`` = the window
+        carried no deadline)."""
+        if missed is not None:
+            self.deadline_windows += 1
+            if missed:
+                self.deadline_missed += 1
+        self.samples.append((wall_t, queue_depth, missed))
 
     @property
     def paired_tick_rate(self) -> float:
@@ -117,6 +235,74 @@ class StreamStats:
         return (self.energy_mj / (self.latency_ms_sum * 1e-3)
                 if self.latency_ms_sum else 0.0)
 
+    def snapshot(self) -> StreamStatsSnapshot:
+        """Freeze a consistent view with derived sliding-horizon rates."""
+        samples = list(self.samples)
+        n = len(samples)
+        span = samples[-1][0] - samples[0][0] if n >= 2 else 0.0
+        wps = (n - 1) / span if span > 0.0 else 0.0
+        depths = sorted(s[1] for s in samples)
+        p95 = (float(depths[max(0, math.ceil(0.95 * n) - 1)])
+               if depths else 0.0)
+        dated = [s[2] for s in samples if s[2] is not None]
+        missed = sum(1 for m in dated if m)
+        return StreamStatsSnapshot(
+            windows=self.windows, queued=self.queued,
+            energy_mj=self.energy_mj,
+            mean_latency_ms=self.mean_latency_ms,
+            realtime_fraction=self.realtime_fraction,
+            deadline_windows=self.deadline_windows,
+            deadline_missed=self.deadline_missed,
+            horizon=self.horizon, horizon_windows=n,
+            horizon_deadline_windows=len(dated), horizon_missed=missed,
+            windows_per_s=wps, queue_depth_p95=p95,
+            deadline_miss_rate=missed / len(dated) if dated else 0.0,
+            retries=self.retries, quarantined=self.quarantined,
+            fusion_ticks=self.fusion_ticks,
+            fusion_ticks_paired=self.fusion_ticks_paired,
+            paired_tick_rate=self.paired_tick_rate)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneTelemetry:
+    """One engine lane, aggregated for the fleet control plane.
+
+    ``backlog_per_slot`` is the autoscaler's grow signal;
+    ``deadline_miss_rate`` pools every stream's sliding horizon;
+    ``streams`` holds the per-stream snapshots the aggregate was computed
+    from."""
+
+    modality: str
+    slots: int
+    occupied: int                 # slots currently pinned to a stream
+    waiting: int                  # streams in the waiting line
+    queued: int                   # windows queued across the lane
+    in_flight: int                # dispatched-but-uncollected windows
+    windows: int                  # completed windows (cumulative)
+    windows_per_s: float          # summed sliding-horizon completion rate
+    deadline_miss_rate: float     # pooled over the streams' horizons
+    streams: Dict[Hashable, StreamStatsSnapshot] = dataclasses.field(
+        default_factory=dict)
+    retries: int = 0              # cumulative failed attempts on the lane
+    quarantined: int = 0          # cumulative dead-lettered windows
+    dead: bool = False            # lane declared dead (fail-fast mode)
+    paired_tick_rate: float = 1.0  # fusion ticks co-scheduled, pooled
+
+    @property
+    def fault_rate(self) -> float:
+        """Retries + quarantines per completed-or-quarantined window."""
+        denom = self.windows + self.quarantined
+        return ((self.retries + self.quarantined) / denom
+                if denom else 0.0)
+
+    @property
+    def backlog_per_slot(self) -> float:
+        return self.queued / self.slots if self.slots else 0.0
+
+    @property
+    def occupancy(self) -> float:
+        return self.occupied / self.slots if self.slots else 0.0
+
 
 class _FreeSlot:
     """Sentinel for an unassigned batch slot (distinct from any stream id,
@@ -131,25 +317,36 @@ _FREE = _FreeSlot()
 
 @dataclasses.dataclass
 class _Queued:
-    """One queued submission: the item plus its sequence number."""
+    """One queued submission: the item, its sequence number and its
+    deadline."""
 
     item: Any
     seq: int
+    deadline: Optional[float] = None
 
 
 @dataclasses.dataclass
 class _InflightLane:
     """One lane's share of a dispatched, not yet collected step.
 
-    ``entries`` is slot-aligned: ``(stream_id, seq)`` per served slot,
-    ``None`` per empty one. ``kind`` is ``"results"`` (synchronous mode:
-    finished results) or ``"handle"`` (the engine's pending handle)."""
+    ``entries`` is slot-aligned: ``(stream_id, seq, deadline)`` per served
+    slot, ``None`` per empty one. ``kind`` is ``"results"`` (synchronous
+    mode: finished results), ``"handle"`` (the engine's pending handle) or
+    ``"batch"`` (a prepared batch of an engine without the
+    dispatch/collect split, inferred at collect). ``items`` keeps the
+    popped :class:`_Queued` entries slot-aligned, so a failed record can
+    re-queue its windows; with recovery on, ``prev_carry`` maps each
+    dispatched stateful stream to its pre-window carry (rows of the state
+    the dispatch read, which nothing writes), the value a quarantine or a
+    retry rolls back to."""
 
     lane: "EngineLane"
     key: Hashable
     entries: List[Optional[tuple]]
     kind: str
     pending: Any
+    items: Optional[List[Optional[_Queued]]] = None
+    prev_carry: Optional[Dict[Hashable, Any]] = None
 
 
 @dataclasses.dataclass
@@ -161,7 +358,8 @@ class EngineLane:
     carry the row holds (rows of stateless or free slots are dead);
     ``parked`` holds the carries of stateful streams without a slot.
     A stateful stream's carry lives in exactly one of a state row or
-    ``parked`` (or nowhere: cold start).
+    ``parked`` (or nowhere: cold start). The fault fields move only under
+    a :class:`~repro_torch.core._api.RecoveryConfig`.
     """
 
     modality: str
@@ -171,11 +369,19 @@ class EngineLane:
     waiting: Deque[Hashable]
     queues: Dict[Hashable, Deque[_Queued]]
     shape_keys: set
+    supports_state: bool = False
     stateful: set = dataclasses.field(default_factory=set)
     state: Any = None
     state_streams: List[Hashable] = dataclasses.field(default_factory=list)
     parked: Dict[Hashable, Any] = dataclasses.field(default_factory=dict)
     zero_state: Any = None
+    dead: bool = False            # fail-fast mode until engine replaced
+    fail_streak: int = 0          # consecutive failed lane steps
+    cooldown: int = 0             # backoff steps left before redispatch
+    retries: Dict[tuple, int] = dataclasses.field(default_factory=dict)
+    dead_letter: Deque = dataclasses.field(default_factory=deque)
+    n_retries: int = 0            # cumulative, for telemetry
+    n_quarantined: int = 0
 
     def pending(self) -> int:
         return sum(len(q) for q in self.queues.values())
@@ -187,6 +393,8 @@ class SlotPolicy:
     ``assign(lane)`` runs once per step before the batch is gathered: it
     frees slots and fills free slots from the waiting line, keeping every
     schedulable stream in exactly one of a held slot or the waiting line.
+    A policy with per-stream bookkeeping implements ``forget(stream_id)``,
+    which the engine calls when a stream closes.
     """
 
     def assign(self, lane: EngineLane) -> None:
@@ -221,6 +429,7 @@ class FairQuantumPolicy(SlotPolicy):
                 lane.waiting.append(sid)
                 lane.slots[i] = _FREE
                 lane.slot_runs[i] = 0
+        self._note_round(lane)
         for i, sid in enumerate(lane.slots):
             if sid is _FREE:
                 cand = self._take(lane)
@@ -228,6 +437,9 @@ class FairQuantumPolicy(SlotPolicy):
                     break
                 lane.slots[i] = cand
                 lane.slot_runs[i] = 0
+
+    def _note_round(self, lane: EngineLane) -> None:
+        """Hook: once per round, after rotation, before any slot fills."""
 
     def _take(self, lane: EngineLane) -> Optional[Hashable]:
         """Pop the next waiting stream with queued work; drained entries
@@ -239,21 +451,107 @@ class FairQuantumPolicy(SlotPolicy):
         return None
 
 
+class DeadlinePolicy(FairQuantumPolicy):
+    """Earliest-deadline-first slot assignment with aging and a wait bound.
+
+    Windows carry an optional ``deadline`` (any consistent unit; smaller =
+    more urgent; ``None`` = slack). Free slots go to the waiting stream
+    whose head window has the earliest effective deadline, ``deadline -
+    aging * rounds_passed_over`` (``None`` after every finite deadline).
+    A live waiting stream passed over ``max_wait`` times is served next
+    whatever the deadlines, so with the inherited fairness quantum every
+    stream gets a slot within ``O(max_wait * fair_quantum)`` steps.
+    """
+
+    _NO_DEADLINE = math.inf
+
+    def __init__(self, fair_quantum: int = 4, *, aging: float = 1.0,
+                 max_wait: int = 16):
+        super().__init__(fair_quantum)
+        if aging < 0:
+            raise ValueError(f"aging must be >= 0, got {aging}")
+        if max_wait < 1:
+            raise ValueError(f"max_wait must be >= 1, got {max_wait}")
+        self.aging = aging
+        self.max_wait = max_wait
+        self._waited: Dict[Hashable, int] = {}
+
+    def _note_round(self, lane: EngineLane) -> None:
+        """Drop drained waiting entries and age every live waiting stream
+        by one round, however many slots the round fills."""
+        live = [sid for sid in lane.waiting if lane.queues[sid]]
+        if len(live) != len(lane.waiting):
+            dropped = set(lane.waiting) - set(live)
+            lane.waiting.clear()
+            lane.waiting.extend(live)
+            for sid in dropped:
+                self._waited.pop(sid, None)
+        for sid in live:
+            self._waited[sid] = self._waited.get(sid, 0) + 1
+
+    def _take(self, lane: EngineLane) -> Optional[Hashable]:
+        best = None
+        best_key = None
+        for pos, sid in enumerate(lane.waiting):
+            if not lane.queues[sid]:
+                continue        # submitted mid-round; picked next round
+            waited = self._waited.get(sid, 0)
+            if waited >= self.max_wait:
+                key = (-1, -waited, pos)
+            else:
+                head = lane.queues[sid][0].deadline
+                base = self._NO_DEADLINE if head is None else head
+                key = (0, base - self.aging * waited, pos)
+            if best is None or key < best_key:
+                best, best_key = sid, key
+        if best is None:
+            return None
+        lane.waiting.remove(best)
+        self._waited.pop(best, None)
+        return best
+
+    def forget(self, stream_id: Hashable) -> None:
+        """Drop the stream's aging counter (called on close, so a reused
+        id starts fresh)."""
+        self._waited.pop(stream_id, None)
+
+
+def _export_carry(engine: InferenceEngine, state, slot: int):
+    """One slot's carry as host numpy arrays, through the engine's
+    ``export_state`` (a device-to-host copy that waits for the device)."""
+    export = getattr(engine, "export_state", export_state_slot)
+    return export(state, slot)
+
+
+def _import_carry(engine: InferenceEngine, payload):
+    """An exported carry back on the engine's device, in the parked form
+    (per stream, no slot axis): ``import_state`` into a 1-slot zero
+    state, then row 0."""
+    import_ = getattr(engine, "import_state", import_state_slot)
+    lifted = import_(engine.init_state(1), 0, payload)
+    return {k: a[0] for k, a in lifted.items()}
+
+
 class StreamHandle:
     """One stream's lifecycle: what ``StreamEngine.open`` returns.
 
-    ``submit(window)`` queues a window and returns its sequence number;
-    ``reset_state()`` zeroes a stateful stream's carry; ``close()``
-    retires the stream. Results come from the engine's ``step``/``run``/
-    ``flush``.
+    ``submit(window[, deadline=])`` queues a window and returns its
+    sequence number; ``reset_state()`` zeroes a stateful stream's carry;
+    ``checkpoint()`` captures the stream as a host
+    :class:`~repro_torch.serving.session.StreamCheckpoint` and
+    ``restore(ckpt)`` replays one into this (fresh) handle; ``close()``
+    retires the stream. Results come from the engine's
+    ``step``/``run``/``flush``.
     """
 
     def __init__(self, engine: "StreamEngine", lane: EngineLane,
-                 stream_id: Hashable, stateful: bool):
+                 stream_id: Hashable, stateful: bool,
+                 deadline: Optional[float] = None):
         self._engine = engine
         self._lane = lane
         self.stream_id = stream_id
         self.stateful = bool(stateful)
+        self.deadline = deadline
         self.closed = False
 
     def __repr__(self):
@@ -265,6 +563,11 @@ class StreamHandle:
     def modality(self) -> str:
         """The lane (engine modality) serving this stream."""
         return self._lane.modality
+
+    @property
+    def engine(self) -> "StreamEngine":
+        """The owning engine (completion and lane-control surface)."""
+        return self._engine
 
     @property
     def stats(self) -> StreamStats:
@@ -285,6 +588,15 @@ class StreamHandle:
             raise ValueError(
                 f"handle for stream {self.stream_id!r} is closed")
 
+    def _check_not_inflight(self, verb: str) -> None:
+        for step_recs in self._engine._inflight:
+            for rec in step_recs:
+                for entry in rec.entries:
+                    if entry is not None and entry[0] == self.stream_id:
+                        raise ValueError(
+                            f"stream {self.stream_id!r} has in-flight "
+                            f"windows; flush() before {verb}")
+
     def validate(self, window: Any) -> None:
         """Check ``window`` against this stream's engine without queueing
         it (raises what ``submit`` would), so a caller submitting to
@@ -292,8 +604,10 @@ class StreamHandle:
         self._check_open()
         self._lane.engine.validate(window)
 
-    def submit(self, window: Any) -> int:
-        """Queue one window; returns its per-stream sequence number. The
+    def submit(self, window: Any, *,
+               deadline: Optional[float] = None) -> int:
+        """Queue one window; returns its per-stream sequence number.
+        ``deadline`` overrides the handle's default for this window. The
         engine validates the window before any queue state moves, so a
         rejected submit burns no sequence number."""
         self._check_open()
@@ -301,7 +615,8 @@ class StreamHandle:
         lane.engine.validate(window)
         seq = eng._seq[sid]
         eng._seq[sid] = seq + 1
-        lane.queues[sid].append(_Queued(window, seq))
+        lane.queues[sid].append(_Queued(
+            window, seq, self.deadline if deadline is None else deadline))
         if sid not in lane.slots and sid not in lane.waiting:
             lane.waiting.append(sid)
         eng.stream_stats[sid].queued += 1
@@ -319,10 +634,92 @@ class StreamHandle:
             if owner is not _FREE and owner == sid:
                 lane.state_streams[j] = _FREE
 
+    def checkpoint(self):
+        """Capture this stream for migration: its carry (host numpy, from
+        its state row or its parked carry; ``None`` for a cold start), the
+        still-queued windows and the sequence position. The engine keeps
+        serving the stream: a checkpoint is a copy. Raises while the
+        stream has windows in flight (``flush()`` or ``drain_lane()``
+        first)."""
+        self._check_open()
+        self._check_not_inflight("checkpointing")
+        from repro_torch.serving.session import StreamCheckpoint
+        lane, sid = self._lane, self.stream_id
+        payload = None
+        if self.stateful:
+            row = next((j for j, owner in enumerate(lane.state_streams)
+                        if owner is not _FREE and owner == sid), None)
+            if row is not None:
+                payload = _export_carry(lane.engine, lane.state, row)
+            elif sid in lane.parked:
+                lifted = {k: a[None] for k, a in lane.parked[sid].items()}
+                payload = _export_carry(lane.engine, lifted, 0)
+        return StreamCheckpoint(
+            stream_id=sid, modality=lane.modality, stateful=self.stateful,
+            next_seq=self._engine._seq[sid],
+            duration_us=lane.engine.duration_us, state=payload,
+            deadline=self.deadline,
+            queued=tuple((q.item, q.seq, q.deadline)
+                         for q in lane.queues[sid]))
+
+    def restore(self, ckpt) -> "StreamHandle":
+        """Replay ``ckpt`` into this handle; returns the handle.
+
+        The handle must be fresh (nothing submitted, no carry) and match
+        the checkpoint's modality and statefulness; the lane's engine must
+        agree on ``duration_us`` (an unlatched engine latches the
+        checkpoint's). The carry is imported and parked until the stream
+        wins a slot, and the queued windows are re-queued under their
+        sequence numbers. A rejected restore leaves the engine as it was.
+        """
+        self._check_open()
+        lane, sid, eng = self._lane, self.stream_id, self._engine
+        if (eng._seq[sid] != 0 or lane.queues[sid] or sid in lane.parked
+                or any(o is not _FREE and o == sid
+                       for o in lane.state_streams)):
+            raise ValueError(
+                f"restore needs a fresh handle; stream {sid!r} already "
+                f"has submitted windows or a carry")
+        if ckpt.modality != lane.modality:
+            raise ValueError(
+                f"checkpoint is {ckpt.modality!r}, handle is bound to "
+                f"{lane.modality!r}")
+        if bool(ckpt.stateful) != self.stateful:
+            raise ValueError(
+                f"checkpoint stateful={ckpt.stateful} != handle "
+                f"stateful={self.stateful}; open the handle to match")
+        prev_duration = lane.engine.duration_us
+        try:
+            if ckpt.duration_us is not None:
+                if lane.engine.duration_us is None:
+                    lane.engine.duration_us = ckpt.duration_us
+                elif lane.engine.duration_us != ckpt.duration_us:
+                    raise ValueError(
+                        f"checkpoint duration_us={ckpt.duration_us} != "
+                        f"engine duration_us={lane.engine.duration_us}")
+            for item, _seq, _deadline in ckpt.queued:
+                lane.engine.validate(item)
+        except Exception:
+            lane.engine.duration_us = prev_duration
+            raise
+        if ckpt.state is not None:
+            lane.parked[sid] = _import_carry(lane.engine, ckpt.state)
+        eng._seq[sid] = int(ckpt.next_seq)
+        if self.deadline is None:
+            self.deadline = ckpt.deadline
+        for item, seq, deadline in ckpt.queued:
+            lane.queues[sid].append(_Queued(item, seq, deadline))
+            eng.stream_stats[sid].queued += 1
+        if lane.queues[sid] and sid not in lane.slots \
+                and sid not in lane.waiting:
+            lane.waiting.append(sid)
+        return self
+
     def close(self) -> int:
         """Retire the stream: queue, slot, waiting entry and carry. Returns
         the number of windows discarded, in-flight ones included (their
-        results are never emitted). Closing a closed handle returns 0."""
+        results are never emitted; lane-mates in the same steps are
+        untouched). Closing a closed handle returns 0."""
         if self.closed:
             return 0
         lane, sid, eng = self._lane, self.stream_id, self._engine
@@ -334,6 +731,8 @@ class StreamHandle:
                 for i, entry in enumerate(rec.entries):
                     if entry is not None and entry[0] == sid:
                         rec.entries[i] = None
+                        if rec.items is not None:
+                            rec.items[i] = None
                         dropped += 1
         queued_dropped = len(lane.queues.pop(sid))
         dropped += queued_dropped
@@ -348,11 +747,16 @@ class StreamHandle:
                 lane.state_streams[j] = _FREE
         lane.parked.pop(sid, None)
         lane.stateful.discard(sid)
+        for key in [k for k in lane.retries if k[0] == sid]:
+            del lane.retries[key]
         eng.unpair_streams(sid)
         del eng._stream_lane[sid]
         eng._seq.pop(sid, None)
         eng._handles.pop(sid, None)
         eng.stream_stats[sid].queued -= queued_dropped
+        forget = getattr(eng.policy, "forget", None)
+        if forget is not None:
+            forget(sid)
         self.closed = True
         return dropped
 
@@ -375,12 +779,12 @@ class StreamEngine:
     ``EngineConfig`` supplies ``max_streams`` (slots per lane, or a
     ``{modality: count}`` mapping whose missing lanes get 8),
     ``duration_us``, ``policy``/``fair_quantum``, ``pipeline_depth``,
-    ``window_ms``, ``coschedule`` and ``megastep`` (see the module
-    docstring); ``fuse_fc`` selects nothing for the built event engine
-    (fc1/fc2 always run through kernel K2, which is what either value
-    computes) and, as in the JAX package, is refused with ``engines=``.
-    ``mesh``, ``recovery`` and a policy that is not a port
-    :class:`SlotPolicy` raise ``NotImplementedError``.
+    ``window_ms``, ``recovery``, ``coschedule`` and ``megastep`` (see the
+    module docstring); ``fuse_fc`` selects nothing for the built event
+    engine (fc1/fc2 always run through kernel K2, which is what either
+    value computes) and, as in the JAX package, is refused with
+    ``engines=``. ``mesh`` is the one field that raises
+    ``NotImplementedError``.
     """
 
     def __init__(
@@ -399,16 +803,6 @@ class StreamEngine:
             raise TypeError(f"config must be an EngineConfig, got "
                             f"{type(config).__name__}")
         _refuse_unported(config)
-        if config.recovery is not None:
-            raise NotImplementedError(
-                "EngineConfig.recovery: fault recovery is not ported yet "
-                "(ROADMAP queue 1, item 7(b))")
-        if config.policy is not None and not isinstance(config.policy,
-                                                        SlotPolicy):
-            raise NotImplementedError(
-                f"policy {type(config.policy).__name__}: only the port's "
-                f"SlotPolicy subclasses are served; DeadlinePolicy is not "
-                f"ported yet (ROADMAP queue 1, item 7(a))")
         if engines is None:
             if params is None or cfg is None:
                 raise ValueError("give (params, cfg) or engines=")
@@ -451,6 +845,14 @@ class StreamEngine:
                     f"{sorted(e.modality for e in engines)})")
         self.config = config
         self.pipeline_depth = config.pipeline_depth
+        self.recovery: Optional[RecoveryConfig] = config.recovery
+        # Every recovery transition, in order: {"step", "kind": "retry" |
+        # "quarantine" | "lane_dead" | "requeue" | "lane_replaced",
+        # "modality", "stream", "seq", "error"}.
+        self.fault_log: List[dict] = []
+        # Failed results made during dispatch (synchronous retry
+        # exhaustion, dead-lane fail-fast), emitted by the next step().
+        self._pending_failures: List[StreamResult] = []
         self.policy = config.policy or FairQuantumPolicy(
             4 if config.fair_quantum is None else config.fair_quantum)
         self._lanes: Dict[str, EngineLane] = {}
@@ -465,6 +867,7 @@ class StreamEngine:
                 modality=e.modality, engine=e,
                 slots=[_FREE] * slots, slot_runs=[0] * slots,
                 waiting=deque(), queues={}, shape_keys=set(),
+                supports_state=hasattr(e, "init_state"),
                 state_streams=[_FREE] * slots)
         # Fusion pairing: ``_pairs`` maps each paired stream to its
         # partner (both directions); ``_pair_dispatch`` holds the step a
@@ -508,6 +911,10 @@ class StreamEngine:
         self.stats: Dict[str, float] = {
             "steps": 0, "windows": 0, "wall_s": 0.0,
         }
+        # The clock finite deadlines are read against for miss telemetry
+        # (policies order by deadline value only); a fleet control plane
+        # or a test may install a logical clock.
+        self.deadline_clock: Callable[[], float] = time.perf_counter
 
     # -- introspection ---------------------------------------------------
 
@@ -625,20 +1032,262 @@ class StreamEngine:
                     if k[0] == stream_id or k[0] == partner]:
             del self._pair_dispatch[key]
 
+    # -- fleet control-plane hooks -----------------------------------------
+
+    def telemetry(self, modality: Optional[str] = None) -> LaneTelemetry:
+        """A consistent view of one lane: queue depth, in-flight windows,
+        pooled sliding-horizon rates, fault counters, and every stream's
+        :class:`StreamStatsSnapshot`."""
+        lane = self._lane_named(modality)
+        snaps = {sid: self.stream_stats[sid].snapshot()
+                 for sid in lane.queues}
+        in_flight = sum(
+            1
+            for step_recs in self._inflight
+            for rec in step_recs if rec.lane is lane
+            for entry in rec.entries if entry is not None)
+        h_dated = sum(s.horizon_deadline_windows for s in snaps.values())
+        h_missed = sum(s.horizon_missed for s in snaps.values())
+        f_ticks = sum(s.fusion_ticks for s in snaps.values())
+        f_paired = sum(s.fusion_ticks_paired for s in snaps.values())
+        return LaneTelemetry(
+            modality=lane.modality,
+            slots=len(lane.slots),
+            occupied=sum(1 for s in lane.slots if s is not _FREE),
+            waiting=len(lane.waiting),
+            queued=lane.pending(),
+            in_flight=in_flight,
+            windows=sum(s.windows for s in snaps.values()),
+            windows_per_s=sum(s.windows_per_s for s in snaps.values()),
+            deadline_miss_rate=h_missed / h_dated if h_dated else 0.0,
+            streams=snaps,
+            retries=lane.n_retries,
+            quarantined=lane.n_quarantined,
+            dead=lane.dead,
+            paired_tick_rate=f_paired / f_ticks if f_ticks else 1.0)
+
+    def dead_letters(self, modality: Optional[str] = None
+                     ) -> List[DeadLetter]:
+        """The lane's quarantined windows, oldest first (a copy)."""
+        return list(self._lane_named(modality).dead_letter)
+
+    def resize_lane(self, modality: Optional[str] = None, *,
+                    slots: int, warm: bool = True) -> List[Hashable]:
+        """Change one lane's batch-slot count live; returns the streams
+        evicted from their slots (shrink only; they rejoin the FRONT of
+        the waiting line in slot order).
+
+        Safe between steps, in-flight pipelined steps included (they
+        collect positionally from the batch they were dispatched with).
+        Every live carry is parked and re-attached at the stream's next
+        dispatch, so stateful streams stay bitwise those of the
+        uninterrupted run. Policy bookkeeping is left as it is.
+
+        ``warm=True``: for every shape key the engine holds at the old
+        slot count, the same key at the new count is prepared through the
+        engine's ``warmup`` (on the card, its CUDA graph is captured here),
+        so no step after the resize pays for a capture. A key already
+        held is not captured again, so grow/shrink cycles between the same
+        counts add no graphs.
+        """
+        lane = self._lane_named(modality)
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        old = len(lane.slots)
+        if slots == old:
+            return []
+        if lane.state is not None:
+            for j, owner in enumerate(lane.state_streams):
+                if owner is not _FREE and owner in lane.stateful:
+                    lane.parked[owner] = {k: a[j]
+                                          for k, a in lane.state.items()}
+            lane.state = None
+            lane.zero_state = None
+        lane.state_streams = [_FREE] * slots
+        evicted: List[Hashable] = []
+        if slots > old:
+            lane.slots.extend([_FREE] * (slots - old))
+            lane.slot_runs.extend([0] * (slots - old))
+        else:
+            held = [(sid, run) for sid, run in
+                    zip(lane.slots, lane.slot_runs) if sid is not _FREE]
+            kept, dropped = held[:slots], held[slots:]
+            lane.slots = ([sid for sid, _ in kept]
+                          + [_FREE] * (slots - len(kept)))
+            lane.slot_runs = ([run for _, run in kept]
+                              + [0] * (slots - len(kept)))
+            evicted = [sid for sid, _ in dropped]
+            lane.waiting.extendleft(reversed(evicted))
+        if warm:
+            warmer = getattr(lane.engine, "warmup", None)
+            compiled = getattr(lane.engine, "compiled_shape_keys", None)
+            if warmer is not None:
+                have = (set(compiled()) if compiled is not None
+                        else set(lane.shape_keys))
+                # Shape keys lead with the batch size (both wings'
+                # contract): re-key the old count's keys at the new one.
+                want = {(slots,) + tuple(k[1:])
+                        for k in have if k and k[0] == old}
+                fresh = sorted(want - have)
+                if fresh:
+                    warmer(fresh)
+        return evicted
+
+    def drain_lane(self, modality: Optional[str] = None
+                   ) -> List[StreamResult]:
+        """Collect every in-flight pipelined step of ONE lane (oldest
+        first), leaving other lanes' dispatched work in flight (in order;
+        steps left empty are dropped). A collect failure without recovery
+        leaves exactly the uncollected records in flight."""
+        lane = self._lane_named(modality)
+        out: List[StreamResult] = []
+        done: Deque[List[_InflightLane]] = deque()
+        try:
+            while self._inflight:
+                step_recs = self._inflight[0]
+                i = 0
+                while i < len(step_recs):
+                    rec = step_recs[i]
+                    if rec.lane is lane:
+                        out.extend(self._collect_one(rec))
+                        step_recs.pop(i)
+                    else:
+                        i += 1
+                self._inflight.popleft()
+                if step_recs:
+                    done.append(step_recs)
+        finally:
+            self._inflight.extendleft(reversed(done))
+        return out
+
+    def abort_lane(self, modality: Optional[str] = None) -> int:
+        """Drop one lane's in-flight records without collecting them (the
+        lane's engine is presumed broken) and re-queue their windows at
+        their sequence positions; returns the re-queued count. Other
+        lanes' steps stay in flight. The lane's carried state is dropped
+        (it lived on the broken engine): restore stateful streams from
+        checkpoints, or they restart cold. The dropped records' device
+        work still runs; their staging buffers keep their guards (the
+        buffers belong to the engine's cache, not to the records)."""
+        lane = self._lane_named(modality)
+        requeue: List[tuple] = []
+        remaining: Deque[List[_InflightLane]] = deque()
+        while self._inflight:
+            step_recs = self._inflight.popleft()
+            rest = [r for r in step_recs if r.lane is not lane]
+            for rec in step_recs:
+                if rec.lane is not lane:
+                    continue
+                for i, entry in enumerate(rec.entries):
+                    if entry is None:
+                        continue
+                    if rec.items is not None and rec.items[i] is not None:
+                        requeue.append((entry[0], rec.items[i]))
+            if rest:
+                remaining.append(rest)
+        self._inflight = remaining
+        lane.state = None
+        lane.zero_state = None
+        lane.state_streams = [_FREE] * len(lane.slots)
+        lane.parked.clear()
+        self._requeue(lane, requeue)
+        return len(requeue)
+
+    def replace_lane_engine(self, modality: Optional[str] = None, *,
+                            engine: InferenceEngine) -> None:
+        """Swap one lane's engine for a rebuilt one, clearing the lane's
+        fault state (dead flag, fail streak, cooldown, retry counters; the
+        dead letters are history and stay). Streams, queues, slots and
+        policy bookkeeping survive; carried state does not (restore
+        stateful streams from checkpoints afterwards).
+
+        The lane must have no windows in flight (``abort_lane`` or
+        ``drain_lane`` first). The replacement must serve the same
+        modality, agree on the latched ``duration_us`` (an unlatched
+        replacement inherits it) and support carried state if the lane
+        has stateful streams; under the megastep it must support the fused
+        step on the other wing's device. On the card the old engine's
+        queued device work is waited for, and the megastep's graphs are
+        dropped, so the old engine's graphs and buffers are freed once the
+        caller lets go of it.
+        """
+        lane = self._lane_named(modality)
+        for step_recs in self._inflight:
+            for rec in step_recs:
+                if rec.lane is lane and any(
+                        e is not None for e in rec.entries):
+                    raise ValueError(
+                        f"lane {lane.modality!r} has in-flight windows; "
+                        f"abort_lane() or drain_lane() before replacing "
+                        f"its engine")
+        if engine.modality != lane.modality:
+            raise ValueError(
+                f"replacement engine serves modality "
+                f"{engine.modality!r}, lane is {lane.modality!r}")
+        if lane.stateful and not hasattr(engine, "init_state"):
+            raise ValueError(
+                f"lane {lane.modality!r} has stateful streams but the "
+                f"replacement engine has no carried-state support")
+        if lane.engine.duration_us is not None:
+            if engine.duration_us is None:
+                engine.duration_us = lane.engine.duration_us
+            elif engine.duration_us != lane.engine.duration_us:
+                raise ValueError(
+                    f"replacement duration_us={engine.duration_us} != "
+                    f"lane duration_us={lane.engine.duration_us}")
+        if self.megastep:
+            if not hasattr(engine, "_mega_parts"):
+                raise ValueError(
+                    f"replacement engine for lane {lane.modality!r} "
+                    f"({type(engine).__name__}) does not support the "
+                    f"fused megastep this engine is configured for")
+            if str(engine.device) != str(self._mega_graphs.device):
+                raise ValueError(
+                    f"replacement engine is on {engine.device}; the "
+                    f"megastep runs on {self._mega_graphs.device}")
+        old_device = getattr(lane.engine, "device", None)
+        if old_device is not None and torch.device(old_device).type == "cuda":
+            # Aborted records may still be running the old engine's
+            # graphs: let them finish before anything of it is freed.
+            torch.cuda.synchronize(old_device)
+        if self.megastep:
+            # The fused graphs were captured from the old engine's run
+            # function and buffers; the next fused step captures anew.
+            self._mega_graphs = GraphCache(self._mega_graphs.device)
+        lane.engine = engine
+        lane.supports_state = hasattr(engine, "init_state")
+        lane.shape_keys = set()
+        lane.state = None
+        lane.zero_state = None
+        lane.state_streams = [_FREE] * len(lane.slots)
+        lane.parked.clear()
+        lane.dead = False
+        lane.fail_streak = 0
+        lane.cooldown = 0
+        lane.retries.clear()
+        self._log_fault("lane_replaced", lane, None, None, None)
+
     # -- streams -----------------------------------------------------------
 
     def open(self, modality: Optional[str] = None, *,
              stream_id: Optional[Hashable] = None,
-             stateful: bool = False) -> StreamHandle:
+             stateful: bool = False,
+             deadline: Optional[float] = None) -> StreamHandle:
         """Open a new stream and return its :class:`StreamHandle`.
 
         ``modality`` selects the lane (optional when there is one).
         ``stateful=True`` carries the engine state (the event wing's LIF
         membranes) across the stream's windows until ``reset_state`` or
-        ``close``. ``stream_id`` names the stream (``"<modality>-<n>"``
+        ``close``. ``deadline`` is the handle's default per-window
+        deadline. ``stream_id`` names the stream (``"<modality>-<n>"``
         when omitted); an id that is already open raises.
         """
         lane = self._lane_named(modality)
+        if stateful and not lane.supports_state:
+            raise ValueError(
+                f"engine for modality {lane.modality!r} "
+                f"({type(lane.engine).__name__}) has no carried-state "
+                f"support (no init_state); open it stateless")
         if stream_id is None:
             while True:
                 stream_id = f"{lane.modality}-{self._auto_id}"
@@ -656,9 +1305,26 @@ class StreamEngine:
         self.stream_stats[stream_id] = StreamStats()
         if stateful:
             lane.stateful.add(stream_id)
-        handle = StreamHandle(self, lane, stream_id, stateful)
+        handle = StreamHandle(self, lane, stream_id, stateful, deadline)
         self._handles[stream_id] = handle
         return handle
+
+    def restore(self, ckpt, *,
+                stream_id: Optional[Hashable] = None) -> StreamHandle:
+        """Open a stream from a :class:`~repro_torch.serving.session.
+        StreamCheckpoint`: ``open`` + :meth:`StreamHandle.restore`. The
+        stream keeps the checkpoint's id (unless ``stream_id`` renames it)
+        and its default deadline; a failed restore closes the handle."""
+        handle = self.open(modality=ckpt.modality,
+                           stream_id=ckpt.stream_id
+                           if stream_id is None else stream_id,
+                           stateful=ckpt.stateful,
+                           deadline=ckpt.deadline)
+        try:
+            return handle.restore(ckpt)
+        except Exception:
+            handle.close()
+            raise
 
     def pending(self) -> int:
         """Windows queued across all streams."""
@@ -678,9 +1344,9 @@ class StreamEngine:
         with (``None`` when no stream of the lane is stateful, which
         serves the lane from the engine's zero state) and a
         ``commit(new_state)`` thunk that advances the lane's tracking once
-        the dispatch succeeded.
+        every lane's dispatch succeeded.
         """
-        if not lane.stateful:
+        if not lane.supports_state or not lane.stateful:
             return None, None
         if lane.state is None:       # first stateful dispatch: zero state
             lane.zero_state = lane.engine.init_state(len(lane.slots))
@@ -746,28 +1412,31 @@ class StreamEngine:
         """Serve one batch: the head window of every slotted stream.
 
         Synchronous (``pipeline_depth == 0``): returns this step's
-        results; queues are only peeked until the engine has returned, so
-        a failed step consumes nothing and can be retried. Pipelined:
+        results; queues are only peeked until every engine has returned,
+        so a failed step consumes nothing and can be retried. Pipelined:
         dispatches without waiting and returns the results of the step
         dispatched ``pipeline_depth`` steps ago.
         """
         t0 = time.perf_counter()
         if self.pipeline_depth == 0:
             ran = self._dispatch(eager=True)
-            if not ran:
+            failed = self._take_failures()
+            if not ran and not failed:
                 return []
-            out = self._collect(ran)
+            out = failed + self._collect(ran)
         else:
             ran = self._dispatch(eager=False)
             if ran:
                 self._inflight.append(ran)
-            out = []
+            out = self._take_failures()
             while len(self._inflight) > self.pipeline_depth:
-                out.extend(self._collect(self._inflight.popleft()))
+                out.extend(self._collect_step(self._inflight[0]))
+                self._inflight.popleft()
             if not ran and self._inflight:
                 # No new work: drain one in-flight step so a caller
                 # looping on step() always makes progress.
-                out.extend(self._collect(self._inflight.popleft()))
+                out.extend(self._collect_step(self._inflight[0]))
+                self._inflight.popleft()
             if not ran and not out:
                 return []
         self.stats["steps"] += 1
@@ -775,18 +1444,29 @@ class StreamEngine:
         return out
 
     def _dispatch(self, *, eager: bool) -> List[_InflightLane]:
-        """Assign every lane's slots (then, with fusion pairs, seat paired
-        wings together), run (``eager``) or queue every lane's batch --
-        with ``megastep``, both wings through one fused call when both
-        have work -- and pop the served heads only after every lane
-        succeeded."""
+        """Assign every servable lane's slots (then, with fusion pairs,
+        seat paired wings together), run (``eager``) or queue every lane's
+        batch -- with ``megastep``, both wings through one fused call when
+        both have work -- and pop the served heads only after every lane's
+        dispatch returned. Under recovery a dead lane fails its queue fast
+        and a cooling lane sits the step out; a failing lane is charged a
+        retry and skipped, the others still served."""
         self._dispatch_no += 1
+        active: List[EngineLane] = []
         for lane in self._lanes.values():
+            if self.recovery is not None:
+                if lane.dead:
+                    self._fail_fast_lane(lane)
+                    continue
+                if lane.cooldown > 0:
+                    lane.cooldown -= 1
+                    continue
             self.policy.assign(lane)
+            active.append(lane)
         if self._pairs and self.coschedule:
-            self._coschedule()
+            self._coschedule(active)
         work = []
-        for lane in self._lanes.values():
+        for lane in active:
             heads = [lane.queues[sid][0].item if sid is not _FREE else None
                      for sid in lane.slots]
             if any(w is not None for w in heads):
@@ -797,10 +1477,27 @@ class StreamEngine:
             # Both wings have work (the megastep has exactly the event and
             # frame lanes): one fused call serves the step. A step with
             # work on one lane takes the per-lane path below.
-            ran, commits = self._mega_dispatch(work, eager)
-            work = []
+            try:
+                recs, mega_commits = self._mega_dispatch(work, eager)
+            except Exception:
+                if self.recovery is None:
+                    raise
+                # A fault in either wing aborts the fused call with every
+                # queue and carry untouched: serve this step through the
+                # per-lane graphs, where the fault lands on its own lane.
+                recs = None
+            if recs is not None:
+                ran.extend(recs)
+                commits.extend(mega_commits)
+                work = []
         for lane, heads in work:
-            rec, commit = self._dispatch_lane(lane, heads, eager)
+            try:
+                rec, commit = self._dispatch_lane(lane, heads, eager)
+            except Exception as exc:
+                if self.recovery is None:
+                    raise
+                self._note_lane_failure(lane, heads, exc)
+                continue
             ran.append(rec)
             if commit is not None:
                 commits.append(commit)
@@ -808,6 +1505,7 @@ class StreamEngine:
             commit(new_state)
         for rec in ran:
             lane = rec.lane
+            rec.items = [None] * len(rec.entries)
             for i, slot in enumerate(rec.entries):
                 if slot is None:
                     continue
@@ -815,27 +1513,31 @@ class StreamEngine:
                 entry = lane.queues[sid].popleft()
                 lane.slot_runs[slot] += 1
                 self.stream_stats[sid].queued -= 1
-                rec.entries[i] = (sid, entry.seq)
+                rec.entries[i] = (sid, entry.seq, entry.deadline)
+                rec.items[i] = entry
                 if self._pairs:
                     self._note_pair_dispatch(sid, entry.seq)
         return ran
 
-    def _coschedule(self) -> None:
+    def _coschedule(self, lanes: List[EngineLane]) -> None:
         """After slot assignment: for every paired stream holding a slot
         with queued work, pull its partner into the partner's lane for
         this same step -- into a free slot, else by evicting a seated
         stream that is not itself half of a seated pair (the evictee goes
-        to the front of its waiting line). Scheduling only: which step
-        serves a window moves, its result does not."""
-        for lane in self._lanes.values():
+        to the front of its waiting line). Dead, cooling or idle partner
+        lanes are left alone. Scheduling only: which step serves a window
+        moves, its result does not."""
+        by_mod = {lane.modality: lane for lane in lanes}
+        for lane in lanes:
             for sid in lane.slots:
                 if sid is _FREE or not lane.queues.get(sid):
                     continue
                 partner = self._pairs.get(sid)
                 if partner is None:
                     continue
-                plane = self._lanes[self._stream_lane[partner]]
-                if partner in plane.slots or not plane.queues.get(partner):
+                plane = by_mod.get(self._stream_lane.get(partner))
+                if (plane is None or partner in plane.slots
+                        or not plane.queues.get(partner)):
                     continue
                 self._seat_partner(plane, partner)
 
@@ -847,19 +1549,27 @@ class StreamEngine:
         if free is None:
             for i, cur in enumerate(lane.slots):
                 p = self._pairs.get(cur)
-                if p is None or p not in self._lanes[
-                        self._stream_lane[p]].slots:
+                if p is None:
+                    free = i
+                    break
+                plane = self._lanes.get(self._stream_lane.get(p, ""))
+                if plane is None or p not in plane.slots:
                     free = i
                     break
             if free is None:
                 return False
             evicted = lane.slots[free]
+            lane.slot_runs[free] = 0
             if lane.queues.get(evicted):
                 lane.waiting.appendleft(evicted)
         lane.slots[free] = sid
         lane.slot_runs[free] = 0
         if sid in lane.waiting:
             lane.waiting.remove(sid)
+        # As if the policy had taken it: a seated stream's aging restarts.
+        forget = getattr(self.policy, "forget", None)
+        if forget is not None:
+            forget(sid)
         return True
 
     def _note_pair_dispatch(self, sid: Hashable, seq: int) -> None:
@@ -874,9 +1584,10 @@ class StreamEngine:
             return
         paired = int(other_step == self._dispatch_no)
         for s in (sid, partner):
-            st = self.stream_stats[s]
-            st.fusion_ticks += 1
-            st.fusion_ticks_paired += paired
+            st = self.stream_stats.get(s)
+            if st is not None:
+                st.fusion_ticks += 1
+                st.fusion_ticks_paired += paired
 
     def _dispatch_lane(self, lane: EngineLane, heads: List, eager: bool):
         """One lane's dispatch: ``(record, (commit, new_state) or None)``;
@@ -885,28 +1596,49 @@ class StreamEngine:
         batch = engine.prepare(heads, batch_size=len(lane.slots))
         key = engine.shape_key(batch)
         state_in, state_commit = self._lane_state_in(lane)
+        dispatch = getattr(engine, "infer_dispatch", None)
+        has_split = (dispatch is not None
+                     and getattr(engine, "infer_collect", None) is not None)
         new_state = None
-        if eager:
+        if eager or (state_in is not None and not has_split):
+            # Synchronous infer; a stateful engine without the split also
+            # lands here when pipelined, so its carry advances in order.
             if state_in is None:
                 kind, pending = "results", engine.infer(batch)
             else:
                 results, new_state = engine.infer(batch, state_in)
                 kind, pending = "results", results
-        elif state_in is None:
-            kind, pending = "handle", engine.infer_dispatch(batch)
+        elif has_split:
+            if state_in is None:
+                kind, pending = "handle", dispatch(batch)
+            else:
+                # new_state is device tensors still being computed; the
+                # next dispatch consumes them in stream order.
+                pending, new_state = dispatch(batch, state_in)
+                kind = "handle"
         else:
-            # new_state is device tensors still being computed; the next
-            # dispatch consumes them in stream order, with no host wait.
-            pending, new_state = engine.infer_dispatch(batch, state_in)
-            kind = "handle"
+            kind, pending = "batch", batch
         rec = _InflightLane(
             lane=lane, key=key,
             entries=[None if w is None else slot
                      for slot, w in enumerate(heads)],
-            kind=kind, pending=pending)
+            kind=kind, pending=pending,
+            prev_carry=self._prev_carry(lane, heads, state_in))
         commit = ((state_commit, new_state)
                   if state_commit is not None else None)
         return rec, commit
+
+    def _prev_carry(self, lane: EngineLane, heads: List, state_in):
+        """Under recovery, each dispatched stateful stream's pre-window
+        carry: rows (views) of ``state_in``, which is the lane's state or
+        a fresh stack of rows, never a graph's static input, a staging
+        buffer or a replay's own memory, and which nothing writes."""
+        if self.recovery is None or state_in is None:
+            return None
+        return {sid: {k: a[slot] for k, a in state_in.items()}
+                for slot, sid in enumerate(lane.slots)
+                if (sid is not _FREE and sid in lane.stateful
+                    and heads[slot] is not None)}
 
     def _mega_executable(self, ev_lane: EngineLane, fr_lane: EngineLane,
                          ev_key, fr_key) -> Callable:
@@ -933,8 +1665,8 @@ class StreamEngine:
     def _mega_dispatch(self, work: List[tuple], eager: bool) -> tuple:
         """Both wings' dispatch through one fused call; returns
         ``(records, state_commits)`` shaped exactly as two ordinary
-        per-lane dispatches, so collection and pipelining downstream are
-        unchanged. Raises with every queue untouched."""
+        per-lane dispatches, so collection, recovery and pipelining
+        downstream are unchanged. Raises with every queue untouched."""
         by_mod = {lane.modality: (lane, heads) for lane, heads in work}
         ev_lane, ev_heads = by_mod["event"]
         fr_lane, fr_heads = by_mod["frame"]
@@ -965,16 +1697,17 @@ class StreamEngine:
             ev_kind = fr_kind = "handle"
         recs: List[_InflightLane] = []
         commits: List[tuple] = []
-        for lane, heads, key, kind, pending, commit, new in (
-                (ev_lane, ev_heads, ev_key, ev_kind, ev_pending, ev_commit,
-                 ev_new),
-                (fr_lane, fr_heads, fr_key, fr_kind, fr_pending, fr_commit,
-                 fr_new)):
+        for lane, heads, key, kind, pending, state_in, commit, new in (
+                (ev_lane, ev_heads, ev_key, ev_kind, ev_pending, ev_state,
+                 ev_commit, ev_new),
+                (fr_lane, fr_heads, fr_key, fr_kind, fr_pending, fr_state,
+                 fr_commit, fr_new)):
             recs.append(_InflightLane(
                 lane=lane, key=key,
                 entries=[None if w is None else slot
                          for slot, w in enumerate(heads)],
-                kind=kind, pending=pending))
+                kind=kind, pending=pending,
+                prev_carry=self._prev_carry(lane, heads, state_in)))
             if commit is not None:
                 commits.append((commit, new))
         # Records in lane declaration order, exactly as the per-lane path
@@ -987,30 +1720,253 @@ class StreamEngine:
         """Wait for a dispatched step's results and emit them."""
         out: List[StreamResult] = []
         for rec in ran:
-            lane = rec.lane
-            results = (rec.pending if rec.kind == "results"
-                       else lane.engine.infer_collect(rec.pending))
-            lane.shape_keys.add(rec.key)
-            for slot, entry in enumerate(rec.entries):
-                if entry is None:
-                    continue
-                sid, seq = entry
-                res = results[slot]
-                st = self.stream_stats[sid]
-                st.windows += 1
-                st.energy_mj += res.energy_mj
-                st.latency_ms_sum += res.latency_ms
-                st.realtime_windows += int(res.realtime)
-                out.append(StreamResult(stream_id=sid, seq=seq, result=res,
-                                        modality=lane.modality))
-                self.stats["windows"] += 1
+            out.extend(self._collect_one(rec))
         return out
+
+    def _collect_step(self, step_recs: List[_InflightLane]
+                      ) -> List[StreamResult]:
+        """Collect one in-flight step's records, removing each from the
+        (still queued) step as it lands, so an exception without recovery
+        leaves exactly the uncollected records in flight."""
+        out: List[StreamResult] = []
+        while step_recs:
+            out.extend(self._collect_one(step_recs[0]))
+            step_recs.pop(0)
+        return out
+
+    def _collect_one(self, rec: _InflightLane) -> List[StreamResult]:
+        """Collect one lane's record of one dispatched step."""
+        lane = rec.lane
+        try:
+            if rec.kind == "results":
+                results = rec.pending
+            elif rec.kind == "handle":
+                results = lane.engine.infer_collect(rec.pending)
+            else:
+                results = lane.engine.infer(rec.pending)
+        except Exception as exc:
+            if self.recovery is None:
+                raise
+            return self._recover_record(rec, exc)
+        lane.shape_keys.add(rec.key)
+        lane.fail_streak = 0
+        out: List[StreamResult] = []
+        wall_t = time.perf_counter()
+        rcfg = self.recovery
+        for slot, entry in enumerate(rec.entries):
+            if entry is None:
+                continue
+            sid, seq, deadline = entry
+            res = results[slot]
+            if (rcfg is not None and rcfg.quarantine_nonfinite
+                    and res.logits is not None
+                    and not np.all(np.isfinite(np.asarray(res.logits)))):
+                # NaNs are deterministic (a retry would recompute them):
+                # quarantine at once, roll the carry back.
+                out.append(self._quarantine_entry(
+                    rec, slot, "non-finite logits"))
+                continue
+            lane.retries.pop((sid, seq), None)
+            st = self.stream_stats[sid]
+            st.windows += 1
+            st.energy_mj += res.energy_mj
+            st.latency_ms_sum += res.latency_ms
+            st.realtime_windows += int(res.realtime)
+            missed = (None if deadline is None
+                      else self.deadline_clock() > deadline)
+            st.note_completion(wall_t, st.queued, missed)
+            out.append(StreamResult(stream_id=sid, seq=seq, result=res,
+                                    modality=lane.modality))
+            self.stats["windows"] += 1
+        return out
+
+    # -- fault recovery --------------------------------------------------
+
+    def _log_fault(self, kind: str, lane: EngineLane,
+                   sid: Optional[Hashable], seq: Optional[int],
+                   error: Optional[str]) -> None:
+        self.fault_log.append({
+            "step": int(self.stats["steps"]), "kind": kind,
+            "modality": lane.modality, "stream": sid, "seq": seq,
+            "error": error})
+
+    def _take_failures(self) -> List[StreamResult]:
+        out, self._pending_failures = self._pending_failures, []
+        return out
+
+    def _rollback_carry(self, rec: _InflightLane, sid: Hashable) -> None:
+        """Park a stream's pre-window carry (captured at this record's
+        dispatch) and orphan any state row it owns."""
+        lane = rec.lane
+        if rec.prev_carry is None or sid not in rec.prev_carry:
+            return
+        lane.parked[sid] = rec.prev_carry[sid]
+        for j, owner in enumerate(lane.state_streams):
+            if owner is not _FREE and owner == sid:
+                lane.state_streams[j] = _FREE
+
+    def _scrub_stream_inflight(self, lane: EngineLane, sid: Hashable,
+                               skip: Optional[_InflightLane] = None
+                               ) -> List[tuple]:
+        """Remove a stream's windows from the lane's still-in-flight
+        records (they chained on a rolled-back carry); returns ``(sid,
+        _Queued)`` rows to re-queue."""
+        requeue: List[tuple] = []
+        for step_recs in self._inflight:
+            for r in step_recs:
+                if r is skip or r.lane is not lane:
+                    continue
+                for i, entry in enumerate(r.entries):
+                    if entry is not None and entry[0] == sid:
+                        r.entries[i] = None
+                        if r.items is not None and r.items[i] is not None:
+                            requeue.append((sid, r.items[i]))
+                            r.items[i] = None
+        return requeue
+
+    def _requeue(self, lane: EngineLane, entries: List[tuple]) -> None:
+        """Put failed windows back on their streams' queues at their
+        sequence positions (a stable merge by seq)."""
+        by_sid: Dict[Hashable, List[_Queued]] = {}
+        for sid, q in entries:
+            by_sid.setdefault(sid, []).append(q)
+        for sid, qs in by_sid.items():
+            if sid not in lane.queues:
+                continue             # stream closed while in flight
+            lane.queues[sid] = deque(sorted(
+                list(lane.queues[sid]) + qs, key=lambda e: e.seq))
+            self.stream_stats[sid].queued += len(qs)
+            if sid not in lane.slots and sid not in lane.waiting:
+                lane.waiting.append(sid)
+            for q in qs:
+                self._log_fault("requeue", lane, sid, q.seq, None)
+
+    def _quarantine_entry(self, rec: _InflightLane, slot: int,
+                          error: str) -> StreamResult:
+        """Dead-letter one window of a collected record: emit its failed
+        result, roll the stream's carry back, and pull the stream's
+        still-in-flight successors (chained on the poisoned carry) back
+        onto its queue."""
+        lane = rec.lane
+        sid, seq, deadline = rec.entries[slot]
+        item = None
+        if rec.items is not None and rec.items[slot] is not None:
+            item = rec.items[slot].item
+        lane.retries.pop((sid, seq), None)
+        lane.dead_letter.append(DeadLetter(
+            stream_id=sid, seq=seq, modality=lane.modality, item=item,
+            deadline=deadline, error=error))
+        lane.n_quarantined += 1
+        self.stream_stats[sid].quarantined += 1
+        self._log_fault("quarantine", lane, sid, seq, error)
+        if sid in lane.stateful:
+            self._rollback_carry(rec, sid)
+            self._requeue(lane,
+                          self._scrub_stream_inflight(lane, sid, skip=rec))
+        return StreamResult(
+            stream_id=sid, seq=seq, result=None, modality=lane.modality,
+            status="failed", error=error)
+
+    def _recover_record(self, rec: _InflightLane,
+                        exc: Exception) -> List[StreamResult]:
+        """A record failed at collect (pipelined): re-queue its windows
+        (carries rolled back) for a retry, or quarantine those past
+        ``max_retries``; back the lane off and maybe declare it dead."""
+        lane = rec.lane
+        rcfg = self.recovery
+        err = f"{type(exc).__name__}: {exc}"
+        out: List[StreamResult] = []
+        requeue: List[tuple] = []
+        for slot, entry in enumerate(rec.entries):
+            if entry is None:
+                continue
+            sid, seq, _deadline = entry
+            count = lane.retries.get((sid, seq), 0) + 1
+            if count > rcfg.max_retries:
+                out.append(self._quarantine_entry(rec, slot, err))
+                continue
+            lane.retries[(sid, seq)] = count
+            lane.n_retries += 1
+            self.stream_stats[sid].retries += 1
+            self._log_fault("retry", lane, sid, seq, err)
+            if sid in lane.stateful:
+                self._rollback_carry(rec, sid)
+                requeue.extend(
+                    self._scrub_stream_inflight(lane, sid, skip=rec))
+            if rec.items is not None and rec.items[slot] is not None:
+                requeue.append((sid, rec.items[slot]))
+        self._requeue(lane, requeue)
+        lane.fail_streak += 1
+        lane.cooldown = max(lane.cooldown, rcfg.backoff_steps)
+        if lane.fail_streak >= rcfg.dead_after and not lane.dead:
+            lane.dead = True
+            self._log_fault("lane_dead", lane, None, None, err)
+        return out
+
+    def _note_lane_failure(self, lane: EngineLane, heads: List,
+                           exc: Exception) -> None:
+        """A lane's synchronous dispatch failed with its queues untouched:
+        charge a retry to each window of the attempted batch, quarantine
+        those over budget, back the lane off."""
+        rcfg = self.recovery
+        err = f"{type(exc).__name__}: {exc}"
+        for slot, sid in enumerate(lane.slots):
+            if sid is _FREE or heads[slot] is None:
+                continue
+            entry = lane.queues[sid][0]
+            count = lane.retries.get((sid, entry.seq), 0) + 1
+            if count > rcfg.max_retries:
+                lane.queues[sid].popleft()
+                self.stream_stats[sid].queued -= 1
+                lane.retries.pop((sid, entry.seq), None)
+                lane.dead_letter.append(DeadLetter(
+                    stream_id=sid, seq=entry.seq, modality=lane.modality,
+                    item=entry.item, deadline=entry.deadline, error=err))
+                lane.n_quarantined += 1
+                self.stream_stats[sid].quarantined += 1
+                self._log_fault("quarantine", lane, sid, entry.seq, err)
+                self._pending_failures.append(StreamResult(
+                    stream_id=sid, seq=entry.seq, result=None,
+                    modality=lane.modality, status="failed", error=err))
+                continue
+            lane.retries[(sid, entry.seq)] = count
+            lane.n_retries += 1
+            self.stream_stats[sid].retries += 1
+            self._log_fault("retry", lane, sid, entry.seq, err)
+        lane.fail_streak += 1
+        lane.cooldown = max(lane.cooldown, rcfg.backoff_steps)
+        if lane.fail_streak >= rcfg.dead_after and not lane.dead:
+            lane.dead = True
+            self._log_fault("lane_dead", lane, None, None, err)
+
+    def _fail_fast_lane(self, lane: EngineLane) -> None:
+        """Dead-lane mode: dead-letter everything queued without touching
+        the engine, emitting failed results at once so callers (and
+        fusion pairing) keep ticking."""
+        for sid in list(lane.queues):
+            q = lane.queues[sid]
+            while q:
+                entry = q.popleft()
+                self.stream_stats[sid].queued -= 1
+                lane.dead_letter.append(DeadLetter(
+                    stream_id=sid, seq=entry.seq, modality=lane.modality,
+                    item=entry.item, deadline=entry.deadline,
+                    error="lane dead"))
+                lane.n_quarantined += 1
+                self.stream_stats[sid].quarantined += 1
+                self._log_fault("quarantine", lane, sid, entry.seq,
+                                "lane dead")
+                self._pending_failures.append(StreamResult(
+                    stream_id=sid, seq=entry.seq, result=None,
+                    modality=lane.modality, status="failed",
+                    error="lane dead"))
 
     def flush(self) -> List[StreamResult]:
         """Collect every in-flight pipelined step (oldest first)."""
         out: List[StreamResult] = []
         while self._inflight:
-            out.extend(self._collect(self._inflight.popleft()))
+            out.extend(self._collect_step(self._inflight[0]))
+            self._inflight.popleft()
         return out
 
     def run(self) -> List[StreamResult]:

@@ -240,14 +240,31 @@ def test_fuse_fc_values_serve_the_same_bits(params, streams, served):
 
 
 def test_unported_config_fields_raise(params):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamEngine(params, CFG, EngineConfig(recovery=RecoveryConfig()),
-                     device="cpu")
+    """Only ``mesh`` is still refused. ``recovery`` and ``DeadlinePolicy``
+    build an engine, and a bad policy is refused as the JAX package
+    refuses it."""
+    from repro.core._api import EngineConfig as JConfig
+    from repro.serving import DeadlinePolicy as JDeadline
+
+    from repro_torch.serving import DeadlinePolicy
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamEngine(params, CFG, EngineConfig(mesh=object()), device="cpu")
-    with pytest.raises(NotImplementedError, match="DeadlinePolicy"):
-        StreamEngine(params, CFG, EngineConfig(policy=object()),
-                     device="cpu")
+    eng = StreamEngine(params, CFG, EngineConfig(
+        recovery=RecoveryConfig(max_retries=1), policy=DeadlinePolicy()),
+        device="cpu")
+    assert eng.recovery.max_retries == 1 and eng.fault_log == []
+    assert isinstance(eng.policy, DeadlinePolicy)
+    for config in (EngineConfig, JConfig):
+        with pytest.raises(ValueError, match="fair_quantum"):
+            config(policy=DeadlinePolicy(), fair_quantum=2)
+    for policy in (DeadlinePolicy, JDeadline):
+        with pytest.raises(ValueError, match="aging"):
+            policy(aging=-1.0)
+        with pytest.raises(ValueError, match="max_wait"):
+            policy(max_wait=0)
+    with pytest.raises(TypeError, match="RecoveryConfig"):
+        EngineConfig(recovery=object())
     with pytest.raises(ValueError, match="duration"):
         eng = _engine(params, 0)
         h = eng.open()
