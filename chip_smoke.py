@@ -75,7 +75,26 @@ non-zero:
      checkpoint and restore, capture ms and pool bytes after the resize
      cycles, memory allocated around replace_lane_engine, the ms of a
      retried step; K1, K2, K3 and the currents entry must launch;
-  7. the LM slice (``lm_slice``): K4 against its plain version on the
+  7. the fleet control plane (``fleet``), at full width with graphs on,
+     every gate bit for bit: a live migration through a CheckpointStore
+     from a 2-slot to a 4-slot engine at depths 0 and 1 (rows from before
+     the move, from the lane drain and from the target against the
+     uninterrupted run), and a stream moved back and forth 10 times; a
+     FleetRebalancer over a hot and a cold engine against the static
+     fleet (tests/test_fleet_soak.py at full width: it migrates, misses
+     fewer deadlines, persistent streams bitwise, telemetry reads never
+     synchronize); a LaneAutoscaler growing an event lane 2 -> 4 -> 8 ->
+     16 and shrinking it back, twice (rows against the unresized run, the
+     graph keys exactly those visited, the second cycle capturing nothing
+     and reserving no more bytes); a LaneSupervisor rebuilding a killed
+     event lane three times beside a frame lane (each restore within 2
+     ticks, successful windows bitwise and reported once, frame rows
+     unchanged, memory allocated after the third rebuild within 1 MiB of
+     that after the first). Reported: migration ms by part with and
+     without a step in flight, each resize's ms, capture ms and pool
+     bytes, each recovery's ms by part, memory after each kill, and the
+     host us of the autoscaler's and the rebalancer's ``observe()``;
+  8. the LM slice (``lm_slice``): K4 against its plain version on the
      card bit for bit (prefill and decode calls, T=4, ragged T, chaining
      inside a time chunk, hd=32 and hd=16, unaligned inputs, B=1 rows); the rwkv6-7b widths at a depth of 2 layers in f32 on the card
      against the port's CPU run (forward logits, stepped decode, greedy
@@ -89,7 +108,7 @@ non-zero:
      at M=8,192 prefill rows on its serial path),
      decode and prefill tokens/s, and profiles of bf16 and ternary decode
      steps (busy share, K3's device ms a step);
-  8. the ``kernels`` line, then the card line, then the ``ok`` line.
+  9. the ``kernels`` line, then the card line, then the ``ok`` line.
 
 Weights are random from a numpy seed. For the event wing's served
 comparison they are rounded to multiples of 2**-8: every conv and fc
@@ -101,12 +120,14 @@ The frame wing's convs sum normalized pixels, which no weight grid makes
 exact, so a few of its ternary activations may flip between devices;
 the phase counts them and bounds their effect on the logits.
 """
+import gc
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -180,6 +201,7 @@ def main() -> int:
     fe = frame_end_to_end(torch, dev)
     graphs_phase(torch, dev, k1, k2, k3, smi, times["end_to_end"], fe)
     surface = serving_surface(torch, dev, k1, k2, k3, smi)
+    fleet = fleet_phase(torch, dev, k1, k2, k3, smi)
     lm = lm_slice(torch, dev, k3, k4)
 
     kernels = [
@@ -188,12 +210,14 @@ def main() -> int:
              replaces="src/repro/kernels/lif_scan.py:111",
              launches=served["launches"]["lif_scan"],
              serving_surface_launches=surface["lif_scan"],
+             fleet_launches=fleet["lif_scan"],
              max_abs_err=err["lif_scan"], **times["lif_scan"]),
         dict(name="fc_lif_scan", route="cuda",
              source="src/repro_torch/csrc/fc_lif_scan.cu",
              replaces="src/repro/kernels/fc_lif_scan.py:131",
              launches=served["launches"]["fc_lif_scan"],
              serving_surface_launches=surface["fc_lif_scan"],
+             fleet_launches=fleet["fc_lif_scan"],
              max_abs_err=err["fc_lif_scan"], **times["fc_lif_scan"]),
         dict(name="fc_currents", entry_of="fc_lif_scan", route="cuda",
              source="src/repro_torch/csrc/fc_lif_scan.cu",
@@ -201,6 +225,7 @@ def main() -> int:
              note="no TPU kernel: the JAX package leaves s3 @ w to XLA",
              launches=fused["launches"]["fc_currents"],
              serving_surface_launches=surface["fc_currents"],
+             fleet_launches=fleet["fc_currents"],
              max_abs_err=err["fc_currents"], **times["fc_currents"]),
         dict(name="ternary_matmul", route="cuda",
              source="src/repro_torch/csrc/ternary_matmul.cu",
@@ -208,6 +233,7 @@ def main() -> int:
              launches=(fused["launches"]["ternary_matmul"]
                        + lm["launches"]["ternary_matmul"]),
              serving_surface_launches=surface["ternary_matmul"],
+             fleet_launches=fleet["ternary_matmul"],
              max_abs_err=max(err["ternary_matmul"],
                              lm["max_abs_err"]["ternary_matmul"]),
              **times["ternary_matmul"]),
@@ -1879,7 +1905,6 @@ def _surface_replace(torch, sf, device, abort=True, n=4):
     info["requeued"] = eng.abort_lane("event")
     info["megastep_keys_before"] = len(eng.compiled_megastep_keys())
     if device != "cpu":
-        import gc
         gc.collect()
         torch.cuda.synchronize()
         info["allocated_bytes_before_replace"] = \
@@ -2098,7 +2123,586 @@ def serving_surface(torch, dev, k1, k2, k3, smi):
 
 
 # ----------------------------------------------------------------------
-# Phase 7: the LM slice -- RWKV-6 serving through K4 (and K3 on the
+# Phase 7: the fleet control plane -- live migration, rebalancing,
+# autoscaling and supervised recovery, driving the engines' graphs.
+# ----------------------------------------------------------------------
+
+def _event_engine(sf, device, slots, depth=0, **config):
+    """A one-lane event engine of ``slots`` slots, its key captured."""
+    return _surface_engine(sf, device, lanes=("event",), slots=slots,
+                           pipeline_depth=depth, **config)
+
+
+def _fleet_rows(rows):
+    """{(stream, seq): StreamResult} of a list of rows; a (stream, seq)
+    reported twice fails the run."""
+    out = {}
+    for r in rows:
+        check((r.stream_id, r.seq) not in out,
+              f"({r.stream_id!r}, {r.seq}) reported twice")
+        out[(r.stream_id, r.seq)] = r
+    return out
+
+
+def _fleet_diff(want, got):
+    """What differs between two {(stream, seq): result} maps: missing and
+    extra keys, ``_compare`` over the common ones, and up to 8 windows
+    whose label, logits, PWM or energy differ."""
+    common = sorted(set(want) & set(got))
+    bad = []
+    for k in common:
+        fields = [f for f in ("label_pred", "logits", "pwm")
+                  if not np.array_equal(getattr(want[k], f),
+                                        getattr(got[k], f))]
+        if want[k].energy_mj != got[k].energy_mj:
+            fields.append("energy_mj")
+        if fields:
+            bad.append([str(k[0]), int(k[1]), fields])
+    return dict(missing=len(set(want) - set(got)),
+                extra=len(set(got) - set(want)),
+                compare=_compare({k: want[k] for k in common},
+                                 {k: got[k] for k in common})
+                if common else None,
+                differing=len(bad), first_differing=bad[:8])
+
+
+def _bits_equal(want, got):
+    """Two {(stream, seq): result} maps hold the same windows, bit for
+    bit (labels, logits, PWM, energy)."""
+    d = _fleet_diff(want, got)
+    return d["missing"] == d["extra"] == d["differing"] == 0
+
+
+def _fleet_alone(sf, device, streams, slots=2):
+    """The uninterrupted run: every stream of ``streams`` ({id: windows})
+    opened stateful on one engine and served to the end."""
+    eng = _event_engine(sf, device, slots)
+    for sid, ws in streams.items():
+        h = eng.open(stream_id=sid, stateful=True)
+        for w in ws:
+            h.submit(w)
+    return _results(_drain(eng))
+
+
+def _fleet_migrate(sf, device, depth, n=4):
+    """(a): streams "mig" and "stay" (stateful) on a 2-slot hot engine;
+    two steps served, then "mig" moved to a 4-slot cold engine through a
+    CheckpointStore (at depth 1 with its next window in flight), and both
+    engines run dry. Returns ({origin: rows}, the streams' windows, the
+    record's migration_ms)."""
+    from repro_torch.fleet import CheckpointStore, migrate_stream
+    streams = dict(zip(("mig", "stay"), sf["windows"](2, n, SEED + 60)))
+    hot = _event_engine(sf, device, 2, depth)
+    cold = _event_engine(sf, device, 4, depth)
+    hs = {sid: hot.open(stream_id=sid, stateful=True) for sid in streams}
+    for k in range(n):
+        for sid, ws in streams.items():
+            hs[sid].submit(ws[k])
+    before = hot.step() + hot.step()
+    record = migrate_stream(hs["mig"], cold, store=CheckpointStore())
+    rows = dict(before=before, displaced=list(record.displaced),
+                hot_after=hot.run(), cold=cold.run())
+    return {k: _fleet_rows(v) for k, v in rows.items()}, streams, \
+        record.migration_ms
+
+
+def _timed_move(torch, handle, target, store, on_card):
+    """migrate_stream's steps one by one, each timed on the host (the
+    restore until its copies have run): ms of drain, checkpoint (with
+    the source's close), store put, restore, total; the new handle and
+    the displaced rows."""
+    t = [time.perf_counter()]
+    displaced = handle.engine.drain_lane(handle.modality)
+    t.append(time.perf_counter())
+    ckpt = handle.checkpoint()
+    handle.close()
+    t.append(time.perf_counter())
+    cid = store.put(ckpt)
+    t.append(time.perf_counter())
+    blob_bytes = len(store._blobs[cid])
+    new = store.restore_into(target, cid)
+    if on_card:
+        torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    ms = dict(zip(("drain", "checkpoint", "put", "restore"),
+                  (float(x) * 1e3 for x in np.diff(t))))
+    ms["total"] = (t[-1] - t[0]) * 1e3
+    ms["blob_bytes"] = blob_bytes
+    return new, displaced, ms
+
+
+def _fleet_pingpong(torch, sf, device, depth, on_card, reps=10):
+    """One stateful stream moved back and forth between a 2-slot and a
+    4-slot engine ``reps`` times, one step served on the source before
+    each move (at depth 1 still in flight when the move starts). Returns
+    (rows, the stream's windows, ms of each move by part)."""
+    from repro_torch.fleet import CheckpointStore
+    ws = sf["windows"](1, 2 * reps + 2, SEED + 61)[0]
+    src = _event_engine(sf, device, 2, depth)
+    dst = _event_engine(sf, device, 4, depth)
+    store = CheckpointStore()
+    h = src.open(stream_id="pp", stateful=True)
+    rows, moves = [], []
+    for i in range(reps):
+        h.submit(ws[2 * i])
+        h.submit(ws[2 * i + 1])
+        rows += src.step()
+        h, displaced, ms = _timed_move(torch, h, dst, store, on_card)
+        rows += displaced
+        ms["displaced"] = len(displaced)
+        moves.append(ms)
+        src, dst = dst, src
+    for w in ws[2 * reps:]:
+        h.submit(w)
+    rows += src.run() + dst.run()
+    return _fleet_rows(rows), {"pp": ws}, moves
+
+
+def _fleet_soak(torch, sf, device, depth, rebalance, on_card, n_win=6):
+    """(b): ``tests/test_fleet_soak.py`` at full width. A 2-slot hot engine
+    holds 4 deadlined stateful streams with every window queued up front,
+    plus ephemeral churn on both engines; a 4-slot cold engine idles;
+    both read the serving loop's tick as their deadline clock. Returns a dict:
+    the persistent streams' rows and windows, the fleet's deadline-miss
+    rate, ms of each migration, host us of each observe() that moved
+    nothing, telemetry reads that synchronized, rounds."""
+    from repro_torch.fleet import (CheckpointStore, FleetConfig,
+                                   FleetRebalancer)
+    from repro_torch.serving import DeadlinePolicy
+    persistent = dict(zip((f"p{i}" for i in range(4)),
+                          sf["windows"](4, n_win, SEED + 62)))
+    hot, cold = (_event_engine(sf, device, b, depth,
+                               policy=DeadlinePolicy(fair_quantum=2))
+                 for b in (2, 4))
+    tick = [0]
+    for eng in (hot, cold):
+        eng.deadline_clock = lambda: float(tick[0])
+    for sid, ws in persistent.items():
+        h = hot.open(stream_id=sid, stateful=True)
+        for k, w in enumerate(ws):
+            h.submit(w, deadline=3.0 + 1.2 * k)
+    reb = FleetRebalancer(
+        {"hot": hot, "cold": cold}, store=CheckpointStore(),
+        config=FleetConfig(imbalance=1.0, cooldown=1, miss_weight=10.0),
+    ) if rebalance else None
+    churn = sf["windows"](4, 1, SEED + 63)
+    rows, ephemerals, n_eph, rounds, hold_us, syncs = [], {}, 0, 0, [], 0
+    while (hot.pending() or cold.pending() or hot.in_flight
+           or cold.in_flight or ephemerals):
+        rounds += 1
+        check(rounds < 300, "fleet soak failed to drain")
+        rows += hot.step() + cold.step()
+        tick[0] += 1
+        if rounds % 2 == 1 and rounds < 20:
+            for eng, slack in ((hot, 50.0), (cold, 2.0)):
+                eph = eng.open(stream_id=f"e{n_eph}")
+                eph.submit(churn[n_eph % len(churn)][0],
+                           deadline=tick[0] + slack)
+                ephemerals[f"e{n_eph}"] = eph
+                n_eph += 1
+        for sid in [s for s in ephemerals
+                    if any(r.stream_id == s for r in rows)]:
+            ephemerals.pop(sid).close()
+        if reb is None:
+            continue
+        if on_card:
+            # A telemetry read must not wait for the device: in "error"
+            # mode torch raises on any synchronizing call.
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                reb.loads()
+            except RuntimeError:
+                syncs += 1
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        t0 = time.perf_counter()
+        report = reb.observe()
+        if not report.migrated:
+            hold_us.append((time.perf_counter() - t0) * 1e6)
+        rows += report.displaced
+    dated = missed = 0
+    for eng in (hot, cold):
+        for st in eng.stream_stats.values():
+            dated += st.deadline_windows
+            missed += st.deadline_missed
+    mine = _fleet_rows([r for r in rows if r.stream_id in persistent])
+    return dict(rows=mine, streams=persistent, miss_rate=missed / dated,
+                migrations=[m.migration_ms for m in reb.migrations]
+                if reb else [], observe_us=hold_us, syncs=syncs,
+                rounds=rounds)
+
+
+def _fleet_autoscale(torch, sf, device, on_card, cycles=3, n_streams=16,
+                     n_win=4):
+    """(c): a pipelined event lane of 2 slots under a LaneAutoscaler
+    (FleetConfig(min_slots=2, max_slots=16)). Each cycle opens
+    ``n_streams`` stateful streams with every window queued (the backlog
+    grows the lane 2 -> 4 -> 8 -> 16), serves them, closes them, and
+    idles until the lane is back at 2 slots. Returns (rows, windows, one
+    dict a cycle: decisions, ms of each resize_lane, host us of the
+    holding observe() calls, graph keys, reserved bytes)."""
+    from repro_torch.fleet import FleetConfig, LaneAutoscaler
+    gc.collect()                     # earlier gates' dead engines
+    eng = _event_engine(sf, device, 2, depth=1)
+    loop = eng.loop
+    asc = LaneAutoscaler(eng, config=FleetConfig(min_slots=2, max_slots=16))
+    resize_ms = []
+    resize_lane = eng.resize_lane
+
+    def timed_resize(*args, **kw):
+        t0 = time.perf_counter()
+        out = resize_lane(*args, **kw)
+        resize_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng.resize_lane = timed_resize
+    rows, streams, info = [], {}, []
+    for c in range(cycles):
+        ws = sf["windows"](n_streams, n_win, SEED + 64 + c)
+        hs = []
+        for i, w in enumerate(ws):
+            hs.append(eng.open(stream_id=f"c{c}s{i}", stateful=True))
+            streams[hs[-1].stream_id] = w
+        for k in range(n_win):
+            for h, w in zip(hs, ws):
+                h.submit(w[k])
+        decisions, hold_us, idle = [], [], 0
+        del resize_ms[:]
+        while eng.pending() or eng.in_flight or eng.telemetry().slots > 2:
+            idle += not (eng.pending() or eng.in_flight)
+            check(idle < 40, "the autoscaler did not shrink the lane")
+            rows += eng.step()
+            if not (eng.pending() or eng.in_flight):
+                for h in hs:
+                    h.close()
+                hs = []
+            t0 = time.perf_counter()
+            d = asc.observe()
+            if not d.resized:
+                hold_us.append((time.perf_counter() - t0) * 1e6)
+            decisions.append(d)
+        entry = dict(
+            decisions=[(d.action, d.old_slots, d.new_slots, list(d.evicted))
+                       for d in decisions if d.resized],
+            resize_ms=list(resize_ms), observe_us=hold_us,
+            keys=sorted(loop.compiled_shape_keys()))
+        if on_card:
+            torch.cuda.synchronize()
+            steps = loop._graphs.steps
+            entry["graphs"] = len(steps)
+            entry["allocated_bytes"] = torch.cuda.memory_allocated()
+            entry["reserved_bytes"] = torch.cuda.memory_reserved()
+            # What the lane holds, without the blocks the allocator keeps
+            # cached for reuse (graph pools are never released here).
+            torch.cuda.empty_cache()
+            entry["reserved_bytes_held"] = torch.cuda.memory_reserved()
+            entry["capture_ms"] = {str(k): st.capture_ms
+                                   for k, st in steps.items()}
+            entry["pool_bytes"] = {str(k): st.pool_bytes
+                                   for k, st in steps.items()}
+        info.append(entry)
+    return _fleet_rows(rows), streams, info
+
+
+def _fleet_supervised(torch, sf, device, on_card, kills=(2, 5, 8), n=11):
+    """(d): a two-lane engine (4 event + 4 frame slots, recovery on,
+    both engines wrapped by a FaultInjector): 4 stateful event streams
+    under a LaneSupervisor that checkpoints every 2 ticks, 2 frame
+    streams beside them. The event lane is killed at each tick of
+    ``kills`` and revived after the next; the supervisor rebuilds the
+    lane (a fresh engine, captured at its first dispatch), restores and
+    replays. Returns the rows, the windows and what was measured."""
+    from repro_torch.core._api import RecoveryConfig
+    from repro_torch.core.pipeline import BatchedClosedLoop
+    from repro_torch.fleet import (CheckpointStore, FaultInjector,
+                                   LaneSupervisor)
+    evs = sf["windows"](4, n, SEED + 66)
+    frs = sf["frames"](2, n, SEED + 67)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    # Dead engines of the earlier gates are cyclic garbage: free them, so
+    # that the readings below see only what the rebuilds leave.
+    gc.collect()
+    inj = FaultInjector()
+    eng = _surface_engine(sf, device, wrap=inj.wrap, slots=4,
+                          recovery=RecoveryConfig(
+                              max_retries=0, backoff_steps=0, dead_after=1,
+                              checkpoint_every=2))
+    calls = []                       # (name, start, ms) of each timed call
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            calls.append((name, t0, (time.perf_counter() - t0) * 1e3))
+            return out
+        return call
+
+    def rebuild(modality):
+        return inj.wrap(BatchedClosedLoop(sf["params"], sf["cfg"],
+                                          device=device))
+
+    store = CheckpointStore(capacity=8)
+    sup = LaneSupervisor(eng, store=store,
+                         rebuild=timed("rebuild", rebuild))
+    # Each step of a recovery, timed where the supervisor calls it; the
+    # replay is what the recovery took besides them.
+    eng.abort_lane = timed("abort", eng.abort_lane)
+    eng.replace_lane_engine = timed("replace", eng.replace_lane_engine)
+    store.restore_into = timed("restore", store.restore_into)
+    sup.checkpoint_now = timed("checkpoint", sup.checkpoint_now)
+    sup.recover = timed("recover", sup.recover)
+    hs = [sup.watch(eng.open("event", stream_id=f"v{i}", stateful=True))
+          for i in range(4)]
+    cams = [eng.open("frame", stream_id=f"w{i}") for i in range(2)]
+    rows, recoveries, memory, ok_ticks = [], [], [], []
+    for k in range(n):
+        for i, h in enumerate(hs):
+            sup.submit(h.stream_id, evs[i][k])
+        for i, c in enumerate(cams):
+            c.submit(frs[i][k])
+        if k in kills:
+            inj.kill("event")
+        t0 = time.perf_counter()
+        got = eng.step()
+        sync()
+        if recoveries and "first_step_ms" not in recoveries[-1]:
+            # The rebuilt engine's first dispatch: its graph's capture.
+            recoveries[-1]["first_step_ms"] = \
+                (time.perf_counter() - t0) * 1e3
+            if on_card:
+                recoveries[-1]["capture_ms"] = [
+                    st.capture_ms for st in
+                    eng.engines["event"].inner._graphs.steps.values()]
+        start = len(calls)
+        out = sup.tick(got)
+        rows += out
+        if any(r.ok and r.stream_id.startswith("v") for r in out):
+            ok_ticks.append(k)
+        for name, t_rec, ms in calls[start:]:
+            if name != "recover":
+                continue
+            inside = [(c, m) for c, t, m in calls[start:]
+                      if c != "recover" and t_rec <= t <= t_rec + ms / 1e3]
+            r = {c: sum(m for x, m in inside if x == c)
+                 for c in ("abort", "replace", "rebuild", "restore",
+                           "checkpoint")}
+            r["recover"] = ms
+            r["restores"] = sum(c == "restore" for c, _ in inside)
+            r["replay"] = ms - sum(m for _, m in inside)
+            r["tick"] = k
+            recoveries.append(r)
+        if k - 1 in kills:
+            inj.revive("event")
+        if on_card and k - 2 in kills:
+            # The lane has served a step on its last rebuilt engine: the
+            # engines it replaced must be gone (no gc pass forced). The
+            # device tensors Python still holds are counted beside it.
+            sync()
+            with warnings.catch_warnings():
+                # isinstance() on every object wakes deprecated aliases.
+                warnings.simplefilter("ignore")
+                live = [o for o in gc.get_objects()
+                        if isinstance(o, torch.Tensor) and o.is_cuda]
+            mem = dict(tick=k, allocated=torch.cuda.memory_allocated(),
+                       reserved=torch.cuda.memory_reserved(),
+                       live_tensors=len(live),
+                       live_tensor_bytes=sum(t.untyped_storage().nbytes()
+                                             for t in live))
+            del live
+            gc.collect()
+            mem["allocated_after_gc"] = torch.cuda.memory_allocated()
+            memory.append(mem)
+    for _ in range(8):
+        rows += sup.tick(eng.step())
+    return dict(rows=rows, evs=evs, frs=frs, recoveries=recoveries,
+                memory=memory, stats=dict(sup.stats),
+                to_restore=[min(r["tick"] for r in recoveries
+                                if r["tick"] >= at) - at for at in kills],
+                to_next_ok=[min(t for t in ok_ticks if t > at) - at
+                            for at in kills])
+
+
+def _fleet_unfaulted(sf, device, evs, frs):
+    """(d)'s windows served by the same two-lane engine, never faulted."""
+    eng = _surface_engine(sf, device, slots=4)
+    hs = [eng.open("event", stream_id=f"v{i}", stateful=True)
+          for i in range(4)]
+    cams = [eng.open("frame", stream_id=f"w{i}") for i in range(2)]
+    for k in range(len(evs[0])):
+        for i, h in enumerate(hs):
+            h.submit(evs[i][k])
+        for i, c in enumerate(cams):
+            c.submit(frs[i][k])
+    return _results(_drain(eng))
+
+
+def _spread(xs):
+    return dict(median=statistics.median(xs), min=min(xs), max=max(xs),
+                n=len(xs)) if xs else None
+
+
+def fleet_phase(torch, dev, k1, k2, k3, smi):
+    """The fleet control plane at Table II width, graphs on, every gate
+    bit for bit: (a) a live migration through a CheckpointStore from a
+    2-slot to a 4-slot engine, at depths 0 and 1: the stream's rows from
+    before the move, from the drain and from the cold engine equal one
+    uninterrupted run, and so do its lane-mate's; (b) a rebalanced
+    two-engine fleet against a static one (tests/test_fleet_soak.py at
+    full width): the rebalancer migrates, misses fewer deadlines, and
+    every persistent stream equals its uninterrupted run; (c) a
+    LaneAutoscaler grows an event lane 2 -> 4 -> 8 -> 16 under backlog
+    and shrinks it back when idle, twice: the rows equal the unresized
+    run, the graph cache holds exactly the keys visited, and the second
+    cycle captures nothing and reserves no more bytes; (d) a
+    LaneSupervisor rebuilds a killed event lane three times, each within
+    2 ticks: every window reported successful equals the uninterrupted
+    run once, the frame lane's rows are unchanged, and memory allocated
+    after the third rebuild is within 1 MiB of that after the first.
+    Reported: migration ms by part with and without a step in flight,
+    each resize's capture ms, resize_lane ms and pool bytes, each
+    recovery's ms by part, memory after each kill, observe() host us of
+    the autoscaler and the rebalancer, and the kernel launches."""
+    sf = _surface_full()
+    on_card = dev != "cpu" and torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    k1.launches = k2.launches = k3.launches = k2.currents_launches = 0
+    t_phase = time.perf_counter()
+    gates, report = {}, {"nvidia_smi": smi}
+
+    # (a).
+    moves = {}
+    for depth in (0, 1):
+        rows, streams, ms = _fleet_migrate(sf, dev, depth)
+        whole = _fleet_alone(sf, dev, streams)
+        merged = {}
+        for part in rows.values():
+            merged.update(part)
+        mig = {part: sorted(s for (sid, s) in got if sid == "mig")
+               for part, got in rows.items()}
+        gates[f"a_migration_vs_uninterrupted_depth{depth}"] = (
+            len(merged) == sum(len(p) for p in rows.values())
+            and _bits_equal(whole, {k: r.result for k, r in merged.items()})
+            and bool(mig["before"]) and bool(mig["cold"])
+            and bool(mig["displaced"]) == (depth == 1)
+            and sorted(mig["before"] + mig["displaced"] + mig["cold"])
+            == list(range(4)))
+        pp_rows, pp_streams, pp_ms = _fleet_pingpong(torch, sf, dev, depth,
+                                                     on_card)
+        gates[f"a_repeated_moves_vs_uninterrupted_depth{depth}"] = (
+            _bits_equal(_fleet_alone(sf, dev, pp_streams),
+                        {k: r.result for k, r in pp_rows.items()})
+            and all((m["displaced"] > 0) == (depth == 1) for m in pp_ms))
+        moves["in_flight" if depth else "nothing_in_flight"] = dict(
+            gate_migration_ms=ms,
+            blob_bytes=pp_ms[0]["blob_bytes"],
+            **{p: _spread([m[p] for m in pp_ms])
+               for p in ("drain", "checkpoint", "put", "restore", "total")})
+    report["migration_ms"] = moves
+
+    # (b).
+    soak = {}
+    for depth in (0, 1):
+        static = _fleet_soak(torch, sf, dev, depth, False, on_card)
+        moved = _fleet_soak(torch, sf, dev, depth, True, on_card)
+        whole = _fleet_alone(sf, dev, static["streams"], slots=4)
+        gates[f"b_rebalanced_beats_static_depth{depth}"] = (
+            len(moved["migrations"]) >= 1 and moved["syncs"] == 0
+            and moved["miss_rate"] < static["miss_rate"]
+            and all(_bits_equal(whole, {k: r.result
+                                        for k, r in run["rows"].items()})
+                    for run in (static, moved)))
+        soak[f"depth{depth}"] = dict(
+            miss_rate_static=static["miss_rate"],
+            miss_rate_rebalanced=moved["miss_rate"],
+            migrations=len(moved["migrations"]),
+            migration_ms=moved["migrations"],
+            rounds_static=static["rounds"], rounds_rebalanced=moved["rounds"],
+            observe_us=_spread(moved["observe_us"]),
+            telemetry_syncs=moved["syncs"])
+    report["rebalance"] = soak
+
+    # (c).
+    rows, streams, cycles = _fleet_autoscale(torch, sf, dev, on_card)
+    plain = _fleet_alone(sf, dev, streams)
+    visited = (2, 4, 8, 16)
+    path = ([("grow", a, b, []) for a, b in zip(visited, visited[1:])]
+            + [("shrink", b, a, []) for a, b in zip(visited, visited[1:])
+               ][::-1])
+    keys = set(map(tuple, cycles[0]["keys"]))
+    tails = {k[1:] for k in keys}
+    served = {k: r.result for k, r in rows.items()}
+    gates["c_autoscale_vs_unresized"] = (
+        all(c["decisions"] == path for c in cycles)
+        and _bits_equal(plain, served)
+        and keys == {(b,) + t for b in visited for t in tails}
+        and all(set(map(tuple, c["keys"])) == keys for c in cycles))
+    if on_card:
+        gates["c_later_cycles_capture_nothing"] = all(
+            c["graphs"] == len(keys)
+            and c["reserved_bytes_held"] <= cycles[0]["reserved_bytes_held"]
+            for c in cycles)
+    first = {sid: ws for sid, ws in streams.items() if sid.startswith("c0")}
+    report["autoscale"] = [dict(c, keys=[list(k) for k in c["keys"]],
+                                observe_us=_spread(c["observe_us"]))
+                           for c in cycles]
+    report["autoscale_vs_unresized"] = _fleet_diff(plain, served)
+    # The rows' batch invariance the resizes rest on: the first cycle's
+    # streams at each fixed slot count against 2 slots.
+    first_rows = {k: v for k, v in plain.items() if k[0] in first}
+    fixed = {b: _fleet_alone(sf, dev, first, slots=b) for b in visited[1:]}
+    gates["c_fixed_slots_vs_2"] = all(_bits_equal(first_rows, rows)
+                                      for rows in fixed.values())
+    report["fixed_slots_vs_2"] = {b: _fleet_diff(first_rows, rows)
+                                  for b, rows in fixed.items()}
+
+    # (d).
+    sv = _fleet_supervised(torch, sf, dev, on_card)
+    clean = _fleet_unfaulted(sf, dev, sv["evs"], sv["frs"])
+    ok = _fleet_rows([r for r in sv["rows"] if r.ok])
+    events = {k: r.result for k, r in ok.items() if k[0].startswith("v")}
+    frames = {k: r.result for k, r in ok.items() if k[0].startswith("w")}
+    gates["d_supervised_kills_vs_uninterrupted"] = (
+        all(t <= 2 for t in sv["to_restore"])
+        and _bits_equal({k: v for k, v in clean.items()
+                         if k[0].startswith("v")}, events)
+        and not any(r.stream_id.startswith("w") and not r.ok
+                    for r in sv["rows"])
+        and _bits_equal({k: v for k, v in clean.items()
+                         if k[0].startswith("w")}, frames))
+    if on_card:
+        first, last = sv["memory"][0], sv["memory"][-1]
+        gates["d_no_leak_across_rebuilds"] = (
+            len(sv["memory"]) == 3
+            and abs(last["allocated"] - first["allocated"]) <= 1 << 20
+            and last["live_tensor_bytes"] <= first["live_tensor_bytes"])
+    report["supervisor"] = dict(
+        stats=sv["stats"], ticks_kill_to_restore=sv["to_restore"],
+        ticks_kill_to_next_ok=sv["to_next_ok"],
+        recoveries_ms=sv["recoveries"], memory_after_kills=sv["memory"])
+
+    if on_card:
+        torch.cuda.synchronize()
+    launches = {"lif_scan": k1.launches, "fc_lif_scan": k2.launches,
+                "ternary_matmul": k3.launches,
+                "fc_currents": k2.currents_launches}
+    # The timing wrappers set on engines above are reference cycles:
+    # free those engines' graphs before the next phase.
+    gc.collect()
+    emit("fleet", config="CONFIG + TCN_CONFIG (full width)",
+         launches=launches, gates=gates,
+         phase_s=time.perf_counter() - t_phase, **report)
+    if on_card:
+        check(all(n > 0 for n in launches.values()),
+              f"fleet: a kernel of the path never ran: {launches}")
+    failed = [g for g, ok in gates.items() if not ok]
+    check(not failed, f"fleet gates failed: {failed}")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# Phase 8: the LM slice -- RWKV-6 serving through K4 (and K3 on the
 # ternary path).
 # ----------------------------------------------------------------------
 

@@ -50,7 +50,7 @@ class RecoveryConfig:
         queued windows fast (keeping paired fusion ticks completing,
         degraded) until ``replace_lane_engine`` swaps a rebuilt engine
         in.
-      * ``checkpoint_every`` -- the :class:`~repro.fleet.supervisor.
+      * ``checkpoint_every`` -- the :class:`~repro_torch.fleet.supervisor.
         LaneSupervisor` auto-checkpoint cadence, in supervisor ticks.
       * ``quarantine_nonfinite`` -- treat non-finite logits as poison:
         the window is quarantined immediately (no retry -- NaNs are
@@ -82,7 +82,7 @@ class RecoveryConfig:
 @dataclasses.dataclass(frozen=True)
 class FaultConfig:
     """A deterministic fault schedule for the
-    :class:`~repro.fleet.faults.FaultInjector`.
+    :class:`~repro_torch.fleet.faults.FaultInjector`.
 
     Rates are per *injection site visit* (one engine call), drawn from a
     ``numpy`` generator seeded with ``seed`` in call order -- the same
@@ -90,7 +90,7 @@ class FaultConfig:
     makes the chaos soak assertable.
 
       * ``step_error_rate`` -- probability an engine call raises
-        :class:`~repro.fleet.faults.InjectedFault` (surfacing at
+        :class:`~repro_torch.fleet.faults.InjectedFault` (surfacing at
         dispatch in synchronous mode, at collect in pipelined mode).
       * ``nan_rate`` -- probability a returned batch has one slot's
         logits poisoned with NaN (the quarantine path).
@@ -153,7 +153,7 @@ class EngineConfig:
         engine exception propagates to the caller.
       * ``coschedule`` -- fusion-aware co-scheduling (default on): after
         the slot policy assigns a lane, streams paired via
-        ``StreamEngine.pair_streams`` (a :class:`~repro.serving.session.
+        ``StreamEngine.pair_streams`` (a :class:`~repro_torch.serving.session.
         FusionSession` pairs its wings automatically) pull their partner
         into the partner's lane for the SAME step, so both wings of a
         tick land together instead of drifting across independently
@@ -212,10 +212,11 @@ class EngineConfig:
 class FleetConfig:
     """Every control-plane policy knob, in one frozen value.
 
-    Read by ``repro.fleet``'s :class:`~repro.fleet.autoscale.LaneAutoscaler`
-    and :class:`~repro.fleet.rebalance.FleetRebalancer`; the serving layer
-    itself never consults it (mechanism lives in ``StreamEngine``, policy
-    lives here).
+    Read by ``repro_torch.fleet``'s
+    :class:`~repro_torch.fleet.autoscale.LaneAutoscaler` and
+    :class:`~repro_torch.fleet.rebalance.FleetRebalancer`; the serving
+    layer itself never consults it (mechanism lives in ``StreamEngine``,
+    policy lives here).
 
     Autoscaler knobs:
 
@@ -226,11 +227,11 @@ class FleetConfig:
         counts as idle; ``shrink_patience`` consecutive idle observations
         trigger a shrink. Shrink patience should exceed grow patience so
         capacity is easy to gain and slow to give back.
-      * ``min_slots`` / ``max_slots`` -- hard slot-count bounds; with a
-        mesh, ``min_slots`` must stay divisible by the slot-axis size.
+      * ``min_slots`` / ``max_slots`` -- hard slot-count bounds (the
+        port has no mesh, so no divisibility rule applies).
       * ``scale_step`` -- multiplicative resize factor (2 doubles/halves,
-        keeping the per-``shape_key`` AOT cache population logarithmic in
-        the slot range).
+        keeping the population of per-``shape_key`` CUDA graphs
+        logarithmic in the slot range).
 
     Rebalancer knobs:
 

@@ -26,6 +26,7 @@ found them.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 
@@ -117,7 +118,14 @@ def capture(run: Callable, inputs, pool=None) -> CapturedStep:
     """Capture ``run(inputs)`` in a CUDA graph, after one eager call on a
     side stream that builds the kernels, sets their attributes and lets
     cuDNN pick its algorithms outside the capture. A failure raises: there
-    is no eager path behind a capture."""
+    is no eager path behind a capture.
+
+    The garbage collector is held off for the capture. A dead engine is
+    cyclic garbage (its stream handles point back at it) that only a
+    collector pass frees, and freeing its graphs, events and pinned
+    buffers inside a capture invalidates the capture. (A collection at
+    every capture instead would cost each resize or rebuild a pass over
+    the whole heap.)"""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -131,13 +139,19 @@ def capture(run: Callable, inputs, pool=None) -> CapturedStep:
     reserved = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        outputs = run(inputs)
-        leaves = _leaves(outputs)
-        if len({t.dtype for t in leaves}) != 1:
-            raise TypeError(f"a captured step's outputs must share one "
-                            f"dtype, got {[t.dtype for t in leaves]}")
-        flat = torch.cat([t.reshape(-1) for t in leaves])
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            outputs = run(inputs)
+            leaves = _leaves(outputs)
+            if len({t.dtype for t in leaves}) != 1:
+                raise TypeError(f"a captured step's outputs must share one "
+                                f"dtype, got {[t.dtype for t in leaves]}")
+            flat = torch.cat([t.reshape(-1) for t in leaves])
+    finally:
+        if collecting:
+            gc.enable()
     capture_ms = (time.perf_counter() - t0) * 1e3
     tally = tuple(a - b for a, b in zip(launch_counts(), before))
     _set_counts(before)

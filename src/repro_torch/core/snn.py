@@ -120,9 +120,26 @@ def _avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
     return s / float(k * k)
 
 
+# Images a conv call takes at most. cuDNN picks its algorithm by the
+# batch size: on an H100 it gives conv1's rows of 256 images (16 slots of
+# T=16) other bits than the same images alone (an algorithm that rounds
+# inside the sum, where a GEMM's sum of 2**-8-grid products is exact),
+# while every call of 16..128 images gives the same rows. Larger batches
+# are convolved in chunks of this many images, so a row's bits do not
+# depend on how many slots a lane has.
+CONV_CHUNK = 128
+
+
 def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """SAME 3x3 conv: NHWC activations x OIHW kernel -> NHWC."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=w.shape[-1] // 2)
+    """SAME 3x3 conv: NHWC activations x OIHW kernel -> NHWC, at most
+    ``CONV_CHUNK`` images a call."""
+    pad = w.shape[-1] // 2
+    x = x.permute(0, 3, 1, 2)
+    if x.shape[0] <= CONV_CHUNK:
+        y = F.conv2d(x, w, padding=pad)
+    else:
+        y = torch.cat([F.conv2d(c, w, padding=pad)
+                       for c in x.split(CONV_CHUNK)])
     return y.permute(0, 2, 3, 1).contiguous()
 
 

@@ -193,17 +193,21 @@ class FaultyEngine:
     def __init__(self, inner: Any, injector: FaultInjector):
         object.__setattr__(self, "_inner", inner)
         object.__setattr__(self, "_injector", injector)
-        # Expose the async split only when the inner engine has it, so
-        # the StreamEngine capability probe sees the true surface.
-        if (getattr(inner, "infer_dispatch", None) is not None
-                and getattr(inner, "infer_collect", None) is not None):
-            object.__setattr__(self, "infer_dispatch", self._infer_dispatch)
-            object.__setattr__(self, "infer_collect", self._infer_collect)
 
     # -- transparent delegation -----------------------------------------
 
     def __getattr__(self, name: str) -> Any:
-        return getattr(object.__getattribute__(self, "_inner"), name)
+        inner = object.__getattribute__(self, "_inner")
+        # Expose the async split only when the inner engine has it, so
+        # the StreamEngine capability probe sees the true surface. The
+        # bound methods are made per lookup, never stored on the proxy: a
+        # stored one would be a reference cycle that keeps a replaced
+        # engine's graphs and buffers alive until the next gc pass.
+        if name in ("infer_dispatch", "infer_collect") and (
+                getattr(inner, "infer_dispatch", None) is not None
+                and getattr(inner, "infer_collect", None) is not None):
+            return object.__getattribute__(self, "_" + name)
+        return getattr(inner, name)
 
     def __setattr__(self, name: str, value: Any) -> None:
         setattr(object.__getattribute__(self, "_inner"), name, value)

@@ -83,9 +83,16 @@ back to the per-lane graphs for that step. Recovery retries and
 quarantines windows; it never moves work off the card. With
 ``recovery=None`` an engine exception propagates.
 
-Not ported: the mesh (``EngineConfig.mesh`` is refused at construction)
-and the JAX package's legacy id-keyed call forms (``submit(stream_id,
-window)``, ``retire``, ``handle``; see ROADMAP).
+Legacy forms. As in the JAX package, the pre-config construction kwargs
+(``max_streams=``, ``policy=``, ``pipeline_depth=``, ...) build the same
+``EngineConfig`` and warn once, and the id-keyed calls
+(``submit(stream_id, window)``, ``stateful_of``, ``reset_state``,
+``retire``) forward to the stream's handle, the first submit of an id
+opening it; ``submit`` warns once per engine. ``handle(stream_id)`` and
+``has_stream`` are the id lookups the fleet's rebalancer uses.
+
+Not ported: the mesh (``EngineConfig.mesh`` is refused at construction;
+ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -99,7 +106,8 @@ from typing import (Any, Callable, Deque, Dict, Hashable, List, Mapping,
 import numpy as np
 import torch
 
-from repro_torch.core._api import EngineConfig, RecoveryConfig
+from repro_torch.core._api import (EngineConfig, RecoveryConfig,
+                                   warn_deprecated_call)
 from repro_torch.core.energy import KrakenModel
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.graphs import GraphCache
@@ -112,6 +120,11 @@ __all__ = ["StreamResult", "StreamStats", "StreamStatsSnapshot",
            "LaneTelemetry", "DeadLetter", "EngineLane", "SlotPolicy",
            "FairQuantumPolicy", "DeadlinePolicy", "StreamHandle",
            "StreamEngine", "EngineConfig", "RecoveryConfig"]
+
+# Tells "kwarg not passed" from an explicit None in the legacy
+# construction form (a legacy kwarg that is passed both warns and wins
+# over the EngineConfig default).
+_UNSET_KW = object()
 
 
 @dataclasses.dataclass
@@ -783,7 +796,17 @@ class StreamEngine:
     module docstring); ``fuse_fc`` selects nothing for the built event
     engine (fc1/fc2 always run through kernel K2, which is what either
     value computes) and, as in the JAX package, is refused with
-    ``engines=``. ``mesh`` is the one field that raises
+    ``engines=``.
+
+    The pre-config kwargs (``max_streams=``, ``fair_quantum=``,
+    ``policy=``, ``duration_us=``, ``window_ms=``, ``fuse_fc=``,
+    ``pipeline_depth=``) still work: without ``config=`` they build the
+    same ``EngineConfig`` (bitwise-identical engines) and warn once per
+    engine; with ``config=`` they raise ``ValueError``. ``device=`` and
+    ``model=`` go with either form.
+
+    Everything of the JAX package's ``StreamEngine`` is ported but the
+    mesh: ``EngineConfig.mesh`` is the one field that raises
     ``NotImplementedError``.
     """
 
@@ -797,11 +820,39 @@ class StreamEngine:
                        Mapping[str, InferenceEngine]] = None,
         model: Optional[KrakenModel] = None,
         device=None,
+        max_streams=_UNSET_KW,
+        fair_quantum=_UNSET_KW,
+        policy=_UNSET_KW,
+        duration_us=_UNSET_KW,
+        window_ms=_UNSET_KW,
+        fuse_fc=_UNSET_KW,
+        pipeline_depth=_UNSET_KW,
     ):
-        config = EngineConfig() if config is None else config
-        if not isinstance(config, EngineConfig):
-            raise TypeError(f"config must be an EngineConfig, got "
-                            f"{type(config).__name__}")
+        legacy = {k: v for k, v in dict(
+            max_streams=max_streams, fair_quantum=fair_quantum,
+            policy=policy, duration_us=duration_us, window_ms=window_ms,
+            fuse_fc=fuse_fc, pipeline_depth=pipeline_depth,
+        ).items() if v is not _UNSET_KW}
+        if config is not None:
+            if not isinstance(config, EngineConfig):
+                raise TypeError(f"config must be an EngineConfig, got "
+                                f"{type(config).__name__}")
+            if legacy:
+                raise ValueError(
+                    f"config= and legacy construction kwargs are "
+                    f"mutually exclusive (got both config= and "
+                    f"{sorted(legacy)}); fold the kwargs into the "
+                    f"EngineConfig")
+        else:
+            if legacy:
+                warn_deprecated_call(
+                    self, "kwargs-construction",
+                    "StreamEngine construction kwargs (max_streams=, "
+                    "policy=, pipeline_depth=, ...) are a legacy "
+                    "spelling; pass one EngineConfig instead: "
+                    "StreamEngine(params, cfg, EngineConfig(...)) / "
+                    "StreamEngine(engines=..., config=EngineConfig(...))")
+            config = EngineConfig(**legacy)
         _refuse_unported(config)
         if engines is None:
             if params is None or cfg is None:
@@ -1325,6 +1376,106 @@ class StreamEngine:
         except Exception:
             handle.close()
             raise
+
+    # -- submission (legacy id-keyed form) ---------------------------------
+
+    def submit(self, stream_id: Hashable, window: Any, *,
+               modality: Optional[str] = None,
+               deadline: Optional[float] = None,
+               stateful: Optional[bool] = None) -> int:
+        """Queue one window on an id-keyed stream (the legacy form).
+
+        The first submit of a new id opens a handle, later ones forward to
+        it: scheduling and results are those of driving the handle. Prefer
+        ``open(...)`` + ``handle.submit(...)``; this form warns once per
+        engine.
+
+        ``modality`` selects the lane of a NEW stream (optional with one
+        lane); a known stream is bound to its lane. ``deadline`` is the
+        window's deadline. ``stateful=True`` opts a NEW stream into carried
+        state; like the lane it is latched for the stream's life (``None``
+        leaves a known stream's binding alone).
+        """
+        warn_deprecated_call(
+            self, "id-keyed-submit",
+            "StreamEngine.submit(stream_id, window, ...) is a legacy "
+            "call form; use the session-handle API instead: handle = "
+            "engine.open(modality=..., stateful=...); handle.submit("
+            "window)")
+        lane = self._resolve_lane(stream_id, modality)
+        # Validation comes before any queue or sequence state moves, so a
+        # rejected submit burns no sequence number.
+        if stateful and not lane.supports_state:
+            raise ValueError(
+                f"engine for modality {lane.modality!r} "
+                f"({type(lane.engine).__name__}) has no carried-state "
+                f"support (no init_state); submit stateless")
+        handle = self._handles.get(stream_id)
+        if (handle is not None and stateful is not None
+                and bool(stateful) != handle.stateful):
+            raise ValueError(
+                f"stream {stream_id!r} is bound to stateful="
+                f"{handle.stateful}; statefulness is latched "
+                f"at the stream's first submit")
+        if handle is None:
+            # Validate BEFORE open, so a rejected first submit registers
+            # no stream at all (no handle, no stats entry).
+            lane.engine.validate(window)
+            handle = self.open(modality=lane.modality, stream_id=stream_id,
+                               stateful=bool(stateful))
+        return handle.submit(window, deadline=deadline)
+
+    def _resolve_lane(self, stream_id: Hashable,
+                      modality: Optional[str]) -> EngineLane:
+        bound = self._stream_lane.get(stream_id)
+        if bound is not None:
+            if modality is not None and modality != bound:
+                raise ValueError(
+                    f"stream {stream_id!r} is bound to modality "
+                    f"{bound!r}, got {modality!r}")
+            return self._lanes[bound]
+        if modality is None:
+            if len(self._lanes) == 1:
+                return next(iter(self._lanes.values()))
+            raise ValueError(
+                f"modality required for new stream {stream_id!r} with "
+                f"engines {sorted(self._lanes)}")
+        if modality not in self._lanes:
+            raise ValueError(f"no engine for modality {modality!r}; "
+                             f"have {sorted(self._lanes)}")
+        return self._lanes[modality]
+
+    # -- id-keyed lookups ----------------------------------------------------
+
+    def stateful_of(self, stream_id: Hashable) -> bool:
+        """Whether a known stream carries state across its windows."""
+        return self._handle_of(stream_id).stateful
+
+    def _handle_of(self, stream_id: Hashable) -> StreamHandle:
+        handle = self._handles.get(stream_id)
+        if handle is None:
+            raise KeyError(f"unknown stream {stream_id!r}")
+        return handle
+
+    def handle(self, stream_id: Hashable) -> StreamHandle:
+        """The open :class:`StreamHandle` of a known stream id (the lookup
+        a fleet rebalancer uses to pick a migration victim from telemetry
+        rows). Raises ``KeyError`` for unknown ids."""
+        return self._handle_of(stream_id)
+
+    def has_stream(self, stream_id: Hashable) -> bool:
+        """Whether ``stream_id`` is currently open on this engine."""
+        return stream_id in self._handles
+
+    def reset_state(self, stream_id: Hashable) -> None:
+        """Zero a stateful stream's carried state without retiring it;
+        forwards to :meth:`StreamHandle.reset_state`."""
+        self._handle_of(stream_id).reset_state()
+
+    def retire(self, stream_id: Hashable) -> int:
+        """Remove a stream entirely; forwards to :meth:`StreamHandle.close`
+        (see there). Returns the number of windows discarded."""
+        return self._handle_of(stream_id).close()
 
     def pending(self) -> int:
         """Windows queued across all streams."""

@@ -1,0 +1,418 @@
+"""The fleet control plane in the port, against the JAX package.
+
+Mirrors ``test_fleet.py``'s autoscaler, migration and rebalancer
+scenarios and ``test_faults.py``'s supervisor scenarios. Each runs
+through the JAX package's ``repro.fleet`` and the port's
+``repro_torch.fleet`` over their own engines on the same inputs at the
+same batch shape (the shared set-up of ``test_torch_checkpoint.py``):
+
+  * autoscaler decision sequences are equal, holds and ``evicted``
+    included;
+  * ``migrate_stream``'s rows and ``MigrationRecord.displaced`` are equal
+    (labels, logits and energy equal, PWM within ``PWM_ATOL``);
+  * ``RebalanceReport.loads`` and ``reason`` strings are equal under a
+    logical clock, and the dead-band and cooldown hold;
+  * the supervisor's ``stats`` and rows are equal.
+
+Inside the port, a live migration and a supervised recovery equal the
+stream's uninterrupted run bit for bit. The last tests walk the two
+packages' sources: every top-level name and class method of the
+reference's ``serving/stream.py`` and ``fleet/*`` policy modules exists
+in the port, and ``repro_torch.fleet.__all__`` is ``repro.fleet``'s.
+"""
+import ast
+import importlib
+import os
+
+import pytest
+
+from test_torch_checkpoint import (assert_bitwise, assert_rows_match, both,
+                                   key, side)
+
+torch = pytest.importorskip("torch")
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+def fleet(s):
+    """The side's fleet package (``repro.fleet`` or ``repro_torch.fleet``)."""
+    return importlib.import_module(
+        "repro.fleet" if s.name == "jax" else "repro_torch.fleet")
+
+
+def fleet_config(s, **kw):
+    return fleet(s).FleetConfig(**kw)
+
+
+def decisions(ds):
+    return [(d.modality, d.action, d.old_slots, d.new_slots,
+             tuple(d.evicted), d.reason) for d in ds]
+
+
+# ----------------------------------------------------------------------
+# LaneAutoscaler.
+# ----------------------------------------------------------------------
+
+def _autoscale_grow(s):
+    eng = s.engine(lanes=(s.stub(),), max_streams=2)
+    asc = fleet(s).LaneAutoscaler(eng, config=fleet_config(
+        s, grow_backlog=2.0, grow_patience=2, max_slots=8))
+    for i in range(2):
+        h = eng.open(stream_id=f"s{i}")
+        for t in range(3):
+            h.submit(t)
+    out = [asc.observe(), asc.observe()]
+    return decisions(out), decisions(asc.decisions), eng.telemetry().slots
+
+
+def _autoscale_blip(s):
+    eng = s.engine(lanes=(s.stub(),), max_streams=2)
+    asc = fleet(s).LaneAutoscaler(eng, config=fleet_config(
+        s, grow_backlog=2.0, grow_patience=2))
+    h = eng.open(stream_id="s")
+    out = []
+    for t in range(4):
+        h.submit(t)
+    out.append(asc.observe())
+    eng.run()
+    out.append(asc.observe())
+    for t in range(4):
+        h.submit(t)
+    out += [asc.observe(), asc.observe()]
+    return decisions(out)
+
+
+def _autoscale_shrink(s):
+    eng = s.engine(lanes=(s.stub(),), max_streams=8)
+    asc = fleet(s).LaneAutoscaler(eng, config=fleet_config(
+        s, shrink_patience=2, min_slots=2, max_slots=8))
+    out = [asc.observe() for _ in range(10)]
+    h = eng.open(stream_id="s")
+    h.submit(0)
+    asc._shrink_streak = 99
+    out.append(asc.observe())
+    return decisions(out), eng.telemetry().slots
+
+
+def _autoscale_evicts(s):
+    """A shrink of a lane whose slots are all held by idle streams (a
+    permissive occupancy threshold): the streams past the new count are
+    evicted to the waiting line and ride on ``ScaleDecision.evicted``."""
+    eng = s.engine(lanes=(s.stub(),), max_streams=4)
+    asc = fleet(s).LaneAutoscaler(eng, config=fleet_config(
+        s, shrink_occupancy=1.0, shrink_patience=1, min_slots=1))
+    hs = [eng.open(stream_id=f"s{i}") for i in range(4)]
+    for i, h in enumerate(hs):
+        h.submit(i)
+    rows = eng.run()
+    out = [asc.observe(), asc.observe()]
+    for i, h in enumerate(hs):
+        h.submit(10 + i)
+    rows += eng.run()
+    return decisions(out), key(rows), [int(r.result.logits[0, 0])
+                                       for r in rows]
+
+
+@pytest.mark.parametrize("scenario", [_autoscale_grow, _autoscale_blip,
+                                      _autoscale_shrink, _autoscale_evicts],
+                         ids=["grow", "blip", "shrink", "evicts"])
+def test_autoscaler_decisions_match_the_jax_package(scenario):
+    j, t = both(scenario)
+    assert j == t
+
+
+def test_autoscaler_decision_contents():
+    s = side("port")
+    got, logged, slots = _autoscale_grow(s)
+    assert [d[1] for d in got] == ["hold", "grow"]
+    assert got[1][2:4] == (2, 4) and logged == got[1:] and slots == 4
+    assert [d[1] for d in _autoscale_blip(s)] == ["hold"] * 3 + ["grow"]
+    shrunk, slots = _autoscale_shrink(s)
+    assert [d[3] for d in shrunk if d[1] == "shrink"] == [4, 2]
+    assert shrunk[-1][1] == "hold" and slots == 2
+    evicting, _, _ = _autoscale_evicts(s)
+    assert any(d[4] for d in evicting)
+
+
+def _autoscale_served(s, depth):
+    """A real event lane grown under backlog and shrunk back while six
+    stateful streams are served: decisions and rows."""
+    eng = s.engine(max_streams=2, pipeline_depth=depth)
+    asc = fleet(s).LaneAutoscaler(eng, config=fleet_config(
+        s, grow_backlog=1.0, grow_patience=1, shrink_occupancy=1.0,
+        shrink_patience=2, min_slots=2, max_slots=4))
+    streams = {f"a{i}": s.windows(3, seed=200 + i) for i in range(6)}
+    hs = {sid: eng.open(stream_id=sid, stateful=True) for sid in streams}
+    for k in range(3):
+        for sid, ws in streams.items():
+            hs[sid].submit(ws[k])
+    rows, ds = [], []
+    while eng.pending() or eng.in_flight:
+        rows += eng.step()
+        ds.append(asc.observe())
+    ds += [asc.observe() for _ in range(3)]
+    alone = {sid: s.alone(sid, ws) for sid, ws in streams.items()}
+    return decisions(ds), rows, alone
+
+
+@pytest.mark.parametrize("depth", [0, 1], ids=["sync", "pipelined"])
+def test_autoscaled_event_lane_matches_and_stays_bitwise(depth):
+    (j_ds, j_rows, _), (t_ds, t_rows, t_alone) = both(_autoscale_served,
+                                                      depth)
+    assert j_ds == t_ds
+    assert {d[1] for d in t_ds} >= {"grow", "shrink"}
+    assert_rows_match(j_rows, t_rows)
+    assert_bitwise([r for rows in t_alone.values() for r in rows], t_rows)
+
+
+# ----------------------------------------------------------------------
+# migrate_stream and FleetRebalancer.
+# ----------------------------------------------------------------------
+
+def _migrate_stub(s):
+    src = s.engine(lanes=(s.stub(),), max_streams=1, pipeline_depth=1)
+    dst = s.engine(lanes=(s.stub(),), max_streams=1)
+    h = src.open(stream_id="mig")
+    other = src.open(stream_id="other")
+    for t in range(3):
+        h.submit(t)
+        other.submit(100 + t)
+    src.step()
+    record = fleet(s).migrate_stream(h, dst, store=s.CheckpointStore())
+    assert record.migration_ms > 0.0 and h.closed
+    return (record.stream_id, record.modality, record.ckpt_id is not None,
+            key(record.displaced), dst.has_stream("mig"),
+            src.has_stream("mig"), key(dst.run()), key(src.run()))
+
+
+def test_migrate_stream_moves_queue_and_displaced_results():
+    j, t = both(_migrate_stub)
+    assert j == t
+    sid, _, stored, displaced, on_dst, on_src, served, rest = t
+    assert stored and on_dst and not on_src
+    assert {d[0] for d in displaced} == {"mig"}
+    assert sorted([d[1] for d in displaced] + [r[1] for r in served]) == [
+        0, 1, 2]
+    assert [r[0] for r in rest] == ["other"] * 3
+
+
+def _migrate_live(s, depth):
+    """The live migration of ``test_fleet.py``: two stateful streams on a
+    2-slot engine, two steps served, ``mig`` moved to a 4-slot engine
+    with windows in flight (pipelined), both engines run dry."""
+    streams = {"mig": s.windows(4, seed=70), "stay": s.windows(4, seed=71)}
+    src = s.engine(max_streams=2, pipeline_depth=depth)
+    dst = s.engine(max_streams=4)
+    hs = {sid: src.open(stream_id=sid, stateful=True) for sid in streams}
+    for k in range(4):
+        for sid in sorted(streams):
+            hs[sid].submit(streams[sid][k])
+    before = [*src.step(), *src.step()]
+    record = fleet(s).migrate_stream(hs["mig"], dst,
+                                     store=s.CheckpointStore())
+    rows = before + list(record.displaced) + src.run() + dst.run()
+    alone = s.alone("mig", streams["mig"]), s.alone("stay", streams["stay"])
+    return before, list(record.displaced), rows, alone
+
+
+@pytest.mark.parametrize("depth", [0, 1], ids=["sync", "pipelined"])
+def test_live_migration_matches_and_equals_uninterrupted(depth):
+    (j_before, j_disp, j_rows, _), (t_before, t_disp, t_rows, t_alone) = \
+        both(_migrate_live, depth)
+    assert_rows_match(j_before, t_before)
+    assert_rows_match(j_disp, t_disp)
+    assert_rows_match(j_rows, t_rows)
+    assert bool(t_disp) == (depth == 1)
+    assert len(t_rows) == 8
+    assert_bitwise(t_alone[0] + t_alone[1], t_rows)
+
+
+def _reports(reps):
+    return [(r.loads, r.reason, [m.stream_id for m in r.moved],
+             key(r.displaced)) for r in reps]
+
+
+def _rebalance_hysteresis(s):
+    hot = s.engine(lanes=(s.stub(),), max_streams=1)
+    cold = s.engine(lanes=(s.stub(),), max_streams=4)
+    for i in range(3):
+        h = hot.open(stream_id=f"h{i}")
+        for t in range(4):
+            h.submit(10 * i + t)
+    reb = fleet(s).FleetRebalancer(
+        {"hot": hot, "cold": cold},
+        config=fleet_config(s, imbalance=1.0, cooldown=2, miss_weight=0.0))
+    reps = [reb.observe() for _ in range(4)]
+    return (_reports(reps), [m.stream_id for m in reb.migrations],
+            sorted(cold.handles), sorted(hot.handles))
+
+
+def test_rebalancer_moves_hot_to_cold_with_hysteresis():
+    j, t = both(_rebalance_hysteresis)
+    assert j == t
+    reps, moved, on_cold, on_hot = t
+    assert [bool(r[2]) for r in reps] == [True, False, False, True]
+    assert [r[1] for r in reps][1:3] == ["cooldown (2 ticks left)",
+                                         "cooldown (1 ticks left)"]
+    assert reps[0][0]["hot"] > reps[0][0]["cold"]
+    assert on_cold == sorted(moved) and not set(moved) & set(on_hot)
+
+
+def _rebalance_dead_band(s):
+    a = s.engine(lanes=(s.stub(),), max_streams=2)
+    b = s.engine(lanes=(s.stub(),), max_streams=2)
+    a.open(stream_id="a").submit(0)
+    reb = fleet(s).FleetRebalancer({"a": a, "b": b},
+                                   config=fleet_config(s, imbalance=1.0))
+    report = reb.observe()
+    with pytest.raises(ValueError, match=">= 2 engines"):
+        fleet(s).FleetRebalancer({"a": a})
+    return _reports([report]), len(reb.migrations)
+
+
+def test_rebalancer_dead_band_prevents_thrash():
+    j, t = both(_rebalance_dead_band)
+    assert j == t
+    [(loads, reason, moved, _)], n = t
+    assert not moved and n == 0 and "balanced" in reason
+
+
+def _rebalance_served(s):
+    """A small fleet under a logical clock: a 2-slot hot engine with three
+    deadlined stateful streams queued up front, a 4-slot cold engine, the
+    rebalancer ticking every round."""
+    def engine(b):
+        return s.engine(max_streams=b, policy=s.DeadlinePolicy(
+            fair_quantum=2))
+
+    hot, cold = engine(2), engine(4)
+    tick = [0]
+    for eng in (hot, cold):
+        eng.deadline_clock = lambda: float(tick[0])
+    streams = {f"p{i}": s.windows(3, seed=80 + i) for i in range(3)}
+    for sid, ws in streams.items():
+        h = hot.open(stream_id=sid, stateful=True)
+        for k, w in enumerate(ws):
+            h.submit(w, deadline=2.0 + 1.0 * k)
+    reb = fleet(s).FleetRebalancer(
+        {"hot": hot, "cold": cold}, store=s.CheckpointStore(),
+        config=fleet_config(s, imbalance=1.0, cooldown=1))
+    rows, reps = [], []
+    while hot.pending() or cold.pending():
+        rows += hot.step() + cold.step()
+        tick[0] += 1
+        reps.append(reb.observe())
+        rows += reps[-1].displaced
+    alone = {sid: s.alone(sid, ws) for sid, ws in streams.items()}
+    return _reports(reps), rows, alone
+
+
+def test_rebalanced_fleet_reports_match_under_a_logical_clock():
+    (j_reps, j_rows, _), (t_reps, t_rows, t_alone) = both(_rebalance_served)
+    assert [r[:3] for r in j_reps] == [r[:3] for r in t_reps]
+    assert any(r[2] for r in t_reps)
+    assert_rows_match(j_rows, t_rows)
+    assert_bitwise([r for rows in t_alone.values() for r in rows], t_rows)
+
+
+# ----------------------------------------------------------------------
+# LaneSupervisor.
+# ----------------------------------------------------------------------
+
+def _supervised(s):
+    """``test_faults.py``'s supervised lane death: one stateful stream on
+    a 1-slot engine, auto-checkpointed every 2 ticks, the lane killed at
+    window 4 and revived a tick later; the supervisor rebuilds, restores
+    and replays."""
+    ws = s.windows(8, seed=7)
+    recovery = s.RecoveryConfig(max_retries=0, backoff_steps=0,
+                                dead_after=1, checkpoint_every=2)
+    inj = s.FaultInjector()
+    eng = s.engine(wrap=inj.wrap, max_streams=1, recovery=recovery)
+    sup = fleet(s).LaneSupervisor(
+        eng, store=s.CheckpointStore(capacity=4),
+        rebuild=lambda modality: inj.wrap(s.loop()))
+    h = sup.watch(eng.open(modality="event", stateful=True))
+    sid = h.stream_id
+    rows = []
+    for k, w in enumerate(ws):
+        sup.submit(sid, w)
+        if k == 4:
+            inj.kill("event")
+        rows += sup.tick(eng.step())
+        if k == 5:
+            inj.revive("event")
+    for _ in range(8):
+        rows += sup.tick(eng.step())
+    return dict(sup.stats), rows, s.alone(sid, ws), sup.handle(sid).closed
+
+
+def test_supervisor_stats_and_rows_match_and_restore_bitwise():
+    (j_stats, j_rows, _, _), (t_stats, t_rows, t_alone, closed) = both(
+        _supervised)
+    assert j_stats == t_stats
+    assert t_stats["restores"] >= 1 and t_stats["checkpoints"] >= 1
+    assert t_stats["replayed"] >= 1 and not closed
+    assert_rows_match(j_rows, t_rows)
+    ok = [r for r in t_rows if r.ok]
+    assert sorted(r.seq for r in ok) == list(range(8))
+    assert_bitwise(t_alone, ok)
+
+
+def _evicted_checkpoint(s):
+    recovery = s.RecoveryConfig(checkpoint_every=1)
+    eng = s.engine(lanes=(s.stub(),), max_streams=1, recovery=recovery)
+    store = s.CheckpointStore(capacity=1)
+    sup = fleet(s).LaneSupervisor(eng, store=store,
+                                  rebuild=lambda m: s.stub())
+    sup.watch(eng.open(modality="stub"))
+    sup.tick(eng.step())
+    store.put({"squatter": True})
+    eng._lanes["stub"].dead = True
+    with pytest.raises(RuntimeError, match="evicted") as err:
+        sup.recover("stub")
+    with pytest.raises(ValueError, match="no rebuild"):
+        fleet(s).LaneSupervisor(eng).recover("stub")
+    with pytest.raises(TypeError, match="RecoveryConfig"):
+        fleet(s).LaneSupervisor(eng, recovery=object())
+    return str(err.value), dict(sup.stats)
+
+
+def test_supervisor_raises_on_evicted_checkpoint():
+    j, t = both(_evicted_checkpoint)
+    assert j == t
+
+
+# ----------------------------------------------------------------------
+# The port's surface against the reference's sources.
+# ----------------------------------------------------------------------
+
+def _names(path):
+    """Top-level functions, classes and assigned names of a module, and
+    ``Class.method`` for every method."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                out.update(f"{node.name}.{m.name}" for m in node.body
+                           if isinstance(m, ast.FunctionDef))
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets
+                       if isinstance(t, ast.Name))
+    return out
+
+
+@pytest.mark.parametrize("module", [
+    "serving/stream.py", "fleet/autoscale.py", "fleet/migrate.py",
+    "fleet/rebalance.py", "fleet/supervisor.py"])
+def test_port_has_every_reference_name(module):
+    want = _names(os.path.join(SRC, "repro", module))
+    got = _names(os.path.join(SRC, "repro_torch", module))
+    assert want - got == set()
+
+
+def test_fleet_exports_match_the_jax_package():
+    assert fleet(side("port")).__all__ == fleet(side("jax")).__all__
