@@ -94,7 +94,23 @@ non-zero:
      without a step in flight, each resize's ms, capture ms and pool
      bytes, each recovery's ms by part, memory after each kill, and the
      host us of the autoscaler's and the rebalancer's ``observe()``;
-  8. the LM slice (``lm_slice``): K4 against its plain version on the
+  8. STBP training (``train``), the Table II network at full width as
+     ``examples/torch_train_dvs_gesture.py`` trains it
+     (``training.stbp_step``: ``snn_loss`` under autograd, AdamW;
+     step-atomic checkpoints, B=16 windows of ~60k events from
+     ``dvs_gesture_batch``): K1, K2 and K2's currents entry on the
+     inputs a B=16 batch gives them, against their plain versions; the
+     card against the port's CPU run in both modes (2**-8 weights, B=4:
+     loss, logits, spikes and rates bit for bit, gradients within 1e-5
+     of their largest magnitudes); layer_serial against time_serial on
+     the card with the launch tallies of a step asserted; every layer's
+     gradient nonzero at step 1; a step under
+     ``torch.cuda.set_sync_debug_mode("error")``; 2k steps against k +
+     checkpoint + restore + k, bit for bit. Reported: 30 steps' loss and
+     accuracy a mode, step ms by part, step-only samples/s and the
+     example loop's (data included), busy share, peak memory, a batch's
+     host ms, save/restore ms;
+  9. the LM slice (``lm_slice``): K4 against its plain version on the
      card bit for bit (prefill and decode calls, T=4, ragged T, chaining
      inside a time chunk, hd=32 and hd=16, unaligned inputs, B=1 rows); the rwkv6-7b widths at a depth of 2 layers in f32 on the card
      against the port's CPU run (forward logits, stepped decode, greedy
@@ -108,7 +124,7 @@ non-zero:
      at M=8,192 prefill rows on its serial path),
      decode and prefill tokens/s, and profiles of bf16 and ternary decode
      steps (busy share, K3's device ms a step);
-  9. the ``kernels`` line, then the card line, then the ``ok`` line.
+  10. the ``kernels`` line, then the card line, then the ``ok`` line.
 
 Weights are random from a numpy seed. For the event wing's served
 comparison they are rounded to multiples of 2**-8: every conv and fc
@@ -202,6 +218,7 @@ def main() -> int:
     graphs_phase(torch, dev, k1, k2, k3, smi, times["end_to_end"], fe)
     surface = serving_surface(torch, dev, k1, k2, k3, smi)
     fleet = fleet_phase(torch, dev, k1, k2, k3, smi)
+    train = train_phase(torch, dev, k1, k2, smi)
     lm = lm_slice(torch, dev, k3, k4)
 
     kernels = [
@@ -211,14 +228,20 @@ def main() -> int:
              launches=served["launches"]["lif_scan"],
              serving_surface_launches=surface["lif_scan"],
              fleet_launches=fleet["lif_scan"],
-             max_abs_err=err["lif_scan"], **times["lif_scan"]),
+             train_launches=train["launches"]["lif_scan"],
+             max_abs_err=max(err["lif_scan"],
+                             train["max_abs_err"]["lif_scan"]),
+             **times["lif_scan"]),
         dict(name="fc_lif_scan", route="cuda",
              source="src/repro_torch/csrc/fc_lif_scan.cu",
              replaces="src/repro/kernels/fc_lif_scan.py:131",
              launches=served["launches"]["fc_lif_scan"],
              serving_surface_launches=surface["fc_lif_scan"],
              fleet_launches=fleet["fc_lif_scan"],
-             max_abs_err=err["fc_lif_scan"], **times["fc_lif_scan"]),
+             train_launches=train["launches"]["fc_lif_scan"],
+             max_abs_err=max(err["fc_lif_scan"],
+                             train["max_abs_err"]["fc_lif_scan"]),
+             **times["fc_lif_scan"]),
         dict(name="fc_currents", entry_of="fc_lif_scan", route="cuda",
              source="src/repro_torch/csrc/fc_lif_scan.cu",
              replaces="src/repro/core/tcn.py:196",
@@ -226,7 +249,10 @@ def main() -> int:
              launches=fused["launches"]["fc_currents"],
              serving_surface_launches=surface["fc_currents"],
              fleet_launches=fleet["fc_currents"],
-             max_abs_err=err["fc_currents"], **times["fc_currents"]),
+             train_launches=train["launches"]["fc_currents"],
+             max_abs_err=max(err["fc_currents"],
+                             train["max_abs_err"]["fc_currents"]),
+             **times["fc_currents"]),
         dict(name="ternary_matmul", route="cuda",
              source="src/repro_torch/csrc/ternary_matmul.cu",
              replaces="src/repro/kernels/ternary_matmul.py:92",
@@ -2702,7 +2728,435 @@ def fleet_phase(torch, dev, k1, k2, k3, smi):
 
 
 # ----------------------------------------------------------------------
-# Phase 8: the LM slice -- RWKV-6 serving through K4 (and K3 on the
+# Phase 8: STBP training of the Table II SCNN -- snn_loss under autograd
+# in both modes, AdamW and step-atomic checkpoints.
+# ----------------------------------------------------------------------
+
+TRAIN_BATCH = 16                # examples/torch_train_dvs_gesture.py's
+TRAIN_GATE_BATCH = 4            # gates (a) and (b)
+TRAIN_STEPS = 30                # the reported run, each mode
+TRAIN_TIMED_STEPS = 20
+TRAIN_PROFILE_STEPS = 3
+TRAIN_LOOP_STEPS = 5            # the example's loop, batches made inline
+TRAIN_RESTART_K = 3             # gate (e): 2k uninterrupted vs k + k
+# Weight gradients on the card against the CPU, and between the modes:
+# the same formulas with their sums in other orders (cuDNN's and
+# cuBLAS's against the CPU's; per-step products against one over T).
+# The H100 read at most 9.8e-7 (card vs CPU) and 1.7e-6 (mode vs mode)
+# of a gradient's largest magnitude; a backward whose recomputed
+# membrane flips a few surrogate windows moves it by more than that,
+# so the limit sits ~6x above the largest reading.
+TRAIN_GRAD_RTOL = 1e-5
+TRAIN_MODES = ("time_serial", "layer_serial")
+
+
+def _train_full():
+    """What ``train_phase`` trains: the Table II network on the example's
+    ~60k-event 128x128 windows."""
+    from repro_torch.configs import CONFIG
+    return dict(cfg=CONFIG, data=dict(
+        height=CONFIG.height, width=CONFIG.width,
+        time_bins=CONFIG.time_bins, mean_events=60_000,
+        num_classes=CONFIG.num_classes))
+
+
+def _grad_rel(torch, want, got):
+    """Largest |got - want| over want's largest magnitude, a layer."""
+    return {k: float((got[k]["w"].cpu() - want[k]["w"].cpu()).abs().max()
+                     / want[k]["w"].abs().max().cpu()) for k in want}
+
+
+def _same_tree(torch, a, b):
+    from repro_torch.training.optimizer import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(la, lb))
+
+
+def _train_kernel_checks(torch, k1, k2, params, vox, cfg):
+    """K1, K2 and K2's currents entry on the inputs a B=16 training batch
+    gives them, each against its plain version on the card, bit for bit:
+    the conv1/conv2 currents and the fc1/fc2 spikes that a layer_serial
+    forward hands ``ops.lif_scan`` and ``ops.fc_lif_scan`` (recorded from
+    that forward), and the currents entry on fc1's and fc2's spikes as
+    time_serial gives them (one step's B rows) and as the backward's
+    recomputation does (T*B rows). Returns (shapes, {kernel: max error})."""
+    from repro_torch.core.snn import snn_apply
+    from repro_torch.kernels import ops
+    seen = {"lif_scan": [], "fc_lif_scan": []}
+    real = {name: getattr(ops, name) for name in seen}
+
+    def recorder(name):
+        def call(*args):
+            seen[name].append(args)
+            return real[name](*args)
+        return call
+
+    try:
+        for name in seen:
+            setattr(ops, name, recorder(name))
+        with torch.no_grad():
+            snn_apply(params, vox, cfg, mode="layer_serial")
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+    check(len(seen["lif_scan"]) == 2 and len(seen["fc_lif_scan"]) == 2,
+          f"train: recorded {[len(v) for v in seen.values()]} kernel calls")
+    err = dict(lif_scan=0.0, fc_lif_scan=0.0, fc_currents=0.0)
+    shapes = []
+    for layer, (cur, p, v0) in zip(("conv1", "conv2"), seen["lif_scan"]):
+        want = k1.lif_scan_plain(cur, p, v0)
+        got = k1.lif_scan_cuda(cur, p, v0)
+        check(_bitwise(torch, want, got),
+              f"train: K1 on {layer}'s {tuple(cur.shape)} currents differs "
+              f"from its plain version")
+        err["lif_scan"] = max(err["lif_scan"], _max_err(want, got))
+        shapes.append(dict(kernel="lif_scan", layer=layer,
+                           shape=list(cur.shape)))
+    for layer, (sp, w, p, v0) in zip(("fc1", "fc2"), seen["fc_lif_scan"]):
+        want = k2.fc_lif_scan_plain(sp, w, p, v0)
+        got = k2.fc_lif_scan_cuda(sp, w, p, v0)
+        check(_bitwise(torch, want, got),
+              f"train: K2 on {layer}'s {tuple(sp.shape)} spikes differs "
+              f"from its plain version")
+        err["fc_lif_scan"] = max(err["fc_lif_scan"], _max_err(want, got))
+        for rows in (sp[0], sp.reshape(-1, sp.shape[-1])):
+            rows = rows.float().contiguous()
+            want = k2.fc_currents_plain(rows, w)
+            got = k2.fc_currents_cuda(rows, w)
+            check(torch.equal(got, want),
+                  f"train: currents entry on {layer}'s {tuple(rows.shape)} "
+                  f"spikes differs from its plain version")
+            err["fc_currents"] = max(err["fc_currents"],
+                                     _max_err([want], [got]))
+        shapes.append(dict(kernel="fc_lif_scan", layer=layer,
+                           shape=list(sp.shape) + [w.shape[1]]))
+    torch.cuda.synchronize()
+    return shapes, err
+
+
+def train_phase(torch, dev, k1, k2, smi):
+    """STBP training of the Table II SCNN, as
+    ``examples/torch_train_dvs_gesture.py`` runs it: ``snn_loss`` under
+    autograd, AdamW, step-atomic checkpoints, on ``dvs_gesture_batch``
+    windows. Gates, each raising: (a) the card against the port's CPU
+    run, both modes, 2**-8 weights, B=4: loss, logits, output spikes and
+    per-layer rates bit for bit, the four weight gradients within
+    ``TRAIN_GRAD_RTOL`` of their largest magnitudes; (b) on the card,
+    layer_serial against time_serial (He init): loss and spikes bit for
+    bit, gradients within the tolerance, and the launch tallies exactly
+    (a time_serial step: 2*T of the currents entry forward, none
+    backward; a layer_serial step: K1 2, K2 2 forward, the currents
+    entry 2 backward, its recomputation of fc1 and fc2); (c) every
+    weight gradient of step 1 finite and nonzero; (d) a full step under
+    ``torch.cuda.set_sync_debug_mode("error")``; (e) 2k AdamW steps at
+    B=16 from ``init_snn`` against k steps, ``save_checkpoint``,
+    ``restore_latest`` into fresh tensors and k more: parameters and
+    optimizer state bit for bit; and K1, K2 and the currents entry on
+    the inputs the first B=16 batch gives them, against their plain
+    versions bit for bit. Reported: the loss and accuracy of
+    ``TRAIN_STEPS`` steps at B=16 in each mode, step ms by part (median
+    of ``TRAIN_TIMED_STEPS``, CUDA events), step-only samples/s (batches
+    made beforehand) and the example loop's samples/s (each batch made
+    inline), the device busy share from a profile, peak memory
+    allocated, the host ms of a ``dvs_gesture_batch``, and
+    ``save_checkpoint``/``restore_latest`` ms. Returns the main path's
+    launches (the reported runs) and each kernel's largest error."""
+    import shutil
+    from repro_torch.convert import snn_params_from_numpy
+    from repro_torch.core.snn import SNN_STATE_LAYERS, init_snn, snn_apply
+    from repro_torch.data import dvs_gesture_batch
+    from repro_torch.training import (AdamWConfig, adamw_init,
+                                      restore_latest, save_checkpoint,
+                                      snn_grads, stbp_step)
+    full = _train_full()
+    cfg, data = full["cfg"], full["data"]
+    on_card = torch.device(dev).type == "cuda"
+    cpu = torch.device("cpu")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    # The example's AdamW at its default 300 steps.
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=300,
+                       weight_decay=1e-4)
+    t_phase = time.perf_counter()
+    gates, report = {}, {"nvidia_smi": smi}
+    tally = lambda: (k1.launches, k2.launches, k2.currents_launches)
+
+    err = dict(lif_scan=0.0, fc_lif_scan=0.0, fc_currents=0.0)
+
+    # (a) the card against the CPU, 2**-8 weights.
+    p_cpu = snn_params_from_numpy(_np_params(cfg, dyadic=True))
+    p_dev = {k: {"w": v["w"].to(dev)} for k, v in p_cpu.items()}
+    b4 = dvs_gesture_batch(TRAIN_GATE_BATCH, 0, device=dev, **data)
+    b4_cpu = dvs_gesture_batch(TRAIN_GATE_BATCH, 0, device=cpu, **data)
+    gates["a_batch_equal"] = bool(
+        torch.equal(b4.vox.cpu(), b4_cpu.vox)
+        and torch.equal(b4.labels.cpu(), b4_cpu.labels))
+    a_rel = {}
+    for mode in TRAIN_MODES:
+        got = snn_grads(p_dev, b4.vox, b4.labels, cfg, mode=mode)
+        want = snn_grads(p_cpu, b4_cpu.vox, b4_cpu.labels, cfg, mode=mode)
+        with torch.no_grad():
+            s_dev = snn_apply(p_dev, b4.vox, cfg, mode=mode)
+            s_cpu = snn_apply(p_cpu, b4_cpu.vox, cfg, mode=mode)
+        gates[f"a_{mode}_loss"] = bool(torch.equal(got[0].cpu(), want[0]))
+        gates[f"a_{mode}_logits"] = bool(torch.equal(
+            got[1]["logits"].cpu(), want[1]["logits"]))
+        gates[f"a_{mode}_spikes"] = bool(torch.equal(
+            s_dev["out_spikes"].cpu(), s_cpu["out_spikes"]))
+        gates[f"a_{mode}_rates"] = all(
+            torch.equal(got[1]["firing_rates"][k].cpu(),
+                        want[1]["firing_rates"][k])
+            and torch.equal(s_dev["firing_rates_per_stream"][k].cpu(),
+                            s_cpu["firing_rates_per_stream"][k])
+            for k in SNN_STATE_LAYERS)
+        a_rel[mode] = _grad_rel(torch, want[2], got[2])
+        gates[f"a_{mode}_grads"] = max(a_rel[mode].values()) \
+            <= TRAIN_GRAD_RTOL
+        report[f"a_{mode}_loss"] = float(want[0])
+    report["a_grad_rel_err"] = a_rel
+    del p_cpu, p_dev, b4_cpu
+
+    # (b) the modes on the card, He init; the launch tallies.
+    params0 = init_snn(SEED, cfg, device=dev)
+    gates["b_init_same_as_cpu"] = all(
+        torch.equal(params0[k]["w"].cpu(), v["w"])
+        for k, v in init_snn(SEED, cfg, device=cpu).items())
+    runs, counts = {}, {}
+    for mode in TRAIN_MODES:
+        sync()
+        before = tally()
+        runs[mode] = snn_grads(params0, b4.vox, b4.labels, cfg, mode=mode)
+        sync()
+        counts[mode] = tuple(a - b for a, b in zip(tally(), before))
+        with torch.no_grad():
+            runs[mode] += (snn_apply(params0, b4.vox, cfg,
+                                     mode=mode)["out_spikes"],)
+    ts, ls = runs["time_serial"], runs["layer_serial"]
+    gates["b_loss"] = bool(torch.equal(ts[0], ls[0]))
+    gates["b_spikes"] = bool(torch.equal(ts[3], ls[3]))
+    b_rel = _grad_rel(torch, ts[2], ls[2])
+    gates["b_grads"] = max(b_rel.values()) <= TRAIN_GRAD_RTOL
+    report["b_grad_rel_err"] = b_rel
+    expect = {"time_serial": (0, 0, 2 * cfg.time_bins),
+              "layer_serial": (2, 2, 2)}
+    report["b_step_launches"] = counts
+    if on_card:
+        gates["b_launches"] = counts == expect
+    del runs, ts, ls
+
+    # The batches of the B=16 runs, made as the example makes them.
+    batches, data_ms = [], []
+    for s in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batches.append(dvs_gesture_batch(TRAIN_BATCH, s, device=dev, **data))
+        sync()
+        data_ms.append((time.perf_counter() - t0) * 1e3)
+    report["data_batch_ms"] = dict(median=statistics.median(data_ms),
+                                   min=min(data_ms), max=max(data_ms))
+    # Of which numpy's event synthesis: the batch's windows drawn again
+    # from its seed, nothing voxelized or copied.
+    from repro_torch.core.events import synthetic_gesture_events
+    synth_ms = []
+    for s in range(5):
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(999 + s)
+        for lab in rng.integers(0, cfg.num_classes, size=TRAIN_BATCH):
+            synthetic_gesture_events(
+                rng, int(lab), mean_events=data["mean_events"],
+                height=data["height"], width=data["width"],
+                num_classes=cfg.num_classes)
+        synth_ms.append((time.perf_counter() - t0) * 1e3)
+    report["data_numpy_synthesis_ms"] = statistics.median(synth_ms)
+    report["events_per_batch"] = [int(b.num_events.sum())
+                                  for b in batches[:3]]
+    # K1, K2 and the currents entry on what the first B=16 batch gives
+    # them (the main path's grids), against their plain versions.
+    if on_card:
+        report["kernel_check_shapes"], err = _train_kernel_checks(
+            torch, k1, k2, params0, batches[0].vox, cfg)
+
+    # (c) step 1's gradients reach every layer; (d) no synchronisation.
+    for mode in TRAIN_MODES:
+        _, _, g1 = snn_grads(params0, batches[0].vox, batches[0].labels,
+                             cfg, mode=mode)
+        gates[f"c_{mode}_every_layer_learns"] = all(
+            bool(torch.isfinite(g["w"]).all()) and float(g["w"].abs().max())
+            > 0 for g in g1.values())
+        if on_card:
+            opt0 = adamw_init(params0)
+            stbp_step(params0, opt0, batches[0].vox, batches[0].labels,
+                      cfg, ocfg, mode=mode)
+            sync()
+            try:
+                torch.cuda.set_sync_debug_mode("error")
+                stbp_step(params0, opt0, batches[1].vox, batches[1].labels,
+                          cfg, ocfg, mode=mode)
+                gates[f"d_{mode}_no_sync"] = True
+            except RuntimeError as e:
+                report[f"d_{mode}_error"] = str(e)[:300]
+                gates[f"d_{mode}_no_sync"] = False
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sync()
+
+    # (e) restart is bit-identical; save/restore ms.
+    ckdir = os.path.join(ROOT, "checkpoints", "chip_smoke_train")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    k = TRAIN_RESTART_K
+    save_ms, restore_ms = [], []
+
+    def steps(params, opt, lo, hi, mode):
+        for s in range(lo, hi):
+            params, opt, _, _ = stbp_step(
+                params, opt, batches[s].vox, batches[s].labels, cfg, ocfg,
+                mode=mode)
+        return params, opt
+
+    for mode in TRAIN_MODES:
+        whole = steps(params0, adamw_init(params0), 0, 2 * k, mode)
+        again = steps(params0, adamw_init(params0), 0, 2 * k, mode)
+        report[f"e_{mode}_rerun_bitwise"] = _same_tree(
+            torch, {"p": whole[0], "o": whole[1]},
+            {"p": again[0], "o": again[1]})
+        half = steps(params0, adamw_init(params0), 0, k, mode)
+        sync()
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckdir, k, {"params": half[0],
+                                          "opt": half[1]})
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        report["checkpoint_bytes"] = sum(f.stat().st_size
+                                         for f in path.iterdir())
+        fresh = init_snn(SEED + 1, cfg, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        step, state, _ = restore_latest(
+            ckdir, {"params": fresh, "opt": adamw_init(fresh)})
+        sync()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+        resumed = steps(state["params"], state["opt"], k, 2 * k, mode)
+        gates[f"e_{mode}_restart_bitwise"] = step == k and _same_tree(
+            torch, {"p": whole[0], "o": whole[1]},
+            {"p": resumed[0], "o": resumed[1]})
+        shutil.rmtree(ckdir, ignore_errors=True)
+    report["save_checkpoint_ms"] = save_ms
+    report["restore_latest_ms"] = restore_ms
+
+    # Reported: TRAIN_STEPS steps a mode from He init (the main path, its
+    # launches counted), then timed steps and a profile.
+    sync()
+    k1.launches = k2.launches = k2.currents_launches = 0
+    curves = {}
+    for mode in TRAIN_MODES:
+        params, opt = params0, adamw_init(params0)
+        losses, accs = [], []
+        for b in batches:
+            params, opt, loss, aux = stbp_step(
+                params, opt, b.vox, b.labels, cfg, ocfg, mode=mode)
+            losses.append(loss)
+            accs.append(aux["accuracy"])
+        curves[mode] = dict(loss=[float(x) for x in losses],
+                            accuracy=[float(x) for x in accs])
+    sync()
+    launches = {"lif_scan": k1.launches, "fc_lif_scan": k2.launches,
+                "fc_currents": k2.currents_launches}
+    n = TRAIN_STEPS
+    if on_card:
+        gates["train_launches"] = launches == {
+            "lif_scan": 2 * n, "fc_lif_scan": 2 * n,
+            "fc_currents": n * (2 * cfg.time_bins) + n * 2}
+    report["curves"] = curves
+
+    timing = {}
+    if on_card:
+        for mode in TRAIN_MODES:
+            params, opt = params0, adamw_init(params0)
+            for b in batches[:3]:
+                params, opt, _, _ = stbp_step(
+                    params, opt, b.vox, b.labels, cfg, ocfg, mode=mode)
+            sync()
+
+            def timed(det):
+                """Step ms by part (medians), wall ms a step and the
+                peak bytes above what is held, over TRAIN_TIMED_STEPS."""
+                nonlocal params, opt
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                marks = []
+                t0 = time.perf_counter()
+                for i in range(TRAIN_TIMED_STEPS):
+                    ev4 = [torch.cuda.Event(enable_timing=True)
+                           for _ in range(4)]
+                    b = batches[i % len(batches)]
+                    params, opt, _, _ = stbp_step(
+                        params, opt, b.vox, b.labels, cfg, ocfg, mode=mode,
+                        deterministic=det,
+                        mark=lambda i, ev4=ev4: ev4[i].record())
+                    marks.append(ev4)
+                sync()
+                wall = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS
+                part = lambda i, j: statistics.median(
+                    m[i].elapsed_time(m[j]) for m in marks)
+                return dict(step_ms=part(0, 3), forward_ms=part(0, 1),
+                            backward_ms=part(1, 2), optimizer_ms=part(2, 3),
+                            wall_ms_per_step=wall,
+                            step_only_samples_per_s=TRAIN_BATCH / wall * 1e3,
+                            peak_memory_allocated_bytes=(
+                                torch.cuda.max_memory_allocated()),
+                            step_peak_bytes_above_held=(
+                                torch.cuda.max_memory_allocated() - held))
+
+            # Deterministic (the gated steps), free, deterministic again:
+            # the context's cost read within one call, in turns.
+            runs = [timed(True), timed(False), timed(True)]
+            row = dict(runs[0])
+            row["step_ms_deterministic_runs"] = [runs[0]["step_ms"],
+                                                 runs[2]["step_ms"]]
+            row["nondeterministic"] = runs[1]
+
+            # The example's loop as a user runs it: each batch made
+            # inline (numpy synthesis, voxelize), then the step, then the
+            # accuracy read back; the rate with the data included.
+            p, o = params, opt
+            t0 = time.perf_counter()
+            for s in range(TRAIN_LOOP_STEPS):
+                b = dvs_gesture_batch(TRAIN_BATCH, 100 + s, device=dev,
+                                      **data)
+                p, o, _, aux = stbp_step(p, o, b.vox, b.labels, cfg, ocfg,
+                                         mode=mode)
+                float(aux["accuracy"])
+            sync()
+            loop = (time.perf_counter() - t0) * 1e3 / TRAIN_LOOP_STEPS
+            row["example_loop_ms_per_step"] = loop
+            row["example_loop_samples_per_s"] = TRAIN_BATCH / loop * 1e3
+
+            def run_profiled():
+                p, o = params, opt
+                for b in batches[:TRAIN_PROFILE_STEPS]:
+                    p, o, _, _ = stbp_step(p, o, b.vox, b.labels, cfg,
+                                           ocfg, mode=mode)
+                return p
+
+            _, wall_ms, by_name, n_ops, host, gaps, api = _trace(
+                torch, run_profiled)
+            row["profile"] = _trace_fields(
+                wall_ms, by_name, n_ops, host, gaps, api,
+                TRAIN_PROFILE_STEPS, row["wall_ms_per_step"])
+            timing[mode] = row
+    report["timing"] = timing
+    del batches, params0
+    if on_card:
+        torch.cuda.empty_cache()
+    emit("train", config="CONFIG (full width), B=16 (gates a, b: B=4)",
+         launches=launches, gates=gates, max_abs_err=err,
+         phase_s=time.perf_counter() - t_phase, **report)
+    failed = [g for g, ok in gates.items() if not ok]
+    check(not failed, f"train gates failed: {failed}")
+    return dict(launches=launches, max_abs_err=err)
+
+
+# ----------------------------------------------------------------------
+# Phase 9: the LM slice -- RWKV-6 serving through K4 (and K3 on the
 # ternary path).
 # ----------------------------------------------------------------------
 

@@ -23,29 +23,48 @@ Kernels. ``layer_serial`` is the serving path: conv1 and conv2 scan through
 CUDA tensor and runs its plain version on a CPU tensor. The JAX package's
 unfused fc path (``fuse_fc=False``: currents, then the scan) computes the
 same function as K2 here, so the port has the fused path only.
-``time_serial`` is the port's oracle for ``layer_serial`` and runs on CPU
-tensors only in this slice.
+``time_serial`` is the STBP view, the training default, on the card and
+the CPU: its fc currents are ``kernels.ops.fc_currents`` (2 launches of
+K2's currents entry a time step on the card, the plain loop on the CPU,
+and the two plain products backward). Under autograd both modes'
+kernels run forward, and the backward recomputes their plain references
+(``kernels/ops.py``).
 
 Numerics. Pools are sum/(k*k), exact on spikes. An fc current is the
 ascending-k f32 sum of ``repro_torch.kernels.fc_lif_scan.fc_currents`` in
 both modes, so ``layer_serial`` and ``time_serial`` give the same bits.
 Rates and readouts are sums divided by a count, as ``jnp.mean`` computes
-them.
+them, the quotient rounded once on the card too (``_div``);
+``time_serial`` adds its per-step rates in ascending t, and the mean
+over streams is a :func:`~repro_torch.core.ternary.pairwise_sum`, so no
+rate depends on a device's reduction order. The loss's
+log-softmax runs in float64 and rounds once to float32, so the card and
+the CPU, whose float32 ``exp`` and ``log`` differ in the last bit, give
+the same loss.
+
+Training. :func:`init_snn` draws He-init weights on a CPU
+``torch.Generator`` (conv kernels OIHW) and places them on the device,
+so one seed gives the same weights on the card and the CPU; it cannot
+repeat ``jax.random``'s draws, so comparisons with the JAX package carry
+its weights across with ``repro_torch.convert.snn_params_from_numpy``.
+:func:`snn_loss` is the STBP cross-entropy on the spike-count readout.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.core.lif import LIFParams, lif_step, spike_surrogate
+from repro_torch.core.ternary import pairwise_sum
 from repro_torch.kernels import ops
-from repro_torch.kernels.fc_lif_scan import fc_currents
 
-__all__ = ["SNNConfig", "snn_init_state", "snn_apply", "snn_logits",
-           "SNN_STATE_LAYERS"]
+__all__ = ["SNNConfig", "init_snn", "snn_init_state", "snn_apply",
+           "snn_logits", "snn_loss", "SNN_STATE_LAYERS"]
 
 Params = Dict[str, Any]
 
@@ -68,6 +87,8 @@ class SNNConfig:
     time_bins: int = 16
     lif: LIFParams = LIFParams()
     readout: str = "spike_count"   # or "membrane"
+    # Init gain keeps deep LIF layers out of the silent regime: 2.0 with
+    # v_th=0.5 and surrogate width 2.0 gives 10-30% firing rates at init.
     init_gain: float = 2.0
 
     @property
@@ -92,6 +113,40 @@ class SNNConfig:
             "fc1": (1, 1, self.hidden),
             "fc2": (1, 1, self.num_classes),
         }
+
+
+def _he_init(generator, cfg, dtype=torch.float32, device=None) -> Params:
+    """:func:`init_snn`'s draws for any ``cfg`` with the four layers'
+    widths and ``init_gain`` (the TCN's too: ``tcn.init_tcn``)."""
+    dev = resolve_device(device)
+    gen = generator
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator().manual_seed(int(generator))
+    c_in, f1, f2 = cfg.in_channels, cfg.conv1_features, cfg.conv2_features
+    shapes = {"conv1": ((f1, c_in, 3, 3), 9 * c_in),
+              "conv2": ((f2, f1, 3, 3), 9 * f1),
+              "fc1": ((cfg.flat_dim, cfg.hidden), cfg.flat_dim),
+              "fc2": ((cfg.hidden, cfg.num_classes), cfg.hidden)}
+    out = {}
+    for name, (shape, fan_in) in shapes.items():
+        w = torch.randn(shape, generator=gen, dtype=torch.float32)
+        w = w * (cfg.init_gain * math.sqrt(2.0 / fan_in))
+        out[name] = {"w": w.to(dtype=dtype, device=dev)}
+    return out
+
+
+def init_snn(generator, cfg: SNNConfig, dtype=torch.float32,
+             device=None) -> Params:
+    """He-init the SCNN parameters: conv kernels OIHW, fc weights (K, N)
+    with fc1's rows in NHWC flatten order.
+
+    Normal draws for conv1, conv2, fc1 and fc2 in that order from a CPU
+    ``torch.Generator`` (or an int seed), each scaled by ``init_gain *
+    sqrt(2 / fan_in)``, then cast to ``dtype`` and placed on
+    ``repro_torch.resolve_device(device)`` (the card by default), so one
+    seed gives the same weights on every device.
+    """
+    return _he_init(generator, cfg, dtype, device)
 
 
 def snn_init_state(cfg: SNNConfig, batch_size: int,
@@ -150,12 +205,20 @@ def _pool_flat(s: torch.Tensor) -> torch.Tensor:
     return pooled.reshape(pooled.shape[0], -1)
 
 
+def _div(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x / n`` rounded once on every device. CUDA divides by a Python
+    scalar as a product with its rounded reciprocal (one rounding more,
+    an ulp off the CPU's quotient where ``n`` is not a power of two), so
+    ``n`` goes in as a 0-d tensor on ``x``'s device."""
+    return x / torch.full((), float(n), dtype=x.dtype, device=x.device)
+
+
 def _rate(s: torch.Tensor, batch_axis: int) -> torch.Tensor:
     """Per-stream mean firing rate: sum over every other axis, divided by
     the count. Spike sums are exact, so this is batch-size invariant."""
     axes = tuple(a for a in range(s.ndim) if a != batch_axis)
     count = s.numel() // s.shape[batch_axis]
-    return s.float().sum(dim=axes) / float(count)
+    return _div(s.float().sum(dim=axes), count)
 
 
 def snn_apply(
@@ -173,7 +236,7 @@ def snn_apply(
         "fc1": {"w": (K, N)}, "fc2": {"w": (K, N)}}`` (see
         :func:`repro_torch.convert.snn_params_from_numpy`).
       vox: (B, T, 2, H, W) float spikes (from ``events.voxelize_batch``).
-      mode: ``time_serial`` (STBP view; CPU tensors only) or
+      mode: ``time_serial`` (STBP view; CUDA and CPU tensors) or
         ``layer_serial`` (SNE view: K1 for the conv scans, K2 for fc1/fc2,
         which is the JAX package's ``fuse_fc=True``).
       state: optional per-layer (B, ...) membranes from
@@ -200,12 +263,9 @@ def snn_apply(
         return _conv(_avg_pool(s1, 2), w2)
 
     if mode == "time_serial":
-        if vox.device.type != "cpu":
-            raise NotImplementedError(
-                "mode='time_serial' runs on CPU tensors only: it is the "
-                "oracle for layer_serial, and its fc currents are K2's "
-                "plain version. The STBP view on the card arrives with "
-                "training (ROADMAP queue 1, item 12)")
+        if vox.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"mode='time_serial' runs on CUDA or CPU "
+                             f"tensors, got {vox.device}")
         if state is None:
             state = snn_init_state(cfg, b, vox.dtype, vox.device)
         carry = []
@@ -215,18 +275,21 @@ def snn_apply(
                                              lif.surrogate_width
                                              ).to(vox.dtype)))
         (v1, s1), (v2, s2), (v3, s3), (v4, s4) = carry
-        out_s, out_v, rates = [], [], []
+        out_s, out_v = [], []
+        rates = 0.0
         for x_t in x:
             v1, s1 = lif_step(v1, s1, i1(x_t), lif)
             v2, s2 = lif_step(v2, s2, i2(s1), lif)
-            v3, s3 = lif_step(v3, s3, fc_currents(_pool_flat(s2), wf1), lif)
-            v4, s4 = lif_step(v4, s4, fc_currents(s3, wf2), lif)
+            v3, s3 = lif_step(v3, s3, ops.fc_currents(_pool_flat(s2), wf1),
+                              lif)
+            v4, s4 = lif_step(v4, s4, ops.fc_currents(s3, wf2), lif)
             out_s.append(s4)
             out_v.append(v4)
-            rates.append(torch.stack([_rate(s, 0) for s in (s1, s2, s3, s4)]))
+            rates = rates + torch.stack([_rate(s, 0)
+                                         for s in (s1, s2, s3, s4)])
         out_spikes = torch.stack(out_s, dim=1)         # (B, T, classes)
         out_membrane = torch.stack(out_v, dim=1)
-        r1, r2, r3, r4 = torch.stack(rates).sum(0) / float(t)
+        r1, r2, r3, r4 = _div(rates, t)
         state_out = {"conv1": v1, "conv2": v2, "fc1": v3, "fc2": v4}
     elif mode == "layer_serial":
         v0 = lambda name: None if state is None else state[name]
@@ -250,7 +313,8 @@ def snn_apply(
     return {
         "out_spikes": out_spikes,
         "out_membrane": out_membrane,
-        "firing_rates": {k: v.sum() / float(b) for k, v in per_stream.items()},
+        "firing_rates": dict(zip(per_stream, _div(pairwise_sum(
+            torch.stack(list(per_stream.values()))), b))),
         "firing_rates_per_stream": per_stream,
         "state": state_out,
     }
@@ -262,4 +326,33 @@ def snn_logits(outputs: Dict[str, torch.Tensor],
     the mean over T taken as a sum divided by T."""
     key = "out_spikes" if cfg.readout == "spike_count" else "out_membrane"
     s = outputs[key].float()
-    return s.sum(dim=1) / float(s.shape[1])
+    return _div(s.sum(dim=1), s.shape[1])
+
+
+def snn_loss(
+    params: Params,
+    vox: torch.Tensor,
+    labels: torch.Tensor,
+    cfg: SNNConfig,
+    *,
+    mode: str = "time_serial",
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """STBP cross-entropy loss on readout logits. Returns (loss, aux).
+
+    The readout (spike counts in [0, 1]) is scaled by 10 for a usable
+    softmax temperature, as in the JAX package. The log-softmax, the
+    label gather and the batch mean run in float64 and round once to
+    float32 (see the module's Numerics). ``aux`` holds ``accuracy``,
+    ``firing_rates`` and ``logits``, detached (JAX's ``has_aux``); argmax
+    ties go to the first index, as ``jnp.argmax``'s do.
+    """
+    out = snn_apply(params, vox, cfg, mode=mode)
+    logits = snn_logits(out, cfg) * 10.0
+    labels = labels.long()
+    logp = torch.log_softmax(logits.double(), dim=-1)
+    loss = -logp.gather(-1, labels[:, None]).mean().float()
+    hits = (logits.argmax(-1) == labels).float().sum()
+    acc = _div(hits, labels.shape[0])
+    rates = {k: v.detach() for k, v in out["firing_rates"].items()}
+    return loss, {"accuracy": acc, "firing_rates": rates,
+                  "logits": logits.detach()}

@@ -40,13 +40,13 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.core.snn import _conv
+from repro_torch.core.snn import _conv, _he_init
 from repro_torch.core.ternary import pairwise_sum, ternarize
 from repro_torch.kernels import ops
 from repro_torch.kernels.fc_lif_scan import fc_currents
 
-__all__ = ["TCNConfig", "pack_tcn", "tcn_apply", "tcn_layer_macs",
-           "TCN_LAYERS"]
+__all__ = ["TCNConfig", "init_tcn", "pack_tcn", "tcn_apply",
+           "tcn_layer_macs", "TCN_LAYERS"]
 
 Params = Dict[str, Any]
 
@@ -109,6 +109,13 @@ def tcn_layer_macs(cfg: TCNConfig) -> Tuple[float, ...]:
         float(cfg.flat_dim * cfg.hidden),
         float(cfg.hidden * cfg.num_classes),
     )
+
+
+def init_tcn(generator, cfg: TCNConfig, dtype=torch.float32,
+             device=None) -> Params:
+    """He-init the float (pre-quantization) TCN parameters, as
+    :func:`repro_torch.core.snn.init_snn` does (``snn._he_init``)."""
+    return _he_init(generator, cfg, dtype, device)
 
 
 def pack_tcn(params: Params) -> Params:

@@ -17,7 +17,8 @@ ulp, so the mean is in practice the correctly rounded one, and agrees
 with the reference's float32 reduction wherever that one is correctly
 rounded too. The mask count is an exact integer sum.
 
-``ternary_ste`` (straight-through QAT) waits for the training slice.
+``ternary_ste`` is the fake-quantized ``q * scale`` with a
+straight-through gradient (QAT).
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ternarize", "pack2bit", "unpack2bit", "pairwise_sum",
+__all__ = ["ternarize", "ternary_ste", "pack2bit", "unpack2bit",
+           "pairwise_sum",
            "TERNARY_DELTA_FACTOR"]
 
 TERNARY_DELTA_FACTOR = 0.7  # TWN threshold heuristic
@@ -72,6 +74,24 @@ def ternarize(w: torch.Tensor, axis: Optional[int] = -1
     scale = pairwise_sum(torch.where(row_mask, rows, 0.0).double()) / denom
     q = torch.where(mask, torch.sign(w), 0.0).to(torch.int8)
     return q, scale.reshape(keep).to(w.dtype)
+
+
+class _TernarySTE(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, w):
+        q, scale = ternarize(w)
+        return q.to(w.dtype) * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        return g  # straight-through
+
+
+def ternary_ste(w: torch.Tensor) -> torch.Tensor:
+    """Fake-quantized ternary weights (per-channel ``q * scale`` over the
+    last axis) with straight-through gradients (QAT)."""
+    return _TernarySTE.apply(w)
 
 
 def pack2bit(q: torch.Tensor) -> torch.Tensor:

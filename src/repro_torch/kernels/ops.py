@@ -3,6 +3,8 @@
 
 ``lif_scan``             -- fused LIF scan with the STBP surrogate gradient.
 ``fc_lif_scan``          -- fused ``spikes @ w`` + LIF scan for the fc layers.
+``fc_currents``          -- the fc currents ``spikes @ w`` alone (K2's
+                            currents entry), with the product's gradient.
 ``ternary_matmul``       -- packed-ternary matmul (forward only, K3).
 ``pack_ternary_weights`` -- (K, N) float weights -> K3's packed layout.
 ``wkv6_scan``            -- the RWKV-6 WKV recurrence (forward only, K4).
@@ -12,10 +14,14 @@ plain version on a CPU tensor (see ``lif_scan_fwd``/``fc_lif_scan_fwd``/
 ``ternary_matmul_fwd``/``wkv6_scan_fwd``). The backward of the two LIF
 scans recomputes the plain reference under autograd, as the JAX package's
 custom VJPs do -- a remat policy, not an approximation: the forward values
-are the kernel's.
+are the kernel's. ``fc_lif_scan``'s recomputes its currents through
+``fc_currents``, in the forward's ascending-k order, so the recomputed
+membrane is the forward's bit for bit. ``fc_currents``' backward is the
+two plain products ``g @ w.T`` and ``s.T @ g`` (``torch.matmul``), the
+products the JAX package leaves to XLA's VJP of ``@``.
 No backward kernel exists to port; ``ternary_matmul`` is a serving op with
 no gradient, as in the JAX package, and ``wkv6_scan`` gets its backward
-with training.
+with LM training (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -25,13 +31,15 @@ import torch
 
 from repro_torch.core.lif import LIFParams, lif_scan_reference
 from repro_torch.core.ternary import pack2bit, ternarize
+from repro_torch.kernels import fc_lif_scan as _k2
 from repro_torch.kernels.fc_lif_scan import fc_lif_scan_fwd
 from repro_torch.kernels.lif_scan import lif_scan_fwd
 from repro_torch.kernels.ternary_matmul import ternary_matmul_fwd
 from repro_torch.kernels.wkv6_scan import wkv6_scan_fwd
 
 __all__ = ["lif_scan", "lif_scan_batched", "fc_lif_scan",
-           "fc_lif_scan_batched", "pack_ternary_weights", "ternary_matmul",
+           "fc_lif_scan_batched", "fc_currents", "pack_ternary_weights",
+           "ternary_matmul",
            "wkv6_scan"]
 
 
@@ -116,9 +124,15 @@ class _FcLifScan(torch.autograd.Function):
     def backward(ctx, g_spikes, g_vfin):
         spikes, w, v0 = ctx.saved_tensors
         p = ctx.p
-        g_s, g_w, g_v0 = _recompute_grads(
-            lambda s, w_, v: lif_scan_reference(torch.matmul(s, w_), p, v),
-            (spikes, w, v0), (g_spikes, g_vfin))
+
+        def plain(s, w_, v):
+            # K2's plain version, its currents summed in the forward's
+            # order; outputs in the spikes' dtype, as the forward's.
+            out, v_fin = lif_scan_reference(fc_currents(s.float(), w_), p, v)
+            return out.to(s.dtype), v_fin.to(s.dtype)
+
+        g_s, g_w, g_v0 = _recompute_grads(plain, (spikes, w, v0),
+                                          (g_spikes, g_vfin))
         return g_s, g_w, g_v0, None
 
 
@@ -149,6 +163,40 @@ def fc_lif_scan_batched(
         raise ValueError(f"need (B, T, K) spikes, got {tuple(spikes.shape)}")
     out, v_fin = fc_lif_scan(spikes.transpose(0, 1), w, p, v0)
     return out.transpose(0, 1), v_fin
+
+
+class _FcCurrents(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, spikes, w):
+        ctx.save_for_backward(spikes, w)
+        return _k2.fc_currents(spikes, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        spikes, w = ctx.saved_tensors
+        g_s = g_w = None
+        if ctx.needs_input_grad[0]:
+            g_s = torch.matmul(g, w.t()).to(spikes.dtype)
+        if ctx.needs_input_grad[1]:
+            g_w = torch.matmul(spikes.reshape(-1, spikes.shape[-1]).t()
+                               .to(g.dtype), g.reshape(-1, g.shape[-1]))
+        return g_s, g_w
+
+
+def fc_currents(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The ascending-k f32 currents ``spikes @ w`` (see
+    :func:`repro_torch.kernels.fc_lif_scan.fc_currents`), differentiable.
+
+    ``spikes`` (..., K), ``w`` (K, N) -> (..., N) float32. The forward is
+    one launch of K2's currents entry on a CUDA tensor and the plain loop
+    on a CPU tensor, recording no graph either way; the backward is
+    ``g @ w.T`` and ``s.T @ g``. Where no gradient is wanted it calls the
+    forward directly, so it launches exactly what the forward launches.
+    """
+    if torch.is_grad_enabled() and (spikes.requires_grad or w.requires_grad):
+        return _FcCurrents.apply(spikes, w)
+    return _k2.fc_currents(spikes, w)
 
 
 def pack_ternary_weights(w: torch.Tensor

@@ -4,7 +4,7 @@
   serve_step(params, cache, tokens)    -> (next_tokens, cache')
 
 ``make_train_step`` and the abstract input specs of the dry-run come with
-training (ROADMAP queue 1, items 12 and 13).
+LM training (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 

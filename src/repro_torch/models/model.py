@@ -10,7 +10,7 @@ port has: ``rwkv6`` so far.
   decode(params, cache, tok)           -> (logits, new cache) one serve step
 
 Entry points run on the card unless given ``device="cpu"``. ``lm_loss``
-and ``Model.loss`` come with training (ROADMAP queue 1, item 12).
+and ``Model.loss`` come with LM training (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 

@@ -253,8 +253,8 @@ def rwkv6_apply(params: Dict[str, Any], tokens: torch.Tensor,
     del scan_layers
     if remat:
         raise NotImplementedError(
-            "remat is a training option; training is not ported yet "
-            "(ROADMAP queue 1, item 12)")
+            "remat is an LM training option; LM training is not ported "
+            "yet (ROADMAP queue 1, item 13)")
     s = tokens.shape[1]
     c = min(_WKV_CHUNK, s)
     if c and s % c:

@@ -22,6 +22,10 @@ from repro_torch.core.engine import FrameTCNEngine  # noqa: E402
 from repro_torch.core.lif import LIFParams  # noqa: E402
 from repro_torch.core.pipeline import (BatchedClosedLoop,  # noqa: E402
                                        ClosedLoopPipeline)
+from repro_torch.core.snn import init_snn  # noqa: E402
+from repro_torch.core.tcn import init_tcn  # noqa: E402
+from repro_torch.data import (TokenTaskConfig,  # noqa: E402
+                              dvs_gesture_batch, token_batch)
 from repro_torch.kernels import fc_lif_scan as k2  # noqa: E402
 from repro_torch.kernels import lif_scan as k1  # noqa: E402
 from repro_torch.kernels import ternary_matmul as k3  # noqa: E402
@@ -111,6 +115,25 @@ def test_lm_entry_points_default_to_the_card():
             make()
     assert BatchScheduler(model, params, device="cpu").device.type == "cpu"
     assert generate(model, params, prompts, device="cpu")[0].shape == (1, 32)
+
+
+def test_training_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card path is moot")
+    tk = TokenTaskConfig(vocab_size=16, seq_len=8, batch_size=2)
+    small = dict(height=32, width=32, time_bins=4, mean_events=500)
+    for make in (lambda: init_snn(0, SMOKE),
+                 lambda: init_tcn(0, TCN_SMOKE),
+                 lambda: dvs_gesture_batch(2, 0, **small),
+                 lambda: token_batch(tk, 0)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert init_snn(0, SMOKE, device="cpu")["fc1"]["w"].device.type == "cpu"
+    assert init_tcn(0, TCN_SMOKE, device="cpu")["fc2"]["w"].device.type \
+        == "cpu"
+    batch = dvs_gesture_batch(2, 0, device="cpu", **small)
+    assert batch.vox.device.type == "cpu" and batch.labels.dtype == torch.int64
+    assert token_batch(tk, 0, device="cpu")["tokens"].device.type == "cpu"
 
 
 def test_lif_wrapper_refuses_bad_inputs():

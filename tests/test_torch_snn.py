@@ -134,13 +134,13 @@ def test_zero_state_equals_stateless(np_params):
         assert torch.equal(a["out_spikes"], z["out_spikes"])
 
 
-def test_time_serial_refuses_device_tensors(np_params):
-    """time_serial is the CPU oracle: off the CPU it raises instead of
-    running K2's plain version on the device."""
+def test_time_serial_rejects_unsupported_device(np_params):
+    """time_serial runs on CUDA and CPU tensors (the STBP training view on
+    the card); on any other device it raises ValueError."""
     params = {k: {"w": v["w"].to("meta")}
               for k, v in snn_params_from_numpy(np_params).items()}
     vox = torch.zeros(1, 8, 2, 32, 32, device="meta")
-    with pytest.raises(NotImplementedError, match="CPU tensors only"):
+    with pytest.raises(ValueError, match="CUDA or CPU"):
         tsnn.snn_apply(params, vox, TCFG, mode="time_serial")
 
 
