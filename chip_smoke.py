@@ -124,7 +124,29 @@ non-zero:
      at M=8,192 prefill rows on its serial path),
      decode and prefill tokens/s, and profiles of bf16 and ternary decode
      steps (busy share, K3's device ms a step);
-  10. the ``kernels`` line, then the card line, then the ``ok`` line.
+  10. the transformer families (``transformer``), after the LM slice has
+     freed rwkv6's weights: (a) K3 against its plain version bit for bit
+     at the products this slice serves -- llama3.2-1b's gate/up (K 2048,
+     N 8192) and down (K 8192, N 2048), qwen2-vl-2b's down (K 8960) and
+     deepseek-moe-16b's shared-expert down (K 2816), the last two ending
+     in a short 512-k segment -- each at decode rows (split path) and
+     prefill rows (M = 8,192, serial path), with their times beside
+     torch.matmul and the bound; (b) llama3.2-1b, deepseek-moe-16b and
+     qwen2-vl-2b at full width cut to 2 layers in f32, the card against
+     the port's CPU run: logits within 1e-3, llama's stepped decode,
+     greedy and ternary greedy tokens equal (the card packs the CPU's
+     bytes), deepseek's chosen experts and dropped (token, choice) pairs
+     equal, qwen2-vl with patch embeddings; (c) llama3.2-1b at full
+     width and depth in bf16, served by BatchScheduler, then ternary
+     through generate with K3 counted (48 launches a decode step, 48 a
+     prefill), no host sync inside a bf16 or ternary decode step
+     (``torch.cuda.set_sync_debug_mode("error")``), decode tokens/s with
+     bf16 and ternary samples in turn, prefill tokens/s at B=4, S=2048,
+     profiles of decode steps and memory; (d) deepseek-moe-16b (depth
+     cut to 4 of 28 layers) and qwen2-vl-2b (full depth) at full width:
+     decode tokens/s at B=4 with no host sync, ternary decode steps with
+     K3 counted, one prefill at B=4, S=2048;
+  11. the ``kernels`` line, then the card line, then the ``ok`` line.
 
 Weights are random from a numpy seed. For the event wing's served
 comparison they are rounded to multiples of 2**-8: every conv and fc
@@ -220,6 +242,7 @@ def main() -> int:
     fleet = fleet_phase(torch, dev, k1, k2, k3, smi)
     train = train_phase(torch, dev, k1, k2, smi)
     lm = lm_slice(torch, dev, k3, k4)
+    tf = transformer_phase(torch, dev, k3)
 
     kernels = [
         dict(name="lif_scan", route="cuda",
@@ -257,11 +280,15 @@ def main() -> int:
              source="src/repro_torch/csrc/ternary_matmul.cu",
              replaces="src/repro/kernels/ternary_matmul.py:92",
              launches=(fused["launches"]["ternary_matmul"]
-                       + lm["launches"]["ternary_matmul"]),
+                       + lm["launches"]["ternary_matmul"]
+                       + tf["launches"]),
+             transformer_launches=tf["launches"],
              serving_surface_launches=surface["ternary_matmul"],
              fleet_launches=fleet["ternary_matmul"],
              max_abs_err=max(err["ternary_matmul"],
-                             lm["max_abs_err"]["ternary_matmul"]),
+                             lm["max_abs_err"]["ternary_matmul"],
+                             tf["max_abs_err"]),
+             transformer_times=tf["times"],
              **times["ternary_matmul"]),
         dict(name="wkv6_scan", route="cuda",
              source="src/repro_torch/csrc/wkv6_scan.cu",
@@ -3507,6 +3534,80 @@ def _k4_cost(b, t, h, hd, state):
     return nbytes, b * h * t * (5 * hd * hd + 6 * hd)
 
 
+def _decode_rates(torch, serve_step, model, plist, dev, cache_len,
+                  samples=DECODE_SAMPLES, steps=DECODE_STEPS,
+                  batch=LM_BATCH):
+    """Decode tokens/s of each weight set in ``plist`` through
+    ``serve_step`` from a ``cache_len`` cache at ``batch``, whose samples
+    are taken in turn, so that a drift of the host's speed during the run
+    falls on each alike. Returns the rows and each set's (params, cache,
+    token) after the run."""
+    vocab = model.cfg.vocab_size
+    states = []
+    for p in plist:
+        cache = model.init_cache(batch, cache_len, device=dev)
+        tok = torch.ones((batch, 1), dtype=torch.long, device=dev)
+        for _ in range(3):
+            tok, cache = serve_step(p, cache, tok)
+        states.append([p, cache, tok])
+    rates = [[] for _ in plist]
+    step_ms = [[] for _ in plist]
+    for _ in range(samples):
+        for st, rate, ms in zip(states, rates, step_ms):
+            p, cache, tok = st
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                tok, cache = serve_step(p, cache, tok)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            st[1:] = cache, tok
+            rate.append(batch * steps / dt)
+            ms.append(dt * 1e3 / steps)
+    for _, _, tok in states:
+        check(bool(((tok >= 0) & (tok < vocab)).all()), "decode tokens")
+    return [dict(tokens_per_s_median=statistics.median(rate),
+                 tokens_per_s_min=min(rate), tokens_per_s_max=max(rate),
+                 step_ms_median=statistics.median(ms), samples=samples,
+                 steps_per_sample=steps, tokens_per_s_samples=rate)
+            for rate, ms in zip(rates, step_ms)], [tuple(st)
+                                                   for st in states]
+
+
+def _decode_profile(torch, serve_step, st, step_ms):
+    """Four decode steps from ``st`` = (params, cache, token) under the
+    profiler, with K3's device ms a step."""
+    p, cache, tok = st
+    box = [cache, tok]
+
+    def steps4():
+        for _ in range(4):
+            box[1], box[0] = serve_step(p, box[0], box[1])
+    _, *trace = _trace(torch, steps4)
+    fields = _trace_fields(*trace, 4, step_ms)
+    fields["k3_device_ms_per_step"] = sum(
+        ms for name, ms in trace[1].items()
+        if "ternary_matmul" in name) / 4
+    return fields
+
+
+def _prefill_s(torch, prefill, params, batch, reps=3):
+    """Seconds of a prefill call after a warm one (median of ``reps``, host
+    clock ending in a synchronize), every sample, and the peak bytes
+    allocated during one more call."""
+    prefill(params, batch)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    prefill(params, batch)
+    return statistics.median(times), times, torch.cuda.max_memory_allocated()
+
+
 def lm_times(torch, dev, k3, k4, model, params, qparams):
     """K4 at the prefill (T=2048), T=256 and decode (T=1) calls and K3 at
     the LM's decode products, from a cold L2; decode and prefill tokens/s
@@ -3612,72 +3713,13 @@ def lm_times(torch, dev, k3, k4, model, params, qparams):
     serve_step = make_serve_step(model.cfg)
     vocab = model.cfg.vocab_size
 
-    def decode_rates(plist, samples=DECODE_SAMPLES, steps=DECODE_STEPS):
-        """Decode tokens/s of each weight set in ``plist``, whose samples
-        are taken in turn, so that a drift of the host's speed during
-        the run falls on each alike."""
-        states = []
-        for p in plist:
-            cache = model.init_cache(LM_BATCH, 64, device=dev)
-            tok = torch.ones((LM_BATCH, 1), dtype=torch.long, device=dev)
-            for _ in range(3):
-                tok, cache = serve_step(p, cache, tok)
-            states.append([p, cache, tok])
-        rates = [[] for _ in plist]
-        step_ms = [[] for _ in plist]
-        for _ in range(samples):
-            for st, rate, ms in zip(states, rates, step_ms):
-                p, cache, tok = st
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(steps):
-                    tok, cache = serve_step(p, cache, tok)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                st[1:] = cache, tok
-                rate.append(LM_BATCH * steps / dt)
-                ms.append(dt * 1e3 / steps)
-        for _, _, tok in states:
-            check(bool(((tok >= 0) & (tok < vocab)).all()), "decode tokens")
-        return [dict(tokens_per_s_median=statistics.median(rate),
-                     tokens_per_s_min=min(rate), tokens_per_s_max=max(rate),
-                     step_ms_median=statistics.median(ms), samples=samples,
-                     steps_per_sample=steps, tokens_per_s_samples=rate)
-                for rate, ms in zip(rates, step_ms)], [tuple(st)
-                                                       for st in states]
-
-    (fp, tern), (state, tstate) = decode_rates([params, qparams])
+    (fp, tern), (state, tstate) = _decode_rates(
+        torch, serve_step, model, [params, qparams], dev, 64)
 
     prefill = make_prefill_step(model.cfg)
     batch = {"tokens": torch.from_numpy(np.random.default_rng(
         SEED + 15).integers(0, vocab, (LM_BATCH, LM_PREFILL_S))).to(dev)}
-    prefill(params, batch)
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prefill(params, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    pre_s = statistics.median(times)
-    torch.cuda.reset_peak_memory_stats()
-    prefill(params, batch)
-    peak = torch.cuda.max_memory_allocated()
-
-    def profile(st, step_ms):
-        """Four decode steps from ``st`` under the profiler."""
-        p, cache, tok = st
-        box = [cache, tok]
-
-        def steps4():
-            for _ in range(4):
-                box[1], box[0] = serve_step(p, box[0], box[1])
-        _, *trace = _trace(torch, steps4)
-        fields = _trace_fields(*trace, 4, step_ms)
-        fields["k3_device_ms_per_step"] = sum(
-            ms for name, ms in trace[1].items()
-            if "ternary_matmul" in name) / 4
-        return fields
+    pre_s, times, peak = _prefill_s(torch, prefill, params, batch)
 
     emit("lm_end_to_end", batch=LM_BATCH,
          metric="host clock ending in torch.cuda.synchronize",
@@ -3690,8 +3732,10 @@ def lm_times(torch, dev, k3, k4, model, params, qparams):
          prefill=dict(seq=LM_PREFILL_S, s_median=pre_s, s_all=times,
                       tokens_per_s=LM_BATCH * LM_PREFILL_S / pre_s,
                       peak_memory_gb=peak / 1e9),
-         decode_profile=profile(state, fp["step_ms_median"]),
-         decode_ternary_profile=profile(tstate, tern["step_ms_median"]))
+         decode_profile=_decode_profile(torch, serve_step, state,
+                                        fp["step_ms_median"]),
+         decode_ternary_profile=_decode_profile(torch, serve_step, tstate,
+                                                tern["step_ms_median"]))
     return k4_rows, k3_err
 
 
@@ -3722,6 +3766,495 @@ def lm_slice(torch, dev, k3, k4):
             "max_abs_err": {"wkv6_scan": err, "ternary_matmul": k3_err},
             "times": {"wkv6_scan": {key: dec[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}}
+
+
+# ----------------------------------------------------------------------
+# Phase 10: the transformer families -- llama3.2-1b served in bf16 and in
+# ternary weights (K3 on its MLP projections), deepseek-moe-16b and
+# qwen2-vl-2b.
+# ----------------------------------------------------------------------
+
+TF_CUT_LAYERS = 2            # depth of the f32 comparisons with the CPU
+TF_MOE_LAYERS = 4            # deepseek-moe-16b in (d): 2.77 B parameters
+# f32 logits on the card against the CPU, as LM_LOGITS_ATOL: cuBLAS and
+# the CPU's BLAS sum the products in other orders, and exp, cos and sin
+# round differently (~1e-5 expected); a wrong term moves logits by O(0.1).
+TF_LOGITS_ATOL = 1e-3
+TF_CPU_SEQ = 64              # tokens of the f32 forward on both devices
+TF_DECODE_CACHE = 512        # a decode-rate run stays inside its cache
+TF_SYNC_STEPS = 4            # decode steps under the sync debug mode
+TF_DECODE_SAMPLES = 10       # llama3.2-1b's decode-rate pairs (bf16, K3)
+# K3 at the products the slice serves: (name, K, N); each at decode rows
+# (M = LM_BATCH, the split path) and prefill rows (M = LM_BATCH *
+# LM_PREFILL_S, the serial path). K = 8960 and 2816 end in a short
+# 512-k segment.
+TF_K3_SHAPES = (("llama3.2-1b_gate_up", 2048, 8192),
+                ("llama3.2-1b_down", 8192, 2048),
+                ("qwen2-vl-2b_down", 8960, 1536),
+                ("deepseek-moe-16b_shared_down", 2816, 2048))
+
+
+def _tf_full():
+    """What ``transformer_phase`` serves: llama3.2-1b at full width and
+    depth, deepseek-moe-16b at full width and TF_MOE_LAYERS layers,
+    qwen2-vl-2b at full width and depth; B=4, prefill S=2048."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dict(
+        llama=get_config("llama3.2-1b"),
+        moe=dataclasses.replace(get_config("deepseek-moe-16b"),
+                                num_layers=TF_MOE_LAYERS),
+        vlm=get_config("qwen2-vl-2b"), batch=LM_BATCH, seq=LM_PREFILL_S,
+        cpu_seq=TF_CPU_SEQ, cache=TF_DECODE_CACHE,
+        decode=(TF_DECODE_SAMPLES, DECODE_STEPS),
+        k3_shapes=TF_K3_SHAPES)
+
+
+def _tf_batch(torch, cfg, b, s, seed, dev):
+    """Prefill inputs: tokens, and for the VLM patch embeddings in the
+    first quarter of the sequence (as the JAX package's input_specs)."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                   (b, s))).to(dev)}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.from_numpy(rng.normal(
+            size=(b, max(s // 4, 16), cfg.d_model)).astype(
+                np.float32)).to(dev)
+    return out
+
+
+def _no_sync(torch, fn, on_card):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: None
+    if it ran without a host sync, else the error's text."""
+    if not on_card:
+        fn()
+        return None
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        fn()
+        return None
+    except RuntimeError as e:
+        return str(e)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def tf_k3_checks(torch, dev, k3, full):
+    """(a) K3 against its plain version on the card, bit for bit, at the
+    products of this slice: llama3.2-1b's gate/up (K 2048, N 8192) and
+    down (K 8192, N 2048), qwen2-vl-2b's down (K 8960) and
+    deepseek-moe-16b's shared-expert down (K 2816), each at decode rows
+    (split path) and prefill rows (serial path), called twice and its
+    last row alone. Times each from a cold L2 beside torch.matmul of the
+    unpacked bf16 weights and the bound; the plain version is timed at
+    decode rows only (seconds a call at prefill rows)."""
+    from repro_torch.core.ternary import unpack2bit
+    from repro_torch.kernels import ops
+    g = torch.Generator().manual_seed(SEED + 20)
+    flush = torch.ones(FLUSH_BYTES // 4, device=dev)
+    bf16 = torch.bfloat16
+    rows, times, err = [], {}, 0.0
+    for name, k, n in full["k3_shapes"]:
+        wp, scale = ops.pack_ternary_weights(torch.randn(k, n, generator=g))
+        wp, scale = wp.to(dev), scale.to(dev)
+        wq = unpack2bit(wp.t(), out_dtype=bf16).t().contiguous()
+        for m in (full["batch"], full["batch"] * full["seq"]):
+            x = torch.randn(m, k, generator=g).to(bf16).to(dev)
+            want = k3.ternary_matmul_plain(x, wp, scale)
+            got = k3.ternary_matmul_cuda(x, wp, scale)
+            again = k3.ternary_matmul_cuda(x, wp, scale)
+            one = k3.ternary_matmul_cuda(x[m - 1:].contiguous(), wp, scale)
+            torch.cuda.synchronize()
+            ok = dict(plain=bool(torch.equal(want, got)),
+                      repeat=bool(torch.equal(again, got)),
+                      b1_rows=bool(torch.equal(one[0], got[m - 1])))
+            err = max(err, _max_err([want], [got]))
+            path = _k3_path(k3, m, k, n)
+            rows.append(dict(name=name, shape=[m, k, n],
+                             segments=k / k3.KS, **path, **ok))
+            check(all(ok.values()), f"K3 {name} at M={m}: {ok}")
+            del want, again, one
+            run = lambda: k3.ternary_matmul_cuda(x, wp, scale)
+            reps = REPS if m <= LM_PROMPT_ROWS else 5
+            bound, by = _bound_ms(2 * m * k + k // 4 * n + 4 * n + 2 * m * n,
+                                  2 * m * k * n, peak=H100_BF16_FLOPS)
+            row = times[f"{name}_M{m}"] = dict(
+                shape=[m, k, n], path=path["path"],
+                ms=_device_ms(torch, run, flush, reps=reps),
+                library_ms=_device_ms(torch, lambda: torch.matmul(x, wq),
+                                      flush, reps=reps),
+                bound_ms=bound, bound_by=by)
+            if m <= LM_PROMPT_ROWS:
+                row["plain_ms"] = _device_ms(
+                    torch, lambda: k3.ternary_matmul_plain(x, wp, scale),
+                    flush, reps=3)
+            row["vs_library"] = row["ms"] / row["library_ms"]
+            del x, got
+        check({r["path"] for r in rows if r["name"] == name}
+              == {"split", "serial"}, f"K3 {name} must take both paths")
+    del flush
+    emit("tf_k3_vs_plain", tolerance="bitwise", segment=k3.KS,
+         checks=rows, max_abs_err=err, times=times,
+         unit="ms of device time a call from a cold L2 (median); "
+              "library: torch.matmul of bf16 x with the unpacked bf16 "
+              "weights; bound: bf16 tensor-core rate or HBM bytes")
+    return err, times
+
+
+def _tf_pair(torch, model, seed, dev):
+    """f32 parameters drawn on ``dev`` from a seeded generator, and the
+    same values on the CPU."""
+    from repro_torch.models.params import tree_map
+    gpu = model.init(torch.Generator(device=dev).manual_seed(seed),
+                     device=dev)
+    return gpu, tree_map(lambda x: x.cpu(), gpu)
+
+
+def tf_vs_cpu(torch, dev, k3, full):
+    """(b) Each family at full width, cut to TF_CUT_LAYERS layers, in f32:
+    the card against the port's CPU run. llama3.2-1b: Model.apply logits
+    (B=2, S=TF_CPU_SEQ), decode stepped over an 8-token prompt, greedy
+    generate (8 new tokens), and the ternary model (the card packs the
+    CPU's bytes; greedy tokens equal; K3 counted, 3 a layer a step);
+    deepseek-moe-16b: logits, and every layer's chosen experts and kept
+    (token, choice) pairs equal; qwen2-vl-2b with patch embeddings:
+    logits."""
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.serving import (ServeConfig, generate,
+                                     quantize_for_serving)
+    cut, out, cpu_seq = TF_CUT_LAYERS, {}, full["cpu_seq"]
+    for fam in ("llama", "moe", "vlm"):
+        cfg = dataclasses.replace(full[fam], num_layers=cut,
+                                  dtype="float32")
+        model = build_model(cfg)
+        gpu, cpu = _tf_pair(torch, model, SEED + 21, dev)
+        nb = _tf_batch(torch, cfg, 2, cpu_seq, SEED + 22, "cpu")
+        routes = []
+        real_route = L.moe_route
+
+        def recorder(*args, **kw):
+            r = real_route(*args, **kw)
+            routes.append({key: r[key].cpu() for key in (
+                "gate_idx", "keep", "probs")})
+            return r
+        L.moe_route = recorder
+        try:
+            lg = model.apply(gpu, {k: v.to(dev) for k, v in nb.items()})[0]
+            lc = model.apply(cpu, nb)[0]
+        finally:
+            L.moe_route = real_route
+        row = dict(config=f"{cfg.name} widths, num_layers={cut}, float32",
+                   apply_shape=[2, cpu_seq],
+                   apply_logits_max_abs_diff=float(
+                       (lg.cpu() - lc).abs().max()),
+                   logits_std=float(lc.std()))
+        check(row["apply_logits_max_abs_diff"] <= TF_LOGITS_ATOL,
+              f"{fam} apply logits: {row['apply_logits_max_abs_diff']}")
+        del lg, lc
+        if fam == "moe":
+            card, host = routes[:cut], routes[cut:]
+            row["gate_idx_equal"] = all(torch.equal(a["gate_idx"],
+                                                    b["gate_idx"])
+                                        for a, b in zip(card, host))
+            row["keep_equal"] = all(torch.equal(a["keep"], b["keep"])
+                                    for a, b in zip(card, host))
+            top = [torch.sort(r["probs"], dim=-1, descending=True).values
+                   for r in host]
+            row["min_kth_gap"] = min(float(
+                (t[..., cfg.top_k - 1] - t[..., cfg.top_k]).min())
+                for t in top)
+            row["kept_fraction"] = [float(r["keep"].float().mean())
+                                    for r in host]
+            check(row["gate_idx_equal"] and row["keep_equal"],
+                  f"moe routing differs: {row}")
+        if fam == "llama":
+            prompt = nb["tokens"][:, :8].numpy()
+            cg = model.init_cache(2, 16, device=dev)
+            cc = model.init_cache(2, 16, device="cpu")
+            dec = 0.0
+            for i in range(prompt.shape[1]):
+                t = torch.from_numpy(prompt[:, i:i + 1])
+                a, cg = model.decode(gpu, cg, t.to(dev))
+                b, cc = model.decode(cpu, cc, t)
+                dec = max(dec, float((a.cpu() - b).abs().max()))
+            row["decode_logits_max_abs_diff"] = dec
+            check(dec <= TF_LOGITS_ATOL, f"llama decode logits: {dec}")
+            sc = ServeConfig(max_new_tokens=8)
+            tg, _ = generate(model, gpu, prompt, sc, device=dev)
+            tc, _ = generate(model, cpu, prompt, sc, device="cpu")
+            row.update(greedy_tokens_equal=bool(np.array_equal(tg, tc)),
+                       greedy_min_top2_gap=_greedy_gaps(
+                           torch, model, gpu, prompt, tg, dev),
+                       tokens_card=tg.tolist())
+            check(row["greedy_tokens_equal"], f"greedy {tg} vs {tc}")
+            qg, stats_g = quantize_for_serving(gpu)
+            qc, stats_c = quantize_for_serving(cpu)
+            names = ("w_gate", "w_up", "w_down")
+            same = sum(int((qg["layers"]["mlp"][n]["packed"].cpu()
+                            == qc["layers"]["mlp"][n]["packed"]).sum())
+                       for n in names) / sum(
+                qc["layers"]["mlp"][n]["packed"].numel() for n in names)
+            qprompt, qsc = prompt[:, :4], ServeConfig(max_new_tokens=6)
+            k3.launches = 0
+            qtg, _ = generate(model, qg, qprompt, qsc, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = k3.launches
+            qtc, _ = generate(model, qc, qprompt, qsc, device="cpu")
+            steps = qprompt.shape[1] + qsc.max_new_tokens
+            row.update(ternary_stats_equal=stats_g == stats_c,
+                       ternary_stats=stats_g,
+                       ternary_packed_equal_fraction=same,
+                       ternary_tokens_equal=bool(np.array_equal(qtg, qtc)),
+                       ternary_k3_launches=launches,
+                       ternary_decode_steps=steps)
+            check(stats_g == stats_c and stats_g["quantized"] == 3,
+                  f"ternary stats {stats_g} vs {stats_c}")
+            check(same == 1.0, f"the card packed {same} of the CPU's bytes")
+            check(row["ternary_tokens_equal"], f"ternary {qtg} vs {qtc}")
+            if dev.type == "cuda":
+                check(launches == 3 * cut * steps,
+                      f"K3 launched {launches} times in {steps} steps")
+            del qg, qc
+        out[fam] = row
+        del gpu, cpu
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    emit("tf_vs_cpu", tolerance=dict(logits_atol=TF_LOGITS_ATOL,
+                                     tokens="equal", routing="equal"),
+         **out)
+
+
+def _tf_params(torch, model, seed, dev):
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return params
+
+
+def tf_llama(torch, dev, k3, full):
+    """(c) llama3.2-1b at full width and depth in bf16, as a user serves
+    it: BatchScheduler over requests built as launch/serve.py builds them
+    (B=4), then the ternary model through generate with K3 counted (3
+    launches a layer a decode step, 48 in all) and one ternary prefill
+    (48 launches); no host sync inside a bf16 or ternary decode step;
+    decode tokens/s with bf16 and ternary samples in turn; prefill
+    tokens/s at B=4, S=2048 in each; a profile of decode steps (busy
+    share, host launches); memory. Returns K3's launches in this run."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.serving import (BatchScheduler, Request, ServeConfig,
+                                     generate, quantize_for_serving)
+    cfg = full["llama"]
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    nl, vocab, b = cfg.num_layers, cfg.vocab_size, full["batch"]
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = _tf_params(torch, model, SEED + 23, dev)
+    report = dict(config=f"{cfg.name} CONFIG ({nl} layers, d={cfg.d_model}, "
+                         f"{cfg.dtype})", params=model.num_params(),
+                  analytic=cfg.param_count(),
+                  init_s=time.perf_counter() - t0)
+    if on_card:
+        report["params_gb"] = torch.cuda.memory_allocated() / 1e9
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(id=i, prompt=rng.integers(
+                2, vocab, size=rng.integers(2, LM_PROMPT + 1)),
+                max_new_tokens=LM_NEW) for i in range(LM_SERVE_REQUESTS)]
+    sched = BatchScheduler(model, params, max_batch=b,
+                           cache_len=LM_PROMPT + LM_NEW + 1, device=dev)
+    done = sched.run(reqs)
+    check(all(len(r.output) == LM_NEW and all(0 <= t < vocab
+                                              for t in r.output)
+              for r in done), "scheduler outputs")
+    report["scheduler"] = dict(requests=len(done),
+                               batches=sched.stats["batches"],
+                               decode_steps=sched.stats["decode_steps"],
+                               first_outputs=[r.output[:8]
+                                              for r in done[:2]])
+
+    t0 = time.perf_counter()
+    q, stats = quantize_for_serving(params)
+    sync()
+    report["ternary"] = dict(stats=stats, quantize_s=time.perf_counter() - t0)
+    check(stats["quantized"] == 3, f"ternary stats {stats}")
+    prompts = np.random.default_rng(SEED + 24).integers(2, vocab, (b, 8))
+    k3.launches = 0
+    toks, gstats = generate(model, q, prompts, ServeConfig(max_new_tokens=8),
+                            device=dev)
+    sync()
+    gen_launches, steps = k3.launches, 8 + 8
+    report["ternary"].update(generate_k3_launches=gen_launches,
+                             decode_steps=steps,
+                             per_decode_step=gen_launches / steps,
+                             tokens=toks.tolist())
+    check(not on_card or gen_launches == 3 * nl * steps,
+          f"K3 launched {gen_launches} times in {steps} ternary steps")
+
+    serve_step = make_serve_step(cfg)
+    sync_errors = {}
+    for name, p in (("bf16", params), ("ternary", q)):
+        cache = model.init_cache(b, full["cache"], device=dev)
+        tok = torch.ones((b, 1), dtype=torch.long, device=dev)
+        tok, cache = serve_step(p, cache, tok)
+        box = [tok, cache]
+
+        def steps_fn():
+            for _ in range(TF_SYNC_STEPS):
+                box[0], box[1] = serve_step(p, box[1], box[0])
+        sync_errors[name] = _no_sync(torch, steps_fn, on_card)
+    report["decode_no_host_sync"] = sync_errors
+    check(all(e is None for e in sync_errors.values()),
+          f"a decode step synchronized: {sync_errors}")
+
+    prefill = make_prefill_step(cfg)
+    batch = _tf_batch(torch, cfg, b, full["seq"], SEED + 25, dev)
+    k3.launches = 0
+    last = prefill(q, batch)
+    sync()
+    pre_launches = k3.launches
+    check(not on_card or pre_launches == 3 * nl,
+          f"K3 launched {pre_launches} times in a ternary prefill")
+    check(tuple(last.shape) == (b, vocab)
+          and bool(torch.isfinite(last).all()), "ternary prefill logits")
+    report["ternary"]["prefill_k3_launches"] = pre_launches
+    launches = gen_launches + pre_launches
+    if not on_card:
+        emit("tf_llama", **report)
+        return launches
+
+    (fp, tern), (state, tstate) = _decode_rates(
+        torch, serve_step, model, [params, q], dev, full["cache"],
+        *full["decode"], batch=b)
+    pre = {}
+    for name, p in (("bf16", params), ("ternary", q)):
+        s_med, s_all, peak = _prefill_s(torch, prefill, p, batch)
+        pre[name] = dict(s_median=s_med, s_all=s_all,
+                         tokens_per_s=b * full["seq"] / s_med,
+                         peak_memory_gb=peak / 1e9)
+    torch.cuda.reset_peak_memory_stats()
+    serve_step(params, state[1], state[2])
+    torch.cuda.synchronize()
+    report.update(
+        decode_bf16=fp, decode_ternary=tern,
+        ternary_vs_bf16_paired_median=statistics.median(
+            t / f for t, f in zip(tern["tokens_per_s_samples"],
+                                  fp["tokens_per_s_samples"])),
+        decode_cache_len=full["cache"],
+        decode_step_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        prefill=dict(batch=b, seq=full["seq"], **pre),
+        decode_profile=_decode_profile(torch, serve_step, state,
+                                       fp["step_ms_median"]),
+        decode_ternary_profile=_decode_profile(torch, serve_step, tstate,
+                                               tern["step_ms_median"]))
+    emit("tf_llama", metric="host clock ending in torch.cuda.synchronize",
+         **report)
+    return launches
+
+
+def tf_others(torch, dev, k3, full):
+    """(d) deepseek-moe-16b (TF_MOE_LAYERS layers) and qwen2-vl-2b (full
+    depth) at full width in bf16: decode at B=4 (tokens/s, no host
+    sync), one prefill at B=4, S=2048 (with patch embeddings for the
+    VLM), and a few ternary decode steps with K3 counted (3 a layer a
+    step: the MoE's shared experts, the VLM's MLP). Returns K3's
+    launches."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.serving import quantize_for_serving
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    b, out, launches = full["batch"], {}, 0
+    for fam, cut in (("moe", f"depth cut to {TF_MOE_LAYERS} of 28 layers"),
+                     ("vlm", "full depth")):
+        cfg = full[fam]
+        nl = cfg.num_layers
+        model = build_model(cfg)
+        params = _tf_params(torch, model, SEED + 26, dev)
+        row = dict(config=f"{cfg.name} ({nl} layers, d={cfg.d_model}, "
+                          f"{cfg.dtype}; {cut})",
+                   params=model.num_params())
+        if on_card:
+            row["params_gb"] = torch.cuda.memory_allocated() / 1e9
+        serve_step = make_serve_step(cfg)
+        cache = model.init_cache(b, full["cache"], device=dev)
+        tok = torch.ones((b, 1), dtype=torch.long, device=dev)
+        tok, cache = serve_step(params, cache, tok)
+        box = [tok, cache]
+
+        def steps_fn():
+            for _ in range(TF_SYNC_STEPS):
+                box[0], box[1] = serve_step(params, box[1], box[0])
+        row["decode_no_host_sync"] = _no_sync(torch, steps_fn, on_card)
+        check(row["decode_no_host_sync"] is None,
+              f"{cfg.name} decode synchronized: {row}")
+        q, stats = quantize_for_serving(params)
+        k3.launches = 0
+        qcache = model.init_cache(b, full["cache"], device=dev)
+        qtok = torch.ones((b, 1), dtype=torch.long, device=dev)
+        for _ in range(TF_SYNC_STEPS):
+            qtok, qcache = serve_step(q, qcache, qtok)
+        sync()
+        row["ternary"] = dict(stats=stats, k3_launches=k3.launches,
+                              decode_steps=TF_SYNC_STEPS)
+        check(stats["quantized"] == 3, f"{cfg.name} ternary stats {stats}")
+        check(not on_card or k3.launches == 3 * nl * TF_SYNC_STEPS,
+              f"{cfg.name}: K3 launched {k3.launches} times")
+        launches += k3.launches
+        del q, qcache
+        prefill = make_prefill_step(cfg)
+        batch = _tf_batch(torch, cfg, b, full["seq"], SEED + 27, dev)
+        last = prefill(params, batch)
+        check(tuple(last.shape) == (b, cfg.vocab_size)
+              and bool(torch.isfinite(last).all()), f"{cfg.name} prefill")
+        if on_card:
+            samples, steps = full["decode"]
+            (rate,), _ = _decode_rates(torch, serve_step, model, [params],
+                                       dev, full["cache"], samples // 2,
+                                       steps, batch=b)
+            s_med, s_all, peak = _prefill_s(torch, prefill, params, batch,
+                                            reps=1)
+            row.update(decode=rate, prefill=dict(
+                batch=b, seq=full["seq"], s=s_med,
+                tokens_per_s=b * full["seq"] / s_med,
+                peak_memory_gb=peak / 1e9))
+        out[fam] = row
+        del params, batch, last, cache, box
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    emit("tf_others", **out)
+    return launches
+
+
+def transformer_phase(torch, dev, k3):
+    """Phase 10 end to end: (a) K3 at this slice's products, (b) each
+    family on the card against the CPU, (c) llama3.2-1b served, (d)
+    deepseek-moe-16b and qwen2-vl-2b served. Returns the launches,
+    errors and times the ``kernels`` line needs."""
+    full = _tf_full()
+    seconds = {}
+    t0 = time.perf_counter()
+    err, times = tf_k3_checks(torch, dev, k3, full)
+    seconds["a_k3"] = time.perf_counter() - t0
+    tf_vs_cpu(torch, dev, k3, full)
+    seconds["b_vs_cpu"] = time.perf_counter() - t0 - sum(seconds.values())
+    launches = tf_llama(torch, dev, k3, full)
+    torch.cuda.empty_cache()
+    seconds["c_llama"] = time.perf_counter() - t0 - sum(seconds.values())
+    launches += tf_others(torch, dev, k3, full)
+    seconds["d_others"] = time.perf_counter() - t0 - sum(seconds.values())
+    emit("tf_phase", seconds=time.perf_counter() - t0, by_part=seconds,
+         k3_launches=launches)
+    return {"launches": launches, "max_abs_err": err, "times": times}
 
 
 if __name__ == "__main__":

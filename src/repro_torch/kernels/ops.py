@@ -21,7 +21,7 @@ two plain products ``g @ w.T`` and ``s.T @ g`` (``torch.matmul``), the
 products the JAX package leaves to XLA's VJP of ``@``.
 No backward kernel exists to port; ``ternary_matmul`` is a serving op with
 no gradient, as in the JAX package, and ``wkv6_scan`` gets its backward
-with LM training (ROADMAP queue 1, item 13).
+with LM training (ROADMAP queue 1, item 6: the rest of item 13).
 """
 from __future__ import annotations
 

@@ -1,13 +1,14 @@
 """Serving launcher: batched generation, optional CUTIE ternary weights.
 
 Examples:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --full --quant ternary --requests 8 --new-tokens 24
 
-Runs on the card unless given ``--device cpu``. The arch names are the
-JAX package's; the port has ``rwkv6-7b`` so far (the default here), and
-the others raise ``NotImplementedError``.
+Runs on the card unless given ``--device cpu``; SMOKE sizes unless given
+``--full``. The arch names are the JAX package's; the port has the
+transformer families and ``rwkv6-7b``, and ``zamba2-1.2b`` and
+``seamless-m4t-medium`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from repro_torch.serving.scheduler import BatchScheduler, Request
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-7b", choices=ARCHS)
+    ap.add_argument("--arch", default="llama3.2-1b", choices=ARCHS)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--quant", default=None, choices=["ternary"])

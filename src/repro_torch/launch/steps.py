@@ -4,7 +4,7 @@
   serve_step(params, cache, tokens)    -> (next_tokens, cache')
 
 ``make_train_step`` and the abstract input specs of the dry-run come with
-LM training (ROADMAP queue 1, item 13).
+LM training (ROADMAP queue 1, item 6: the rest of item 13).
 """
 from __future__ import annotations
 

@@ -1,18 +1,52 @@
-"""Shared neural layers (port of ``repro.models.layers``), as far as
-RWKV-6 needs them: ``layer_norm`` and ``dense``.
+"""Shared neural layers (port of ``repro.models.layers``): norms,
+RoPE/M-RoPE, GQA attention, MLPs, MoE and ``dense``.
 
-Attention, RoPE/M-RoPE, the MLPs and MoE come with the transformer
-families (ROADMAP queue 1, item 13).
+All layers are functional: ``*_defs`` returns the ParamDef tree,
+``*_apply`` consumes the materialized params (projection weights in the
+JAX package's (K, N) layouts). Attention is the JAX package's blockwise
+online softmax: it never materializes (Sq, Sk) scores beyond one
+``kv_chunk`` of keys. XLA computes attention, RoPE, the norms and MoE
+dispatch in the JAX package, so plain torch ops compute them here; the
+only kernel below is K3, which ``dense`` reaches for a ternary-packed
+weight.
+
+The JAX package's sharding helpers (``constrain``, ``unshard_fsdp``) are
+identities without a mesh and have no counterpart; the JAX-only
+``role`` argument of ``dense`` is accepted and ignored.
 """
 from __future__ import annotations
 
-from typing import Any
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import ParamDef
 
-__all__ = ["layer_norm", "dense"]
+__all__ = [
+    "rms_norm", "rope_freqs", "apply_rope", "mrope_positions",
+    "attention_defs", "attention_apply", "attention_decode",
+    "mlp_defs", "mlp_apply", "moe_defs", "moe_apply", "dense",
+    "blockwise_attention", "layer_norm", "logits_f32",
+]
+
+# ----------------------------------------------------------------------
+# Basic ops
+# ----------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    """RMSNorm as the JAX package computes it: the statistic and the
+    normalisation in f32, a cast to ``x``'s dtype, then the scale in that
+    dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -42,3 +76,413 @@ def dense(x: torch.Tensor, w: Any, role: str = "up") -> torch.Tensor:
     if isinstance(w, dict) and "packed" in w:
         return ops.ternary_matmul(x, w["packed"], w["scale"])
     return torch.matmul(x, w)
+
+
+def logits_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` with an f32 result, as the JAX package's
+    ``preferred_element_type=float32`` product: a bf16 matmul would round
+    the logits to bf16 and move greedy argmaxes. On the card, bf16
+    operands go to one product with an f32 output (f32 accumulation, no
+    f32 copy of the weight); elsewhere both operands are cast to f32
+    first. A product of two bf16 values is exact in f32, so both are the
+    same sum up to its order."""
+    if h.is_cuda and h.dtype == w.dtype == torch.bfloat16:
+        flat = torch.mm(h.reshape(-1, h.shape[-1]), w,
+                        out_dtype=torch.float32)
+        return flat.reshape(*h.shape[:-1], w.shape[-1])
+    return torch.matmul(h.float(), w.float())
+
+
+# ----------------------------------------------------------------------
+# Rotary embeddings (RoPE + Qwen2-VL M-RoPE)
+# ----------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim // 2,), f32, on ``device``
+    (the card by default)."""
+    dev = resolve_device(device)
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=dev) / head_dim
+    return 1.0 / torch.pow(theta, exps)
+
+
+def apply_rope(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    theta: float,
+    mrope_sections: Optional[Tuple[int, int, int]] = None,
+) -> torch.Tensor:
+    """Rotate (B, S, H, hd). ``positions``: (B, S) or (3, B, S) for M-RoPE.
+
+    M-RoPE (Qwen2-VL): the head_dim/2 frequency slots are split into
+    (t, h, w) sections; each section takes its angle from the matching
+    position row. Text tokens have t == h == w, so M-RoPE degenerates to
+    1-D RoPE for them. The angles, ``cos``/``sin`` and the rotation are
+    f32, then cast to ``x``'s dtype.
+    """
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    if positions.ndim == 2:
+        ang = positions[..., None].float() * inv           # (B,S,hd/2)
+    else:
+        if mrope_sections is None:
+            raise ValueError("3-row positions require mrope_sections")
+        secs = mrope_sections
+        if sum(secs) != hd // 2:
+            raise ValueError(f"mrope sections {secs} != head_dim/2 {hd//2}")
+        ang3 = positions[..., None].float() * inv          # (3,B,S,hd/2)
+        parts = []
+        off = 0
+        for i, s in enumerate(secs):
+            parts.append(ang3[i, ..., off:off + s])
+            off += s
+        ang = torch.cat(parts, dim=-1)                     # (B,S,hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_positions(
+    batch: int, seq: int, num_vision: int, vision_grid: Tuple[int, int],
+    device=None,
+) -> torch.Tensor:
+    """Qwen2-VL position rows (3, B, S) int32 on ``device`` (the card by
+    default): vision patches first, then text.
+
+    Patches at sequence slots [0, num_vision) carry (t=0, h=row, w=col) of
+    a (gh, gw) grid; text tokens continue with t=h=w running positions.
+    """
+    gh, gw = vision_grid
+    idx = torch.arange(seq, dtype=torch.int32,
+                       device=resolve_device(device))
+    vis = idx < num_vision
+    text = idx - num_vision + max(gh, gw)
+    h_pos = torch.where(vis, torch.div(idx, gw, rounding_mode="floor")
+                        % gh, text)
+    w_pos = torch.where(vis, idx % gw, text)
+    t_pos = torch.where(vis, torch.zeros_like(idx), text)
+    pos = torch.stack([t_pos, h_pos, w_pos])               # (3, S)
+    return pos[:, None, :].expand(3, batch, seq)
+
+
+# ----------------------------------------------------------------------
+# Attention (GQA, optional sliding window, blockwise online softmax)
+# ----------------------------------------------------------------------
+
+
+def _stacked(layers: Optional[int]):
+    """A ParamDef maker with an optional leading ``layers`` axis."""
+    lead = () if layers is None else (layers,)
+    lax_ = () if layers is None else ("layers",)
+
+    def pd(shape, axes, fan):
+        return ParamDef(lead + shape, lax_ + axes,
+                        fan_in_axes=tuple(len(lead) + a for a in fan))
+    return pd
+
+
+def attention_defs(cfg: ModelConfig, layers: Optional[int] = None
+                   ) -> Dict[str, ParamDef]:
+    """QKV/O projections, optionally stacked over a leading layer axis."""
+    d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pd = _stacked(layers)
+    return {
+        "wq": pd((d, h, hd), ("embed", "heads", "head_dim"), (0,)),
+        "wk": pd((d, kvh, hd), ("embed", "kv_heads", "head_dim"), (0,)),
+        "wv": pd((d, kvh, hd), ("embed", "kv_heads", "head_dim"), (0,)),
+        "wo": pd((h, hd, d), ("heads", "head_dim", "embed"), (0, 1)),
+    }
+
+
+def _chunk_mask(q_pos, k_pos, causal: bool, window: Optional[int]):
+    """(Sq, Sk) validity mask from absolute positions."""
+    diff = q_pos[..., :, None] - k_pos[..., None, :]
+    mask = torch.ones_like(diff, dtype=torch.bool)
+    if causal:
+        mask &= diff >= 0
+    if window is not None:
+        mask &= diff < window
+    return mask
+
+
+def blockwise_attention(
+    q: torch.Tensor,            # (B, Sq, H, hd)
+    k: torch.Tensor,            # (B, Sk, KVH, hd)
+    v: torch.Tensor,            # (B, Sk, KVH, hd)
+    *,
+    causal: bool,
+    window: Optional[int] = None,
+    q_offset: int | torch.Tensor = 0,
+    kv_chunk: int = 2048,
+) -> torch.Tensor:
+    """Memory-efficient attention: a loop over KV chunks, online softmax.
+
+    The JAX package's algorithm, chunk for chunk in the same order: f32
+    scores of one (B, KVH, G, Sq, kv_chunk) block, a running max, sum and
+    accumulator in f32, masked scores at -inf and their weights at 0. GQA
+    folds the q-per-kv group G = H / KVH into the head axes. The JAX
+    package pads the keys to whole chunks; here the last chunk is short
+    instead, so a padded key never enters a sum (the JAX package's
+    causal mask excludes them too; its non-causal call counts them in
+    the softmax's denominator, ROADMAP section 3).
+    """
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    kv_chunk = min(kv_chunk, sk)
+    qg = q.reshape(b, sq, kvh, g, hd).float()
+    scale = 1.0 / math.sqrt(hd)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+
+    m = torch.full((b, kvh, g, sq), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kvh, g, sq, hd), dtype=torch.float32,
+                      device=q.device)
+    for lo in range(0, sk, kv_chunk):
+        hi = min(lo + kv_chunk, sk)
+        k_pos = torch.arange(lo, hi, device=q.device)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                         k[:, lo:hi].float()) * scale
+        blocked = ~_chunk_mask(q_pos, k_pos, causal, window)  # (Sq, kc)
+        s.masked_fill_(blocked, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        p = s.sub_(m_safe[..., None]).exp_().masked_fill_(blocked, 0.0)
+        corr = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p, v[:, lo:hi].float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    return out.to(q.dtype)
+
+
+def attention_apply(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    kv_x: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
+    mrope: bool = False,
+) -> torch.Tensor:
+    """Full-sequence attention (prefill). ``kv_x`` enables cross-attention
+    (no rotation then); ``kv_positions`` is accepted and unused, as in the
+    JAX package."""
+    del kv_positions
+    kv_src = x if kv_x is None else kv_x
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"])
+    secs = cfg.mrope_sections if mrope else None
+    if kv_x is None:  # self-attention: rotate both
+        q = apply_rope(q, positions, cfg.rope_theta, secs)
+        k = apply_rope(k, positions, cfg.rope_theta, secs)
+    out = blockwise_attention(q, k, v, causal=causal,
+                              window=window or cfg.sliding_window)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _attend_decode(p, x, k_cache, v_cache, pos, cfg: ModelConfig, *,
+                   window: Optional[int], mrope: bool) -> torch.Tensor:
+    """One token's attention at position ``pos`` (a 0-d int tensor on the
+    device): writes this token's k and v into ``k_cache``/``v_cache``
+    (B, S, KVH, hd) in place with an indexed copy, then attends over the
+    valid slots. No value goes to the host, so a step never waits for
+    the device."""
+    b = x.shape[0]
+    secs = cfg.mrope_sections if mrope else None
+    posb = pos.reshape(1, 1).expand(b, 1)
+    if mrope:
+        posb = posb[None].expand(3, b, 1)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = apply_rope(q, posb, cfg.rope_theta, secs)
+    k = apply_rope(k, posb, cfg.rope_theta, secs)
+
+    s_cache = k_cache.shape[1]
+    # SWA: rolling ring-buffer slot; full attention: append at pos.
+    slot = pos % s_cache if window is not None \
+        else torch.clamp(pos, max=s_cache - 1)
+    slot = slot.reshape(1).long()
+    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+
+    kvh, hd, h = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    g = h // kvh
+    qg = q.reshape(b, 1, kvh, g, hd).float()
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float()) * scale
+    k_idx = torch.arange(s_cache, device=x.device)
+    valid = k_idx <= pos
+    if window is not None:
+        # Rolling cache: every resident entry is within the window once
+        # pos >= s_cache; before that, unwritten slots are masked.
+        valid = valid | (pos >= s_cache)
+    s = s.masked_fill(~valid, -math.inf)
+    w_att = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bkgqd", w_att, v_cache.float())
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(x.dtype)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def attention_decode(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                  # (B, 1, D)
+    cache: Dict[str, torch.Tensor],   # {"k","v": (B, S, KVH, hd), "pos": ()}
+    cfg: ModelConfig,
+    *,
+    window: Optional[int] = None,
+    mrope: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token decode with a (rolling, for SWA) KV cache update.
+    Returns (output, new cache); the cache passed in is not modified."""
+    k_cache, v_cache = cache["k"].clone(), cache["v"].clone()
+    y = _attend_decode(p, x, k_cache, v_cache, cache["pos"], cfg,
+                       window=window, mrope=mrope)
+    return y, {"k": k_cache, "v": v_cache, "pos": cache["pos"] + 1}
+
+
+# ----------------------------------------------------------------------
+# MLPs
+# ----------------------------------------------------------------------
+
+
+def mlp_defs(cfg: ModelConfig, layers: Optional[int] = None,
+             d_ff: Optional[int] = None) -> Dict[str, ParamDef]:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    pd = _stacked(layers)
+    out = {"w_up": pd((d, f), ("embed", "mlp"), (0,)),
+           "w_down": pd((f, d), ("mlp", "embed"), (0,))}
+    if cfg.activation == "swiglu":
+        out["w_gate"] = pd((d, f), ("embed", "mlp"), (0,))
+    return out
+
+
+def mlp_apply(p: Dict[str, Any], x: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """swiglu, squared_relu or gelu; ``jax.nn.gelu`` is the tanh
+    approximation by default, so the gelu here is too."""
+    if cfg.activation == "swiglu":
+        h = F.silu(dense(x, p["w_gate"])) * dense(x, p["w_up"])
+    elif cfg.activation == "squared_relu":
+        h = torch.square(torch.relu(dense(x, p["w_up"])))
+    else:
+        h = F.gelu(dense(x, p["w_up"]), approximate="tanh")
+    return dense(h, p["w_down"], role="down")
+
+
+# ----------------------------------------------------------------------
+# MoE (shared + routed experts, group-wise einsum dispatch, GShard-style
+# capacity with token dropping)
+# ----------------------------------------------------------------------
+
+
+def moe_defs(cfg: ModelConfig, layers: Optional[int] = None
+             ) -> Dict[str, Any]:
+    d = cfg.d_model
+    ef = cfg.expert_d_ff or cfg.d_ff
+    e = cfg.num_experts
+    pd = _stacked(layers)
+    defs: Dict[str, Any] = {
+        "router": pd((d, e), ("embed", "experts"), (0,)),
+        "we_gate": pd((e, d, ef), ("experts", "embed", "mlp"), (1,)),
+        "we_up": pd((e, d, ef), ("experts", "embed", "mlp"), (1,)),
+        "we_down": pd((e, ef, d), ("experts", "mlp", "embed"), (1,)),
+    }
+    if cfg.num_shared_experts:
+        sf = ef * cfg.num_shared_experts
+        defs["shared"] = {
+            "w_gate": pd((d, sf), ("embed", "mlp"), (0,)),
+            "w_up": pd((d, sf), ("embed", "mlp"), (0,)),
+            "w_down": pd((sf, d), ("mlp", "embed"), (0,)),
+        }
+    return defs
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: ``idx[..., None] == arange(n)`` in ``dtype``
+    (an index outside [0, n) gives a row of zeros)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def moe_route(router: torch.Tensor, xg: torch.Tensor, cfg: ModelConfig,
+              cap: int) -> Dict[str, torch.Tensor]:
+    """The router of ``moe_apply`` on grouped tokens ``xg`` (NG, G, D).
+
+    Returns the f32 ``probs`` (NG, G, E), the chosen experts ``gate_idx``
+    (NG, G, k), their renormalized and capacity-masked ``gate_vals``, the
+    f32 slot ``pos`` of each (token, choice) in its expert's buffer and
+    ``keep = pos < cap``. Top-k is a stable descending sort over the
+    experts, then the first k, so equal probabilities go to the lower
+    expert index, as ``jax.lax.top_k`` breaks ties. A slot is the
+    exclusive cumsum over (G*k) in token-major, then choice, order.
+    """
+    e, k = cfg.num_experts, cfg.top_k
+    logits = torch.einsum("ngd,de->nge", xg, router).float()
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = top.values[..., :k], top.indices[..., :k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    onehot = _one_hot(gate_idx, e, torch.float32)            # (ng,g,k,e)
+    ng, g = xg.shape[:2]
+    flat = onehot.reshape(ng, g * k, e)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(ng, g, k, e)
+    pos = torch.sum(pos * onehot, dim=-1)                    # (ng, g, k)
+    keep = pos < cap
+    return dict(probs=probs, gate_idx=gate_idx, onehot=onehot, pos=pos,
+                keep=keep, gate_vals=gate_vals * keep)
+
+
+def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output, aux load-balance loss). The one-hot dispatch and
+    combine tensors are in ``x``'s dtype, as in the JAX package; the aux
+    loss counts each token's top-1 choice."""
+    b, s, d = x.shape
+    e = cfg.num_experts
+    g = min(cfg.moe_group_size, b * s)
+    ng = (b * s) // g
+    cap = min(int(math.ceil(g * cfg.top_k * cfg.capacity_factor / e)), g)
+    xg = x.reshape(ng, g, d)
+    r = moe_route(p["router"], xg, cfg, cap)
+
+    # Switch-style load-balance aux loss.
+    me = r["probs"].mean(dim=(0, 1))
+    ce_frac = _one_hot(r["gate_idx"][..., 0], e,
+                       torch.float32).mean(dim=(0, 1))
+    aux = e * torch.sum(me * ce_frac)
+
+    # dispatch (ng, g, e, cap) one-hot routing tensor in x's dtype.
+    pos_oh = _one_hot(r["pos"], cap, x.dtype) * r["keep"][..., None].to(
+        x.dtype)
+    onehot = r["onehot"]
+    disp = torch.einsum("ngke,ngkc->ngec", onehot.to(x.dtype), pos_oh)
+    xe = torch.einsum("ngd,ngec->necd", xg, disp)            # (ng,e,cap,d)
+
+    hg = F.silu(torch.einsum("necd,edf->necf", xe, p["we_gate"]))
+    hu = torch.einsum("necd,edf->necf", xe, p["we_up"])
+    ye = torch.einsum("necf,efd->necd", hg * hu, p["we_down"])
+
+    # combine: gate-weighted inverse of dispatch.
+    comb = torch.einsum("ngke,ngkc->ngec",
+                        (onehot * r["gate_vals"][..., None]).to(x.dtype),
+                        pos_oh)
+    y = torch.einsum("ngec,necd->ngd", comb, ye)
+    out = y.reshape(b, s, d)
+
+    if cfg.num_shared_experts:
+        sh = p["shared"]
+        hs = F.silu(dense(x, sh["w_gate"])) * dense(x, sh["w_up"])
+        out = out + dense(hs, sh["w_down"], role="down")
+    return out, aux

@@ -1,5 +1,5 @@
 """Unified model API (port of ``repro.models.model``) for the families the
-port has: ``rwkv6`` so far.
+port has: the transformer (``dense``, ``moe``, ``vlm``) and ``rwkv6``.
 
 ``build_model(cfg)`` returns a :class:`Model` bundle exposing:
 
@@ -10,7 +10,8 @@ port has: ``rwkv6`` so far.
   decode(params, cache, tok)           -> (logits, new cache) one serve step
 
 Entry points run on the card unless given ``device="cpu"``. ``lm_loss``
-and ``Model.loss`` come with LM training (ROADMAP queue 1, item 13).
+and ``Model.loss`` come with LM training (ROADMAP queue 1, item 6: the
+rest of item 13).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.models import params as P
 from repro_torch.models import rwkv6 as RW
+from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["Model", "build_model"]
@@ -51,6 +53,17 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        def apply_fn(params, batch, *, scan_layers=True, remat=False):
+            return TF.transformer_apply(
+                params, batch["tokens"], cfg,
+                extra_embeds=batch.get("patch_embeds"),
+                scan_layers=scan_layers, remat=remat)
+        return Model(cfg, lambda: TF.transformer_defs(cfg), apply_fn,
+                     lambda b, s, dtype=None, device=None: TF.init_kv_cache(
+                         cfg, b, s, dtype, device),
+                     lambda p, c, t, **kw: TF.transformer_decode(
+                         p, c, t, cfg, **kw))
     if fam == "rwkv6":
         def apply_fn(params, batch, *, remat=False):
             return RW.rwkv6_apply(params, batch["tokens"], cfg, remat=remat)
@@ -58,8 +71,8 @@ def build_model(cfg: ModelConfig) -> Model:
                      lambda b, s, dtype=None, device=None: RW.init_rwkv_cache(
                          cfg, b, s, dtype, device),
                      lambda p, c, t: RW.rwkv6_decode(p, c, t, cfg))
-    if fam in ("dense", "moe", "vlm", "zamba2", "encdec"):
+    if fam in ("zamba2", "encdec"):
         raise NotImplementedError(
-            f"the port has no {fam!r} family yet (ROADMAP queue 1, item 13: "
-            f"the transformer, MoE, VLM, zamba2 and enc-dec families)")
+            f"the port has no {fam!r} family yet (ROADMAP queue 1, item 6: "
+            f"the rest of item 13, the zamba2 and enc-dec families)")
     raise ValueError(f"unknown family: {fam}")

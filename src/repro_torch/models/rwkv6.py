@@ -223,20 +223,10 @@ def _embed(params, tokens, cfg: ModelConfig):
 
 
 def _unembed(params, h, cfg: ModelConfig):
-    """Final norm and f32 logits. The JAX package multiplies its operands
-    with an f32 result (``preferred_element_type``); a bf16 matmul would
-    round the logits to bf16 and move greedy argmaxes. On the card, bf16
-    operands go to one product with an f32 output (f32 accumulation, no
-    f32 copy of lm_head); elsewhere both operands are cast to f32 first.
-    A product of two bf16 values is exact in f32, so both are the same
-    sum up to its order."""
+    """Final norm and f32 logits (``layers.logits_f32``: the JAX
+    package's ``preferred_element_type=float32`` product)."""
     h = L.layer_norm(h, params["ln_f_s"], params["ln_f_b"], cfg.norm_eps)
-    w = params["lm_head"]
-    if h.is_cuda and h.dtype == w.dtype == torch.bfloat16:
-        flat = torch.mm(h.reshape(-1, h.shape[-1]), w,
-                        out_dtype=torch.float32)
-        return flat.reshape(*h.shape[:-1], w.shape[-1])
-    return torch.matmul(h.float(), w.float())
+    return L.logits_f32(h, params["lm_head"])
 
 
 def rwkv6_apply(params: Dict[str, Any], tokens: torch.Tensor,
@@ -254,7 +244,7 @@ def rwkv6_apply(params: Dict[str, Any], tokens: torch.Tensor,
     if remat:
         raise NotImplementedError(
             "remat is an LM training option; LM training is not ported "
-            "yet (ROADMAP queue 1, item 13)")
+            "yet (ROADMAP queue 1, item 6: the rest of item 13)")
     s = tokens.shape[1]
     c = min(_WKV_CHUNK, s)
     if c and s % c:

@@ -55,7 +55,7 @@ def test_registry_names_the_jax_archs():
     assert get_config("rwkv6-7b", smoke=True) == SMOKE
     assert get_config("rwkv6-7b").num_layers == 32
     with pytest.raises(NotImplementedError, match="item 13"):
-        get_config("llama3.2-1b")
+        get_config("zamba2-1.2b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
