@@ -146,7 +146,32 @@ non-zero:
      cut to 4 of 28 layers) and qwen2-vl-2b (full depth) at full width:
      decode tokens/s at B=4 with no host sync, ternary decode steps with
      K3 counted, one prefill at B=4, S=2048;
-  11. the ``kernels`` line, then the card line, then the ``ok`` line.
+  11. the hybrid and enc-dec families (``hybrid``), after the
+     transformer phase: (a) K3 against its plain version bit for bit at
+     zamba2-1.2b's in_proj (K 2048, N 8384) and out_proj (K 4096, N 2048)
+     at decode and prefill rows, and seamless-m4t-medium's MLP (1024 ->
+     4096 -> 1024) and frontend_proj (1024 x 1024) at decode rows, timed
+     beside torch.matmul and the bound; (b) zamba2 at full width cut to
+     7 layers (two shared-block invocations, the second after a 1-layer
+     stage) and seamless cut to 2 + 2 layers, in f32, the card against
+     the port's CPU run: logits within 1e-3, decode (seamless over the
+     cross K/V of encoded frames), greedy and ternary greedy tokens equal
+     (the card packs the CPU's bytes, K3 counted); the SMOKE zamba2
+     decoding 40 steps into its 16-slot ring against the CPU;
+     ``mamba2_chunked`` at full width (H, P, N = 64, S = 2048, B=4)
+     against its stepwise form on the card; (c) zamba2-1.2b at full width
+     and depth in bf16: BatchScheduler, the ternary model through
+     generate with K3 counted (97 launches a decode step, 97 a prefill;
+     the card's packed bytes equal the CPU's on the first and last
+     layers and the shared MLP), no host sync inside a bf16 or ternary
+     decode step, decode tokens/s with bf16 and ternary samples in turn
+     from a 512-slot cache, prefill tokens/s at B=4, S=2048, profiles;
+     (d) seamless-m4t-medium at full width and depth: encode B=4 x 512
+     frames, the cross K/V into a 512-slot cache, 32 greedy decode steps
+     over them, no host sync in a bf16 or ternary step, decode tokens/s,
+     one prefill of 2,048 frames and 2,048 tokens at B=4, and the ternary
+     model served by BatchScheduler with K3 counted (24 a decode step);
+  12. the ``kernels`` line, then the card line, then the ``ok`` line.
 
 Weights are random from a numpy seed. For the event wing's served
 comparison they are rounded to multiples of 2**-8: every conv and fc
@@ -243,6 +268,7 @@ def main() -> int:
     train = train_phase(torch, dev, k1, k2, smi)
     lm = lm_slice(torch, dev, k3, k4)
     tf = transformer_phase(torch, dev, k3)
+    hy = hybrid_phase(torch, dev, k3)
 
     kernels = [
         dict(name="lif_scan", route="cuda",
@@ -281,14 +307,16 @@ def main() -> int:
              replaces="src/repro/kernels/ternary_matmul.py:92",
              launches=(fused["launches"]["ternary_matmul"]
                        + lm["launches"]["ternary_matmul"]
-                       + tf["launches"]),
+                       + tf["launches"] + hy["launches"]),
              transformer_launches=tf["launches"],
+             hybrid_launches=hy["launches"],
              serving_surface_launches=surface["ternary_matmul"],
              fleet_launches=fleet["ternary_matmul"],
              max_abs_err=max(err["ternary_matmul"],
                              lm["max_abs_err"]["ternary_matmul"],
-                             tf["max_abs_err"]),
+                             tf["max_abs_err"], hy["max_abs_err"]),
              transformer_times=tf["times"],
+             hybrid_times=hy["times"],
              **times["ternary_matmul"]),
         dict(name="wkv6_scan", route="cuda",
              source="src/repro_torch/csrc/wkv6_scan.cu",
@@ -3841,7 +3869,8 @@ def _no_sync(torch, fn, on_card):
         torch.cuda.synchronize()
 
 
-def tf_k3_checks(torch, dev, k3, full):
+def tf_k3_checks(torch, dev, k3, full, phase="tf_k3_vs_plain",
+                 seed=SEED + 20):
     """(a) K3 against its plain version on the card, bit for bit, at the
     products of this slice: llama3.2-1b's gate/up (K 2048, N 8192) and
     down (K 8192, N 2048), qwen2-vl-2b's down (K 8960) and
@@ -3849,18 +3878,22 @@ def tf_k3_checks(torch, dev, k3, full):
     (split path) and prefill rows (serial path), called twice and its
     last row alone. Times each from a cold L2 beside torch.matmul of the
     unpacked bf16 weights and the bound; the plain version is timed at
-    decode rows only (seconds a call at prefill rows)."""
+    decode rows only (seconds a call at prefill rows). A shape given as
+    (name, K, N, rows) runs at those rows only; a shape run at more than
+    one row count must take both paths."""
     from repro_torch.core.ternary import unpack2bit
     from repro_torch.kernels import ops
-    g = torch.Generator().manual_seed(SEED + 20)
+    g = torch.Generator().manual_seed(seed)
     flush = torch.ones(FLUSH_BYTES // 4, device=dev)
     bf16 = torch.bfloat16
     rows, times, err = [], {}, 0.0
-    for name, k, n in full["k3_shapes"]:
+    for name, k, n, *counts in full["k3_shapes"]:
+        counts = (counts[0] if counts
+                  else (full["batch"], full["batch"] * full["seq"]))
         wp, scale = ops.pack_ternary_weights(torch.randn(k, n, generator=g))
         wp, scale = wp.to(dev), scale.to(dev)
         wq = unpack2bit(wp.t(), out_dtype=bf16).t().contiguous()
-        for m in (full["batch"], full["batch"] * full["seq"]):
+        for m in counts:
             x = torch.randn(m, k, generator=g).to(bf16).to(dev)
             want = k3.ternary_matmul_plain(x, wp, scale)
             got = k3.ternary_matmul_cuda(x, wp, scale)
@@ -3892,10 +3925,10 @@ def tf_k3_checks(torch, dev, k3, full):
                     flush, reps=3)
             row["vs_library"] = row["ms"] / row["library_ms"]
             del x, got
-        check({r["path"] for r in rows if r["name"] == name}
+        check(len(counts) == 1 or {r["path"] for r in rows if r["name"] == name}
               == {"split", "serial"}, f"K3 {name} must take both paths")
     del flush
-    emit("tf_k3_vs_plain", tolerance="bitwise", segment=k3.KS,
+    emit(phase, tolerance="bitwise", segment=k3.KS,
          checks=rows, max_abs_err=err, times=times,
          unit="ms of device time a call from a cold L2 (median); "
               "library: torch.matmul of bf16 x with the unpacked bf16 "
@@ -4253,6 +4286,613 @@ def transformer_phase(torch, dev, k3):
     launches += tf_others(torch, dev, k3, full)
     seconds["d_others"] = time.perf_counter() - t0 - sum(seconds.values())
     emit("tf_phase", seconds=time.perf_counter() - t0, by_part=seconds,
+         k3_launches=launches)
+    return {"launches": launches, "max_abs_err": err, "times": times}
+
+
+
+# ----------------------------------------------------------------------
+# Phase 11: the hybrid and enc-dec families -- zamba2-1.2b (Mamba-2 layers
+# and one weight-shared attention block) and seamless-m4t-medium, served
+# in bf16 and in ternary weights (K3 on their projections).
+# ----------------------------------------------------------------------
+
+HY_ZAMBA_CUT = 7             # stages (0, 6) and (6, 7): two shared-block
+#                              invocations, the second after one layer
+HY_ENCDEC_CUT = 2            # encoder and decoder layers of the f32 check
+HY_CPU_SEQ = 128             # two 64-token SSD chunks; <= one kv_chunk
+# The chunked SSD scan against its stepwise form on the card: the JAX
+# package's own tolerance for that check (tests/test_models.py): f32
+# exp/cumsum and the sums of two algorithms an ulp apart.
+HY_SSD_TOL = 1e-4
+HY_RING_STEPS = 40           # SMOKE zamba2 decode steps into its 16-slot ring
+HY_ENC_FRAMES = 512          # encoder frames of seamless's served requests
+HY_GREEDY_STEPS = 32
+# K3 at this slice's products: (name, K, N[, rows]); zamba2's at decode
+# rows (split path) and prefill rows (serial path), seamless's at decode
+# rows (its prefill's encoder takes float weights, as in the JAX package).
+HY_K3_SHAPES = (("zamba2-1.2b_in_proj", 2048, 8384),
+                ("zamba2-1.2b_out_proj", 4096, 2048),
+                ("seamless-m4t-medium_w_up", 1024, 4096, (LM_BATCH,)),
+                ("seamless-m4t-medium_w_down", 4096, 1024, (LM_BATCH,)),
+                ("seamless-m4t-medium_frontend_proj", 1024, 1024,
+                 (LM_BATCH,)))
+
+
+def _hy_full():
+    """What ``hybrid_phase`` serves: zamba2-1.2b and seamless-m4t-medium
+    at full width and depth; B=4, prefill S=2048."""
+    from repro_torch.configs import get_config
+    return dict(
+        zamba=get_config("zamba2-1.2b"),
+        zamba_smoke=get_config("zamba2-1.2b", smoke=True),
+        seamless=get_config("seamless-m4t-medium"), batch=LM_BATCH,
+        seq=LM_PREFILL_S, cpu_seq=HY_CPU_SEQ, cache=TF_DECODE_CACHE,
+        decode=(TF_DECODE_SAMPLES, DECODE_STEPS), k3_shapes=HY_K3_SHAPES,
+        zamba_cut=HY_ZAMBA_CUT, encdec_cut=HY_ENCDEC_CUT,
+        enc_frames=HY_ENC_FRAMES, greedy=HY_GREEDY_STEPS,
+        ring_steps=HY_RING_STEPS)
+
+
+def _hy_zamba_params(torch, model, seed, dev):
+    """zamba2 parameters drawn on ``dev`` by ``model.init``, with the
+    per-head ``a_log``, ``dt_bias``, ``d_skip`` and the conv bias drawn
+    from a numpy seed (their inits are constants)."""
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    rng = np.random.default_rng(seed)
+    layers = params["layers"]
+    for name, scale in (("a_log", 0.5), ("dt_bias", 0.5), ("d_skip", 1.0),
+                        ("conv_b", 0.1)):
+        t = layers[name]
+        layers[name] = torch.from_numpy(
+            (rng.normal(size=tuple(t.shape)) * scale).astype(
+                np.float32)).to(dtype=t.dtype, device=dev)
+    return params
+
+
+def _hy_k3_per_step(cfg):
+    """K3 launches a ternary decode step (and a ternary prefill): two a
+    Mamba-2 layer and three a shared-block invocation (zamba2), two a
+    decoder layer (enc-dec)."""
+    from repro_torch.models import zamba2
+    if cfg.family == "zamba2":
+        return 2 * cfg.num_layers + 3 * len(zamba2._stage_bounds(cfg))
+    return 2 * cfg.decoder_layers
+
+
+def _packed_equal(torch, qa, qb, paths):
+    """The fraction of equal packed bytes over the leaves at ``paths``."""
+    same = total = 0
+    for path in paths:
+        a, b = qa, qb
+        for key in path:
+            a, b = a[key], b[key]
+        same += int((a["packed"].cpu() == b["packed"].cpu()).sum())
+        total += a["packed"].numel()
+    return same / total
+
+
+def hy_ssd(torch, dev, full):
+    """``mamba2_chunked`` on the card at zamba2-1.2b's widths (H, P, N =
+    64, S = 2048 at B=4, the model's chunk of 64) against the port's
+    stepwise form (``_mamba_step``) on the same inputs, on the card; and
+    the chunked call's time."""
+    from repro_torch.models import zamba2 as Z
+    cfg = full["zamba"]
+    b, s = full["batch"], full["seq"]
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    rng = np.random.default_rng(SEED + 30)
+
+    def arr(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+    x = arr(rng.normal(size=(b, s, h, p)))
+    dt = arr(np.log1p(np.exp(rng.normal(size=(b, s, h)))))
+    a = arr(-np.exp(rng.normal(size=(h,)) * 0.3))
+    b_in, c_in = arr(rng.normal(size=(b, s, n))), arr(rng.normal(
+        size=(b, s, n)))
+    chunk = min(cfg.chunk_size * 2, s)
+    y, st = Z.mamba2_chunked(x, dt, a, b_in, c_in, chunk=chunk)
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=dev)
+    ys = []
+    for t in range(s):
+        yt, state = Z._mamba_step(x[:, t], dt[:, t], a, b_in[:, t],
+                                  c_in[:, t], state)
+        ys.append(yt)
+    y_step = torch.stack(ys, 1)
+    row = dict(shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=chunk),
+               y_max_abs_diff=float((y - y_step).abs().max()),
+               state_max_abs_diff=float((st - state).abs().max()),
+               y_max_abs=float(y_step.abs().max()),
+               state_max_abs=float(state.abs().max()))
+    ok = (bool(((y - y_step).abs() <= HY_SSD_TOL * (1 + y_step.abs()))
+               .all())
+          and bool(((st - state).abs() <= HY_SSD_TOL * (1 + state.abs()))
+                   .all()))
+    check(ok, f"SSD chunked vs stepwise: {row}")
+    if dev.type == "cuda":
+        row["chunked_ms"] = _call_ms(
+            torch, lambda: Z.mamba2_chunked(x, dt, a, b_in, c_in,
+                                            chunk=chunk), reps=5)
+    emit("hy_ssd", tolerance=dict(rtol=HY_SSD_TOL, atol=HY_SSD_TOL), **row)
+
+
+def _hy_decode_diff(torch, model, gpu, cpu, cg, cc, tokens, dev):
+    """Steps both caches over ``tokens`` (B, T); the largest logit
+    difference."""
+    worst = 0.0
+    for i in range(tokens.shape[1]):
+        t = torch.from_numpy(tokens[:, i:i + 1])
+        a, cg = model.decode(gpu, cg, t.to(dev))
+        b, cc = model.decode(cpu, cc, t)
+        worst = max(worst, float((a.cpu() - b).abs().max()))
+    return worst
+
+
+def _hy_greedy_and_ternary(torch, dev, k3, model, gpu, cpu, prompt, row,
+                           paths, ternary_tokens):
+    """Greedy tokens of the card and the CPU (8 new), then the ternary
+    model: the card packs the CPU's bytes at ``paths``, greedy tokens
+    equal over ``ternary_tokens`` = (prompt, new) tokens, K3 counted on
+    the card. (K3's plain version on the CPU walks every k of every
+    product: a ternary zamba2 step at 7 layers takes seconds there.)"""
+    from repro_torch.serving import (ServeConfig, generate,
+                                     quantize_for_serving)
+    cfg = model.cfg
+    sc = ServeConfig(max_new_tokens=8)
+    tg, _ = generate(model, gpu, prompt, sc, device=dev)
+    tc, _ = generate(model, cpu, prompt, sc, device="cpu")
+    row.update(greedy_tokens_equal=bool(np.array_equal(tg, tc)),
+               greedy_min_top2_gap=_greedy_gaps(torch, model, gpu, prompt,
+                                                tg, dev),
+               tokens_card=tg.tolist())
+    check(row["greedy_tokens_equal"], f"{cfg.name} greedy {tg} vs {tc}")
+    qg, stats_g = quantize_for_serving(gpu)
+    qc, stats_c = quantize_for_serving(cpu)
+    same = _packed_equal(torch, qg, qc, paths)
+    qprompt = prompt[:, :ternary_tokens[0]]
+    qsc = ServeConfig(max_new_tokens=ternary_tokens[1])
+    k3.launches = 0
+    qtg, _ = generate(model, qg, qprompt, qsc, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = k3.launches
+    qtc, _ = generate(model, qc, qprompt, qsc, device="cpu")
+    steps = qprompt.shape[1] + qsc.max_new_tokens
+    row.update(ternary_stats=stats_g, ternary_packed_equal_fraction=same,
+               ternary_tokens_equal=bool(np.array_equal(qtg, qtc)),
+               ternary_k3_launches=launches, ternary_decode_steps=steps)
+    check(stats_g == stats_c and stats_g["quantized"] == len(paths),
+          f"{cfg.name} ternary stats {stats_g} vs {stats_c}")
+    check(same == 1.0, f"the card packed {same} of the CPU's bytes")
+    check(row["ternary_tokens_equal"], f"ternary {qtg} vs {qtc}")
+    if dev.type == "cuda":
+        check(launches == _hy_k3_per_step(cfg) * steps,
+              f"K3 launched {launches} times in {steps} steps")
+    return launches
+
+
+_HY_ZAMBA_PACKED = (("layers", "in_proj"), ("layers", "out_proj"),
+                    ("shared", "mlp", "w_gate"), ("shared", "mlp", "w_up"),
+                    ("shared", "mlp", "w_down"))
+_HY_ENCDEC_PACKED = (("encoder", "mlp", "w_up"), ("encoder", "mlp", "w_down"),
+                     ("decoder", "mlp", "w_up"), ("decoder", "mlp", "w_down"),
+                     ("frontend_proj",))
+
+
+def hy_vs_cpu(torch, dev, k3, full):
+    """(b) Each family at full width, cut in depth, in f32: the card
+    against the port's CPU run. zamba2 at HY_ZAMBA_CUT layers: logits
+    (B=2, S=HY_CPU_SEQ: two SSD chunks), decode stepped over an 8-token
+    prompt, greedy tokens, ternary greedy tokens over 1 + 1 tokens (the
+    card packs the CPU's bytes; K3 counted); the SMOKE zamba2 decoding
+    HY_RING_STEPS steps into its ring; seamless at HY_ENCDEC_CUT +
+    HY_ENCDEC_CUT layers: logits (HY_CPU_SEQ frames and tokens), encode,
+    the cross K/V, decode over them, greedy tokens, ternary greedy tokens
+    over 3 + 3 tokens. Returns K3's launches."""
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec, zamba2
+    from repro_torch.models.params import tree_map
+    out, launches, seq = {}, 0, full["cpu_seq"]
+    rng = np.random.default_rng(SEED + 32)
+    t0 = time.perf_counter()
+
+    # zamba2, HY_ZAMBA_CUT layers
+    cfg = dataclasses.replace(full["zamba"], num_layers=full["zamba_cut"],
+                              dtype="float32")
+    model = build_model(cfg)
+    gpu = _hy_zamba_params(torch, model, SEED + 31, dev)
+    cpu = tree_map(lambda x: x.cpu(), gpu)
+    toks = rng.integers(0, cfg.vocab_size, (2, seq))
+    lg = model.apply(gpu, {"tokens": torch.from_numpy(toks).to(dev)})[0]
+    lc = model.apply(cpu, {"tokens": torch.from_numpy(toks)})[0]
+    row = dict(config=f"{cfg.name} widths, num_layers={cfg.num_layers}, "
+                      f"float32", apply_shape=[2, seq],
+               stages=[list(b) for b in zamba2._stage_bounds(cfg)],
+               apply_logits_max_abs_diff=float((lg.cpu() - lc).abs().max()),
+               logits_std=float(lc.std()))
+    del lg, lc
+    check(row["apply_logits_max_abs_diff"] <= TF_LOGITS_ATOL,
+          f"zamba2 apply logits: {row['apply_logits_max_abs_diff']}")
+    prompt = toks[:, :8]
+    row["decode_logits_max_abs_diff"] = _hy_decode_diff(
+        torch, model, gpu, cpu, model.init_cache(2, 16, device=dev),
+        model.init_cache(2, 16, device="cpu"), prompt, dev)
+    check(row["decode_logits_max_abs_diff"] <= TF_LOGITS_ATOL,
+          f"zamba2 decode logits: {row}")
+    launches += _hy_greedy_and_ternary(torch, dev, k3, model, gpu, cpu,
+                                       prompt, row, _HY_ZAMBA_PACKED, (1, 1))
+    del gpu, cpu
+    row["seconds"] = time.perf_counter() - t0
+    out["zamba2"] = row
+
+    # the SMOKE zamba2 across its ring
+    cfg = full["zamba_smoke"]
+    model = build_model(cfg)
+    gpu = _hy_zamba_params(torch, model, SEED + 33, dev)
+    cpu = tree_map(lambda x: x.cpu(), gpu)
+    n = full["ring_steps"]
+    cg = model.init_cache(2, 4 * cfg.long_context_window, device=dev)
+    ring = cg["attn_k"].shape[2]
+    check(ring == cfg.long_context_window < n, "the cache must be a ring")
+    out["zamba2_smoke_ring"] = dict(
+        window=ring, steps=n, decode_logits_max_abs_diff=_hy_decode_diff(
+            torch, model, gpu, cpu, cg,
+            model.init_cache(2, 4 * cfg.long_context_window, device="cpu"),
+            rng.integers(0, cfg.vocab_size, (2, n)), dev))
+    check(out["zamba2_smoke_ring"]["decode_logits_max_abs_diff"]
+          <= TF_LOGITS_ATOL, f"ring decode: {out['zamba2_smoke_ring']}")
+    del gpu, cpu
+
+    # seamless, HY_ENCDEC_CUT + HY_ENCDEC_CUT layers
+    cut = full["encdec_cut"]
+    cfg = dataclasses.replace(full["seamless"], num_layers=cut,
+                              encoder_layers=cut, decoder_layers=cut,
+                              dtype="float32")
+    model = build_model(cfg)
+    gpu, cpu = _tf_pair(torch, model, SEED + 34, dev)
+    frames = torch.from_numpy(rng.normal(
+        size=(2, seq, cfg.frontend_dim)).astype(np.float32))
+    toks = rng.integers(0, cfg.vocab_size, (2, seq))
+    batch = {"frames": frames, "tokens": torch.from_numpy(toks)}
+    lg = model.apply(gpu, {k: v.to(dev) for k, v in batch.items()})[0]
+    lc = model.apply(cpu, batch)[0]
+    row = dict(config=f"{cfg.name} widths, {cut} + {cut} layers, float32",
+               apply_shape=[2, seq],
+               apply_logits_max_abs_diff=float((lg.cpu() - lc).abs().max()),
+               logits_std=float(lc.std()))
+    del lg, lc
+    eg = encdec.encode(gpu, frames.to(dev), cfg)
+    ec = encdec.encode(cpu, frames, cfg)
+    kg, kc = (encdec.prefill_cross_kv(gpu, eg, cfg),
+              encdec.prefill_cross_kv(cpu, ec, cfg))
+    row.update(encode_max_abs_diff=float((eg.cpu() - ec).abs().max()),
+               cross_kv_max_abs_diff=max(
+                   float((a.cpu() - b).abs().max()) for a, b in zip(kg, kc)))
+    cg = {**model.init_cache(2, 16, device=dev), "ck": kg[0], "cv": kg[1]}
+    cc = {**model.init_cache(2, 16, device="cpu"), "ck": kc[0], "cv": kc[1]}
+    row["decode_logits_max_abs_diff"] = _hy_decode_diff(
+        torch, model, gpu, cpu, cg, cc, toks[:, :8], dev)
+    check(max(row["apply_logits_max_abs_diff"], row["encode_max_abs_diff"],
+              row["cross_kv_max_abs_diff"],
+              row["decode_logits_max_abs_diff"]) <= TF_LOGITS_ATOL,
+          f"seamless vs CPU: {row}")
+    launches += _hy_greedy_and_ternary(torch, dev, k3, model, gpu, cpu,
+                                       toks[:, :8], row, _HY_ENCDEC_PACKED,
+                                       (3, 3))
+    row["seconds"] = time.perf_counter() - t0 - out["zamba2"]["seconds"]
+    out["seamless"] = row
+    del gpu, cpu, eg, ec, kg, kc, cg, cc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    emit("hy_vs_cpu", tolerance=dict(logits_atol=TF_LOGITS_ATOL,
+                                     tokens="equal", packed="equal"), **out)
+    return launches
+
+
+def _hy_no_sync_steps(torch, serve_step, params, model, b, cache_len, dev,
+                      cache=None):
+    """TF_SYNC_STEPS decode steps under the sync debug mode, after one
+    outside it; None if no step synchronized."""
+    cache = cache or model.init_cache(b, cache_len, device=dev)
+    tok = torch.ones((b, 1), dtype=torch.long, device=dev)
+    tok, cache = serve_step(params, cache, tok)
+    box = [tok, cache]
+
+    def steps_fn():
+        for _ in range(TF_SYNC_STEPS):
+            box[0], box[1] = serve_step(params, box[1], box[0])
+    return _no_sync(torch, steps_fn, dev.type == "cuda")
+
+
+def hy_zamba(torch, dev, k3, full):
+    """(c) zamba2-1.2b at full width and depth in bf16, as a user serves
+    it: BatchScheduler over requests built as launch/serve.py builds them
+    (B=4); the ternary model (the card packs the CPU's bytes on the first
+    and last layers' projections and the shared MLP) through generate
+    with K3 counted (2 a Mamba-2 layer + 3 a shared-block invocation a
+    decode step, 97 in all) and one ternary prefill (97); no host sync
+    inside a bf16 or ternary decode step; decode tokens/s with bf16 and
+    ternary samples in turn from a 512-slot cache; prefill tokens/s at
+    B=4, S=2048 in each; profiles of decode steps; memory. Returns K3's
+    launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model, zamba2
+    from repro_torch.serving import (BatchScheduler, Request, ServeConfig,
+                                     generate, quantize_for_serving)
+    cfg = full["zamba"]
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    nl, vocab, b = cfg.num_layers, cfg.vocab_size, full["batch"]
+    per_step = _hy_k3_per_step(cfg)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = _hy_zamba_params(torch, model, SEED + 35, dev)
+    sync()
+    report = dict(config=f"{cfg.name} CONFIG ({nl} Mamba-2 layers, "
+                         f"d={cfg.d_model}, the shared block "
+                         f"{len(zamba2._stage_bounds(cfg))} times, "
+                         f"{cfg.dtype})", params=model.num_params(),
+                  init_s=time.perf_counter() - t0)
+    if on_card:
+        report["params_gb"] = torch.cuda.memory_allocated() / 1e9
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(id=i, prompt=rng.integers(
+                2, vocab, size=rng.integers(2, LM_PROMPT + 1)),
+                max_new_tokens=LM_NEW) for i in range(LM_SERVE_REQUESTS)]
+    sched = BatchScheduler(model, params, max_batch=b,
+                           cache_len=LM_PROMPT + LM_NEW + 1, device=dev)
+    done = sched.run(reqs)
+    check(all(len(r.output) == LM_NEW and all(0 <= t < vocab
+                                              for t in r.output)
+              for r in done), "zamba2 scheduler outputs")
+    report["scheduler"] = dict(requests=len(done),
+                               batches=sched.stats["batches"],
+                               decode_steps=sched.stats["decode_steps"],
+                               first_outputs=[r.output[:8]
+                                              for r in done[:2]])
+
+    t0 = time.perf_counter()
+    q, stats = quantize_for_serving(params)
+    sync()
+    report["ternary"] = dict(stats=stats, quantize_s=time.perf_counter() - t0)
+    check(stats["quantized"] == len(_HY_ZAMBA_PACKED),
+          f"ternary stats {stats}")
+    picks = [0, nl - 1]
+    same = total = 0
+    for path in _HY_ZAMBA_PACKED:
+        w, pk = params, q
+        for key in path:
+            w, pk = w[key], pk[key]
+        ws = w[picks] if path[0] == "layers" else w[None]
+        pks = pk["packed"][picks] if path[0] == "layers" else pk["packed"][
+            None]
+        for wi, pi in zip(ws, pks):
+            cpu_packed, _ = ops.pack_ternary_weights(wi.cpu().float())
+            same += int((cpu_packed == pi.cpu()).sum())
+            total += cpu_packed.numel()
+    report["ternary"]["packed_equal_fraction_vs_cpu"] = same / total
+    report["ternary"]["packed_compared"] = (
+        f"layers {picks} of in_proj and out_proj, the shared MLP")
+    check(same == total, f"the card packed {same}/{total} of the CPU's "
+                         f"bytes")
+    prompts = np.random.default_rng(SEED + 36).integers(2, vocab, (b, 8))
+    k3.launches = 0
+    toks, _ = generate(model, q, prompts, ServeConfig(max_new_tokens=8),
+                       device=dev)
+    sync()
+    gen_launches, steps = k3.launches, 8 + 8
+    report["ternary"].update(generate_k3_launches=gen_launches,
+                             decode_steps=steps,
+                             per_decode_step=gen_launches / steps,
+                             tokens=toks.tolist())
+    check(not on_card or gen_launches == per_step * steps,
+          f"K3 launched {gen_launches} times in {steps} ternary steps")
+
+    serve_step = make_serve_step(cfg)
+    sync_errors = {name: _hy_no_sync_steps(torch, serve_step, p, model, b,
+                                           full["cache"], dev)
+                   for name, p in (("bf16", params), ("ternary", q))}
+    report["decode_no_host_sync"] = sync_errors
+    check(all(e is None for e in sync_errors.values()),
+          f"a zamba2 decode step synchronized: {sync_errors}")
+
+    prefill = make_prefill_step(cfg)
+    batch = _tf_batch(torch, cfg, b, full["seq"], SEED + 37, dev)
+    k3.launches = 0
+    last = prefill(q, batch)
+    sync()
+    pre_launches = k3.launches
+    check(not on_card or pre_launches == per_step,
+          f"K3 launched {pre_launches} times in a ternary prefill")
+    check(tuple(last.shape) == (b, vocab)
+          and bool(torch.isfinite(last).all()), "ternary prefill logits")
+    report["ternary"]["prefill_k3_launches"] = pre_launches
+    launches = gen_launches + pre_launches
+    if not on_card:
+        emit("hy_zamba", **report)
+        return launches
+
+    (fp, tern), (state, tstate) = _decode_rates(
+        torch, serve_step, model, [params, q], dev, full["cache"],
+        *full["decode"], batch=b)
+    pre = {}
+    for name, p in (("bf16", params), ("ternary", q)):
+        s_med, s_all, peak = _prefill_s(torch, prefill, p, batch,
+                                        reps=3 if name == "bf16" else 1)
+        pre[name] = dict(s_median=s_med, s_all=s_all,
+                         tokens_per_s=b * full["seq"] / s_med,
+                         peak_memory_gb=peak / 1e9)
+    torch.cuda.reset_peak_memory_stats()
+    serve_step(params, state[1], state[2])
+    torch.cuda.synchronize()
+    report.update(
+        decode_bf16=fp, decode_ternary=tern,
+        ternary_vs_bf16_paired_median=statistics.median(
+            t / f for t, f in zip(tern["tokens_per_s_samples"],
+                                  fp["tokens_per_s_samples"])),
+        decode_cache_len=full["cache"],
+        decode_step_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        prefill=dict(batch=b, seq=full["seq"], **pre),
+        decode_profile=_decode_profile(torch, serve_step, state,
+                                       fp["step_ms_median"]),
+        decode_ternary_profile=_decode_profile(torch, serve_step, tstate,
+                                               tern["step_ms_median"]))
+    emit("hy_zamba", metric="host clock ending in torch.cuda.synchronize",
+         **report)
+    return launches
+
+
+def hy_seamless(torch, dev, k3, full):
+    """(d) seamless-m4t-medium at full width and depth in bf16: encode
+    B=4 x HY_ENC_FRAMES frames, project the cross K/V into a 512-slot
+    cache and decode HY_GREEDY_STEPS greedy steps over them (no host sync
+    in a step); decode tokens/s at B=4 and a profile of decode steps; one
+    prefill (B=4, 2,048 frames
+    and 2,048 tokens: 8.4 GB of f32 logits); the ternary model served by
+    BatchScheduler with K3 counted (2 a decoder layer a step, 24 in
+    all). Returns K3's launches."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec
+    from repro_torch.serving import (BatchScheduler, Request,
+                                     quantize_for_serving)
+    cfg = full["seamless"]
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    b, vocab, nd = full["batch"], cfg.vocab_size, cfg.decoder_layers
+    per_step = _hy_k3_per_step(cfg)
+    model = build_model(cfg)
+    params = _tf_params(torch, model, SEED + 38, dev)
+    row = dict(config=f"{cfg.name} CONFIG ({cfg.encoder_layers} + {nd} "
+                      f"layers, d={cfg.d_model}, vocab {vocab}, "
+                      f"{cfg.dtype})", params=model.num_params())
+    if on_card:
+        row["params_gb"] = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(SEED + 39)
+    frames = torch.from_numpy(rng.normal(
+        size=(b, full["enc_frames"], cfg.frontend_dim)).astype(
+            np.float32)).to(dev)
+    serve_step = make_serve_step(cfg)
+    sync()
+    t0 = time.perf_counter()
+    enc = encdec.encode(params, frames, cfg)
+    ck, cv = encdec.prefill_cross_kv(params, enc, cfg)
+    sync()
+    row["encode_and_cross_kv_s"] = time.perf_counter() - t0
+    cache = {**model.init_cache(b, full["cache"], device=dev),
+             "ck": ck, "cv": cv}
+    tok = torch.ones((b, 1), dtype=torch.long, device=dev)
+    out = []
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(full["greedy"]):
+        tok, cache = serve_step(params, cache, tok)
+        out.append(tok)
+    sync()
+    greedy_s = time.perf_counter() - t0
+    toks = torch.cat(out, 1)
+    check(bool(((toks >= 0) & (toks < vocab)).all()), "seamless tokens")
+    row["encoded_decode"] = dict(
+        frames=full["enc_frames"], cache_len=full["cache"],
+        steps=full["greedy"], step_ms=greedy_s * 1e3 / full["greedy"],
+        first_tokens=toks[:2, :8].tolist())
+    row["decode_no_host_sync"] = _hy_no_sync_steps(
+        torch, serve_step, params, model, b, full["cache"], dev,
+        cache={**model.init_cache(b, full["cache"], device=dev),
+               "ck": ck, "cv": cv})
+    check(row["decode_no_host_sync"] is None,
+          f"a seamless decode step synchronized: {row}")
+    del enc, ck, cv, cache
+
+    q, stats = quantize_for_serving(params)
+    check(stats["quantized"] == len(_HY_ENCDEC_PACKED),
+          f"seamless ternary stats {stats}")
+    rq = np.random.default_rng(1)
+    reqs = [Request(id=i, prompt=rq.integers(
+                2, vocab, size=rq.integers(2, LM_PROMPT + 1)),
+                max_new_tokens=LM_NEW) for i in range(b)]
+    k3.launches = 0
+    sched = BatchScheduler(model, q, max_batch=b,
+                           cache_len=LM_PROMPT + LM_NEW + 1, device=dev)
+    done = sched.run(reqs)
+    sync()
+    steps = sched.stats["decode_steps"]
+    row["ternary"] = dict(stats=stats, k3_launches=k3.launches,
+                          decode_steps=steps,
+                          per_decode_step=k3.launches / steps,
+                          first_outputs=[r.output[:8] for r in done[:2]])
+    check(all(len(r.output) == LM_NEW for r in done),
+          "seamless ternary scheduler outputs")
+    check(not on_card or k3.launches == per_step * steps,
+          f"seamless: K3 launched {k3.launches} times in {steps} steps")
+    launches = k3.launches
+    row["ternary_decode_no_host_sync"] = _hy_no_sync_steps(
+        torch, serve_step, q, model, b, full["cache"], dev)
+    check(row["ternary_decode_no_host_sync"] is None,
+          f"a ternary seamless decode step synchronized: {row}")
+    del q
+
+    prefill = make_prefill_step(cfg)
+    batch = {"frames": torch.from_numpy(rng.normal(
+                 size=(b, full["seq"], cfg.frontend_dim)).astype(
+                     np.float32)).to(dev),
+             "tokens": torch.from_numpy(rng.integers(
+                 0, vocab, (b, full["seq"]))).to(dev)}
+    last = prefill(params, batch)
+    check(tuple(last.shape) == (b, vocab)
+          and bool(torch.isfinite(last).all()), "seamless prefill")
+    del last
+    if on_card:
+        samples, dsteps = full["decode"]
+        (rate,), (state,) = _decode_rates(torch, serve_step, model,
+                                          [params], dev, full["cache"],
+                                          samples // 2, dsteps, batch=b)
+        row["decode_profile"] = _decode_profile(torch, serve_step, state,
+                                                rate["step_ms_median"])
+        del state
+        s_med, s_all, peak = _prefill_s(torch, prefill, params, batch,
+                                        reps=1)
+        row.update(decode=rate, prefill=dict(
+            batch=b, frames=full["seq"], tokens=full["seq"], s=s_med,
+            tokens_per_s=b * full["seq"] / s_med,
+            peak_memory_gb=peak / 1e9,
+            logits_gb=b * full["seq"] * vocab * 4 / 1e9))
+    del params, batch
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    emit("hy_seamless", **row)
+    return launches
+
+
+def hybrid_phase(torch, dev, k3):
+    """Phase 11 end to end: (a) K3 at this slice's products, (b) each
+    family on the card against the CPU (and the SSD scan against its
+    stepwise form), (c) zamba2-1.2b served, (d) seamless-m4t-medium
+    served. Returns the launches, errors and times the ``kernels`` line
+    needs."""
+    full = _hy_full()
+    seconds = {}
+    t0 = time.perf_counter()
+    err, times = tf_k3_checks(torch, dev, k3, full, phase="hy_k3_vs_plain",
+                              seed=SEED + 40)
+    seconds["a_k3"] = time.perf_counter() - t0
+    launches = hy_vs_cpu(torch, dev, k3, full)
+    hy_ssd(torch, dev, full)
+    seconds["b_vs_cpu"] = time.perf_counter() - t0 - sum(seconds.values())
+    launches += hy_zamba(torch, dev, k3, full)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    seconds["c_zamba2"] = time.perf_counter() - t0 - sum(seconds.values())
+    launches += hy_seamless(torch, dev, k3, full)
+    seconds["d_seamless"] = time.perf_counter() - t0 - sum(seconds.values())
+    emit("hy_phase", seconds=time.perf_counter() - t0, by_part=seconds,
          k3_launches=launches)
     return {"launches": launches, "max_abs_err": err, "times": times}
 

@@ -3,11 +3,11 @@
 ``CONFIG``, ``SMOKE``, ``TCN_CONFIG``, ``TCN_SMOKE`` and ``WINDOW_MS`` are
 the paper's networks (``colibries``). ``get_config(arch, smoke=False)``
 is the JAX package's architecture registry, with its names: ``ARCHS``
-lists the 10 LM-family architectures. The port has the transformer
-families (dense, MoE, VLM: seven archs), ``rwkv6-7b`` and ``colibries``;
-``zamba2-1.2b`` and ``seamless-m4t-medium`` raise ``NotImplementedError``
-until their families are ported (ROADMAP queue 1, item 6: the rest of
-item 13). ``shapes`` holds the JAX package's dry-run shape sets.
+lists the 10 LM-family architectures, and the port has every one of
+them: the transformer families (dense, MoE, VLM: seven archs),
+``rwkv6-7b``, the ``zamba2-1.2b`` hybrid and the ``seamless-m4t-medium``
+encoder-decoder, besides ``colibries``. ``shapes`` holds the JAX
+package's dry-run shape sets.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ ARCHS = [
     "qwen2-vl-2b",
 ]
 
-# The architectures the port has, by module.
+# Each architecture's module.
 _MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "glm4-9b": "glm4_9b",
@@ -42,6 +42,8 @@ _MODULES = {
     "rwkv6-7b": "rwkv6_7b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "qwen2-vl-2b": "qwen2_vl_2b",
     "colibries": "colibries",
 }
@@ -51,9 +53,5 @@ def get_config(arch: str, smoke: bool = False) -> Any:
     if arch in _MODULES:
         mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
         return mod.SMOKE if smoke else mod.CONFIG
-    if arch in ARCHS:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet: its family comes with ROADMAP "
-            f"queue 1, item 6 (the rest of item 13: zamba2 and enc-dec)")
     raise KeyError(f"unknown arch {arch!r}; known: "
                    f"{sorted(set(ARCHS) | set(_MODULES))}")

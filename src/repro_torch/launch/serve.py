@@ -4,11 +4,14 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --full --quant ternary --requests 8 --new-tokens 24
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --device cpu
 
 Runs on the card unless given ``--device cpu``; SMOKE sizes unless given
-``--full``. The arch names are the JAX package's; the port has the
-transformer families and ``rwkv6-7b``, and ``zamba2-1.2b`` and
-``seamless-m4t-medium`` raise ``NotImplementedError``.
+``--full``. The arch names are the JAX package's, and every one of them
+is served. The enc-dec arch (``seamless-m4t-medium``) decodes here as in
+the JAX package's launcher: with zero cross-attention K/V, no encoder
+pass.
 """
 from __future__ import annotations
 

@@ -3,6 +3,10 @@
   prefill_step(params, batch)          -> last-position logits
   serve_step(params, cache, tokens)    -> (next_tokens, cache')
 
+A prefill batch is ``Model.apply``'s: ``{"tokens"}``, plus
+``"patch_embeds"`` for the VLM and the encoder's ``"frames"`` (B, S_enc,
+frontend_dim) for the enc-dec family.
+
 ``make_train_step`` and the abstract input specs of the dry-run come with
 LM training (ROADMAP queue 1, item 6: the rest of item 13).
 """

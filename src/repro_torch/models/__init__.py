@@ -1,5 +1,5 @@
-"""Model substrate of the port: the transformer (dense, MoE, VLM) and
-RWKV-6 families on tensors (port of ``repro.models``)."""
+"""Model substrate of the port: the transformer (dense, MoE, VLM), RWKV-6,
+zamba2 and enc-dec families on tensors (port of ``repro.models``)."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.params import (ParamDef, abstract, materialize,

@@ -4,9 +4,8 @@ A verbatim copy of ``repro.models.config`` (pure Python), so the port
 reads the same configurations without importing the JAX package. One
 frozen dataclass parameterizes dense / MoE / SSM / hybrid / enc-dec / VLM
 backbones; each ``repro_torch/configs/<arch>.py`` instantiates it with the
-exact published numbers plus a reduced smoke variant. The port builds the
-``dense``, ``moe``, ``vlm`` and ``rwkv6`` families
-(``repro_torch.models.model.build_model``).
+exact published numbers plus a reduced smoke variant. The port builds
+every family (``repro_torch.models.model.build_model``).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Unified model API (port of ``repro.models.model``) for the families the
-port has: the transformer (``dense``, ``moe``, ``vlm``) and ``rwkv6``.
+"""Unified model API (port of ``repro.models.model``) for every family:
+the transformer (``dense``, ``moe``, ``vlm``), ``rwkv6``, the ``zamba2``
+hybrid and the ``encdec`` encoder-decoder.
 
 ``build_model(cfg)`` returns a :class:`Model` bundle exposing:
 
@@ -20,9 +21,11 @@ from typing import Any, Callable, Tuple
 
 import torch
 
+from repro_torch.models import encdec as ED
 from repro_torch.models import params as P
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models import transformer as TF
+from repro_torch.models import zamba2 as ZB
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["Model", "build_model"]
@@ -71,8 +74,22 @@ def build_model(cfg: ModelConfig) -> Model:
                      lambda b, s, dtype=None, device=None: RW.init_rwkv_cache(
                          cfg, b, s, dtype, device),
                      lambda p, c, t: RW.rwkv6_decode(p, c, t, cfg))
-    if fam in ("zamba2", "encdec"):
-        raise NotImplementedError(
-            f"the port has no {fam!r} family yet (ROADMAP queue 1, item 6: "
-            f"the rest of item 13, the zamba2 and enc-dec families)")
+    if fam == "zamba2":
+        def apply_fn(params, batch, *, scan_layers=True, remat=False):
+            return ZB.zamba2_apply(params, batch["tokens"], cfg,
+                                   scan_layers=scan_layers, remat=remat)
+        return Model(cfg, lambda: ZB.zamba2_defs(cfg), apply_fn,
+                     lambda b, s, dtype=None, device=None:
+                     ZB.init_zamba_cache(cfg, b, s, dtype, device),
+                     lambda p, c, t, **kw: ZB.zamba2_decode(
+                         p, c, t, cfg, **kw))
+    if fam == "encdec":
+        def apply_fn(params, batch, *, scan_layers=True, remat=False):
+            return ED.encdec_apply(params, batch, cfg,
+                                   scan_layers=scan_layers, remat=remat)
+        return Model(cfg, lambda: ED.encdec_defs(cfg), apply_fn,
+                     lambda b, s, dtype=None, device=None:
+                     ED.init_encdec_cache(cfg, b, s, dtype, device),
+                     lambda p, c, t, **kw: ED.encdec_decode(
+                         p, c, t, cfg, **kw))
     raise ValueError(f"unknown family: {fam}")

@@ -1,0 +1,323 @@
+"""Zamba2 hybrid backbone: Mamba-2 (SSD) layers + a weight-shared attention
+block invoked every ``attn_every`` layers (port of ``repro.models.zamba2``;
+arXiv:2411.15242).
+
+Mamba-2 layers use the chunked SSD form for a full sequence (scalar
+per-head decay, so the intra-chunk factorization is exact, with no
+clamping) and the O(1) stepwise recurrence for decode. The shared
+attention block is a pre-norm attention + MLP pair, weight-tied across its
+invocations, built from ``layers.attention_apply``/``_attend_decode`` and
+``layers.mlp_apply``.
+
+The JAX package computes the SSD scan, the depthwise conv and the gates
+with XLA, so plain torch ops compute them here; the only kernel is K3,
+which ``layers.dense`` reaches for a ternary-packed ``in_proj``,
+``out_proj`` or shared-MLP weight. Layers run as a Python loop over the
+stacked layer axis (``scan_layers``/``remat`` are accepted and ignored).
+A decode step keeps ``pos`` a 0-d device tensor and never reads a value
+back to the host.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import ParamDef, as_dtype, tree_map
+
+__all__ = ["zamba2_defs", "zamba2_apply", "zamba2_decode",
+           "init_zamba_cache", "mamba2_chunked"]
+
+
+def _mamba_defs(cfg: ModelConfig, nl: int) -> Dict[str, Any]:
+    d = cfg.d_model
+    din = cfg.ssm_d_inner
+    n = cfg.ssm_state
+    h = cfg.ssm_heads
+    k = cfg.conv_kernel
+    conv_dim = din + 2 * n
+
+    def pd(shape, axes, **kw):
+        return ParamDef((nl,) + shape, ("layers",) + axes, **kw)
+
+    return {
+        "ln": pd((d,), ("norm",), init="ones"),
+        "in_proj": pd((d, 2 * din + 2 * n + h), ("embed", "mlp"),
+                      fan_in_axes=(1,)),
+        "conv_w": pd((k, conv_dim), (None, "conv"), scale=1.0,
+                     fan_in_axes=(0,)),
+        "conv_b": pd((conv_dim,), ("conv",), init="zeros"),
+        "a_log": pd((h,), ("heads",), init="constant", constant=0.0),
+        "dt_bias": pd((h,), ("heads",), init="zeros"),
+        "d_skip": pd((h,), ("heads",), init="ones"),
+        "norm_s": pd((din,), ("norm",), init="ones"),
+        "out_proj": pd((din, d), ("mlp", "embed"), fan_in_axes=(0,)),
+    }
+
+
+def zamba2_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, v = cfg.d_model, cfg.vocab_size
+    return {
+        "embed": ParamDef((v, d), ("vocab", "embed"), fan_in_axes=(1,)),
+        "layers": _mamba_defs(cfg, cfg.num_layers),
+        # ONE shared attention block, weight-tied across invocations.
+        "shared": {
+            "ln1": ParamDef((d,), ("norm",), init="ones"),
+            "ln2": ParamDef((d,), ("norm",), init="ones"),
+            "attn": L.attention_defs(cfg),
+            "mlp": L.mlp_defs(cfg),
+        },
+        "ln_f": ParamDef((d,), ("norm",), init="ones"),
+        "lm_head": ParamDef((d, v), ("embed", "vocab"), fan_in_axes=(0,)),
+    }
+
+
+# ----------------------------------------------------------------------
+# Mamba-2 SSD core
+# ----------------------------------------------------------------------
+
+
+def mamba2_chunked(
+    x: torch.Tensor,        # (B, S, H, P) inputs (post conv/silu)
+    dt: torch.Tensor,       # (B, S, H) softplus'd step sizes
+    a: torch.Tensor,        # (H,) negative decay rates (-exp(a_log))
+    b_in: torch.Tensor,     # (B, S, N) input projections (ngroups=1)
+    c_in: torch.Tensor,     # (B, S, N)
+    state0: Optional[torch.Tensor] = None,
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan. Returns (y (B,S,H,P) in ``x``'s dtype, state
+    (B,H,P,N) f32). f32 inside.
+
+    h_t = exp(a*dt_t) h_{t-1} + dt_t x_t B_t^T ;  y_t = h_t C_t (the skip
+    term is the caller's). The JAX package's chunk body: within a chunk,
+    ``cum`` is the cumsum of ``a*dt`` and ``y = att @ (dt x) + exp(cum) *
+    (C . state)`` with ``att = tril(exp(cum_t - cum_s)) * (C_t . B_s)``;
+    the state leaving a chunk is ``exp(cum_end) * state + sum_s
+    exp(cum_end - cum_s) dt_s x_s B_s^T``. Every term that does not read
+    the carried state is computed for all chunks at once; the loop over
+    chunks carries the state alone. All decay exponents used are <= 0.
+    ``S`` must be a multiple of the chunk (no padding, as in the
+    reference).
+    """
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"seq {s} % chunk {c} != 0")
+    nc = s // c
+    xc = x.reshape(bsz, nc, c, h, p).float()
+    dtc = dt.reshape(bsz, nc, c, h).float()
+    bc = b_in.reshape(bsz, nc, c, n).float()
+    cc = c_in.reshape(bsz, nc, c, n).float()
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device)
+             if state0 is None else state0.float())
+
+    cum = torch.cumsum(a.float() * dtc, dim=2)             # (b, nc, c, h)
+    # intra-chunk: att[t, s] = exp(cum_t - cum_s) (C_t . B_s), s <= t
+    scores = torch.einsum("bitn,bisn->bits", cc, bc)
+    ldiff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b,nc,t,s,h)
+    mask = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
+    att = torch.where(mask[:, :, None], torch.exp(ldiff), 0.0) \
+        * scores[..., None]
+    dtx = xc * dtc[..., None]                              # (b,nc,c,h,p)
+    y = torch.einsum("bitsh,bishp->bithp", att, dtx)
+    # each chunk's own contribution to the state it leaves
+    cum_end = cum[:, :, -1]                                # (b, nc, h)
+    k_tail = torch.exp(cum_end[:, :, None] - cum)          # (b, nc, c, h)
+    own = torch.einsum("bichp,bicn->bihpn", dtx * k_tail[..., None], bc)
+    decay = torch.exp(cum_end)[..., None, None]            # (b,nc,h,1,1)
+    entering = []
+    for i in range(nc):
+        entering.append(state)
+        state = decay[:, i] * state + own[:, i]
+    # cross-chunk: y += exp(cum_t) * C_t . (state entering the chunk)
+    y_cross = torch.einsum("bitn,bihpn->bithp", cc,
+                           torch.stack(entering, dim=1))
+    y = y + y_cross * torch.exp(cum)[..., None]
+    return y.reshape(bsz, s, h, p).to(x.dtype), state
+
+
+def _mamba_step(x, dt, a, b_in, c_in, state):
+    """One-token SSD update. x (B,H,P); dt (B,H); b/c (B,N); state
+    (B,H,P,N) f32. Returns (y (B,H,P) in ``x``'s dtype, new state)."""
+    dtf = dt.float()
+    dec = torch.exp(a.float()[None] * dtf)                 # (B, H)
+    dbx = (x.float() * dtf[..., None])[..., None] \
+        * b_in.float()[:, None, None, :]
+    state = dec[..., None, None] * state + dbx
+    y = torch.einsum("bhpn,bn->bhp", state, c_in.float())
+    return y.to(x.dtype), state
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` at every x (``F.softplus``
+    returns x itself above its threshold)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def _mamba_forward(lp, x, cfg: ModelConfig, *, conv_state=None,
+                   ssm_state=None, decode: bool = False):
+    """Apply one Mamba-2 layer (pre-norm; the caller adds the residual).
+
+    Returns (out, (conv_state, ssm_state)): the last ``conv_kernel - 1``
+    conv inputs (B, k-1, conv_dim) and the SSM state (B, H, P, N) f32.
+    """
+    bsz, s, d = x.shape
+    din, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    p = cfg.ssm_head_dim
+    k = cfg.conv_kernel
+
+    proj = L.dense(x, lp["in_proj"])
+    z, xbc, dt_raw = torch.split(proj, [din, din + 2 * n,
+                                        proj.shape[-1] - 2 * din - 2 * n],
+                                 dim=-1)
+
+    # Depthwise causal conv over the (x, B, C) channels.
+    if decode:
+        window = torch.cat([conv_state, xbc], dim=1)       # (B, k, cd)
+        conv_out = (window * lp["conv_w"]).sum(dim=1, keepdim=True)
+        new_conv_state = window[:, 1:]
+    else:
+        # The reference's shifted multiply-add, tap by tap in this order
+        # (a library conv would choose its own reduction order).
+        pad = F.pad(xbc, (0, 0, k - 1, 0))
+        conv_out = sum(pad[:, i:i + s] * lp["conv_w"][i]
+                       for i in range(k))
+        new_conv_state = pad[:, -(k - 1):]
+    xbc = F.silu(conv_out + lp["conv_b"])
+    xs, b_in, c_in = torch.split(xbc, [din, n, n], dim=-1)
+    xs = xs.reshape(bsz, -1, h, p)
+    dt = _softplus(dt_raw.float() + lp["dt_bias"].float())
+    a = -torch.exp(lp["a_log"].float())
+
+    if decode:
+        y, ssm_state = _mamba_step(xs[:, 0], dt[:, 0], a, b_in[:, 0],
+                                   c_in[:, 0], ssm_state)
+        y = y[:, None]
+    else:
+        y, ssm_state = mamba2_chunked(xs, dt, a, b_in, c_in, ssm_state,
+                                      chunk=min(cfg.chunk_size * 2, s))
+    y = y + xs * lp["d_skip"][:, None]
+    y = y.reshape(bsz, -1, din)
+    y = L.rms_norm(y * F.silu(z), lp["norm_s"], cfg.norm_eps)
+    out = L.dense(y, lp["out_proj"])
+    return out, (new_conv_state, ssm_state)
+
+
+def _shared_block(sp, h, positions, cfg, *, window=None):
+    a_in = L.rms_norm(h, sp["ln1"], cfg.norm_eps)
+    h = h + L.attention_apply(sp["attn"], a_in, positions, cfg,
+                              causal=True, window=window)
+    m_in = L.rms_norm(h, sp["ln2"], cfg.norm_eps)
+    return h + L.mlp_apply(sp["mlp"], m_in, cfg)
+
+
+def _stage_bounds(cfg: ModelConfig):
+    """Mamba-layer index ranges between shared-attn invocations."""
+    period = cfg.attn_every or cfg.num_layers
+    bounds = []
+    i = 0
+    while i < cfg.num_layers:
+        j = min(i + period, cfg.num_layers)
+        bounds.append((i, j))
+        i = j
+    return bounds
+
+
+def _embed(params, tokens, cfg: ModelConfig):
+    return F.embedding(tokens.long(), params["embed"]).to(
+        as_dtype(cfg.dtype))
+
+
+def _unembed(params, h, cfg: ModelConfig):
+    return L.logits_f32(L.rms_norm(h, params["ln_f"], cfg.norm_eps),
+                        params["lm_head"])
+
+
+def zamba2_apply(params: Dict[str, Any], tokens: torch.Tensor,
+                 cfg: ModelConfig, *, scan_layers: bool = True,
+                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits (B,S,V) f32, 0.0): each
+    stage of Mamba layers, then the shared block, over every stage."""
+    del scan_layers, remat
+    b, s = tokens.shape
+    h = _embed(params, tokens, cfg)
+    positions = torch.arange(s, device=h.device)[None].expand(b, s)
+    for i, j in _stage_bounds(cfg):
+        for li in range(i, j):
+            lp = tree_map(lambda x: x[li], params["layers"])
+            out, _ = _mamba_forward(lp, L.rms_norm(h, lp["ln"],
+                                                   cfg.norm_eps), cfg)
+            h = h + out
+        h = _shared_block(params["shared"], h, positions, cfg)
+    return (_unembed(params, h, cfg),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def init_zamba_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                     dtype=None, device=None) -> Dict[str, torch.Tensor]:
+    """Mamba conv + SSM states per layer, plus one KV cache per shared-attn
+    invocation, on ``device`` (the card by default). At long context the
+    shared block runs with a sliding window (``long_context_window``),
+    bounding the KV caches: a cache clamped to the window is a ring."""
+    dt = as_dtype(dtype or cfg.dtype)
+    dev = resolve_device(device)
+    nl = cfg.num_layers
+    din, n = cfg.ssm_d_inner, cfg.ssm_state
+    h, p, k = cfg.ssm_heads, cfg.ssm_head_dim, cfg.conv_kernel
+    n_inv = len(_stage_bounds(cfg))
+    if cfg.long_context_window is not None:
+        cache_len = min(cache_len, cfg.long_context_window)
+    kv = (n_inv, batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "conv": torch.zeros((nl, batch, k - 1, din + 2 * n), dtype=dt,
+                            device=dev),
+        "ssm": torch.zeros((nl, batch, h, p, n), dtype=torch.float32,
+                           device=dev),
+        "attn_k": torch.zeros(kv, dtype=dt, device=dev),
+        "attn_v": torch.zeros(kv, dtype=dt, device=dev),
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def zamba2_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
+                  tokens: torch.Tensor, cfg: ModelConfig,
+                  *, scan_layers: bool = True
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step. Returns (logits f32, new cache); the cache passed
+    in is not modified. The shared block attends over a ring exactly when
+    the cache was clamped to ``long_context_window`` at init."""
+    del scan_layers
+    h = _embed(params, tokens, cfg)
+    pos = cache["pos"]
+    ck_len = cache["attn_k"].shape[2]
+    ring = (cfg.long_context_window is not None
+            and ck_len == cfg.long_context_window)
+    window = ck_len if ring else None
+    k_new, v_new = cache["attn_k"].clone(), cache["attn_v"].clone()
+    conv_new, ssm_new = [], []
+    sp = params["shared"]
+    for si, (i, j) in enumerate(_stage_bounds(cfg)):
+        for li in range(i, j):
+            lp = tree_map(lambda x: x[li], params["layers"])
+            out, (conv_st, ssm_st) = _mamba_forward(
+                lp, L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg,
+                conv_state=cache["conv"][li], ssm_state=cache["ssm"][li],
+                decode=True)
+            h = h + out
+            conv_new.append(conv_st)
+            ssm_new.append(ssm_st)
+        a_in = L.rms_norm(h, sp["ln1"], cfg.norm_eps)
+        h = h + L._attend_decode(sp["attn"], a_in, k_new[si], v_new[si],
+                                 pos, cfg, window=window, mrope=False)
+        m_in = L.rms_norm(h, sp["ln2"], cfg.norm_eps)
+        h = h + L.mlp_apply(sp["mlp"], m_in, cfg)
+    return _unembed(params, h, cfg), {
+        "conv": torch.stack(conv_new), "ssm": torch.stack(ssm_new),
+        "attn_k": k_new, "attn_v": v_new, "pos": pos + 1}

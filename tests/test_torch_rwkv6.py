@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs.rwkv6_7b import CONFIG as JAX_CONFIG  # noqa: E402
 from repro.configs.rwkv6_7b import SMOKE as JAX_SMOKE  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
@@ -54,8 +55,8 @@ def f32():
 def test_registry_names_the_jax_archs():
     assert get_config("rwkv6-7b", smoke=True) == SMOKE
     assert get_config("rwkv6-7b").num_layers == 32
-    with pytest.raises(NotImplementedError, match="item 13"):
-        get_config("zamba2-1.2b")
+    assert dataclasses.asdict(get_config("zamba2-1.2b")) \
+        == dataclasses.asdict(jax_get_config("zamba2-1.2b"))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -82,15 +82,16 @@ def test_registry_returns_the_transformer_configs():
             got, want = get_config(arch, smoke), jax_get_config(arch, smoke)
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
     for arch in ("zamba2-1.2b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            get_config(arch)
+        for smoke in (False, True):
+            got, want = get_config(arch, smoke), jax_get_config(arch, smoke)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert set(TRANSFORMER_ARCHS) < set(ARCHS)
 
 
 def test_shapes_match_jax():
     assert {k: dataclasses.asdict(v) for k, v in shapes.SHAPES.items()} \
         == {k: dataclasses.asdict(v) for k, v in jax_shapes.SHAPES.items()}
-    for arch in TRANSFORMER_ARCHS:
+    for arch in ARCHS:
         got = shapes.cells_for(get_config(arch))
         want = jax_shapes.cells_for(jax_get_config(arch))
         assert [c.name for c in got] == [c.name for c in want]

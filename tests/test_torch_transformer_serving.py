@@ -83,11 +83,14 @@ def _prompts(b, s, vocab, seed):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "h2o-danube-1.8b",
-                                  "deepseek-moe-16b", "qwen2-vl-2b"])
+                                  "deepseek-moe-16b", "qwen2-vl-2b",
+                                  "zamba2-1.2b", "seamless-m4t-medium"])
 def test_greedy_generate_matches_jax(arch):
     """5-token prompts and 8 new tokens at B=3: h2o-danube's window of 8
     wraps its ring, deepseek-moe's decode steps (G=3, cap 1) drop
-    tokens, qwen2-vl's text positions run through M-RoPE."""
+    tokens, qwen2-vl's text positions run through M-RoPE; zamba2 carries
+    its Mamba-2 states and shared-block caches, seamless decodes with zero
+    cross K/V (as generate does in the JAX package)."""
     cfg, jcfg, jp, tp = _smoke(arch)
     prompts = _prompts(3, 5, cfg.vocab_size, 0)
     want, _ = jax_generate(jax_build_model(jcfg), jp, jnp.asarray(prompts),
@@ -119,7 +122,8 @@ def _requests(cls, n, vocab, seed):
                 max_new_tokens=int(rng.integers(2, 6))) for i in range(n)]
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "llama4-scout-17b-a16e",
+                                  "zamba2-1.2b", "seamless-m4t-medium"])
 def test_scheduler_matches_jax(arch):
     cfg, jcfg, jp, tp = _smoke(arch)
     want = JaxScheduler(jax_build_model(jcfg), jp, max_batch=3,
