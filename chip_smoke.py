@@ -171,7 +171,23 @@ non-zero:
      over them, no host sync in a bf16 or ternary step, decode tokens/s,
      one prefill of 2,048 frames and 2,048 tokens at B=4, and the ternary
      model served by BatchScheduler with K3 counted (24 a decode step);
-  12. the ``kernels`` line, then the card line, then the ``ok`` line.
+  12. LM training (``lm_train``): (a) ``ops.wkv6_scan``'s gradients at
+     rwkv6-7b's heads (H 64, hd 64, B 2, T 256; bf16 and f32) on the
+     card against the CPU, K4 once a forward and never in the backward;
+     (b) one ``make_train_step`` step a family in f32 at full width
+     (llama3.2-1b, deepseek-moe-16b, qwen2-vl-2b, rwkv6-7b at 2 layers,
+     zamba2-1.2b at 7, seamless at 2 + 2) against the CPU: loss, every
+     leaf's first moment, the updated params, deepseek's routing; (c)
+     llama3.2-1b at full width and depth in bf16 through ``Trainer``, 20
+     steps, a RuntimeError at step 10 and a restart from the checkpoints
+     (every 5 steps, under checkpoints/) bit for bit against the
+     uninterrupted run, the loss below half its first value; step ms,
+     tokens/s, peak memory, a profile; (d) its gradient with remat on and
+     off bit for bit, both peaks; (e) rwkv6-7b at full width and 4
+     layers, bf16: K4 4 launches a step, 8 with remat, the loss falling,
+     the WKV backward's share of a step; (f) ``compress_grads`` at 0.05
+     on llama3.2-1b's gradients: top-k with ties, exact residuals, ms;
+  13. the ``kernels`` line, then the card line, then the ``ok`` line.
 
 Weights are random from a numpy seed. For the event wing's served
 comparison they are rounded to multiples of 2**-8: every conv and fc
@@ -269,6 +285,7 @@ def main() -> int:
     lm = lm_slice(torch, dev, k3, k4)
     tf = transformer_phase(torch, dev, k3)
     hy = hybrid_phase(torch, dev, k3)
+    lt = lm_train_phase(torch, dev, k4, smi)
 
     kernels = [
         dict(name="lif_scan", route="cuda",
@@ -322,6 +339,8 @@ def main() -> int:
              source="src/repro_torch/csrc/wkv6_scan.cu",
              replaces="src/repro/kernels/wkv6_scan.py:69",
              launches=lm["launches"]["wkv6_scan"],
+             train_launches=lt["launches"],
+             train_grad_rel_err=lt["max_abs_err"],
              max_abs_err=lm["max_abs_err"]["wkv6_scan"],
              **lm["times"]["wkv6_scan"]),
     ]
@@ -4895,6 +4914,566 @@ def hybrid_phase(torch, dev, k3):
     emit("hy_phase", seconds=time.perf_counter() - t0, by_part=seconds,
          k3_launches=launches)
     return {"launches": launches, "max_abs_err": err, "times": times}
+
+
+
+# ----------------------------------------------------------------------
+# Phase 12: LM training -- Model.loss under autograd, K4 forward with the
+# chunked form's gradient, remat, the fault-tolerant Trainer with bf16
+# checkpoints, gradient compression; llama3.2-1b at full width and depth.
+# ----------------------------------------------------------------------
+
+# (a) ops.wkv6_scan's gradients on the card against the CPU's (the plain
+# K4 and the chunked backward in f32), as a share of each input's largest
+# |gradient|: f32 differs by summation order only (~1e-6 expected); bf16
+# gradients are the f32 ones rounded to bf16 (2**-9 of a value) plus that.
+LT_WKV_SHAPE = (2, 256, 64, 64)             # rwkv6-7b's heads, B 2, T 256
+LT_WKV_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 1e-2}
+# (b) one make_train_step step a family in f32 at full width, the card
+# against the CPU: the loss (relative), each leaf's first moment (the
+# clipped gradient times 1 - b1) as a share of its largest entry, and the
+# updated params where the gradient is well above its own error (|m| at
+# least 1e-3 of the leaf's largest and above (1 - b1) 1e-6): AdamW's
+# first update is lr g / (|g| + eps), whose ratio moves by dg eps / g^2
+# for a gradient error dg. Elsewhere the update only is bounded, by
+# 2 lr (1 + wd |p|).
+LT_CPU_BATCH, LT_CPU_SEQ, LT_CPU_ENC = 2, 32, 32
+LT_LOSS_RTOL = 1e-5
+LT_GRAD_TOL = 1e-3
+LT_PARAM_TOL = 1e-2                          # times lr
+LT_LR = 1e-3
+# (c) llama3.2-1b at full width and depth, bf16, the "repeat" task over
+# its first 64 token ids (the logits stay 128,256-way). A batch holds 4
+# tokens; over the whole vocabulary each step's are new, and copying an
+# unseen token is not learned in 20 steps at any lr tried on the H100
+# (1e-4, 3e-4: flat at ~12; 1e-3, 3e-3: rising; PERF.md section 6),
+# while over 64 ids tokens recur and the loss halves (12.28 -> 2.99 at
+# 3e-4).
+LT_BATCH, LT_SEQ, LT_TASK_VOCAB = 4, 1024, 64
+LT_STEPS, LT_CRASH_AT, LT_CKPT_EVERY = 20, 10, 5
+LT_TRAIN_LR = 3e-4
+LT_PROFILE_STEPS = 2
+# (e) rwkv6-7b at full width, 4 of 32 layers (AdamW for all 32 needs
+# ~91 GB), bf16, one batch of the whole-vocabulary "repeat" task.
+LT_RWKV_LAYERS, LT_RWKV_BATCH, LT_RWKV_STEPS = 4, 2, 5
+LT_RWKV_LR = 3e-3
+# (f) gradient compression
+LT_RATIO = 0.05
+
+
+def _lt_full():
+    """What ``lm_train_phase`` trains: (a) K4 at rwkv6-7b's heads, (b) each
+    family at full width cut to 2 layers (zamba2 to 7, two shared-block
+    invocations; seamless to 2 + 2) in f32, (c)-(d) and (f) llama3.2-1b
+    at full width and depth in bf16, B=4, S=1024 ((c) over a 64-token
+    task), (e) rwkv6-7b at full width and 4 layers, bf16, B=2, S=1024."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    def cut(arch, n, **kw):
+        return dataclasses.replace(get_config(arch), num_layers=n,
+                                   dtype="float32", **kw)
+    return dict(
+        wkv=LT_WKV_SHAPE,
+        cpu=dict(llama=cut("llama3.2-1b", 2),
+                 moe=cut("deepseek-moe-16b", 2),
+                 vlm=cut("qwen2-vl-2b", 2),
+                 rwkv=cut("rwkv6-7b", 2),
+                 zamba=cut("zamba2-1.2b", HY_ZAMBA_CUT),
+                 encdec=cut("seamless-m4t-medium", 2, encoder_layers=2,
+                            decoder_layers=2)),
+        cpu_batch=LT_CPU_BATCH, cpu_seq=LT_CPU_SEQ, cpu_enc=LT_CPU_ENC,
+        llama=get_config("llama3.2-1b"), batch=LT_BATCH, seq=LT_SEQ,
+        task_vocab=LT_TASK_VOCAB, steps=LT_STEPS, crash_at=LT_CRASH_AT,
+        ckpt_every=LT_CKPT_EVERY, profile_steps=LT_PROFILE_STEPS,
+        rwkv=dataclasses.replace(get_config("rwkv6-7b"),
+                                 num_layers=LT_RWKV_LAYERS),
+        rwkv_batch=LT_RWKV_BATCH, rwkv_steps=LT_RWKV_STEPS,
+        ckpt_root=os.path.join(ROOT, "checkpoints", "chip_smoke_lm_train"))
+
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _free(torch, dev):
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def lt_wkv_grad(torch, dev, k4, full):
+    """(a) ``ops.wkv6_scan``'s gradients for r, k, v, logw, u and state0
+    on the card (K4 forward, the chunked form's backward) against the
+    same call on the CPU in f32 from the same values, for bf16 (f32 logw)
+    and f32 inputs; K4 launches once in the forward and never in the
+    backward."""
+    from repro_torch.kernels import ops
+    b, t, h, hd = full["wkv"]
+    g = torch.Generator().manual_seed(SEED + 50)
+    names = ("r", "k", "v", "logw", "u", "state0")
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        base = _wkv_inputs(torch, g, "cpu", b, t, h, hd, torch.float32,
+                           state=True)
+        g_o = torch.randn(b, t, h, hd, generator=g).to(dtype)
+        g_s = torch.randn(b, h, hd, hd, generator=g)
+        card = [x.to(dtype) if i in (0, 1, 2, 4) else x
+                for i, x in enumerate(base)]
+        card = [x.to(dev).requires_grad_() for x in card]
+        host = [x.detach().cpu().float().requires_grad_() for x in card]
+        k4.launches = 0
+        o, st = ops.wkv6_scan(*card)
+        fwd = k4.launches
+        got = torch.autograd.grad((o, st), card, (g_o.to(dev), g_s.to(dev)))
+        _sync(torch, dev)
+        bwd = k4.launches - fwd
+        oc, sc = ops.wkv6_scan(*host)
+        want = torch.autograd.grad((oc, sc), host, (g_o.float(), g_s))
+        rel = {n: float((a.float().cpu() - w).abs().max()
+                        / w.abs().max().clamp(min=1e-30))
+               for n, a, w in zip(names, got, want)}
+        key = str(dtype)
+        row = dict(shape=[b, t, h, hd], rel_err=rel,
+                   grad_dtype=str(got[0].dtype), k4_forward_launches=fwd,
+                   k4_backward_launches=bwd, tolerance=LT_WKV_TOL[key])
+        if torch.device(dev).type == "cuda":
+            def fwd_bwd():
+                oo, ss = ops.wkv6_scan(*card)
+                torch.autograd.grad((oo, ss), card,
+                                    (g_o.to(dev), g_s.to(dev)))
+            row["forward_backward_ms"] = _call_ms(torch, fwd_bwd, reps=5)
+            row["forward_ms"] = _call_ms(
+                torch, lambda: ops.wkv6_scan(*card), reps=5)
+        rows[key] = row
+        check(max(rel.values()) <= LT_WKV_TOL[key],
+              f"WKV gradient {key} vs the CPU: {rel}")
+        check(all(tuple(a.shape) == tuple(x.shape) and a.dtype == x.dtype
+                  for a, x in zip(got, card)), "WKV gradient shapes/dtypes")
+        check(torch.device(dev).type != "cuda" or (fwd == 1 and bwd == 0),
+              f"K4 launched {fwd} times forward, {bwd} backward")
+    emit("lt_wkv_grad", **rows)
+    return max(max(r["rel_err"].values()) for r in rows.values())
+
+
+def _lt_params(torch, model, cfg, seed, dev):
+    """f32 parameters of a family drawn on ``dev`` (rwkv6's ``u``/``mu``
+    and zamba2's per-head constants set from a numpy seed, as the serving
+    phases do), and a copy on the CPU."""
+    from repro_torch.models.params import tree_map
+    if cfg.family == "rwkv6":
+        gpu = _lm_params(torch, model, seed, dev)
+    elif cfg.family == "zamba2":
+        gpu = _hy_zamba_params(torch, model, seed, dev)
+    else:
+        gpu = model.init(torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    return gpu, tree_map(lambda x: x.cpu(), gpu)
+
+
+def _lt_batch(torch, cfg, full, seed):
+    """A numpy-seeded CPU batch: tokens, targets with ~20% masked, the
+    enc-dec's frames and the VLM's patch embeddings."""
+    rng = np.random.default_rng(seed)
+    b, s = full["cpu_batch"], full["cpu_seq"]
+    tokens = rng.integers(0, cfg.vocab_size, (b, s))
+    targets = np.where(rng.random((b, s)) < 0.2, -1, tokens)
+    out = {"tokens": torch.from_numpy(tokens),
+           "targets": torch.from_numpy(targets)}
+    if cfg.family == "encdec":
+        out["frames"] = torch.from_numpy(rng.normal(
+            size=(b, full["cpu_enc"], cfg.frontend_dim)).astype(np.float32))
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.from_numpy(rng.normal(
+            size=(b, 16, cfg.d_model)).astype(np.float32))
+    return out
+
+
+def _lt_compare(torch, gp, go, gm, cp, co, cm, lr):
+    """Worst relative differences of one step on the card (g*) against
+    the CPU (c*): loss and metrics, first moments, confident and bounded
+    param updates. Each CPU leaf is copied to the card's device and
+    compared there."""
+    from repro_torch.training.optimizer import tree_leaves
+    out = dict(loss_rel=abs(float(gm["loss"]) - float(cm["loss"]))
+               / abs(float(cm["loss"])),
+               grad_norm_rel=abs(float(gm["grad_norm"])
+                                 - float(cm["grad_norm"]))
+               / float(cm["grad_norm"]),
+               m_rel=0.0, param_confident=0.0, param_bounded=0.0,
+               leaves=len(tree_leaves(cp)))
+    for pa, pc, ma, mc in zip(tree_leaves(gp), tree_leaves(cp),
+                              tree_leaves(go["m"]), tree_leaves(co["m"])):
+        pa, pc, mc = pa.float(), pc.to(pa.device), mc.to(ma.device)
+        top = float(mc.abs().max())
+        if top > 0:
+            out["m_rel"] = max(out["m_rel"],
+                               float((ma - mc).abs().max()) / top)
+        sure = (mc.abs() >= 1e-3 * top) & (mc.abs() > (1 - 0.9) * 1e-6)
+        d = (pa - pc.float()).abs()
+        if bool(sure.any()):
+            out["param_confident"] = max(out["param_confident"],
+                                         float(d[sure].max()) / lr)
+        out["param_bounded"] = max(out["param_bounded"], float(
+            (d / (2 * lr * (1 + 0.1 * pc.float().abs()))).max()))
+    return out
+
+
+def lt_vs_cpu(torch, dev, k4, full):
+    """(b) One ``make_train_step`` step a family at full width (cut in
+    depth) in f32 on the card against the same step on the CPU from the
+    same params and batch. deepseek's routing (experts chosen and
+    (token, choice) pairs kept) must be equal on both. Returns K4's
+    launches on the card (the rwkv6 step)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.training import AdamWConfig, adamw_init
+    ocfg = AdamWConfig(lr=LT_LR, warmup_steps=1, total_steps=10)
+    out, launches = {}, 0
+    for fam, cfg in full["cpu"].items():
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        gpu, cpu = _lt_params(torch, model, cfg, SEED + 51, dev)
+        nb = _lt_batch(torch, cfg, full, SEED + 52)
+        step = make_train_step(cfg, ocfg, remat=False)
+        routes = []
+        real_route = L.moe_route
+
+        def recorder(*args, **kw):
+            r = real_route(*args, **kw)
+            routes.append({key: r[key].detach().cpu() for key in (
+                "gate_idx", "keep", "probs")})
+            return r
+        L.moe_route = recorder
+        try:
+            k4.launches = 0
+            gp, go, gm = step(gpu, adamw_init(gpu),
+                              {k: v.to(dev) for k, v in nb.items()})
+            _sync(torch, dev)
+            launches += k4.launches
+            t_card = time.perf_counter() - t0
+            cp, co, cm = step(cpu, adamw_init(cpu), nb)
+            t_cpu = time.perf_counter() - t0 - t_card
+        finally:
+            L.moe_route = real_route
+        row = _lt_compare(torch, gp, go, gm, cp, co, cm, LT_LR)
+        row.update(config=f"{cfg.name} widths, {cfg.num_layers} layers, "
+                          f"float32", loss=float(cm["loss"]),
+                   k4_launches=k4.launches if fam == "rwkv" else None,
+                   card_s=t_card, cpu_step_s=t_cpu,
+                   total_s=time.perf_counter() - t0)
+        if fam == "moe":
+            n = len(routes) // 2
+            card, host = routes[:n], routes[n:]
+            row["routing_equal"] = all(
+                torch.equal(a["gate_idx"], b["gate_idx"])
+                and torch.equal(a["keep"], b["keep"])
+                for a, b in zip(card, host))
+            top = [torch.sort(r["probs"], dim=-1, descending=True).values
+                   for r in host]
+            row["min_kth_gap"] = min(float(
+                (t[..., cfg.top_k - 1] - t[..., cfg.top_k]).min())
+                for t in top)
+            check(row["routing_equal"], f"moe routing differs: {row}")
+        out[fam] = row
+        check(row["loss_rel"] <= LT_LOSS_RTOL
+              and row["grad_norm_rel"] <= LT_GRAD_TOL
+              and row["m_rel"] <= LT_GRAD_TOL
+              and row["param_confident"] <= LT_PARAM_TOL
+              and row["param_bounded"] <= 1.0,
+              f"{fam} train step vs the CPU: {row}")
+        del gpu, cpu, gp, go, cp, co
+        _free(torch, dev)
+    emit("lt_vs_cpu", tolerance=dict(
+        loss_rtol=LT_LOSS_RTOL, grad_share=LT_GRAD_TOL,
+        param_confident_times_lr=LT_PARAM_TOL,
+        param_bounded="2 lr (1 + wd |p|)"), **out)
+    return launches
+
+
+def _lt_trainer(full, cfg, dev, ckpt_dir, ckpt_every):
+    from repro_torch.data import TokenTaskConfig, token_batch
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, Trainer, TrainerConfig
+    tk = TokenTaskConfig(vocab_size=full["task_vocab"], seq_len=full["seq"],
+                         batch_size=full["batch"], task="repeat")
+    tc = TrainerConfig(
+        total_steps=full["steps"], ckpt_every=ckpt_every,
+        ckpt_dir=ckpt_dir, keep_last=1, log_every=full["ckpt_every"],
+        opt=AdamWConfig(lr=LT_TRAIN_LR, warmup_steps=2,
+                        total_steps=full["steps"]))
+    return Trainer(build_model(cfg), tc,
+                   lambda s: token_batch(tk, s, device=dev), device=dev)
+
+
+def lt_llama(torch, dev, full):
+    """(c) llama3.2-1b at full width and depth in bf16 through
+    ``Trainer``: an uninterrupted run of ``steps`` steps, then the same
+    run with a RuntimeError at step ``crash_at`` through
+    ``run_with_restarts``, checkpoints every ``ckpt_every`` steps under
+    checkpoints/: losses and final params equal bit for bit, the loss
+    falls below half its first value. Step ms, tokens/s, peak memory,
+    and a profile of steady steps (host launches, device busy share)."""
+    import shutil
+    from repro_torch.training.optimizer import tree_leaves
+    cfg, root = full["llama"], full["ckpt_root"]
+    shutil.rmtree(root, ignore_errors=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plain = _lt_trainer(full, cfg, dev, os.path.join(root, "plain"),
+                        full["steps"])
+    ref = plain.run(gen)
+    plain_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    want = [x.clone() for x in tree_leaves(ref["state"]["params"])]
+    # a profile of steady steps from the final state
+    state = ref["state"]
+    batch = plain.batch_fn(0)
+
+    def steps():
+        st = state
+        for _ in range(full["profile_steps"]):
+            p, o, e, _ = plain._step_fn(st["params"], st["opt"], st["err"],
+                                        batch)
+            st = {"params": p, "opt": o, "err": e}
+        return st
+    prof = None
+    if on_card:
+        step_ms = statistics.median(h["time_s"] for h in ref["history"][2:]
+                                    ) * 1e3
+        _, wall, by_name, n_ops, host, gaps, api = _trace(torch, steps)
+        prof = _trace_fields(wall, by_name, n_ops, host, gaps, api,
+                             full["profile_steps"], step_ms)
+    del state, ref["state"], batch
+    _free(torch, dev)
+    crashed = {"done": False}
+
+    def hook(step):
+        if step == full["crash_at"] and not crashed["done"]:
+            crashed["done"] = True
+            raise RuntimeError("simulated node failure")
+    t1 = time.perf_counter()
+    again = _lt_trainer(full, cfg, dev, os.path.join(root, "crash"),
+                        full["ckpt_every"])
+    res = again.run_with_restarts(gen, failure_hook=hook)
+    crash_s = time.perf_counter() - t1
+    losses = [h["loss"] for h in ref["history"]]
+    got = [h["loss"] for h in res["history"]]
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(res["state"]["params"]), want))
+    times = [h["time_s"] for h in ref["history"][2:]]
+    row = dict(config=f"{cfg.name} full width and depth, {cfg.dtype}",
+               batch=full["batch"], seq=full["seq"], steps=full["steps"],
+               crash_at=full["crash_at"], ckpt_every=full["ckpt_every"],
+               losses=losses, restarted_losses=got,
+               losses_equal=got == losses[full["crash_at"]:],
+               final_params_equal=same_params, crashed=crashed["done"],
+               step_ms_median=statistics.median(times) * 1e3,
+               step_ms_min=min(times) * 1e3, step_ms_max=max(times) * 1e3,
+               tokens_per_s=full["batch"] * full["seq"]
+               / statistics.median(times),
+               first_step_s=ref["history"][0]["time_s"],
+               uninterrupted_run_s=plain_s, restarted_run_s=crash_s,
+               peak_bytes=peak, profile=prof)
+    emit("lt_llama", **row)
+    check(crashed["done"] and row["losses_equal"] and same_params,
+          f"restart differs from the uninterrupted run: {losses} vs {got}")
+    check(all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0],
+          f"llama loss did not fall below half: {losses}")
+    del res, want
+    shutil.rmtree(root, ignore_errors=True)
+    _free(torch, dev)
+    return row
+
+
+def lt_remat_and_compression(torch, dev, full):
+    """(d) one llama3.2-1b gradient at full width and depth with remat on
+    and off: loss and every gradient bit for bit, both peaks. (f) those
+    gradients through ``compress_grads`` at ratio 0.05: each leaf sends
+    its top-k by |acc| with ties (#{|acc| > thr} < k <= #sent = #{|acc|
+    >= thr}), the residual is exactly acc off the mask and 0 on it, the
+    sent bf16 value is acc rounded on the mask, and in f32 acc * mask +
+    residual == acc; the call's ms."""
+    from repro_torch.data import TokenTaskConfig, token_batch
+    from repro_torch.models import build_model
+    from repro_torch.training import (compress_grads, compression_init,
+                                      deterministic)
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.trainer import loss_and_grads
+    cfg = full["llama"]
+    model = build_model(cfg)
+    on_card = torch.device(dev).type == "cuda"
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED + 54),
+                        device=dev)
+    tk = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=full["seq"],
+                         batch_size=full["batch"], task="repeat")
+    batch = token_batch(tk, 0, device=dev)
+    res, peaks = {}, {}
+    for remat in (False, True):
+        _free(torch, dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        with deterministic(all_ops=True):
+            res[remat] = loss_and_grads(model, params, batch, remat=remat)
+        _sync(torch, dev)
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base
+                        if on_card else None)
+    a, b = res[False], res[True]
+    remat_row = dict(loss=float(a[0]), loss_equal=bool(torch.equal(a[0],
+                                                                    b[0])),
+                     grads_equal=all(torch.equal(x, y) for x, y in zip(
+                         tree_leaves(a[2]), tree_leaves(b[2]))),
+                     peak_bytes_over_params=peaks)
+    emit("lt_remat", **remat_row)
+    check(remat_row["loss_equal"] and remat_row["grads_equal"],
+          f"remat changes the gradient: {remat_row}")
+    grads = a[2]
+    del res, b
+    _free(torch, dev)
+    err = compression_init(grads)
+    if on_card:
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    sent, resid, metrics = compress_grads(grads, err, ratio=LT_RATIO)
+    if on_card:
+        ev[1].record()
+        torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) if on_card else None
+    leaves, ok = [], True
+    for g, s_, r_ in zip(tree_leaves(grads), tree_leaves(sent),
+                         tree_leaves(resid)):
+        acc = g.float()
+        k = max(int(acc.numel() * LT_RATIO), 1)
+        thr = torch.topk(acc.abs().reshape(-1), k).values[-1]
+        mask = acc.abs() >= thr
+        n_sent, n_above = int(mask.sum()), int((acc.abs() > thr).sum())
+        exact = (bool(torch.equal(acc * mask.float() + r_, acc))
+                 and bool(torch.equal(r_[~mask], acc[~mask]))
+                 and bool((r_[mask] == 0).all())
+                 and bool(torch.equal(s_[mask], acc[mask].to(s_.dtype)))
+                 and bool((s_[~mask] == 0).all()))
+        leaf_ok = n_above < k <= n_sent and exact
+        ok = ok and leaf_ok
+        leaves.append(dict(size=acc.numel(), k=k, sent=n_sent,
+                           above=n_above, sent_fraction=n_sent / acc.numel(),
+                           exact=exact))
+    row = dict(ratio=LT_RATIO, compress_ms=ms, leaves=leaves,
+               compressed_grad_norm=float(metrics["compressed_grad_norm"]))
+    emit("lt_compression", **row)
+    check(ok, f"compression: {row}")
+    del grads, sent, resid, params
+    _free(torch, dev)
+    return remat_row, row
+
+
+def lt_rwkv(torch, dev, k4, full):
+    """(e) rwkv6-7b at full width and ``LT_RWKV_LAYERS`` layers in bf16,
+    B=2, S=1024: ``rwkv_steps`` make_train_step steps without remat (K4
+    once a layer a step: the forward; the backward recomputes the chunked
+    form), then one with remat (twice a layer), all on one batch, whose
+    loss must be finite and fall; ms a step and the WKV backward's share
+    of it (CUDA events around ``ops._Wkv6Scan.backward``)."""
+    from repro_torch.data import TokenTaskConfig, token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, adamw_init
+    cfg = full["rwkv"]
+    on_card = torch.device(dev).type == "cuda"
+    model = build_model(cfg)
+    params = _lm_params(torch, model, SEED + 55, dev)
+    opt = adamw_init(params)
+    tk = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=full["seq"],
+                         batch_size=full["rwkv_batch"], task="repeat")
+    ocfg = AdamWConfig(lr=LT_RWKV_LR, warmup_steps=1,
+                       total_steps=full["rwkv_steps"] + 1)
+    batch = token_batch(tk, 0, device=dev)
+    bwd_events = []
+    real_bwd = ops._Wkv6Scan.backward
+
+    def timed_backward(ctx, *grads):
+        if not on_card:
+            return real_bwd(ctx, *grads)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = real_bwd(ctx, *grads)
+        b.record()
+        bwd_events.append((a, b))
+        return out
+    ops._Wkv6Scan.backward = staticmethod(timed_backward)
+    rows, losses = [], []
+    try:
+        for i in range(full["rwkv_steps"] + 1):
+            remat = i == full["rwkv_steps"]
+            step = make_train_step(cfg, ocfg, remat=remat)
+            bwd_events.clear()
+            _sync(torch, dev)
+            k4.launches = 0
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            _sync(torch, dev)
+            dt = time.perf_counter() - t0
+            wkv_ms = sum(a.elapsed_time(b) for a, b in bwd_events)
+            losses.append(float(m["loss"]))
+            rows.append(dict(step=i, remat=remat, loss=losses[-1],
+                             k4_launches=k4.launches, step_ms=dt * 1e3,
+                             wkv_backward_ms=wkv_ms if on_card else None,
+                             wkv_backward_share=(wkv_ms / (dt * 1e3)
+                                                 if on_card else None)))
+    finally:
+        ops._Wkv6Scan.backward = staticmethod(real_bwd)
+    plain = [r for r in rows if not r["remat"]]
+    out = dict(config=f"{cfg.name} widths, {cfg.num_layers} of 32 layers, "
+                      f"{cfg.dtype}", batch=full["rwkv_batch"],
+               seq=full["seq"], steps=rows,
+               step_ms_median=statistics.median(r["step_ms"]
+                                                for r in plain[1:]),
+               wkv_backward_share_median=(statistics.median(
+                   r["wkv_backward_share"] for r in plain[1:])
+                   if on_card else None))
+    emit("lt_rwkv", **out)
+    nl = cfg.num_layers
+    check(all(np.isfinite(losses)) and losses[full["rwkv_steps"] - 1]
+          < losses[0], f"rwkv loss not falling: {losses}")
+    if on_card:
+        check(all(r["k4_launches"] == (2 if r["remat"] else 1) * nl
+                  for r in rows), f"K4 launches a step: {rows}")
+    del params, opt
+    _free(torch, dev)
+    return sum(r["k4_launches"] for r in rows), out
+
+
+def lm_train_phase(torch, dev, k4, smi):
+    """Phase 12 end to end: (a) the WKV gradient, (b) each family's train
+    step against the CPU, (c) llama3.2-1b trained with a crash and a
+    restart, (d) remat and (f) compression on its gradients, (e) rwkv6-7b
+    trained. Returns the K4 numbers the ``kernels`` line needs."""
+    full = _lt_full()
+    seconds = {}
+    t0 = time.perf_counter()
+    wkv_err = lt_wkv_grad(torch, dev, k4, full)
+    seconds["a_wkv_grad"] = time.perf_counter() - t0
+    launches = lt_vs_cpu(torch, dev, k4, full)
+    seconds["b_vs_cpu"] = time.perf_counter() - t0 - sum(seconds.values())
+    llama = lt_llama(torch, dev, full)
+    seconds["c_llama"] = time.perf_counter() - t0 - sum(seconds.values())
+    remat, comp = lt_remat_and_compression(torch, dev, full)
+    seconds["d_f_remat_compression"] = (time.perf_counter() - t0
+                                        - sum(seconds.values()))
+    rwkv_launches, rwkv = lt_rwkv(torch, dev, k4, full)
+    launches += rwkv_launches
+    seconds["e_rwkv"] = time.perf_counter() - t0 - sum(seconds.values())
+    emit("lt_phase", nvidia_smi=smi, seconds=time.perf_counter() - t0,
+         by_part=seconds, k4_train_launches=launches)
+    return {"launches": launches, "max_abs_err": wkv_err, "llama": llama,
+            "rwkv": rwkv, "remat": remat, "compression": comp}
 
 
 if __name__ == "__main__":

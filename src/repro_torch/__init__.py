@@ -27,12 +27,14 @@ def resolve_device(device=None) -> torch.device:
 
     ``None`` means ``cuda``. Without a card, only an explicit CPU device is
     accepted; anything else raises rather than moving the work to the CPU.
+    ``meta`` (shapes and dtypes, no storage) is accepted for the abstract
+    specs of ``launch.steps``.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

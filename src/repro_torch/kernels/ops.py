@@ -7,7 +7,8 @@
                             currents entry), with the product's gradient.
 ``ternary_matmul``       -- packed-ternary matmul (forward only, K3).
 ``pack_ternary_weights`` -- (K, N) float weights -> K3's packed layout.
-``wkv6_scan``            -- the RWKV-6 WKV recurrence (forward only, K4).
+``wkv6_scan``            -- the RWKV-6 WKV recurrence (K4), with the
+                            chunked form's gradient.
 
 The forward of each is the CUDA kernel on a CUDA tensor and the kernel's
 plain version on a CPU tensor (see ``lif_scan_fwd``/``fc_lif_scan_fwd``/
@@ -19,9 +20,12 @@ are the kernel's. ``fc_lif_scan``'s recomputes its currents through
 membrane is the forward's bit for bit. ``fc_currents``' backward is the
 two plain products ``g @ w.T`` and ``s.T @ g`` (``torch.matmul``), the
 products the JAX package leaves to XLA's VJP of ``@``.
+``wkv6_scan``'s backward differentiates the chunked-parallel form
+(``kernels.wkv6_scan.wkv6_chunked``, what XLA differentiates in the JAX
+package) recomputed under autograd, so its gradient agrees with K4's
+forward within rounding, not bit for bit.
 No backward kernel exists to port; ``ternary_matmul`` is a serving op with
-no gradient, as in the JAX package, and ``wkv6_scan`` gets its backward
-with LM training (ROADMAP queue 1, item 6: the rest of item 13).
+no gradient, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ from repro_torch.kernels import fc_lif_scan as _k2
 from repro_torch.kernels.fc_lif_scan import fc_lif_scan_fwd
 from repro_torch.kernels.lif_scan import lif_scan_fwd
 from repro_torch.kernels.ternary_matmul import ternary_matmul_fwd
-from repro_torch.kernels.wkv6_scan import wkv6_scan_fwd
+from repro_torch.kernels.wkv6_scan import (CHUNK, wkv6_chunked,
+                                          wkv6_scan_fwd)
 
 __all__ = ["lif_scan", "lif_scan_batched", "fc_lif_scan",
            "fc_lif_scan_batched", "fc_currents", "pack_ternary_weights",
@@ -226,6 +231,19 @@ def ternary_matmul(x: torch.Tensor, w_packed: torch.Tensor,
                               scale.contiguous())
 
 
+class _Wkv6Scan(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state0):
+        ctx.save_for_backward(r, k, v, logw, u, state0)
+        return wkv6_scan_fwd(r, k, v, logw, u, state0)
+
+    @staticmethod
+    def backward(ctx, g_o, g_state):
+        return tuple(_recompute_grads(wkv6_chunked, ctx.saved_tensors,
+                                      (g_o, g_state)))
+
+
 def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               logw: torch.Tensor, u: torch.Tensor,
               state0: Optional[torch.Tensor] = None
@@ -237,7 +255,26 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The sums follow K4's fixed order (``kernels/wkv6_scan.py``): r.S in
     ``IS``-wide i-segments added in ascending order, then the bonus term
     as the rank-one ((r*u).k) v; the same on the card and the CPU.
+
+    Where an input wants a gradient, the forward is still one K4 launch
+    and the backward recomputes ``wkv6_chunked`` (chunks of 16 steps, so
+    T must be a multiple of min(16, T)) and differentiates it: no kernel
+    runs in the backward. The gradients are the chunked form's, within
+    rounding of the exact gradient at K4's values (the tests hold them to
+    ``jax.grad`` of the JAX package's ``wkv6_chunked`` at rtol 1e-4,
+    atol 1e-5 in f32). Where no gradient is wanted (decode, under
+    ``no_grad``) it calls the forward directly, without the autograd
+    node.
     """
-    return wkv6_scan_fwd(r.contiguous(), k.contiguous(), v.contiguous(),
-                         logw.contiguous(), u.contiguous(),
-                         None if state0 is None else state0.contiguous())
+    ins = (r.contiguous(), k.contiguous(), v.contiguous(),
+           logw.contiguous(), u.contiguous(),
+           None if state0 is None else state0.contiguous())
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad
+                                       for x in ins):
+        t = r.shape[1]
+        if t % min(CHUNK, t):
+            raise ValueError(f"the WKV gradient recomputes the chunked form, "
+                             f"which needs T a multiple of {CHUNK}; got "
+                             f"T={t}")
+        return _Wkv6Scan.apply(*ins)
+    return wkv6_scan_fwd(*ins)

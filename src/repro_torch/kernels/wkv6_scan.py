@@ -47,7 +47,8 @@ import torch
 from repro_torch.kernels._build import load_library
 
 __all__ = ["wkv6_scan_cuda", "wkv6_scan_plain", "wkv6_scan_fwd",
-           "launches", "KERNEL", "HEAD_DIMS", "IS", "geometry"]
+           "wkv6_chunked", "launches", "KERNEL", "HEAD_DIMS", "IS",
+           "geometry", "CHUNK"]
 
 KERNEL = "wkv6_scan"
 
@@ -66,6 +67,9 @@ _FN = {(torch.float32, torch.float32): "wkv6_scan_f32",
        (torch.bfloat16, torch.bfloat16): "wkv6_scan_bf16",
        (torch.bfloat16, torch.float32): "wkv6_scan_bf16_lwf32"}
 
+
+# Chunk length of wkv6_chunked (the JAX package's _WKV_CHUNK).
+CHUNK = 16
 
 _GEOMETRY = ("IS", "TC", "threads", "smem_bytes", "blocks_per_sm")
 
@@ -199,3 +203,53 @@ def wkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type == "cpu":
         return wkv6_scan_plain(r, k, v, logw, u, state0)
     raise ValueError(f"unsupported device {r.device}")
+
+
+def wkv6_chunked(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+    u: torch.Tensor, state0: Optional[torch.Tensor] = None,
+    chunk: int = CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's chunked-parallel WKV-6 (``repro.models.rwkv6.
+    wkv6_chunked``), differentiable. r/k/v/logw: (B, S, H, hd); u: (H, hd).
+
+    Returns (o (B,S,H,hd) in r's dtype, state (B,H,hd,hd) f32); f32
+    internally. Within a chunk of ``min(chunk, S)`` steps the decays
+    factor as exp(cumsum) on r and exp(-cumsum) on k; every term that does
+    not read the carried state is computed for all chunks at once, and a
+    loop over the chunks carries the state alone. It agrees with K4
+    within rounding, not bit for bit (its sums run in another order).
+    ``kernels.ops.wkv6_scan``'s backward differentiates it.
+    """
+    b, s, h, hd = r.shape
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"seq {s} not divisible by chunk {c}")
+    nc = s // c
+    rc, kc, vc, wc = (x.reshape(b, nc, c, h, hd).float()
+                      for x in (r, k, v, logw))
+    cum = torch.cumsum(wc, dim=2)                # inclusive, per chunk
+    r_dec = rc * torch.exp(cum - wc)             # decay up to t-1
+    k_dec = kc * torch.exp(-cum)
+    att = torch.einsum("bnthi,bnshi->bnhts", r_dec, k_dec)
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                      diagonal=-1)
+    att = torch.where(mask, att, 0.0)
+    intra = torch.einsum("bnhts,bnshj->bnthj", att, vc)
+    bonus = torch.einsum("bnthi,hi,bnthi->bnth", rc, u.float(), kc)
+    intra = intra + bonus[..., None] * vc
+    cum_end = cum[:, :, -1:]                     # (b, nc, 1, h, hd)
+    kv = torch.einsum("bnshi,bnshj->bnhij", kc * torch.exp(cum_end - cum),
+                      vc)                        # each chunk's k v^T
+    decay = torch.exp(cum_end[:, :, 0])[..., None]   # (b, nc, h, hd, 1)
+    state = (torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                         device=r.device) if state0 is None
+             else state0.float())
+    before = []
+    for n in range(nc):
+        before.append(state)
+        state = decay[:, n] * state + kv[:, n]
+    cross = torch.einsum("bnthi,bnhij->bnthj", r_dec,
+                         torch.stack(before, dim=1))
+    o = (cross + intra).reshape(b, s, h, hd)
+    return o.to(r.dtype), state

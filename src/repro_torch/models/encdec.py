@@ -11,8 +11,9 @@ ternary-packed MLP weight). ``frontend_proj`` is a plain product, as the
 JAX package's einsum, so ``encode`` takes float parameters; ternary
 parameters serve decode (``generate``, ``BatchScheduler``), as there.
 
-Layers run as a Python loop over the stacked layer axis
-(``scan_layers``/``remat`` are accepted and ignored). A decode step keeps
+Layers run as a Python loop over the stacked layer axis (``scan_layers``
+selects nothing; ``remat`` recomputes each encoder and decoder layer in
+the backward, ``layers.remat``). A decode step keeps
 ``pos`` a 0-d device tensor and never reads a value back to the host.
 """
 from __future__ import annotations
@@ -66,10 +67,18 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
+def _encoder_layer(h, lp, positions, cfg: ModelConfig):
+    a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    h = h + L.attention_apply(lp["attn"], a_in, positions, cfg,
+                              causal=False)
+    m_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+    return h + L.mlp_apply(lp["mlp"], m_in, cfg)
+
+
 def encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig,
            *, remat: bool = False) -> torch.Tensor:
-    """frames (B, S_enc, frontend_dim) -> encoder output (B, S_enc, D)."""
-    del remat
+    """frames (B, S_enc, frontend_dim) -> encoder output (B, S_enc, D).
+    ``remat`` recomputes each layer in the backward."""
     w = params["frontend_proj"]
     if not isinstance(w, torch.Tensor):
         raise TypeError("encode takes a float frontend_proj (the JAX "
@@ -77,13 +86,10 @@ def encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig,
                         "serve decode only")
     h = torch.matmul(frames.to(as_dtype(cfg.dtype)), w)
     positions = _positions(*h.shape[:2], h.device)
+    body = L.remat(_encoder_layer) if remat else _encoder_layer
     for i in range(cfg.encoder_layers):
-        lp = tree_map(lambda x: x[i], params["encoder"])
-        a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-        h = h + L.attention_apply(lp["attn"], a_in, positions, cfg,
-                                  causal=False)
-        m_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + L.mlp_apply(lp["mlp"], m_in, cfg)
+        h = body(h, tree_map(lambda x: x[i], params["encoder"]), positions,
+                 cfg)
     return L.rms_norm(h, params["ln_enc"], cfg.norm_eps)
 
 
@@ -97,22 +103,27 @@ def _unembed(params, h, cfg: ModelConfig):
                         params["lm_head"])
 
 
+def _decoder_layer(h, lp, positions, enc_out, cfg: ModelConfig):
+    a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    h = h + L.attention_apply(lp["self_attn"], a_in, positions, cfg,
+                              causal=True)
+    c_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+    h = h + L.attention_apply(lp["cross_attn"], c_in, positions, cfg,
+                              causal=False, kv_x=enc_out)
+    m_in = L.rms_norm(h, lp["ln3"], cfg.norm_eps)
+    return h + L.mlp_apply(lp["mlp"], m_in, cfg)
+
+
 def _decoder(params, tokens, enc_out, cfg, *, scan_layers=True,
              remat=False):
-    del scan_layers, remat
+    del scan_layers
     b, s = tokens.shape
     h = _embed(params, tokens, cfg)
     positions = _positions(b, s, h.device)
+    body = L.remat(_decoder_layer) if remat else _decoder_layer
     for i in range(cfg.decoder_layers):
-        lp = tree_map(lambda x: x[i], params["decoder"])
-        a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-        h = h + L.attention_apply(lp["self_attn"], a_in, positions, cfg,
-                                  causal=True)
-        c_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + L.attention_apply(lp["cross_attn"], c_in, positions, cfg,
-                                  causal=False, kv_x=enc_out)
-        m_in = L.rms_norm(h, lp["ln3"], cfg.norm_eps)
-        h = h + L.mlp_apply(lp["mlp"], m_in, cfg)
+        h = body(h, tree_map(lambda x: x[i], params["decoder"]), positions,
+                 enc_out, cfg)
     return h
 
 

@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
@@ -31,12 +32,25 @@ __all__ = [
     "rms_norm", "rope_freqs", "apply_rope", "mrope_positions",
     "attention_defs", "attention_apply", "attention_decode",
     "mlp_defs", "mlp_apply", "moe_defs", "moe_apply", "dense",
-    "blockwise_attention", "layer_norm", "logits_f32",
+    "blockwise_attention", "layer_norm", "logits_f32", "remat",
 ]
 
 # ----------------------------------------------------------------------
 # Basic ops
 # ----------------------------------------------------------------------
+
+
+def remat(fn):
+    """``fn`` with its activations recomputed in the backward: the
+    counterpart of ``jax.checkpoint`` (non-reentrant
+    ``torch.utils.checkpoint``). Only the inputs are kept; the recompute
+    runs the same ops on the same inputs, so its values, and the
+    gradients, are those of ``fn`` itself bit for bit."""
+    def run(*args, **kwargs):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False,
+                                                 **kwargs)
+    return run
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -78,17 +92,43 @@ def dense(x: torch.Tensor, w: Any, role: str = "up") -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+class _MmF32(torch.autograd.Function):
+    """The card's bf16 x bf16 -> f32 product, differentiable (the
+    ``out_dtype`` overload has no derivative): the backward multiplies the
+    f32 cotangent by the other operand in f32 and rounds to bf16, as XLA
+    transposes a ``preferred_element_type=float32`` dot, and as the CPU
+    path's autograd through its f32 casts does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.mm(g, b.t().float()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.mm(a.t().float(), g).to(b.dtype)
+        return ga, gb
+
+
 def logits_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``h @ w`` with an f32 result, as the JAX package's
     ``preferred_element_type=float32`` product: a bf16 matmul would round
     the logits to bf16 and move greedy argmaxes. On the card, bf16
     operands go to one product with an f32 output (f32 accumulation, no
-    f32 copy of the weight); elsewhere both operands are cast to f32
-    first. A product of two bf16 values is exact in f32, so both are the
-    same sum up to its order."""
+    f32 copy of the weight; under autograd through ``_MmF32``); elsewhere
+    both operands are cast to f32 first. A product of two bf16 values is
+    exact in f32, so both are the same sum up to its order."""
     if h.is_cuda and h.dtype == w.dtype == torch.bfloat16:
-        flat = torch.mm(h.reshape(-1, h.shape[-1]), w,
-                        out_dtype=torch.float32)
+        h2 = h.reshape(-1, h.shape[-1])
+        if torch.is_grad_enabled() and (h.requires_grad or w.requires_grad):
+            flat = _MmF32.apply(h2, w)
+        else:
+            flat = torch.mm(h2, w, out_dtype=torch.float32)
         return flat.reshape(*h.shape[:-1], w.shape[-1])
     return torch.matmul(h.float(), w.float())
 
@@ -227,7 +267,9 @@ def blockwise_attention(
     package pads the keys to whole chunks; here the last chunk is short
     instead, so a padded key never enters a sum (the JAX package's
     causal mask excludes them too; its non-causal call counts them in
-    the softmax's denominator, ROADMAP section 3).
+    the softmax's denominator, ROADMAP section 3). Without autograd the
+    mask and the exp work in place; under autograd the same ops run out
+    of place, with the same values.
     """
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -248,10 +290,16 @@ def blockwise_attention(
         s = torch.einsum("bqkgd,bskd->bkgqs", qg,
                          k[:, lo:hi].float()) * scale
         blocked = ~_chunk_mask(q_pos, k_pos, causal, window)  # (Sq, kc)
-        s.masked_fill_(blocked, -math.inf)
+        if s.requires_grad:             # autograd keeps every step's input
+            s = s.masked_fill(blocked, -math.inf)
+        else:
+            s.masked_fill_(blocked, -math.inf)
         m_new = torch.maximum(m, s.amax(dim=-1))
         m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
-        p = s.sub_(m_safe[..., None]).exp_().masked_fill_(blocked, 0.0)
+        if s.requires_grad:
+            p = torch.exp(s - m_safe[..., None]).masked_fill(blocked, 0.0)
+        else:
+            p = s.sub_(m_safe[..., None]).exp_().masked_fill_(blocked, 0.0)
         corr = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum(

@@ -7,19 +7,19 @@ hybrid and the ``encdec`` encoder-decoder.
   defs()                               -> ParamDef tree
   init(generator, dtype, device)       -> parameter tree on the device
   apply(params, batch)                 -> (logits, aux) full-sequence forward
+  loss(params, batch)                  -> (scalar loss, metrics) next-token CE
   init_cache(batch, cache_len, dtype, device) -> decode cache (zeros)
   decode(params, cache, tok)           -> (logits, new cache) one serve step
 
-Entry points run on the card unless given ``device="cpu"``. ``lm_loss``
-and ``Model.loss`` come with LM training (ROADMAP queue 1, item 6: the
-rest of item 13).
+Entry points run on the card unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import encdec as ED
 from repro_torch.models import params as P
@@ -28,7 +28,31 @@ from repro_torch.models import transformer as TF
 from repro_torch.models import zamba2 as ZB
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "lm_loss"]
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
+            aux: Optional[torch.Tensor] = None, aux_coef: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (f32). targets: (B, S) int, -1 = pad.
+
+    The JAX package's ``lm_loss``: the f32 log-softmax's negative
+    log-likelihood of each target, averaged over the unmasked positions
+    (at least 1); ``aux_coef * aux`` is added when ``aux`` is given.
+    Returns (loss, {"ce", "tokens"} plus "aux"); nothing reads a value
+    back to the host.
+    """
+    mask = (targets >= 0).float()
+    logp = F.log_softmax(logits.float(), dim=-1)
+    tgt = torch.clamp(targets, min=0).long()
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    metrics = {"ce": loss, "tokens": mask.sum()}
+    if aux is not None:
+        metrics["aux"] = aux
+        loss = loss + aux_coef * aux
+    return loss, metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +74,12 @@ class Model:
     def abstract_params(self, dtype=None) -> Any:
         return P.abstract(self.defs(), P.as_dtype(dtype or self.cfg.dtype))
 
+    def loss(self, params, batch, *, scan_layers: bool = True,
+             remat: bool = False):
+        logits, aux = self.apply(params, batch, scan_layers=scan_layers,
+                                 remat=remat)
+        return lm_loss(logits[:, :-1], batch["targets"][:, 1:], aux)
+
     def num_params(self) -> int:
         return P.tree_num_params(self.defs())
 
@@ -68,8 +98,9 @@ def build_model(cfg: ModelConfig) -> Model:
                      lambda p, c, t, **kw: TF.transformer_decode(
                          p, c, t, cfg, **kw))
     if fam == "rwkv6":
-        def apply_fn(params, batch, *, remat=False):
-            return RW.rwkv6_apply(params, batch["tokens"], cfg, remat=remat)
+        def apply_fn(params, batch, *, scan_layers=True, remat=False):
+            return RW.rwkv6_apply(params, batch["tokens"], cfg,
+                                  scan_layers=scan_layers, remat=remat)
         return Model(cfg, lambda: RW.rwkv6_defs(cfg), apply_fn,
                      lambda b, s, dtype=None, device=None: RW.init_rwkv_cache(
                          cfg, b, s, dtype, device),

@@ -1,15 +1,16 @@
 """RWKV-6 "Finch" (arXiv:2404.05892): attention-free LM with token-shift
 and data-dependent per-channel decay (port of ``repro.models.rwkv6``).
 
-Every WKV recurrence of the served path -- the full-sequence forward
-(``rwkv6_apply``, from a zero state) and each decode step (``T=1`` from
-the cache's state) -- runs through ``kernels.ops.wkv6_scan``, kernel K4
-on the card. K4 fixes the order of its sums (r.S in 16-wide i-segments,
-the bonus term as the rank-one ((r*u).k) v; ``kernels/wkv6_scan.py``),
-and its state update keeps the rounding of the stepwise form.
-``wkv6_chunked`` (the JAX package's chunked-parallel form) and
-``_wkv6_step`` (its stepwise decode) stay as plain functions: oracles for
-the tests, on no path; they agree with K4 within rounding.
+Every WKV recurrence -- the full-sequence forward (``rwkv6_apply``,
+from a zero state) and each decode step (``T=1`` from the cache's state)
+-- runs through ``kernels.ops.wkv6_scan``, kernel K4 on the card. K4
+fixes the order of its sums (r.S in 16-wide i-segments, the bonus term
+as the rank-one ((r*u).k) v; ``kernels/wkv6_scan.py``), and its state
+update keeps the rounding of the stepwise form. Under autograd the
+WKV's gradient is that of ``wkv6_chunked`` (the JAX package's
+chunked-parallel form, ``kernels/wkv6_scan.py``), recomputed in the
+backward; ``_wkv6_step`` (its stepwise decode) stays a plain oracle for
+the tests. Both agree with K4 within rounding.
 
 Parameters are a nested dict of tensors with the layers stacked on a
 leading axis, in the JAX package's layouts (projection weights (K, N)),
@@ -30,6 +31,8 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.wkv6_scan import CHUNK as _WKV_CHUNK
+from repro_torch.kernels.wkv6_scan import wkv6_chunked
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, as_dtype, tree_map
@@ -38,7 +41,6 @@ __all__ = ["rwkv6_defs", "rwkv6_apply", "rwkv6_decode", "init_rwkv_cache",
            "wkv6_chunked"]
 
 _LOGW_MIN = -4.0
-_WKV_CHUNK = 16
 
 
 def rwkv6_defs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -95,54 +97,8 @@ def rwkv6_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 # ----------------------------------------------------------------------
-# WKV recurrence -- plain oracles (the served path runs K4)
+# WKV recurrence -- the stepwise oracle (the served path runs K4)
 # ----------------------------------------------------------------------
-
-
-def wkv6_chunked(
-    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
-    u: torch.Tensor, state0: Optional[torch.Tensor] = None,
-    chunk: int = _WKV_CHUNK,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked WKV-6. r/k/v/logw: (B, S, H, hd); u: (H, hd).
-
-    Returns (o (B,S,H,hd), state (B,H,hd,hd)). f32 internally.
-    o_t = r_t (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(w_t) S_{t-1}
-          + k_t v_t^T, with w = exp(logw).
-    """
-    b, s, h, hd = r.shape
-    c = min(chunk, s)
-    if s % c:
-        raise ValueError(f"seq {s} not divisible by chunk {c}")
-    nc = s // c
-    rc, kc, vc, wc = (x.reshape(b, nc, c, h, hd).float()
-                      for x in (r, k, v, logw))
-    state = (torch.zeros((b, h, hd, hd), dtype=torch.float32,
-                         device=r.device) if state0 is None
-             else state0.float())
-    uf = u.float()
-    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
-                      diagonal=-1)
-    outs = []
-    for n in range(nc):
-        r_, k_, v_, lw = rc[:, n], kc[:, n], vc[:, n], wc[:, n]
-        cum = torch.cumsum(lw, dim=1)            # inclusive
-        cum_prev = cum - lw                      # cum_{t-1}
-        r_dec = r_ * torch.exp(cum_prev)
-        k_dec = k_ * torch.exp(-cum)
-        att = torch.einsum("bthi,bshi->bhts", r_dec, k_dec)
-        att = torch.where(mask, att, 0.0)
-        intra = torch.einsum("bhts,bshj->bthj", att, v_)
-        bonus = torch.einsum("bthi,hi,bthi->bth", r_, uf, k_)
-        intra = intra + bonus[..., None] * v_
-        cross = torch.einsum("bthi,bhij->bthj", r_dec, state)
-        outs.append(cross + intra)
-        cum_end = cum[:, -1:]                    # (b, 1, h, hd)
-        k_tail = k_ * torch.exp(cum_end - cum)
-        state = (torch.exp(cum_end[:, 0])[..., None] * state
-                 + torch.einsum("bshi,bshj->bhij", k_tail, v_))
-    o = torch.stack(outs, dim=1).reshape(b, s, h, hd)
-    return o.to(r.dtype), state
 
 
 def _wkv6_step(r, k, v, logw, u, state):
@@ -229,6 +185,14 @@ def _unembed(params, h, cfg: ModelConfig):
     return L.logits_f32(h, params["lm_head"])
 
 
+def _layer_body(h, lp, cfg: ModelConfig):
+    x = L.layer_norm(h, lp["ln1_s"], lp["ln1_b"], cfg.norm_eps)
+    tm_out, _ = _time_mix(lp["tm"], x, cfg)
+    h = h + tm_out
+    x = L.layer_norm(h, lp["ln2_s"], lp["ln2_b"], cfg.norm_eps)
+    return h + _channel_mix(lp["cm"], x)
+
+
 def rwkv6_apply(params: Dict[str, Any], tokens: torch.Tensor,
                 cfg: ModelConfig, *, scan_layers: bool = True,
                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -236,27 +200,21 @@ def rwkv6_apply(params: Dict[str, Any], tokens: torch.Tensor,
     aux=0).
 
     S must be a multiple of min(16, S), as the JAX package's chunked form
-    requires, so both packages accept the same inputs. ``scan_layers`` is
-    accepted and ignored (the layers always run as a loop); ``remat``
-    belongs to training and raises.
+    requires, so both packages accept the same inputs. The layers always
+    run as a loop (``scan_layers`` selects nothing); ``remat`` recomputes
+    each layer in the backward (``layers.remat``, where the JAX package
+    applies ``jax.checkpoint``), so K4 runs twice a layer in a training
+    step.
     """
     del scan_layers
-    if remat:
-        raise NotImplementedError(
-            "remat is an LM training option; LM training is not ported "
-            "yet (ROADMAP queue 1, item 6: the rest of item 13)")
     s = tokens.shape[1]
     c = min(_WKV_CHUNK, s)
     if c and s % c:
         raise ValueError(f"seq {s} not divisible by chunk {c}")
+    body = L.remat(_layer_body) if remat else _layer_body
     h = _embed(params, tokens, cfg)
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-        x = L.layer_norm(h, lp["ln1_s"], lp["ln1_b"], cfg.norm_eps)
-        tm_out, _ = _time_mix(lp["tm"], x, cfg)
-        h = h + tm_out
-        x = L.layer_norm(h, lp["ln2_s"], lp["ln2_b"], cfg.norm_eps)
-        h = h + _channel_mix(lp["cm"], x)
+        h = body(h, _layer(params["layers"], i), cfg)
     logits = _unembed(params, h, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=h.device)
 

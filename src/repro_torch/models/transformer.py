@@ -3,10 +3,12 @@ of ``repro.models.transformer``).
 
 Parameters are a nested dict of tensors with the layers stacked on a
 leading axis, in the JAX package's layouts, and the layers run as a
-Python loop over that axis (the JAX package's ``scan_layers`` and
-``remat`` are accepted and ignored: they change how XLA compiles the
-forward, not its values). A ternary-packed MLP weight (``serving.
-quantize_for_serving``) goes through kernel K3 in ``layers.dense``;
+Python loop over that axis (the JAX package's ``scan_layers`` selects
+nothing here: it changes how XLA compiles the forward, not its values).
+``remat`` recomputes each layer in the backward (``layers.remat``, where
+the JAX package applies ``jax.checkpoint``). A ternary-packed MLP weight
+(``serving.quantize_for_serving``) goes through kernel K3 in
+``layers.dense``;
 everything else is plain torch ops, as XLA computes it in the JAX
 package.
 
@@ -98,8 +100,10 @@ def transformer_apply(
 
     For the VLM family the first ``extra_embeds.shape[1]`` sequence slots
     carry the patch embeddings, and the default positions are M-RoPE rows
-    of a square patch grid (``mrope_positions``)."""
-    del scan_layers, remat
+    of a square patch grid (``mrope_positions``). ``remat`` recomputes
+    each layer's activations in the backward."""
+    del scan_layers
+    body = L.remat(_layer_body) if remat else _layer_body
     b, s = tokens.shape
     h = _embed(params, tokens, cfg)
     mrope = cfg.family == "vlm"
@@ -117,7 +121,7 @@ def transformer_apply(
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.num_layers):
         lp = tree_map(lambda x: x[i], params["layers"])
-        h, a = _layer_body(h, lp, positions, cfg, mrope=mrope)
+        h, a = body(h, lp, positions, cfg, mrope=mrope)
         if a is not None:
             aux = aux + a
     return unembed(params, h, cfg), aux

@@ -13,7 +13,8 @@ The JAX package computes the SSD scan, the depthwise conv and the gates
 with XLA, so plain torch ops compute them here; the only kernel is K3,
 which ``layers.dense`` reaches for a ternary-packed ``in_proj``,
 ``out_proj`` or shared-MLP weight. Layers run as a Python loop over the
-stacked layer axis (``scan_layers``/``remat`` are accepted and ignored).
+stacked layer axis (``scan_layers`` selects nothing; ``remat``
+recomputes each Mamba layer in the backward, ``layers.remat``).
 A decode step keeps ``pos`` a 0-d device tensor and never reads a value
 back to the host.
 """
@@ -123,7 +124,12 @@ def mamba2_chunked(
     scores = torch.einsum("bitn,bisn->bits", cc, bc)
     ldiff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b,nc,t,s,h)
     mask = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
-    att = torch.where(mask[:, :, None], torch.exp(ldiff), 0.0) \
+    # exp of the masked exponents (-inf above the diagonal), not a mask of
+    # exp: the same values, but the exponents above the diagonal are
+    # positive and overflow to inf at long chunks and fast decays, and
+    # where(mask, inf, 0)'s gradient is 0 * inf = NaN (as the JAX
+    # package's is; ROADMAP section 3).
+    att = torch.exp(torch.where(mask[:, :, None], ldiff, -torch.inf)) \
         * scores[..., None]
     dtx = xc * dtc[..., None]                              # (b,nc,c,h,p)
     y = torch.einsum("bitsh,bishp->bithp", att, dtx)
@@ -210,6 +216,11 @@ def _mamba_forward(lp, x, cfg: ModelConfig, *, conv_state=None,
     return out, (new_conv_state, ssm_state)
 
 
+def _mamba_layer(h, lp, cfg: ModelConfig):
+    out, _ = _mamba_forward(lp, L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg)
+    return h + out
+
+
 def _shared_block(sp, h, positions, cfg, *, window=None):
     a_in = L.rms_norm(h, sp["ln1"], cfg.norm_eps)
     h = h + L.attention_apply(sp["attn"], a_in, positions, cfg,
@@ -244,17 +255,18 @@ def zamba2_apply(params: Dict[str, Any], tokens: torch.Tensor,
                  cfg: ModelConfig, *, scan_layers: bool = True,
                  remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits (B,S,V) f32, 0.0): each
-    stage of Mamba layers, then the shared block, over every stage."""
-    del scan_layers, remat
+    stage of Mamba layers, then the shared block, over every stage.
+    ``remat`` recomputes each Mamba layer in the backward (where the JAX
+    package applies ``jax.checkpoint``); the shared block keeps its
+    activations, as there."""
+    del scan_layers
+    mamba = L.remat(_mamba_layer) if remat else _mamba_layer
     b, s = tokens.shape
     h = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=h.device)[None].expand(b, s)
     for i, j in _stage_bounds(cfg):
         for li in range(i, j):
-            lp = tree_map(lambda x: x[li], params["layers"])
-            out, _ = _mamba_forward(lp, L.rms_norm(h, lp["ln"],
-                                                   cfg.norm_eps), cfg)
-            h = h + out
+            h = mamba(h, tree_map(lambda x: x[li], params["layers"]), cfg)
         h = _shared_block(params["shared"], h, positions, cfg)
     return (_unembed(params, h, cfg),
             torch.zeros((), dtype=torch.float32, device=h.device))

@@ -37,6 +37,8 @@ __all__ = ["save_checkpoint", "restore_checkpoint", "restore_latest",
 
 _MANIFEST = "manifest.json"
 _ARRAYS = "arrays.npz"
+_BF16 = "bfloat16"
+_V2 = np.dtype("V2")     # how numpy loads a stored bfloat16 array
 
 
 def _items(tree: Any, path: Tuple[str, ...] = ()):
@@ -51,26 +53,61 @@ def _items(tree: Any, path: Tuple[str, ...] = ()):
         yield "/".join(path), tree
 
 
-def _to_numpy(key: str, leaf: Any) -> np.ndarray:
+class _Bits:
+    """A bfloat16 leaf on its way to disk: its 16-bit patterns."""
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = bits
+        self.shape = bits.shape
+
+
+def _to_numpy(leaf: Any) -> Any:
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise TypeError(
-                f"leaf {key} is bfloat16, which numpy cannot hold: bf16 "
-                f"checkpoints come with LM training (ROADMAP queue 1, "
-                f"item 6: the rest of item 13)")
-        return leaf.detach().cpu().numpy()
+        x = leaf.detach().cpu().contiguous()
+        if x.dtype == torch.bfloat16:
+            return _Bits(x.view(torch.int16).numpy())
+        return x.numpy()
     return np.asarray(leaf)
 
 
-def _fingerprint(arr: np.ndarray) -> str:
+def _dtype_name(arr: Any, stored: Optional[str] = None) -> str:
+    """The dtype a leaf is written and hashed under: ``"bfloat16"`` for
+    its bits (or for a loaded ``V2`` array the manifest calls bfloat16),
+    else numpy's name."""
+    if isinstance(arr, _Bits) or (stored == _BF16 and arr.dtype == _V2):
+        return _BF16
+    return str(arr.dtype)
+
+
+def _fingerprint(arr: Any, stored: Optional[str] = None) -> str:
+    data = arr.bits if isinstance(arr, _Bits) else arr
     h = hashlib.sha256()
-    h.update(str(arr.shape).encode())
-    h.update(str(arr.dtype).encode())
+    h.update(str(data.shape).encode())
+    h.update(_dtype_name(arr, stored).encode())
     # sample-based fingerprint: fast yet catches truncation/corruption
-    flat = arr.reshape(-1)
+    flat = data.reshape(-1)
     step = max(flat.size // 4096, 1)
     h.update(np.ascontiguousarray(flat[::step]).tobytes())
     return h.hexdigest()[:16]
+
+
+def _savez(path: pathlib.Path, flat: Dict[str, Any]) -> None:
+    """``np.savez``'s archive (stored members ``<key>.npy``), with each
+    bfloat16 leaf's bits under the header descr ``<V2``, as numpy writes
+    an ``ml_dtypes.bfloat16`` array."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in flat.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                if isinstance(arr, _Bits):
+                    np.lib.format.write_array_header_1_0(
+                        f, {"descr": "<V2", "fortran_order": False,
+                            "shape": arr.shape})
+                    f.write(memoryview(np.ascontiguousarray(arr.bits))
+                            .cast("B"))
+                else:
+                    np.lib.format.write_array(f, np.asanyarray(arr),
+                                              allow_pickle=False)
 
 
 def save_checkpoint(
@@ -83,7 +120,7 @@ def save_checkpoint(
 ) -> pathlib.Path:
     """Atomically persist ``state`` (a nested dict/list of tensors) at
     ``step``; keep the newest ``keep_last`` steps."""
-    flat = {k: _to_numpy(k, v) for k, v in _items(state)}
+    flat = {k: _to_numpy(v) for k, v in _items(state)}
     root = pathlib.Path(root)
     root.mkdir(parents=True, exist_ok=True)
     final = root / f"step_{step:08d}"
@@ -92,13 +129,13 @@ def save_checkpoint(
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
 
-    np.savez(tmp / _ARRAYS, **flat)
+    _savez(tmp / _ARRAYS, flat)
     manifest = {
         "step": step,
         "time": time.time(),
         "keys": sorted(flat),
         "shapes": {k: list(v.shape) for k, v in flat.items()},
-        "dtypes": {k: str(v.dtype) for k, v in flat.items()},
+        "dtypes": {k: _dtype_name(v) for k, v in flat.items()},
         "fingerprints": {k: _fingerprint(v) for k, v in flat.items()},
         "extra": extra or {},
     }
@@ -131,21 +168,29 @@ def latest_step(root) -> Optional[int]:
 
 
 def _verify(manifest: dict, arrays: Dict[str, np.ndarray]) -> bool:
+    dtypes = manifest.get("dtypes", {})
     return all(k in arrays
-               and _fingerprint(arrays[k]) == manifest["fingerprints"][k]
+               and _fingerprint(arrays[k], dtypes.get(k))
+               == manifest["fingerprints"][k]
                for k in manifest["keys"])
 
 
 def _leaf(key: str, arr: np.ndarray, like: Any) -> Any:
     """A stored array as the template leaf ``like`` holds it: a tensor on
-    its device and in its dtype; any other leaf comes back as the array."""
+    its device and in its dtype; any other leaf comes back as the array.
+    A ``V2`` array (a bfloat16 leaf, checked against the manifest by
+    ``_verify``) is read as bfloat16 bits."""
     if not isinstance(like, torch.Tensor):
         return arr
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"checkpoint leaf {key} has shape {arr.shape}, "
                          f"the template {tuple(like.shape)}")
-    return torch.from_numpy(np.array(arr, order="C")).to(
-        device=like.device, dtype=like.dtype)
+    if arr.dtype == _V2:
+        x = torch.from_numpy(np.array(arr, order="C").view(np.int16)).view(
+            torch.bfloat16)
+    else:
+        x = torch.from_numpy(np.array(arr, order="C"))
+    return x.to(device=like.device, dtype=like.dtype)
 
 
 def _rebuild(tree: Any, arrays: Dict[str, np.ndarray],

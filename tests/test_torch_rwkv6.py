@@ -125,9 +125,13 @@ def test_sequence_length_contract_matches_jax(f32, s):
 
 
 def test_remat_is_refused(f32):
-    with pytest.raises(NotImplementedError, match="training"):
-        build_model(SMOKE).apply(f32[2], {"tokens": torch.zeros(1, 8)},
-                                 remat=True)
+    """``remat=True``, once refused, now recomputes each layer in the
+    backward: the forward's logits are ``remat=False``'s bits."""
+    batch = {"tokens": torch.from_numpy(_tokens(1, 16, SMOKE.vocab_size,
+                                                5))}
+    want, _ = build_model(SMOKE).apply(f32[2], batch)
+    got, _ = build_model(SMOKE).apply(f32[2], batch, remat=True)
+    assert torch.equal(got, want)
 
 
 def test_bf16_params_convert_bit_for_bit(f32):
