@@ -187,7 +187,19 @@ non-zero:
      layers, bf16: K4 4 launches a step, 8 with remat, the loss falling,
      the WKV backward's share of a step; (f) ``compress_grads`` at 0.05
      on llama3.2-1b's gradients: top-k with ties, exact residuals, ms;
-  13. the ``kernels`` line, then the card line, then the ``ok`` line.
+  13. the dry run (``dryrun``; ``launch.dryrun``'s fake trace of a step
+     held against the same step on the card): llama3.2-1b at full width
+     and depth, bf16, B=4, S=1024 with remat, the trace's FLOPs equal to
+     ``FlopCounterMode`` over a real train step, param and AdamW bytes
+     equal to the real trees', fits, the predicted peak over the measured
+     one and the step's TFLOP/s; decode steps at B=4 from a 512-slot cache
+     (rwkv6-7b bf16 and ternary, during the LM slice; ternary llama3.2-1b
+     here) with the trace's K3 and K4 shape-only calls equal to the launch
+     counters' deltas of the real step; the shape-only outputs' shapes and
+     dtypes against the kernels'; the host time of a K3 call through
+     ``ternary_matmul_fwd`` beside ``ternary_matmul_cuda``;
+  14. each phase's seconds (``phase_seconds``), the ``kernels`` line,
+     then the card line, then the ``ok`` line.
 
 Weights are random from a numpy seed. For the event wing's served
 comparison they are rounded to multiples of 2**-8: every conv and fc
@@ -271,21 +283,33 @@ def main() -> int:
          tf32=[torch.backends.cuda.matmul.allow_tf32,
                torch.backends.cudnn.allow_tf32])
 
-    err = kernel_checks(torch, dev, k1, k2)
-    err["ternary_matmul"] = k3_checks(torch, dev, k3)
-    served = slice_run(torch, dev, k1, k2)
-    fused = frame_slice(torch, dev, k1, k2, k3)
-    times = timings(torch, dev, k1, k2)
-    times["ternary_matmul"] = k3_timings(torch, dev, k3)
-    fe = frame_end_to_end(torch, dev)
-    graphs_phase(torch, dev, k1, k2, k3, smi, times["end_to_end"], fe)
-    surface = serving_surface(torch, dev, k1, k2, k3, smi)
-    fleet = fleet_phase(torch, dev, k1, k2, k3, smi)
-    train = train_phase(torch, dev, k1, k2, smi)
-    lm = lm_slice(torch, dev, k3, k4)
-    tf = transformer_phase(torch, dev, k3)
-    hy = hybrid_phase(torch, dev, k3)
-    lt = lm_train_phase(torch, dev, k4, smi)
+    seconds = {"build": build_s}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    err = timed("kernel_checks", kernel_checks, torch, dev, k1, k2)
+    err["ternary_matmul"] = timed("k3_checks", k3_checks, torch, dev, k3)
+    served = timed("slice", slice_run, torch, dev, k1, k2)
+    fused = timed("frame_slice", frame_slice, torch, dev, k1, k2, k3)
+    times = timed("timings", timings, torch, dev, k1, k2)
+    times["ternary_matmul"] = timed("k3_timings", k3_timings, torch, dev, k3)
+    fe = timed("frame_end_to_end", frame_end_to_end, torch, dev)
+    timed("graphs", graphs_phase, torch, dev, k1, k2, k3, smi,
+          times["end_to_end"], fe)
+    surface = timed("serving_surface", serving_surface, torch, dev, k1, k2,
+                    k3, smi)
+    fleet = timed("fleet", fleet_phase, torch, dev, k1, k2, k3, smi)
+    train = timed("train", train_phase, torch, dev, k1, k2, smi)
+    lm = timed("lm_slice", lm_slice, torch, dev, k3, k4)
+    tf = timed("transformer", transformer_phase, torch, dev, k3)
+    hy = timed("hybrid", hybrid_phase, torch, dev, k3)
+    lt = timed("lm_train", lm_train_phase, torch, dev, k4, smi)
+    dr = timed("dryrun", dryrun_phase, torch, dev, k3, k4, smi, lm["dryrun"])
+    emit("phase_seconds", total=time.perf_counter() - t0, **seconds)
 
     kernels = [
         dict(name="lif_scan", route="cuda",
@@ -334,6 +358,7 @@ def main() -> int:
                              tf["max_abs_err"], hy["max_abs_err"]),
              transformer_times=tf["times"],
              hybrid_times=hy["times"],
+             dryrun=dr["ternary_matmul"],
              **times["ternary_matmul"]),
         dict(name="wkv6_scan", route="cuda",
              source="src/repro_torch/csrc/wkv6_scan.cu",
@@ -341,6 +366,7 @@ def main() -> int:
              launches=lm["launches"]["wkv6_scan"],
              train_launches=lt["launches"],
              train_grad_rel_err=lt["max_abs_err"],
+             dryrun=dr["wkv6_scan"],
              max_abs_err=lm["max_abs_err"]["wkv6_scan"],
              **lm["times"]["wkv6_scan"]),
     ]
@@ -3248,7 +3274,7 @@ LM_SERVE_REQUESTS, LM_PROMPT, LM_NEW = 6, 8, 16     # as launch/serve.py
 LM_BATCH = 4
 LM_PREFILL_S = 2048
 # Decode tokens/s at B=4, bf16 and ternary samples in turn.
-DECODE_SAMPLES, DECODE_STEPS = 20, 16
+DECODE_SAMPLES, DECODE_STEPS = 10, 16
 
 
 def _lm_params(torch, model, seed, dev):
@@ -3805,12 +3831,17 @@ def lm_slice(torch, dev, k3, k4):
     k4_launches = lm_serve(torch, dev, k4, model, params)
     qparams, tern = lm_ternary(torch, dev, k3, k4, model, params)
     k4_rows, k3_err = lm_times(torch, dev, k3, k4, model, params, qparams)
+    t0 = time.perf_counter()
+    dryrun = dryrun_decode(torch, dev, k3, k4, model,
+                           {"bf16": params, "ternary": qparams})
+    dryrun_s = time.perf_counter() - t0
     del params, qparams
     torch.cuda.empty_cache()
     dec = k4_rows["decode_T1"]
     return {"launches": {"wkv6_scan": k4_launches,
                          "ternary_matmul": tern["ternary_matmul"]},
             "max_abs_err": {"wkv6_scan": err, "ternary_matmul": k3_err},
+            "dryrun": {"steps": dryrun, "seconds": dryrun_s},
             "times": {"wkv6_scan": {key: dec[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}}
 
@@ -5474,6 +5505,196 @@ def lm_train_phase(torch, dev, k4, smi):
          by_part=seconds, k4_train_launches=launches)
     return {"launches": launches, "max_abs_err": wkv_err, "llama": llama,
             "rwkv": rwkv, "remat": remat, "compression": comp}
+
+
+# ----------------------------------------------------------------------
+# Phase 13: the dry run (``launch.dryrun``) against the card: the fake
+# trace of a step against the same step run for real in this run.
+# ----------------------------------------------------------------------
+
+DR_CACHE = 512               # cache slots of the decode steps compared
+DR_TRAIN_STEPS = 3           # timed real train steps (median)
+# Rounds of K3's host time through ternary_matmul_fwd and directly, each
+# round in turn ABBA: the host's speed drifts within a run.
+DR_HOST_ORDER = (("ternary_matmul_fwd", "ternary_matmul_cuda"),
+                 ("ternary_matmul_cuda", "ternary_matmul_fwd")) * 3
+
+
+def _dr_shape(kind, seq, batch):
+    """A dry-run cell outside ``configs.shapes``: the shapes this script
+    runs (the JAX package's cells hold 32k-token caches and B=256)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    return ShapeSpec(f"chip_smoke_{kind}", kind, seq, batch)
+
+
+def _shape_only_matches(torch, fwd, args):
+    """``fwd`` on ``args`` (CUDA tensors) and on fake copies of them:
+    each output's (shape, dtype, device), real and shape-only."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    real = fwd(*args)
+    with FakeTensorMode() as mode:
+        fake = fwd(*(None if a is None else mode.from_tensor(a)
+                     for a in args))
+    torch.cuda.synchronize()
+
+    def meta(outs):
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return [[list(x.shape), str(x.dtype), str(x.device)] for x in outs]
+    return dict(real=meta(real), shape_only=meta(fake),
+                equal=meta(real) == meta(fake))
+
+
+def dryrun_decode(torch, dev, k3, k4, model, weights, cache_len=DR_CACHE,
+                  batch=LM_BATCH):
+    """One decode step of ``model`` at ``batch`` from a ``cache_len``
+    cache, for each weight set of ``weights`` ({"bf16": params,
+    "ternary": quantized params}), on the card and as the dry run's fake
+    trace of the same cell: the trace's K3 and K4 shape-only calls must
+    equal the launch counters' deltas of the real step, and its param
+    and cache bytes the real trees' bytes."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.steps import make_serve_step
+    cfg = model.cfg
+    shape = _dr_shape("decode", cache_len, batch)
+    step = make_serve_step(cfg)
+    out = {}
+    for name, params in weights.items():
+        low = DR.lower_cell(cfg, shape, dev,
+                            quant="ternary" if name == "ternary" else None)
+        cache = model.init_cache(batch, cache_len, device=dev)
+        tok = torch.ones((batch, 1), dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        k3.launches = k4.launches = 0
+        step(params, cache, tok)
+        torch.cuda.synchronize()
+        launches = {"ternary_matmul": k3.launches, "wkv6_scan": k4.launches}
+        row = dict(trace_s=low["trace_s"], shape_only={
+                       "ternary_matmul": low["k3"], "wkv6_scan": low["k4"]},
+                   launches=launches,
+                   param_bytes=[low["bytes"]["params"],
+                                DR.tree_bytes(params)],
+                   cache_bytes=[low["bytes"]["cache"], DR.tree_bytes(cache)])
+        out[f"{cfg.name}_{name}"] = row
+        check(low["k3"]["calls"] == launches["ternary_matmul"]
+              and low["k4"]["calls"] == launches["wkv6_scan"],
+              f"dry-run tallies differ from a real {cfg.name} {name} "
+              f"decode step: {row}")
+        check(row["param_bytes"][0] == row["param_bytes"][1]
+              and row["cache_bytes"][0] == row["cache_bytes"][1],
+              f"dry-run bytes differ from the real trees: {row}")
+        del cache
+    return out
+
+
+def dryrun_phase(torch, dev, k3, k4, smi, rwkv):
+    """Phase 13: (a) llama3.2-1b at full width and depth, bf16, B=4,
+    S=1024 (the ``lm_train`` shape): the dry run's FLOPs against
+    ``FlopCounterMode`` over one real ``make_train_step`` step on the
+    card, exactly; param and AdamW bytes against the real trees'; the
+    predicted peak against ``max_memory_allocated`` of a real step, and
+    the step's FLOPs over its time. (b) the ternary llama3.2-1b decode
+    step at B=4: K3's shape-only calls against its launches
+    (``dryrun_decode``; rwkv6-7b's, ``rwkv``, ran in the LM slice). (c)
+    K3's and K4's shape-only outputs against the kernels' at the decode
+    shapes, and the host time of a K3 call through ``ternary_matmul_fwd``
+    (which also tests for a tensor without storage) beside a direct
+    ``ternary_matmul_cuda`` call, in alternating rounds."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.serving import quantize_for_serving
+    from repro_torch.training.optimizer import adamw_init
+    t0 = time.perf_counter()
+    cfg = get_config("llama3.2-1b")
+    low = DR.lower_cell(cfg, _dr_shape("train", LT_SEQ, LT_BATCH), dev)
+    rec = DR.analyze(low, dev)
+    model = build_model(cfg)
+    params = _tf_params(torch, model, SEED + 60, dev)
+    opt = adamw_init(params)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 61).integers(
+        0, cfg.vocab_size, (LT_BATCH, LT_SEQ), dtype=np.int32)).to(dev)
+    batch = {"tokens": tokens, "targets": tokens}
+    step = make_train_step(cfg)
+    with FlopCounterMode(display=False) as counter:
+        step(params, opt, batch)
+    torch.cuda.synchronize()
+    _free(torch, dev)
+    times, peaks = [], []
+    for _ in range(DR_TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        peaks.append(torch.cuda.max_memory_allocated())
+    step_s = statistics.median(times)
+    mem = rec["memory"]
+    train = dict(
+        config=f"{cfg.name} full width and depth, {cfg.dtype}, remat",
+        batch=LT_BATCH, seq=LT_SEQ, trace_s=low["trace_s"],
+        flops=dict(dry_run=rec["flops"], real=counter.get_total_flops(),
+                   dry_run_by_op=rec["flops_by_op"]),
+        param_bytes=[mem["param_bytes"], DR.tree_bytes(params)],
+        opt_bytes=[mem["opt_bytes"], DR.tree_bytes(opt)],
+        peak_bytes=dict(predicted=mem["peak_bytes"], measured=max(peaks),
+                        ratio=mem["peak_bytes"] / max(peaks)),
+        fits=rec["fits"], capacity_bytes=mem["capacity_bytes"],
+        step_ms=[t * 1e3 for t in times],
+        tflop_per_s=rec["flops"] / step_s / 1e12,
+        share_of_bf16_peak=rec["flops"] / step_s / H100_BF16_FLOPS,
+        nvidia_smi=smi)
+    check(train["flops"]["dry_run"] == train["flops"]["real"],
+          f"dry-run FLOPs differ from the real step's: {train['flops']}")
+    check(train["param_bytes"][0] == train["param_bytes"][1]
+          and train["opt_bytes"][0] == train["opt_bytes"][1],
+          f"dry-run param/opt bytes differ: {train}")
+    check(rec["fits"], f"llama3.2-1b's train step does not fit: {mem}")
+    del opt, batch, tokens
+    _free(torch, dev)
+
+    q, _ = quantize_for_serving(params)
+    del params
+    _free(torch, dev)
+    decode = dryrun_decode(torch, dev, k3, k4, model, {"ternary": q})
+    up = q["layers"]["mlp"]["w_up"]
+    w, s = up["packed"][0].contiguous(), up["scale"][0].contiguous()
+    x = torch.randn((LM_BATCH, 1, w.shape[0] * 4), dtype=torch.bfloat16,
+                    device=dev)
+    g = torch.Generator().manual_seed(SEED + 62)
+    wkv = _wkv_inputs(torch, g, dev, LM_BATCH, 1, 64, 64, torch.bfloat16,
+                      state=True)
+    shapes = {"ternary_matmul": _shape_only_matches(
+                  torch, k3.ternary_matmul_fwd, (x, w, s)),
+              "wkv6_scan": _shape_only_matches(torch, k4.wkv6_scan_fwd,
+                                                tuple(wkv))}
+    calls = {"ternary_matmul_fwd": lambda: k3.ternary_matmul_fwd(x, w, s),
+             "ternary_matmul_cuda": lambda: k3.ternary_matmul_cuda(x, w, s)}
+    host = {name: [] for name in calls}
+    for order in DR_HOST_ORDER:
+        for name in order:
+            host[name].append(_host_us(torch, calls[name]))
+    host = dict(samples_us=host, shape={"M": LM_BATCH, "K": x.shape[-1],
+                                        "N": w.shape[1]},
+                **{f"{name}_us": statistics.median(v)
+                   for name, v in host.items()})
+    host["fwd_minus_cuda_us"] = (host["ternary_matmul_fwd_us"]
+                                 - host["ternary_matmul_cuda_us"])
+    check(all(r["equal"] for r in shapes.values()),
+          f"shape-only outputs differ from the kernels': {shapes}")
+    del q, up, w, s, x, wkv
+    _free(torch, dev)
+    seconds = time.perf_counter() - t0
+    emit("dryrun", nvidia_smi=smi, seconds=seconds, train=train,
+         decode={**rwkv["steps"], **decode}, rwkv_seconds=rwkv["seconds"],
+         shape_only_outputs=shapes, k3_host_us=host)
+    steps = {**rwkv["steps"], **decode}
+    return {name: dict(shape_only_calls=sum(r["shape_only"][name]["calls"]
+                                            for r in steps.values()),
+                       launches=sum(r["launches"][name]
+                                    for r in steps.values()))
+            for name in ("ternary_matmul", "wkv6_scan")}
 
 
 if __name__ == "__main__":

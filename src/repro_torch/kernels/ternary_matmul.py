@@ -25,6 +25,13 @@ it. The order leaves the kernel free to sum the segments of one output in
 parallel warps when there are few rows (:func:`plan`), with the same
 bits. :func:`ternary_matmul_fwd` picks between kernel and plain version by
 the tensor's device alone.
+
+On a tensor without storage (meta, or a fake tensor of the dry run's
+trace, ``launch.dryrun``) :func:`ternary_matmul_fwd` launches nothing: it
+returns an empty output of the kernel's shape, dtype and device and adds
+the call to :data:`shape_only_calls` and its FLOPs to
+:data:`shape_only_flops`. A call counts ``2 * M * K * N``, the dense
+product it stands for (one multiply and one add a term).
 """
 from __future__ import annotations
 
@@ -33,19 +40,26 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.core.ternary import unpack2bit
 from repro_torch.kernels._build import load_library
 
 __all__ = ["ternary_matmul_cuda", "ternary_matmul_plain",
-           "ternary_matmul_fwd", "plan", "launch_plan", "Plan", "launches",
-           "KERNEL", "KS"]
+           "ternary_matmul_fwd", "ternary_matmul_shape_only", "plan",
+           "launch_plan", "Plan", "launches", "shape_only_calls",
+           "shape_only_flops", "KERNEL", "KS"]
 
 KERNEL = "ternary_matmul"
 
 # Launches of the CUDA kernel since import (or since a caller reset it to
 # 0). Only ternary_matmul_cuda adds to it, once per launch.
 launches = 0
+# Calls on tensors without storage and their FLOPs (2 * M * K * N each),
+# since import or since a caller reset them to 0. Only
+# ternary_matmul_shape_only adds to them; no launch is made for them.
+shape_only_calls = 0
+shape_only_flops = 0
 
 # k per segment of the sum. csrc/ternary_matmul.cu names the same
 # constexpr KS: the two must agree, or the kernel and its plain version
@@ -220,11 +234,30 @@ def ternary_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
     return out
 
 
+def ternary_matmul_shape_only(x: torch.Tensor, w_packed: torch.Tensor,
+                              scale: torch.Tensor) -> torch.Tensor:
+    """K3's output without computing it, for tensors without storage: an
+    empty (..., N) tensor in ``x``'s dtype on ``x``'s device. Adds one
+    to :data:`shape_only_calls` and ``2 * M * K * N`` to
+    :data:`shape_only_flops`."""
+    global shape_only_calls, shape_only_flops
+    _check(x, w_packed, scale)
+    k, n = x.shape[-1], w_packed.shape[1]
+    shape_only_calls += 1
+    shape_only_flops += 2 * x.shape[:-1].numel() * k * n
+    return x.new_empty((*x.shape[:-1], n))
+
+
 def ternary_matmul_fwd(x: torch.Tensor, w_packed: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
-    """K3 on CUDA tensors, its plain version on CPU tensors."""
-    if x.is_cuda:
+    """K3 on CUDA tensors, its plain version on CPU tensors, its shape
+    alone on tensors without storage (meta or fake). A served decode step
+    makes hundreds of these calls, so the card's case is tested first, by
+    the cheapest tests."""
+    if x.is_cuda and type(x) is not FakeTensor:
         return ternary_matmul_cuda(x, w_packed, scale)
+    if x.is_meta or isinstance(x, FakeTensor):
+        return ternary_matmul_shape_only(x, w_packed, scale)
     if x.device.type == "cpu":
         return ternary_matmul_plain(x, w_packed, scale)
     raise ValueError(f"unsupported device {x.device}")

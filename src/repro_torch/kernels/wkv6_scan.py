@@ -35,6 +35,18 @@ scan chained through ``state0`` equals the unbroken one bit for bit.
 :func:`wkv6_scan_plain` follows it exactly, so the kernel equals it bit
 for bit on the card; :func:`wkv6_scan_fwd` picks between the two by the
 tensor's device alone.
+
+On tensors without storage (meta, or the fake tensors of the dry run's
+trace, ``launch.dryrun``) :func:`wkv6_scan_fwd` launches nothing: it
+returns empty outputs of the kernel's shapes, dtypes and device and adds
+the call to :data:`shape_only_calls` and its FLOPs to
+:data:`shape_only_flops`. The FLOPs are those of the JAX package's
+reference recurrence (``repro.kernels.ref.wkv6_ref``, the body of
+``wkv6_scan_pallas``), ``7 * hd**2`` a (b, t, h): the outer product
+k v^T (hd**2 multiplies), diag(u) k v^T (hd**2), S + diag(u) k v^T
+(hd**2 adds), r times that matrix (2 hd**2), diag(w) S (hd**2) and
++ k v^T (hd**2). exp(logw) is a transcendental and not counted, as
+XLA's cost analysis keeps transcendentals apart.
 """
 from __future__ import annotations
 
@@ -43,18 +55,25 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels._build import load_library
 
 __all__ = ["wkv6_scan_cuda", "wkv6_scan_plain", "wkv6_scan_fwd",
-           "wkv6_chunked", "launches", "KERNEL", "HEAD_DIMS", "IS",
-           "geometry", "CHUNK"]
+           "wkv6_scan_shape_only", "wkv6_chunked", "launches",
+           "shape_only_calls", "shape_only_flops", "KERNEL", "HEAD_DIMS",
+           "IS", "geometry", "CHUNK"]
 
 KERNEL = "wkv6_scan"
 
 # Launches of the CUDA kernel since import (or since a caller reset it to
 # 0). Only wkv6_scan_cuda adds to it, once per launch.
 launches = 0
+# Calls on tensors without storage and their FLOPs (7 * hd**2 a (b, t,
+# h)), since import or since a caller reset them to 0. Only
+# wkv6_scan_shape_only adds to them; no launch is made for them.
+shape_only_calls = 0
+shape_only_flops = 0
 
 HEAD_DIMS = (16, 32, 64)
 # Width of the i-segments of r.S (Tentpole order above). csrc/wkv6_scan.cu
@@ -193,13 +212,34 @@ def wkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, state
 
 
+def wkv6_scan_shape_only(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         logw: torch.Tensor, u: torch.Tensor,
+                         state0: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's outputs without computing them, for tensors without storage:
+    an empty ``o`` (B, T, H, hd) in ``r``'s dtype and an empty f32 state
+    (B, H, hd, hd), on ``r``'s device. Adds one to
+    :data:`shape_only_calls` and ``7 * B * T * H * hd**2`` to
+    :data:`shape_only_flops`."""
+    global shape_only_calls, shape_only_flops
+    _check(r, k, v, logw, u, state0)
+    b, t, h, hd = r.shape
+    shape_only_calls += 1
+    shape_only_flops += 7 * b * t * h * hd * hd
+    return (r.new_empty(r.shape),
+            r.new_empty((b, h, hd, hd), dtype=torch.float32))
+
+
 def wkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   logw: torch.Tensor, u: torch.Tensor,
                   state0: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4 on CUDA tensors, its plain version on CPU tensors."""
-    if r.is_cuda:
+    """K4 on CUDA tensors, its plain version on CPU tensors, its shapes
+    alone on tensors without storage (meta or fake)."""
+    if r.is_cuda and type(r) is not FakeTensor:
         return wkv6_scan_cuda(r, k, v, logw, u, state0)
+    if r.is_meta or isinstance(r, FakeTensor):
+        return wkv6_scan_shape_only(r, k, v, logw, u, state0)
     if r.device.type == "cpu":
         return wkv6_scan_plain(r, k, v, logw, u, state0)
     raise ValueError(f"unsupported device {r.device}")

@@ -11,7 +11,8 @@ only kernel below is K3, which ``dense`` reaches for a ternary-packed
 weight.
 
 The JAX package's sharding helpers (``constrain``, ``unshard_fsdp``) are
-identities without a mesh and have no counterpart; the JAX-only
+identities in the port (``distributed.annotate``: there is no SPMD
+partitioner to constrain), so the layers do not call them; the JAX-only
 ``role`` argument of ``dense`` is accepted and ignored.
 """
 from __future__ import annotations
@@ -84,7 +85,7 @@ def dense(x: torch.Tensor, w: Any, role: str = "up") -> torch.Tensor:
     ascending order, then the scale) and comes back in ``x``'s dtype.
     A float weight is a library matmul, as the JAX package leaves it to
     XLA. ``role`` (the tensor-parallel orientation in the JAX package) is
-    accepted and ignored: there is no mesh.
+    accepted and ignored: no partitioner reads it.
     """
     del role
     if isinstance(w, dict) and "packed" in w:

@@ -10,9 +10,9 @@ Every model declares its parameters as a nested dict of :class:`ParamDef`
     dtypes, no storage);
   * ``tree_num_params`` -> the parameter count.
 
-The logical axis names are kept for parity with the JAX package; there is
-no mesh here, so nothing reads them. The JAX package's ``to_pspecs``
-(sharding specs) has no counterpart.
+The logical axis names are the JAX package's; the sharding rules
+(``distributed.sharding.param_pspecs``, in place of the JAX package's
+``to_pspecs``) map them onto a mesh's axes.
 """
 from __future__ import annotations
 

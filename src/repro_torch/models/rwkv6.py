@@ -15,8 +15,9 @@ the tests. Both agree with K4 within rounding.
 Parameters are a nested dict of tensors with the layers stacked on a
 leading axis, in the JAX package's layouts (projection weights (K, N)),
 and the layers run as a Python loop over that axis. The JAX package's
-sharding annotations (``constrain``, ``unshard_fsdp``) have no
-counterpart: there is no mesh.
+sharding annotations (``constrain``, ``unshard_fsdp``) are identities in
+the port (``distributed.annotate``: there is no SPMD partitioner to
+constrain), so the model does not call them.
 
 Numerics note (as in the JAX package): the per-step log-decay is clamped
 to >= -4, so the chunked form's exp(-cumsum) stays in f32 range at chunk

@@ -416,3 +416,53 @@ def test_port_has_every_reference_name(module):
 
 def test_fleet_exports_match_the_jax_package():
     assert fleet(side("port")).__all__ == fleet(side("jax")).__all__
+
+
+# Names of a reference package root the port's root deliberately lacks,
+# with the reason; the test below holds that each is still missing, so
+# an entry goes when its reason does.
+_ROOT_EXCEPTIONS = {
+    # The port's kernels package re-exports no function: each name is
+    # the kernel's module (with its launch counter); the wrappers are in
+    # repro_torch.kernels.ops, the plain versions beside each kernel.
+    "kernels": {"lif_scan", "lif_scan_batched", "fc_lif_scan",
+                "fc_lif_scan_batched", "pack_ternary_weights",
+                "ternary_matmul", "lif_scan_ref", "ternary_matmul_ref",
+                "wkv6_ref", "wkv6_scan_pallas"},
+    # Binding specs to devices is the multi-GPU runtime (ROADMAP item 7).
+    "distributed": {"shardings", "slot_shardings"},
+}
+
+
+def _root_names(pkg):
+    """A reference package root's public names: its ``__all__``, or else
+    every public name its ``__init__`` binds (imports, assignments,
+    definitions)."""
+    path = os.path.join(SRC, "repro", pkg, "__init__.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in node.targets):
+            return set(ast.literal_eval(node.value))
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+    names |= _names(path)
+    return {n for n in names if not n.startswith("_") and "." not in n
+            and n != "annotations"}
+
+
+@pytest.mark.parametrize("pkg", sorted(
+    d for d in os.listdir(os.path.join(SRC, "repro"))
+    if os.path.isfile(os.path.join(SRC, "repro", d, "__init__.py"))))
+def test_package_root_exposes_reference_names(pkg):
+    want = _root_names(pkg)
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    # A kernel module of the same name (repro_torch.kernels.lif_scan,
+    # once imported) does not expose the reference's function.
+    missing = {n for n in want if not hasattr(port, n) or (
+        pkg == "kernels" and isinstance(getattr(port, n), type(os)))}
+    assert missing == _ROOT_EXCEPTIONS.get(pkg, set())
