@@ -48,9 +48,9 @@ non-zero:
      the library yardstick, each call read from a cold L2 cache (K1 also
      warm, beside an empty call timed the same way, with the host time a
      call of ``ops.lif_scan`` and of its wrapper); windows/s
-     end to end at B=1 and B=8 over 20 samples of 16 engine steps each;
+     end to end at B=1 and B=8 over 10 samples of 16 engine steps each;
      a profiler trace of 64 steady-state B=8 steps; frame-lane windows/s
-     and fused ticks/s at B=8 over 20 samples of 16 steps, with the
+     and fused ticks/s at B=8 over 10 samples of 16 steps, with the
      cross-wing megastep off and on, and a profile of 16 fused steps of
      each; then the ``graphs`` phase: capture ms, pool bytes and launch
      tally per shape key; replays against eager calls of the same step
@@ -94,6 +94,20 @@ non-zero:
      without a step in flight, each resize's ms, capture ms and pool
      bytes, each recovery's ms by part, memory after each kill, and the
      host us of the autoscaler's and the rebalancer's ``observe()``;
+  7b. slot sharding (``sharded``), at full width (Table II's SCNN,
+     CUTIE's TCN, 8 slots a lane) over a mesh of every visible card when
+     there are 2 or more, else logical meshes of 2 and 4 shards on
+     cuda:0 (``sharded_meshes`` says which): K1, K2, K3 and the currents
+     entry at a shard's shapes against their plain versions; event
+     streams (10 over 8 slots, every other one stateful) beside 10 frame
+     streams at depths 0 and 1, every row (label, PWM, logits) and every
+     exported carry bit for bit the unsharded engine's on the same card,
+     launches n x the unsharded count, the lane's state on the mesh; 4
+     stateful FusionSessions bit for bit; a checkpoint taken on the
+     largest mesh continued on an unsharded engine against the
+     uninterrupted run. Reported: graphs, keys, pool bytes and capture ms
+     a shard, windows/s sharded and unsharded (3 samples in turns; on one
+     card a logical mesh replays n graphs a step, so no gain is claimed);
   8. STBP training (``train``), the Table II network at full width as
      ``examples/torch_train_dvs_gesture.py`` trains it
      (``training.stbp_step``: ``snn_loss`` under autograd, AdamW;
@@ -122,8 +136,9 @@ non-zero:
      step); then K4's and K3's
      times at the LM shapes (K3 at M=4 decode and M=32 prompt rows, and
      at M=8,192 prefill rows on its serial path),
-     decode and prefill tokens/s, and profiles of bf16 and ternary decode
-     steps (busy share, K3's device ms a step);
+     decode and prefill tokens/s (3 samples each way: timing only), and
+     a profile of bf16 decode steps (busy share); the sub-phases' seconds
+     (``lm_slice_seconds``);
   10. the transformer families (``transformer``), after the LM slice has
      freed rwkv6's weights: (a) K3 against its plain version bit for bit
      at the products this slice serves -- llama3.2-1b's gate/up (K 2048,
@@ -234,7 +249,7 @@ REPS = 20
 # Rows K3 gets from a prompt of 8 tokens at B=4 (generate's prefill).
 LM_PROMPT_ROWS = 32
 FLUSH_BYTES = 512 << 20           # read between timed calls: 10x the L2
-E2E_SAMPLES = 20                  # end-to-end samples per batch size
+E2E_SAMPLES = 10                  # end-to-end samples per batch size
 E2E_STEPS = 16                    # engine steps per sample
 PROFILE_STEPS = 64
 HOST_CALLS = 200                  # calls queued a sample of host time
@@ -303,6 +318,7 @@ def main() -> int:
     surface = timed("serving_surface", serving_surface, torch, dev, k1, k2,
                     k3, smi)
     fleet = timed("fleet", fleet_phase, torch, dev, k1, k2, k3, smi)
+    sharded = timed("sharded", sharded_phase, torch, dev, k1, k2, k3, smi)
     train = timed("train", train_phase, torch, dev, k1, k2, smi)
     lm = timed("lm_slice", lm_slice, torch, dev, k3, k4)
     tf = timed("transformer", transformer_phase, torch, dev, k3)
@@ -318,9 +334,11 @@ def main() -> int:
              launches=served["launches"]["lif_scan"],
              serving_surface_launches=surface["lif_scan"],
              fleet_launches=fleet["lif_scan"],
+             sharded_launches=sharded["launches"]["lif_scan"],
              train_launches=train["launches"]["lif_scan"],
              max_abs_err=max(err["lif_scan"],
-                             train["max_abs_err"]["lif_scan"]),
+                             train["max_abs_err"]["lif_scan"],
+                             sharded["max_abs_err"]["lif_scan"]),
              **times["lif_scan"]),
         dict(name="fc_lif_scan", route="cuda",
              source="src/repro_torch/csrc/fc_lif_scan.cu",
@@ -328,9 +346,11 @@ def main() -> int:
              launches=served["launches"]["fc_lif_scan"],
              serving_surface_launches=surface["fc_lif_scan"],
              fleet_launches=fleet["fc_lif_scan"],
+             sharded_launches=sharded["launches"]["fc_lif_scan"],
              train_launches=train["launches"]["fc_lif_scan"],
              max_abs_err=max(err["fc_lif_scan"],
-                             train["max_abs_err"]["fc_lif_scan"]),
+                             train["max_abs_err"]["fc_lif_scan"],
+                             sharded["max_abs_err"]["fc_lif_scan"]),
              **times["fc_lif_scan"]),
         dict(name="fc_currents", entry_of="fc_lif_scan", route="cuda",
              source="src/repro_torch/csrc/fc_lif_scan.cu",
@@ -339,9 +359,11 @@ def main() -> int:
              launches=fused["launches"]["fc_currents"],
              serving_surface_launches=surface["fc_currents"],
              fleet_launches=fleet["fc_currents"],
+             sharded_launches=sharded["launches"]["fc_currents"],
              train_launches=train["launches"]["fc_currents"],
              max_abs_err=max(err["fc_currents"],
-                             train["max_abs_err"]["fc_currents"]),
+                             train["max_abs_err"]["fc_currents"],
+                             sharded["max_abs_err"]["fc_currents"]),
              **times["fc_currents"]),
         dict(name="ternary_matmul", route="cuda",
              source="src/repro_torch/csrc/ternary_matmul.cu",
@@ -353,7 +375,9 @@ def main() -> int:
              hybrid_launches=hy["launches"],
              serving_surface_launches=surface["ternary_matmul"],
              fleet_launches=fleet["ternary_matmul"],
+             sharded_launches=sharded["launches"]["ternary_matmul"],
              max_abs_err=max(err["ternary_matmul"],
+                             sharded["max_abs_err"]["ternary_matmul"],
                              lm["max_abs_err"]["ternary_matmul"],
                              tf["max_abs_err"], hy["max_abs_err"]),
              transformer_times=tf["times"],
@@ -2828,6 +2852,333 @@ def fleet_phase(torch, dev, k1, k2, k3, smi):
 
 
 # ----------------------------------------------------------------------
+# Phase 7b: slot sharding over a device mesh -- EngineConfig(mesh=...) at
+# full width, every row and carry held against the unsharded engine.
+# ----------------------------------------------------------------------
+
+SHARD_SLOTS = 8                 # slots a lane, as the event and frame lanes
+SHARD_EVENT_STREAMS = 10        # more streams than slots: parking runs
+SHARD_FRAME_STREAMS = 10
+SHARD_WINDOWS = 2               # windows a stream in the gated runs
+SHARD_SESSIONS = 4              # FusionSessions, stateful
+SHARD_RATE_WINDOWS = 8          # windows a stream in a timed run
+SHARD_RATE_SAMPLES = 3          # timed runs a mesh, in turns with unsharded
+SHARD_EVENT_KEY = (SHARD_SLOTS, 65_536, 300_000)
+SHARD_FRAME_KEY = (SHARD_SLOTS, 128, 128, 300_000)
+
+
+def _shard_meshes(torch):
+    """The phase's meshes: every visible card when there are 2 or more
+    (real placement), else logical meshes of 2 and 4 shards on cuda:0."""
+    from repro_torch.distributed import make_mesh
+    if torch.cuda.device_count() >= 2:
+        return "real", [make_mesh()]
+    card = torch.device("cuda", 0)
+    return "logical", [make_mesh(n, devices=[card] * n) for n in (2, 4)]
+
+
+def _shard_engine(params, tparams, dev, mesh, depth, lanes=("event",
+                                                             "frame")):
+    """A StreamEngine as a user builds it, over the event and/or frame
+    lane (8 slots each), sharded over ``mesh`` (None: unsharded)."""
+    from repro_torch.configs import CONFIG, TCN_CONFIG
+    from repro_torch.core._api import EngineConfig
+    from repro_torch.core.engine import FrameTCNEngine
+    from repro_torch.core.pipeline import BatchedClosedLoop
+    from repro_torch.serving import StreamEngine
+    engines = []
+    if "event" in lanes:
+        engines.append(BatchedClosedLoop(params, CONFIG, device=dev))
+    if "frame" in lanes:
+        engines.append(FrameTCNEngine(tparams, TCN_CONFIG, device=dev))
+    return StreamEngine(engines=engines, config=EngineConfig(
+        max_streams=SHARD_SLOTS, pipeline_depth=depth, mesh=mesh))
+
+
+def _shard_serve(eng, events, frames, stateful):
+    """Event streams (every index in ``stateful`` carries state) and frame
+    streams, their windows queued up front, served to the end: rows by
+    (stream, seq) as (label, pwm, logits), and each stateful stream's
+    exported carry."""
+    hs = [(eng.open("event", stream_id=f"e{i}", stateful=i in stateful),
+           ws) for i, ws in enumerate(events)]
+    hs += [(eng.open("frame", stream_id=f"f{i}"), fs)
+           for i, fs in enumerate(frames)]
+    for k in range(max(len(ws) for _, ws in hs)):
+        for h, ws in hs:
+            if k < len(ws):
+                h.submit(ws[k])
+    rows = {(r.stream_id, r.seq): (r.result.label_pred, r.result.pwm,
+                                   r.result.logits) for r in eng.run()}
+    carries = {h.stream_id: h.checkpoint().state for h, _ in hs
+               if h.stateful}
+    for h, _ in hs:
+        h.close()
+    return rows, carries
+
+
+def _same_rows(want, got):
+    """Whether two {key: tuple of arrays} (or {key: {name: array}}) maps
+    are equal bit for bit."""
+    if set(want) != set(got):
+        return False
+    for key in want:
+        a, b = want[key], got[key]
+        if isinstance(a, dict):
+            a, b = [a[k] for k in sorted(a)], [b[k] for k in sorted(b)]
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            return False
+    return True
+
+
+def _counts(k1, k2, k3):
+    return {"lif_scan": k1.launches, "fc_lif_scan": k2.launches,
+            "ternary_matmul": k3.launches,
+            "fc_currents": k2.currents_launches}
+
+
+def _zero_counts(k1, k2, k3):
+    k1.launches = k2.launches = k3.launches = k2.currents_launches = 0
+
+
+def _shard_graphs(eng):
+    """Per lane, per shard: graphs held, their pool bytes and capture ms."""
+    out = {}
+    for m, e in eng.engines.items():
+        out[m] = [dict(device=str(sh.device), graphs=len(sh.graphs.steps),
+                       keys=sorted(map(list, sh.graphs.steps)),
+                       pool_bytes=sum(s.pool_bytes
+                                      for s in sh.graphs.steps.values()),
+                       capture_ms=sum(s.capture_ms
+                                      for s in sh.graphs.steps.values()))
+                  for sh in e._shards]
+    return out
+
+
+def _shard_kernel_checks(torch, dev, k1, k2, k3, params, rows, windows):
+    """K1, K2 and the currents entry on the inputs a shard's event step of
+    ``rows`` slots hands them, and K3 and the currents entry at a shard's
+    frame rows (fc1: rows x 2048 x 512 on the 1/4 grid; fc2: ternary
+    activations x 512 x 11), each against its plain version, bit for
+    bit. Returns {kernel: max error}."""
+    from repro_torch.configs import CONFIG, TCN_CONFIG
+    from repro_torch.core import events as ev
+    from repro_torch.kernels import ops
+    batch = ev.pad_event_windows(list(windows[:rows]), max_events=65_536)
+    arrays = [torch.from_numpy(np.asarray(a)).to(dev) for a in
+              (batch.x, batch.y, batch.t, batch.p)]
+    vox = ev.voxelize_batch(
+        *arrays, torch.from_numpy(batch.valid).to(dev),
+        duration_us=batch.duration_us, time_bins=CONFIG.time_bins,
+        height=CONFIG.height, width=CONFIG.width)
+    _, err = _train_kernel_checks(torch, k1, k2, params, vox, CONFIG)
+    g = torch.Generator().manual_seed(SEED + 27)
+    k, n = TCN_CONFIG.flat_dim, TCN_CONFIG.hidden
+    x = (torch.randint(-4, 5, (rows, k), generator=g) / 4.0).to(dev)
+    wp, scale = ops.pack_ternary_weights(torch.randn(k, n, generator=g))
+    wp, scale = wp.to(dev), scale.to(dev)
+    want = k3.ternary_matmul_plain(x, wp, scale)
+    got = k3.ternary_matmul_cuda(x, wp, scale)
+    check(bool(torch.equal(want, got)),
+          f"sharded: K3 at a shard's {rows} frame rows differs from its "
+          f"plain version")
+    err["ternary_matmul"] = _max_err([want], [got])
+    act = torch.randint(-1, 2, (rows, n), generator=g).float().to(dev)
+    w = torch.randn(n, TCN_CONFIG.num_classes, generator=g).to(dev)
+    want, got = k2.fc_currents_plain(act, w), k2.fc_currents_cuda(act, w)
+    check(bool(torch.equal(want, got)),
+          f"sharded: currents entry at a shard's {rows} frame rows differs "
+          f"from its plain version")
+    err["fc_currents"] = max(err["fc_currents"], _max_err([want], [got]))
+    torch.cuda.synchronize()
+    return err
+
+
+def _shard_rate(torch, eng, windows):
+    """Windows/s of one timed run: every stream's windows queued, served
+    to the end (host clock ending in a synchronize)."""
+    hs = [eng.open("event", stream_id=f"r{i}") for i in range(len(windows))]
+    for k in range(len(windows[0])):
+        for h, ws in zip(hs, windows):
+            h.submit(ws[k])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = len(eng.run())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for h in hs:
+        h.close()
+    return n / dt
+
+
+def sharded_phase(torch, dev, k1, k2, k3, smi):
+    """Slot sharding at full width (Table II's SCNN, CUTIE's TCN, 8 slots a
+    lane): every row and carry of a sharded StreamEngine against the
+    unsharded one on the same card, bit for bit -- event streams stateful
+    and stateless at depths 0 and 1 beside the frame lane, 4 stateful
+    FusionSessions, a checkpoint taken on the 4-shard engine continued on
+    an unsharded one; launches n x the unsharded count; the kernels at a
+    shard's shapes against their plain versions; graphs and pool bytes a
+    shard; windows/s sharded and unsharded (no gain is claimed: a logical
+    mesh replays n graphs a step on one card). Returns the launches and
+    errors the kernels line needs."""
+    from repro_torch.configs import CONFIG, TCN_CONFIG
+    from repro_torch.convert import snn_params_from_numpy, \
+        tcn_params_from_numpy
+    from repro_torch.distributed import ShardedTensor
+    mode, meshes = _shard_meshes(torch)
+    sizes = [m.size for m in meshes]
+    emit("sharded_meshes", mode=mode, shards=sizes,
+         devices=[[str(d) for d in m.device_list] for m in meshes])
+    params = snn_params_from_numpy(_np_params(CONFIG, dyadic=True))
+    tparams = tcn_params_from_numpy(_np_tcn_params(TCN_CONFIG))
+    events = _windows(SHARD_EVENT_STREAMS, SHARD_WINDOWS, SEED + 31)
+    frames = _frames(SHARD_FRAME_STREAMS, SHARD_WINDOWS, SEED + 32)
+    stateful = set(range(0, SHARD_EVENT_STREAMS, 2))
+
+    err = dict(lif_scan=0.0, fc_lif_scan=0.0, fc_currents=0.0,
+               ternary_matmul=0.0)
+    dev_params = {k: {n: t.to(dev) for n, t in v.items()}
+                  for k, v in params.items()}
+    for n in sorted(set(sizes)):
+        for name, e in _shard_kernel_checks(
+                torch, dev, k1, k2, k3, dev_params, SHARD_SLOTS // n,
+                [ws[0] for ws in events]).items():
+            err[name] = max(err[name], e)
+
+    launches = {k: 0 for k in err}
+    runs, graphs = [], {}
+    for depth in (0, 1):
+        counted = {}
+        for mesh in [None] + meshes:
+            eng = _shard_engine(params, tparams, dev, mesh, depth)
+            eng.warmup([SHARD_EVENT_KEY], modality="event")
+            eng.warmup([SHARD_FRAME_KEY], modality="frame")
+            torch.cuda.synchronize()
+            _zero_counts(k1, k2, k3)
+            rows, carries = _shard_serve(eng, events, frames, stateful)
+            torch.cuda.synchronize()
+            counted[mesh] = _counts(k1, k2, k3)
+            check(eng.compiled_shapes("event") == {SHARD_EVENT_KEY}
+                  and eng.compiled_shapes("frame") == {SHARD_FRAME_KEY},
+                  f"sharded: a served window took a key that was not "
+                  f"warmed ({eng.compiled_shapes('event')})")
+            if mesh is None:
+                want = (rows, carries)
+                continue
+            n = mesh.size
+            state = eng._lanes["event"].state
+            same = dict(rows=_same_rows(want[0], rows),
+                        carries=_same_rows(want[1], carries),
+                        launches_n_times={k: v == n * counted[None][k]
+                                          for k, v in counted[mesh].items()},
+                        state_on_mesh=all(
+                            isinstance(a, ShardedTensor)
+                            and len(a.blocks) == n for a in state.values()))
+            runs.append(dict(depth=depth, shards=n, served=len(rows),
+                             launches=counted[mesh],
+                             unsharded_launches=counted[None], **same))
+            check(same["rows"] and same["carries"],
+                  f"sharded ({n} shards, depth {depth}): rows or carries "
+                  f"differ from the unsharded engine's")
+            check(all(same["launches_n_times"].values()),
+                  f"sharded ({n} shards, depth {depth}): launches "
+                  f"{counted[mesh]} != {n} x {counted[None]}")
+            check(same["state_on_mesh"], "sharded state not on the mesh")
+            for k, v in counted[mesh].items():
+                launches[k] += v
+            graphs[f"{n}_shards"] = _shard_graphs(eng)
+            del eng
+        base = counted[None]
+        check(base["lif_scan"] == base["fc_lif_scan"] > 0
+              and base["ternary_matmul"] == base["fc_currents"] > 0,
+              f"unsharded launches {base}")
+    emit("sharded_serving", slots=SHARD_SLOTS,
+         event_streams=SHARD_EVENT_STREAMS,
+         frame_streams=SHARD_FRAME_STREAMS, windows=SHARD_WINDOWS,
+         stateful_streams=len(stateful), runs=runs, graphs=graphs,
+         tolerance="bitwise: label, pwm, logits, exported carries",
+         kernels_at_shard_shapes=err)
+
+    sessions = list(zip(_windows(SHARD_SESSIONS, 2, SEED + 33),
+                        _frames(SHARD_SESSIONS, 2, SEED + 34)))
+
+    def fused(mesh):
+        eng = _shard_engine(params, tparams, dev, mesh, 1)
+        ticks, _ = _serve_fused(eng, sessions, [], stateful=True)
+        return {k: (r.label_pred, r.pwm, r.logits)
+                for k, r in ticks.items()}
+
+    want = fused(None)
+    fusion = {}
+    for mesh in meshes:
+        fusion[f"{mesh.size}_shards"] = _same_rows(want, fused(mesh))
+        check(fusion[f"{mesh.size}_shards"],
+              f"sharded FusionSessions ({mesh.size} shards) differ")
+
+    big = max(meshes, key=lambda m: m.size)
+    ws = _windows(1, 4, SEED + 35)[0]
+
+    def stream(eng, windows, ckpt=None):
+        h = eng.open("event", stream_id="c", stateful=True)
+        if ckpt is not None:
+            h.restore(ckpt)
+        for w in windows:
+            h.submit(w)
+        rows = {r.seq: (r.result.label_pred, r.result.pwm, r.result.logits)
+                for r in eng.run()}
+        return rows, h
+
+    whole, _ = stream(_shard_engine(params, tparams, dev, None, 0,
+                                    ("event",)), ws)
+    got, h = stream(_shard_engine(params, tparams, dev, big, 0,
+                                  ("event",)), ws[:2])
+    t0 = time.perf_counter()
+    ckpt = h.checkpoint()
+    ckpt_us = (time.perf_counter() - t0) * 1e6
+    rest, _ = stream(_shard_engine(params, tparams, dev, None, 0,
+                                   ("event",)), ws[2:], ckpt)
+    got.update(rest)
+    check(_same_rows(whole, got),
+          f"a checkpoint from the {big.size}-shard engine continued on an "
+          f"unsharded one differs from the uninterrupted run")
+
+    rate_ws = _windows(SHARD_SLOTS, SHARD_RATE_WINDOWS, SEED + 36)
+    rates = {}
+    engines = {"unsharded": _shard_engine(params, tparams, dev, None, 1,
+                                          ("event",))}
+    for mesh in meshes:
+        engines[f"{mesh.size}_shards"] = _shard_engine(
+            params, tparams, dev, mesh, 1, ("event",))
+    for eng in engines.values():
+        eng.warmup([SHARD_EVENT_KEY])
+        _shard_rate(torch, eng, rate_ws[:1])
+    for _ in range(SHARD_RATE_SAMPLES):
+        for name, eng in list(engines.items()) + list(engines.items())[::-1]:
+            rates.setdefault(name, []).append(
+                _shard_rate(torch, eng, rate_ws))
+    rate = {name: dict(windows_per_s_median=statistics.median(r),
+                       samples=r) for name, r in rates.items()}
+    for name in rate:
+        rate[name]["vs_unsharded"] = (
+            rate[name]["windows_per_s_median"]
+            / rate["unsharded"]["windows_per_s_median"])
+    emit("sharded", mode=mode, shards=sizes, fusion_sessions=SHARD_SESSIONS,
+         fusion_bitwise=fusion,
+         checkpoint=dict(shards=big.size, continued_on="unsharded",
+                         bitwise=True, checkpoint_us=ckpt_us),
+         rates=rate, rate_streams=SHARD_SLOTS,
+         rate_windows=SHARD_RATE_WINDOWS, pipeline_depth=1,
+         rate_note="host clock ending in torch.cuda.synchronize; one "
+                   "host thread queues every shard's replay, staging and "
+                   "output copy, and the step is host-bound, so no gain "
+                   "is claimed (on one card a logical mesh also shares "
+                   "its device)",
+         nvidia_smi=smi)
+    return {"launches": launches, "max_abs_err": err}
+
+
+# ----------------------------------------------------------------------
 # Phase 8: STBP training of the Table II SCNN -- snn_loss under autograd
 # in both modes, AdamW and step-atomic checkpoints.
 # ----------------------------------------------------------------------
@@ -3273,8 +3624,9 @@ LM_HEAD_ATOL = 1e-4
 LM_SERVE_REQUESTS, LM_PROMPT, LM_NEW = 6, 8, 16     # as launch/serve.py
 LM_BATCH = 4
 LM_PREFILL_S = 2048
-# Decode tokens/s at B=4, bf16 and ternary samples in turn.
-DECODE_SAMPLES, DECODE_STEPS = 10, 16
+# Decode tokens/s at B=4, bf16 and ternary samples in turn (timing only:
+# the rates belong in a benchmark, so chip_smoke takes few samples).
+DECODE_SAMPLES, DECODE_STEPS = 3, 16
 
 
 def _lm_params(torch, model, seed, dev):
@@ -3786,7 +4138,7 @@ def lm_times(torch, dev, k3, k4, model, params, qparams):
     serve_step = make_serve_step(model.cfg)
     vocab = model.cfg.vocab_size
 
-    (fp, tern), (state, tstate) = _decode_rates(
+    (fp, tern), (state, _) = _decode_rates(
         torch, serve_step, model, [params, qparams], dev, 64)
 
     prefill = make_prefill_step(model.cfg)
@@ -3806,9 +4158,7 @@ def lm_times(torch, dev, k3, k4, model, params, qparams):
                       tokens_per_s=LM_BATCH * LM_PREFILL_S / pre_s,
                       peak_memory_gb=peak / 1e9),
          decode_profile=_decode_profile(torch, serve_step, state,
-                                        fp["step_ms_median"]),
-         decode_ternary_profile=_decode_profile(torch, serve_step, tstate,
-                                                tern["step_ms_median"]))
+                                        fp["step_ms_median"]))
     return k4_rows, k3_err
 
 
@@ -3817,8 +4167,16 @@ def lm_slice(torch, dev, k3, k4):
     ``kernels`` line needs."""
     from repro_torch.configs.rwkv6_7b import CONFIG
     from repro_torch.models import build_model
-    err = k4_checks(torch, dev, k4)
-    lm_depth_cut(torch, dev, k3)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    err = timed("k4_checks", k4_checks, torch, dev, k4)
+    timed("lm_vs_cpu", lm_depth_cut, torch, dev, k3)
     torch.cuda.empty_cache()
 
     model = build_model(CONFIG)
@@ -3828,13 +4186,15 @@ def lm_slice(torch, dev, k3, k4):
     emit("lm_params", config="rwkv6-7b CONFIG", params=model.num_params(),
          analytic=CONFIG.param_count(), init_s=time.perf_counter() - t0,
          memory_gb=torch.cuda.memory_allocated() / 1e9)
-    k4_launches = lm_serve(torch, dev, k4, model, params)
-    qparams, tern = lm_ternary(torch, dev, k3, k4, model, params)
-    k4_rows, k3_err = lm_times(torch, dev, k3, k4, model, params, qparams)
-    t0 = time.perf_counter()
-    dryrun = dryrun_decode(torch, dev, k3, k4, model,
-                           {"bf16": params, "ternary": qparams})
-    dryrun_s = time.perf_counter() - t0
+    k4_launches = timed("lm_serve", lm_serve, torch, dev, k4, model, params)
+    qparams, tern = timed("lm_ternary", lm_ternary, torch, dev, k3, k4,
+                          model, params)
+    k4_rows, k3_err = timed("lm_times", lm_times, torch, dev, k3, k4, model,
+                            params, qparams)
+    dryrun = timed("dryrun_decode", dryrun_decode, torch, dev, k3, k4, model,
+                   {"bf16": params, "ternary": qparams})
+    dryrun_s = seconds["dryrun_decode"]
+    emit("lm_slice_seconds", **seconds)
     del params, qparams
     torch.cuda.empty_cache()
     dec = k4_rows["decode_T1"]
@@ -3861,7 +4221,7 @@ TF_LOGITS_ATOL = 1e-3
 TF_CPU_SEQ = 64              # tokens of the f32 forward on both devices
 TF_DECODE_CACHE = 512        # a decode-rate run stays inside its cache
 TF_SYNC_STEPS = 4            # decode steps under the sync debug mode
-TF_DECODE_SAMPLES = 10       # llama3.2-1b's decode-rate pairs (bf16, K3)
+TF_DECODE_SAMPLES = 3        # llama3.2-1b's decode-rate pairs (bf16, K3)
 # K3 at the products the slice serves: (name, K, N); each at decode rows
 # (M = LM_BATCH, the split path) and prefill rows (M = LM_BATCH *
 # LM_PREFILL_S, the serial path). K = 8960 and 2816 end in a short

@@ -142,10 +142,15 @@ class EngineConfig:
         synapse+LIF Pallas kernel.
       * ``window_ms`` -- the control-tick window length for the
         real-time accounting.
-      * ``mesh`` -- slot sharding over several GPUs: the engines would
-        shard their slot axis over the mesh's data axis, bitwise-identical
-        to the single-device engine. Not ported yet: the port's engines
-        refuse any value but ``None`` (ROADMAP queue 1, item 11).
+      * ``mesh`` -- slot sharding: a :class:`~repro_torch.distributed.
+        mesh.Mesh` (``repro_torch.distributed.make_mesh``) over whose slot
+        axis (its ``data`` axis) every engine shards its batch slots. Each
+        engine runs a step as one shard per block of slots, on that
+        block's device with its own CUDA graphs, staging buffers and copy
+        of the weights; nothing in a shard's step reads another shard's
+        data, and every row is bit for bit the single-device engine's. A
+        mesh that names one device n times runs n shards there (a logical
+        mesh: how the tests and a one-card run exercise it).
       * ``recovery`` -- a :class:`RecoveryConfig` opting the engine
         into fault recovery (bounded retry with deterministic backoff,
         poison-window quarantine, dead-lane fail-fast). ``None`` (the
@@ -182,7 +187,7 @@ class EngineConfig:
     pipeline_depth: int = 0
     fuse_fc: bool = False
     window_ms: float = 300.0
-    mesh: Optional[Any] = None             # refused: not ported yet
+    mesh: Optional[Any] = None             # a distributed.Mesh
     recovery: Optional["RecoveryConfig"] = None
     coschedule: bool = True
     megastep: bool = False
@@ -227,8 +232,9 @@ class FleetConfig:
         counts as idle; ``shrink_patience`` consecutive idle observations
         trigger a shrink. Shrink patience should exceed grow patience so
         capacity is easy to gain and slow to give back.
-      * ``min_slots`` / ``max_slots`` -- hard slot-count bounds (the
-        port has no mesh, so no divisibility rule applies).
+      * ``min_slots`` / ``max_slots`` -- hard slot-count bounds. On a
+        sharded engine ``min_slots`` must divide over the mesh's slot
+        axis, so that every doubling and halving stays divisible.
       * ``scale_step`` -- multiplicative resize factor (2 doubles/halves,
         keeping the population of per-``shape_key`` CUDA graphs
         logarithmic in the slot range).

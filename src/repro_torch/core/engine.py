@@ -29,8 +29,10 @@ from repro_torch.core._api import EngineConfig
 from repro_torch.core.energy import KrakenModel
 from repro_torch.core.graphs import GraphCache
 from repro_torch.core.pipeline import (PWM_CHANNELS, ClosedLoopResult,
-                                       _refuse_unported, export_state_slot,
-                                       import_state_slot, pwm_from_logits)
+                                       _host_rows, _Shard, _SlotSharding,
+                                       export_state_slot, import_state_slot,
+                                       pwm_from_logits)
+from repro_torch.distributed.mesh import Mesh
 from repro_torch.core.tcn import (TCN_LAYERS, TCNConfig, pack_tcn, tcn_apply,
                                   tcn_layer_macs)
 
@@ -71,7 +73,7 @@ class InferenceEngine(Protocol):
         ...
 
 
-class FrameTCNEngine:
+class FrameTCNEngine(_SlotSharding):
     """The CUTIE wing: frame batch -> ternary CNN -> actuation.
 
     One call normalizes and classifies a whole
@@ -87,11 +89,17 @@ class FrameTCNEngine:
     On the card each shape key's step is one captured CUDA graph, as on
     the event wing. ``infer_dispatch`` only queues work on the device's
     current stream; ``infer_collect`` is the one point that waits (one
-    device-to-host copy). Slot sharding over several GPUs (``mesh``) is
-    not ported yet.
+    device-to-host copy, one a shard on a mesh).
+
+    With ``mesh`` the slots are sharded over the mesh's slot axis, as on
+    the event wing (:meth:`attach_mesh`): each shard classifies its rows
+    with its own copy of the packed weights, its own graphs and staging
+    buffers, on its own device (``device=None`` then means the mesh's
+    first device).
     """
 
     modality = "frame"
+    _WEIGHTS = "packed"
 
     def __init__(
         self,
@@ -103,12 +111,10 @@ class FrameTCNEngine:
         window_ms: float = 300.0,
         prepacked: bool = False,
         device=None,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FrameTCNEngine(mesh=...): slot sharding over several GPUs "
-                "is not ported yet (ROADMAP queue 1, item 11)")
+        if device is None and isinstance(mesh, Mesh):
+            device = mesh.device_list[0]
         self.device = resolve_device(device)
         packed = params if prepacked else pack_tcn(params)
         self.packed = {name: {k: v.to(self.device) for k, v in layer.items()}
@@ -120,6 +126,8 @@ class FrameTCNEngine:
         self.layer_macs = tcn_layer_macs(cfg)
         self.total_macs = float(sum(self.layer_macs))
         self._graphs = GraphCache(self.device)
+        if mesh is not None:
+            self.attach_mesh(mesh)
 
     @classmethod
     def from_config(cls, params, cfg: TCNConfig, config: EngineConfig, *,
@@ -127,11 +135,11 @@ class FrameTCNEngine:
                     prepacked: bool = False, device=None):
         """Construct from the :class:`EngineConfig` surface. ``fuse_fc``
         and the serving-layer fields do not apply to the frame wing;
-        ``mesh`` is refused."""
-        _refuse_unported(config)
+        ``mesh`` shards the slots."""
         return cls(params, cfg, model=model, prepacked=prepacked,
                    duration_us=config.duration_us,
-                   window_ms=config.window_ms, device=device)
+                   window_ms=config.window_ms, device=device,
+                   mesh=config.mesh)
 
     # -- InferenceEngine protocol ----------------------------------------
 
@@ -162,11 +170,11 @@ class FrameTCNEngine:
         nothing)."""
         return {}
 
-    def _run(self, pixels: torch.Tensor) -> torch.Tensor:
+    def _run(self, pixels: torch.Tensor, packed) -> torch.Tensor:
         """Normalize + classify + readout on the device. Returns one packed
         (B, 1 + channels + classes + 4) f32 tensor: prediction, PWM,
         logits, per-layer operand activity."""
-        out = tcn_apply(self.packed, fr.normalize_frames(pixels), self.cfg)
+        out = tcn_apply(packed, fr.normalize_frames(pixels), self.cfg)
         logits = out["logits"]
         act = out["activity_per_stream"]
         return torch.cat([
@@ -175,22 +183,29 @@ class FrameTCNEngine:
             torch.stack([act[k] for k in TCN_LAYERS], 1),
         ], dim=1)
 
-    def _build_run(self, key=None) -> Callable:
+    def _build_run(self, key=None, shard: Optional[_Shard] = None
+                   ) -> Callable:
         """The step of a frame batch: ``run((pixels,))`` -> ``(packed,)``.
         The same function is captured on the card and called on the
-        CPU."""
+        CPU; given a shard, it runs with the shard's weights."""
+        packed = self.packed if shard is None else shard.weights
 
         def run(args):
             with torch.no_grad():
-                return (self._run(args[0]),)
+                return (self._run(args[0], packed),)
 
         return run
 
-    def _forward(self, key, args) -> tuple:
-        """One step's outputs: a replay of the key's graph on the card,
-        the run function itself on the CPU."""
-        step = self._graphs.get(key, lambda: self._mega_parts(key))
-        return self._build_run(key)(args) if step is None else step(args)
+    def _inputs(self, key, shard: Optional[_Shard] = None):
+        """A fresh static (B, H, W, 1) f32 pixel buffer for capture: the
+        whole batch's on the engine's device, or a shard's rows on its
+        device."""
+        b, h, w = int(key[0]), int(key[1]), int(key[2])
+        if shard is not None:
+            b //= len(self._shards)
+        device = self.device if shard is None else shard.device
+        return (torch.zeros((b, h, w, 1), dtype=torch.float32,
+                            device=device),)
 
     def warmup(self, shape_keys) -> None:
         """Prepare each ``(batch_size, height, width[, duration_us])`` key
@@ -217,36 +232,31 @@ class FrameTCNEngine:
                 raise ValueError(
                     f"shape key geometry {key[1:3]} != engine geometry "
                     f"({self.cfg.height}, {self.cfg.width})")
-            self._graphs.get(key, lambda: self._mega_parts(key))
-
-    def compiled_shape_keys(self) -> set:
-        """Shape keys with a captured graph on the card (warmed or
-        served); on the CPU, the keys warmed or served."""
-        return self._graphs.keys()
+            self._prepare(key)
 
     # -- cross-wing megastep adapters ------------------------------------
     # Counterparts of BatchedClosedLoop's: the serving layer's fused
-    # megastep captures this wing's run next to the event wing's in one
-    # CUDA graph (see EngineConfig.megastep).
-
-    def _mega_parts(self, key):
-        """``(run, inputs)`` for a shape key: the run function and a fresh
-        static (B, H, W, 1) f32 pixel buffer on the device, for capture."""
-        b, h, w = int(key[0]), int(key[1]), int(key[2])
-        pixels = torch.zeros((b, h, w, 1), dtype=torch.float32,
-                             device=self.device)
-        return self._build_run(key), (pixels,)
+    # megastep captures this wing's run (``_mega_parts``) next to the
+    # event wing's in one CUDA graph (see EngineConfig.megastep).
 
     def _mega_args(self, batch: fr.PaddedFrameBatch, state):
         """The concrete arguments matching :meth:`_mega_parts` (in a
         pinned staging buffer of the key on the card); the CUTIE wing
         carries no state, so ``state`` is ignored."""
-        if self.device.type != "cuda":
-            return (torch.from_numpy(batch.pixels),)
-        pixels = self._graphs.staging(self.shape_key(batch),
-                                      batch.pixels.shape, torch.float32)
-        pixels.numpy()[...] = batch.pixels
-        return (pixels,)
+        return self._pixels(batch, slice(None), self._graphs, self.device)
+
+    def _pixels(self, batch: fr.PaddedFrameBatch, rows: slice,
+                graphs: GraphCache, device: torch.device) -> tuple:
+        """``(pixels,)`` of slots ``rows``: on the card in the next pinned
+        staging buffer of the key in ``graphs``, on the CPU the batch's
+        own array."""
+        pixels = batch.pixels[rows]
+        if device.type != "cuda":
+            return (torch.from_numpy(pixels),)
+        staged = graphs.staging(self.shape_key(batch), pixels.shape,
+                                torch.float32)
+        staged.numpy()[...] = pixels
+        return (staged,)
 
     def _mega_split(self, out, batch: fr.PaddedFrameBatch, state):
         """Split a step's outputs into the ``(pending, state)`` pair
@@ -262,16 +272,22 @@ class FrameTCNEngine:
         key's graph is replayed (captured first if the key was not
         warmed).
         """
-        out = self._forward(self.shape_key(batch),
-                            self._mega_args(batch, state))
-        pending, state = self._mega_split(out, batch, state)
+        key = self.shape_key(batch)
+        if self.mesh is None:
+            out = self._call(key, self._mega_args(batch, state))
+            pending, state = self._mega_split(out, batch, state)
+            return pending if state is None else (pending, state)
+
+        pending = (batch, [o[0] for o in self._sharded_call(
+            key, lambda sh, rows: self._pixels(batch, rows, sh.graphs,
+                                               sh.device))])
         return pending if state is None else (pending, state)
 
     def infer_collect(self, pending) -> List[Optional[ClosedLoopResult]]:
         """Fetch a dispatched batch's outputs and account each slot (the
-        one device-to-host copy)."""
+        one device-to-host copy; on a mesh one a shard, in slot order)."""
         batch, packed = pending
-        arr = packed.cpu().numpy()
+        arr = _host_rows(packed)
         c = self.cfg.num_classes
         preds = arr[:, 0].astype(np.int32)
         pwm = arr[:, 1:1 + PWM_CHANNELS]

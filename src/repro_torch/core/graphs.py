@@ -115,10 +115,10 @@ class CapturedStep:
 
 
 def capture(run: Callable, inputs, pool=None) -> CapturedStep:
-    """Capture ``run(inputs)`` in a CUDA graph, after one eager call on a
-    side stream that builds the kernels, sets their attributes and lets
-    cuDNN pick its algorithms outside the capture. A failure raises: there
-    is no eager path behind a capture.
+    """Capture ``run(inputs)`` in a CUDA graph on the current device,
+    after one eager call on a side stream that builds the kernels, sets
+    their attributes and lets cuDNN pick its algorithms outside the
+    capture. A failure raises: there is no eager path behind a capture.
 
     The garbage collector is held off for the capture. A dead engine is
     cyclic garbage (its stream handles point back at it) that only a
@@ -139,10 +139,16 @@ def capture(run: Callable, inputs, pool=None) -> CapturedStep:
     reserved = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
+    # The capture stream is the current device's own: torch.cuda.graph's
+    # default is one process-wide stream made on whichever device was
+    # current at the first capture, and a shard's step of another device
+    # captured on it failed to capture or replayed wrong rows (four
+    # H100s).
+    stream = torch.cuda.Stream()
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, pool=pool):
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
             outputs = run(inputs)
             leaves = _leaves(outputs)
             if len({t.dtype for t in leaves}) != 1:
@@ -161,7 +167,10 @@ def capture(run: Callable, inputs, pool=None) -> CapturedStep:
 
 class GraphCache:
     """One :class:`CapturedStep` per key on a CUDA ``device``; on the CPU,
-    only the keys.
+    only the keys. A mesh-attached engine keeps one cache per shard (two
+    shards on one device still have two caches, pools and sets of staging
+    buffers); a capture or a staging buffer's turn runs with the cache's
+    device current, and a replay is the caller's to run there.
 
     The graphs of one cache share one memory pool, so an engine that sees
     several event-count buckets holds one step's intermediates, not one
@@ -193,9 +202,10 @@ class GraphCache:
             return None
         step = self.steps.get(key)
         if step is None:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            step = self.steps[key] = capture(*parts(), pool=self._pool)
+            with torch.cuda.device(self.device):
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                step = self.steps[key] = capture(*parts(), pool=self._pool)
         return step
 
     def staging(self, key: Hashable, shape: Tuple[int, ...],
@@ -205,7 +215,8 @@ class GraphCache:
         stage = self._staging.get(key)
         if stage is None:
             stage = self._staging[key] = HostStaging(shape, dtype)
-        return stage.next()
+        with torch.cuda.device(self.device):
+            return stage.next()
 
 
 class HostStaging:

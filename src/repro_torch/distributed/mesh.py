@@ -2,11 +2,14 @@
 ``repro.distributed.mesh``).
 
 A :class:`Mesh` is a value: axis names, their sizes, and the devices laid
-out over them. It places nothing: the sharding rules
-(:mod:`repro_torch.distributed.sharding`) read only its ``axis_names``
-and ``devices.shape``, and the dry run (``launch.dryrun``) divides each
-tensor's bytes by the axis sizes of its spec. Binding specs to devices is
-the multi-GPU runtime, which the port does not have yet.
+out over them. It places nothing itself: the sharding rules
+(:mod:`repro_torch.distributed.sharding`) read its ``axis_names`` and
+``devices.shape``, the dry run (``launch.dryrun``) divides each tensor's
+bytes by the axis sizes of its spec, and ``sharding.place`` puts each
+block on its position's device. A device may appear at several positions
+(``devices=[torch.device("cuda", 0)] * 4``): a logical mesh, whose
+positions still hold one block each (the serving engines run one shard
+a position there).
 
 ``make_mesh()`` takes every visible CUDA device on one ``("data",)``
 axis, the axis the serving engines' slot dimension goes over (see

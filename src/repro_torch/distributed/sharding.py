@@ -18,12 +18,22 @@ A spec is a plain tuple with one entry per dim: ``None`` (replicated),
 an axis name, or a tuple of two or more axis names -- what
 ``tuple(PartitionSpec(...))`` gives in JAX (:func:`spec`), so the rules
 here equal the JAX package's entry for entry. The rules are pure functions of shapes and a mesh's
-``axis_names``/``devices.shape``. Binding specs to devices
-(``shardings``, ``slot_shardings``) is the multi-GPU runtime, which waits
-for ROADMAP item 7.
+``axis_names``/``devices.shape``.
+
+Binding a spec to devices: :class:`NamedSharding` is a frozen ``(mesh,
+spec)`` value (``shardings``/``slot_shardings`` map spec trees to them),
+whose ``devices_indices_map`` says which block of a global shape each
+mesh position holds, as JAX's does. :func:`place` (``jax.device_put``)
+cuts a tree of tensors into :class:`ShardedTensor` leaves, one block per
+mesh position on that position's device, and :func:`gather` puts them
+back together. A mesh may name one device several times (a logical mesh,
+the counterpart of XLA's forced host devices): each position still holds
+its own block.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,7 +47,8 @@ from repro_torch.models.params import ParamDef, tree_map, tree_num_params
 __all__ = [
     "param_pspecs", "batch_pspecs", "cache_pspecs",
     "batch_axes", "opt_pspecs", "resolve_spec", "spec",
-    "slot_pspec", "slot_state_pspecs",
+    "slot_pspec", "slot_state_pspecs", "NamedSharding", "ShardedTensor",
+    "shardings", "slot_shardings", "place", "gather",
 ]
 
 Spec = Tuple[Any, ...]
@@ -254,6 +265,223 @@ def _state_spec(shape, b, mesh) -> Spec:
 
 
 # ----------------------------------------------------------------------
+# Placement: specs bound to a mesh's devices.
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec bound to a mesh (JAX's ``NamedSharding``): dim ``i`` of a
+    tensor is split over the mesh axes of ``spec[i]`` (None: whole on
+    every device; several axes: the first is the major one), dims past
+    the spec are whole."""
+    mesh: Mesh
+    spec: Spec
+
+    def devices_indices_map(self, shape: Sequence[int]
+                            ) -> Dict[int, Tuple[slice, ...]]:
+        """The block of a ``shape`` tensor each mesh position holds, keyed
+        by the position in ``mesh.device_list`` (a logical mesh names one
+        device at several positions): JAX's ``devices_indices_map``, with
+        positions for devices. Raises when a split dim does not divide."""
+        return dict(enumerate(_indices(self, tuple(int(d) for d in shape))))
+
+
+@functools.lru_cache(maxsize=None)
+def _indices(sharding: NamedSharding, shape: Tuple[int, ...]
+             ) -> Tuple[Tuple[slice, ...], ...]:
+    mesh, spec = sharding.mesh, tuple(sharding.spec)
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than the "
+                         f"{len(shape)} dims of {shape}")
+    spec = spec + (None,) * (len(shape) - len(spec))
+    sizes = mesh.shape
+    coords = np.indices(mesh.axis_sizes).reshape(len(sizes), -1).T
+    out = []
+    for coord in coords:
+        at = dict(zip(mesh.axis_names, coord.tolist()))
+        idx = []
+        for dim, entry in zip(shape, spec):
+            if entry is None:
+                idx.append(slice(None))
+                continue
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            unknown = [a for a in axes if a not in sizes]
+            if unknown:
+                raise ValueError(f"spec {sharding.spec} names axes "
+                                 f"{unknown} the mesh {mesh.axis_names} "
+                                 f"lacks")
+            parts, block = 1, 0
+            for a in axes:
+                block, parts = block * sizes[a] + at[a], parts * sizes[a]
+            if dim % parts:
+                raise ValueError(
+                    f"dim of size {dim} does not divide over mesh axes "
+                    f"{axes} ({parts} blocks); spec {sharding.spec}")
+            step = dim // parts
+            idx.append(slice(block * step, (block + 1) * step))
+        out.append(tuple(idx))
+    return tuple(out)
+
+
+def shardings(mesh: Mesh, spec_tree: Any) -> Any:
+    """Spec tree -> :class:`NamedSharding` tree (None stays None)."""
+    return pytree.tree_map(
+        lambda s: None if s is None else NamedSharding(mesh, s), spec_tree,
+        is_leaf=lambda x: x is None or isinstance(x, tuple))
+
+
+class ShardedTensor:
+    """A global tensor held as one block per mesh position: ``blocks[p]``
+    is the block ``sharding.devices_indices_map(shape)[p]`` on
+    ``sharding.mesh.device_list[p]`` (the port's counterpart of a placed
+    ``jax.Array``). Positions that hold the same block on the same device
+    share one tensor. Never written in place: :meth:`with_row` returns a
+    new value."""
+
+    __slots__ = ("sharding", "shape", "blocks")
+
+    def __init__(self, sharding: NamedSharding, shape: Sequence[int],
+                 blocks: Sequence[torch.Tensor]):
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+        self.blocks = tuple(blocks)
+        if len(self.blocks) != sharding.mesh.size:
+            raise ValueError(f"{len(self.blocks)} blocks for a mesh of "
+                             f"{sharding.mesh.size} devices")
+
+    @classmethod
+    def build(cls, sharding: NamedSharding, shape: Sequence[int], make
+              ) -> "ShardedTensor":
+        """Each position's block from ``make(index, device)``, made once
+        per distinct (index, device)."""
+        made: Dict[tuple, torch.Tensor] = {}
+        blocks = []
+        for idx, dev in zip(_indices(sharding, tuple(shape)),
+                            sharding.mesh.device_list):
+            key = (tuple((s.start, s.stop) for s in idx), str(dev))
+            if key not in made:
+                made[key] = make(idx, dev)
+            blocks.append(made[key])
+        return cls(sharding, shape, blocks)
+
+    @classmethod
+    def from_rows(cls, rows: Sequence[torch.Tensor],
+                  sharding: NamedSharding) -> "ShardedTensor":
+        """Stack slot rows (each a tensor on any device) straight into the
+        blocks of a slot-major ``sharding``: each block takes its rows to
+        its device, so no global tensor is made."""
+        shape = (len(rows), *rows[0].shape)
+        _check_slot_major(sharding, shape)
+        return cls.build(sharding, shape, lambda idx, dev: torch.stack(
+            [r.to(dev) for r in rows[idx[0]]]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def device(self) -> torch.device:
+        """The device of position 0."""
+        return self.blocks[0].device
+
+    def _row(self, i: int) -> int:
+        """``i`` as a row index of a slot-major tensor, in range."""
+        _check_slot_major(self.sharding, self.shape)
+        if not -self.shape[0] <= i < self.shape[0]:
+            raise IndexError(f"row {i} of {self.shape[0]}")
+        return i % self.shape[0]
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        """Row ``i`` (a view of the first block holding it, on that
+        block's device)."""
+        if not isinstance(i, int):
+            raise TypeError("a ShardedTensor is indexed by one slot row")
+        i = self._row(i)
+        for b, idx in zip(self.blocks,
+                          _indices(self.sharding, tuple(self.shape))):
+            lo, hi, _ = idx[0].indices(self.shape[0])
+            if lo <= i < hi:
+                return b[i - lo]
+        raise AssertionError("no block holds the row")
+
+    def with_row(self, i: int, value) -> "ShardedTensor":
+        """A new value equal to this one with row ``i`` set to ``value`` on
+        every position that holds it; the other blocks are shared."""
+        i = self._row(i)
+        new: Dict[int, torch.Tensor] = {}
+        blocks = []
+        for b, idx in zip(self.blocks,
+                          _indices(self.sharding, tuple(self.shape))):
+            lo, hi, _ = idx[0].indices(self.shape[0])
+            if lo <= i < hi:
+                if id(b) not in new:
+                    c = b.clone()
+                    c[i - lo] = torch.as_tensor(value, dtype=c.dtype,
+                                                device=c.device)
+                    new[id(b)] = c
+                b = new[id(b)]
+            blocks.append(b)
+        return ShardedTensor(self.sharding, self.shape, blocks)
+
+    def gather(self, device="cpu") -> torch.Tensor:
+        """The global tensor on ``device``."""
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        for b, idx in zip(self.blocks,
+                          _indices(self.sharding, tuple(self.shape))):
+            out[idx] = b.to(device)
+        return out
+
+    def __repr__(self):
+        return (f"ShardedTensor(shape={tuple(self.shape)}, dtype="
+                f"{self.dtype}, spec={self.sharding.spec}, mesh="
+                f"{dict(self.sharding.mesh.shape)})")
+
+
+def _check_slot_major(sharding: NamedSharding, shape) -> None:
+    if any(e is not None for e in tuple(sharding.spec)[1:len(shape)]):
+        raise ValueError(f"rows of a {sharding.spec} tensor span blocks; "
+                         f"only slot-major specs have whole rows")
+
+
+def _place_leaf(a, s: Optional[NamedSharding]):
+    if a is None or s is None:
+        return a
+    if isinstance(a, ShardedTensor):
+        if a.sharding == s:
+            return a
+        a = a.gather(a.device)
+    elif not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.asarray(a))
+    return ShardedTensor.build(
+        s, a.shape, lambda idx, dev: a[idx].to(dev).contiguous())
+
+
+def place(tree: Any, shardings_: Any) -> Any:
+    """``jax.device_put(tree, shardings)``: every tensor (or numpy array)
+    leaf cut into a :class:`ShardedTensor` by its :class:`NamedSharding`
+    (one sharding for every leaf, or a tree of them). A leaf already
+    placed with its sharding is returned as it is (no copy); one placed
+    otherwise is gathered and placed anew. A block on its source's device
+    is a view of the source."""
+    if isinstance(shardings_, NamedSharding):
+        return pytree.tree_map(lambda a: _place_leaf(a, shardings_), tree)
+    return pytree.tree_map(_place_leaf, tree, shardings_)
+
+
+def gather(tree: Any, device="cpu") -> Any:
+    """The inverse of :func:`place`: every :class:`ShardedTensor` leaf as
+    one tensor on ``device`` (the host by default); other leaves as they
+    are."""
+    return pytree.tree_map(
+        lambda a: a.gather(device) if isinstance(a, ShardedTensor) else a,
+        tree)
+
+
+# ----------------------------------------------------------------------
 # Slot-axis rules: the serving engines' state/batch pytrees.
 #
 # The streaming engines keep everything per-stream slot-major: batch
@@ -280,8 +508,17 @@ def slot_state_pspecs(state: Any, mesh: Optional[Mesh] = None,
     """Spec tree for a slot-major carried-state pytree (every leaf is
     ``(B, ...)``; see ``InferenceEngine.init_state``)."""
     def ndim(a) -> int:
-        return a.ndim if isinstance(a, torch.Tensor) else int(np.ndim(a))
+        if isinstance(a, (torch.Tensor, ShardedTensor)):
+            return a.ndim
+        return int(np.ndim(a))
     # A None leaf is an empty subtree, as in jax.tree.map.
     return pytree.tree_map(
         lambda a: None if a is None else slot_pspec(ndim(a), mesh, axis),
         state)
+
+
+def slot_shardings(mesh: Mesh, state: Any,
+                   axis: Optional[str] = None) -> Any:
+    """:class:`NamedSharding` tree for a slot-major state pytree on
+    ``mesh``."""
+    return shardings(mesh, slot_state_pspecs(state, mesh, axis))

@@ -20,8 +20,10 @@ mid-serve; a slot count visited before keeps its graph, and with
 ``scale_step=2`` the slot counts visited over the whole ``[min_slots,
 max_slots]`` range stay logarithmic, bounding the graph population.
 
-The port has no device mesh (ROADMAP item 11), so the reference's rule
-on ``min_slots`` and the mesh's slot axis does not arise.
+With a device mesh attached (``EngineConfig.mesh``), ``min_slots`` must
+divide over the mesh's slot axis: doubling and halving then keep every
+slot count divisible and ``resize_lane``'s mesh check never fires. The
+autoscaler checks it at construction.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 from repro_torch.core._api import FleetConfig
+from repro_torch.distributed.mesh import slot_axis
 
 __all__ = ["LaneAutoscaler", "ScaleDecision"]
 
@@ -67,6 +70,15 @@ class LaneAutoscaler:
         self.engine = engine
         self.modality = modality
         self.config = config if config is not None else FleetConfig()
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None:
+            ax = slot_axis(mesh)
+            if self.config.min_slots % mesh.shape[ax]:
+                raise ValueError(
+                    f"min_slots={self.config.min_slots} does not divide "
+                    f"over the mesh slot axis '{ax}' ({mesh.shape[ax]} "
+                    f"devices); doubling and halving would reach "
+                    f"indivisible slot counts")
         self._grow_streak = 0
         self._shrink_streak = 0
         self.decisions = []          # every non-hold decision, in order

@@ -10,7 +10,9 @@ Examples:
 The flags are the JAX package's launcher's, plus ``--device`` (the card
 unless given ``cpu``). Without ``--smoke`` the config is the published
 one at full width and depth: run it on the card only. ``--mesh`` is
-refused: the port has no mesh (ROADMAP item 11). The task is
+refused: the port trains on one device (training over a mesh, FSDP/TP
+with collectives, is the part of ROADMAP item 11 still to port; serving
+shards its slots, ``EngineConfig.mesh``). The task is
 ``data.token_batch``'s ``"repeat"``; the enc-dec's encoder frames are
 drawn from a ``torch.Generator`` seeded with the step, so they differ
 from the JAX launcher's (``jax.random.normal``) while the tokens agree.
@@ -37,7 +39,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--mesh", default=None,
-                    help="refused: the port has no mesh (ROADMAP item 11)")
+                    help="refused: the port trains on one device "
+                         "(ROADMAP item 11)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--grad-compression", type=float, default=None)
     ap.add_argument("--remat", action="store_true")
@@ -46,8 +49,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the port has no mesh; multi-GPU "
-            f"training waits for ROADMAP item 11")
+            f"--mesh {args.mesh}: the port trains on one device; "
+            f"training over a mesh waits for ROADMAP item 11")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)

@@ -20,11 +20,11 @@ Stateful streams carry the engine's state (the event wing's LIF
 membranes; the frame wing carries nothing) from window to window. The
 lane keeps a slot-major dict of device tensors beside its slots; state
 follows the STREAM, not the slot: when a stream moves, its row is
-gathered along (``torch.stack`` per layer); when it loses its slot the
-row is parked; a slot admitting a new stream starts from zero. No state
-tensor is ever written in place: a dispatch reads the lane's state and
-returns new tensors, so a row kept aside (parked, checkpointed, or held
-for a rollback) keeps its value.
+gathered along (``torch.stack`` per layer, per block on a mesh); when
+it loses its slot the row is parked; a slot admitting a new stream
+starts from zero. No state tensor is ever written in place: a dispatch
+reads the lane's state and returns new tensors, so a row kept aside
+(parked, checkpointed, or held for a rollback) keeps its value.
 
 Checkpoints. ``StreamHandle.checkpoint()`` captures a stream as a host
 :class:`~repro_torch.serving.session.StreamCheckpoint` (its carry as
@@ -91,8 +91,16 @@ Legacy forms. As in the JAX package, the pre-config construction kwargs
 opening it; ``submit`` warns once per engine. ``handle(stream_id)`` and
 ``has_stream`` are the id lookups the fleet's rebalancer uses.
 
-Not ported: the mesh (``EngineConfig.mesh`` is refused at construction;
-ROADMAP item 11).
+Slot sharding. ``EngineConfig.mesh`` (a :class:`~repro_torch.
+distributed.mesh.Mesh` from ``make_mesh``) shards every lane's slot axis
+over the mesh's slot axis: each engine runs a step as one shard per block
+of slots, each on its own device (see ``core/pipeline.py``), bit for bit
+the unsharded engine's rows. Slot gathers, parking and reassignment stay
+row splices as on one device; a sharded lane's state planes are
+:class:`~repro_torch.distributed.sharding.ShardedTensor` values, and a
+gather builds each block on its own device. Every lane's slot count must
+divide over the mesh's slot axis; exported carries are host numpy, so a
+checkpoint crosses device counts.
 """
 from __future__ import annotations
 
@@ -112,9 +120,10 @@ from repro_torch.core.energy import KrakenModel
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.graphs import GraphCache
 from repro_torch.core.pipeline import (BatchedClosedLoop, ClosedLoopResult,
-                                       _refuse_unported, export_state_slot,
-                                       import_state_slot)
+                                       _check_slot_divisible,
+                                       export_state_slot, import_state_slot)
 from repro_torch.core.snn import SNNConfig
+from repro_torch.distributed.sharding import ShardedTensor
 
 __all__ = ["StreamResult", "StreamStats", "StreamStatsSnapshot",
            "LaneTelemetry", "DeadLetter", "EngineLane", "SlotPolicy",
@@ -529,6 +538,24 @@ class DeadlinePolicy(FairQuantumPolicy):
         self._waited.pop(stream_id, None)
 
 
+def _stack_rows(rows: List[torch.Tensor], like):
+    """Per-slot rows stacked into a new slot-major plane laid out as
+    ``like``: a sharded plane's blocks are each stacked on their own
+    device, from rows that may sit on any device."""
+    if isinstance(like, ShardedTensor):
+        return ShardedTensor.from_rows(rows, like.sharding)
+    return torch.stack(rows)
+
+
+def _engine_devices(engine) -> tuple:
+    """The devices an engine runs on (every shard's on a mesh)."""
+    devices = getattr(engine, "devices", None)
+    if devices is not None:
+        return tuple(devices)
+    device = getattr(engine, "device", None)
+    return () if device is None else (torch.device(device),)
+
+
 def _export_carry(engine: InferenceEngine, state, slot: int):
     """One slot's carry as host numpy arrays, through the engine's
     ``export_state`` (a device-to-host copy that waits for the device)."""
@@ -805,9 +832,12 @@ class StreamEngine:
     engine; with ``config=`` they raise ``ValueError``. ``device=`` and
     ``model=`` go with either form.
 
-    Everything of the JAX package's ``StreamEngine`` is ported but the
-    mesh: ``EngineConfig.mesh`` is the one field that raises
-    ``NotImplementedError``.
+    ``config.mesh`` shards every lane's slot axis over the mesh (see the
+    module docstring): the built event engine is built on it, and
+    caller-provided engines are attached through their ``attach_mesh``
+    (an engine without one, or attached to a different mesh, is
+    refused). Every lane's slot count must divide over the mesh's slot
+    axis.
     """
 
     def __init__(
@@ -853,7 +883,6 @@ class StreamEngine:
                     "StreamEngine(params, cfg, EngineConfig(...)) / "
                     "StreamEngine(engines=..., config=EngineConfig(...))")
             config = EngineConfig(**legacy)
-        _refuse_unported(config)
         if engines is None:
             if params is None or cfg is None:
                 raise ValueError("give (params, cfg) or engines=")
@@ -884,6 +913,9 @@ class StreamEngine:
                     raise ValueError(
                         f"engine {e.modality!r} duration {e.duration_us} != "
                         f"duration_us={config.duration_us}")
+            if config.mesh is not None:
+                for e in engines:
+                    self._attach_mesh(e, config.mesh)
         if not engines:
             raise ValueError("engines= must name at least one engine")
         max_streams = config.max_streams
@@ -895,6 +927,7 @@ class StreamEngine:
                     f"modality (have "
                     f"{sorted(e.modality for e in engines)})")
         self.config = config
+        self.mesh = config.mesh
         self.pipeline_depth = config.pipeline_depth
         self.recovery: Optional[RecoveryConfig] = config.recovery
         # Every recovery transition, in order: {"step", "kind": "retry" |
@@ -914,6 +947,9 @@ class StreamEngine:
                      if isinstance(max_streams, Mapping) else max_streams)
             if slots < 1:
                 raise ValueError(f"max_streams must be >= 1, got {slots}")
+            if self.mesh is not None:
+                _check_slot_divisible(slots, self.mesh,
+                                      f"lane '{e.modality}'")
             self._lanes[e.modality] = EngineLane(
                 modality=e.modality, engine=e,
                 slots=[_FREE] * slots, slot_runs=[0] * slots,
@@ -945,6 +981,11 @@ class StreamEngine:
                         f"engine for modality {lane.modality!r} "
                         f"({type(lane.engine).__name__}) does not "
                         f"support the fused megastep")
+                if getattr(lane.engine, "mesh", None) is not None:
+                    raise ValueError(
+                        f"engine for modality {lane.modality!r} is "
+                        f"attached to a mesh; the fused megastep is "
+                        f"single-device")
             devices = {str(lane.engine.device)
                        for lane in self._lanes.values()}
             if len(devices) != 1:
@@ -966,6 +1007,18 @@ class StreamEngine:
         # (policies order by deadline value only); a fleet control plane
         # or a test may install a logical clock.
         self.deadline_clock: Callable[[], float] = time.perf_counter
+
+    @staticmethod
+    def _attach_mesh(engine: InferenceEngine, mesh) -> None:
+        """Thread the serving mesh onto an engine: ``attach_mesh`` is a
+        no-op for the same mesh and refuses a different one."""
+        attach = getattr(engine, "attach_mesh", None)
+        if attach is None:
+            raise ValueError(
+                f"engine {engine.modality!r} has no attach_mesh; a sharded "
+                f"StreamEngine needs every lane engine to support "
+                f"slot-axis sharding")
+        attach(mesh)
 
     # -- introspection ---------------------------------------------------
 
@@ -1139,11 +1192,16 @@ class StreamEngine:
         engine's ``warmup`` (on the card, its CUDA graph is captured here),
         so no step after the resize pays for a capture. A key already
         held is not captured again, so grow/shrink cycles between the same
-        counts add no graphs.
+        counts add no graphs. On a sharded engine the new count must still
+        divide over the mesh's slot axis (``ValueError`` otherwise, with
+        the lane untouched).
         """
         lane = self._lane_named(modality)
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        if self.mesh is not None:
+            _check_slot_divisible(slots, self.mesh,
+                                  f"resize of lane '{lane.modality}'")
         old = len(lane.slots)
         if slots == old:
             return []
@@ -1257,10 +1315,12 @@ class StreamEngine:
         modality, agree on the latched ``duration_us`` (an unlatched
         replacement inherits it) and support carried state if the lane
         has stateful streams; under the megastep it must support the fused
-        step on the other wing's device. On the card the old engine's
-        queued device work is waited for, and the megastep's graphs are
-        dropped, so the old engine's graphs and buffers are freed once the
-        caller lets go of it.
+        step on the other wing's device. On a sharded engine the
+        replacement is attached to the serving mesh (``attach_mesh``; one
+        attached to another mesh is refused). On the card the old engine's
+        queued device work is waited for on each of its devices, and the
+        megastep's graphs are dropped, so the old engine's graphs and
+        buffers are freed once the caller lets go of it.
         """
         lane = self._lane_named(modality)
         for step_recs in self._inflight:
@@ -1286,21 +1346,27 @@ class StreamEngine:
                 raise ValueError(
                     f"replacement duration_us={engine.duration_us} != "
                     f"lane duration_us={lane.engine.duration_us}")
+        if self.mesh is not None:
+            self._attach_mesh(engine, self.mesh)
         if self.megastep:
             if not hasattr(engine, "_mega_parts"):
                 raise ValueError(
                     f"replacement engine for lane {lane.modality!r} "
                     f"({type(engine).__name__}) does not support the "
                     f"fused megastep this engine is configured for")
+            if getattr(engine, "mesh", None) is not None:
+                raise ValueError(
+                    "replacement engine is attached to a mesh; the fused "
+                    "megastep is single-device")
             if str(engine.device) != str(self._mega_graphs.device):
                 raise ValueError(
                     f"replacement engine is on {engine.device}; the "
                     f"megastep runs on {self._mega_graphs.device}")
-        old_device = getattr(lane.engine, "device", None)
-        if old_device is not None and torch.device(old_device).type == "cuda":
-            # Aborted records may still be running the old engine's
-            # graphs: let them finish before anything of it is freed.
-            torch.cuda.synchronize(old_device)
+        for old_device in set(_engine_devices(lane.engine)):
+            if old_device.type == "cuda":
+                # Aborted records may still be running the old engine's
+                # graphs: let them finish before anything of it is freed.
+                torch.cuda.synchronize(old_device)
         if self.megastep:
             # The fused graphs were captured from the old engine's run
             # function and buffers; the next fused step captures anew.
@@ -1534,7 +1600,7 @@ class StreamEngine:
                         rows.append(plane[s[1]])
                     else:
                         rows.append(lane.parked[s[1]][name])
-                state_in[name] = torch.stack(rows)
+                state_in[name] = _stack_rows(rows, plane)
 
         old_state = lane.state
         old_owners = list(lane.state_streams)

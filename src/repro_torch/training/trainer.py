@@ -14,8 +14,9 @@
 
 The step is eager: ``Model.loss`` under autograd, ``compress_grads`` when
 configured, then ``adamw_update``. Parameters stay in the model's dtype
-(bf16 for every full config) with f32 moments. There is no mesh:
-``shardings`` is refused (ROADMAP item 11, multi-GPU).
+(bf16 for every full config) with f32 moments. Training runs on one
+device: ``shardings`` is refused (FSDP/TP over a mesh needs collectives,
+the part of ROADMAP item 11 still to port).
 """
 from __future__ import annotations
 
@@ -93,8 +94,8 @@ class Trainer:
                  *, shardings: Any = None, device=None):
         if shardings is not None:
             raise NotImplementedError(
-                "shardings: the port has no mesh; multi-GPU training waits "
-                "for ROADMAP item 11")
+                "shardings: the port trains on one device; training over "
+                "a mesh waits for ROADMAP item 11")
         self.model = model
         self.cfg = cfg
         self.batch_fn = batch_fn

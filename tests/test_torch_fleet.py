@@ -429,8 +429,6 @@ _ROOT_EXCEPTIONS = {
                 "fc_lif_scan_batched", "pack_ternary_weights",
                 "ternary_matmul", "lif_scan_ref", "ternary_matmul_ref",
                 "wkv6_ref", "wkv6_scan_pallas"},
-    # Binding specs to devices is the multi-GPU runtime (ROADMAP item 7).
-    "distributed": {"shardings", "slot_shardings"},
 }
 
 

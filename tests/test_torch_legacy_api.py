@@ -96,7 +96,15 @@ def test_kwargs_keep_device_and_model():
             # No card: the default device is the card, and it raises.
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 s.StreamEngine(s.loop().params, s.cfg, max_streams=2)
-        with pytest.raises(NotImplementedError, match="mesh"):
+        # A mesh now shards the built engine's slots (here a logical mesh
+        # of two CPU shards); anything but a Mesh is refused.
+        from repro_torch.distributed import make_mesh
+        mesh = make_mesh(2, devices=[torch.device("cpu")] * 2)
+        sharded = legacy_engine(s, config=s.EngineConfig(max_streams=2,
+                                                         mesh=mesh))
+        assert sharded.mesh is mesh and sharded.loop.mesh is mesh
+        assert sharded.loop.devices == (torch.device("cpu"),) * 2
+        with pytest.raises(TypeError, match="Mesh"):
             legacy_engine(s, config=s.EngineConfig(mesh=object()))
 
 

@@ -240,15 +240,23 @@ def test_fuse_fc_values_serve_the_same_bits(params, streams, served):
 
 
 def test_unported_config_fields_raise(params):
-    """Only ``mesh`` is still refused. ``recovery`` and ``DeadlinePolicy``
-    build an engine, and a bad policy is refused as the JAX package
-    refuses it."""
+    """No field is refused any more: ``mesh`` shards the slots (a logical
+    mesh of CPU shards here; anything but a ``Mesh`` raises TypeError),
+    ``recovery`` and ``DeadlinePolicy`` build an engine, and a bad policy
+    is refused as the JAX package refuses it."""
     from repro.core._api import EngineConfig as JConfig
     from repro.serving import DeadlinePolicy as JDeadline
 
+    from repro_torch.distributed import ShardedTensor, make_mesh
     from repro_torch.serving import DeadlinePolicy
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    mesh = make_mesh(2, devices=[torch.device("cpu")] * 2)
+    sharded = StreamEngine(params, CFG, EngineConfig(max_streams=4,
+                                                     mesh=mesh))
+    assert sharded.mesh is mesh and sharded.loop.device.type == "cpu"
+    assert all(isinstance(a, ShardedTensor)
+               for a in sharded.loop.init_state(4).values())
+    with pytest.raises(TypeError, match="Mesh"):
         StreamEngine(params, CFG, EngineConfig(mesh=object()), device="cpu")
     eng = StreamEngine(params, CFG, EngineConfig(
         recovery=RecoveryConfig(max_retries=1), policy=DeadlinePolicy()),

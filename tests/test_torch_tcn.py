@@ -207,6 +207,17 @@ def test_frame_engine_protocol(engine, packed):
     res, carry = eng.infer(batch, state)
     assert carry == {} and res[1] is None
     assert res[0].breakdown["stages"]["tcn_inference"]["domain"] == "cutie"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # A mesh shards the slots: a logical mesh of two CPU shards classifies
+    # each half of the batch on its own and gives the same rows.
+    from repro_torch.distributed import make_mesh
+    sharded = FrameTCNEngine(packed, TCN_SMOKE, prepacked=True,
+                             mesh=make_mesh(2, devices=[
+                                 torch.device("cpu")] * 2))
+    sharded.validate(f)
+    assert sharded.devices == (torch.device("cpu"),) * 2
+    rows = sharded.infer(sharded.prepare([f, None], batch_size=2))
+    assert rows[1] is None
+    np.testing.assert_array_equal(rows[0].logits, res[0].logits)
+    with pytest.raises(TypeError, match="Mesh"):
         FrameTCNEngine(packed, TCN_SMOKE, prepacked=True, device="cpu",
                        mesh=object())
