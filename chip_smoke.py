@@ -202,6 +202,18 @@ non-zero:
      layers, bf16: K4 4 launches a step, 8 with remat, the loss falling,
      the WKV backward's share of a step; (f) ``compress_grads`` at 0.05
      on llama3.2-1b's gradients: top-k with ties, exact residuals, ms;
+  12b. LM training over a mesh (``lm_train_sharded``): the one-device
+     references (llama3.2-1b at full width and depth, bf16, B=4, S=1024,
+     remat, 3 steps; rwkv6-7b at full width and 4 layers, B=2, 2 steps),
+     then four ranks (``distributed.runtime.spawn``; four gloo ranks on
+     cuda:0 at (2, 2), or NCCL one rank a card with four cards) train the
+     same through ``Trainer(shardings=...)``, FSDP over data and TP over
+     model: each first step against the one-device step (loss, gradient
+     norm, first moments), K4 launches on every rank (16: 4 layers x 2
+     steps x 2 with remat, on 32 of the 64 heads) and K4 against its
+     plain version on a rank's recorded inputs bit for bit, a SMOKE crash
+     and restart over the mesh bit for bit. Reported: step ms, tokens/s,
+     each rank's peak, collectives and their bytes a step;
   13. the dry run (``dryrun``; ``launch.dryrun``'s fake trace of a step
      held against the same step on the card): llama3.2-1b at full width
      and depth, bf16, B=4, S=1024 with remat, the trace's FLOPs equal to
@@ -324,6 +336,8 @@ def main() -> int:
     tf = timed("transformer", transformer_phase, torch, dev, k3)
     hy = timed("hybrid", hybrid_phase, torch, dev, k3)
     lt = timed("lm_train", lm_train_phase, torch, dev, k4, smi)
+    ls = timed("lm_train_sharded", lm_train_sharded_phase, torch, dev, k4,
+               smi)
     dr = timed("dryrun", dryrun_phase, torch, dev, k3, k4, smi, lm["dryrun"])
     emit("phase_seconds", total=time.perf_counter() - t0, **seconds)
 
@@ -390,8 +404,11 @@ def main() -> int:
              launches=lm["launches"]["wkv6_scan"],
              train_launches=lt["launches"],
              train_grad_rel_err=lt["max_abs_err"],
+             sharded_train_launches=ls["launches"],
+             sharded_train_max_abs_err=ls["max_abs_err"],
              dryrun=dr["wkv6_scan"],
-             max_abs_err=lm["max_abs_err"]["wkv6_scan"],
+             max_abs_err=max(lm["max_abs_err"]["wkv6_scan"],
+                             ls["max_abs_err"]),
              **lm["times"]["wkv6_scan"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3612,6 +3629,12 @@ def train_phase(torch, dev, k1, k2, smi):
 # ----------------------------------------------------------------------
 
 LM_CUT_LAYERS = 2            # depth of the f32 comparison with the CPU
+# Tokens of that comparison, cut to keep chip_smoke inside its limit (the
+# CPU reference took 160.6-166.0 s at B=2, S=64, an 8-token prompt and 8
+# new tokens, 4 + 6 ternary): B=2, S=32 logits, decode stepped over a
+# 4-token prompt, 4 new tokens, 2 + 3 ternary. Widths stay full.
+LM_CUT_SEQ, LM_CUT_PROMPT, LM_CUT_NEW = 32, 4, 4
+LM_CUT_QPROMPT, LM_CUT_QNEW = 2, 3
 # f32 logits (std ~1) on the card against the CPU: cuBLAS and the CPU's
 # BLAS sum the d=4096 and d_ff=14336 products in other orders, and exp
 # rounds differently, so ~1e-5 is expected; 1e-3 leaves room and still
@@ -3754,9 +3777,10 @@ def _greedy_gaps(torch, model, params, prompts, tokens, dev):
 def lm_depth_cut(torch, dev, k3):
     """rwkv6-7b widths at LM_CUT_LAYERS layers in f32, params from a numpy
     seed: the card against the port's CPU run -- Model.apply logits at
-    B=2, S=64, decode stepped over an 8-token prompt, greedy generate
-    (8 new tokens), and the same model ternary-quantized on each device
-    (greedy tokens equal, K3 counted)."""
+    B=2, S=LM_CUT_SEQ, decode stepped over an LM_CUT_PROMPT-token prompt,
+    greedy generate (LM_CUT_NEW new tokens), and the same model
+    ternary-quantized on each device (greedy tokens equal, K3
+    counted)."""
     import dataclasses
     from repro_torch.configs.rwkv6_7b import CONFIG
     from repro_torch.models import build_model
@@ -3769,15 +3793,15 @@ def lm_depth_cut(torch, dev, k3):
     cpu = _lm_params(torch, model, SEED + 11, "cpu")
     gpu = tree_map(lambda x: x.to(dev), cpu)
     rng = np.random.default_rng(SEED + 12)
-    toks = rng.integers(0, cfg.vocab_size, (2, 64))
+    toks = rng.integers(0, cfg.vocab_size, (2, LM_CUT_SEQ))
     lg = model.apply(gpu, {"tokens": torch.from_numpy(toks).to(dev)})[0]
     lc = model.apply(cpu, {"tokens": torch.from_numpy(toks)})[0]
     apply_diff = float((lg.cpu() - lc).abs().max())
     logit_std = float(lc.std())
 
-    prompt = toks[:, :8]
-    cg = model.init_cache(2, 8, device=dev)
-    cc = model.init_cache(2, 8, device="cpu")
+    prompt = toks[:, :LM_CUT_PROMPT]
+    cg = model.init_cache(2, LM_CUT_PROMPT, device=dev)
+    cc = model.init_cache(2, LM_CUT_PROMPT, device="cpu")
     dec_diff = 0.0
     for i in range(prompt.shape[1]):
         t = torch.from_numpy(prompt[:, i:i + 1])
@@ -3786,7 +3810,7 @@ def lm_depth_cut(torch, dev, k3):
         dec_diff = max(dec_diff, float((a.cpu() - b).abs().max()))
     state_diff = float((cg["state"].cpu() - cc["state"]).abs().max())
 
-    sc = ServeConfig(max_new_tokens=8)
+    sc = ServeConfig(max_new_tokens=LM_CUT_NEW)
     tg, _ = generate(model, gpu, prompt, sc, device=dev)
     tc, _ = generate(model, cpu, prompt, sc, device="cpu")
     gap = _greedy_gaps(torch, model, gpu, prompt, tg, dev)
@@ -3800,7 +3824,8 @@ def lm_depth_cut(torch, dev, k3):
               for n in names]
     same_bytes = sum(int((a == b).sum()) for a, b in packed) / sum(
         b.numel() for _, b in packed)
-    qprompt, qsc = prompt[:, :4], ServeConfig(max_new_tokens=6)
+    qprompt = prompt[:, :LM_CUT_QPROMPT]
+    qsc = ServeConfig(max_new_tokens=LM_CUT_QNEW)
     k3.launches = 0
     qtg, _ = generate(model, qg, qprompt, qsc, device=dev)
     torch.cuda.synchronize()
@@ -3809,7 +3834,7 @@ def lm_depth_cut(torch, dev, k3):
     qsteps = qprompt.shape[1] + qsc.max_new_tokens
     out = dict(
         config=f"rwkv6-7b widths, num_layers={LM_CUT_LAYERS}, float32",
-        apply_shape=[2, 64], apply_logits_max_abs_diff=apply_diff,
+        apply_shape=[2, LM_CUT_SEQ], apply_logits_max_abs_diff=apply_diff,
         logits_std=logit_std, decode_logits_max_abs_diff=dec_diff,
         decode_state_max_abs_diff=state_diff,
         greedy_tokens_equal=bool(np.array_equal(tg, tc)),
@@ -5328,6 +5353,8 @@ LT_WKV_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 1e-2}
 # first update is lr g / (|g| + eps), whose ratio moves by dg eps / g^2
 # for a gradient error dg. Elsewhere the update only is bounded, by
 # 2 lr (1 + wd |p|).
+# B=2, S=32 and the enc-dec's 32 frames. The CPU steps are bound by the
+# weights, not the tokens: at S=16 b_vs_cpu took 117.1 s, at S=32 113.5.
 LT_CPU_BATCH, LT_CPU_SEQ, LT_CPU_ENC = 2, 32, 32
 LT_LOSS_RTOL = 1e-5
 LT_GRAD_TOL = 1e-3
@@ -5865,6 +5892,628 @@ def lm_train_phase(torch, dev, k4, smi):
          by_part=seconds, k4_train_launches=launches)
     return {"launches": launches, "max_abs_err": wkv_err, "llama": llama,
             "rwkv": rwkv, "remat": remat, "compression": comp}
+
+
+# ----------------------------------------------------------------------
+# Phase 12b: LM training over a mesh -- Trainer(shardings=...), FSDP over
+# 'data' and TP over 'model', one process a rank (four gloo ranks sharing
+# cuda:0 at (2, 2) on one card; NCCL one rank a card with four cards).
+# ----------------------------------------------------------------------
+
+LS_MESH = (2, 2)
+# llama3.2-1b at full width and depth, bf16, global B=4, S=1024 with remat
+# (four ranks share one card's 80 GB; the one-device step without remat
+# peaked at 53.96 GB); rwkv6-7b at full width
+# and LT_RWKV_LAYERS layers, bf16, B=2, S=1024, remat (K4 twice a layer a
+# step on every rank, at 32 of its 64 heads), with lt_rwkv's params; the
+# crash and restart on SMOKE llama3.2-1b in bf16, B=4, S=1024: at 2 layers
+# of the full widths it took 57 s (two 3.8 GB saves and a restore through
+# four ranks), more than the phase's time. Every run is the "copy_map"
+# task over the whole vocabulary: in "repeat" rows every token of a row
+# is the same, so attention's output is its value whatever the scores,
+# and the q and k projections' gradients are rounding noise.
+LS_STEPS, LS_RWKV_STEPS = 3, 2
+# A collective waiting longer than this fails the phase (a step here
+# takes 7 s at most).
+LS_TIMEOUT_S = 120.0
+# Gates on the sharded steps against the one-device steps (_lt_compare's
+# measures, and the relative L2 of each (layer, head)). In bf16 the
+# sharded step rounds in other places: a row-parallel product's partials
+# are rounded to bf16 before their all-reduce, the data ranks' bf16
+# gradients are summed in bf16 by the reduce-scatter. The loss, a mean
+# over 2,048-4,096 tokens near log(vocab) at init, moves by far less than
+# one rounding (1e-2; the H100 gave 1.8e-5 for llama3.2-1b, 8.1e-5 for
+# rwkv6-7b); the global gradient norm by about one (2e-2; 2.1e-4,
+# 4.2e-4). The first moments ((1 - b1) times the clipped gradient) move
+# by more, and the phase measures how much rounding alone moves them:
+# the one-device first-step gradients in bf16 against the same step in
+# f32 (the noise floor; H100: each leaf 1.1-2.7% in relative L2 in
+# llama3.2-1b, 0.2-17.3% in rwkv6-7b, whose bf16 gradients inside the
+# layers all sit 12-17% from f32 while lm_head's sits at 2%; worst head
+# 3.3% and 17.9%; worst entry 2.8% and 17.9% of its leaf's largest). The
+# sharded step sits at or under that floor (2.8% / 13.3% L2, heads 3.5% /
+# 16.1%, entries 3.1% / 14.0%). A fault in one head on one rank -- rank
+# 0's block of head 0, layer 0 of wq / tm/wr zeroed, which the phase
+# plants in every run -- moves its leaf's L2 to 12.5%, under the rwkv6
+# floor, so the per-leaf gates (0.25 L2, 0.3 of the largest; a missed or
+# doubled reduction moves a leaf by 0.5 or more) cannot see it; the
+# per-head L2 reads 0.71 for it (the head's other half lies on the other
+# data rank) and 1.0 on whole arrays, and is gated at 0.35, about twice
+# the floor and half the fault. The phase fails if the floor passes a
+# gate or the planted fault does not. The f32 CPU tests hold the same
+# code to 1e-5. The bf16 params are not compared: one bf16 ulp of a
+# weight is 0.26 lr at |w| = 0.02 and 26 lr at a norm's 1.0, so a
+# rounding flip alone passes any lr bound.
+LS_LOSS_RTOL, LS_GRAD_NORM_RTOL, LS_M_TOL, LS_M_L2_TOL, LS_M_HEAD_TOL = (
+    1e-2, 2e-2, 0.3, 0.25, 0.35)
+# The leaves' head axes (a "heads_x" axis holds a head every head_dim
+# entries), and the leaf where the phase plants its fault.
+LS_HEAD_AXES = ("heads", "kv_heads", "heads_x")
+LS_PLANT = {"llama": "layers/attn/wq", "rwkv": "layers/tm/wr"}
+
+
+def _ls_full():
+    import dataclasses
+    from repro_torch.configs import get_config
+    llama = get_config("llama3.2-1b")
+    return dict(
+        llama=llama, rwkv=dataclasses.replace(get_config("rwkv6-7b"),
+                                              num_layers=LT_RWKV_LAYERS),
+        restart=dataclasses.replace(get_config("llama3.2-1b", smoke=True),
+                                    dtype="bfloat16"),
+        seq=LT_SEQ, rank_device=None, ckpt_root=os.path.join(ROOT, "checkpoints",
+                               "chip_smoke_lm_train_sharded"))
+
+
+def _ls_trainer(torch, name, full, dev, shardings=None, ckpt_dir="unused",
+                ckpt_every=0, steps=LS_STEPS):
+    """The Trainer of run ``name`` ("llama", "rwkv" or "restart")."""
+    from repro_torch.data import TokenTaskConfig, token_batch
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, Trainer, TrainerConfig
+    rwkv, cfg = name == "rwkv", full[name]
+    tk = TokenTaskConfig(
+        vocab_size=cfg.vocab_size, seq_len=full["seq"],
+        batch_size=LT_RWKV_BATCH if rwkv else LT_BATCH, task="copy_map")
+    tc = TrainerConfig(
+        total_steps=steps, ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,
+        keep_last=2, log_every=1000, remat=True,
+        opt=AdamWConfig(lr=LT_RWKV_LR if rwkv else LT_TRAIN_LR,
+                        warmup_steps=1, total_steps=steps))
+    return Trainer(build_model(cfg), tc,
+                   lambda s: token_batch(tk, s, device=dev),
+                   shardings=shardings, device=dev)
+
+
+def _ls_keep_first(tr, look=None):
+    """Keep the metrics of ``tr``'s first step, and its params and AdamW
+    state, or only ``look(params, opt)``'s result when ``look`` is given
+    (so no copy of the state outlives the step)."""
+    first, step_fn = {}, tr._step_fn
+
+    def keep(*args):
+        out = step_fn(*args)
+        if not first:
+            first["metrics"] = out[3]
+            if look is None:
+                first.update(params=out[0], opt=out[1])
+            else:
+                first["look"] = look(out[0], out[1])
+        return out
+    tr._step_fn = keep
+    return first
+
+
+def _ls_start(torch, params):
+    """A start state of whole params whose AdamW moments are zeros
+    expanded over the params' shapes (no memory: ``run`` cuts each rank's
+    block out of them)."""
+    from repro_torch.models.params import tree_map
+    z = lambda p: torch.zeros((), dtype=torch.float32,
+                              device=p.device).expand(p.shape)
+    return {"params": params,
+            "opt": {"m": tree_map(z, params), "v": tree_map(z, params),
+                    "step": torch.zeros((), dtype=torch.int32,
+                                        device=_leaf0(params).device)},
+            "err": torch.zeros((), device=_leaf0(params).device)}
+
+
+def _peak_reset(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(torch, dev):
+    return (torch.cuda.max_memory_allocated(dev)
+            if torch.device(dev).type == "cuda" else None)
+
+
+def _leaf0(tree):
+    from repro_torch.training.optimizer import tree_leaves
+    return tree_leaves(tree)[0]
+
+
+def _ls_params(torch, name, cfg, dev):
+    """The start params of run ``name``: llama3.2-1b's from a seeded
+    generator, rwkv6-7b's ``_lm_params`` (the ranks draw the same on
+    their devices)."""
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    if name == "rwkv":
+        return _lm_params(torch, model, SEED + 55, dev)
+    return model.init(torch.Generator(device=dev).manual_seed(SEED + 60),
+                      device=dev)
+
+
+def ls_one_device(torch, dev, full):
+    """The one-device references: llama3.2-1b and rwkv6-7b trained by
+    ``Trainer`` on the card; their losses, each rank's blocks of the
+    first-step moments (bf16: 2**-9 of a value, far inside the gates) on
+    the host with each leaf's largest, grad norm, step ms and peak; and
+    the noise
+    floor of the gates: the first step's gradients in bf16 against the
+    same in f32 (a float32 model from the same params and batch), in the
+    measures of ``_ls_compare``."""
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_map
+    from repro_torch.training import adamw_init
+    from repro_torch.training.determinism import deterministic
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.trainer import loss_and_grads
+    out = {}
+    for name in ("llama", "rwkv"):
+        cfg = full[name]
+        params = _ls_params(torch, name, cfg, dev)
+        tr = _ls_trainer(torch, name, full, dev,
+                         steps=LS_RWKV_STEPS if name == "rwkv" else LS_STEPS)
+        first = _ls_keep_first(tr)
+        _peak_reset(torch, dev)
+        res = tr.run(start_state={"params": params,
+                                  "opt": adamw_init(params),
+                                  "err": torch.zeros((), device=dev)})
+        times = [h["time_s"] for h in res["history"][1:]]
+        m1 = first["opt"]["m"]
+        t0 = time.perf_counter()
+        blocks = _ls_rank_blocks(
+            torch, tr.model, tree_map(lambda m: m.to(torch.bfloat16), m1))
+        out[name] = dict(
+            m1=blocks, blocks_s=time.perf_counter() - t0,
+            m1_top=[float(m.abs().max()) for m in tree_leaves(m1)],
+            losses=[h["loss"] for h in res["history"]],
+            grad_norm1=float(first["metrics"]["grad_norm"]),
+            step_ms=statistics.median(times) * 1e3,
+            peak_bytes=_peak(torch, dev))
+        del res, first, m1
+        _free(torch, dev)
+        t0 = time.perf_counter()
+        batch = tr.local_batch(tr.batch_fn(0))
+        f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        with deterministic(all_ops=True):
+            g16 = loss_and_grads(tr.model, params, batch, remat=True)[2]
+            del params
+            g32 = loss_and_grads(
+                f32, tree_map(lambda x: x.float(), _ls_params(
+                    torch, name, cfg, dev)), batch, remat=True)[2]
+        out[name]["floor"] = dict(
+            _ls_compare(torch, None, g16, g32,
+                        [float(g.abs().max()) for g in tree_leaves(g32)],
+                        None, _ls_axes(tr.model.defs()), _ls_head_dim(cfg),
+                        plant=LS_PLANT[name]),
+            seconds=time.perf_counter() - t0)
+        del tr, g16, g32, batch
+        _free(torch, dev)
+    return out
+
+
+def _ls_rank_blocks(torch, model, tree):
+    """Each rank's blocks of ``tree`` (whole params-shaped arrays on the
+    card) over an ``LS_MESH`` mesh, sliced on the card and copied into
+    host tensors in shared memory (which ``spawn`` hands to the ranks
+    without a copy): ``[rank]``."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.runtime import MESH_AXES
+    from repro_torch.training.optimizer import tree_map
+    mesh = Mesh(MESH_AXES, LS_MESH, (torch.device("cpu"),) * 4)
+    specs = SH.param_pspecs(model.defs(), mesh)
+
+    def block(rank):
+        def cut(x, s):
+            b = x[SH.NamedSharding(mesh, s).devices_indices_map(
+                tuple(x.shape))[rank]]
+            return torch.empty(b.shape, dtype=b.dtype).share_memory_() \
+                .copy_(b)
+        return cut
+    return [tree_map(block(r), tree, specs)
+            for r in range(len(mesh.device_list))]
+
+
+def _ls_paths(tree, prefix=""):
+    """The "/"-joined leaf paths of a tree, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _ls_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def _ls_axes(defs):
+    """The logical axes of each leaf of a ``defs()`` tree, in
+    ``tree_leaves``' order."""
+    if isinstance(defs, dict):
+        return [a for k in sorted(defs) for a in _ls_axes(defs[k])]
+    return [tuple(defs.axes)]
+
+
+def _ls_head_dim(cfg):
+    return getattr(cfg, "rwkv_head_dim", None) or cfg.head_dim
+
+
+def _ls_head_axis(axes):
+    """The dim of a leaf's head axis, or None."""
+    return next((i for i, a in enumerate(axes) if a in LS_HEAD_AXES), None)
+
+
+def _ls_head_sums(x, axes, head_dim):
+    """(dim of the head axis, sums of ``x`` per (layer, head), shaped
+    (layers or 1, heads)) for a leaf with a head axis, else (None, None).
+    """
+    h = _ls_head_axis(axes)
+    if h is None:
+        return None, None
+    lay = axes.index("layers") if "layers" in axes else None
+    if axes[h] == "heads_x":
+        x = x.unflatten(h, (-1, head_dim))
+    x = x.movedim(h, 0)[None] if lay is None else x.movedim((lay, h),
+                                                            (0, 1))
+    return h, x.reshape(x.shape[0], x.shape[1], -1).sum(-1)
+
+
+def _ls_reduce(pm, t, op, axes=None):
+    """``t`` reduced in place over ``axes`` (every axis by default) of
+    ``pm`` straight through the process group, so outside the collective
+    tallies; nothing with ``pm`` None."""
+    import torch.distributed as dist
+    for a in (() if pm is None else axes or pm.axis_names):
+        if pm.axis_size(a) > 1:
+            dist.all_reduce(t, op=op, group=pm.group(a))
+
+
+def _ls_compare(torch, pm, got_m, ref_m, tops, specs, axes, head_dim, *,
+                plant):
+    """The first moments ``got_m`` against the one-device ``ref_m`` (this
+    rank's blocks of both over ``pm``, the latter on the host; whole
+    arrays with ``pm`` None), maxed over the mesh: the worst
+    entry as a share of its leaf's largest (``tops``); each leaf's
+    relative L2; and each (layer, head)'s relative L2 in the leaves with a
+    head axis. The same three for the leaf ``plant`` with its first head
+    of layer 0 zeroed on rank 0: a planted fault (one head's gradient
+    dropped), which the gates must see. The reductions stay outside the
+    collective tallies."""
+    import torch.distributed as dist
+    from repro_torch.training.optimizer import spec_leaves, tree_leaves
+    paths = _ls_paths(ref_m)
+    n = len(paths)
+    got = tree_leaves(got_m)
+    dev = got[0].device
+    specs = spec_leaves(specs) if pm is not None else [()] * n
+    held = _ls_owner(pm, specs) if pm is not None else [True] * n
+    lead = pm is None or pm.rank == 0
+    # [share by leaf, planted share, head L2 by leaf, planted head L2]
+    # (max); [d2, r2 by leaf, planted d2, r2] (sum)
+    row = torch.zeros(2 * n + 2, dtype=torch.float64, device=dev)
+    sq = torch.zeros(2 * n + 2, dtype=torch.float64, device=dev)
+    for i, (gm, rm, s, ax) in enumerate(zip(got, tree_leaves(ref_m), specs,
+                                            axes)):
+        mc = rm.to(dev).float()
+        cases = [gm.float()]
+        if paths[i] == plant:
+            if lead:
+                cases.append(cases[0].clone())
+                cut = [slice(None)] * len(ax)
+                cut[ax.index("layers")] = 0
+                h = _ls_head_axis(ax)
+                cut[h] = slice(0, head_dim if ax[h] == "heads_x" else 1)
+                cases[1][tuple(cut)] = 0.0
+            else:
+                cases.append(cases[0])
+        for j, g in enumerate(cases):
+            d = g - mc
+            if tops[i] > 0:
+                row[i if j == 0 else n] = d.abs().max() / tops[i]
+            if held[i]:                # each block once in the L2 sums
+                k = (i, n + i) if j == 0 else (2 * n, 2 * n + 1)
+                sq[k[0]] = torch.sum(torch.square(d.double()))
+                sq[k[1]] = torch.sum(torch.square(mc.double()))
+            h, d2 = _ls_head_sums(torch.square(d.double()), ax, head_dim)
+            if h is None:
+                continue
+            sums = torch.stack([d2, _ls_head_sums(
+                torch.square(mc.double()), ax, head_dim)[1]])
+            # a head's entries off the head dim lie on other ranks
+            _ls_reduce(pm, sums, dist.ReduceOp.SUM,
+                       [e for k, e in enumerate(s) if e and k != h])
+            row[n + 1 + i if j == 0 else 2 * n + 1] = (
+                sums[0] / sums[1].clamp(min=1e-300)).sqrt().max()
+    _ls_reduce(pm, row, dist.ReduceOp.MAX)
+    _ls_reduce(pm, sq, dist.ReduceOp.SUM)
+    l2 = (sq[:n] / sq[n:2 * n].clamp(min=1e-300)).sqrt().tolist()
+    row, sq = row.tolist(), sq.tolist()
+    heads = {p: row[n + 1 + i] for i, p in enumerate(paths)
+             if _ls_head_axis(axes[i]) is not None}
+    out = dict(m_rel=max(row[:n]), m_l2=max(l2), m_head_l2=max(heads.values()),
+               m_rel_by_leaf=dict(zip(paths, row[:n])),
+               m_l2_by_leaf=dict(zip(paths, l2)), m_head_l2_by_leaf=heads,
+               planted=dict(leaf=plant, m_rel=row[n],
+                            m_l2=(sq[2 * n] / max(sq[2 * n + 1], 1e-300))
+                            ** 0.5, m_head_l2=row[2 * n + 1]))
+    return out
+
+
+def _ls_owner(pm, specs):
+    """Per leaf spec, whether this rank adds its block to a sum over the
+    mesh: index 0 on every axis the leaf is replicated over."""
+    out = []
+    for s in specs:
+        used = {e for e in s if e is not None}
+        out.append(all(pm.coord(a) == 0 for a in pm.axis_names
+                       if a not in used))
+    return out
+
+
+def _ls_counts():
+    from repro_torch.distributed import collectives as C
+    return ({f"{op}/{axis}": n for (op, axis), n in sorted(
+        C.launches.items())},
+        {f"{op}/{axis}": n for (op, axis), n in sorted(
+            C.bytes_moved.items())})
+
+
+def ls_train(torch, pm, full, name, ref, k4):
+    """One sharded run on this rank from the one-device run's start
+    params, drawn on the rank's device (the trainer cuts its blocks):
+    losses, step ms, tokens/s, the rank's peak, collectives and K4
+    launches a run, and the first step against the one-device step
+    (``ref``'s first-step params and moments, on the host)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.training.trainer import state_shardings
+    from repro_torch.models import build_model
+    cfg = full[name]
+    steps = LS_RWKV_STEPS if name == "rwkv" else LS_STEPS
+    sh = state_shardings(build_model(cfg), pm)
+    tr = _ls_trainer(torch, name, full, pm.device, shardings=sh,
+                     steps=steps)
+    # No rank touches another's card: with a card a rank, a rank that ran
+    # kernels on cuda:0 while rank 0's NCCL kernels spun there waiting
+    # for it hung both (4 H100s, a 600 s watchdog timeout).
+    mine = ref["m1"][pm.rank]
+
+    def look(p, o):
+        t0 = time.perf_counter()
+        out = _ls_compare(
+            torch, pm, o["m"], mine, ref["m1_top"], tr.specs["params"],
+            _ls_axes(tr.model.defs()), _ls_head_dim(cfg),
+            plant=LS_PLANT[name])
+        return dict(out, compare_s=time.perf_counter() - t0)
+    start = _ls_params(torch, name, cfg, pm.device)
+    first = _ls_keep_first(tr, look)
+    k4_in = []
+    real_cuda = k4.wkv6_scan_cuda
+
+    def recording(*args):
+        if not k4_in:
+            k4_in.append([None if a is None else a.detach().clone()
+                          for a in args])
+        return real_cuda(*args)
+    k4.wkv6_scan_cuda = recording
+    _sync(torch, pm.device)
+    _peak_reset(torch, pm.device)
+    k4.launches = 0
+    C.reset_counts()
+    try:
+        res = tr.run(start_state=_ls_start(torch, start))
+    finally:
+        k4.wkv6_scan_cuda = real_cuda
+    _sync(torch, pm.device)
+    launches = k4.launches
+    counts, nbytes = _ls_counts()
+    times = [h["time_s"] for h in res["history"][1:]]
+    batch = LT_RWKV_BATCH if name == "rwkv" else LT_BATCH
+    row = dict(
+        config=f"{cfg.name} widths, {cfg.num_layers} layers, {cfg.dtype}, "
+               f"B={batch}, S={full['seq']}, remat, mesh {LS_MESH}",
+        losses=[h["loss"] for h in res["history"]],
+        step_ms=[h["time_s"] * 1e3 for h in res["history"]],
+        step_ms_median=statistics.median(times) * 1e3,
+        tokens_per_s=batch * full["seq"] / statistics.median(times),
+        peak_bytes=_peak(torch, pm.device),
+        k4_launches=launches,
+        collectives_per_step={k: v / steps for k, v in counts.items()},
+        collective_bytes_per_step={k: v / steps for k, v in nbytes.items()},
+        grad_norm1=float(first["metrics"]["grad_norm"]), **first["look"])
+    if k4_in:
+        want = k4.wkv6_scan_plain(*k4_in[0])
+        got = real_cuda(*k4_in[0])
+        _sync(torch, pm.device)
+        row["k4_vs_plain"] = dict(
+            shape=list(k4_in[0][0].shape), dtype=str(k4_in[0][0].dtype),
+            bitwise=_bitwise(torch, want, got),
+            max_abs_err=_max_err(want, got))
+    del res, tr, first, k4_in, start, mine
+    _free(torch, pm.device)
+    return row
+
+
+def ls_restart(torch, pm, full, root):
+    """SMOKE llama3.2-1b in bf16 over the mesh: two steps uninterrupted,
+    then the same two with checkpoints every step and a
+    ``SimulatedFailure`` on every rank before the second, through
+    ``run_with_restarts``: losses and every rank's final blocks bit for
+    bit."""
+    import torch.distributed as dist
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.trainer import SimulatedFailure, state_shardings
+    cfg = full["restart"]
+    sh = state_shardings(build_model(cfg), pm)
+    gen = torch.Generator(device=pm.device).manual_seed(SEED + 61)
+    plain = _ls_trainer(torch, "restart", full, pm.device, shardings=sh,
+                        steps=2)
+    ref = plain.run(gen)
+    crashed = []
+
+    def hook(step):
+        if step == 1 and not crashed:
+            crashed.append(step)
+            raise SimulatedFailure("simulated node failure")
+    again = _ls_trainer(torch, "restart", full, pm.device, shardings=sh,
+                        ckpt_dir=os.path.join(root, "restart"),
+                        ckpt_every=1, steps=2)
+    t0 = time.perf_counter()
+    res = again.run_with_restarts(gen, failure_hook=hook)
+    run_s = time.perf_counter() - t0
+    same = torch.tensor(
+        [float(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(res["state"]), tree_leaves(ref["state"]))))],
+        device=pm.device)
+    _ls_reduce(pm, same, dist.ReduceOp.MIN)
+    losses = [h["loss"] for h in ref["history"]]
+    got = [h["loss"] for h in res["history"]]
+    return dict(config=f"{cfg.name} widths, {cfg.num_layers} layers, "
+                       f"{cfg.dtype}, B={LT_BATCH}, S={full['seq']}",
+                losses=losses, restarted_losses=got, crashed=bool(crashed),
+                losses_equal=got == losses[1:],
+                states_equal_on_every_rank=bool(same.item() == 1.0),
+                restarted_run_s=run_s)
+
+
+def ls_rank(rank, world, port, backend, full, refs, out_dir):
+    """One rank of the phase: joins the process group, trains llama3.2-1b
+    and rwkv6-7b over the mesh and runs the restart; writes its rows."""
+    import torch
+    from repro_torch.distributed import runtime as R
+    from repro_torch.kernels import wkv6_scan as k4
+    dev = torch.device(full["rank_device"] or "cuda",
+                       rank % max(torch.cuda.device_count(), 1))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    pm = R.init("localhost", port, world, rank, backend=backend,
+                device=dev, shape=LS_MESH, timeout_s=LS_TIMEOUT_S)
+    out = dict(rank=rank, device=str(dev), backend=backend,
+               init_s=time.perf_counter() - t0)
+    for name in ("llama", "rwkv"):
+        t1 = time.perf_counter()
+        out[name] = ls_train(torch, pm, full, name, refs[name], k4)
+        out[name + "_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["restart"] = ls_restart(torch, pm, full, out_dir)
+    out["restart_s"] = time.perf_counter() - t1
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def lm_train_sharded_phase(torch, dev, k4, smi):
+    """Phase 12b: the one-device references on the card, then four ranks
+    (``runtime.spawn``; gloo on cuda:0, or NCCL one rank a card with four
+    cards) train llama3.2-1b and rwkv6-7b through ``Trainer(shardings=
+    ...)`` from the same params, each run's first step gated against the
+    one-device step (the gates shown to sit between the bf16 noise floor
+    and a planted fault), every rank's K4 launches counted and K4 held
+    against its plain version on a rank's real inputs; the crash and
+    restart bit for bit. Returns the K4 numbers the ``kernels`` line
+    needs."""
+    import shutil
+    from repro_torch.distributed import runtime as R
+    full = _ls_full()
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 4 else "gloo"
+    refs = ls_one_device(torch, dev, full)
+    ref_s = time.perf_counter() - t0
+    shutil.rmtree(full["ckpt_root"], ignore_errors=True)
+    os.makedirs(full["ckpt_root"])
+    # The ranks take their blocks of the references from the host (in
+    # shared memory) and draw the start params on their own devices.
+    host = {n: {k: refs[n].pop(k) for k in ("m1", "m1_top")} for n in refs}
+    ref_bytes = (torch.cuda.memory_reserved(dev)
+                 if torch.device(dev).type == "cuda" else None)
+    t1 = time.perf_counter()
+    R.spawn(ls_rank, 4, (R.free_port(), backend, full, host,
+                         full["ckpt_root"]))
+    ranks_s = time.perf_counter() - t1
+    rows = []
+    for r in range(4):
+        with open(os.path.join(full["ckpt_root"], f"rank{r}.json")) as f:
+            rows.append(json.load(f))
+    del host
+    shutil.rmtree(full["ckpt_root"], ignore_errors=True)
+    out = dict(nvidia_smi=smi, backend=backend, cards=cards, mesh=LS_MESH,
+               ranks=4, parent_reserved_bytes=ref_bytes,
+               tolerance=dict(loss_rtol=LS_LOSS_RTOL,
+                              grad_norm_rtol=LS_GRAD_NORM_RTOL,
+                              m_share=LS_M_TOL, m_l2=LS_M_L2_TOL,
+                              m_head_l2=LS_M_HEAD_TOL))
+    gates = dict(m_rel=LS_M_TOL, m_l2=LS_M_L2_TOL, m_head_l2=LS_M_HEAD_TOL)
+    k4_err, launches, failed = 0.0, 0, []
+    for name in ("llama", "rwkv"):
+        ref, lead = refs[name], rows[0][name]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(lead["losses"], ref["losses"]))
+        gn_rel = abs(lead["grad_norm1"] - ref["grad_norm1"]) / ref[
+            "grad_norm1"]
+        row = dict(lead, one_device_losses=ref["losses"],
+                   noise_floor=ref["floor"],
+                   reference_blocks_s=ref["blocks_s"],
+                   one_device_step_ms=ref["step_ms"],
+                   one_device_peak_bytes=ref["peak_bytes"],
+                   loss_rel=loss_rel, grad_norm_rel=gn_rel,
+                   peak_bytes_by_rank=[x[name]["peak_bytes"] for x in rows],
+                   k4_launches_by_rank=[x[name]["k4_launches"]
+                                        for x in rows],
+                   step_ms_by_rank=[x[name]["step_ms_median"] for x in rows],
+                   seconds_by_rank=[x[name + "_s"] for x in rows])
+        out[name] = row
+        if not (all(np.isfinite(lead["losses"]))
+                and loss_rel <= LS_LOSS_RTOL
+                and gn_rel <= LS_GRAD_NORM_RTOL
+                and all(lead[k] <= v for k, v in gates.items())):
+            failed.append(f"sharded {name} against one device")
+        # The gates must pass the bf16 noise floor and see a fault in one
+        # head (the per-head L2 alone can: one head of 64 in one of 4
+        # layers moves its leaf's L2 by a few per cent).
+        if not all(ref["floor"][k] <= v for k, v in gates.items()):
+            failed.append(f"{name}: the bf16 noise floor above a gate")
+        if not lead["planted"]["m_head_l2"] > LS_M_HEAD_TOL:
+            failed.append(f"{name}: a planted fault under the gates")
+        if name == "rwkv" and torch.device(dev).type == "cuda":
+            cfg = full["rwkv"]
+            want = cfg.num_layers * LS_RWKV_STEPS * 2      # remat
+            launches = sum(row["k4_launches_by_rank"])
+            if not all(n == want for n in row["k4_launches_by_rank"]):
+                failed.append(f"K4 launches by rank, want {want} each")
+            heads = cfg.rwkv_heads // LS_MESH[1]
+            for x in rows:
+                k = x["rwkv"]["k4_vs_plain"]
+                if not (k["bitwise"] and k["shape"] == [
+                        LT_RWKV_BATCH // LS_MESH[0], full["seq"], heads,
+                        cfg.rwkv_head_dim]):
+                    failed.append(f"K4 on rank {x['rank']}")
+                k4_err = max(k4_err, k["max_abs_err"])
+    rs = rows[0]["restart"]
+    out["restart"] = dict(rs, seconds_by_rank=[x["restart_s"]
+                                               for x in rows])
+    if not (rs["crashed"] and rs["losses_equal"]
+            and rs["states_equal_on_every_rank"]):
+        failed.append("the sharded restart against the uninterrupted run")
+    out["seconds"] = dict(one_device=ref_s, ranks=ranks_s,
+                          total=time.perf_counter() - t0,
+                          rank_init=[x["init_s"] for x in rows])
+    emit("lm_train_sharded", **out)
+    check(not failed, f"lm_train_sharded: {failed}")
+    del refs
+    _free(torch, dev)
+    return {"launches": launches, "max_abs_err": k4_err}
 
 
 # ----------------------------------------------------------------------

@@ -29,6 +29,12 @@ mesh position on that position's device, and :func:`gather` puts them
 back together. A mesh may name one device several times (a logical mesh,
 the counterpart of XLA's forced host devices): each position still holds
 its own block.
+
+Over a process mesh (``distributed.runtime``: one process a position)
+each rank holds only its own block: :func:`local_block` cuts it from a
+whole tree (tagged with its spec, which ``annotate.unshard_fsdp``
+reads), and :func:`gather_logical` joins the blocks of all ranks back
+into the whole arrays (for checkpoints).
 """
 from __future__ import annotations
 
@@ -40,6 +46,8 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from repro_torch.distributed import annotate
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.mesh import Mesh, slot_axis
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, tree_map, tree_num_params
@@ -48,7 +56,8 @@ __all__ = [
     "param_pspecs", "batch_pspecs", "cache_pspecs",
     "batch_axes", "opt_pspecs", "resolve_spec", "spec",
     "slot_pspec", "slot_state_pspecs", "NamedSharding", "ShardedTensor",
-    "shardings", "slot_shardings", "place", "gather",
+    "shardings", "slot_shardings", "place", "gather", "local_block",
+    "gather_logical",
 ]
 
 Spec = Tuple[Any, ...]
@@ -479,6 +488,57 @@ def gather(tree: Any, device="cpu") -> Any:
     return pytree.tree_map(
         lambda a: a.gather(device) if isinstance(a, ShardedTensor) else a,
         tree)
+
+
+def _zip_map(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of dicts and lists, with the spec
+    tree's matching entry (a spec tuple is a leaf of the spec tree)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def local_block(tree: Any, spec_tree: Any, pmesh: Mesh, device=None
+                ) -> Any:
+    """This rank's block of every leaf of ``tree`` (whole tensors or numpy
+    arrays, bfloat16 bits included; nested dicts and lists) under its
+    spec in ``spec_tree``: ``NamedSharding(pmesh, spec)
+    .devices_indices_map(shape)`` at ``pmesh.rank``, copied to ``device``
+    (the rank's by default), contiguous and tagged with the spec
+    (``annotate.tag``). A whole leaf on the same device is copied, so the
+    block owns its memory."""
+    from repro_torch.convert import lm_params_from_numpy
+    dev = torch.device(device) if device is not None else pmesh.device
+
+    def one(x, s):
+        if not isinstance(x, torch.Tensor):
+            x = lm_params_from_numpy(np.asarray(x))
+        s = tuple(s)
+        idx = NamedSharding(pmesh, s).devices_indices_map(
+            tuple(x.shape))[pmesh.rank]
+        blk = x[idx].to(dev, copy=True).contiguous()
+        return annotate.tag(blk, s)
+    return _zip_map(one, tree, spec_tree)
+
+
+def gather_logical(tree: Any, spec_tree: Any, pmesh: Mesh,
+                   device="cpu", root: Optional[int] = None) -> Any:
+    """The whole arrays of a tree of blocks (each leaf this rank's block
+    under its spec): every rank takes part, each leaf's blocks gathered
+    over the axes of its spec, one leaf at a time, and moved to ``device``
+    (the host by default). With ``root`` only that rank keeps them (the
+    others get None leaves, so no rank but the root holds more than one
+    whole leaf at a time)."""
+    def one(x, s):
+        with pmesh:
+            for dim, e in enumerate(tuple(s)):
+                # the minor axis of a dim over several first
+                for a in reversed((e,) if isinstance(e, str) else (e or ())):
+                    x = C.gather_dim(x, dim, a)
+        return x.to(device) if root in (None, pmesh.rank) else None
+    return _zip_map(one, tree, spec_tree)
 
 
 # ----------------------------------------------------------------------

@@ -1,18 +1,30 @@
 """Training launcher: any assigned arch, SMOKE size on the CPU or the
-card, full size on the card.
+card, full size on the card, on one device or over a mesh of ranks.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --smoke --steps 50 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --steps 100 --batch 4 --seq 1024 --remat
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --smoke --mesh 2x2 --spawn --steps 2 --device cpu
+  # one process a rank, e.g. rank 1 of 4 (every rank the same flags):
+  PYTHONPATH=src python -m repro_torch.launch.train --mesh 2x2 \\
+      --world-size 4 --rank 1 --address localhost --port 29500 ...
 
 The flags are the JAX package's launcher's, plus ``--device`` (the card
-unless given ``cpu``). Without ``--smoke`` the config is the published
-one at full width and depth: run it on the card only. ``--mesh`` is
-refused: the port trains on one device (training over a mesh, FSDP/TP
-with collectives, is the part of ROADMAP item 11 still to port; serving
-shards its slots, ``EngineConfig.mesh``). The task is
+unless given ``cpu``) and the process flags. Without ``--smoke`` the
+config is the published one at full width and depth: run it on the card
+only. With ``--mesh DxM``, params, AdamW moments and batch rows are
+sharded by ``param_pspecs``/``opt_pspecs``/``batch_pspecs`` over a
+``(data=D, model=M)`` process mesh (FSDP over ``data``, TP over
+``model``; ``training.Trainer(shardings=...)``), one process a rank:
+``--spawn`` starts all ``D*M`` ranks on this host, otherwise this process
+is rank ``--rank`` of ``--world-size`` and joins ``tcp://ADDRESS:PORT``.
+``--backend`` is ``gloo`` on the CPU; on the card ``nccl`` when there is
+a card a rank, else ``gloo`` (ranks sharing a card). Rank ``r`` runs on
+``cuda:(r % cards)``. Families other than dense and rwkv6, and 3-D meshes,
+are refused with the ROADMAP item that ports them. The task is
 ``data.token_batch``'s ``"repeat"``; the enc-dec's encoder frames are
 drawn from a ``torch.Generator`` seeded with the step, so they differ
 from the JAX launcher's (``jax.random.normal``) while the tokens agree.
@@ -20,17 +32,20 @@ from the JAX launcher's (``jax.random.normal``) while the tokens agree.
 from __future__ import annotations
 
 import argparse
+import math
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.data import TokenTaskConfig, token_batch
+from repro_torch.distributed import runtime
 from repro_torch.models import build_model
 from repro_torch.training import AdamWConfig, Trainer, TrainerConfig
+from repro_torch.training.trainer import refuse_unsupported, state_shardings
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b", choices=ARCHS)
     ap.add_argument("--smoke", action="store_true")
@@ -39,26 +54,75 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--mesh", default=None,
-                    help="refused: the port trains on one device "
-                         "(ROADMAP item 11)")
+                    help="DxM: (data=D, model=M) over D*M ranks")
+    ap.add_argument("--world-size", type=int, default=None)
+    ap.add_argument("--rank", type=int, default=None)
+    ap.add_argument("--address", default="localhost")
+    ap.add_argument("--port", type=int, default=None)
+    ap.add_argument("--spawn", action="store_true",
+                    help="start every rank of --mesh on this host")
+    ap.add_argument("--backend", default=None, choices=runtime.BACKENDS)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--grad-compression", type=float, default=None)
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
-    args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; "
-            f"training over a mesh waits for ROADMAP item 11")
+    return ap
 
-    dev = resolve_device(args.device)
+
+def _mesh_shape(text: str, cfg):
+    shape = tuple(int(x) for x in text.split("x"))
+    if len(shape) not in (2, 3):
+        raise ValueError(f"--mesh {text}: DxM (or PxDxM)")
+    refuse_unsupported(cfg, ("pod",) * (len(shape) - 2) + runtime.MESH_AXES,
+                       shape[-1])
+    return shape
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.family in ("encdec", "vlm") and args.smoke:
+    if not args.mesh:
+        return _train(args, resolve_device(args.device), None)
+    shape = _mesh_shape(args.mesh, cfg)
+    world = math.prod(shape)
+    if args.world_size not in (None, world):
+        raise ValueError(f"--world-size {args.world_size} for a "
+                         f"{args.mesh} mesh")
+    if args.spawn:
+        runtime.spawn(_rank_main, world,
+                      (args, shape, args.port or runtime.free_port()))
+        return None
+    if args.rank is None or args.port is None:
+        raise ValueError("--mesh without --spawn needs --rank and --port")
+    return _rank_main(args.rank, world, args, shape, args.port)
+
+
+def _rank_main(rank: int, world: int, args, shape, port: int):
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        dev = torch.device("cuda", rank % cards)
+        backend = args.backend or ("nccl" if cards >= world else "gloo")
+    else:
+        backend = args.backend or "gloo"
+    pmesh = runtime.init(args.address, port, world, rank, backend=backend,
+                         device=dev, shape=shape)
+    return _train(args, dev, pmesh)
+
+
+def _train(args, dev, pmesh):
+    cfg = get_config(args.arch, smoke=args.smoke)
+    lead = pmesh is None or pmesh.rank == 0
+    if cfg.family in ("encdec", "vlm") and args.smoke and lead:
         print(f"note: {args.arch} needs frames/patches; using token-only "
               "batches against the decoder/backbone")
     model = build_model(cfg)
-    print(f"{cfg.name}: {model.num_params() / 1e6:.1f}M params on {dev}")
+    if lead:
+        where = dev if pmesh is None else (
+            f"a {pmesh.shape} mesh of {pmesh.size} ranks ({pmesh.backend})")
+        print(f"{cfg.name}: {model.num_params() / 1e6:.1f}M params on "
+              f"{where}")
 
     tk = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                          batch_size=args.batch, task="repeat")
@@ -82,12 +146,17 @@ def main(argv=None):
         opt=AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                         total_steps=args.steps),
     )
-    trainer = Trainer(model, tcfg, batch_fn, device=dev)
+    shardings = None if pmesh is None else state_shardings(
+        model, pmesh, args.grad_compression is not None)
+    trainer = Trainer(model, tcfg, batch_fn, shardings=shardings,
+                      device=dev)
     res = trainer.run_with_restarts(torch.Generator(device=dev)
                                     .manual_seed(0))
     h = res["history"]
-    print(f"done: loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f} over "
-          f"{res['final_step']} steps; stragglers={trainer.straggler_steps}")
+    if lead:
+        print(f"done: loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f} over "
+              f"{res['final_step']} steps; "
+              f"stragglers={trainer.straggler_steps}")
     return res
 
 

@@ -10,10 +10,20 @@ dispatch in the JAX package, so plain torch ops compute them here; the
 only kernel below is K3, which ``dense`` reaches for a ternary-packed
 weight.
 
-The JAX package's sharding helpers (``constrain``, ``unshard_fsdp``) are
-identities in the port (``distributed.annotate``: there is no SPMD
-partitioner to constrain), so the layers do not call them; the JAX-only
-``role`` argument of ``dense`` is accepted and ignored.
+Under an active process mesh (``distributed.runtime``; training over
+a ``("data", "model")`` mesh) each rank holds blocks of the parameters
+(``sharding.local_block``) and the layers place the collectives that
+GSPMD places in the JAX package, at the JAX package's sites:
+``unshard_fsdp`` gathers a weight's FSDP (``data``) dims at use, and the
+``model`` axis is Megatron's tensor parallelism. Activations between
+blocks are replicated over ``model`` (the batch rows are the rank's
+``data`` block); ``dense`` is column-parallel for ``role="up"`` (behind
+``copy_to``, the output this rank's columns) and row-parallel for
+``role="down"`` (followed by an ``all_reduce``), each as the weight's
+chosen layout says; attention runs on this rank's heads; the embedding
+and the logits are vocab-parallel (``embed_lookup``, ``logits_f32`` on
+the rank's vocab columns). Off a process mesh every collective is the
+identity and the layers are the one-device ones.
 """
 from __future__ import annotations
 
@@ -25,6 +35,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.distributed import annotate as A
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
@@ -34,6 +46,7 @@ __all__ = [
     "attention_defs", "attention_apply", "attention_decode",
     "mlp_defs", "mlp_apply", "moe_defs", "moe_apply", "dense",
     "blockwise_attention", "layer_norm", "logits_f32", "remat",
+    "layer_params", "embed_lookup",
 ]
 
 # ----------------------------------------------------------------------
@@ -46,11 +59,12 @@ def remat(fn):
     counterpart of ``jax.checkpoint`` (non-reentrant
     ``torch.utils.checkpoint``). Only the inputs are kept; the recompute
     runs the same ops on the same inputs, so its values, and the
-    gradients, are those of ``fn`` itself bit for bit."""
+    gradients, are those of ``fn`` itself bit for bit; it runs under the
+    process mesh of the forward (``annotate.recompute_context``)."""
     def run(*args, **kwargs):
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False,
-                                                 **kwargs)
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=A.recompute_context, **kwargs)
     return run
 
 
@@ -75,7 +89,8 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
 
 
-def dense(x: torch.Tensor, w: Any, role: str = "up") -> torch.Tensor:
+def dense(x: torch.Tensor, w: Any, role: str = "up", *,
+          gather_output: bool = False) -> torch.Tensor:
     """``x @ w`` against a float (K, N) weight or a ternary-packed dict.
 
     A ``{"packed": (K//4, N) uint8, "scale": (N,)}`` weight is the CUTIE
@@ -84,13 +99,66 @@ def dense(x: torch.Tensor, w: Any, role: str = "up") -> torch.Tensor:
     ascending k within each 512-k segment and over the segments in
     ascending order, then the scale) and comes back in ``x``'s dtype.
     A float weight is a library matmul, as the JAX package leaves it to
-    XLA. ``role`` (the tensor-parallel orientation in the JAX package) is
-    accepted and ignored: no partitioner reads it.
+    XLA.
+
+    ``role`` is the Megatron orientation under a process mesh (the JAX
+    package's candidates for ``unshard_fsdp``): ``"up"`` takes a
+    replicated ``x``; with N on ``model`` it is column-parallel
+    (``copy_to(x) @ w``, the output this rank's columns, gathered when
+    ``gather_output``), with K on ``model`` row-parallel. ``"down"``
+    takes the output of an "up" over the same dim: split when its K is
+    on ``model`` (``all_reduce`` of the partial product), else
+    replicated. Both return a replicated output unless an "up" is
+    column-parallel.
     """
-    del role
     if isinstance(w, dict) and "packed" in w:
         return ops.ternary_matmul(x, w["packed"], w["scale"])
-    return torch.matmul(x, w)
+    if role == "down":
+        w, lay = A.gather_at_use(w, ("model", None), (None, "model"))
+    else:
+        w, lay = A.gather_at_use(w, (None, "model"), ("model", None))
+    if lay is None or lay == (None, None):
+        return torch.matmul(x, w)
+    if role != "down" and lay[1] == "model":        # column-parallel
+        y = torch.matmul(C.copy_to(x, "model"), w)
+        return C.gather_from(y, -1, "model") if gather_output else y
+    if lay[0] == "model":                            # row-parallel
+        if role != "down":
+            x = C.split_to(x, -1, "model")
+        return C.all_reduce(torch.matmul(x, w), "model")
+    # a "down" whose N is on model: its input is replicated
+    return C.gather_from(torch.matmul(C.copy_to(x, "model"), w), -1,
+                         "model")
+
+
+def layer_params(layers: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked layer tree (each leaf's leading axis),
+    with each block's spec tag (``annotate.tag``) carried to the slice."""
+    def one(x):
+        y = x[i]
+        s = A.spec_of(x)
+        return y if s is None else A.tag(y, s[1:])
+    if isinstance(layers, dict):
+        return {k: layer_params(v, i) for k, v in layers.items()}
+    return one(layers)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. Under a process mesh the table is gathered at use
+    (``unshard_fsdp(table, ("model", None))``); with its vocab rows on
+    ``model`` the lookup is vocab-parallel: rows outside this rank's range
+    give zeros, and an ``all_reduce`` over ``model`` adds the ranks'
+    lookups (the gradient lands on the rank holding each row)."""
+    table, lay = A.gather_at_use(table, ("model", None))
+    idx = tokens.long()
+    if lay is None or lay[0] != "model":
+        return table[idx]
+    lo = C.axis_index("model") * table.shape[0]
+    local = idx - lo
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(inside, local, 0)]
+    rows = rows * inside[..., None].to(rows.dtype)
+    return C.all_reduce(rows, "model")
 
 
 class _MmF32(torch.autograd.Function):
@@ -325,19 +393,51 @@ def attention_apply(
 ) -> torch.Tensor:
     """Full-sequence attention (prefill). ``kv_x`` enables cross-attention
     (no rotation then); ``kv_positions`` is accepted and unused, as in the
-    JAX package."""
+    JAX package.
+
+    Under a process mesh whose ``model`` axis divides the heads, each rank
+    computes its block of heads (the JAX package's ``heads_tp``): q from
+    ``copy_to(x)`` and its heads' block of ``wq``; K/V the same way when
+    the KV heads divide too (``kv_tp``), else from the whole ``wk``/``wv``
+    on every rank, each local q head then taking its group's KV head
+    (``copy_to`` carries their gradients back whole); the output
+    projection is row-parallel over heads, then ``all_reduce``. When the
+    heads do not divide, every rank computes every head with whole
+    weights (the JAX package shards the sequence there instead)."""
     del kv_positions
     kv_src = x if kv_x is None else kv_x
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"])
+    tp = A.tp_size()
+    heads_tp = cfg.num_heads % tp == 0
+    kv_tp = cfg.num_kv_heads % tp == 0
+    wq = A.unshard_fsdp(p["wq"], (None, "model", None))
+    wk = A.unshard_fsdp(p["wk"], (None, "model", None) if kv_tp
+                        else (None, None, None))
+    wv = A.unshard_fsdp(p["wv"], (None, "model", None) if kv_tp
+                        else (None, None, None))
+    part = heads_tp and tp > 1
+    xq = C.copy_to(x, "model") if part else x
+    q = torch.einsum("bsd,dhk->bshk", xq, wq)
+    if kv_tp or not part:
+        kv_in = xq if kv_x is None else (
+            C.copy_to(kv_src, "model") if part else kv_src)
+        k = torch.einsum("bsd,dhk->bshk", kv_in, wk)
+        v = torch.einsum("bsd,dhk->bshk", kv_in, wv)
+    else:
+        # every rank's K/V whole; this rank's q heads' groups picked
+        lo, hi = C.block_range(cfg.num_heads, "model")
+        grp = torch.arange(lo, hi, device=x.device) // cfg.q_per_kv
+        k, v = (C.copy_to(torch.einsum("bsd,dhk->bshk", kv_src, w),
+                          "model")[:, :, grp] for w in (wk, wv))
     secs = cfg.mrope_sections if mrope else None
     if kv_x is None:  # self-attention: rotate both
         q = apply_rope(q, positions, cfg.rope_theta, secs)
         k = apply_rope(k, positions, cfg.rope_theta, secs)
     out = blockwise_attention(q, k, v, causal=causal,
                               window=window or cfg.sliding_window)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    wo = A.unshard_fsdp(p["wo"], ("model", None, None) if heads_tp
+                        else (None, None, None))
+    y = torch.einsum("bshk,hkd->bsd", out, wo)
+    return C.all_reduce(y, "model") if part else y
 
 
 def _attend_decode(p, x, k_cache, v_cache, pos, cfg: ModelConfig, *,

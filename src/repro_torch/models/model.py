@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
 from repro_torch.models import encdec as ED
 from repro_torch.models import params as P
 from repro_torch.models import rwkv6 as RW
@@ -32,7 +33,9 @@ __all__ = ["Model", "build_model", "lm_loss"]
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
-            aux: Optional[torch.Tensor] = None, aux_coef: float = 0.01
+            aux: Optional[torch.Tensor] = None, aux_coef: float = 0.01, *,
+            vocab_axis: Optional[str] = None,
+            batch_axis: Optional[str] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (f32). targets: (B, S) int, -1 = pad.
 
@@ -41,14 +44,36 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
     (at least 1); ``aux_coef * aux`` is added when ``aux`` is given.
     Returns (loss, {"ce", "tokens"} plus "aux"); nothing reads a value
     back to the host.
+
+    Over a process mesh: with ``vocab_axis`` the logits are this rank's
+    block of the vocabulary along that axis (vocab-parallel
+    cross-entropy: the max, the sum of exponentials and the target's
+    logit each reduced over it); with ``batch_axis`` the rows are this
+    rank's, and the sum of NLL and the token count are summed over that
+    axis before dividing (a mean of the ranks' means would weigh their
+    rows by their pads).
     """
     mask = (targets >= 0).float()
-    logp = F.log_softmax(logits.float(), dim=-1)
     tgt = torch.clamp(targets, min=0).long()
-    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = (nll * mask).sum() / denom
-    metrics = {"ce": loss, "tokens": mask.sum()}
+    if vocab_axis is None:
+        logp = F.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    else:
+        lf = logits.float()
+        m = C.all_reduce_max(lf.amax(dim=-1), vocab_axis)
+        sumexp = C.all_reduce(torch.exp(lf - m[..., None]).sum(dim=-1),
+                              vocab_axis)
+        local = tgt - C.axis_index(vocab_axis) * lf.shape[-1]
+        inside = (local >= 0) & (local < lf.shape[-1])
+        picked = torch.gather(lf, -1, torch.where(inside, local, 0)[..., None])
+        t_logit = C.all_reduce(picked[..., 0] * inside.float(), vocab_axis)
+        nll = torch.log(sumexp) + m - t_logit
+    total, count = (nll * mask).sum(), mask.sum()
+    if batch_axis is not None:
+        total = C.all_reduce(total, batch_axis)
+        count = C.all_reduce_(count.clone(), batch_axis)
+    loss = total / torch.clamp(count, min=1.0)
+    metrics = {"ce": loss, "tokens": count}
     if aux is not None:
         metrics["aux"] = aux
         loss = loss + aux_coef * aux
@@ -76,9 +101,17 @@ class Model:
 
     def loss(self, params, batch, *, scan_layers: bool = True,
              remat: bool = False):
+        """``lm_loss`` of the next-token logits. Under a process mesh the
+        batch rows are this rank's ``data`` block, and logits narrower
+        than the vocabulary are its ``model`` block of it."""
         logits, aux = self.apply(params, batch, scan_layers=scan_layers,
                                  remat=remat)
-        return lm_loss(logits[:, :-1], batch["targets"][:, 1:], aux)
+        sharded = C.active() is not None
+        return lm_loss(
+            logits[:, :-1], batch["targets"][:, 1:], aux,
+            vocab_axis=("model" if sharded
+                        and logits.shape[-1] < self.cfg.vocab_size else None),
+            batch_axis="data" if sharded else None)
 
     def num_params(self) -> int:
         return P.tree_num_params(self.defs())

@@ -14,10 +14,15 @@ the tests. Both agree with K4 within rounding.
 
 Parameters are a nested dict of tensors with the layers stacked on a
 leading axis, in the JAX package's layouts (projection weights (K, N)),
-and the layers run as a Python loop over that axis. The JAX package's
-sharding annotations (``constrain``, ``unshard_fsdp``) are identities in
-the port (``distributed.annotate``: there is no SPMD partitioner to
-constrain), so the model does not call them.
+and the layers run as a Python loop over that axis. Under a process mesh
+(training over ``("data", "model")``) the model is tensor-parallel over
+heads: ``wr/wk/wv/wg`` are column-parallel (``heads_x``), so each rank
+runs the WKV -- K4 on the card -- on its ``H/|model|`` heads, with its
+heads' block of ``u`` and its channels of ``w0``, ``gn_s`` and ``gn_b``
+(``split_to``: the replicated leaves' gradients come back whole); ``wo``
+and the channel mix's ``wv`` are row-parallel; the embedding and the
+head are vocab-parallel; ``unshard_fsdp`` gathers the FSDP dims at the
+JAX package's sites.
 
 Numerics note (as in the JAX package): the per-step log-decay is clamped
 to >= -4, so the chunked form's exp(-cumsum) stays in f32 range at chunk
@@ -31,12 +36,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.distributed import annotate as A
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.kernels.wkv6_scan import CHUNK as _WKV_CHUNK
 from repro_torch.kernels.wkv6_scan import wkv6_chunked
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import ParamDef, as_dtype, tree_map
+from repro_torch.models.params import ParamDef, as_dtype
 
 __all__ = ["rwkv6_defs", "rwkv6_apply", "rwkv6_decode", "init_rwkv_cache",
            "wkv6_chunked"]
@@ -127,9 +134,10 @@ def _ddlerp(tm, x, sx):
     """Data-dependent interpolation producing (r,k,v,w,g) inputs."""
     xx = sx - x
     base = x + xx * tm["mu"][:, None, None]            # (5, B, S, D)
-    lora = torch.tanh(torch.einsum("bsd,dkr->bskr", x + xx * 0.5,
-                                   tm["lora_a"]))
-    adj = torch.einsum("bskr,krd->kbsd", lora, tm["lora_b"])
+    lora_a = A.unshard_fsdp(tm["lora_a"])              # tiny: replicate
+    lora_b = A.unshard_fsdp(tm["lora_b"])
+    lora = torch.tanh(torch.einsum("bsd,dkr->bskr", x + xx * 0.5, lora_a))
+    adj = torch.einsum("bskr,krd->kbsd", lora, lora_b)
     return base + xx[None] * adj                        # (5, B, S, D)
 
 
@@ -137,25 +145,38 @@ def _time_mix(tm, x, cfg: ModelConfig, *, sx=None, state0=None):
     """The time mix of one layer. The WKV runs through K4 in both modes:
     the whole sequence from a zero state (``state0`` None), or a decode
     step from the cache's ``state0`` and token-shift ``sx``. Returns
-    (output, final WKV state)."""
+    (output, final WKV state). Under a process mesh r/k/v/g are this
+    rank's channels (column-parallel), which must be whole heads."""
     b, s, d = x.shape
-    h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    hd = cfg.rwkv_head_dim
     sx = _token_shift(x, sx)
     xr, xk, xv, xw, xg = _ddlerp(tm, x, sx)
-    r = L.dense(xr, tm["wr"]).reshape(b, s, h, hd)
-    k = L.dense(xk, tm["wk"]).reshape(b, s, h, hd)
-    v = L.dense(xv, tm["wv"]).reshape(b, s, h, hd)
+    r = L.dense(xr, tm["wr"])
+    dl = r.shape[-1]                           # this rank's channels
+    if dl % hd:
+        raise ValueError(f"{dl} channels a rank split a {hd}-wide head")
+    hl = dl // hd
+    r = r.reshape(b, s, hl, hd)
+    k = L.dense(xk, tm["wk"]).reshape(b, s, hl, hd)
+    v = L.dense(xv, tm["wv"]).reshape(b, s, hl, hd)
     g = L.dense(xg, tm["wg"])
-    dec = torch.tanh(xw @ tm["wa"]) @ tm["wb"]
-    logw = -torch.exp((tm["w0"] + dec).float())
-    logw = torch.clamp(logw, min=_LOGW_MIN).reshape(b, s, h, hd)
-    o, state = ops.wkv6_scan(r, k, v, logw, tm["u"], state0)
+    dec = torch.tanh(xw @ A.unshard_fsdp(tm["wa"])) @ A.unshard_fsdp(
+        tm["wb"])
+    w0, gn_s, gn_b = tm["w0"], tm["gn_s"], tm["gn_b"]
+    u = tm["u"]
+    if dl != d:                                # this rank's heads
+        dec, w0, gn_s, gn_b = (C.split_to(t, -1, "model")
+                               for t in (dec, w0, gn_s, gn_b))
+        u = A.unshard_fsdp(u, ("model", None))
+    logw = -torch.exp((w0 + dec).float())
+    logw = torch.clamp(logw, min=_LOGW_MIN).reshape(b, s, hl, hd)
+    o, state = ops.wkv6_scan(r, k, v, logw, u, state0)
     # Per-head group norm (population variance, as jnp.var), then the
     # SiLU(g) gate (RWKV-6 output block).
     mu = o.mean(dim=-1, keepdim=True)
     var = torch.var(o, dim=-1, keepdim=True, correction=0)
-    o = ((o - mu) * torch.rsqrt(var + 64e-5)).reshape(b, s, d)
-    o = o * tm["gn_s"] + tm["gn_b"]
+    o = ((o - mu) * torch.rsqrt(var + 64e-5)).reshape(b, s, dl)
+    o = o * gn_s + gn_b
     o = o * F.silu(g)
     return L.dense(o, tm["wo"], role="down"), state
 
@@ -167,23 +188,27 @@ def _channel_mix(cm, x, *, sx=None):
     xr = x + xx * cm["mu_r"]
     kk = torch.square(torch.relu(L.dense(xk, cm["wk"])))
     kv = L.dense(kk, cm["wv"], role="down")
-    return torch.sigmoid(L.dense(xr, cm["wr"])) * kv
+    return torch.sigmoid(L.dense(xr, cm["wr"], gather_output=True)) * kv
 
 
 def _layer(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
-    return tree_map(lambda x: x[i], layers)
+    return L.layer_params(layers, i)
 
 
 def _embed(params, tokens, cfg: ModelConfig):
-    h = params["embed"][tokens.long()].to(as_dtype(cfg.dtype))
+    h = L.embed_lookup(params["embed"], tokens).to(as_dtype(cfg.dtype))
     return L.layer_norm(h, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
 
 
 def _unembed(params, h, cfg: ModelConfig):
     """Final norm and f32 logits (``layers.logits_f32``: the JAX
-    package's ``preferred_element_type=float32`` product)."""
+    package's ``preferred_element_type=float32`` product); under a process
+    mesh this rank's vocab columns where ``model`` divides the vocab."""
     h = L.layer_norm(h, params["ln_f_s"], params["ln_f_b"], cfg.norm_eps)
-    return L.logits_f32(h, params["lm_head"])
+    w, lay = A.gather_at_use(params["lm_head"], (None, "model"))
+    if lay is not None and lay[1] == "model":
+        h = C.copy_to(h, "model")
+    return L.logits_f32(h, w)
 
 
 def _layer_body(h, lp, cfg: ModelConfig):

@@ -12,6 +12,11 @@ the JAX package applies ``jax.checkpoint``). A ternary-packed MLP weight
 everything else is plain torch ops, as XLA computes it in the JAX
 package.
 
+Under a process mesh (training over ``("data", "model")``) the
+embedding and the head are vocab-parallel and the layers tensor-parallel
+(``layers``); the logits are then this rank's vocab columns, which
+``model.lm_loss`` reduces over ``model``.
+
 A decode step keeps the cache's position ``pos`` a 0-d int tensor on the
 device and writes each layer's k and v with an indexed copy, so it never
 reads a value back to the host.
@@ -21,9 +26,10 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.distributed import annotate as A
+from repro_torch.distributed import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, as_dtype, tree_map
@@ -60,10 +66,18 @@ def transformer_defs(cfg: ModelConfig) -> Dict[str, Any]:
 def unembed(params: Dict[str, Any], h: torch.Tensor, cfg: ModelConfig
             ) -> torch.Tensor:
     """Final norm + LM head (``embed.T`` when tied); logits in f32, with
-    the optional softcap."""
+    the optional softcap. Under a process mesh the head is gathered at use
+    with its vocab on ``model`` where that divides, and the logits are
+    this rank's vocab columns (``copy_to`` of the normed ``h``)."""
     h = L.rms_norm(h, params["ln_f"], cfg.norm_eps)
-    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = L.logits_f32(h, w)
+    if cfg.tie_embeddings:
+        w, lay = A.gather_at_use(params["embed"], ("model", None))
+        w = w.t()
+        split = lay is not None and lay[0] == "model"
+    else:
+        w, lay = A.gather_at_use(params["lm_head"], (None, "model"))
+        split = lay is not None and lay[1] == "model"
+    logits = L.logits_f32(C.copy_to(h, "model") if split else h, w)
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = c * torch.tanh(logits / c)
@@ -71,8 +85,7 @@ def unembed(params: Dict[str, Any], h: torch.Tensor, cfg: ModelConfig
 
 
 def _embed(params, tokens, cfg: ModelConfig):
-    return F.embedding(tokens.long(), params["embed"]).to(
-        as_dtype(cfg.dtype))
+    return L.embed_lookup(params["embed"], tokens).to(as_dtype(cfg.dtype))
 
 
 def _layer_body(h, lp, positions, cfg: ModelConfig, *, mrope):
@@ -120,7 +133,7 @@ def transformer_apply(
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.num_layers):
-        lp = tree_map(lambda x: x[i], params["layers"])
+        lp = L.layer_params(params["layers"], i)
         h, a = body(h, lp, positions, cfg, mrope=mrope)
         if a is not None:
             aux = aux + a

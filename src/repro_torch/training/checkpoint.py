@@ -16,7 +16,13 @@ step that cannot be read, but raises on an intact one that does not fit
 its template. Leaves are stored unsharded as numpy arrays and come back
 on the template's device and dtype; a shape that differs from the
 template's raises (the packages' conv layouts differ: HWIO in the JAX
-package, OIHW here). bfloat16 leaves, which numpy cannot hold, raise.
+package, OIHW here). bfloat16 leaves are written as numpy writes
+``ml_dtypes.bfloat16`` (the JAX package's files).
+
+Over a process mesh the trainer writes from rank 0 the whole arrays
+(``sharding.gather_logical``), so the files are the one-device ones;
+``restore_latest(..., specs=, pmesh=)`` gives each rank its block of each
+stored array, on any mesh (elastic restart).
 """
 from __future__ import annotations
 
@@ -175,13 +181,20 @@ def _verify(manifest: dict, arrays: Dict[str, np.ndarray]) -> bool:
                for k in manifest["keys"])
 
 
-def _leaf(key: str, arr: np.ndarray, like: Any) -> Any:
+def _leaf(key: str, arr: np.ndarray, like: Any, block=None) -> Any:
     """A stored array as the template leaf ``like`` holds it: a tensor on
     its device and in its dtype; any other leaf comes back as the array.
     A ``V2`` array (a bfloat16 leaf, checked against the manifest by
-    ``_verify``) is read as bfloat16 bits."""
+    ``_verify``) is read as bfloat16 bits. ``block``: ``(spec, pmesh)``,
+    when ``like`` is this rank's block of the stored array under ``spec``
+    (the block comes back tagged with it)."""
     if not isinstance(like, torch.Tensor):
         return arr
+    if block is not None:
+        from repro_torch.distributed.sharding import NamedSharding
+        spec, pmesh = block
+        arr = arr[NamedSharding(pmesh, spec).devices_indices_map(
+            arr.shape)[pmesh.rank]]
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"checkpoint leaf {key} has shape {arr.shape}, "
                          f"the template {tuple(like.shape)}")
@@ -190,21 +203,30 @@ def _leaf(key: str, arr: np.ndarray, like: Any) -> Any:
             torch.bfloat16)
     else:
         x = torch.from_numpy(np.array(arr, order="C"))
-    return x.to(device=like.device, dtype=like.dtype)
+    x = x.to(device=like.device, dtype=like.dtype)
+    if block is not None:
+        from repro_torch.distributed.annotate import tag
+        x = tag(x, block[0])
+    return x
 
 
 def _rebuild(tree: Any, arrays: Dict[str, np.ndarray],
-             path: Tuple[str, ...] = ()) -> Any:
+             path: Tuple[str, ...] = (), specs: Any = None,
+             pmesh: Any = None) -> Any:
+    def sub(k):
+        return None if specs is None else specs[k]
     if isinstance(tree, dict):
-        return {k: _rebuild(v, arrays, path + (str(k),))
+        return {k: _rebuild(v, arrays, path + (str(k),), sub(k), pmesh)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, arrays, path + (str(i),))
+        return type(tree)(_rebuild(v, arrays, path + (str(i),), sub(i),
+                                   pmesh)
                           for i, v in enumerate(tree))
     key = "/".join(path)
     if key not in arrays:
         raise KeyError(f"checkpoint missing leaf {key}")
-    return _leaf(key, arrays[key], tree)
+    return _leaf(key, arrays[key], tree,
+                 None if specs is None else (tuple(specs), pmesh))
 
 
 def _load(root: str | os.PathLike, step: int
@@ -239,7 +261,8 @@ _CORRUPT = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
 
 
 def restore_latest(
-    root: str | os.PathLike, template: Dict[str, Any]
+    root: str | os.PathLike, template: Dict[str, Any], *,
+    specs: Any = None, pmesh: Any = None
 ) -> Optional[Tuple[int, Dict[str, Any], dict]]:
     """Restore the newest intact checkpoint, falling back past corrupt
     ones. Returns (step, state, extra) or None if nothing usable.
@@ -248,11 +271,16 @@ def restore_latest(
     does not fit ``template`` (a missing leaf, another shape, e.g. a JAX
     checkpoint's HWIO convolutions) raises, rather than training on from
     step 0 in a directory whose steps ``keep_last`` would then prune.
+
+    With ``specs`` (the state's spec tree) and ``pmesh`` (a process
+    mesh) the template's leaves are this rank's blocks, and each comes
+    back as its block of the stored whole array.
     """
     for step in reversed(list_steps(root)):
         try:
             arrays, manifest = _load(root, step)
         except _CORRUPT:
             continue
-        return step, _rebuild(template, arrays), manifest["extra"]
+        return step, _rebuild(template, arrays, (), specs, pmesh), \
+            manifest["extra"]
     return None

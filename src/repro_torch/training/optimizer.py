@@ -15,6 +15,8 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives as C
+
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
            "global_norm", "clip_by_global_norm"]
 
@@ -65,14 +67,40 @@ def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree: Any, specs: Any = None) -> torch.Tensor:
+    """The L2 norm of every leaf together. With ``specs`` (the spec of
+    each leaf, as ``sharding.param_pspecs`` gives it) under an active
+    process mesh the leaves are this rank's blocks: a rank adds a leaf's
+    squares only where its index is 0 on every axis the leaf is
+    replicated over, so each block counts once, and the sums are added
+    over the mesh's axes."""
+    pm = C.active()
+    if specs is None or pm is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree_leaves(tree)))
+    total = torch.zeros((), dtype=torch.float32, device=pm.device)
+    for x, s in zip(tree_leaves(tree), spec_leaves(specs)):
+        held = {a for e in s if e is not None
+                for a in ((e,) if isinstance(e, str) else e)}
+        if all(pm.coord(a) == 0 for a in pm.axis_names if a not in held):
+            total = total + torch.sum(torch.square(x.float()))
+    for a in pm.axis_names:
+        C.all_reduce_(total, a)
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree: Any, max_norm: float
+def spec_leaves(specs: Any) -> List[Any]:
+    """A spec tree's specs (tuples), in ``tree_leaves``' order."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [x for v in specs for x in spec_leaves(v)]
+    return [specs]
+
+
+def clip_by_global_norm(tree: Any, max_norm: float, specs: Any = None
                         ) -> Tuple[Any, torch.Tensor]:
-    gn = global_norm(tree)
+    gn = global_norm(tree, specs)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), gn
 
@@ -93,12 +121,14 @@ def adamw_update(
     opt_state: Dict[str, Any],
     params: Any,
     cfg: AdamWConfig,
+    specs: Any = None,
 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step. Returns (new_params, new_state, metrics); nothing
-    is updated in place."""
+    is updated in place. ``specs``: the params' spec tree when the trees
+    are blocks over a process mesh (for the clipping norm)."""
     step = opt_state["step"] + 1
     lr = cosine_schedule(cfg, step)
-    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+    grads, gn = clip_by_global_norm(grads, cfg.grad_clip, specs)
 
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - torch.pow(b1, step.float())

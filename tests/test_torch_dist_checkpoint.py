@@ -1,0 +1,232 @@
+"""Sharded LM training's state across ranks and restarts, 4 ``gloo``
+ranks on the CPU (``torch_dist_workers.ckpt_rank``, one spawn):
+
+  * the FSDP collectives and their gradients against their definitions;
+  * the backward of a sharded loss, run on a thread where no mesh is
+    active (the autograd engine's device thread on the card), with and
+    without remat, gives the same thread's gradients bit for bit;
+  * ``compress_grads`` over blocks of a (2, 2) mesh sends exactly the
+    JAX package's entries (its global per-leaf threshold, ties included)
+    over three steps with error feedback: sent and residuals bit for bit,
+    the norm within rtol 1e-6;
+  * a checkpoint written by the 4 ranks holds the members of the
+    one-device port's for the same state byte for byte (f32 and bf16
+    params), and the same manifest but for its time;
+  * a run crashed before step 2 and restarted from its checkpoints is
+    the uninterrupted sharded run bit for bit (losses and params);
+  * a (1, 4) mesh, and one device, relaunched from the (2, 2) run's
+    step-2 checkpoint continue its step 3 within the first-step
+    tolerances of ``test_torch_dist_train`` (loss rtol 1e-6, moments 1e-5
+    of the largest, confident params 1e-3 lr, every param within its
+    bound);
+  * over the mesh ``run_with_restarts`` restarts on a simulated failure
+    alone: a plain error on one rank, or on all of them, ends the run
+    (``spawn`` raises) instead of restarting;
+  * ``launch.train --mesh 2x2 --spawn --smoke --device cpu`` trains two
+    steps, and the launcher and ``Trainer(shardings=...)`` refuse the
+    families and meshes they do not cover, naming their ROADMAP item.
+"""
+import json
+import os
+import pickle
+import shutil
+import subprocess
+import sys
+import zipfile
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+import torch_dist_workers as W  # noqa: E402
+from repro.training.compression import (  # noqa: E402
+    compress_grads as jax_compress)
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.distributed import runtime as R  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.params import tree_map  # noqa: E402
+from repro_torch.training import Trainer  # noqa: E402
+from repro_torch.training.trainer import state_shardings  # noqa: E402
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+LOSS_RTOL, M_TOL, PARAM_TOL = 1e-6, 1e-5, 1e-3
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("dist_ckpt")
+    R.spawn(W.ckpt_rank, 4, (R.free_port(), str(d)))
+    with open(d / "ckpt.pkl", "rb") as f:
+        return d, pickle.load(f)
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_compression_masks_equal_the_jax_packages_on_sharded_leaves(runs):
+    _, res = runs
+    err = jax.tree.map(lambda a: jnp.zeros(a.shape, jnp.float32),
+                       W.grad_tree(0))
+    for s in range(3):
+        sent, err, m = jax_compress(jax.tree.map(jnp.asarray,
+                                                 W.grad_tree(s)),
+                                    err, ratio=W.COMP_RATIO)
+        got = res[f"comp{s}"]
+        for key, want in (("sent", sent), ("err", err)):
+            for path, a in W.flat(got[key]).items():
+                b = np.asarray(want["a"] if path == "a" else want["b"]["w"])
+                assert a.tobytes() == b.tobytes(), (s, key, path)
+        np.testing.assert_allclose(got["norm"],
+                                   float(m["compressed_grad_norm"]),
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("op", ["all_gather", "reduce_scatter"])
+def test_fsdp_collectives_and_their_gradients(runs, op):
+    """``collectives.all_gather`` (gradient reduce-scattered) and
+    ``reduce_scatter`` (gradient all-gathered) over 'data' of a (2, 2)
+    mesh against their definitions on whole tensors, on every rank."""
+    _, res = runs
+    assert res["collectives"][op]
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_backward_on_another_thread_with_and_without_remat(runs, arch):
+    """The gradients on every rank when the backward runs on a thread
+    with no mesh active (as the autograd engine's device threads run it
+    on the card), with remat's recompute there too, equal the same
+    thread's bit for bit."""
+    _, res = runs
+    assert res[f"thread_backward_{arch}"]
+
+
+def _members(path):
+    with zipfile.ZipFile(path / "arrays.npz") as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_four_rank_checkpoint_is_the_one_device_ports(runs, dtype,
+                                                         tmp_path):
+    d, _ = runs
+    st = W.start_state("llama3.2-1b")
+    st["params"] = tree_map(lambda x: x.to(getattr(torch, dtype)),
+                            st["params"])
+    W.trainer("llama3.2-1b", ckpt_dir=tmp_path).save(5, st)
+    four, one = d / f"save4_{dtype}" / "step_00000005", \
+        tmp_path / "step_00000005"
+    assert _members(four) == _members(one)
+    m4, m1 = (json.loads((p / "manifest.json").read_text())
+              for p in (four, one))
+    assert m4.pop("time") > 0 and m1.pop("time") > 0
+    assert m4 == m1
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_crash_and_restart_is_the_uninterrupted_sharded_run(runs, arch):
+    _, res = runs
+    plain, crash = res[arch]["plain"], res[arch]["crash"]
+    assert len(plain["losses"]) == 3
+    assert crash["losses"] == plain["losses"][2:]
+    assert sorted(crash["params"]) == sorted(plain["params"])
+    for k, v in plain["params"].items():
+        assert crash["params"][k].tobytes() == v.tobytes(), k
+
+
+def _continues(got, plain):
+    np.testing.assert_allclose(got["losses"], plain["losses"][2:],
+                               rtol=LOSS_RTOL)
+    row = W.compare(got["params"], got["m"], plain["params"], plain["m"],
+                    W.LR)
+    assert row["m_rel"] <= M_TOL, row
+    assert row["param_confident"] <= PARAM_TOL, row
+    assert row["param_bounded"] <= 1.0, row
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_elastic_restart_onto_another_mesh(runs, arch):
+    _, res = runs
+    _continues(res[arch]["elastic"], res[arch]["plain"])
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_elastic_restart_onto_one_device(runs, arch, tmp_path, one_thread):
+    d, res = runs
+    shutil.copytree(d / f"{arch}_plain" / "step_00000002",
+                    tmp_path / "step_00000002")
+    tr = W.trainer(arch, ckpt_dir=tmp_path, ckpt_every=1)
+    out = tr.run_with_restarts(torch.Generator().manual_seed(7),
+                               failure_hook=W.crash_at(0))
+    st = out["state"]
+    _continues(dict(losses=[h["loss"] for h in out["history"]],
+                    params=W.flat(st["params"]), m=W.flat(st["opt"]["m"])),
+               res[arch]["plain"])
+
+
+@pytest.mark.parametrize("failing", [(1,), (0, 1, 2, 3)],
+                         ids=["one_rank", "every_rank"])
+def test_an_error_that_is_not_simulated_ends_the_sharded_run(tmp_path,
+                                                             failing):
+    import torch.multiprocessing as mp
+    with pytest.raises(mp.ProcessRaisedException,
+                       match="RuntimeError: simulated node failure"):
+        R.spawn(W.fail_rank, 4, (R.free_port(), str(tmp_path), failing))
+    # the step-1 checkpoint was written, and no rank restored from it
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000001"]
+
+
+def test_launch_train_mesh_spawn_trains_two_steps(tmp_path):
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "llama3.2-1b", "--smoke", "--mesh", "2x2", "--spawn", "--steps",
+         "2", "--batch", "4", "--seq", "16", "--device", "cpu",
+         "--ckpt-dir", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "mesh of 4 ranks (gloo)" in out.stdout
+    assert "over 2 steps" in out.stdout
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_00000001", "step_00000002"]
+
+
+REFUSED = {"deepseek-moe-16b": "7a", "qwen2-vl-2b": "7b",
+           "zamba2-1.2b": "7c", "seamless-m4t-medium": "7d"}
+
+
+def _mesh(shape, axes):
+    return R.ProcessMesh(axes, shape, (torch.device("cpu"),) * 4)
+
+
+@pytest.mark.parametrize("arch", sorted(REFUSED))
+def test_unsupported_families_are_refused(arch):
+    model = build_model(get_config(arch, smoke=True))
+    pm = _mesh((2, 2), ("data", "model"))
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP item {REFUSED[arch]}"):
+        Trainer(model, W.trainer_config(), W.batch_fn("llama3.2-1b"),
+                shardings=state_shardings(model, pm))
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP item {REFUSED[arch]}"):
+        train_cli.main(["--arch", arch, "--smoke", "--mesh", "2x2",
+                        "--spawn", "--device", "cpu"])
+
+
+def test_meshes_with_a_pod_axis_are_refused():
+    model = build_model(get_config("llama3.2-1b", smoke=True))
+    pm = _mesh((1, 2, 2), ("pod", "data", "model"))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7e"):
+        Trainer(model, W.trainer_config(), W.batch_fn("llama3.2-1b"),
+                shardings=state_shardings(model, pm))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7e"):
+        train_cli.main(["--arch", "llama3.2-1b", "--smoke", "--mesh",
+                        "1x2x2", "--spawn", "--device", "cpu"])

@@ -249,9 +249,19 @@ def test_straggler_detection(tmp_path):
 
 
 def test_shardings_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Trainer(build_model(ModelConfig(**_TINY)), TrainerConfig(),
-                lambda s: None, shardings=object(), device="cpu")
+    """Shardings must bind specs to a process mesh (one process a rank,
+    ``distributed.runtime``): none at all, or a plain ``Mesh``, is
+    refused; sharded training itself is ``tests/test_torch_dist_*.py``."""
+    from repro_torch.distributed import make_mesh, shardings
+    model = build_model(ModelConfig(**_TINY))
+    with pytest.raises(ValueError, match="no NamedSharding"):
+        Trainer(model, TrainerConfig(), lambda s: None, shardings=object(),
+                device="cpu")
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     devices=[torch.device("cpu")])
+    with pytest.raises(TypeError, match="ProcessMesh"):
+        Trainer(model, TrainerConfig(), lambda s: None,
+                shardings=shardings(mesh, {"params": ()}), device="cpu")
 
 
 def test_trainer_config_fields_equal_jax():
@@ -322,5 +332,11 @@ def test_cli_trains_rwkv6_smoke_on_the_cpu(tmp_path, capsys):
 
 
 def test_cli_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """``--mesh`` trains over (data, model) meshes
+    (``tests/test_torch_dist_checkpoint.py``); a 3-D mesh is refused with
+    its ROADMAP item, and a mesh without ``--spawn`` needs the rank and
+    port of this process."""
+    with pytest.raises(NotImplementedError, match="item 7e"):
+        train_cli.main(["--smoke", "--device", "cpu", "--mesh", "1x2x4"])
+    with pytest.raises(ValueError, match="--rank and --port"):
         train_cli.main(["--smoke", "--device", "cpu", "--mesh", "2x4"])

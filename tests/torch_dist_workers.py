@@ -1,0 +1,417 @@
+"""Rank functions and set-up shared by the sharded-training tests
+(``test_torch_dist_train.py``, ``test_torch_dist_checkpoint.py``,
+``test_torch_cuda_dist_train.py``).
+
+``runtime.spawn`` starts each rank in a fresh process that imports this
+module by name, so it imports nothing of JAX. Every rank and the parent
+draw the same SMOKE params from a seeded CPU generator (rwkv6's ``u``,
+``mu``, ``mu_k`` and ``mu_r`` from a numpy seed, since they init to
+zero) and the same batches from numpy seeds, with random pads in every
+row (so the data ranks' token counts differ). A rank function writes
+its results under a directory the test gives it (rank 0 the whole
+arrays, ``sharding.gather_logical``).
+"""
+from __future__ import annotations
+
+import json
+import os
+import pickle
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.distributed import annotate as A
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import runtime as R
+from repro_torch.distributed import sharding as SH
+from repro_torch.kernels import ops
+from repro_torch.models import build_model
+from repro_torch.models.params import tree_map
+from repro_torch.training import (AdamWConfig, Trainer, TrainerConfig,
+                                  adamw_init)
+from repro_torch.training.trainer import SimulatedFailure, state_shardings
+
+ARCHS = ("llama3.2-1b", "rwkv6-7b")
+MESHES = ((2, 2), (4, 1), (1, 4))
+BATCH, SEQ, STEPS, LR = 4, 16, 3, 1e-3
+
+
+def params(arch: str, seed: int = 0, device="cpu"):
+    """The SMOKE params of ``arch`` (f32) as CPU tensors."""
+    model = build_model(get_config(arch, smoke=True))
+    p = model.init(torch.Generator().manual_seed(seed), device="cpu")
+    if model.cfg.family == "rwkv6":
+        rng = np.random.default_rng(seed)
+        tm, cm = p["layers"]["tm"], p["layers"]["cm"]
+        tm["u"] = torch.from_numpy(
+            (rng.normal(size=tm["u"].shape) * 0.5).astype(np.float32))
+        for tree, key in ((tm, "mu"), (cm, "mu_k"), (cm, "mu_r")):
+            tree[key] = torch.from_numpy(
+                rng.uniform(0.0, 1.0, tree[key].shape).astype(np.float32))
+    return tree_map(lambda x: x.to(device), p)
+
+
+def start_state(arch: str, seed: int = 0, device="cpu"):
+    p = params(arch, seed, device)
+    return {"params": p, "opt": adamw_init(p),
+            "err": torch.zeros((), device=device)}
+
+
+def np_batch(vocab: int, step: int, batch: int = BATCH, seq: int = SEQ):
+    """Tokens and targets of ``step`` (numpy int64), ~30% pads."""
+    rng = np.random.default_rng(1000 + step)
+    tokens = rng.integers(0, vocab, (batch, seq))
+    targets = np.where(rng.random((batch, seq)) < 0.3, -1, tokens)
+    return tokens, targets
+
+
+def batch_fn(arch: str, device="cpu"):
+    vocab = get_config(arch, smoke=True).vocab_size
+
+    def fn(step):
+        t, g = np_batch(vocab, step)
+        return {"tokens": torch.from_numpy(t).to(device),
+                "targets": torch.from_numpy(g).to(device)}
+    return fn
+
+
+def trainer_config(ckpt_dir="unused", ckpt_every=0, steps=STEPS,
+                   compression=None):
+    return TrainerConfig(
+        total_steps=steps, ckpt_every=ckpt_every, ckpt_dir=str(ckpt_dir),
+        keep_last=10, log_every=1000, grad_compression_ratio=compression,
+        opt=AdamWConfig(lr=LR, warmup_steps=1, total_steps=steps))
+
+
+def trainer(arch, pmesh=None, device="cpu", **cfg_kw) -> Trainer:
+    model = build_model(get_config(arch, smoke=True))
+    sh = None if pmesh is None else state_shardings(
+        model, pmesh, cfg_kw.get("compression") is not None)
+    return Trainer(model, trainer_config(**cfg_kw), batch_fn(arch, device),
+                   shardings=sh, device=device)
+
+
+def flat(tree, prefix=""):
+    """{"/"-joined path: numpy array} of a tree of tensors."""
+    out = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(flat(tree[k], f"{prefix}{k}/"))
+    else:
+        out[prefix[:-1]] = tree.detach().cpu().float().numpy()
+    return out
+
+
+def keep_first_step(tr: Trainer) -> dict:
+    """Make ``tr`` keep the params and AdamW state its first step makes
+    (in the returned dict, as "params" and "opt")."""
+    first, step_fn = {}, tr._step_fn
+
+    def keep(*args):
+        out = step_fn(*args)
+        if not first:
+            first.update(params=out[0], opt=out[1])
+        return out
+    tr._step_fn = keep
+    return first
+
+
+def one_device(arch: str, device="cpu"):
+    """The port's one-device Trainer over ``STEPS`` steps: losses, and the
+    params and first moments after the first step and after the last
+    (flat numpy)."""
+    tr = trainer(arch, device=device)
+    first = keep_first_step(tr)
+    res = tr.run(start_state=start_state(arch, device=device))
+    st = res["state"]
+    return dict(losses=[h["loss"] for h in res["history"]],
+                params=flat(st["params"]), m=flat(st["opt"]["m"]),
+                params1=flat(first["params"]), m1=flat(first["opt"]["m"]))
+
+
+class Recorder:
+    """Records, on this rank, each ``ops.wkv6_scan`` call's r shape and
+    each ``unshard_fsdp`` layout (block spec, chosen layout, block
+    shape)."""
+
+    def __init__(self):
+        self.wkv, self.layouts = [], set()
+        self._wkv, self._gather = ops.wkv6_scan, A.gather_at_use
+
+    def __enter__(self):
+        def wkv(r, *a, **k):
+            self.wkv.append(list(r.shape))
+            return self._wkv(r, *a, **k)
+
+        def gather(w, *cands):
+            out, lay = self._gather(w, *cands)
+            if lay is not None:
+                self.layouts.add((tuple(w.shape), A.spec_of(w), lay))
+            return out, lay
+        ops.wkv6_scan, A.gather_at_use = wkv, gather
+        return self
+
+    def __exit__(self, *exc):
+        ops.wkv6_scan, A.gather_at_use = self._wkv, self._gather
+
+
+def train_rank(rank, world, port, out_dir, device="cpu", backend="gloo",
+               meshes=MESHES):
+    """Every (arch, mesh) of ``ARCHS`` x ``meshes`` over the same ranks:
+    ``STEPS`` steps of the sharded Trainer from ``start_state``, on the
+    CPU or on ``cuda:(rank % cards)``. Rank 0 writes per case the losses,
+    the collective tallies, the whole params and moments after the first
+    step and the last; every rank writes its WKV call shapes."""
+    torch.set_num_threads(1)
+    if device != "cpu":
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+    pm = R.init("localhost", port, world, rank, backend=backend,
+                device=device, shape=meshes[0])
+    for shape in meshes:
+        mesh = pm if shape == meshes[0] else R.process_mesh(
+            shape, pm.axis_names, device)
+        for arch in ARCHS:
+            tr = trainer(arch, mesh, device)
+            first = keep_first_step(tr)
+            C.reset_counts()
+            with Recorder() as rec:
+                res = tr.run(start_state=start_state(arch, device=device))
+            counts = {f"{op}/{axis}": n for (op, axis), n in
+                      sorted(C.launches.items())}
+            whole = SH.gather_logical(res["state"], tr.specs, mesh, root=0)
+            whole1 = SH.gather_logical(
+                {"params": first["params"], "m": first["opt"]["m"]},
+                {"params": tr.specs["params"], "m": tr.specs["params"]},
+                mesh, root=0)
+            case = f"{arch}_{shape[0]}x{shape[1]}"
+            with open(os.path.join(out_dir, f"wkv_{case}_{rank}.json"),
+                      "w") as f:
+                json.dump(rec.wkv, f)
+            if rank == 0:
+                with open(os.path.join(out_dir, f"{case}.pkl"), "wb") as f:
+                    pickle.dump(dict(
+                        losses=[h["loss"] for h in res["history"]],
+                        counts=counts, layouts=sorted(rec.layouts, key=str),
+                        params=flat(whole["params"]),
+                        m=flat(whole["opt"]["m"]),
+                        params1=flat(whole1["params"]),
+                        m1=flat(whole1["m"])), f)
+
+
+def compare(got_p, got_m, want_p, want_m, lr):
+    """chip_smoke's ``_lt_compare`` measures on flat numpy trees: the
+    first moments' worst difference as a share of each leaf's largest,
+    and the params' differences over ``lr`` where the moment is well
+    above its own error (confident) and over their bound 2 lr (1 + wd
+    |p|) everywhere."""
+    out = dict(m_rel=0.0, param_confident=0.0, param_bounded=0.0)
+    for k in want_p:
+        pa, pc, ma, mc = got_p[k], want_p[k], got_m[k], want_m[k]
+        top = float(np.abs(mc).max())
+        if top > 0:
+            out["m_rel"] = max(out["m_rel"],
+                               float(np.abs(ma - mc).max()) / top)
+        sure = (np.abs(mc) >= 1e-3 * top) & (np.abs(mc) > 0.1 * 1e-6)
+        d = np.abs(pa - pc)
+        if sure.any():
+            out["param_confident"] = max(out["param_confident"],
+                                         float(d[sure].max()) / lr)
+        out["param_bounded"] = max(out["param_bounded"], float(
+            (d / (2 * lr * (1 + 0.1 * np.abs(pc)))).max()))
+    return out
+
+
+# ----------------------------------------------------------------------
+# test_torch_dist_checkpoint.py
+# ----------------------------------------------------------------------
+
+COMP_RATIO = 0.05
+COMP_SPECS = {"a": ("data", "model"), "b": {"w": ("model",)}}
+
+
+def grad_tree(step: int):
+    """Gradient-like leaves with ties at the threshold (many equal
+    magnitudes, both signs, and a zero row)."""
+    rng = np.random.default_rng(step)
+    g = {"a": rng.normal(size=(40, 24)).astype(np.float32),
+         "b": {"w": rng.normal(size=(336,)).astype(np.float32)}}
+    g["b"]["w"][:60] = np.where(np.arange(60) % 2, 0.5, -0.5)
+    g["a"][0, :] = 0.0
+    g["a"][5:9, :6] = np.float32(1.25)
+    return g
+
+
+def crash_at(step_to_fail: int, error=SimulatedFailure):
+    """A failure hook that raises ``error`` once, at ``step_to_fail``."""
+    done = []
+
+    def hook(step):
+        if step == step_to_fail and not done:
+            done.append(step)
+            raise error("simulated node failure")
+    return hook
+
+
+def fail_rank(rank, world, port, out_dir, failing):
+    """SMOKE llama3.2-1b over (2, 2) through ``run_with_restarts`` with
+    checkpoints every step, where the ranks in ``failing`` raise a plain
+    ``RuntimeError`` (not a ``SimulatedFailure``) before step 1."""
+    torch.set_num_threads(1)
+    pm = R.init("localhost", port, world, rank, backend="gloo",
+                device="cpu", shape=(2, 2), timeout_s=60.0)
+    tr = trainer("llama3.2-1b", pm, ckpt_dir=out_dir, ckpt_every=1)
+    hook = crash_at(1, RuntimeError) if rank in failing else None
+    tr.run_with_restarts(torch.Generator().manual_seed(7), failure_hook=hook)
+
+
+def _collective_checks(pm):
+    """Each autograd collective over 'data' on (2, 2) against its
+    definition on whole tensors: forward values and the gradient of a
+    rank-dependent cotangent, summed over the ranks where the op's
+    convention sums (bit for bit: small integers)."""
+    def rank_x(shape, rank_dep=True):
+        base = torch.arange(np.prod(shape), dtype=torch.float32)
+        return (base.reshape(shape) + (100.0 * pm.rank if rank_dep else 0))
+
+    d, i = pm.axis_size("data"), pm.coord("data")
+    peers = [r for r in range(pm.size)
+             if dict(zip(pm.axis_names, np.unravel_index(r, pm.axis_sizes)))
+             ["model"] == pm.coord("model")]
+    out = {}
+    with pm:
+        # all_gather: blocks joined; gradient summed over ranks, own block
+        x = rank_x((2, 3)).requires_grad_()
+        y = C.all_gather(x, 0, "data")
+        g = rank_x((2 * d, 3))
+        (gx,) = torch.autograd.grad(y, x, g)
+        want_y = torch.cat([rank_x((2, 3)) - 100.0 * pm.rank + 100.0 * r
+                            for r in peers])
+        want_g = sum(rank_x((2 * d, 3)) - 100.0 * pm.rank + 100.0 * r
+                     for r in peers)[2 * i:2 * i + 2]
+        out["all_gather"] = bool(torch.equal(y, want_y)
+                                 and torch.equal(gx, want_g))
+        # reduce_scatter: sum, own block; gradient all-gathered
+        x = rank_x((2 * d, 3)).requires_grad_()
+        y = C.reduce_scatter(x, 0, "data")
+        g = rank_x((2, 3))
+        (gx,) = torch.autograd.grad(y, x, g)
+        summed = sum(rank_x((2 * d, 3)) - 100.0 * pm.rank + 100.0 * r
+                     for r in peers)
+        want_g = torch.cat([rank_x((2, 3)) - 100.0 * pm.rank + 100.0 * r
+                            for r in peers])
+        out["reduce_scatter"] = bool(torch.equal(y, summed[2 * i:2 * i + 2])
+                                     and torch.equal(gx, want_g))
+        flags = torch.tensor([float(v) for v in out.values()])
+        for a in pm.axis_names:
+            C.all_reduce_(flags, a, torch.distributed.ReduceOp.MIN)
+    return {k: bool(v == 1.0) for k, v in zip(out, flags.tolist())}
+
+
+def _grads(tr, pm, state, batch, remat, thread):
+    """The gradients of ``tr.model.loss`` on this rank's blocks: the
+    forward under ``pm`` on this thread, the backward here or on another
+    thread (where the autograd engine runs it on the card, with no mesh
+    active)."""
+    import threading
+    flat = []
+
+    def live(p, s):
+        flat.append(p.detach().requires_grad_())
+        return A.tag(flat[-1], s)
+    with pm:
+        loss, _ = tr.model.loss(tree_map_specs(live, state["params"],
+                                               tr.specs["params"]),
+                                tr.local_batch(batch), remat=remat)
+    out = {}
+
+    def backward():
+        out["g"] = torch.autograd.grad(loss, flat, allow_unused=True)
+    if thread:
+        t = threading.Thread(target=backward)
+        t.start()
+        t.join()
+    else:
+        backward()
+    return out["g"]
+
+
+def tree_map_specs(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: tree_map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def ckpt_rank(rank, world, port, out_dir):
+    """On a (2, 2) mesh: three steps of ``compress_grads`` on sharded
+    leaves; the sharded Trainer's checkpoint of ``start_state`` (f32 and
+    bf16 params); per arch, a 3-step run with checkpoints every step and
+    the same run crashed before step 2 and restarted; then a (1, 4) mesh
+    relaunched from the (2, 2) run's step-2 checkpoint. Rank 0 writes
+    what the test compares."""
+    import shutil
+    from repro_torch.training import compress_grads, compression_init
+    torch.set_num_threads(1)
+    pm = R.init("localhost", port, world, rank, backend="gloo",
+                device="cpu", shape=(2, 2))
+    res = {"collectives": _collective_checks(pm)}
+    with pm:
+        whole = [tree_map(torch.from_numpy, grad_tree(s)) for s in range(3)]
+        err = SH.local_block(compression_init(whole[0]), COMP_SPECS, pm)
+        for s, g in enumerate(whole):
+            sent, err, m = compress_grads(SH.local_block(g, COMP_SPECS, pm),
+                                          err, ratio=COMP_RATIO,
+                                          specs=COMP_SPECS)
+            res[f"comp{s}"] = SH.gather_logical(
+                {"sent": sent, "err": err}, {"sent": COMP_SPECS,
+                                             "err": COMP_SPECS}, pm, root=0)
+            res[f"comp{s}"]["norm"] = float(m["compressed_grad_norm"])
+    for arch in ARCHS:
+        tr = trainer(arch, pm)
+        st = SH.local_block(start_state(arch), tr.specs, pm)
+        batch = batch_fn(arch)(0)
+        want = _grads(tr, pm, st, batch, remat=False, thread=False)
+        same = all(
+            all(a is b or torch.equal(a, b) for a, b in zip(want, _grads(
+                tr, pm, st, batch, remat=remat, thread=True)))
+            for remat in (False, True))
+        flag = torch.tensor([float(same)])
+        with pm:
+            for a in pm.axis_names:
+                C.all_reduce_(flag, a, torch.distributed.ReduceOp.MIN)
+        res[f"thread_backward_{arch}"] = bool(flag.item() == 1.0)
+    for dtype in ("float32", "bfloat16"):
+        st = start_state("llama3.2-1b")
+        st["params"] = tree_map(lambda x: x.to(getattr(torch, dtype)),
+                                st["params"])
+        tr = trainer("llama3.2-1b", pm, ckpt_dir=os.path.join(
+            out_dir, f"save4_{dtype}"))
+        tr.save(5, SH.local_block(st, tr.specs, pm))
+    def final(out, tr, mesh):
+        whole = SH.gather_logical(out["state"], tr.specs, mesh, root=0)
+        return dict(losses=[h["loss"] for h in out["history"]],
+                    params=flat(whole["params"]) if rank == 0 else None,
+                    m=flat(whole["opt"]["m"]) if rank == 0 else None)
+
+    for arch in ARCHS:
+        gen = torch.Generator().manual_seed(7)
+        res[arch] = {}
+        for name, hook in (("plain", None), ("crash", crash_at(2))):
+            tr = trainer(arch, pm, ckpt_dir=os.path.join(
+                out_dir, f"{arch}_{name}"), ckpt_every=1)
+            res[arch][name] = final(
+                tr.run_with_restarts(gen, failure_hook=hook), tr, pm)
+        # relaunch on another mesh from the plain run's step 2
+        elastic = os.path.join(out_dir, f"{arch}_elastic")
+        if rank == 0:
+            shutil.copytree(os.path.join(out_dir, f"{arch}_plain",
+                                         "step_00000002"),
+                            os.path.join(elastic, "step_00000002"))
+        torch.distributed.barrier()
+        pm14 = R.process_mesh((1, 4), pm.axis_names, "cpu")
+        tr = trainer(arch, pm14, ckpt_dir=elastic, ckpt_every=1)
+        res[arch]["elastic"] = final(
+            tr.run_with_restarts(gen, failure_hook=crash_at(0)), tr, pm14)
+    if rank == 0:
+        with open(os.path.join(out_dir, "ckpt.pkl"), "wb") as f:
+            pickle.dump(res, f)
