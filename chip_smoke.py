@@ -195,8 +195,9 @@ non-zero:
      leaf's first moment, the updated params, deepseek's routing; (c)
      llama3.2-1b at full width and depth in bf16 through ``Trainer``, 20
      steps, a RuntimeError at step 10 and a restart from the checkpoints
-     (every 5 steps, under checkpoints/) bit for bit against the
-     uninterrupted run, the loss below half its first value; step ms,
+     (every 10 steps, under checkpoints/; the uninterrupted run writes
+     none) bit for bit against the uninterrupted run, the loss below half
+     its first value; step ms,
      tokens/s, peak memory, a profile; (d) its gradient with remat on and
      off bit for bit, both peaks; (e) rwkv6-7b at full width and 4
      layers, bf16: K4 4 launches a step, 8 with remat, the loss falling,
@@ -204,16 +205,24 @@ non-zero:
      on llama3.2-1b's gradients: top-k with ties, exact residuals, ms;
   12b. LM training over a mesh (``lm_train_sharded``): the one-device
      references (llama3.2-1b at full width and depth, bf16, B=4, S=1024,
-     remat, 3 steps; rwkv6-7b at full width and 4 layers, B=2, 2 steps),
-     then four ranks (``distributed.runtime.spawn``; four gloo ranks on
-     cuda:0 at (2, 2), or NCCL one rank a card with four cards) train the
-     same through ``Trainer(shardings=...)``, FSDP over data and TP over
-     model: each first step against the one-device step (loss, gradient
-     norm, first moments), K4 launches on every rank (16: 4 layers x 2
+     remat, 3 steps; rwkv6-7b at full width and 4 layers, B=2, 2 steps;
+     deepseek-moe-16b at full width and 2 layers, B=4, S=1024, remat, 2
+     steps), then four ranks (``distributed.runtime.spawn``; four gloo
+     ranks on cuda:0 at (2, 2), or NCCL one rank a card with four cards)
+     train the same through ``Trainer(shardings=...)``, FSDP over data
+     and TP over model (deepseek's experts over model): each first step
+     against the one-device step (loss, gradient norm, first moments; per
+     leaf, per head and per (layer, expert)) with gates set between the
+     bf16 noise floor and a planted fault, deepseek's routing the same
+     bits on every model rank, the collectives a rank issues a step and
+     the bytes of its FSDP gathers against the count from the specs
+     (llama3.2-1b, deepseek), K4 launches on every rank (16: 4 layers x 2
      steps x 2 with remat, on 32 of the 64 heads) and K4 against its
      plain version on a rank's recorded inputs bit for bit, a SMOKE crash
      and restart over the mesh bit for bit. Reported: step ms, tokens/s,
-     each rank's peak, collectives and their bytes a step;
+     each rank's peak, collectives and their bytes a step, deepseek's
+     routings that differ from the one-device step per layer (and in the
+     noise floor) and its experts that got no token;
   13. the dry run (``dryrun``; ``launch.dryrun``'s fake trace of a step
      held against the same step on the card): llama3.2-1b at full width
      and depth, bf16, B=4, S=1024 with remat, the trace's FLOPs equal to
@@ -227,6 +236,15 @@ non-zero:
      ``ternary_matmul_fwd`` beside ``ternary_matmul_cuda``;
   14. each phase's seconds (``phase_seconds``), the ``kernels`` line,
      then the card line, then the ``ok`` line.
+
+Cut to keep the run inside its time (every gate kept): decode-rate
+samples 3 a side and end-to-end samples 10 (timing only); lm_vs_cpu's
+tokens (``LM_CUT_*``); the sharded restart on SMOKE llama3.2-1b;
+lm_train's llama3.2-1b checkpoints every 10 steps in the restarted run
+and none in the uninterrupted one (``LT_CKPT_EVERY``: the saves at 5 and
+15 were deleted unread, the uninterrupted run's final save never read);
+the sharded phase's reference blocks copied to shared memory in one
+segment a rank.
 
 Weights are random from a numpy seed. For the event wing's served
 comparison they are rounded to multiples of 2**-8: every conv and fc
@@ -5368,7 +5386,11 @@ LT_LR = 1e-3
 # while over 64 ids tokens recur and the loss halves (12.28 -> 2.99 at
 # 3e-4).
 LT_BATCH, LT_SEQ, LT_TASK_VOCAB = 4, 1024, 64
-LT_STEPS, LT_CRASH_AT, LT_CKPT_EVERY = 20, 10, 5
+# Checkpoints every 10 steps, at the crash's step: with keep_last=1 the
+# restart reads only the newest, so a save between (12.4 GB, ~19 s)
+# would be deleted unread. The uninterrupted run saves nothing: the gate
+# compares its state in memory.
+LT_STEPS, LT_CRASH_AT, LT_CKPT_EVERY = 20, 10, 10
 LT_TRAIN_LR = 3e-4
 LT_PROFILE_STEPS = 2
 # (e) rwkv6-7b at full width, 4 of 32 layers (AdamW for all 32 needs
@@ -5643,8 +5665,7 @@ def lt_llama(torch, dev, full):
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    plain = _lt_trainer(full, cfg, dev, os.path.join(root, "plain"),
-                        full["steps"])
+    plain = _lt_trainer(full, cfg, dev, os.path.join(root, "plain"), 0)
     ref = plain.run(gen)
     plain_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() if on_card else None
@@ -5913,8 +5934,13 @@ LS_MESH = (2, 2)
 # is the same, so attention's output is its value whatever the scores,
 # and the q and k projections' gradients are rounding noise.
 LS_STEPS, LS_RWKV_STEPS = 3, 2
+# deepseek-moe-16b at full width cut to LS_MOE_LAYERS layers (as _lt_full
+# cuts it for the CPU), bf16, B=4, S=1024, remat, 2 steps: each rank holds
+# half of a layer's 64 experts (experts over 'model') and gathers their
+# 'data' halves at use.
+LS_MOE_LAYERS, LS_MOE_STEPS = 2, 2
 # A collective waiting longer than this fails the phase (a step here
-# takes 7 s at most).
+# took 12 s at most).
 LS_TIMEOUT_S = 120.0
 # Gates on the sharded steps against the one-device steps (_lt_compare's
 # measures, and the relative L2 of each (layer, head)). In bf16 the
@@ -5944,12 +5970,41 @@ LS_TIMEOUT_S = 120.0
 # code to 1e-5. The bf16 params are not compared: one bf16 ulp of a
 # weight is 0.26 lr at |w| = 0.02 and 26 lr at a norm's 1.0, so a
 # rounding flip alone passes any lr bound.
+# deepseek-moe-16b routes each token to 6 of 64 experts, and rounding
+# moves the router's logits: bf16 against f32 on one device routes 1,128
+# and 2,516 of a layer's 24,576 (token, choice) pairs elsewhere (H100),
+# the sharded step against the one-device step 709 and 1,924, and in
+# both 119-126 of the 128 (layer, expert)s hold another token set, so
+# gating only the experts whose tokens agree would gate almost none: the
+# gates read every expert. A token that moves takes its whole
+# contribution from one expert's rows to another's, so the floor's worst
+# entry is 70% of its leaf's largest (we_down; lm_head 43%, embed 28%:
+# the moved tokens' hidden states change downstream), against 3% without
+# experts: the entry gate for deepseek is 0.85, between that floor and a
+# dropped or doubled leaf (1.0 of its largest; the sharded step 43%).
+# Per leaf the floor reads 5-14% (the sharded step 4-12%), under 0.25 as
+# for the others. Per (layer, expert) the floor reads 33% (router, we_up;
+# attention heads 10%) and the sharded step 29%, while the planted fault
+# (rank 0's block of expert 0, layer 0 of we_up: half its rows, the rest
+# on the other data rank) reads 71%: gated at 0.5, 1.5x the floor and
+# 0.7x the fault. Its per-leaf reading (13%) sits under the floor, as
+# rwkv6's does.
 LS_LOSS_RTOL, LS_GRAD_NORM_RTOL, LS_M_TOL, LS_M_L2_TOL, LS_M_HEAD_TOL = (
     1e-2, 2e-2, 0.3, 0.25, 0.35)
+LS_MOE_M_TOL, LS_MOE_M_EXPERT_TOL = 0.85, 0.5
+LS_GATES = {
+    "llama": dict(m_rel=LS_M_TOL, m_l2=LS_M_L2_TOL, m_head_l2=LS_M_HEAD_TOL),
+    "rwkv": dict(m_rel=LS_M_TOL, m_l2=LS_M_L2_TOL, m_head_l2=LS_M_HEAD_TOL),
+    "moe": dict(m_rel=LS_MOE_M_TOL, m_l2=LS_M_L2_TOL,
+                m_head_l2=LS_MOE_M_EXPERT_TOL)}
 # The leaves' head axes (a "heads_x" axis holds a head every head_dim
-# entries), and the leaf where the phase plants its fault.
-LS_HEAD_AXES = ("heads", "kv_heads", "heads_x")
-LS_PLANT = {"llama": "layers/attn/wq", "rwkv": "layers/tm/wr"}
+# entries; "experts" an expert: the per-head L2 is then per (layer,
+# expert)), and the leaf where the phase plants its fault (rank 0's block
+# of head or expert 0, layer 0).
+LS_HEAD_AXES = ("heads", "kv_heads", "heads_x", "experts")
+LS_PLANT = {"llama": "layers/attn/wq", "rwkv": "layers/tm/wr",
+            "moe": "layers/moe/we_up"}
+LS_RUNS = ("llama", "rwkv", "moe")
 
 
 def _ls_full():
@@ -5959,15 +6014,22 @@ def _ls_full():
     return dict(
         llama=llama, rwkv=dataclasses.replace(get_config("rwkv6-7b"),
                                               num_layers=LT_RWKV_LAYERS),
+        moe=dataclasses.replace(get_config("deepseek-moe-16b"),
+                                num_layers=LS_MOE_LAYERS),
         restart=dataclasses.replace(get_config("llama3.2-1b", smoke=True),
                                     dtype="bfloat16"),
         seq=LT_SEQ, rank_device=None, ckpt_root=os.path.join(ROOT, "checkpoints",
                                "chip_smoke_lm_train_sharded"))
 
 
+def _ls_steps(name):
+    return {"rwkv": LS_RWKV_STEPS, "moe": LS_MOE_STEPS}.get(name, LS_STEPS)
+
+
 def _ls_trainer(torch, name, full, dev, shardings=None, ckpt_dir="unused",
                 ckpt_every=0, steps=LS_STEPS):
-    """The Trainer of run ``name`` ("llama", "rwkv" or "restart")."""
+    """The Trainer of run ``name`` ("llama", "rwkv", "moe" or
+    "restart")."""
     from repro_torch.data import TokenTaskConfig, token_batch
     from repro_torch.models import build_model
     from repro_torch.training import AdamWConfig, Trainer, TrainerConfig
@@ -6034,26 +6096,86 @@ def _leaf0(tree):
 
 
 def _ls_params(torch, name, cfg, dev):
-    """The start params of run ``name``: llama3.2-1b's from a seeded
-    generator, rwkv6-7b's ``_lm_params`` (the ranks draw the same on
-    their devices)."""
+    """The start params of run ``name``: llama3.2-1b's and
+    deepseek-moe-16b's from a seeded generator, rwkv6-7b's ``_lm_params``
+    (the ranks draw the same on their devices)."""
     from repro_torch.models import build_model
     model = build_model(cfg)
     if name == "rwkv":
         return _lm_params(torch, model, SEED + 55, dev)
-    return model.init(torch.Generator(device=dev).manual_seed(SEED + 60),
+    seed = SEED + (62 if name == "moe" else 60)
+    return model.init(torch.Generator(device=dev).manual_seed(seed),
                       device=dev)
 
 
+class _LsRoutes:
+    """Records the routing (``gate_idx``, ``keep``) of the first
+    ``layers`` calls of ``layers.moe_route`` inside ``with``: a step's
+    forward, layer by layer (remat's recomputes in the backward come
+    after)."""
+
+    def __init__(self, layers):
+        self.layers, self.got = layers, []
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self._real = L.moe_route
+
+        def record(*args, **kw):
+            r = self._real(*args, **kw)
+            if len(self.got) < self.layers:
+                self.got.append((r["gate_idx"].detach().clone(),
+                                 r["keep"].detach().clone()))
+            return r
+        L.moe_route = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L.moe_route = self._real
+
+
+def _ls_route_diff(torch, got, ref, experts):
+    """Per layer, the (token, choice) routings of ``got`` that differ from
+    ``ref`` (chosen expert or kept), and a (layers, experts) mask of the
+    experts whose kept token sets differ; ``ref`` may hold more groups
+    than ``got``, whose groups are ``ref``'s from ``lo`` on (a tuple
+    ``(routes, lo)``)."""
+    ref, lo = ref
+    flips, differ = [], []
+    for (gi, gk), (ri, rk) in zip(got, ref):
+        ri = ri[lo:lo + gi.shape[0]].to(gi.device)
+        rk = rk[lo:lo + gi.shape[0]].to(gi.device)
+        flips.append(int(((gi != ri) | (gk != rk)).sum()))
+        ar = torch.arange(experts, device=gi.device)
+
+        def held(i, k):         # (ng, g, E): the token holds a kept slot
+            return ((i[..., None] == ar) & k[..., None]).any(dim=2)
+        differ.append((held(gi, gk) != held(ri, rk)).any(dim=1).any(dim=0))
+    return flips, torch.stack(differ)
+
+
+def _ls_empty_experts(torch, routes, experts):
+    """Per layer, the experts that hold no kept token."""
+    out = []
+    for i, k in routes:
+        ar = torch.arange(experts, device=i.device)
+        out.append(int((~((i[..., None] == ar) & k[..., None]).any(
+            dim=(0, 1, 2))).sum()))
+    return out
+
+
 def ls_one_device(torch, dev, full):
-    """The one-device references: llama3.2-1b and rwkv6-7b trained by
-    ``Trainer`` on the card; their losses, each rank's blocks of the
-    first-step moments (bf16: 2**-9 of a value, far inside the gates) on
-    the host with each leaf's largest, grad norm, step ms and peak; and
-    the noise
-    floor of the gates: the first step's gradients in bf16 against the
-    same in f32 (a float32 model from the same params and batch), in the
-    measures of ``_ls_compare``."""
+    """The one-device references: llama3.2-1b, rwkv6-7b and
+    deepseek-moe-16b trained by ``Trainer`` on the card; their losses,
+    each rank's blocks of the first-step moments (bf16: 2**-9 of a value,
+    far inside the gates) on the host with each leaf's largest, grad
+    norm, step ms and peak, and deepseek's first-step routing; and the
+    noise floor of the gates: the first step's gradients in bf16 against
+    the same in f32 (a float32 model from the same params and batch), in
+    the measures of ``_ls_compare`` (deepseek's with the routings that
+    differ, and the experts whose token sets differ, counted per
+    layer)."""
     import dataclasses
     from repro_torch.models import build_model
     from repro_torch.models.params import tree_map
@@ -6062,23 +6184,27 @@ def ls_one_device(torch, dev, full):
     from repro_torch.training.optimizer import tree_leaves
     from repro_torch.training.trainer import loss_and_grads
     out = {}
-    for name in ("llama", "rwkv"):
+    for name in LS_RUNS:
         cfg = full[name]
+        moe = cfg.family == "moe"
+        nl = cfg.num_layers if moe else 0
         params = _ls_params(torch, name, cfg, dev)
-        tr = _ls_trainer(torch, name, full, dev,
-                         steps=LS_RWKV_STEPS if name == "rwkv" else LS_STEPS)
+        tr = _ls_trainer(torch, name, full, dev, steps=_ls_steps(name))
         first = _ls_keep_first(tr)
         _peak_reset(torch, dev)
-        res = tr.run(start_state={"params": params,
-                                  "opt": adamw_init(params),
-                                  "err": torch.zeros((), device=dev)})
+        with _LsRoutes(nl) as routes:
+            res = tr.run(start_state={"params": params,
+                                      "opt": adamw_init(params),
+                                      "err": torch.zeros((), device=dev)})
         times = [h["time_s"] for h in res["history"][1:]]
         m1 = first["opt"]["m"]
-        t0 = time.perf_counter()
+        t0, parts = time.perf_counter(), {}
         blocks = _ls_rank_blocks(
-            torch, tr.model, tree_map(lambda m: m.to(torch.bfloat16), m1))
+            torch, tr.model, tree_map(lambda m: m.to(torch.bfloat16), m1),
+            parts)
         out[name] = dict(
             m1=blocks, blocks_s=time.perf_counter() - t0,
+            blocks_s_by_part=parts,
             m1_top=[float(m.abs().max()) for m in tree_leaves(m1)],
             losses=[h["loss"] for h in res["history"]],
             grad_norm1=float(first["metrics"]["grad_norm"]),
@@ -6090,43 +6216,97 @@ def ls_one_device(torch, dev, full):
         batch = tr.local_batch(tr.batch_fn(0))
         f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
         with deterministic(all_ops=True):
-            g16 = loss_and_grads(tr.model, params, batch, remat=True)[2]
+            with _LsRoutes(nl) as r16:
+                g16 = loss_and_grads(tr.model, params, batch, remat=True)[2]
             del params
-            g32 = loss_and_grads(
-                f32, tree_map(lambda x: x.float(), _ls_params(
-                    torch, name, cfg, dev)), batch, remat=True)[2]
+            with _LsRoutes(nl) as r32:
+                g32 = loss_and_grads(
+                    f32, tree_map(lambda x: x.float(), _ls_params(
+                        torch, name, cfg, dev)), batch, remat=True)[2]
+        extra = {}
+        tops = [float(g.abs().max()) for g in tree_leaves(g32)]
+        axes, hd = _ls_axes(tr.model.defs()), _ls_head_dim(cfg)
+        if moe:
+            flips, differ = _ls_route_diff(torch, r16.got, (r32.got, 0),
+                                           cfg.num_experts)
+            extra = dict(routing_flips_by_layer=flips,
+                         experts_moved_by_layer=differ.sum(1).tolist(),
+                         tokens_by_layer=int(r16.got[0][0].numel()))
+            out[name]["routes"] = [(i.cpu(), k.cpu()) for i, k in routes.got]
+            out[name]["empty_experts_by_layer"] = _ls_empty_experts(
+                torch, routes.got, cfg.num_experts)
         out[name]["floor"] = dict(
-            _ls_compare(torch, None, g16, g32,
-                        [float(g.abs().max()) for g in tree_leaves(g32)],
-                        None, _ls_axes(tr.model.defs()), _ls_head_dim(cfg),
+            _ls_compare(torch, None, g16, g32, tops, None, axes, hd,
                         plant=LS_PLANT[name]),
-            seconds=time.perf_counter() - t0)
-        del tr, g16, g32, batch
+            seconds=time.perf_counter() - t0, **extra)
+        del tr, g16, g32, batch, routes, r16, r32
         _free(torch, dev)
     return out
 
 
-def _ls_rank_blocks(torch, model, tree):
+def _ls_rank_blocks(torch, model, tree, parts=None):
     """Each rank's blocks of ``tree`` (whole params-shaped arrays on the
-    card) over an ``LS_MESH`` mesh, sliced on the card and copied into
-    host tensors in shared memory (which ``spawn`` hands to the ranks
-    without a copy): ``[rank]``."""
+    card) over an ``LS_MESH`` mesh, in host memory that ``spawn`` hands to
+    the ranks without a copy: ``[rank]``. A rank's blocks are packed on
+    the card into one buffer (16-byte aligned), copied to the host in one
+    transfer through a pinned staging buffer, then into one new
+    shared-memory segment, of which every leaf is a view (one segment a
+    rank, in place of a segment and a pageable copy a leaf). ``parts``
+    (a dict) gathers the seconds of each part: pack, d2h, segment,
+    copy."""
+    def lap(name, t):
+        now = time.perf_counter()
+        if parts is not None:
+            parts[name] = parts.get(name, 0.0) + now - t
+        return now
     from repro_torch.distributed import sharding as SH
     from repro_torch.distributed.mesh import Mesh
     from repro_torch.distributed.runtime import MESH_AXES
     from repro_torch.training.optimizer import tree_map
     mesh = Mesh(MESH_AXES, LS_MESH, (torch.device("cpu"),) * 4)
     specs = SH.param_pspecs(model.defs(), mesh)
+    out, stage = [], None
+    for rank in range(len(mesh.device_list)):
+        t = time.perf_counter()
+        blocks = []
 
-    def block(rank):
         def cut(x, s):
-            b = x[SH.NamedSharding(mesh, s).devices_indices_map(
-                tuple(x.shape))[rank]]
-            return torch.empty(b.shape, dtype=b.dtype).share_memory_() \
-                .copy_(b)
-        return cut
-    return [tree_map(block(r), tree, specs)
-            for r in range(len(mesh.device_list))]
+            blocks.append(x[SH.NamedSharding(mesh, s).devices_indices_map(
+                tuple(x.shape))[rank]])
+            return len(blocks) - 1
+        index = tree_map(cut, tree, specs)
+        offs, total = [], 0
+        for b in blocks:
+            offs.append(total)
+            total += -(-b.numel() * b.element_size() // 16) * 16
+        dev = blocks[0].device
+        packed = torch.empty(total, dtype=torch.uint8, device=dev)
+
+        def view(buf, i):
+            b = blocks[i]
+            n = b.numel() * b.element_size()
+            return buf[offs[i]:offs[i] + n].view(b.dtype).view(b.shape)
+        for i, b in enumerate(blocks):
+            view(packed, i).copy_(b)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            t = lap("pack", t)
+            if stage is None or stage.numel() < total:
+                stage = torch.empty(total, dtype=torch.uint8,
+                                    pin_memory=True)
+            stage[:total].copy_(packed)
+            packed = stage[:total]
+        t = lap("d2h", t)
+        # a fresh segment (share_memory_ of a new tensor would copy its
+        # uninitialised bytes into one: 0.7 s for 0.6 GB on the CPU)
+        seg = torch.empty(0, dtype=torch.uint8).set_(
+            torch.UntypedStorage._new_shared(total))
+        t = lap("segment", t)
+        seg.copy_(packed)
+        lap("copy", t)
+        out.append(tree_map(lambda i: view(seg, i), index))
+        del blocks, packed
+    return out
 
 
 def _ls_paths(tree, prefix=""):
@@ -6185,11 +6365,13 @@ def _ls_compare(torch, pm, got_m, ref_m, tops, specs, axes, head_dim, *,
     rank's blocks of both over ``pm``, the latter on the host; whole
     arrays with ``pm`` None), maxed over the mesh: the worst
     entry as a share of its leaf's largest (``tops``); each leaf's
-    relative L2; and each (layer, head)'s relative L2 in the leaves with a
-    head axis. The same three for the leaf ``plant`` with its first head
-    of layer 0 zeroed on rank 0: a planted fault (one head's gradient
-    dropped), which the gates must see. The reductions stay outside the
-    collective tallies."""
+    relative L2; and each (layer, head)'s -- or (layer, expert)'s --
+    relative L2 in the leaves with a head or experts axis (a head or an
+    expert without a reference gradient has none: it reads 0, or inf if
+    it got one). The same three for the leaf ``plant`` with its first
+    head or expert of layer 0 zeroed on rank 0: a planted fault (one
+    head's gradient dropped), which the gates must see. The reductions
+    stay outside the collective tallies."""
     import torch.distributed as dist
     from repro_torch.training.optimizer import spec_leaves, tree_leaves
     paths = _ls_paths(ref_m)
@@ -6233,8 +6415,9 @@ def _ls_compare(torch, pm, got_m, ref_m, tops, specs, axes, head_dim, *,
             # a head's entries off the head dim lie on other ranks
             _ls_reduce(pm, sums, dist.ReduceOp.SUM,
                        [e for k, e in enumerate(s) if e and k != h])
-            row[n + 1 + i if j == 0 else 2 * n + 1] = (
-                sums[0] / sums[1].clamp(min=1e-300)).sqrt().max()
+            ratio = torch.where(sums[1] > 0, sums[0] / sums[1].clamp(
+                min=1e-300), torch.where(sums[0] > 0, torch.inf, 0.0))
+            row[n + 1 + i if j == 0 else 2 * n + 1] = ratio.sqrt().max()
     _ls_reduce(pm, row, dist.ReduceOp.MAX)
     _ls_reduce(pm, sq, dist.ReduceOp.SUM)
     l2 = (sq[:n] / sq[n:2 * n].clamp(min=1e-300)).sqrt().tolist()
@@ -6261,6 +6444,101 @@ def _ls_owner(pm, specs):
     return out
 
 
+def _ls_expected(torch, cfg):
+    """The collectives a rank issues in one remat train step of a dense
+    or MoE transformer over ``LS_MESH``, counted from the specs
+    (``param_pspecs``) and the layers' TP and expert-parallel sites as
+    ``tests/test_torch_dist_train.py`` counts them, a layer's forward
+    twice (remat recomputes it in the backward), and the bytes of its
+    FSDP all-gathers and reduce-scatters (each the gathered block, in
+    the params' dtype): ``(counts, bytes)`` by ``"op/axis"``."""
+    import collections
+    import math
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.runtime import MESH_AXES
+    from repro_torch.models import build_model
+    from repro_torch.models.params import ParamDef
+    from repro_torch.training.optimizer import spec_leaves
+    dsz, tp = LS_MESH
+    sizes = {"data": dsz, "model": tp}
+    mesh = Mesh(MESH_AXES, LS_MESH, (torch.device("cpu"),) * 4)
+    defs = build_model(cfg).defs()
+    specs = SH.param_pspecs(defs, mesh)
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+
+    def leaf(path):
+        d, sp = defs, specs
+        for k in path.split("/"):
+            d, sp = d[k], sp[k]
+        assert isinstance(d, ParamDef)
+        stacked = d.axes[0] == "layers"
+        return (tuple(sp)[1:] if stacked else tuple(sp),
+                d.shape[1:] if stacked else d.shape, stacked)
+
+    def layout(shape, cands):
+        for cand in tuple(cands) + ((None,) * len(shape),):
+            cand = tuple(cand) + (None,) * (len(shape) - len(cand))
+            if all(n % (sizes[e] if e else 1) == 0
+                   for n, e in zip(shape, cand)):
+                return cand
+
+    up, down = ((None, "model"), ("model", None)), (("model", None),
+                                                    (None, "model"))
+    heads = (None, "model", None)
+    kv_tp = cfg.num_kv_heads % tp == 0
+    kv = heads if kv_tp else (None,) * 3
+    wo = ("model", None, None) if cfg.num_heads % tp == 0 else (None,) * 3
+    uses = [("embed", (("model", None),)),
+            ("embed", (("model", None),)) if cfg.tie_embeddings
+            else ("lm_head", ((None, "model"),)),
+            ("layers/attn/wq", (heads,)), ("layers/attn/wk", (kv,)),
+            ("layers/attn/wv", (kv,)), ("layers/attn/wo", (wo,))]
+    mlp = "layers/moe/shared" if cfg.family == "moe" else "layers/mlp"
+    uses += [(f"{mlp}/w_gate", up), (f"{mlp}/w_up", up),
+             (f"{mlp}/w_down", down)]
+    if cfg.family == "moe":
+        uses += [("layers/moe/router", ((None, "model"),))] + [
+            (f"layers/moe/{k}", (("model", None, None),))
+            for k in ("we_gate", "we_up", "we_down")]
+    n, nbytes = collections.Counter(), collections.Counter()
+    nl = cfg.num_layers
+    for path, cands in uses:
+        spec, shape, stacked = leaf(path)
+        fwd, once = (2 * nl, nl) if stacked else (1, 1)
+        if "data" in spec:
+            gathered = math.prod(shape) // (tp if "model" in spec else 1)
+            n["all_gather/data"] += fwd
+            n["reduce_scatter/data"] += once
+            nbytes["all_gather/data"] += fwd * gathered * item
+            nbytes["reduce_scatter/data"] += once * gathered * item
+        src = spec.index("model") if "model" in spec else None
+        lay = layout(shape, cands)
+        dst = lay.index("model") if "model" in lay else None
+        if src != dst:   # gather_from forward, split_to's gather back
+            n["all_gather/model"] += fwd * (src is not None) + once * (
+                dst is not None)
+    n["all_reduce/data"] += 3 + sum(
+        "data" not in sp for sp in spec_leaves(specs))
+    # Forward: wo's all-reduce twice, the MLP's (or shared experts')
+    # down once: remat's recompute stops at the last activation the
+    # backward reads (torch.utils.checkpoint), before a layer's last
+    # all-reduce. Backward: q's copy_to (K/V's too without kv_tp), the
+    # gate's and up's.
+    n["all_reduce/model"] += nl * (2 + 1) + nl * (1 + (0 if kv_tp else 2)
+                                                  + 2)
+    if cfg.family == "moe":
+        n["all_reduce/data"] += 2 * 2 * nl       # the aux loss's me, ce
+        # the combine's all-reduce (forward), xg's copy_to (backward);
+        # the gathered logits (forward), the combine's split_to (back)
+        n["all_reduce/model"] += 2 * nl + nl
+        n["all_gather/model"] += 2 * nl + nl
+    # the embedding, the head's copy_to, the loss (max, sum of exps,
+    # target logit), the global norm
+    n["all_reduce/model"] += 1 + 1 + 3 + 1
+    return dict(sorted(n.items())), dict(sorted(nbytes.items()))
+
+
 def _ls_counts():
     from repro_torch.distributed import collectives as C
     return ({f"{op}/{axis}": n for (op, axis), n in sorted(
@@ -6278,8 +6556,10 @@ def ls_train(torch, pm, full, name, ref, k4):
     from repro_torch.distributed import collectives as C
     from repro_torch.training.trainer import state_shardings
     from repro_torch.models import build_model
+    import torch.distributed as dist
     cfg = full[name]
-    steps = LS_RWKV_STEPS if name == "rwkv" else LS_STEPS
+    steps = _ls_steps(name)
+    moe = cfg.family == "moe"
     sh = state_shardings(build_model(cfg), pm)
     tr = _ls_trainer(torch, name, full, pm.device, shardings=sh,
                      steps=steps)
@@ -6287,14 +6567,43 @@ def ls_train(torch, pm, full, name, ref, k4):
     # kernels on cuda:0 while rank 0's NCCL kernels spun there waiting
     # for it hung both (4 H100s, a 600 s watchdog timeout).
     mine = ref["m1"][pm.rank]
+    routes = _LsRoutes(cfg.num_layers if moe else 0)
 
     def look(p, o):
         t0 = time.perf_counter()
+        extra = {}
+        if moe:
+            # this rank's groups are the one-device step's from lo on
+            ng = routes.got[0][0].shape[0]
+            flips, differ = _ls_route_diff(
+                torch, routes.got, (ref["routes"], pm.coord("data") * ng),
+                cfg.num_experts)
+            flips = torch.tensor(flips, dtype=torch.float64,
+                                 device=pm.device)
+            differ = differ.double()
+            _ls_reduce(pm, flips, dist.ReduceOp.SUM, ["data"])
+            _ls_reduce(pm, differ, dist.ReduceOp.MAX, ["data"])
+            # the same bits on every 'model' rank of a row block
+            same = []
+            for gi, gk in routes.got:
+                for t in (gi.double(), gk.double()):
+                    hi, lo = t.clone(), t.clone()
+                    _ls_reduce(pm, hi, dist.ReduceOp.MAX, ["model"])
+                    _ls_reduce(pm, lo, dist.ReduceOp.MIN, ["model"])
+                    same.append(bool(torch.equal(hi, lo)))
+            flag = torch.tensor([float(all(same))], device=pm.device)
+            _ls_reduce(pm, flag, dist.ReduceOp.MIN)
+            extra = dict(routing_flips_by_layer=[int(x) for x in
+                                                 flips.tolist()],
+                         experts_moved_by_layer=[int(x) for x in
+                                                 differ.sum(1).tolist()],
+                         routing_equal_on_model_ranks=bool(flag.item()
+                                                           == 1.0))
         out = _ls_compare(
             torch, pm, o["m"], mine, ref["m1_top"], tr.specs["params"],
             _ls_axes(tr.model.defs()), _ls_head_dim(cfg),
             plant=LS_PLANT[name])
-        return dict(out, compare_s=time.perf_counter() - t0)
+        return dict(out, compare_s=time.perf_counter() - t0, **extra)
     start = _ls_params(torch, name, cfg, pm.device)
     first = _ls_keep_first(tr, look)
     k4_in = []
@@ -6311,7 +6620,8 @@ def ls_train(torch, pm, full, name, ref, k4):
     k4.launches = 0
     C.reset_counts()
     try:
-        res = tr.run(start_state=_ls_start(torch, start))
+        with routes:
+            res = tr.run(start_state=_ls_start(torch, start))
     finally:
         k4.wkv6_scan_cuda = real_cuda
     _sync(torch, pm.device)
@@ -6319,6 +6629,7 @@ def ls_train(torch, pm, full, name, ref, k4):
     counts, nbytes = _ls_counts()
     times = [h["time_s"] for h in res["history"][1:]]
     batch = LT_RWKV_BATCH if name == "rwkv" else LT_BATCH
+    del routes
     row = dict(
         config=f"{cfg.name} widths, {cfg.num_layers} layers, {cfg.dtype}, "
                f"B={batch}, S={full['seq']}, remat, mesh {LS_MESH}",
@@ -6388,8 +6699,9 @@ def ls_restart(torch, pm, full, root):
 
 
 def ls_rank(rank, world, port, backend, full, refs, out_dir):
-    """One rank of the phase: joins the process group, trains llama3.2-1b
-    and rwkv6-7b over the mesh and runs the restart; writes its rows."""
+    """One rank of the phase: joins the process group, trains llama3.2-1b,
+    rwkv6-7b and deepseek-moe-16b over the mesh and runs the restart;
+    writes its rows."""
     import torch
     from repro_torch.distributed import runtime as R
     from repro_torch.kernels import wkv6_scan as k4
@@ -6402,7 +6714,7 @@ def ls_rank(rank, world, port, backend, full, refs, out_dir):
                 device=dev, shape=LS_MESH, timeout_s=LS_TIMEOUT_S)
     out = dict(rank=rank, device=str(dev), backend=backend,
                init_s=time.perf_counter() - t0)
-    for name in ("llama", "rwkv"):
+    for name in LS_RUNS:
         t1 = time.perf_counter()
         out[name] = ls_train(torch, pm, full, name, refs[name], k4)
         out[name + "_s"] = time.perf_counter() - t1
@@ -6416,10 +6728,14 @@ def ls_rank(rank, world, port, backend, full, refs, out_dir):
 def lm_train_sharded_phase(torch, dev, k4, smi):
     """Phase 12b: the one-device references on the card, then four ranks
     (``runtime.spawn``; gloo on cuda:0, or NCCL one rank a card with four
-    cards) train llama3.2-1b and rwkv6-7b through ``Trainer(shardings=
-    ...)`` from the same params, each run's first step gated against the
-    one-device step (the gates shown to sit between the bf16 noise floor
-    and a planted fault), every rank's K4 launches counted and K4 held
+    cards) train llama3.2-1b, rwkv6-7b and deepseek-moe-16b through
+    ``Trainer(shardings=...)`` from the same params, each run's first step
+    gated against the one-device step (the gates shown to sit between the
+    bf16 noise floor and a planted fault; deepseek's per expert, its
+    routings that differ counted per layer and its routing the same bits
+    on every 'model' rank), the
+    collectives a rank issues a step against the count from the specs
+    (llama3.2-1b, deepseek), every rank's K4 launches counted and K4 held
     against its plain version on a rank's real inputs; the crash and
     restart bit for bit. Returns the K4 numbers the ``kernels`` line
     needs."""
@@ -6435,7 +6751,8 @@ def lm_train_sharded_phase(torch, dev, k4, smi):
     os.makedirs(full["ckpt_root"])
     # The ranks take their blocks of the references from the host (in
     # shared memory) and draw the start params on their own devices.
-    host = {n: {k: refs[n].pop(k) for k in ("m1", "m1_top")} for n in refs}
+    host = {n: {k: refs[n].pop(k) for k in ("m1", "m1_top", "routes")
+                if k in refs[n]} for n in refs}
     ref_bytes = (torch.cuda.memory_reserved(dev)
                  if torch.device(dev).type == "cuda" else None)
     t1 = time.perf_counter()
@@ -6452,11 +6769,9 @@ def lm_train_sharded_phase(torch, dev, k4, smi):
                ranks=4, parent_reserved_bytes=ref_bytes,
                tolerance=dict(loss_rtol=LS_LOSS_RTOL,
                               grad_norm_rtol=LS_GRAD_NORM_RTOL,
-                              m_share=LS_M_TOL, m_l2=LS_M_L2_TOL,
-                              m_head_l2=LS_M_HEAD_TOL))
-    gates = dict(m_rel=LS_M_TOL, m_l2=LS_M_L2_TOL, m_head_l2=LS_M_HEAD_TOL)
+                              first_moments=LS_GATES))
     k4_err, launches, failed = 0.0, 0, []
-    for name in ("llama", "rwkv"):
+    for name in LS_RUNS:
         ref, lead = refs[name], rows[0][name]
         loss_rel = max(abs(a - b) / abs(b) for a, b in
                        zip(lead["losses"], ref["losses"]))
@@ -6465,6 +6780,7 @@ def lm_train_sharded_phase(torch, dev, k4, smi):
         row = dict(lead, one_device_losses=ref["losses"],
                    noise_floor=ref["floor"],
                    reference_blocks_s=ref["blocks_s"],
+                   reference_blocks_s_by_part=ref["blocks_s_by_part"],
                    one_device_step_ms=ref["step_ms"],
                    one_device_peak_bytes=ref["peak_bytes"],
                    loss_rel=loss_rel, grad_norm_rel=gn_rel,
@@ -6473,6 +6789,27 @@ def lm_train_sharded_phase(torch, dev, k4, smi):
                                         for x in rows],
                    step_ms_by_rank=[x[name]["step_ms_median"] for x in rows],
                    seconds_by_rank=[x[name + "_s"] for x in rows])
+        if full[name].family in ("dense", "moe"):
+            counts, nbytes = _ls_expected(torch, full[name])
+            row["expected_collectives_per_step"] = counts
+            row["expected_fsdp_bytes_per_step"] = nbytes
+            if not all(x[name]["collectives_per_step"] == counts
+                       for x in rows):
+                failed.append(f"{name}: collectives a step against the "
+                              f"specs' count")
+            if not all(x[name]["collective_bytes_per_step"][k] == v
+                       for x in rows for k, v in nbytes.items()):
+                failed.append(f"{name}: FSDP bytes a step against the "
+                              f"specs")
+        if full[name].family == "moe":
+            row["one_device_empty_experts_by_layer"] = ref[
+                "empty_experts_by_layer"]
+            if not all(x[name]["routing_equal_on_model_ranks"]
+                       for x in rows):
+                failed.append(f"{name}: routing differs between the "
+                              f"'model' ranks")
+        gates = LS_GATES[name]
+        row["gates"] = gates
         out[name] = row
         if not (all(np.isfinite(lead["losses"]))
                 and loss_rel <= LS_LOSS_RTOL
@@ -6480,11 +6817,11 @@ def lm_train_sharded_phase(torch, dev, k4, smi):
                 and all(lead[k] <= v for k, v in gates.items())):
             failed.append(f"sharded {name} against one device")
         # The gates must pass the bf16 noise floor and see a fault in one
-        # head (the per-head L2 alone can: one head of 64 in one of 4
-        # layers moves its leaf's L2 by a few per cent).
+        # head or expert (the per-head L2 alone can: one head of 64 in
+        # one of 4 layers moves its leaf's L2 by a few per cent).
         if not all(ref["floor"][k] <= v for k, v in gates.items()):
             failed.append(f"{name}: the bf16 noise floor above a gate")
-        if not lead["planted"]["m_head_l2"] > LS_M_HEAD_TOL:
+        if not lead["planted"]["m_head_l2"] > gates["m_head_l2"]:
             failed.append(f"{name}: a planted fault under the gates")
         if name == "rwkv" and torch.device(dev).type == "cuda":
             cfg = full["rwkv"]

@@ -8,6 +8,8 @@ Examples:
       --steps 100 --batch 4 --seq 1024 --remat
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --smoke --mesh 2x2 --spawn --steps 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch \\
+      deepseek-moe-16b --smoke --mesh 2x2 --spawn --steps 2 --device cpu
   # one process a rank, e.g. rank 1 of 4 (every rank the same flags):
   PYTHONPATH=src python -m repro_torch.launch.train --mesh 2x2 \\
       --world-size 4 --rank 1 --address localhost --port 29500 ...
@@ -23,8 +25,8 @@ sharded by ``param_pspecs``/``opt_pspecs``/``batch_pspecs`` over a
 is rank ``--rank`` of ``--world-size`` and joins ``tcp://ADDRESS:PORT``.
 ``--backend`` is ``gloo`` on the CPU; on the card ``nccl`` when there is
 a card a rank, else ``gloo`` (ranks sharing a card). Rank ``r`` runs on
-``cuda:(r % cards)``. Families other than dense and rwkv6, and 3-D meshes,
-are refused with the ROADMAP item that ports them. The task is
+``cuda:(r % cards)``. Families other than dense, moe and rwkv6, and 3-D
+meshes, are refused with the ROADMAP item that ports them. The task is
 ``data.token_batch``'s ``"repeat"``; the enc-dec's encoder frames are
 drawn from a ``torch.Generator`` seeded with the step, so they differ
 from the JAX launcher's (``jax.random.normal``) while the tokens agree.

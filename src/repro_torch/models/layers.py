@@ -20,9 +20,10 @@ blocks are replicated over ``model`` (the batch rows are the rank's
 ``data`` block); ``dense`` is column-parallel for ``role="up"`` (behind
 ``copy_to``, the output this rank's columns) and row-parallel for
 ``role="down"`` (followed by an ``all_reduce``), each as the weight's
-chosen layout says; attention runs on this rank's heads; the embedding
-and the logits are vocab-parallel (``embed_lookup``, ``logits_f32`` on
-the rank's vocab columns). Off a process mesh every collective is the
+chosen layout says; attention runs on this rank's heads; the MoE
+experts are parallel over ``model`` (``moe_apply``); the embedding and
+the logits are vocab-parallel (``embed_lookup``, ``logits_f32`` on the
+rank's vocab columns). Off a process mesh every collective is the
 identity and the layers are the one-device ones.
 """
 from __future__ import annotations
@@ -44,8 +45,8 @@ from repro_torch.models.params import ParamDef
 __all__ = [
     "rms_norm", "rope_freqs", "apply_rope", "mrope_positions",
     "attention_defs", "attention_apply", "attention_decode",
-    "mlp_defs", "mlp_apply", "moe_defs", "moe_apply", "dense",
-    "blockwise_attention", "layer_norm", "logits_f32", "remat",
+    "mlp_defs", "mlp_apply", "moe_defs", "moe_apply", "moe_groups",
+    "dense", "blockwise_attention", "layer_norm", "logits_f32", "remat",
     "layer_params", "embed_lookup",
 ]
 
@@ -565,7 +566,8 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
 
 
 def moe_route(router: torch.Tensor, xg: torch.Tensor, cfg: ModelConfig,
-              cap: int) -> Dict[str, torch.Tensor]:
+              cap: int, *, expert_axis: Optional[str] = None
+              ) -> Dict[str, torch.Tensor]:
     """The router of ``moe_apply`` on grouped tokens ``xg`` (NG, G, D).
 
     Returns the f32 ``probs`` (NG, G, E), the chosen experts ``gate_idx``
@@ -575,9 +577,16 @@ def moe_route(router: torch.Tensor, xg: torch.Tensor, cfg: ModelConfig,
     experts, then the first k, so equal probabilities go to the lower
     expert index, as ``jax.lax.top_k`` breaks ties. A slot is the
     exclusive cumsum over (G*k) in token-major, then choice, order.
+
+    ``expert_axis``: ``router`` holds this rank's block of the experts'
+    columns over that mesh axis; the rank's logits are gathered over it
+    (``gather_from``: the backward keeps the rank's block), so every rank
+    of the axis routes from the same bits.
     """
     e, k = cfg.num_experts, cfg.top_k
     logits = torch.einsum("ngd,de->nge", xg, router).float()
+    if expert_axis is not None:
+        logits = C.gather_from(logits, -1, expert_axis)
     probs = torch.softmax(logits, dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = top.values[..., :k], top.indices[..., :k]
@@ -593,23 +602,76 @@ def moe_route(router: torch.Tensor, xg: torch.Tensor, cfg: ModelConfig,
                 keep=keep, gate_vals=gate_vals * keep)
 
 
+def moe_groups(b: int, s: int, cfg: ModelConfig) -> Tuple[int, int, int]:
+    """``(g, ng, cap)``: the group size, the number of groups and the
+    expert capacity of ``moe_apply`` over ``b`` rows of ``s`` tokens.
+
+    Under a process mesh the rows are this rank's ``data`` block of a
+    global batch of ``b * |data|`` rows, and the JAX package groups the
+    global batch. The groups and capacity here are those only when the
+    global group size is the rank's own and a rank's tokens fill whole
+    groups; anything else would drop another set of tokens, so it raises
+    ``ValueError``."""
+    n = b * s
+    g = min(cfg.moe_group_size, n)
+    dsz = C.axis_size("data")
+    g_all = min(cfg.moe_group_size, n * dsz)
+    if g != g_all or n % g:
+        raise ValueError(
+            f"MoE groups over {dsz} data ranks: a rank holds {b} x {s} = "
+            f"{n} tokens of a {b * dsz} x {s} global batch, grouped in "
+            f"{g_all} tokens (moe_group_size {cfg.moe_group_size}); a "
+            f"rank's tokens must fill whole groups of that size")
+    cap = min(int(math.ceil(g * cfg.top_k * cfg.capacity_factor
+                            / cfg.num_experts)), g)
+    return g, n // g, cap
+
+
 def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux load-balance loss). The one-hot dispatch and
     combine tensors are in ``x``'s dtype, as in the JAX package; the aux
-    loss counts each token's top-1 choice."""
+    loss counts each token's top-1 choice.
+
+    Under a process mesh the experts are parallel over ``model`` (the
+    specs put ``experts`` there): the router's and the expert weights'
+    ``data`` dims are gathered at use (the JAX package's ``unshard_fsdp``
+    sites), each rank computes the logits of its experts and gathers them
+    (``moe_route``), so softmax, top-k and the capacity cumsum run on the
+    whole (NG, G, E) on every rank; ``xg`` enters through ``copy_to``,
+    the dispatch and combine tensors are cut to the rank's experts
+    (``split_to``: the combine's gradient, and through it the router's,
+    is whole on every rank), and the rank's partial combine is summed
+    over ``model``. The aux loss's statistics are means over the global
+    groups: averaged over ``data`` (``all_reduce``, whose backward is the
+    identity, for ``me``; ``ce_frac`` has no gradient), so the loss
+    counts it once. The shared experts are ``dense``'s TP. Off a process
+    mesh every collective is the identity. Experts that do not divide
+    ``model`` (the specs then put the experts' ``mlp`` dim there) raise
+    ``NotImplementedError``."""
     b, s, d = x.shape
     e = cfg.num_experts
-    g = min(cfg.moe_group_size, b * s)
-    ng = (b * s) // g
-    cap = min(int(math.ceil(g * cfg.top_k * cfg.capacity_factor / e)), g)
+    g, ng, cap = moe_groups(b, s, cfg)
     xg = x.reshape(ng, g, d)
-    r = moe_route(p["router"], xg, cfg, cap)
+    router, lay = A.gather_at_use(p["router"], (None, "model"))
+    ep = lay is not None and lay[1] == "model"
+    if not ep and A.tp_size() > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: {e} experts over a model axis of {A.tp_size()}: "
+            f"the fallback layout (each expert's mlp dim on 'model') is "
+            f"not trained")
+    axis = "model" if ep else None
+    xin = C.copy_to(xg, "model") if ep else xg
+    r = moe_route(router, xin, cfg, cap, expert_axis=axis)
 
-    # Switch-style load-balance aux loss.
+    # Switch-style load-balance aux loss, over the global groups.
     me = r["probs"].mean(dim=(0, 1))
     ce_frac = _one_hot(r["gate_idx"][..., 0], e,
                        torch.float32).mean(dim=(0, 1))
+    dsz = C.axis_size("data")
+    if dsz > 1:
+        me = C.all_reduce(me, "data") / dsz
+        ce_frac = C.all_reduce_(ce_frac, "data") / dsz
     aux = e * torch.sum(me * ce_frac)
 
     # dispatch (ng, g, e, cap) one-hot routing tensor in x's dtype.
@@ -617,18 +679,23 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
         x.dtype)
     onehot = r["onehot"]
     disp = torch.einsum("ngke,ngkc->ngec", onehot.to(x.dtype), pos_oh)
-    xe = torch.einsum("ngd,ngec->necd", xg, disp)            # (ng,e,cap,d)
-
-    hg = F.silu(torch.einsum("necd,edf->necf", xe, p["we_gate"]))
-    hu = torch.einsum("necd,edf->necf", xe, p["we_up"])
-    ye = torch.einsum("necf,efd->necd", hg * hu, p["we_down"])
-
     # combine: gate-weighted inverse of dispatch.
     comb = torch.einsum("ngke,ngkc->ngec",
                         (onehot * r["gate_vals"][..., None]).to(x.dtype),
                         pos_oh)
+    if ep:                                   # this rank's experts
+        disp = C.split_to(disp, 2, "model")
+        comb = C.split_to(comb, 2, "model")
+    xe = torch.einsum("ngd,ngec->necd", xin, disp)           # (ng,e,cap,d)
+
+    we_gate, we_up, we_down = (A.unshard_fsdp(p[k], ("model", None, None))
+                               for k in ("we_gate", "we_up", "we_down"))
+    hg = F.silu(torch.einsum("necd,edf->necf", xe, we_gate))
+    hu = torch.einsum("necd,edf->necf", xe, we_up)
+    ye = torch.einsum("necf,efd->necd", hg * hu, we_down)
+
     y = torch.einsum("ngec,necd->ngd", comb, ye)
-    out = y.reshape(b, s, d)
+    out = (C.all_reduce(y, "model") if ep else y).reshape(b, s, d)
 
     if cfg.num_shared_experts:
         sh = p["shared"]

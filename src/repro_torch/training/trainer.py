@@ -31,8 +31,9 @@ over ``model`` (``models.layers``). Gradients of leaves replicated over
 restart may run on another mesh ("elastic scaling"): rank 0 writes whole
 arrays (``sharding.gather_logical``), the files the one-device trainer
 writes for the same state. Only rank 0 prints and writes. Families:
-``dense`` and ``rwkv6``; the others, and meshes with other axes, are
-refused with the ROADMAP item that ports them. ``failure_hook`` runs on
+``dense``, ``moe`` (experts over ``model``) and ``rwkv6``; the others,
+and meshes with other axes, are refused with the ROADMAP item that ports
+them. ``failure_hook`` runs on
 every rank, so a simulated failure (:class:`SimulatedFailure`) raises on
 all of them at the same step, and ``run_with_restarts`` waits for every
 rank and restores on all of them from the same checkpoint. Over a process
@@ -136,26 +137,33 @@ def _on(device: torch.device, tree: Any) -> Any:
 
 
 # The ROADMAP items that port what a sharded Trainer refuses.
-_NEXT_FAMILY = {"moe": "7a (moe: experts over 'model')", "vlm": "7b (vlm)",
-                "zamba2": "7c (zamba2)", "encdec": "7d (encdec)"}
+_NEXT_FAMILY = {"vlm": "7b (vlm)", "zamba2": "7c (zamba2)",
+                "encdec": "7d (encdec)"}
 _NEXT_MESH = "7e (3-D meshes with 'pod')"
+_FAMILIES = ("dense", "moe", "rwkv6")
 
 
 def refuse_unsupported(cfg, axis_names, model_size: int) -> None:
     """Raise ``NotImplementedError`` for what sharded training does not
     cover, naming the ROADMAP item that ports it: families other than
-    ``dense`` and ``rwkv6``, meshes over other axes than
-    ``("data", "model")``, and rwkv6 heads that a model axis would
-    split."""
+    ``dense``, ``moe`` and ``rwkv6``, meshes over other axes than
+    ``("data", "model")``, rwkv6 heads that a model axis would split, and
+    MoE experts that do not divide it (the specs' fallback layout, each
+    expert's ``mlp`` dim on ``model``, which is not trained)."""
     if tuple(axis_names) != MESH_AXES:
         raise NotImplementedError(
             f"a {tuple(axis_names)} mesh: sharded training runs over "
             f"{MESH_AXES}; ROADMAP item {_NEXT_MESH}")
-    if cfg.family not in ("dense", "rwkv6"):
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: sharded training covers the dense and rwkv6 "
-            f"families; {cfg.family} is ROADMAP item "
-            f"{_NEXT_FAMILY.get(cfg.family, '7')}")
+            f"{cfg.name}: sharded training covers the "
+            f"{', '.join(_FAMILIES)} families; {cfg.family} is ROADMAP "
+            f"item {_NEXT_FAMILY.get(cfg.family, '7')}")
+    if cfg.family == "moe" and cfg.num_experts % model_size:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.num_experts} experts over a model axis of "
+            f"{model_size}: the fallback layout (each expert's mlp dim on "
+            f"'model') is not trained")
     if (cfg.family == "rwkv6" and cfg.d_model % model_size == 0
             and cfg.rwkv_heads % model_size):
         raise NotImplementedError(

@@ -90,6 +90,27 @@ def test_compression_masks_equal_the_jax_packages_on_sharded_leaves(runs):
                                    rtol=1e-6)
 
 
+def test_compression_masks_on_moe_leaves_equal_the_jax_packages(runs):
+    """As above, on expert-parallel leaves (experts on 'model', the embed
+    dims on 'data'): a zero expert, ties inside one expert and across
+    experts."""
+    _, res = runs
+    err = jax.tree.map(lambda a: jnp.zeros(a.shape, jnp.float32),
+                       W.moe_grad_tree(0))
+    for s in range(3):
+        sent, err, m = jax_compress(jax.tree.map(jnp.asarray,
+                                                 W.moe_grad_tree(s)),
+                                    err, ratio=W.COMP_RATIO)
+        got = res[f"moe_comp{s}"]
+        for key, want in (("sent", sent), ("err", err)):
+            for path, a in W.flat(got[key]).items():
+                assert a.tobytes() == np.asarray(want[path]).tobytes(), (
+                    s, key, path)
+        np.testing.assert_allclose(got["norm"],
+                                   float(m["compressed_grad_norm"]),
+                                   rtol=1e-6)
+
+
 @pytest.mark.parametrize("op", ["all_gather", "reduce_scatter"])
 def test_fsdp_collectives_and_their_gradients(runs, op):
     """``collectives.all_gather`` (gradient reduce-scattered) and
@@ -123,6 +144,22 @@ def test_a_four_rank_checkpoint_is_the_one_device_ports(runs, dtype,
                             st["params"])
     W.trainer("llama3.2-1b", ckpt_dir=tmp_path).save(5, st)
     four, one = d / f"save4_{dtype}" / "step_00000005", \
+        tmp_path / "step_00000005"
+    assert _members(four) == _members(one)
+    m4, m1 = (json.loads((p / "manifest.json").read_text())
+              for p in (four, one))
+    assert m4.pop("time") > 0 and m1.pop("time") > 0
+    assert m4 == m1
+
+
+@pytest.mark.parametrize("arch", W.MOE_ARCHS)
+def test_a_four_rank_moe_checkpoint_is_the_one_device_ports(runs, arch,
+                                                             tmp_path):
+    """The expert-parallel blocks of a (2, 2) mesh written as the whole
+    arrays the one-device trainer writes, byte for byte."""
+    d, _ = runs
+    W.trainer(arch, ckpt_dir=tmp_path).save(5, W.start_state(arch))
+    four, one = d / f"save4_{arch}" / "step_00000005", \
         tmp_path / "step_00000005"
     assert _members(four) == _members(one)
     m4, m1 = (json.loads((p / "manifest.json").read_text())
@@ -184,6 +221,21 @@ def test_an_error_that_is_not_simulated_ends_the_sharded_run(tmp_path,
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000001"]
 
 
+def test_launch_train_moe_mesh_spawn_trains_two_steps(tmp_path):
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "deepseek-moe-16b", "--smoke", "--mesh", "2x2", "--spawn",
+         "--steps", "2", "--batch", "4", "--seq", "16", "--device", "cpu",
+         "--ckpt-dir", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "mesh of 4 ranks (gloo)" in out.stdout
+    assert "over 2 steps" in out.stdout
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_00000001", "step_00000002"]
+
+
 def test_launch_train_mesh_spawn_trains_two_steps(tmp_path):
     env = dict(os.environ, PYTHONPATH=SRC)
     out = subprocess.run(
@@ -199,8 +251,8 @@ def test_launch_train_mesh_spawn_trains_two_steps(tmp_path):
         "step_00000001", "step_00000002"]
 
 
-REFUSED = {"deepseek-moe-16b": "7a", "qwen2-vl-2b": "7b",
-           "zamba2-1.2b": "7c", "seamless-m4t-medium": "7d"}
+REFUSED = {"qwen2-vl-2b": "7b", "zamba2-1.2b": "7c",
+           "seamless-m4t-medium": "7d"}
 
 
 def _mesh(shape, axes):
@@ -230,3 +282,50 @@ def test_meshes_with_a_pod_axis_are_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP item 7e"):
         train_cli.main(["--arch", "llama3.2-1b", "--smoke", "--mesh",
                         "1x2x2", "--spawn", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("rows, seq", [(1, 4), (1, 12), (2, 6)],
+                         ids=["short", "straddles", "uneven"])
+def test_moe_groups_that_differ_from_the_global_batch_are_refused(rows,
+                                                                  seq):
+    """SMOKE deepseek groups 8 tokens. Over 2 data ranks a rank of 1 x 4
+    tokens would group 4 (the global batch 8), one of 1 x 12 or 2 x 6
+    would straddle groups of 8 across ranks: each raises ValueError naming
+    the sizes before any collective, where 1 x 16 groups as one device
+    does (one device groups 4 tokens as 4)."""
+    from repro_torch.models import layers as L
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    with _mesh((2, 2), ("data", "model")):
+        assert L.moe_groups(1, 16, cfg) == (8, 2, 3)
+        with pytest.raises(ValueError, match=f"holds {rows} x {seq} = "
+                           f"{rows * seq} tokens of a {2 * rows} x {seq}"):
+            L.moe_groups(rows, seq, cfg)
+        with pytest.raises(ValueError, match="grouped in 8 tokens"):
+            L.moe_apply({}, torch.zeros((rows, seq, cfg.d_model)), cfg)
+    assert L.moe_groups(1, 4, cfg)[:2] == (4, 1)     # one device: its own
+
+
+def test_moe_fallback_layout_is_refused():
+    """6 experts over a model axis of 4: the specs put each expert's mlp
+    dim on 'model' (the fallback layout), which sharded training refuses
+    by name, in the Trainer and in ``moe_apply`` on its blocks."""
+    import dataclasses
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b", smoke=True),
+                              num_experts=6)
+    model = build_model(cfg)
+    pm = _mesh((1, 4), ("data", "model"))
+    specs = SH.param_pspecs(model.defs(), pm)["layers"]["moe"]
+    assert tuple(specs["we_up"]) == (None, None, "data", "model")
+    assert tuple(specs["router"]) == (None, "data", None)
+    with pytest.raises(NotImplementedError, match="6 experts over a model "
+                       "axis of 4: the fallback layout"):
+        Trainer(model, W.trainer_config(), W.batch_fn("deepseek-moe-16b"),
+                shardings=state_shardings(model, pm))
+    p = L.layer_params(SH.local_block(
+        model.init(torch.Generator().manual_seed(0), device="cpu")["layers"],
+        SH.param_pspecs(model.defs(), pm)["layers"], pm), 0)["moe"]
+    with pm, pytest.raises(NotImplementedError,
+                           match="the fallback layout"):
+        L.moe_apply(p, torch.zeros((1, 16, cfg.d_model)), cfg)

@@ -1,28 +1,35 @@
 """Sharded LM training in the port: ``Trainer(shardings=...)`` over a
 process mesh of 4 ``gloo`` ranks on the CPU, meshes (2, 2), (4, 1) and
-(1, 4), SMOKE llama3.2-1b and rwkv6-7b in f32, B=4, S=16, 3 steps, from
-the same params and batches (``torch_dist_workers``), against:
+(1, 4), SMOKE llama3.2-1b, rwkv6-7b, deepseek-moe-16b and
+llama4-scout-17b-a16e in f32, B=4, S=16, 3 steps, from the same params
+and batches (``torch_dist_workers``), against:
 
   (a) the port's one-device ``Trainer``, with chip_smoke's
       ``_lt_compare`` measures, tighter than its ``LT_*`` gates: each
-      step's loss within rtol 1e-6 (``LT_LOSS_RTOL`` 1e-5; seen 1.6e-7);
+      step's loss within rtol 1e-6 (``LT_LOSS_RTOL`` 1e-5; seen 3.1e-7);
       after the first step the first moments within 1e-5 of each leaf's
-      largest (``LT_GRAD_TOL`` 1e-3; seen 1.5e-6) and the params within
+      largest (``LT_GRAD_TOL`` 1e-3; seen 2.6e-6) and the params within
       1e-3 lr where the moment is well above its error (``LT_PARAM_TOL``
       1e-2 lr; seen 6e-5 lr); after the third the moments within 1e-4
-      (seen 3.1e-5). Three AdamW steps amplify rounding: the one-device
+      (seen 3.8e-5). Three AdamW steps amplify rounding: the one-device
       trainer from params moved by 1e-7 relative noise gives 2.6e-5 and
       0.14 lr on confident params after three steps, so only the first
       step's params are held to the lr measure; every step's params stay
       within their bound 2 lr (1 + wd |p|). The sharded step differs from
-      the one-device step only in the order of its sums;
+      the one-device step only in the order of its sums (the MoE aux
+      loss's statistics are means of the data ranks' means);
   (b) the JAX package's ``Trainer(shardings=...)`` on a (2, 2) mesh of
       4 forced host devices, in a subprocess: losses within 1e-5
-      relative;
+      relative (with the MoE aux loss counted once);
   (c) the collectives each step issues, counted from the specs
-      (``param_pspecs``) and the layers' TP sites, and K4's calls on
-      every rank: layers x steps, each on the rank's (B/|data|, S,
-      H/|model|, 64) block.
+      (``param_pspecs``) and the layers' TP and expert-parallel sites,
+      and K4's calls on every rank: layers x steps, each on the rank's
+      (B/|data|, S, H/|model|, 64) block;
+  (d) sharded ``moe_apply`` of one layer on every mesh against the
+      one-device call: the chosen experts and ``keep`` the same bits on
+      every ``model`` rank and equal to one device's, output, aux and
+      gradients within 1e-5 of their largest (or of the rounding floor
+      that a nudged cotangent shows, ``MOE_*``).
 
 One spawn of 4 ranks runs every case, beside the JAX subprocess.
 """
@@ -49,6 +56,16 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 LOSS_RTOL, M1_TOL, M3_TOL, PARAM1_TOL = 1e-6, 1e-5, 1e-4, 1e-3
 JAX_LOSS_RTOL = 1e-5
 CASES = [(a, m) for m in W.MESHES for a in W.ARCHS]
+MOE_CASES = [(a, m) for m in W.MESHES for a in W.MOE_ARCHS]
+# Sharded moe_apply against one device: every value within MOE_TOL of
+# its largest (seen 2.6e-6 and less), or within MOE_FLOOR times the
+# change that a relative nudge of MOE_NUDGE of the output cotangent makes
+# on one device, where that is larger: with top_k = 1 (llama4-scout) the
+# renormalized gate is v / v, whose gradient is zero but for rounding, so
+# the router's gradient is that rounding's residue plus the aux loss's
+# (the nudge moves it by 4.9e-5 of its largest; the sharded call differed
+# by 5.2e-5 at (1, 4)). Elsewhere the nudge moves a gradient by <= 3.4e-7.
+MOE_TOL, MOE_NUDGE, MOE_FLOOR = 1e-5, 1e-7, 4.0
 
 _JAX_RUN = r"""
 import json, sys
@@ -123,6 +140,13 @@ def runs(tmp_path_factory):
         torch.set_num_threads(1)
         try:
             one = {arch: W.one_device(arch) for arch in W.ARCHS}
+            for arch in W.MOE_ARCHS:
+                cfg, p, x, ct = W.moe_inputs(arch)
+                one[("moe_apply", arch)] = W.moe_call(cfg, p, x, ct)
+                one[("moe_floor", arch)] = W.moe_call(
+                    cfg, p, x, ct * (1 + MOE_NUDGE * torch.from_numpy(
+                        np.random.default_rng(3).normal(size=ct.shape)
+                        .astype(np.float32))))["grads"]
         finally:
             torch.set_num_threads(threads)
         out, err = jax_proc.communicate(timeout=600)
@@ -138,8 +162,15 @@ def runs(tmp_path_factory):
         cases[(arch, shape)]["wkv"] = [
             json.loads((d / f"wkv_{case}_{r}.json").read_text())
             for r in range(4)]
+    moe = {}
+    for arch, shape in MOE_CASES:
+        case = f"{arch}_{shape[0]}x{shape[1]}"
+        moe[(arch, shape)] = []
+        for r in range(4):
+            with open(d / f"moe_{case}_{r}.pkl", "rb") as f:
+                moe[(arch, shape)].append(pickle.load(f))
     return dict(one=one, jax=json.loads(line[len("LOSSES "):]),
-                cases=cases)
+                cases=cases, moe=moe)
 
 
 def _id(case):
@@ -218,11 +249,20 @@ def _uses(cfg, tp):
     heads = (None, "model", None)
     kv = heads if cfg.num_kv_heads % tp == 0 else (None, None, None)
     wo = ("model", None, None) if cfg.num_heads % tp == 0 else (None,) * 3
-    return [("embed", (("model", None),)), ("embed", (("model", None),)),
+    uses = [("embed", (("model", None),)), ("embed", (("model", None),)),
             ("layers/attn/wq", (heads,)), ("layers/attn/wk", (kv,)),
-            ("layers/attn/wv", (kv,)), ("layers/attn/wo", (wo,)),
-            ("layers/mlp/w_gate", UP), ("layers/mlp/w_up", UP),
-            ("layers/mlp/w_down", DOWN)]
+            ("layers/attn/wv", (kv,)), ("layers/attn/wo", (wo,))]
+    if cfg.family != "moe":
+        return uses + [("layers/mlp/w_gate", UP), ("layers/mlp/w_up", UP),
+                       ("layers/mlp/w_down", DOWN)]
+    experts = (("model", None, None),)
+    return uses + [("layers/moe/router", ((None, "model"),)),
+                   ("layers/moe/we_gate", experts),
+                   ("layers/moe/we_up", experts),
+                   ("layers/moe/we_down", experts),
+                   ("layers/moe/shared/w_gate", UP),
+                   ("layers/moe/shared/w_up", UP),
+                   ("layers/moe/shared/w_down", DOWN)]
 
 
 def expected_counts(arch, shape):
@@ -251,6 +291,8 @@ def expected_counts(arch, shape):
     if dsz > 1:
         n["all_reduce/data"] += 3 + sum(
             "data" not in s for s, _, _ in specs.values())
+        if cfg.family == "moe":        # the aux loss's me and ce_frac
+            n["all_reduce/data"] += 2 * cfg.num_layers
     if tp > 1:
         nl = cfg.num_layers
         if cfg.family == "rwkv6":
@@ -261,8 +303,14 @@ def expected_counts(arch, shape):
         else:
             kv_tp = cfg.num_kv_heads % tp == 0
             # q copy_to (shared by K/V under kv_tp, else K and V's
-            # copy_to), wo; gate and up copy_to, down
+            # copy_to), wo; gate and up copy_to, down (the MLP's or the
+            # shared experts')
             n["all_reduce/model"] += (2 + (0 if kv_tp else 2) + 3) * nl
+            if cfg.family == "moe":
+                # xg's copy_to and the combine's all-reduce; the gathered
+                # logits and the combine's split_to back
+                n["all_reduce/model"] += 2 * nl
+                n["all_gather/model"] += 2 * nl
         # the embedding, the head's copy_to, the loss (sum of exps,
         # target logit, max), the global norm
         n["all_reduce/model"] += 1 + 1 + 3 + 1
@@ -284,11 +332,12 @@ def test_k4_runs_on_each_ranks_heads(runs, shape):
 
 
 # The uses whose chosen layout puts 'model' elsewhere than the stored
-# spec: llama3.2-1b on (1, 4) stores wk/wv with head_dim on 'model' (2
-# KV heads do not divide 4) and uses them whole (the JAX package's
-# kv_tp fallback), so a gather over 'data' alone would not do.
-DISAGREE = {("llama3.2-1b", (1, 4)): [
-    ((64, 2, 4), ("data", None, "model"), (None, None, None))]}
+# spec: llama3.2-1b and llama4-scout on (1, 4) store wk/wv with head_dim
+# on 'model' (2 KV heads do not divide 4) and use them whole (the JAX
+# package's kv_tp fallback), so a gather over 'data' alone would not do.
+DISAGREE = {arch: [((64, 2, 4), ("data", None, "model"), (None, None, None))]
+            for arch in (("llama3.2-1b", (1, 4)),
+                         ("llama4-scout-17b-a16e", (1, 4)))}
 
 
 @pytest.mark.parametrize("case", CASES, ids=_id)
@@ -298,3 +347,52 @@ def test_layouts_that_disagree_with_the_stored_spec(runs, case):
            if (stored.index("model") if "model" in stored else None)
            != (lay.index("model") if "model" in lay else None)]
     assert got == DISAGREE.get(case, [])
+
+
+def _near(got, want, what, floor=0.0):
+    top = float(np.abs(want).max())
+    err = float(np.abs(np.asarray(got) - want).max())
+    assert err <= max(MOE_TOL * top, MOE_FLOOR * floor), (what, err, top,
+                                                          floor)
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=_id)
+def test_sharded_moe_apply_against_one_device(runs, case, record_property):
+    """Layer 0's ``moe_apply`` on every rank's blocks and rows: the routing
+    is the same bits on the ``model`` ranks of a row block and equal to
+    one device's; output, aux, the x gradient and (gathered) every
+    parameter's gradient within ``MOE_TOL`` of their largest. The
+    smallest gap between a token's k-th and (k+1)-th probability is
+    recorded: a tie within rounding could route differently."""
+    arch, shape = case
+    cfg = get_config(arch, smoke=True)
+    one = runs["one"][("moe_apply", arch)]
+    (route,) = one["routes"]
+    probs = np.sort(route["probs"].numpy(), axis=-1)[..., ::-1]
+    gap = float((probs[..., cfg.top_k - 1] - probs[..., cfg.top_k]).min())
+    record_property("min_kth_gap", gap)
+    g = route["gate_idx"].shape[1]
+    ranks = runs["moe"][case]
+    by_rows = {}
+    for got in ranks:
+        lo, hi = got["rows"]
+        (r,) = got["routes"]
+        grp = slice(lo * W.SEQ // g, hi * W.SEQ // g)
+        for key in ("gate_idx", "keep"):
+            assert np.array_equal(r[key], route[key].numpy()[grp]), (
+                key, got["coords"])
+        first = by_rows.setdefault((lo, hi), r)
+        for key in ("gate_idx", "keep", "probs"):
+            assert first[key].tobytes() == r[key].tobytes(), (
+                key, got["coords"])
+        _near(got["out"], one["out"].numpy()[lo:hi], "out")
+        _near(got["x_grad"], one["x_grad"].numpy()[lo:hi], "x grad")
+        np.testing.assert_allclose(got["aux"], float(one["aux"]),
+                                   rtol=MOE_TOL)
+    assert len(by_rows) == shape[0]
+    grads = ranks[0]["grads"]
+    assert sorted(grads) == sorted(one["grads"])
+    nudged = runs["one"][("moe_floor", arch)]
+    for k, v in one["grads"].items():
+        _near(grads[k], v.numpy(), k,
+              float((v - nudged[k]).abs().max()))

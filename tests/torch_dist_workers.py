@@ -32,7 +32,10 @@ from repro_torch.training import (AdamWConfig, Trainer, TrainerConfig,
                                   adamw_init)
 from repro_torch.training.trainer import SimulatedFailure, state_shardings
 
-ARCHS = ("llama3.2-1b", "rwkv6-7b")
+ARCHS = ("llama3.2-1b", "rwkv6-7b", "deepseek-moe-16b",
+         "llama4-scout-17b-a16e")
+MOE_ARCHS = tuple(a for a in ARCHS if get_config(a, smoke=True).family
+                  == "moe")
 MESHES = ((2, 2), (4, 1), (1, 4))
 BATCH, SEQ, STEPS, LR = 4, 16, 3, 1e-3
 
@@ -157,7 +160,7 @@ class Recorder:
 
 
 def train_rank(rank, world, port, out_dir, device="cpu", backend="gloo",
-               meshes=MESHES):
+               meshes=MESHES, archs=ARCHS):
     """Every (arch, mesh) of ``ARCHS`` x ``meshes`` over the same ranks:
     ``STEPS`` steps of the sharded Trainer from ``start_state``, on the
     CPU or on ``cuda:(rank % cards)``. Rank 0 writes per case the losses,
@@ -171,7 +174,10 @@ def train_rank(rank, world, port, out_dir, device="cpu", backend="gloo",
     for shape in meshes:
         mesh = pm if shape == meshes[0] else R.process_mesh(
             shape, pm.axis_names, device)
-        for arch in ARCHS:
+        for arch in archs:
+            if arch in MOE_ARCHS:
+                moe_rank_call(arch, mesh, out_dir, device)
+        for arch in archs:
             tr = trainer(arch, mesh, device)
             first = keep_first_step(tr)
             C.reset_counts()
@@ -197,6 +203,98 @@ def train_rank(rank, world, port, out_dir, device="cpu", backend="gloo",
                         m=flat(whole["opt"]["m"]),
                         params1=flat(whole1["params"]),
                         m1=flat(whole1["m"])), f)
+
+
+def _nest(flat_tree):
+    """A tree of dicts from {"/"-joined path: leaf}."""
+    out = {}
+    for path, leaf in flat_tree.items():
+        *head, last = path.split("/")
+        node = out
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
+def _paths(tree, prefix=""):
+    """{"/"-joined path: leaf} of a tree of dicts."""
+    out = {}
+    for k, v in tree.items():
+        out.update(_paths(v, f"{prefix}{k}/") if isinstance(v, dict)
+                   else {prefix + k: v})
+    return out
+
+
+def moe_inputs(arch: str):
+    """Layer 0's MoE params of ``arch`` (SMOKE, f32, CPU) by path, an
+    input x (B, S, D) and an output cotangent, from numpy seeds."""
+    cfg = get_config(arch, smoke=True)
+    p = _paths(tree_map(lambda t: t[0], params(arch)["layers"]["moe"]))
+    rng = np.random.default_rng(77)
+    x = torch.from_numpy(rng.normal(
+        size=(BATCH, SEQ, cfg.d_model)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+    return cfg, p, x, ct
+
+
+def moe_call(cfg, p, x, ct, specs=None):
+    """``layers.moe_apply`` on the params ``p`` by path (this rank's
+    blocks, tagged with ``specs``, under the active process mesh; whole
+    tensors without) and ``x``: the output, aux, the gradients of
+    ``sum(out * ct) + aux`` with respect to ``p`` (by path) and ``x``,
+    and every ``moe_route`` result."""
+    from repro_torch.models import layers as L
+    routes, real = [], L.moe_route
+
+    def record(*a, **k):
+        r = real(*a, **k)
+        routes.append({k: r[k].detach() for k in ("gate_idx", "keep",
+                                                   "probs")})
+        return r
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+    lp = {k: v if specs is None else A.tag(v, specs[k])
+          for k, v in leaves.items()}
+    xin = x.detach().clone().requires_grad_()
+    L.moe_route = record
+    try:
+        out, aux = L.moe_apply(_nest(lp), xin, cfg)
+    finally:
+        L.moe_route = real
+    names = sorted(leaves)
+    grads = torch.autograd.grad((out * ct).sum() + aux,
+                                [leaves[n] for n in names] + [xin])
+    return dict(out=out.detach(), aux=aux.detach(),
+                grads=dict(zip(names, grads[:-1])), x_grad=grads[-1],
+                routes=routes)
+
+
+def moe_rank_call(arch, mesh, out_dir, device="cpu"):
+    """Sharded ``moe_apply`` of layer 0 of SMOKE ``arch`` on this rank:
+    its rows of ``x`` (the ``data`` block), its blocks of the params;
+    every rank writes its output rows, routing and x gradient, rank 0 the
+    whole parameter gradients (``gather_logical``)."""
+    cfg, p, x, ct = moe_inputs(arch)
+    specs = {k: tuple(v)[1:] for k, v in _paths(SH.param_pspecs(
+        build_model(cfg).defs(), mesh)["layers"]["moe"]).items()}
+    blocks = SH.local_block(p, specs, mesh, device)
+    n = BATCH // mesh.axis_size("data")
+    rows = slice(mesh.coord("data") * n, (mesh.coord("data") + 1) * n)
+    with mesh:
+        res = moe_call(cfg, blocks, x[rows].to(device), ct[rows].to(device),
+                       specs)
+    whole = SH.gather_logical(res["grads"], specs, mesh, root=0)
+    case = f"{arch}_{mesh.shape['data']}x{mesh.shape['model']}"
+    with open(os.path.join(out_dir, f"moe_{case}_{mesh.rank}.pkl"),
+              "wb") as f:
+        pickle.dump(dict(
+            rows=(rows.start, rows.stop), coords=dict(mesh.coords),
+            out=res["out"].cpu().numpy(), aux=float(res["aux"]),
+            x_grad=res["x_grad"].cpu().numpy(),
+            routes=[{k: v.cpu().numpy() for k, v in r.items()}
+                    for r in res["routes"]],
+            grads=({k: v.cpu().numpy() for k, v in whole.items()}
+                   if mesh.rank == 0 else None)), f)
 
 
 def compare(got_p, got_m, want_p, want_m, lr):
@@ -239,6 +337,27 @@ def grad_tree(step: int):
     g["b"]["w"][:60] = np.where(np.arange(60) % 2, 0.5, -0.5)
     g["a"][0, :] = 0.0
     g["a"][5:9, :6] = np.float32(1.25)
+    return g
+
+
+# The MoE leaves' layouts on a (2, 2) mesh: experts on 'model', the
+# embed dims on 'data' (param_pspecs of deepseek-moe-16b, one layer).
+MOE_COMP_SPECS = {"router": ("data", "model"),
+                  "we_up": ("model", "data", None),
+                  "we_down": ("model", None, "data")}
+
+
+def moe_grad_tree(step: int):
+    """MoE-shaped gradient leaves (8 experts) with ties at the threshold
+    and a zero expert."""
+    rng = np.random.default_rng(50 + step)
+    g = {"router": rng.normal(size=(16, 8)).astype(np.float32),
+         "we_up": rng.normal(size=(8, 16, 24)).astype(np.float32),
+         "we_down": rng.normal(size=(8, 24, 16)).astype(np.float32)}
+    g["we_up"][3] = 0.0
+    g["we_up"][5, :4, :6] = np.float32(-1.5)
+    g["we_down"][:, 0, :] = np.where(np.arange(16) % 2, 1.5, -1.5)
+    g["router"][2:4, :] = np.float32(1.5)
     return g
 
 
@@ -355,17 +474,20 @@ def ckpt_rank(rank, world, port, out_dir):
     pm = R.init("localhost", port, world, rank, backend="gloo",
                 device="cpu", shape=(2, 2))
     res = {"collectives": _collective_checks(pm)}
-    with pm:
-        whole = [tree_map(torch.from_numpy, grad_tree(s)) for s in range(3)]
-        err = SH.local_block(compression_init(whole[0]), COMP_SPECS, pm)
-        for s, g in enumerate(whole):
-            sent, err, m = compress_grads(SH.local_block(g, COMP_SPECS, pm),
-                                          err, ratio=COMP_RATIO,
-                                          specs=COMP_SPECS)
-            res[f"comp{s}"] = SH.gather_logical(
-                {"sent": sent, "err": err}, {"sent": COMP_SPECS,
-                                             "err": COMP_SPECS}, pm, root=0)
-            res[f"comp{s}"]["norm"] = float(m["compressed_grad_norm"])
+    for key, tree_fn, specs in (("comp", grad_tree, COMP_SPECS),
+                                ("moe_comp", moe_grad_tree, MOE_COMP_SPECS)):
+        with pm:
+            whole = [tree_map(torch.from_numpy, tree_fn(s))
+                     for s in range(3)]
+            err = SH.local_block(compression_init(whole[0]), specs, pm)
+            for s, g in enumerate(whole):
+                sent, err, m = compress_grads(SH.local_block(g, specs, pm),
+                                              err, ratio=COMP_RATIO,
+                                              specs=specs)
+                res[f"{key}{s}"] = SH.gather_logical(
+                    {"sent": sent, "err": err}, {"sent": specs,
+                                                 "err": specs}, pm, root=0)
+                res[f"{key}{s}"]["norm"] = float(m["compressed_grad_norm"])
     for arch in ARCHS:
         tr = trainer(arch, pm)
         st = SH.local_block(start_state(arch), tr.specs, pm)
@@ -387,6 +509,11 @@ def ckpt_rank(rank, world, port, out_dir):
         tr = trainer("llama3.2-1b", pm, ckpt_dir=os.path.join(
             out_dir, f"save4_{dtype}"))
         tr.save(5, SH.local_block(st, tr.specs, pm))
+    for arch in MOE_ARCHS:
+        tr = trainer(arch, pm, ckpt_dir=os.path.join(out_dir,
+                                                     f"save4_{arch}"))
+        tr.save(5, SH.local_block(start_state(arch), tr.specs, pm))
+
     def final(out, tr, mesh):
         whole = SH.gather_logical(out["state"], tr.specs, mesh, root=0)
         return dict(losses=[h["loss"] for h in out["history"]],
