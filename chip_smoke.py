@@ -207,16 +207,20 @@ non-zero:
      references (llama3.2-1b at full width and depth, bf16, B=4, S=1024,
      remat, 3 steps; rwkv6-7b at full width and 4 layers, B=2, 2 steps;
      deepseek-moe-16b at full width and 2 layers, B=4, S=1024, remat, 2
-     steps), then four ranks (``distributed.runtime.spawn``; four gloo
+     steps; qwen2-vl-2b at 4 layers with 256 patch rows, zamba2-1.2b at
+     7 layers and seamless-m4t-medium at 2 + 2 layers with 1,024 frames,
+     each at full width, bf16, B=4, S=1024, remat, 2 steps), then four
+     ranks (``distributed.runtime.spawn``; four gloo
      ranks on cuda:0 at (2, 2), or NCCL one rank a card with four cards)
      train the same through ``Trainer(shardings=...)``, FSDP over data
-     and TP over model (deepseek's experts over model): each first step
+     and TP over model (deepseek's experts, zamba2's SSD heads over
+     model): each first step
      against the one-device step (loss, gradient norm, first moments; per
      leaf, per head and per (layer, expert)) with gates set between the
      bf16 noise floor and a planted fault, deepseek's routing the same
      bits on every model rank, the collectives a rank issues a step and
      the bytes of its FSDP gathers against the count from the specs
-     (llama3.2-1b, deepseek), K4 launches on every rank (16: 4 layers x 2
+     (every run but rwkv6-7b), K4 launches on every rank (16: 4 layers x 2
      steps x 2 with remat, on 32 of the 64 heads) and K4 against its
      plain version on a rank's recorded inputs bit for bit, a SMOKE crash
      and restart over the mesh bit for bit. Reported: step ms, tokens/s,
@@ -5939,6 +5943,17 @@ LS_STEPS, LS_RWKV_STEPS = 3, 2
 # half of a layer's 64 experts (experts over 'model') and gathers their
 # 'data' halves at use.
 LS_MOE_LAYERS, LS_MOE_STEPS = 2, 2
+# qwen2-vl-2b at full width cut to LS_VLM_LAYERS of 28 layers (~0.42 B
+# params), with 256 patch rows at the head of the sequence (a quarter of
+# it, as launch.steps.input_specs draws them); zamba2-1.2b cut
+# to LS_ZAMBA_LAYERS of 38 (~0.38 B): one stage of 6 Mamba layers and a
+# seventh, so the tied shared block runs twice; seamless-m4t-medium cut
+# to LS_ENCDEC_LAYERS encoder and decoder layers (~0.59 B, most of it
+# the 256,206-row embedding and head), with LT_SEQ frames of width 1,024.
+# All bf16, B=4, S=1024, remat, LS_NEW_STEPS steps; each rank runs
+# zamba2's SSD on 32 of its 64 heads.
+LS_VLM_LAYERS, LS_ZAMBA_LAYERS, LS_ENCDEC_LAYERS = 4, 7, 2
+LS_NEW_STEPS = 2
 # A collective waiting longer than this fails the phase (a step here
 # took 12 s at most).
 LS_TIMEOUT_S = 120.0
@@ -5989,6 +6004,20 @@ LS_TIMEOUT_S = 120.0
 # on the other data rank) reads 71%: gated at 0.5, 1.5x the floor and
 # 0.7x the fault. Its per-leaf reading (13%) sits under the floor, as
 # rwkv6's does.
+# qwen2-vl-2b, zamba2-1.2b and seamless-m4t-medium keep llama3.2-1b's
+# gates. Their floors (H100, worst entry / leaf L2 / head L2): the VLM
+# 2.3% / 2.0% / 2.8% and the enc-dec 1.1% / 1.1% / 2.2%, as llama3.2-1b;
+# zamba2 19.2% / 12.0% / 11.4% (its bf16 gradients inside the Mamba
+# layers sit 10-12% from f32, the head's 5%, as rwkv6's do), under the
+# gates by 1.5x or more. The sharded steps read under their floors
+# (2.4 / 2.0 / 2.7%, 1.4 / 1.3 / 2.3%, 12.3 / 8.5 / 7.7%), and each
+# planted fault -- rank 0's block of head 0, layer 0 of attn/wq,
+# cross_attn/wq and a Mamba head's rows of out_proj (a "heads_x" axis of
+# ssm_head_dim rows, _ls_axes) -- reads 0.70-0.71 per head. zamba2's
+# per-head scalars (a_log, dt_bias, d_skip: one entry a (layer, head),
+# each a sum over every token) take no per-head L2: their relative
+# error is one rounding's, which read 0.5-4.5 in a bf16 SMOKE floor;
+# their entries and leaf L2 stay gated.
 LS_LOSS_RTOL, LS_GRAD_NORM_RTOL, LS_M_TOL, LS_M_L2_TOL, LS_M_HEAD_TOL = (
     1e-2, 2e-2, 0.3, 0.25, 0.35)
 LS_MOE_M_TOL, LS_MOE_M_EXPERT_TOL = 0.85, 0.5
@@ -5996,15 +6025,21 @@ LS_GATES = {
     "llama": dict(m_rel=LS_M_TOL, m_l2=LS_M_L2_TOL, m_head_l2=LS_M_HEAD_TOL),
     "rwkv": dict(m_rel=LS_M_TOL, m_l2=LS_M_L2_TOL, m_head_l2=LS_M_HEAD_TOL),
     "moe": dict(m_rel=LS_MOE_M_TOL, m_l2=LS_M_L2_TOL,
-                m_head_l2=LS_MOE_M_EXPERT_TOL)}
+                m_head_l2=LS_MOE_M_EXPERT_TOL),
+    "vlm": dict(m_rel=LS_M_TOL, m_l2=LS_M_L2_TOL, m_head_l2=LS_M_HEAD_TOL),
+    "zamba2": dict(m_rel=LS_M_TOL, m_l2=LS_M_L2_TOL,
+                   m_head_l2=LS_M_HEAD_TOL),
+    "encdec": dict(m_rel=LS_M_TOL, m_l2=LS_M_L2_TOL,
+                   m_head_l2=LS_M_HEAD_TOL)}
 # The leaves' head axes (a "heads_x" axis holds a head every head_dim
 # entries; "experts" an expert: the per-head L2 is then per (layer,
 # expert)), and the leaf where the phase plants its fault (rank 0's block
 # of head or expert 0, layer 0).
 LS_HEAD_AXES = ("heads", "kv_heads", "heads_x", "experts")
 LS_PLANT = {"llama": "layers/attn/wq", "rwkv": "layers/tm/wr",
-            "moe": "layers/moe/we_up"}
-LS_RUNS = ("llama", "rwkv", "moe")
+            "moe": "layers/moe/we_up", "vlm": "layers/attn/wq",
+            "zamba2": "layers/out_proj", "encdec": "decoder/cross_attn/wq"}
+LS_RUNS = ("llama", "rwkv", "moe", "vlm", "zamba2", "encdec")
 
 
 def _ls_full():
@@ -6016,6 +6051,14 @@ def _ls_full():
                                               num_layers=LT_RWKV_LAYERS),
         moe=dataclasses.replace(get_config("deepseek-moe-16b"),
                                 num_layers=LS_MOE_LAYERS),
+        vlm=dataclasses.replace(get_config("qwen2-vl-2b"),
+                                num_layers=LS_VLM_LAYERS),
+        zamba2=dataclasses.replace(get_config("zamba2-1.2b"),
+                                   num_layers=LS_ZAMBA_LAYERS),
+        encdec=dataclasses.replace(
+            get_config("seamless-m4t-medium"), num_layers=LS_ENCDEC_LAYERS,
+            encoder_layers=LS_ENCDEC_LAYERS,
+            decoder_layers=LS_ENCDEC_LAYERS),
         restart=dataclasses.replace(get_config("llama3.2-1b", smoke=True),
                                     dtype="bfloat16"),
         seq=LT_SEQ, rank_device=None, ckpt_root=os.path.join(ROOT, "checkpoints",
@@ -6023,13 +6066,30 @@ def _ls_full():
 
 
 def _ls_steps(name):
-    return {"rwkv": LS_RWKV_STEPS, "moe": LS_MOE_STEPS}.get(name, LS_STEPS)
+    return {"rwkv": LS_RWKV_STEPS, "moe": LS_MOE_STEPS, "vlm": LS_NEW_STEPS,
+            "zamba2": LS_NEW_STEPS, "encdec": LS_NEW_STEPS}.get(name,
+                                                               LS_STEPS)
+
+
+def _ls_extras(torch, cfg, full, b, step, dev):
+    """The non-token inputs of a step's whole batch, drawn on ``dev`` from
+    a generator seeded with the step (every rank draws the same): the
+    VLM's patch embeddings (a quarter of the sequence, as
+    ``launch.steps.input_specs`` draws them), the enc-dec's frames."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 80 + step)
+    if cfg.family == "vlm":
+        return {"patch_embeds": torch.randn(
+            (b, max(full["seq"] // 4, 16), cfg.d_model), generator=g,
+            device=dev)}
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((b, full["seq"], cfg.frontend_dim),
+                                      generator=g, device=dev)}
+    return {}
 
 
 def _ls_trainer(torch, name, full, dev, shardings=None, ckpt_dir="unused",
                 ckpt_every=0, steps=LS_STEPS):
-    """The Trainer of run ``name`` ("llama", "rwkv", "moe" or
-    "restart")."""
+    """The Trainer of run ``name`` (one of ``LS_RUNS`` or "restart")."""
     from repro_torch.data import TokenTaskConfig, token_batch
     from repro_torch.models import build_model
     from repro_torch.training import AdamWConfig, Trainer, TrainerConfig
@@ -6043,7 +6103,9 @@ def _ls_trainer(torch, name, full, dev, shardings=None, ckpt_dir="unused",
         opt=AdamWConfig(lr=LT_RWKV_LR if rwkv else LT_TRAIN_LR,
                         warmup_steps=1, total_steps=steps))
     return Trainer(build_model(cfg), tc,
-                   lambda s: token_batch(tk, s, device=dev),
+                   lambda s: dict(token_batch(tk, s, device=dev),
+                                  **_ls_extras(torch, cfg, full,
+                                               tk.batch_size, s, dev)),
                    shardings=shardings, device=dev)
 
 
@@ -6096,14 +6158,16 @@ def _leaf0(tree):
 
 
 def _ls_params(torch, name, cfg, dev):
-    """The start params of run ``name``: llama3.2-1b's and
-    deepseek-moe-16b's from a seeded generator, rwkv6-7b's ``_lm_params``
-    (the ranks draw the same on their devices)."""
+    """The start params of run ``name``: from a seeded generator, with
+    rwkv6-7b's ``_lm_params`` and zamba2's ``_hy_zamba_params`` (the
+    ranks draw the same on their devices)."""
     from repro_torch.models import build_model
     model = build_model(cfg)
     if name == "rwkv":
         return _lm_params(torch, model, SEED + 55, dev)
-    seed = SEED + (62 if name == "moe" else 60)
+    if name == "zamba2":
+        return _hy_zamba_params(torch, model, SEED + 63, dev)
+    seed = SEED + {"moe": 62, "vlm": 64, "encdec": 65}.get(name, 60)
     return model.init(torch.Generator(device=dev).manual_seed(seed),
                       device=dev)
 
@@ -6166,8 +6230,9 @@ def _ls_empty_experts(torch, routes, experts):
 
 
 def ls_one_device(torch, dev, full):
-    """The one-device references: llama3.2-1b, rwkv6-7b and
-    deepseek-moe-16b trained by ``Trainer`` on the card; their losses,
+    """The one-device references: each run of ``LS_RUNS`` (llama3.2-1b,
+    rwkv6-7b, deepseek-moe-16b, qwen2-vl-2b, zamba2-1.2b,
+    seamless-m4t-medium) trained by ``Trainer`` on the card; their losses,
     each rank's blocks of the first-step moments (bf16: 2**-9 of a value,
     far inside the gates) on the host with each leaf's largest, grad
     norm, step ms and peak, and deepseek's first-step routing; and the
@@ -6225,7 +6290,7 @@ def ls_one_device(torch, dev, full):
                         torch, name, cfg, dev)), batch, remat=True)[2]
         extra = {}
         tops = [float(g.abs().max()) for g in tree_leaves(g32)]
-        axes, hd = _ls_axes(tr.model.defs()), _ls_head_dim(cfg)
+        axes, hd = _ls_axes(tr.model), _ls_head_dim(cfg)
         if moe:
             flips, differ = _ls_route_diff(torch, r16.got, (r32.got, 0),
                                            cfg.num_experts)
@@ -6317,15 +6382,23 @@ def _ls_paths(tree, prefix=""):
     return [prefix[:-1]]
 
 
-def _ls_axes(defs):
-    """The logical axes of each leaf of a ``defs()`` tree, in
-    ``tree_leaves``' order."""
-    if isinstance(defs, dict):
-        return [a for k in sorted(defs) for a in _ls_axes(defs[k])]
-    return [tuple(defs.axes)]
+def _ls_axes(model):
+    """The logical axes of each leaf of ``model.defs()``, in
+    ``tree_leaves``' order. zamba2's ``out_proj`` rows are its SSD heads'
+    (a head every ``ssm_head_dim`` rows): read as a "heads_x" axis."""
+    def walk(defs, path):
+        if isinstance(defs, dict):
+            return [a for k in sorted(defs) for a in walk(defs[k],
+                                                          f"{path}{k}/")]
+        if model.cfg.family == "zamba2" and path == "layers/out_proj/":
+            return [("layers", "heads_x", "embed")]
+        return [tuple(defs.axes)]
+    return walk(model.defs(), "")
 
 
 def _ls_head_dim(cfg):
+    if cfg.family == "zamba2":
+        return cfg.ssm_head_dim
     return getattr(cfg, "rwkv_head_dim", None) or cfg.head_dim
 
 
@@ -6366,9 +6439,9 @@ def _ls_compare(torch, pm, got_m, ref_m, tops, specs, axes, head_dim, *,
     arrays with ``pm`` None), maxed over the mesh: the worst
     entry as a share of its leaf's largest (``tops``); each leaf's
     relative L2; and each (layer, head)'s -- or (layer, expert)'s --
-    relative L2 in the leaves with a head or experts axis (a head or an
-    expert without a reference gradient has none: it reads 0, or inf if
-    it got one). The same three for the leaf ``plant`` with its first
+    relative L2 in the leaves with a head or experts axis and more than
+    one entry a (layer, head) (a head or an expert without a reference
+    gradient has none: it reads 0, or inf if it got one). The same three for the leaf ``plant`` with its first
     head or expert of layer 0 zeroed on rank 0: a planted fault (one
     head's gradient dropped), which the gates must see. The reductions
     stay outside the collective tallies."""
@@ -6385,6 +6458,7 @@ def _ls_compare(torch, pm, got_m, ref_m, tops, specs, axes, head_dim, *,
     # (max); [d2, r2 by leaf, planted d2, r2] (sum)
     row = torch.zeros(2 * n + 2, dtype=torch.float64, device=dev)
     sq = torch.zeros(2 * n + 2, dtype=torch.float64, device=dev)
+    per_head = set()
     for i, (gm, rm, s, ax) in enumerate(zip(got, tree_leaves(ref_m), specs,
                                             axes)):
         mc = rm.to(dev).float()
@@ -6408,8 +6482,11 @@ def _ls_compare(torch, pm, got_m, ref_m, tops, specs, axes, head_dim, *,
                 sq[k[0]] = torch.sum(torch.square(d.double()))
                 sq[k[1]] = torch.sum(torch.square(mc.double()))
             h, d2 = _ls_head_sums(torch.square(d.double()), ax, head_dim)
-            if h is None:
+            if h is None or d2.numel() == d.numel():
+                # no head axis, or one entry a (layer, head) (zamba2's
+                # a_log, dt_bias, d_skip: their entries and L2 are gated)
                 continue
+            per_head.add(i)
             sums = torch.stack([d2, _ls_head_sums(
                 torch.square(mc.double()), ax, head_dim)[1]])
             # a head's entries off the head dim lie on other ranks
@@ -6423,7 +6500,7 @@ def _ls_compare(torch, pm, got_m, ref_m, tops, specs, axes, head_dim, *,
     l2 = (sq[:n] / sq[n:2 * n].clamp(min=1e-300)).sqrt().tolist()
     row, sq = row.tolist(), sq.tolist()
     heads = {p: row[n + 1 + i] for i, p in enumerate(paths)
-             if _ls_head_axis(axes[i]) is not None}
+             if i in per_head}
     out = dict(m_rel=max(row[:n]), m_l2=max(l2), m_head_l2=max(heads.values()),
                m_rel_by_leaf=dict(zip(paths, row[:n])),
                m_l2_by_leaf=dict(zip(paths, l2)), m_head_l2_by_leaf=heads,
@@ -6445,13 +6522,15 @@ def _ls_owner(pm, specs):
 
 
 def _ls_expected(torch, cfg):
-    """The collectives a rank issues in one remat train step of a dense
-    or MoE transformer over ``LS_MESH``, counted from the specs
-    (``param_pspecs``) and the layers' TP and expert-parallel sites as
-    ``tests/test_torch_dist_train.py`` counts them, a layer's forward
-    twice (remat recomputes it in the backward), and the bytes of its
-    FSDP all-gathers and reduce-scatters (each the gathered block, in
-    the params' dtype): ``(counts, bytes)`` by ``"op/axis"``."""
+    """The collectives a rank issues in one remat train step over
+    ``LS_MESH`` (every family but rwkv6), counted from the specs
+    (``param_pspecs``) and the layers' TP, expert-parallel and SSD-head
+    sites as ``tests/test_torch_dist_train.py`` counts them, a remat'd
+    layer's forward twice (remat recomputes it in the backward) and
+    zamba2's shared block, which keeps its activations, once an
+    invocation; and the bytes of its FSDP all-gathers and reduce-scatters
+    (each the gathered block, in the params' dtype): ``(counts, bytes)``
+    by ``"op/axis"``."""
     import collections
     import math
     from repro_torch.distributed import sharding as SH
@@ -6474,7 +6553,7 @@ def _ls_expected(torch, cfg):
         assert isinstance(d, ParamDef)
         stacked = d.axes[0] == "layers"
         return (tuple(sp)[1:] if stacked else tuple(sp),
-                d.shape[1:] if stacked else d.shape, stacked)
+                d.shape[1:] if stacked else d.shape)
 
     def layout(shape, cands):
         for cand in tuple(cands) + ((None,) * len(shape),):
@@ -6485,57 +6564,107 @@ def _ls_expected(torch, cfg):
 
     up, down = ((None, "model"), ("model", None)), (("model", None),
                                                     (None, "model"))
-    heads = (None, "model", None)
     kv_tp = cfg.num_kv_heads % tp == 0
-    kv = heads if kv_tp else (None,) * 3
-    wo = ("model", None, None) if cfg.num_heads % tp == 0 else (None,) * 3
-    uses = [("embed", (("model", None),)),
-            ("embed", (("model", None),)) if cfg.tie_embeddings
-            else ("lm_head", ((None, "model"),)),
-            ("layers/attn/wq", (heads,)), ("layers/attn/wk", (kv,)),
-            ("layers/attn/wv", (kv,)), ("layers/attn/wo", (wo,))]
-    mlp = "layers/moe/shared" if cfg.family == "moe" else "layers/mlp"
-    uses += [(f"{mlp}/w_gate", up), (f"{mlp}/w_up", up),
-             (f"{mlp}/w_down", down)]
-    if cfg.family == "moe":
-        uses += [("layers/moe/router", ((None, "model"),))] + [
-            (f"layers/moe/{k}", (("model", None, None),))
-            for k in ("we_gate", "we_up", "we_down")]
-    n, nbytes = collections.Counter(), collections.Counter()
+    # gated MLPs (MoE's shared experts always)
+    swiglu = cfg.activation == "swiglu" or cfg.family == "moe"
+
+    def attn(prefix):
+        heads = (None, "model", None)
+        kv = heads if kv_tp else (None,) * 3
+        wo = ("model", None, None) if cfg.num_heads % tp == 0 else (None,) * 3
+        return [(f"{prefix}/wq", (heads,)), (f"{prefix}/wk", (kv,)),
+                (f"{prefix}/wv", (kv,)), (f"{prefix}/wo", (wo,))]
+
+    def mlp(prefix):
+        return ([(f"{prefix}/w_gate", up)] if swiglu else []) + [
+            (f"{prefix}/w_up", up), (f"{prefix}/w_down", down)]
+
+    # (uses, forwards, backwards): a remat'd stack of nl layers runs its
+    # forward twice; a leaf outside the layers once
     nl = cfg.num_layers
-    for path, cands in uses:
-        spec, shape, stacked = leaf(path)
-        fwd, once = (2 * nl, nl) if stacked else (1, 1)
-        if "data" in spec:
-            gathered = math.prod(shape) // (tp if "model" in spec else 1)
-            n["all_gather/data"] += fwd
-            n["reduce_scatter/data"] += once
-            nbytes["all_gather/data"] += fwd * gathered * item
-            nbytes["reduce_scatter/data"] += once * gathered * item
-        src = spec.index("model") if "model" in spec else None
-        lay = layout(shape, cands)
-        dst = lay.index("model") if "model" in lay else None
-        if src != dst:   # gather_from forward, split_to's gather back
-            n["all_gather/model"] += fwd * (src is not None) + once * (
-                dst is not None)
+    head = [("embed", (("model", None),)),
+            ("embed", (("model", None),)) if cfg.tie_embeddings
+            else ("lm_head", ((None, "model"),))]
+    groups = [(head, 1, 1)]
+    whole = []              # gathered whole at use (zamba2's in_proj, conv)
+    n, nbytes = collections.Counter(), collections.Counter()
+    fam = cfg.family
+    q_bwd = 1 + (0 if kv_tp else 2)       # q's copy_to (K's and V's)
+    up_bwd = 2 if swiglu else 1           # the up projections' copy_to
+    if fam == "zamba2":
+        inv = len(range(0, nl, cfg.attn_every or nl))
+        groups += [([("layers/out_proj", down)], 2 * nl, nl),
+                   (attn("shared/attn") + mlp("shared/mlp"), inv, inv)]
+        whole = [("layers/in_proj", 2 * nl, nl), ("layers/conv_w", 2 * nl, nl),
+                 ("layers/conv_b", 2 * nl, nl)]
+        # Mamba: the norm's statistic twice, out_proj's all-reduce once
+        # (remat's recompute stops before a layer's last all-reduce);
+        # back: in_proj's copy_to and the statistic's; norm_s's split_to
+        # back. The shared block: wo's and the down's all-reduce; back:
+        # q's, the up projections' copy_to.
+        n["all_reduce/model"] += nl * (2 + 1) + nl * 2 + inv * (
+            2 + q_bwd + up_bwd)
+        n["all_gather/model"] += nl
+    elif fam == "encdec":
+        ne, nd = cfg.encoder_layers, cfg.decoder_layers
+        groups += [([("frontend_proj", ((None, None),))], 1, 1),
+                   (attn("encoder/attn") + mlp("encoder/mlp"), 2 * ne, ne),
+                   (attn("decoder/self_attn") + attn("decoder/cross_attn")
+                    + mlp("decoder/mlp"), 2 * nd, nd)]
+        # forward: each wo's all-reduce twice, the down's once; back:
+        # each q's copy_to (K's and V's), the cross-attention's kv_x
+        # copy_to under kv_tp, the up projections'
+        n["all_reduce/model"] += ne * (2 + 1 + q_bwd + up_bwd) + nd * (
+            2 * 2 + 1 + q_bwd + q_bwd + (1 if kv_tp else 0) + up_bwd)
+    else:
+        groups += [(attn("layers/attn") + mlp(
+            "layers/moe/shared" if fam == "moe" else "layers/mlp"),
+            2 * nl, nl)]
+        if fam == "moe":
+            groups += [([("layers/moe/router", ((None, "model"),))] + [
+                (f"layers/moe/{k}", (("model", None, None),))
+                for k in ("we_gate", "we_up", "we_down")], 2 * nl, nl)]
+        # Forward: wo's all-reduce twice, the MLP's (or shared experts')
+        # down once: remat's recompute stops at the last activation the
+        # backward reads (torch.utils.checkpoint), before a layer's last
+        # all-reduce. Backward: q's copy_to (K/V's too without kv_tp),
+        # the up projections'.
+        n["all_reduce/model"] += nl * (2 + 1) + nl * (q_bwd + up_bwd)
+    for uses, fwd, once in groups:
+        for path, cands in uses:
+            spec, shape = leaf(path)
+            if "data" in spec:
+                gathered = math.prod(shape) // (tp if "model" in spec else 1)
+                n["all_gather/data"] += fwd
+                n["reduce_scatter/data"] += once
+                nbytes["all_gather/data"] += fwd * gathered * item
+                nbytes["reduce_scatter/data"] += once * gathered * item
+            src = spec.index("model") if "model" in spec else None
+            lay = layout(shape, cands)
+            dst = lay.index("model") if "model" in lay else None
+            if src != dst:   # gather_from forward, split_to's gather back
+                n["all_gather/model"] += fwd * (src is not None) + once * (
+                    dst is not None)
+    for path, fwd, once in whole:     # all-gathered, reduce-scattered back
+        spec, shape = leaf(path)
+        for axis in filter(None, spec):
+            n[f"all_gather/{axis}"] += fwd
+            n[f"reduce_scatter/{axis}"] += once
+            if axis == "data":
+                gathered = math.prod(shape) // (tp if "model" in spec else 1)
+                nbytes["all_gather/data"] += fwd * gathered * item
+                nbytes["reduce_scatter/data"] += once * gathered * item
     n["all_reduce/data"] += 3 + sum(
         "data" not in sp for sp in spec_leaves(specs))
-    # Forward: wo's all-reduce twice, the MLP's (or shared experts')
-    # down once: remat's recompute stops at the last activation the
-    # backward reads (torch.utils.checkpoint), before a layer's last
-    # all-reduce. Backward: q's copy_to (K/V's too without kv_tp), the
-    # gate's and up's.
-    n["all_reduce/model"] += nl * (2 + 1) + nl * (1 + (0 if kv_tp else 2)
-                                                  + 2)
-    if cfg.family == "moe":
+    if fam == "moe":
         n["all_reduce/data"] += 2 * 2 * nl       # the aux loss's me, ce
         # the combine's all-reduce (forward), xg's copy_to (backward);
         # the gathered logits (forward), the combine's split_to (back)
         n["all_reduce/model"] += 2 * nl + nl
         n["all_gather/model"] += 2 * nl + nl
-    # the embedding, the head's copy_to, the loss (max, sum of exps,
-    # target logit), the global norm
-    n["all_reduce/model"] += 1 + 1 + 3 + 1
+    # with the vocab on 'model': the embedding, the head's copy_to, the
+    # loss (max, sum of exps, target logit); the global norm
+    n["all_reduce/model"] += (1 + 1 + 3) * (cfg.vocab_size % tp == 0) + 1
     return dict(sorted(n.items())), dict(sorted(nbytes.items()))
 
 
@@ -6601,7 +6730,7 @@ def ls_train(torch, pm, full, name, ref, k4):
                                                            == 1.0))
         out = _ls_compare(
             torch, pm, o["m"], mine, ref["m1_top"], tr.specs["params"],
-            _ls_axes(tr.model.defs()), _ls_head_dim(cfg),
+            _ls_axes(tr.model), _ls_head_dim(cfg),
             plant=LS_PLANT[name])
         return dict(out, compare_s=time.perf_counter() - t0, **extra)
     start = _ls_params(torch, name, cfg, pm.device)
@@ -6699,9 +6828,8 @@ def ls_restart(torch, pm, full, root):
 
 
 def ls_rank(rank, world, port, backend, full, refs, out_dir):
-    """One rank of the phase: joins the process group, trains llama3.2-1b,
-    rwkv6-7b and deepseek-moe-16b over the mesh and runs the restart;
-    writes its rows."""
+    """One rank of the phase: joins the process group, trains each run of
+    ``LS_RUNS`` over the mesh and runs the restart; writes its rows."""
     import torch
     from repro_torch.distributed import runtime as R
     from repro_torch.kernels import wkv6_scan as k4
@@ -6728,14 +6856,15 @@ def ls_rank(rank, world, port, backend, full, refs, out_dir):
 def lm_train_sharded_phase(torch, dev, k4, smi):
     """Phase 12b: the one-device references on the card, then four ranks
     (``runtime.spawn``; gloo on cuda:0, or NCCL one rank a card with four
-    cards) train llama3.2-1b, rwkv6-7b and deepseek-moe-16b through
+    cards) train llama3.2-1b, rwkv6-7b, deepseek-moe-16b, qwen2-vl-2b,
+    zamba2-1.2b and seamless-m4t-medium through
     ``Trainer(shardings=...)`` from the same params, each run's first step
     gated against the one-device step (the gates shown to sit between the
     bf16 noise floor and a planted fault; deepseek's per expert, its
     routings that differ counted per layer and its routing the same bits
     on every 'model' rank), the
     collectives a rank issues a step against the count from the specs
-    (llama3.2-1b, deepseek), every rank's K4 launches counted and K4 held
+    (every run but rwkv6-7b), every rank's K4 launches counted and K4 held
     against its plain version on a rank's real inputs; the crash and
     restart bit for bit. Returns the K4 numbers the ``kernels`` line
     needs."""
@@ -6789,7 +6918,7 @@ def lm_train_sharded_phase(torch, dev, k4, smi):
                                         for x in rows],
                    step_ms_by_rank=[x[name]["step_ms_median"] for x in rows],
                    seconds_by_rank=[x[name + "_s"] for x in rows])
-        if full[name].family in ("dense", "moe"):
+        if full[name].family != "rwkv6":
             counts, nbytes = _ls_expected(torch, full[name])
             row["expected_collectives_per_step"] = counts
             row["expected_fsdp_bytes_per_step"] = nbytes

@@ -13,6 +13,8 @@ mesh. The port runs one process per mesh position
     candidate that divides (the JAX package's rule), moving a ``model``
     dim where the candidate wants another one. Off a process mesh, and
     in ``"serve"`` mode, it is the identity, as in the JAX package.
+    ``gather_whole(w)`` gathers every sharded dim, for a use in which
+    each rank reads its own part of the whole weight.
   * ``constrain`` stays the identity: the layers' explicit TP ops
     (``layers.dense``, ``attention_apply``, the vocab-parallel embedding
     and loss) already lay each activation out as the JAX package's
@@ -42,7 +44,7 @@ from repro_torch.distributed import collectives as C
 from repro_torch.distributed.mesh import Mesh, _active_meshes
 
 __all__ = ["constrain", "current_mesh", "unshard_fsdp", "gather_at_use",
-           "fsdp_layout", "tag", "spec_of", "tp_size", "recompute_context",
+           "gather_whole", "fsdp_layout", "tag", "spec_of", "tp_size", "recompute_context",
            "execution_mode", "get_execution_mode"]
 
 AxisLike = Union[None, str, Tuple[str, ...]]
@@ -195,6 +197,21 @@ def gather_at_use(w: torch.Tensor, *candidates: Sequence[AxisLike]):
         if dst is not None:
             w = C.split_to(w, dst, "model")
     return w, lay
+
+
+def gather_whole(w: torch.Tensor) -> torch.Tensor:
+    """The whole parameter of the block ``w``, in ``"train"`` mode under an
+    active process mesh, for a use in which each rank reads a part of it
+    that its stored blocks do not line up with (zamba2's ``in_proj`` and
+    conv): every dim its spec puts on a mesh axis all-gathered, whose
+    backward sums the ranks' parts of the gradient and keeps this rank's
+    block (``collectives.all_gather``). Otherwise ``w`` unchanged."""
+    if C.active() is None or get_execution_mode() == "serve":
+        return w
+    for dim, e in enumerate(_stored(w)):
+        if e is not None:
+            w = C.all_gather(w, dim, e)
+    return w
 
 
 def unshard_fsdp(w, *candidates: Sequence[AxisLike]):

@@ -10,6 +10,12 @@ Examples:
       --smoke --mesh 2x2 --spawn --steps 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch \\
       deepseek-moe-16b --smoke --mesh 2x2 --spawn --steps 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-2b \\
+      --smoke --mesh 2x2 --spawn --steps 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --smoke --mesh 1x4 --spawn --steps 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch \\
+      seamless-m4t-medium --smoke --mesh 2x2 --spawn --steps 2 --device cpu
   # one process a rank, e.g. rank 1 of 4 (every rank the same flags):
   PYTHONPATH=src python -m repro_torch.launch.train --mesh 2x2 \\
       --world-size 4 --rank 1 --address localhost --port 29500 ...
@@ -25,8 +31,9 @@ sharded by ``param_pspecs``/``opt_pspecs``/``batch_pspecs`` over a
 is rank ``--rank`` of ``--world-size`` and joins ``tcp://ADDRESS:PORT``.
 ``--backend`` is ``gloo`` on the CPU; on the card ``nccl`` when there is
 a card a rank, else ``gloo`` (ranks sharing a card). Rank ``r`` runs on
-``cuda:(r % cards)``. Families other than dense, moe and rwkv6, and 3-D
-meshes, are refused with the ROADMAP item that ports them. The task is
+``cuda:(r % cards)``. Every family trains over a mesh; 3-D meshes are
+refused with the ROADMAP item that ports them, and rwkv6 or zamba2 heads
+(or MoE experts) that the model axis would split by name. The task is
 ``data.token_batch``'s ``"repeat"``; the enc-dec's encoder frames are
 drawn from a ``torch.Generator`` seeded with the step, so they differ
 from the JAX launcher's (``jax.random.normal``) while the tokens agree.

@@ -13,7 +13,17 @@ parameters serve decode (``generate``, ``BatchScheduler``), as there.
 
 Layers run as a Python loop over the stacked layer axis (``scan_layers``
 selects nothing; ``remat`` recomputes each encoder and decoder layer in
-the backward, ``layers.remat``). A decode step keeps
+the backward, ``layers.remat``).
+
+Under a process mesh (training over ``("data", "model")``) the frames
+are the rank's ``data`` rows, ``frontend_proj`` is gathered at use over
+``data``, every attention (the encoder's, the decoder's self- and
+cross-attention, whose ``kv_x`` enters through ``copy_to``) runs on the
+rank's heads and the MLPs are tensor-parallel (``layers``); the
+embedding is vocab-parallel (``layers.embed_lookup``) and so is the head
+where the vocabulary divides ``model`` (``layers.head_logits``; where it
+does not, as seamless' 256,206 rows over 4, every rank computes every
+logit). A decode step keeps
 ``pos`` a 0-d device tensor and never reads a value back to the host.
 """
 from __future__ import annotations
@@ -21,12 +31,12 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.distributed import annotate as A
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import ParamDef, as_dtype, tree_map
+from repro_torch.models.params import ParamDef, as_dtype
 
 __all__ = ["encdec_defs", "encdec_apply", "encode", "encdec_decode",
            "init_encdec_cache", "prefill_cross_kv"]
@@ -84,23 +94,22 @@ def encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig,
         raise TypeError("encode takes a float frontend_proj (the JAX "
                         "package's plain product); ternary parameters "
                         "serve decode only")
-    h = torch.matmul(frames.to(as_dtype(cfg.dtype)), w)
+    h = torch.matmul(frames.to(as_dtype(cfg.dtype)),
+                     A.unshard_fsdp(w, (None, None)))
     positions = _positions(*h.shape[:2], h.device)
     body = L.remat(_encoder_layer) if remat else _encoder_layer
     for i in range(cfg.encoder_layers):
-        h = body(h, tree_map(lambda x: x[i], params["encoder"]), positions,
-                 cfg)
+        h = body(h, L.layer_params(params["encoder"], i), positions, cfg)
     return L.rms_norm(h, params["ln_enc"], cfg.norm_eps)
 
 
 def _embed(params, tokens, cfg: ModelConfig):
-    return F.embedding(tokens.long(), params["embed"]).to(
-        as_dtype(cfg.dtype))
+    return L.embed_lookup(params["embed"], tokens).to(as_dtype(cfg.dtype))
 
 
 def _unembed(params, h, cfg: ModelConfig):
-    return L.logits_f32(L.rms_norm(h, params["ln_f"], cfg.norm_eps),
-                        params["lm_head"])
+    return L.head_logits(L.rms_norm(h, params["ln_f"], cfg.norm_eps),
+                         params["lm_head"])
 
 
 def _decoder_layer(h, lp, positions, enc_out, cfg: ModelConfig):
@@ -122,7 +131,7 @@ def _decoder(params, tokens, enc_out, cfg, *, scan_layers=True,
     positions = _positions(b, s, h.device)
     body = L.remat(_decoder_layer) if remat else _decoder_layer
     for i in range(cfg.decoder_layers):
-        h = body(h, tree_map(lambda x: x[i], params["decoder"]), positions,
+        h = body(h, L.layer_params(params["decoder"], i), positions,
                  enc_out, cfg)
     return h
 
@@ -182,7 +191,7 @@ def encdec_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
     pos = cache["pos"]
     k_new, v_new = cache["k"].clone(), cache["v"].clone()
     for i in range(cfg.decoder_layers):
-        lp = tree_map(lambda x: x[i], params["decoder"])
+        lp = L.layer_params(params["decoder"], i)
         a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
         h = h + L._attend_decode(lp["self_attn"], a_in, k_new[i], v_new[i],
                                  pos, cfg, window=None, mrope=False)

@@ -22,9 +22,10 @@ blocks are replicated over ``model`` (the batch rows are the rank's
 ``role="down"`` (followed by an ``all_reduce``), each as the weight's
 chosen layout says; attention runs on this rank's heads; the MoE
 experts are parallel over ``model`` (``moe_apply``); the embedding and
-the logits are vocab-parallel (``embed_lookup``, ``logits_f32`` on the
-rank's vocab columns). Off a process mesh every collective is the
-identity and the layers are the one-device ones.
+the LM head are vocab-parallel (``embed_lookup``, ``head_logits``: the
+rank's vocab columns) where the vocabulary divides ``model``. Off a
+process mesh every collective is the identity and the layers are the
+one-device ones.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ __all__ = [
     "attention_defs", "attention_apply", "attention_decode",
     "mlp_defs", "mlp_apply", "moe_defs", "moe_apply", "moe_groups",
     "dense", "blockwise_attention", "layer_norm", "logits_f32", "remat",
-    "layer_params", "embed_lookup",
+    "layer_params", "embed_lookup", "head_logits",
 ]
 
 # ----------------------------------------------------------------------
@@ -160,6 +161,24 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     rows = table[torch.where(inside, local, 0)]
     rows = rows * inside[..., None].to(rows.dtype)
     return C.all_reduce(rows, "model")
+
+
+def head_logits(h: torch.Tensor, w: torch.Tensor, *, tied: bool = False
+                ) -> torch.Tensor:
+    """The LM head: ``logits_f32(h, w)`` against a (D, V) head, or against
+    the (V, D) embedding transposed when ``tied``. Under a process mesh
+    the head is gathered at use with its vocab on ``model`` where that
+    divides (vocab-parallel: the logits are this rank's vocab columns,
+    from ``copy_to`` of ``h``), else whole (every rank all the logits,
+    e.g. seamless' 256,206 rows over a model axis of 4)."""
+    if tied:
+        w, lay = A.gather_at_use(w, ("model", None))
+        w = w.t()
+        split = lay is not None and lay[0] == "model"
+    else:
+        w, lay = A.gather_at_use(w, (None, "model"))
+        split = lay is not None and lay[1] == "model"
+    return logits_f32(C.copy_to(h, "model") if split else h, w)
 
 
 class _MmF32(torch.autograd.Function):

@@ -28,8 +28,6 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.distributed import annotate as A
-from repro_torch.distributed import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, as_dtype, tree_map
@@ -66,18 +64,11 @@ def transformer_defs(cfg: ModelConfig) -> Dict[str, Any]:
 def unembed(params: Dict[str, Any], h: torch.Tensor, cfg: ModelConfig
             ) -> torch.Tensor:
     """Final norm + LM head (``embed.T`` when tied); logits in f32, with
-    the optional softcap. Under a process mesh the head is gathered at use
-    with its vocab on ``model`` where that divides, and the logits are
-    this rank's vocab columns (``copy_to`` of the normed ``h``)."""
+    the optional softcap. Under a process mesh the head is vocab-parallel
+    where its vocab divides ``model`` (``layers.head_logits``)."""
     h = L.rms_norm(h, params["ln_f"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        w, lay = A.gather_at_use(params["embed"], ("model", None))
-        w = w.t()
-        split = lay is not None and lay[0] == "model"
-    else:
-        w, lay = A.gather_at_use(params["lm_head"], (None, "model"))
-        split = lay is not None and lay[1] == "model"
-    logits = L.logits_f32(C.copy_to(h, "model") if split else h, w)
+    logits = (L.head_logits(h, params["embed"], tied=True)
+              if cfg.tie_embeddings else L.head_logits(h, params["lm_head"]))
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = c * torch.tanh(logits / c)

@@ -17,6 +17,19 @@ stacked layer axis (``scan_layers`` selects nothing; ``remat``
 recomputes each Mamba layer in the backward, ``layers.remat``).
 A decode step keeps ``pos`` a 0-d device tensor and never reads a value
 back to the host.
+
+Under a process mesh (training over ``("data", "model")``) each
+``model`` rank runs the SSD on its block of ``ssm_heads / |model|``
+heads and holds only their state (``_heads_in``): ``in_proj``, ``conv_w``
+and ``conv_b`` are gathered whole at use (their stored blocks do not
+line up with the ``z | x | B | C | dt`` split points; the all-gather's
+backward sums the ranks' parts of the gradient), the rank takes its
+heads' columns of ``z``, ``x`` and ``dt`` and all of the shared ``B``
+and ``C`` behind ``copy_to`` of the input, ``a_log``/``dt_bias``/
+``d_skip`` are its stored blocks, ``norm_s``'s statistic is reduced over
+``model`` (``_rms_norm_heads``) and ``out_proj`` is row-parallel. The
+shared block is the dense family's TP, the embedding and the head
+vocab-parallel (``layers.embed_lookup``, ``layers.head_logits``).
 """
 from __future__ import annotations
 
@@ -26,9 +39,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.distributed import annotate as A
+from repro_torch.distributed import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import ParamDef, as_dtype, tree_map
+from repro_torch.models.params import ParamDef, as_dtype
 
 __all__ = ["zamba2_defs", "zamba2_apply", "zamba2_decode",
            "init_zamba_cache", "mamba2_chunked"]
@@ -167,37 +182,81 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, x.new_zeros(()))
 
 
+def _heads_in(lp, x, cfg: ModelConfig):
+    """Under a process mesh: this ``model`` rank's ``in_proj`` product
+    (its heads' columns of ``z``, ``x`` and ``dt`` and the shared ``B``
+    and ``C``, from ``copy_to(x)``) and its channels of ``conv_w`` and
+    ``conv_b`` (its heads' ``x`` channels, then ``B`` and ``C``), each
+    weight gathered whole first (``annotate.gather_whole``), and its
+    number of heads."""
+    din, n, h, p = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
+                    cfg.ssm_head_dim)
+    lo, hi = C.block_range(h, "model")
+    xs = (lo * p, hi * p)
+    cols = [xs, (din + xs[0], din + xs[1]), (2 * din, 2 * din + 2 * n),
+            (2 * din + 2 * n + lo, 2 * din + 2 * n + hi)]
+    chans = [xs, (din, din + 2 * n)]
+
+    def pick(w, spans):
+        return torch.cat([w[..., a:b] for a, b in spans], dim=-1)
+    w_in = pick(A.gather_whole(lp["in_proj"]), cols)
+    proj = torch.matmul(C.copy_to(x, "model"), w_in)
+    return (proj, pick(A.gather_whole(lp["conv_w"]), chans),
+            pick(A.gather_whole(lp["conv_b"]), chans), hi - lo)
+
+
+def _rms_norm_heads(y, scale, eps: float, width: int):
+    """``layers.rms_norm`` of a row whose ``width`` entries lie in blocks
+    over ``model``, on this rank's block ``y``: the f32 sum of squares
+    all-reduced over ``model`` (and, since every rank's block reads the
+    statistic, its gradient summed back over ``model``, ``copy_to``), the
+    rank's slice of the replicated ``scale`` (``split_to``: its gradient
+    gathered whole)."""
+    yf = y.float()
+    ss = C.copy_to(C.all_reduce((yf * yf).sum(dim=-1, keepdim=True),
+                                "model"), "model")
+    return ((yf * torch.rsqrt(ss / width + eps)).to(y.dtype)
+            * C.split_to(scale, 0, "model"))
+
+
 def _mamba_forward(lp, x, cfg: ModelConfig, *, conv_state=None,
                    ssm_state=None, decode: bool = False):
     """Apply one Mamba-2 layer (pre-norm; the caller adds the residual).
 
     Returns (out, (conv_state, ssm_state)): the last ``conv_kernel - 1``
-    conv inputs (B, k-1, conv_dim) and the SSM state (B, H, P, N) f32.
+    conv inputs (B, k-1, conv_dim) and the SSM state (B, H, P, N) f32;
+    under a process mesh, this rank's heads' (H / |model| of them).
     """
     bsz, s, d = x.shape
-    din, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    din, n = cfg.ssm_d_inner, cfg.ssm_state
     p = cfg.ssm_head_dim
     k = cfg.conv_kernel
-
-    proj = L.dense(x, lp["in_proj"])
-    z, xbc, dt_raw = torch.split(proj, [din, din + 2 * n,
-                                        proj.shape[-1] - 2 * din - 2 * n],
+    sharded = C.active() is not None
+    if sharded:
+        if decode:
+            raise NotImplementedError("zamba2 decode over a process mesh")
+        proj, conv_w, conv_b, h = _heads_in(lp, x, cfg)
+    else:
+        proj = L.dense(x, lp["in_proj"])
+        conv_w, conv_b, h = lp["conv_w"], lp["conv_b"], cfg.ssm_heads
+    di = h * p
+    z, xbc, dt_raw = torch.split(proj, [di, di + 2 * n,
+                                        proj.shape[-1] - 2 * di - 2 * n],
                                  dim=-1)
 
     # Depthwise causal conv over the (x, B, C) channels.
     if decode:
         window = torch.cat([conv_state, xbc], dim=1)       # (B, k, cd)
-        conv_out = (window * lp["conv_w"]).sum(dim=1, keepdim=True)
+        conv_out = (window * conv_w).sum(dim=1, keepdim=True)
         new_conv_state = window[:, 1:]
     else:
         # The reference's shifted multiply-add, tap by tap in this order
         # (a library conv would choose its own reduction order).
         pad = F.pad(xbc, (0, 0, k - 1, 0))
-        conv_out = sum(pad[:, i:i + s] * lp["conv_w"][i]
-                       for i in range(k))
+        conv_out = sum(pad[:, i:i + s] * conv_w[i] for i in range(k))
         new_conv_state = pad[:, -(k - 1):]
-    xbc = F.silu(conv_out + lp["conv_b"])
-    xs, b_in, c_in = torch.split(xbc, [din, n, n], dim=-1)
+    xbc = F.silu(conv_out + conv_b)
+    xs, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
     xs = xs.reshape(bsz, -1, h, p)
     dt = _softplus(dt_raw.float() + lp["dt_bias"].float())
     a = -torch.exp(lp["a_log"].float())
@@ -210,9 +269,12 @@ def _mamba_forward(lp, x, cfg: ModelConfig, *, conv_state=None,
         y, ssm_state = mamba2_chunked(xs, dt, a, b_in, c_in, ssm_state,
                                       chunk=min(cfg.chunk_size * 2, s))
     y = y + xs * lp["d_skip"][:, None]
-    y = y.reshape(bsz, -1, din)
-    y = L.rms_norm(y * F.silu(z), lp["norm_s"], cfg.norm_eps)
-    out = L.dense(y, lp["out_proj"])
+    y = y.reshape(bsz, -1, di)
+    if sharded:
+        y = _rms_norm_heads(y * F.silu(z), lp["norm_s"], cfg.norm_eps, din)
+    else:
+        y = L.rms_norm(y * F.silu(z), lp["norm_s"], cfg.norm_eps)
+    out = L.dense(y, lp["out_proj"], role="down")
     return out, (new_conv_state, ssm_state)
 
 
@@ -242,13 +304,12 @@ def _stage_bounds(cfg: ModelConfig):
 
 
 def _embed(params, tokens, cfg: ModelConfig):
-    return F.embedding(tokens.long(), params["embed"]).to(
-        as_dtype(cfg.dtype))
+    return L.embed_lookup(params["embed"], tokens).to(as_dtype(cfg.dtype))
 
 
 def _unembed(params, h, cfg: ModelConfig):
-    return L.logits_f32(L.rms_norm(h, params["ln_f"], cfg.norm_eps),
-                        params["lm_head"])
+    return L.head_logits(L.rms_norm(h, params["ln_f"], cfg.norm_eps),
+                         params["lm_head"])
 
 
 def zamba2_apply(params: Dict[str, Any], tokens: torch.Tensor,
@@ -266,7 +327,7 @@ def zamba2_apply(params: Dict[str, Any], tokens: torch.Tensor,
     positions = torch.arange(s, device=h.device)[None].expand(b, s)
     for i, j in _stage_bounds(cfg):
         for li in range(i, j):
-            h = mamba(h, tree_map(lambda x: x[li], params["layers"]), cfg)
+            h = mamba(h, L.layer_params(params["layers"], li), cfg)
         h = _shared_block(params["shared"], h, positions, cfg)
     return (_unembed(params, h, cfg),
             torch.zeros((), dtype=torch.float32, device=h.device))
@@ -317,7 +378,7 @@ def zamba2_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
     sp = params["shared"]
     for si, (i, j) in enumerate(_stage_bounds(cfg)):
         for li in range(i, j):
-            lp = tree_map(lambda x: x[li], params["layers"])
+            lp = L.layer_params(params["layers"], li)
             out, (conv_st, ssm_st) = _mamba_forward(
                 lp, L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg,
                 conv_state=cache["conv"][li], ssm_state=cache["ssm"][li],

@@ -30,10 +30,11 @@ over ``model`` (``models.layers``). Gradients of leaves replicated over
 ``run(start_state=...)`` and ``restore`` each give a rank its block, so a
 restart may run on another mesh ("elastic scaling"): rank 0 writes whole
 arrays (``sharding.gather_logical``), the files the one-device trainer
-writes for the same state. Only rank 0 prints and writes. Families:
-``dense``, ``moe`` (experts over ``model``) and ``rwkv6``; the others,
-and meshes with other axes, are refused with the ROADMAP item that ports
-them. ``failure_hook`` runs on
+writes for the same state. Only rank 0 prints and writes. Every family
+trains: ``dense``, ``vlm``, ``moe`` (experts over ``model``), ``rwkv6``,
+``zamba2`` (SSD heads over ``model``) and ``encdec``; meshes with other
+axes are refused with the ROADMAP item that ports them, and heads or
+experts that the model axis would split by name. ``failure_hook`` runs on
 every rank, so a simulated failure (:class:`SimulatedFailure`) raises on
 all of them at the same step, and ``run_with_restarts`` waits for every
 rank and restores on all of them from the same checkpoint. Over a process
@@ -136,29 +137,21 @@ def _on(device: torch.device, tree: Any) -> Any:
     return tree_map(leaf, tree)
 
 
-# The ROADMAP items that port what a sharded Trainer refuses.
-_NEXT_FAMILY = {"vlm": "7b (vlm)", "zamba2": "7c (zamba2)",
-                "encdec": "7d (encdec)"}
+# The ROADMAP item that ports the meshes a sharded Trainer refuses.
 _NEXT_MESH = "7e (3-D meshes with 'pod')"
-_FAMILIES = ("dense", "moe", "rwkv6")
 
 
 def refuse_unsupported(cfg, axis_names, model_size: int) -> None:
     """Raise ``NotImplementedError`` for what sharded training does not
-    cover, naming the ROADMAP item that ports it: families other than
-    ``dense``, ``moe`` and ``rwkv6``, meshes over other axes than
-    ``("data", "model")``, rwkv6 heads that a model axis would split, and
-    MoE experts that do not divide it (the specs' fallback layout, each
-    expert's ``mlp`` dim on ``model``, which is not trained)."""
+    cover: meshes over other axes than ``("data", "model")`` (naming the
+    ROADMAP item that ports them), rwkv6 and zamba2 heads that a model
+    axis would split, and MoE experts that do not divide it (the specs'
+    fallback layout, each expert's ``mlp`` dim on ``model``, which is not
+    trained)."""
     if tuple(axis_names) != MESH_AXES:
         raise NotImplementedError(
             f"a {tuple(axis_names)} mesh: sharded training runs over "
             f"{MESH_AXES}; ROADMAP item {_NEXT_MESH}")
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: sharded training covers the "
-            f"{', '.join(_FAMILIES)} families; {cfg.family} is ROADMAP "
-            f"item {_NEXT_FAMILY.get(cfg.family, '7')}")
     if cfg.family == "moe" and cfg.num_experts % model_size:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.num_experts} experts over a model axis of "
@@ -168,6 +161,10 @@ def refuse_unsupported(cfg, axis_names, model_size: int) -> None:
             and cfg.rwkv_heads % model_size):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.rwkv_heads} heads over a model axis of "
+            f"{model_size} would split a head")
+    if cfg.family == "zamba2" and cfg.ssm_heads % model_size:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.ssm_heads} SSD heads over a model axis of "
             f"{model_size} would split a head")
 
 

@@ -1,7 +1,8 @@
 """Sharded LM training on the card: the scenarios of
-``test_torch_dist_train.py`` (SMOKE llama3.2-1b and rwkv6-7b in f32, B=4,
-S=16, 3 steps) with the ranks' tensors on CUDA devices, against the
-port's one-device Trainer on the card, with that file's tolerances (a).
+``test_torch_dist_train.py`` (the SMOKE archs of ``torch_dist_workers``,
+one of each family, in f32, B=4, S=16, 3 steps) with the ranks' tensors
+on CUDA devices, against the port's one-device Trainer on the card, with
+that file's tolerances (a).
 
 Marked ``cuda``: each test asks the ``card`` fixture, which skips without
 a GPU (decided inside the fixture, never at import). On the H100 run them
@@ -9,8 +10,8 @@ with ``PYTHONPATH=src python -m pytest -q --noconftest
 tests/test_torch_cuda_dist_train.py``.
 
   * four ``gloo`` ranks sharing ``cuda:0`` (NCCL refuses two ranks on one
-    device), meshes (2, 2), (4, 1) and (1, 4); K4 runs on every rank's
-    block of heads;
+    device), meshes (2, 2), (4, 1) and (1, 4); K4 and zamba2's SSD run
+    on every rank's block of heads;
   * ``nccl`` with one rank a card, over 4 cards ((2, 2), (4, 1), (1, 4))
     or 2 ((2, 1), (1, 2)); skipped below 2 cards.
 """
@@ -49,9 +50,10 @@ def _spawn(tmp_path, backend, meshes):
             case = f"{arch}_{shape[0]}x{shape[1]}"
             with open(tmp_path / f"{case}.pkl", "rb") as f:
                 out[(arch, shape)] = pickle.load(f)
-            out[(arch, shape)]["wkv"] = [
-                json.loads((tmp_path / f"wkv_{case}_{r}.json").read_text())
-                for r in range(world)]
+            scans = [json.loads((tmp_path / f"wkv_{case}_{r}.json")
+                                .read_text()) for r in range(world)]
+            for key in ("wkv", "ssd"):
+                out[(arch, shape)][key] = [x[key] for x in scans]
     return out
 
 
@@ -76,6 +78,12 @@ def _check(cases, one):
                      cfg.rwkv_heads // shape[1], cfg.rwkv_head_dim]] * (
                 cfg.num_layers * W.STEPS)
             assert all(calls == want for calls in got["wkv"]), shape
+        if arch == W.MAMBA_ARCH:
+            cfg = get_config(arch, smoke=True)
+            want = [[W.BATCH // shape[0], W.SEQ,
+                     cfg.ssm_heads // shape[1], cfg.ssm_head_dim]] * (
+                cfg.num_layers * W.STEPS)
+            assert all(calls == want for calls in got["ssd"]), shape
 
 
 def test_gloo_ranks_sharing_one_card(card, tmp_path):

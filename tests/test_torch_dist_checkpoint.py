@@ -23,8 +23,10 @@ ranks on the CPU (``torch_dist_workers.ckpt_rank``, one spawn):
     alone: a plain error on one rank, or on all of them, ends the run
     (``spawn`` raises) instead of restarting;
   * ``launch.train --mesh 2x2 --spawn --smoke --device cpu`` trains two
-    steps, and the launcher and ``Trainer(shardings=...)`` refuse the
-    families and meshes they do not cover, naming their ROADMAP item.
+    steps (llama3.2-1b, deepseek-moe-16b, qwen2-vl-2b, zamba2-1.2b and
+    seamless-m4t-medium), and the launcher and ``Trainer(shardings=...)``
+    refuse the meshes they do not cover, naming their ROADMAP item, and
+    heads that a model axis would split.
 """
 import json
 import os
@@ -152,12 +154,7 @@ def test_a_four_rank_checkpoint_is_the_one_device_ports(runs, dtype,
     assert m4 == m1
 
 
-@pytest.mark.parametrize("arch", W.MOE_ARCHS)
-def test_a_four_rank_moe_checkpoint_is_the_one_device_ports(runs, arch,
-                                                             tmp_path):
-    """The expert-parallel blocks of a (2, 2) mesh written as the whole
-    arrays the one-device trainer writes, byte for byte."""
-    d, _ = runs
+def _same_checkpoint(d, arch, tmp_path):
     W.trainer(arch, ckpt_dir=tmp_path).save(5, W.start_state(arch))
     four, one = d / f"save4_{arch}" / "step_00000005", \
         tmp_path / "step_00000005"
@@ -166,6 +163,23 @@ def test_a_four_rank_moe_checkpoint_is_the_one_device_ports(runs, arch,
               for p in (four, one))
     assert m4.pop("time") > 0 and m1.pop("time") > 0
     assert m4 == m1
+
+
+@pytest.mark.parametrize("arch", W.FAMILY_ARCHS)
+def test_a_four_rank_checkpoint_of_each_family_is_the_one_device_ports(
+        runs, arch, tmp_path):
+    """The VLM's, zamba2's (SSD heads and conv on 'model', in_proj over
+    both axes) and the enc-dec's blocks of a (2, 2) mesh written as the
+    whole arrays the one-device trainer writes, byte for byte."""
+    _same_checkpoint(runs[0], arch, tmp_path)
+
+
+@pytest.mark.parametrize("arch", W.MOE_ARCHS)
+def test_a_four_rank_moe_checkpoint_is_the_one_device_ports(runs, arch,
+                                                             tmp_path):
+    """The expert-parallel blocks of a (2, 2) mesh written as the whole
+    arrays the one-device trainer writes, byte for byte."""
+    _same_checkpoint(runs[0], arch, tmp_path)
 
 
 @pytest.mark.parametrize("arch", W.ARCHS)
@@ -221,56 +235,39 @@ def test_an_error_that_is_not_simulated_ends_the_sharded_run(tmp_path,
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000001"]
 
 
-def test_launch_train_moe_mesh_spawn_trains_two_steps(tmp_path):
+def _launch(tmp_path, arch):
     env = dict(os.environ, PYTHONPATH=SRC)
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "deepseek-moe-16b", "--smoke", "--mesh", "2x2", "--spawn",
-         "--steps", "2", "--batch", "4", "--seq", "16", "--device", "cpu",
-         "--ckpt-dir", str(tmp_path)],
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--smoke", "--mesh", "2x2", "--spawn", "--steps", "2", "--batch",
+         "4", "--seq", "16", "--device", "cpu", "--ckpt-dir",
+         str(tmp_path)],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "mesh of 4 ranks (gloo)" in out.stdout
     assert "over 2 steps" in out.stdout
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "step_00000001", "step_00000002"]
+
+
+def test_launch_train_moe_mesh_spawn_trains_two_steps(tmp_path):
+    _launch(tmp_path, "deepseek-moe-16b")
 
 
 def test_launch_train_mesh_spawn_trains_two_steps(tmp_path):
-    env = dict(os.environ, PYTHONPATH=SRC)
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "llama3.2-1b", "--smoke", "--mesh", "2x2", "--spawn", "--steps",
-         "2", "--batch", "4", "--seq", "16", "--device", "cpu",
-         "--ckpt-dir", str(tmp_path)],
-        capture_output=True, text=True, env=env, timeout=300)
-    assert out.returncode == 0, out.stderr[-3000:]
-    assert "mesh of 4 ranks (gloo)" in out.stdout
-    assert "over 2 steps" in out.stdout
-    assert sorted(p.name for p in tmp_path.iterdir()) == [
-        "step_00000001", "step_00000002"]
+    _launch(tmp_path, "llama3.2-1b")
 
 
-REFUSED = {"qwen2-vl-2b": "7b", "zamba2-1.2b": "7c",
-           "seamless-m4t-medium": "7d"}
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "zamba2-1.2b",
+                                  "seamless-m4t-medium"])
+def test_launch_train_mesh_spawn_trains_every_family(tmp_path, arch):
+    """The VLM on token-only batches, zamba2, and the enc-dec on its
+    launcher-drawn frames, as the JAX launcher feeds them."""
+    _launch(tmp_path, arch)
 
 
 def _mesh(shape, axes):
     return R.ProcessMesh(axes, shape, (torch.device("cpu"),) * 4)
-
-
-@pytest.mark.parametrize("arch", sorted(REFUSED))
-def test_unsupported_families_are_refused(arch):
-    model = build_model(get_config(arch, smoke=True))
-    pm = _mesh((2, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP item {REFUSED[arch]}"):
-        Trainer(model, W.trainer_config(), W.batch_fn("llama3.2-1b"),
-                shardings=state_shardings(model, pm))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP item {REFUSED[arch]}"):
-        train_cli.main(["--arch", arch, "--smoke", "--mesh", "2x2",
-                        "--spawn", "--device", "cpu"])
 
 
 def test_meshes_with_a_pod_axis_are_refused():
@@ -329,3 +326,25 @@ def test_moe_fallback_layout_is_refused():
     with pm, pytest.raises(NotImplementedError,
                            match="the fallback layout"):
         L.moe_apply(p, torch.zeros((1, 16, cfg.d_model)), cfg)
+
+
+def test_zamba2_heads_that_a_model_axis_would_split_are_refused():
+    """6 SSD heads over a model axis of 4 would split a head: the Trainer
+    and the launcher refuse it by name; over a model axis of 2 the same
+    config is taken."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("zamba2-1.2b", smoke=True),
+                              ssm_head_dim=32, ssm_expand=3)
+    assert cfg.ssm_heads == 6
+    model = build_model(cfg)
+    with pytest.raises(NotImplementedError, match="6 SSD heads over a "
+                       "model axis of 4 would split a head"):
+        Trainer(model, W.trainer_config(), W.batch_fn("zamba2-1.2b"),
+                shardings=state_shardings(model, _mesh((1, 4),
+                                                       ("data", "model"))))
+    Trainer(model, W.trainer_config(), W.batch_fn("zamba2-1.2b"),
+            shardings=state_shardings(model, _mesh((2, 2),
+                                                   ("data", "model"))))
+    from repro_torch.launch import train as cli
+    with pytest.raises(NotImplementedError, match="would split a head"):
+        cli._mesh_shape("1x4", cfg)

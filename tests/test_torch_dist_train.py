@@ -1,8 +1,10 @@
 """Sharded LM training in the port: ``Trainer(shardings=...)`` over a
 process mesh of 4 ``gloo`` ranks on the CPU, meshes (2, 2), (4, 1) and
-(1, 4), SMOKE llama3.2-1b, rwkv6-7b, deepseek-moe-16b and
-llama4-scout-17b-a16e in f32, B=4, S=16, 3 steps, from the same params
-and batches (``torch_dist_workers``), against:
+(1, 4), SMOKE llama3.2-1b, rwkv6-7b, deepseek-moe-16b,
+llama4-scout-17b-a16e, qwen2-vl-2b (with patch embeddings), zamba2-1.2b
+and seamless-m4t-medium (with encoder frames) in f32, B=4, S=16, 3
+steps, from the same params and batches (``torch_dist_workers``),
+against:
 
   (a) the port's one-device ``Trainer``, with chip_smoke's
       ``_lt_compare`` measures, tighter than its ``LT_*`` gates: each
@@ -22,14 +24,17 @@ and batches (``torch_dist_workers``), against:
       4 forced host devices, in a subprocess: losses within 1e-5
       relative (with the MoE aux loss counted once);
   (c) the collectives each step issues, counted from the specs
-      (``param_pspecs``) and the layers' TP and expert-parallel sites,
-      and K4's calls on every rank: layers x steps, each on the rank's
-      (B/|data|, S, H/|model|, 64) block;
+      (``param_pspecs``) and the layers' TP, expert-parallel and SSD-head
+      sites, and K4's and zamba2's SSD calls on every rank: layers x
+      steps, each on the rank's (B/|data|, S, H/|model|, 64 or 16) block;
   (d) sharded ``moe_apply`` of one layer on every mesh against the
       one-device call: the chosen experts and ``keep`` the same bits on
       every ``model`` rank and equal to one device's, output, aux and
       gradients within 1e-5 of their largest (or of the rounding floor
-      that a nudged cotangent shows, ``MOE_*``).
+      that a nudged cotangent shows, ``MOE_*``);
+  (e) sharded zamba2 ``_mamba_forward`` of one layer likewise: each
+      rank's SSD on its ssm_heads/|model| heads, their state, output and
+      gradients within 1e-5 of their largest.
 
 One spawn of 4 ranks runs every case, beside the JAX subprocess.
 """
@@ -98,8 +103,8 @@ for arch in sys.argv[4:]:
                           "err": P()})
     state = {"params": params, "opt": adamw_init(params),
              "err": jnp.zeros(())}
-    batches = lambda s: {"tokens": jnp.asarray(z[f"t{s}"]),
-                         "targets": jnp.asarray(z[f"g{s}"])}
+    batches = lambda s: {k.split("/", 1)[1]: jnp.asarray(z[k])
+                         for k in z.files if k.startswith(f"b{s}/")}
     tc = TrainerConfig(total_steps=steps, ckpt_every=1000,
                        ckpt_dir=f"{d}/ckpt_{arch}", log_every=1000,
                        opt=AdamWConfig(lr=lr, warmup_steps=1,
@@ -118,9 +123,9 @@ def _jax_reference(d):
     (the params and batches of ``torch_dist_workers``, through npz)."""
     for arch in W.ARCHS:
         arrays = {"p/" + k: v for k, v in W.flat(W.params(arch)).items()}
-        vocab = get_config(arch, smoke=True).vocab_size
         for s in range(W.STEPS):
-            arrays[f"t{s}"], arrays[f"g{s}"] = W.np_batch(vocab, s)
+            arrays.update({f"b{s}/{k}": v
+                           for k, v in W.np_inputs(arch, s).items()})
         np.savez(os.path.join(d, f"{arch}.npz"), **arrays)
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
@@ -140,6 +145,12 @@ def runs(tmp_path_factory):
         torch.set_num_threads(1)
         try:
             one = {arch: W.one_device(arch) for arch in W.ARCHS}
+            cfg, p, x, ct = W.mamba_inputs()
+            one["mamba"] = W.mamba_call(cfg, p, x, ct)
+            one["mamba_floor"] = W.mamba_call(cfg, p, x, ct * (
+                1 + MOE_NUDGE * torch.from_numpy(np.random.default_rng(4)
+                                                 .normal(size=ct.shape)
+                                                 .astype(np.float32))))
             for arch in W.MOE_ARCHS:
                 cfg, p, x, ct = W.moe_inputs(arch)
                 one[("moe_apply", arch)] = W.moe_call(cfg, p, x, ct)
@@ -159,9 +170,10 @@ def runs(tmp_path_factory):
         case = f"{arch}_{shape[0]}x{shape[1]}"
         with open(d / f"{case}.pkl", "rb") as f:
             cases[(arch, shape)] = pickle.load(f)
-        cases[(arch, shape)]["wkv"] = [
-            json.loads((d / f"wkv_{case}_{r}.json").read_text())
-            for r in range(4)]
+        scans = [json.loads((d / f"wkv_{case}_{r}.json").read_text())
+                 for r in range(4)]
+        for key in ("wkv", "ssd"):
+            cases[(arch, shape)][key] = [x[key] for x in scans]
     moe = {}
     for arch, shape in MOE_CASES:
         case = f"{arch}_{shape[0]}x{shape[1]}"
@@ -169,8 +181,15 @@ def runs(tmp_path_factory):
         for r in range(4):
             with open(d / f"moe_{case}_{r}.pkl", "rb") as f:
                 moe[(arch, shape)].append(pickle.load(f))
+    mamba = {}
+    for shape in W.MESHES:
+        case = f"{W.MAMBA_ARCH}_{shape[0]}x{shape[1]}"
+        mamba[shape] = []
+        for r in range(4):
+            with open(d / f"mamba_{case}_{r}.pkl", "rb") as f:
+                mamba[shape].append(pickle.load(f))
     return dict(one=one, jax=json.loads(line[len("LOSSES "):]),
-                cases=cases, moe=moe)
+                cases=cases, moe=moe, mamba=mamba)
 
 
 def _id(case):
@@ -232,46 +251,96 @@ UP, DOWN = ((None, "model"), ("model", None)), (("model", None),
                                                 (None, "model"))
 
 
+def _attn_uses(cfg, tp, prefix):
+    heads = (None, "model", None)
+    kv = heads if cfg.num_kv_heads % tp == 0 else (None, None, None)
+    wo = ("model", None, None) if cfg.num_heads % tp == 0 else (None,) * 3
+    return [(f"{prefix}/wq", (heads,)), (f"{prefix}/wk", (kv,)),
+            (f"{prefix}/wv", (kv,)), (f"{prefix}/wo", (wo,))]
+
+
+def _gated(cfg):
+    """Whether the MLP has a gate projection (MoE's shared experts
+    always)."""
+    return cfg.activation == "swiglu" or cfg.family == "moe"
+
+
+def _mlp_uses(cfg, prefix):
+    gate = [(f"{prefix}/w_gate", UP)] if _gated(cfg) else []
+    return gate + [(f"{prefix}/w_up", UP), (f"{prefix}/w_down", DOWN)]
+
+
+def _stages(cfg):
+    """zamba2's shared-block invocations: one per stage of Mamba
+    layers."""
+    return -(-cfg.num_layers // (cfg.attn_every or cfg.num_layers))
+
+
 def _uses(cfg, tp):
     """Each gather at use of a step's forward: (leaf path, candidates),
     as the models call ``unshard_fsdp`` (once a layer for stacked
-    leaves)."""
+    leaves; zamba2's shared block once an invocation)."""
+    head = [("embed", (("model", None),)), ("lm_head", ((None, "model"),))]
     if cfg.family == "rwkv6":
-        uses = [("embed", (("model", None),)), ("lm_head", ((None, "model"),))]
-        uses += [(f"layers/tm/{k}", ()) for k in ("lora_a", "lora_b", "wa",
-                                                   "wb")]
+        uses = head + [(f"layers/tm/{k}", ()) for k in ("lora_a", "lora_b",
+                                                        "wa", "wb")]
         uses += [(f"layers/tm/{k}", UP) for k in ("wr", "wk", "wv", "wg")]
         uses += [("layers/tm/wo", DOWN), ("layers/cm/wk", UP),
                  ("layers/cm/wv", DOWN), ("layers/cm/wr", UP)]
         if tp > 1:
             uses.append(("layers/tm/u", (("model", None),)))
         return uses
-    heads = (None, "model", None)
-    kv = heads if cfg.num_kv_heads % tp == 0 else (None, None, None)
-    wo = ("model", None, None) if cfg.num_heads % tp == 0 else (None,) * 3
-    uses = [("embed", (("model", None),)), ("embed", (("model", None),)),
-            ("layers/attn/wq", (heads,)), ("layers/attn/wk", (kv,)),
-            ("layers/attn/wv", (kv,)), ("layers/attn/wo", (wo,))]
+    if cfg.family == "zamba2":
+        shared = (_attn_uses(cfg, tp, "shared/attn")
+                  + _mlp_uses(cfg, "shared/mlp"))
+        return head + [("layers/out_proj", DOWN)] + shared * _stages(cfg)
+    if cfg.family == "encdec":
+        return head + [("frontend_proj", ((None, None),))] + (
+            _attn_uses(cfg, tp, "encoder/attn")
+            + _mlp_uses(cfg, "encoder/mlp")
+            + _attn_uses(cfg, tp, "decoder/self_attn")
+            + _attn_uses(cfg, tp, "decoder/cross_attn")
+            + _mlp_uses(cfg, "decoder/mlp"))
+    uses = head[:1] + ([("embed", (("model", None),))] if cfg.tie_embeddings
+                       else head[1:]) + _attn_uses(cfg, tp, "layers/attn")
     if cfg.family != "moe":
-        return uses + [("layers/mlp/w_gate", UP), ("layers/mlp/w_up", UP),
-                       ("layers/mlp/w_down", DOWN)]
+        return uses + _mlp_uses(cfg, "layers/mlp")
     experts = (("model", None, None),)
     return uses + [("layers/moe/router", ((None, "model"),)),
                    ("layers/moe/we_gate", experts),
                    ("layers/moe/we_up", experts),
-                   ("layers/moe/we_down", experts),
-                   ("layers/moe/shared/w_gate", UP),
-                   ("layers/moe/shared/w_up", UP),
-                   ("layers/moe/shared/w_down", DOWN)]
+                   ("layers/moe/we_down", experts)] + _mlp_uses(
+                       cfg, "layers/moe/shared")
+
+
+# zamba2's weights gathered whole at use (annotate.gather_whole): every
+# sharded dim all-gathered, reduce-scattered back.
+WHOLE = {"zamba2": ("layers/in_proj", "layers/conv_w", "layers/conv_b")}
+
+
+def _attn_tp(cfg, tp, cross=False):
+    """The all-reduces over 'model' of one attention: q's copy_to (shared
+    by K/V under kv_tp, else K's and V's), a cross-attention's kv_x
+    copy_to under kv_tp, wo's; none where the heads do not divide."""
+    if cfg.num_heads % tp:
+        return 0
+    kv_tp = cfg.num_kv_heads % tp == 0
+    return 1 + (int(cross) if kv_tp else 2) + 1
+
+
+def _mlp_tp(cfg):
+    """The all-reduces over 'model' of one MLP: the up projections'
+    copy_to, the down's."""
+    return (2 if _gated(cfg) else 1) + 1
 
 
 def expected_counts(arch, shape):
     """The collectives of one step: the FSDP gathers (and their
     reduce-scatters) and ``model`` moves of every use, from the specs;
     the TP sites of the layers (``copy_to``/row-parallel all-reduces,
-    the vocab-parallel embedding and loss); the loss's and the global
-    norm's reductions and the gradient sums of the leaves replicated over
-    ``data``."""
+    zamba2's SSD heads, the vocab-parallel embedding and loss); the
+    loss's and the global norm's reductions and the gradient sums of the
+    leaves replicated over ``data``."""
     cfg = get_config(arch, smoke=True)
     dsz, tp = shape
     sizes = {"data": dsz, "model": tp}
@@ -288,6 +357,12 @@ def expected_counts(arch, shape):
         if tp > 1 and src != dst:     # gather_from forward, split_to back
             n["all_gather/model"] += layers * ((src is not None)
                                                + (dst is not None))
+    for path in WHOLE.get(cfg.family, ()):
+        spec, _, layers = specs[path]
+        for axis in filter(None, spec):
+            if sizes[axis] > 1:
+                n[f"all_gather/{axis}"] += layers
+                n[f"reduce_scatter/{axis}"] += layers
     if dsz > 1:
         n["all_reduce/data"] += 3 + sum(
             "data" not in s for s, _, _ in specs.values())
@@ -300,26 +375,47 @@ def expected_counts(arch, shape):
             n["all_reduce/model"] += 8 * nl
             # split_to of dec/w0/gn_s/gn_b back, cm.wr's gathered output
             n["all_gather/model"] += 5 * nl
+        elif cfg.family == "zamba2":
+            # in_proj's copy_to, norm_s's statistic (forward, and its
+            # copy_to back), out_proj; norm_s's split_to back
+            n["all_reduce/model"] += 4 * nl
+            n["all_gather/model"] += nl
+            n["all_reduce/model"] += _stages(cfg) * (_attn_tp(cfg, tp)
+                                                     + _mlp_tp(cfg))
+        elif cfg.family == "encdec":
+            n["all_reduce/model"] += cfg.encoder_layers * (
+                _attn_tp(cfg, tp) + _mlp_tp(cfg)) + cfg.decoder_layers * (
+                _attn_tp(cfg, tp) + _attn_tp(cfg, tp, cross=True)
+                + _mlp_tp(cfg))
         else:
-            kv_tp = cfg.num_kv_heads % tp == 0
-            # q copy_to (shared by K/V under kv_tp, else K and V's
-            # copy_to), wo; gate and up copy_to, down (the MLP's or the
-            # shared experts')
-            n["all_reduce/model"] += (2 + (0 if kv_tp else 2) + 3) * nl
+            # attention; the MLP's (or the shared experts')
+            n["all_reduce/model"] += (_attn_tp(cfg, tp) + _mlp_tp(cfg)) * nl
             if cfg.family == "moe":
                 # xg's copy_to and the combine's all-reduce; the gathered
                 # logits and the combine's split_to back
                 n["all_reduce/model"] += 2 * nl
                 n["all_gather/model"] += 2 * nl
-        # the embedding, the head's copy_to, the loss (sum of exps,
-        # target logit, max), the global norm
-        n["all_reduce/model"] += 1 + 1 + 3 + 1
+        # with the vocab on 'model': the embedding, the head's copy_to,
+        # the loss (sum of exps, target logit, max); the global norm
+        vocab = cfg.vocab_size % tp == 0
+        n["all_reduce/model"] += (1 + 1 + 3) * vocab + 1
     return {k: v * W.STEPS for k, v in sorted(n.items())}
 
 
 @pytest.mark.parametrize("case", CASES, ids=_id)
 def test_collective_tallies_equal_the_count_from_the_specs(runs, case):
     assert runs["cases"][case]["counts"] == expected_counts(*case)
+
+
+@pytest.mark.parametrize("shape", W.MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_ssd_runs_on_each_ranks_heads(runs, shape):
+    """zamba2's SSD scan on every rank: layers x steps calls, each on the
+    rank's (B/|data|, S, ssm_heads/|model|, head_dim) block."""
+    cfg = get_config(W.MAMBA_ARCH, smoke=True)
+    want = [[W.BATCH // shape[0], W.SEQ, cfg.ssm_heads // shape[1],
+             cfg.ssm_head_dim]] * (cfg.num_layers * W.STEPS)
+    for rank_calls in runs["cases"][(W.MAMBA_ARCH, shape)]["ssd"]:
+        assert rank_calls == want
 
 
 @pytest.mark.parametrize("shape", W.MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
@@ -332,12 +428,13 @@ def test_k4_runs_on_each_ranks_heads(runs, shape):
 
 
 # The uses whose chosen layout puts 'model' elsewhere than the stored
-# spec: llama3.2-1b and llama4-scout on (1, 4) store wk/wv with head_dim
-# on 'model' (2 KV heads do not divide 4) and use them whole (the JAX
+# spec: llama3.2-1b, llama4-scout and qwen2-vl on (1, 4) store wk/wv with
+# head_dim on 'model' (2 KV heads do not divide 4) and use them whole (the JAX
 # package's kv_tp fallback), so a gather over 'data' alone would not do.
 DISAGREE = {arch: [((64, 2, 4), ("data", None, "model"), (None, None, None))]
             for arch in (("llama3.2-1b", (1, 4)),
-                         ("llama4-scout-17b-a16e", (1, 4)))}
+                         ("llama4-scout-17b-a16e", (1, 4)),
+                         ("qwen2-vl-2b", (1, 4)))}
 
 
 @pytest.mark.parametrize("case", CASES, ids=_id)
@@ -396,3 +493,33 @@ def test_sharded_moe_apply_against_one_device(runs, case, record_property):
     for k, v in one["grads"].items():
         _near(grads[k], v.numpy(), k,
               float((v - nudged[k]).abs().max()))
+
+
+@pytest.mark.parametrize("shape", W.MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_sharded_mamba_forward_against_one_device(runs, shape):
+    """Layer 0's ``_mamba_forward`` of SMOKE zamba2 on every rank's blocks
+    and rows: each rank's SSD ran on its ssm_heads/|model| heads and
+    left their state, within ``MOE_TOL`` of one device's heads of it;
+    the output, the x gradient and (gathered) every parameter's gradient
+    within ``MOE_TOL`` of their largest, or of ``MOE_FLOOR`` times what a
+    nudge of the cotangent moves on one device (every gradient here
+    moves by <= 1e-6 of its largest, so the floor never decides)."""
+    cfg = get_config(W.MAMBA_ARCH, smoke=True)
+    one, nudged = runs["one"]["mamba"], runs["one"]["mamba_floor"]
+    ranks = runs["mamba"][shape]
+    per = cfg.ssm_heads // shape[1]
+    for got in ranks:
+        lo, hi = got["rows"]
+        h0, h1 = got["heads"]
+        assert h1 - h0 == per
+        assert got["ssd"] == [[hi - lo, W.SEQ, per, cfg.ssm_head_dim]]
+        _near(got["state"], one["state"].numpy()[lo:hi, h0:h1], "state")
+        _near(got["out"], one["out"].numpy()[lo:hi], "out")
+        _near(got["x_grad"], one["x_grad"].numpy()[lo:hi], "x grad")
+    assert sorted({r["heads"] for r in ranks}) == [
+        (i * per, (i + 1) * per) for i in range(shape[1])]
+    grads = ranks[0]["grads"]
+    assert sorted(grads) == sorted(one["grads"])
+    for k, v in one["grads"].items():
+        _near(grads[k], v.numpy(), k,
+              float((v - nudged["grads"][k]).abs().max()))

@@ -5,9 +5,11 @@
 ``runtime.spawn`` starts each rank in a fresh process that imports this
 module by name, so it imports nothing of JAX. Every rank and the parent
 draw the same SMOKE params from a seeded CPU generator (rwkv6's ``u``,
-``mu``, ``mu_k`` and ``mu_r`` from a numpy seed, since they init to
-zero) and the same batches from numpy seeds, with random pads in every
-row (so the data ranks' token counts differ). A rank function writes
+``mu``, ``mu_k`` and ``mu_r`` and zamba2's ``a_log``, ``dt_bias``,
+``d_skip``, ``conv_b`` and ``norm_s`` from a numpy seed, since they init
+to constants) and the same batches from numpy seeds, with random pads in
+every row (so the data ranks' token counts differ), and per family the
+VLM's patch embeddings or the enc-dec's encoder frames. A rank function writes
 its results under a directory the test gives it (rank 0 the whole
 arrays, ``sharding.gather_logical``).
 """
@@ -27,17 +29,23 @@ from repro_torch.distributed import runtime as R
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
+from repro_torch.models import zamba2 as ZB
 from repro_torch.models.params import tree_map
 from repro_torch.training import (AdamWConfig, Trainer, TrainerConfig,
                                   adamw_init)
 from repro_torch.training.trainer import SimulatedFailure, state_shardings
 
 ARCHS = ("llama3.2-1b", "rwkv6-7b", "deepseek-moe-16b",
-         "llama4-scout-17b-a16e")
+         "llama4-scout-17b-a16e", "qwen2-vl-2b", "zamba2-1.2b",
+         "seamless-m4t-medium")
 MOE_ARCHS = tuple(a for a in ARCHS if get_config(a, smoke=True).family
                   == "moe")
+# One arch of each of the vlm, zamba2 and encdec families.
+FAMILY_ARCHS = ("qwen2-vl-2b", "zamba2-1.2b", "seamless-m4t-medium")
+MAMBA_ARCH = "zamba2-1.2b"
 MESHES = ((2, 2), (4, 1), (1, 4))
 BATCH, SEQ, STEPS, LR = 4, 16, 3, 1e-3
+PATCHES = 4          # the VLM's patch rows (a 2 x 2 grid) at the head
 
 
 def params(arch: str, seed: int = 0, device="cpu"):
@@ -52,6 +60,14 @@ def params(arch: str, seed: int = 0, device="cpu"):
         for tree, key in ((tm, "mu"), (cm, "mu_k"), (cm, "mu_r")):
             tree[key] = torch.from_numpy(
                 rng.uniform(0.0, 1.0, tree[key].shape).astype(np.float32))
+    if model.cfg.family == "zamba2":
+        rng = np.random.default_rng(seed + 1)
+        lay = p["layers"]
+        for key, lo, hi in (("a_log", -1.0, 1.0), ("dt_bias", -1.0, 0.5),
+                            ("d_skip", 0.5, 1.5), ("conv_b", -0.2, 0.2),
+                            ("norm_s", 0.5, 1.5)):
+            lay[key] = torch.from_numpy(
+                rng.uniform(lo, hi, lay[key].shape).astype(np.float32))
     return tree_map(lambda x: x.to(device), p)
 
 
@@ -69,13 +85,29 @@ def np_batch(vocab: int, step: int, batch: int = BATCH, seq: int = SEQ):
     return tokens, targets
 
 
-def batch_fn(arch: str, device="cpu"):
-    vocab = get_config(arch, smoke=True).vocab_size
+def np_inputs(arch: str, step: int):
+    """The whole batch of ``step`` (numpy): ``np_batch``'s tokens and
+    targets, and the VLM's ``patch_embeds`` (B, PATCHES, D) or the
+    enc-dec's ``frames`` (B, SEQ, frontend_dim), f32 from a numpy
+    seed."""
+    cfg = get_config(arch, smoke=True)
+    t, g = np_batch(cfg.vocab_size, step)
+    out = {"tokens": t, "targets": g}
+    rng = np.random.default_rng(3000 + step)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = rng.normal(
+            size=(BATCH, PATCHES, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(
+            size=(BATCH, SEQ, cfg.frontend_dim or cfg.d_model)).astype(
+                np.float32)
+    return out
 
+
+def batch_fn(arch: str, device="cpu"):
     def fn(step):
-        t, g = np_batch(vocab, step)
-        return {"tokens": torch.from_numpy(t).to(device),
-                "targets": torch.from_numpy(g).to(device)}
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in np_inputs(arch, step).items()}
     return fn
 
 
@@ -134,18 +166,23 @@ def one_device(arch: str, device="cpu"):
 
 
 class Recorder:
-    """Records, on this rank, each ``ops.wkv6_scan`` call's r shape and
-    each ``unshard_fsdp`` layout (block spec, chosen layout, block
-    shape)."""
+    """Records, on this rank, each ``ops.wkv6_scan`` call's r shape, each
+    zamba2 SSD scan's (``mamba2_chunked``) x shape, and each
+    ``unshard_fsdp`` layout (block spec, chosen layout, block shape)."""
 
     def __init__(self):
-        self.wkv, self.layouts = [], set()
+        self.wkv, self.ssd, self.layouts = [], [], set()
         self._wkv, self._gather = ops.wkv6_scan, A.gather_at_use
+        self._ssd = ZB.mamba2_chunked
 
     def __enter__(self):
         def wkv(r, *a, **k):
             self.wkv.append(list(r.shape))
             return self._wkv(r, *a, **k)
+
+        def ssd(x, *a, **k):
+            self.ssd.append(list(x.shape))
+            return self._ssd(x, *a, **k)
 
         def gather(w, *cands):
             out, lay = self._gather(w, *cands)
@@ -153,10 +190,12 @@ class Recorder:
                 self.layouts.add((tuple(w.shape), A.spec_of(w), lay))
             return out, lay
         ops.wkv6_scan, A.gather_at_use = wkv, gather
+        ZB.mamba2_chunked = ssd
         return self
 
     def __exit__(self, *exc):
         ops.wkv6_scan, A.gather_at_use = self._wkv, self._gather
+        ZB.mamba2_chunked = self._ssd
 
 
 def train_rank(rank, world, port, out_dir, device="cpu", backend="gloo",
@@ -177,6 +216,8 @@ def train_rank(rank, world, port, out_dir, device="cpu", backend="gloo",
         for arch in archs:
             if arch in MOE_ARCHS:
                 moe_rank_call(arch, mesh, out_dir, device)
+            if arch == MAMBA_ARCH:
+                mamba_rank_call(mesh, out_dir, device)
         for arch in archs:
             tr = trainer(arch, mesh, device)
             first = keep_first_step(tr)
@@ -193,7 +234,7 @@ def train_rank(rank, world, port, out_dir, device="cpu", backend="gloo",
             case = f"{arch}_{shape[0]}x{shape[1]}"
             with open(os.path.join(out_dir, f"wkv_{case}_{rank}.json"),
                       "w") as f:
-                json.dump(rec.wkv, f)
+                json.dump({"wkv": rec.wkv, "ssd": rec.ssd}, f)
             if rank == 0:
                 with open(os.path.join(out_dir, f"{case}.pkl"), "wb") as f:
                     pickle.dump(dict(
@@ -230,7 +271,7 @@ def moe_inputs(arch: str):
     """Layer 0's MoE params of ``arch`` (SMOKE, f32, CPU) by path, an
     input x (B, S, D) and an output cotangent, from numpy seeds."""
     cfg = get_config(arch, smoke=True)
-    p = _paths(tree_map(lambda t: t[0], params(arch)["layers"]["moe"]))
+    p = _layer0(arch, "moe/")
     rng = np.random.default_rng(77)
     x = torch.from_numpy(rng.normal(
         size=(BATCH, SEQ, cfg.d_model)).astype(np.float32))
@@ -295,6 +336,94 @@ def moe_rank_call(arch, mesh, out_dir, device="cpu"):
                     for r in res["routes"]],
             grads=({k: v.cpu().numpy() for k, v in whole.items()}
                    if mesh.rank == 0 else None)), f)
+
+
+def _layer0(arch: str, tree: str, drop=()):
+    """Layer 0 of the stacked subtree ``tree`` of ``arch``'s SMOKE params
+    by path, without the leaves in ``drop``."""
+    p = _paths(tree_map(lambda t: t[0], params(arch)["layers"]))
+    return {k[len(tree):]: v for k, v in p.items()
+            if k.startswith(tree) and k[len(tree):] not in drop}
+
+
+def mamba_inputs():
+    """Layer 0's Mamba-2 params of SMOKE zamba2 (f32, CPU; all but the
+    pre-norm ``ln``, which the caller applies) by path, an input x
+    (B, S, D) and an output cotangent, from numpy seeds."""
+    cfg = get_config(MAMBA_ARCH, smoke=True)
+    p = _layer0(MAMBA_ARCH, "", drop=("ln",))
+    rng = np.random.default_rng(78)
+    x = torch.from_numpy(rng.normal(
+        size=(BATCH, SEQ, cfg.d_model)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+    return cfg, p, x, ct
+
+
+def mamba_call(cfg, p, x, ct, specs=None):
+    """``zamba2._mamba_forward`` on the params ``p`` by path (this rank's
+    blocks, tagged with ``specs``, under the active process mesh; whole
+    tensors without) and ``x``: the output, the SSM state it leaves, the
+    gradients of ``sum(out * ct)`` with respect to ``p`` (by path; a
+    leaf replicated over ``data`` summed over it, as the trainer sums
+    it) and ``x``, and the x shape of every SSD scan."""
+    seen, real = [], ZB.mamba2_chunked
+
+    def record(xs, *a, **k):
+        seen.append(list(xs.shape))
+        return real(xs, *a, **k)
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+    lp = {k: v if specs is None else A.tag(v, specs[k])
+          for k, v in leaves.items()}
+    xin = x.detach().clone().requires_grad_()
+    ZB.mamba2_chunked = record
+    try:
+        out, (_, state) = ZB._mamba_forward(_nest(lp), xin, cfg)
+    finally:
+        ZB.mamba2_chunked = real
+    names = sorted(leaves)
+    got = torch.autograd.grad((out * ct).sum(),
+                              [leaves[n] for n in names] + [xin])
+    grads = dict(zip(names, got[:-1]))
+    if specs is not None:
+        grads = {k: g if "data" in specs[k]
+                 else C.all_reduce_(g.contiguous(), "data")
+                 for k, g in grads.items()}
+    return dict(out=out.detach(), state=state.detach(), grads=grads,
+                x_grad=got[-1], ssd=seen)
+
+
+def mamba_rank_call(mesh, out_dir, device="cpu"):
+    """Sharded ``_mamba_forward`` of layer 0 of SMOKE zamba2 on this rank:
+    its rows of ``x`` (the ``data`` block), its blocks of the params;
+    every rank writes its output rows, its heads' SSM state, its x
+    gradient and its SSD shapes, rank 0 the whole parameter gradients
+    (``gather_logical``)."""
+    cfg, p, x, ct = mamba_inputs()
+    specs = {k: tuple(v)[1:] for k, v in _paths(SH.param_pspecs(
+        build_model(cfg).defs(), mesh)["layers"]).items() if k in p}
+    blocks = SH.local_block(p, specs, mesh, device)
+    n = BATCH // mesh.axis_size("data")
+    rows = slice(mesh.coord("data") * n, (mesh.coord("data") + 1) * n)
+    with mesh:
+        res = mamba_call(cfg, blocks, x[rows].to(device),
+                         ct[rows].to(device), specs)
+    whole = SH.gather_logical(res["grads"], specs, mesh, root=0)
+    case = f"{MAMBA_ARCH}_{mesh.shape['data']}x{mesh.shape['model']}"
+    with open(os.path.join(out_dir, f"mamba_{case}_{mesh.rank}.pkl"),
+              "wb") as f:
+        pickle.dump(dict(
+            rows=(rows.start, rows.stop), coords=dict(mesh.coords),
+            heads=_heads(cfg, mesh),
+            out=res["out"].cpu().numpy(), state=res["state"].cpu().numpy(),
+            x_grad=res["x_grad"].cpu().numpy(), ssd=res["ssd"],
+            grads=({k: v.cpu().numpy() for k, v in whole.items()}
+                   if mesh.rank == 0 else None)), f)
+
+
+def _heads(cfg, mesh):
+    """The [lo, hi) of this rank's block of the SSD heads over 'model'."""
+    step = cfg.ssm_heads // mesh.axis_size("model")
+    return (mesh.coord("model") * step, (mesh.coord("model") + 1) * step)
 
 
 def compare(got_p, got_m, want_p, want_m, lr):
@@ -509,7 +638,7 @@ def ckpt_rank(rank, world, port, out_dir):
         tr = trainer("llama3.2-1b", pm, ckpt_dir=os.path.join(
             out_dir, f"save4_{dtype}"))
         tr.save(5, SH.local_block(st, tr.specs, pm))
-    for arch in MOE_ARCHS:
+    for arch in MOE_ARCHS + FAMILY_ARCHS:
         tr = trainer(arch, pm, ckpt_dir=os.path.join(out_dir,
                                                      f"save4_{arch}"))
         tr.save(5, SH.local_block(start_state(arch), tr.specs, pm))
