@@ -126,7 +126,8 @@ non-zero:
      host ms, save/restore ms;
   9. the LM slice (``lm_slice``): K4 against its plain version on the
      card bit for bit (prefill and decode calls, T=4, ragged T, chaining
-     inside a time chunk, hd=32 and hd=16, unaligned inputs, B=1 rows); the rwkv6-7b widths at a depth of 2 layers in f32 on the card
+     inside a time chunk, hd=32 and hd=16, unaligned inputs, B=1 rows);
+     the rwkv6-7b widths at a depth of 1 layer in f32 on the card
      against the port's CPU run (forward logits, stepped decode, greedy
      tokens, ternary greedy tokens, and the card must pack the CPU's
      ternary bytes); the full rwkv6-7b (32 layers, bf16)
@@ -204,26 +205,30 @@ non-zero:
      the WKV backward's share of a step; (f) ``compress_grads`` at 0.05
      on llama3.2-1b's gradients: top-k with ties, exact residuals, ms;
   12b. LM training over a mesh (``lm_train_sharded``): the one-device
-     references (llama3.2-1b at full width and depth, bf16, B=4, S=1024,
-     remat, 3 steps; rwkv6-7b at full width and 4 layers, B=2, 2 steps;
-     deepseek-moe-16b at full width and 2 layers, B=4, S=1024, remat, 2
-     steps; qwen2-vl-2b at 4 layers with 256 patch rows, zamba2-1.2b at
-     7 layers and seamless-m4t-medium at 2 + 2 layers with 1,024 frames,
-     each at full width, bf16, B=4, S=1024, remat, 2 steps), then four
-     ranks (``distributed.runtime.spawn``; four gloo
-     ranks on cuda:0 at (2, 2), or NCCL one rank a card with four cards)
+     references (llama3.2-1b at full width and 4 of 16 layers, bf16,
+     B=4, S=1024, remat, 2 steps; rwkv6-7b at full width and 2 layers,
+     B=2, 2 steps; deepseek-moe-16b at full width and 2 layers, B=4,
+     S=1024, remat, 2 steps; qwen2-vl-2b at 4 layers with 256 patch
+     rows, zamba2-1.2b at 7 layers and seamless-m4t-medium at 2 + 2
+     layers with 1,024 frames, each at full width, bf16, B=4, S=1024,
+     remat, 2 steps), then four ranks (``distributed.runtime.spawn``;
+     four gloo ranks on cuda:0 at (2, 2), or NCCL one rank a card with
+     four cards)
      train the same through ``Trainer(shardings=...)``, FSDP over data
      and TP over model (deepseek's experts, zamba2's SSD heads over
-     model): each first step
+     model), and llama3.2-1b again over a (pod=2, data=2, model=1) mesh
+     (pod pure data parallelism: gradients all-reduced over it, each
+     rank's batch rows its (pod, data) block): each first step
      against the one-device step (loss, gradient norm, first moments; per
      leaf, per head and per (layer, expert)) with gates set between the
      bf16 noise floor and a planted fault, deepseek's routing the same
      bits on every model rank, the collectives a rank issues a step and
-     the bytes of its FSDP gathers against the count from the specs
-     (every run but rwkv6-7b), K4 launches on every rank (16: 4 layers x 2
-     steps x 2 with remat, on 32 of the 64 heads) and K4 against its
-     plain version on a rank's recorded inputs bit for bit, a SMOKE crash
-     and restart over the mesh bit for bit. Reported: step ms, tokens/s,
+     the bytes of its FSDP gathers and pod all-reduces against the count
+     from the specs (every run but rwkv6-7b), each rank's batch rows,
+     K4 launches on every rank (8: 2 layers x 2 steps x 2 with remat, on
+     32 of the 64 heads) and K4 against its plain version on a rank's
+     recorded inputs bit for bit, a SMOKE crash and restart over the mesh
+     bit for bit. Reported: step ms, tokens/s,
      each rank's peak, collectives and their bytes a step, deepseek's
      routings that differ from the one-device step per layer (and in the
      noise floor) and its experts that got no token;
@@ -3650,7 +3655,10 @@ def train_phase(torch, dev, k1, k2, smi):
 # ternary path).
 # ----------------------------------------------------------------------
 
-LM_CUT_LAYERS = 2            # depth of the f32 comparison with the CPU
+# Depth of the f32 comparison with the CPU (2 layers took 89.9 s of the
+# slice on the H100, most of it the CPU's; at 1 layer rwkv6-7b's two
+# stacked layers are held in f32 against the CPU by lm_train's (b)).
+LM_CUT_LAYERS = 1
 # Tokens of that comparison, cut to keep chip_smoke inside its limit (the
 # CPU reference took 160.6-166.0 s at B=2, S=64, an 8-token prompt and 8
 # new tokens, 4 + 6 ternary): B=2, S=32 logits, decode stepped over a
@@ -5922,22 +5930,29 @@ def lm_train_phase(torch, dev, k4, smi):
 # ----------------------------------------------------------------------
 # Phase 12b: LM training over a mesh -- Trainer(shardings=...), FSDP over
 # 'data' and TP over 'model', one process a rank (four gloo ranks sharing
-# cuda:0 at (2, 2) on one card; NCCL one rank a card with four cards).
+# cuda:0 at (2, 2) on one card; NCCL one rank a card with four cards);
+# pure data parallelism over 'pod' on a (2, 2, 1) mesh of the same ranks.
 # ----------------------------------------------------------------------
 
 LS_MESH = (2, 2)
-# llama3.2-1b at full width and depth, bf16, global B=4, S=1024 with remat
-# (four ranks share one card's 80 GB; the one-device step without remat
-# peaked at 53.96 GB); rwkv6-7b at full width
-# and LT_RWKV_LAYERS layers, bf16, B=2, S=1024, remat (K4 twice a layer a
-# step on every rank, at 32 of its 64 heads), with lt_rwkv's params; the
-# crash and restart on SMOKE llama3.2-1b in bf16, B=4, S=1024: at 2 layers
-# of the full widths it took 57 s (two 3.8 GB saves and a restore through
-# four ranks), more than the phase's time. Every run is the "copy_map"
-# task over the whole vocabulary: in "repeat" rows every token of a row
-# is the same, so attention's output is its value whatever the scores,
-# and the q and k projections' gradients are rounding noise.
-LS_STEPS, LS_RWKV_STEPS = 3, 2
+# The mesh of the "pod" run: llama3.2-1b over (pod=2, data=2, model=1),
+# from the (2, 2) run's params and batches (each rank one row of B=4),
+# sharing llama's one-device reference.
+LS_POD_MESH = (2, 2, 1)
+# llama3.2-1b at full width cut to LS_LLAMA_LAYERS of 16 layers, bf16,
+# global B=4, S=1024 with remat, LS_STEPS steps (at full depth and 3
+# steps its ranks took 41.8 s of a 152.6 s phase on the H100; the cut
+# pays for the pod run); rwkv6-7b at full width and LS_RWKV_LAYERS of 32
+# layers (4 took 18.7 s of the ranks' time), bf16, B=2, S=1024, remat
+# (K4 twice a layer a step on every rank, at 32 of its 64 heads), with
+# lt_rwkv's params; the crash and restart on SMOKE llama3.2-1b in bf16,
+# B=4, S=1024: at 2 layers of the full widths it took 57 s (two 3.8 GB
+# saves and a restore through four ranks), more than the phase's time.
+# Every run is the "copy_map" task over the whole vocabulary: in
+# "repeat" rows every token of a row is the same, so attention's output
+# is its value whatever the scores, and the q and k projections'
+# gradients are rounding noise.
+LS_LLAMA_LAYERS, LS_STEPS, LS_RWKV_LAYERS, LS_RWKV_STEPS = 4, 2, 2, 2
 # deepseek-moe-16b at full width cut to LS_MOE_LAYERS layers (as _lt_full
 # cuts it for the CPU), bf16, B=4, S=1024, remat, 2 steps: each rank holds
 # half of a layer's 64 experts (experts over 'model') and gathers their
@@ -6023,6 +6038,7 @@ LS_LOSS_RTOL, LS_GRAD_NORM_RTOL, LS_M_TOL, LS_M_L2_TOL, LS_M_HEAD_TOL = (
 LS_MOE_M_TOL, LS_MOE_M_EXPERT_TOL = 0.85, 0.5
 LS_GATES = {
     "llama": dict(m_rel=LS_M_TOL, m_l2=LS_M_L2_TOL, m_head_l2=LS_M_HEAD_TOL),
+    "pod": dict(m_rel=LS_M_TOL, m_l2=LS_M_L2_TOL, m_head_l2=LS_M_HEAD_TOL),
     "rwkv": dict(m_rel=LS_M_TOL, m_l2=LS_M_L2_TOL, m_head_l2=LS_M_HEAD_TOL),
     "moe": dict(m_rel=LS_MOE_M_TOL, m_l2=LS_M_L2_TOL,
                 m_head_l2=LS_MOE_M_EXPERT_TOL),
@@ -6036,19 +6052,22 @@ LS_GATES = {
 # expert)), and the leaf where the phase plants its fault (rank 0's block
 # of head or expert 0, layer 0).
 LS_HEAD_AXES = ("heads", "kv_heads", "heads_x", "experts")
-LS_PLANT = {"llama": "layers/attn/wq", "rwkv": "layers/tm/wr",
+LS_PLANT = {"llama": "layers/attn/wq", "pod": "layers/attn/wq",
+            "rwkv": "layers/tm/wr",
             "moe": "layers/moe/we_up", "vlm": "layers/attn/wq",
             "zamba2": "layers/out_proj", "encdec": "decoder/cross_attn/wq"}
-LS_RUNS = ("llama", "rwkv", "moe", "vlm", "zamba2", "encdec")
+LS_RUNS = ("llama", "pod", "rwkv", "moe", "vlm", "zamba2", "encdec")
 
 
 def _ls_full():
     import dataclasses
     from repro_torch.configs import get_config
-    llama = get_config("llama3.2-1b")
+    llama = dataclasses.replace(get_config("llama3.2-1b"),
+                                num_layers=LS_LLAMA_LAYERS)
     return dict(
-        llama=llama, rwkv=dataclasses.replace(get_config("rwkv6-7b"),
-                                              num_layers=LT_RWKV_LAYERS),
+        llama=llama, pod=llama,
+        rwkv=dataclasses.replace(get_config("rwkv6-7b"),
+                                 num_layers=LS_RWKV_LAYERS),
         moe=dataclasses.replace(get_config("deepseek-moe-16b"),
                                 num_layers=LS_MOE_LAYERS),
         vlm=dataclasses.replace(get_config("qwen2-vl-2b"),
@@ -6240,7 +6259,8 @@ def ls_one_device(torch, dev, full):
     the same in f32 (a float32 model from the same params and batch), in
     the measures of ``_ls_compare`` (deepseek's with the routings that
     differ, and the experts whose token sets differ, counted per
-    layer)."""
+    layer). The pod run shares llama's entry, with its ranks' blocks over
+    its own mesh."""
     import dataclasses
     from repro_torch.models import build_model
     from repro_torch.models.params import tree_map
@@ -6249,7 +6269,7 @@ def ls_one_device(torch, dev, full):
     from repro_torch.training.optimizer import tree_leaves
     from repro_torch.training.trainer import loss_and_grads
     out = {}
-    for name in LS_RUNS:
+    for name in (n for n in LS_RUNS if n != "pod"):
         cfg = full[name]
         moe = cfg.family == "moe"
         nl = cfg.num_layers if moe else 0
@@ -6263,19 +6283,20 @@ def ls_one_device(torch, dev, full):
                                       "err": torch.zeros((), device=dev)})
         times = [h["time_s"] for h in res["history"][1:]]
         m1 = first["opt"]["m"]
-        t0, parts = time.perf_counter(), {}
-        blocks = _ls_rank_blocks(
-            torch, tr.model, tree_map(lambda m: m.to(torch.bfloat16), m1),
-            parts)
-        out[name] = dict(
-            m1=blocks, blocks_s=time.perf_counter() - t0,
-            blocks_s_by_part=parts,
-            m1_top=[float(m.abs().max()) for m in tree_leaves(m1)],
-            losses=[h["loss"] for h in res["history"]],
-            grad_norm1=float(first["metrics"]["grad_norm"]),
-            step_ms=statistics.median(times) * 1e3,
-            peak_bytes=_peak(torch, dev))
-        del res, first, m1
+        m1_16 = tree_map(lambda m: m.to(torch.bfloat16), m1)
+        for run in [name] + (["pod"] if name == "llama" else []):
+            t0, parts = time.perf_counter(), {}
+            blocks = _ls_rank_blocks(torch, tr.model, m1_16, parts,
+                                     _ls_shape(run))
+            out[run] = dict(
+                m1=blocks, blocks_s=time.perf_counter() - t0,
+                blocks_s_by_part=parts,
+                m1_top=[float(m.abs().max()) for m in tree_leaves(m1)],
+                losses=[h["loss"] for h in res["history"]],
+                grad_norm1=float(first["metrics"]["grad_norm"]),
+                step_ms=statistics.median(times) * 1e3,
+                peak_bytes=_peak(torch, dev))
+        del res, first, m1, m1_16
         _free(torch, dev)
         t0 = time.perf_counter()
         batch = tr.local_batch(tr.batch_fn(0))
@@ -6304,15 +6325,18 @@ def ls_one_device(torch, dev, full):
             _ls_compare(torch, None, g16, g32, tops, None, axes, hd,
                         plant=LS_PLANT[name]),
             seconds=time.perf_counter() - t0, **extra)
+        if name == "llama":
+            out["pod"]["floor"] = out[name]["floor"]
         del tr, g16, g32, batch, routes, r16, r32
         _free(torch, dev)
     return out
 
 
-def _ls_rank_blocks(torch, model, tree, parts=None):
+def _ls_rank_blocks(torch, model, tree, parts=None, shape=LS_MESH):
     """Each rank's blocks of ``tree`` (whole params-shaped arrays on the
-    card) over an ``LS_MESH`` mesh, in host memory that ``spawn`` hands to
-    the ranks without a copy: ``[rank]``. A rank's blocks are packed on
+    card) over a mesh of ``shape`` (``runtime.MESH_AXES`` by its number
+    of dims), in host memory that ``spawn`` hands to the ranks without a
+    copy: ``[rank]``. A rank's blocks are packed on
     the card into one buffer (16-byte aligned), copied to the host in one
     transfer through a pinned staging buffer, then into one new
     shared-memory segment, of which every leaf is a view (one segment a
@@ -6325,10 +6349,8 @@ def _ls_rank_blocks(torch, model, tree, parts=None):
             parts[name] = parts.get(name, 0.0) + now - t
         return now
     from repro_torch.distributed import sharding as SH
-    from repro_torch.distributed.mesh import Mesh
-    from repro_torch.distributed.runtime import MESH_AXES
     from repro_torch.training.optimizer import tree_map
-    mesh = Mesh(MESH_AXES, LS_MESH, (torch.device("cpu"),) * 4)
+    mesh = _ls_mesh(torch, shape)
     specs = SH.param_pspecs(model.defs(), mesh)
     out, stage = [], None
     for rank in range(len(mesh.device_list)):
@@ -6372,6 +6394,37 @@ def _ls_rank_blocks(torch, model, tree, parts=None):
         out.append(tree_map(lambda i: view(seg, i), index))
         del blocks, packed
     return out
+
+
+def _ls_shape(name):
+    """The mesh shape of run ``name``."""
+    return LS_POD_MESH if name == "pod" else LS_MESH
+
+
+def _ls_mesh(torch, shape):
+    """A plain mesh of ``shape`` over ``runtime.MESH_AXES`` (host devices:
+    for the specs and the blocks a rank holds)."""
+    import math
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.runtime import MESH_AXES
+    return Mesh(MESH_AXES[len(shape)], tuple(shape),
+                (torch.device("cpu"),) * math.prod(shape))
+
+
+def _ls_rows(pm, batch):
+    """The [lo, hi) of this rank's rows of a global batch of ``batch``
+    rows, counted here from the rule the JAX package states (the batch
+    split over the axes of ``(pod, data)`` that divide it, in turn, the
+    first the major one; copied over the others) and the rank's
+    coordinates."""
+    block, parts = 0, 1
+    for a in ("pod", "data"):
+        n = pm.axis_size(a)
+        if batch % (parts * n) == 0:
+            block, parts = block * n + (pm.coord(a) if n > 1 else 0), \
+                parts * n
+    step = batch // parts
+    return block * step, (block + 1) * step
 
 
 def _ls_paths(tree, prefix=""):
@@ -6521,27 +6574,27 @@ def _ls_owner(pm, specs):
     return out
 
 
-def _ls_expected(torch, cfg):
-    """The collectives a rank issues in one remat train step over
-    ``LS_MESH`` (every family but rwkv6), counted from the specs
+def _ls_expected(torch, cfg, mesh_shape=LS_MESH):
+    """The collectives a rank issues in one remat train step over a mesh
+    of ``mesh_shape`` (every family but rwkv6), counted from the specs
     (``param_pspecs``) and the layers' TP, expert-parallel and SSD-head
     sites as ``tests/test_torch_dist_train.py`` counts them, a remat'd
     layer's forward twice (remat recomputes it in the backward) and
     zamba2's shared block, which keeps its activations, once an
     invocation; and the bytes of its FSDP all-gathers and reduce-scatters
-    (each the gathered block, in the params' dtype): ``(counts, bytes)``
-    by ``"op/axis"``."""
+    (each the gathered block, in the params' dtype) and of its
+    all-reduces over ``pod`` (every gradient block, the loss's total and
+    count, the global norm): ``(counts, bytes)`` by ``"op/axis"``. A
+    collective over an axis of one rank is none."""
     import collections
     import math
     from repro_torch.distributed import sharding as SH
-    from repro_torch.distributed.mesh import Mesh
-    from repro_torch.distributed.runtime import MESH_AXES
     from repro_torch.models import build_model
     from repro_torch.models.params import ParamDef
-    from repro_torch.training.optimizer import spec_leaves
-    dsz, tp = LS_MESH
-    sizes = {"data": dsz, "model": tp}
-    mesh = Mesh(MESH_AXES, LS_MESH, (torch.device("cpu"),) * 4)
+    from repro_torch.training.optimizer import spec_leaves, tree_leaves
+    mesh = _ls_mesh(torch, mesh_shape)
+    sizes = dict(mesh.shape)
+    tp = sizes.get("model", 1)
     defs = build_model(cfg).defs()
     specs = SH.param_pspecs(defs, mesh)
     item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
@@ -6665,7 +6718,19 @@ def _ls_expected(torch, cfg):
     # with the vocab on 'model': the embedding, the head's copy_to, the
     # loss (max, sum of exps, target logit); the global norm
     n["all_reduce/model"] += (1 + 1 + 3) * (cfg.vocab_size % tp == 0) + 1
-    return dict(sorted(n.items())), dict(sorted(nbytes.items()))
+    # over 'pod': every gradient block; the loss's total and count and
+    # the global norm (f32 scalars); the aux loss's me and ce (f32, one
+    # entry an expert)
+    aux = 2 * 2 * nl if fam == "moe" else 0
+    n["all_reduce/pod"] += len(spec_leaves(specs)) + 3 + aux
+    nbytes["all_reduce/pod"] += 3 * 4 + aux * cfg.num_experts * 4 + sum(
+        math.prod(d.shape) // math.prod(
+            sizes[a] for e in sp if e for a in ((e,) if isinstance(e, str)
+                                                else e)) * item
+        for d, sp in zip(tree_leaves(defs), spec_leaves(specs)))
+    live = lambda k: sizes.get(k.split("/")[1], 1) > 1
+    return ({k: v for k, v in sorted(n.items()) if live(k)},
+            {k: v for k, v in sorted(nbytes.items()) if live(k)})
 
 
 def _ls_counts():
@@ -6680,8 +6745,9 @@ def ls_train(torch, pm, full, name, ref, k4):
     """One sharded run on this rank from the one-device run's start
     params, drawn on the rank's device (the trainer cuts its blocks):
     losses, step ms, tokens/s, the rank's peak, collectives and K4
-    launches a run, and the first step against the one-device step
-    (``ref``'s first-step params and moments, on the host)."""
+    launches a run, whether the rank's batch rows are those ``_ls_rows``
+    counts, and the first step against the one-device step (``ref``'s
+    first-step params and moments, on the host)."""
     from repro_torch.distributed import collectives as C
     from repro_torch.training.trainer import state_shardings
     from repro_torch.models import build_model
@@ -6735,6 +6801,16 @@ def ls_train(torch, pm, full, name, ref, k4):
         return dict(out, compare_s=time.perf_counter() - t0, **extra)
     start = _ls_params(torch, name, cfg, pm.device)
     first = _ls_keep_first(tr, look)
+    rows, local_batch = [], tr.local_batch
+
+    def local(batch):
+        got = local_batch(batch)
+        if not rows:
+            lo, hi = _ls_rows(pm, batch["tokens"].shape[0])
+            rows.append(all(torch.equal(got[k], v[lo:hi])
+                            for k, v in batch.items()))
+        return got
+    tr.local_batch = local
     k4_in = []
     real_cuda = k4.wkv6_scan_cuda
 
@@ -6761,7 +6837,8 @@ def ls_train(torch, pm, full, name, ref, k4):
     del routes
     row = dict(
         config=f"{cfg.name} widths, {cfg.num_layers} layers, {cfg.dtype}, "
-               f"B={batch}, S={full['seq']}, remat, mesh {LS_MESH}",
+               f"B={batch}, S={full['seq']}, remat, mesh {dict(pm.shape)}",
+        rows_equal=rows == [True],
         losses=[h["loss"] for h in res["history"]],
         step_ms=[h["time_s"] * 1e3 for h in res["history"]],
         step_ms_median=statistics.median(times) * 1e3,
@@ -6840,11 +6917,14 @@ def ls_rank(rank, world, port, backend, full, refs, out_dir):
     t0 = time.perf_counter()
     pm = R.init("localhost", port, world, rank, backend=backend,
                 device=dev, shape=LS_MESH, timeout_s=LS_TIMEOUT_S)
+    meshes = {LS_MESH: pm, LS_POD_MESH: R.process_mesh(
+        LS_POD_MESH, R.MESH_AXES[3], dev, timeout_s=LS_TIMEOUT_S)}
     out = dict(rank=rank, device=str(dev), backend=backend,
                init_s=time.perf_counter() - t0)
     for name in LS_RUNS:
         t1 = time.perf_counter()
-        out[name] = ls_train(torch, pm, full, name, refs[name], k4)
+        out[name] = ls_train(torch, meshes[_ls_shape(name)],
+                             full, name, refs[name], k4)
         out[name + "_s"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     out["restart"] = ls_restart(torch, pm, full, out_dir)
@@ -6895,7 +6975,7 @@ def lm_train_sharded_phase(torch, dev, k4, smi):
     del host
     shutil.rmtree(full["ckpt_root"], ignore_errors=True)
     out = dict(nvidia_smi=smi, backend=backend, cards=cards, mesh=LS_MESH,
-               ranks=4, parent_reserved_bytes=ref_bytes,
+               pod_mesh=LS_POD_MESH, ranks=4, parent_reserved_bytes=ref_bytes,
                tolerance=dict(loss_rtol=LS_LOSS_RTOL,
                               grad_norm_rtol=LS_GRAD_NORM_RTOL,
                               first_moments=LS_GATES))
@@ -6917,19 +6997,23 @@ def lm_train_sharded_phase(torch, dev, k4, smi):
                    k4_launches_by_rank=[x[name]["k4_launches"]
                                         for x in rows],
                    step_ms_by_rank=[x[name]["step_ms_median"] for x in rows],
-                   seconds_by_rank=[x[name + "_s"] for x in rows])
+                   seconds_by_rank=[x[name + "_s"] for x in rows],
+                   pod_all_reduce_bytes_per_step=lead[
+                       "collective_bytes_per_step"].get("all_reduce/pod"))
+        if not all(x[name]["rows_equal"] for x in rows):
+            failed.append(f"{name}: a rank's batch rows")
         if full[name].family != "rwkv6":
-            counts, nbytes = _ls_expected(torch, full[name])
+            counts, nbytes = _ls_expected(torch, full[name], _ls_shape(name))
             row["expected_collectives_per_step"] = counts
-            row["expected_fsdp_bytes_per_step"] = nbytes
+            row["expected_bytes_per_step"] = nbytes
             if not all(x[name]["collectives_per_step"] == counts
                        for x in rows):
                 failed.append(f"{name}: collectives a step against the "
                               f"specs' count")
             if not all(x[name]["collective_bytes_per_step"][k] == v
                        for x in rows for k, v in nbytes.items()):
-                failed.append(f"{name}: FSDP bytes a step against the "
-                              f"specs")
+                failed.append(f"{name}: FSDP and pod bytes a step "
+                              f"against the specs")
         if full[name].family == "moe":
             row["one_device_empty_experts_by_layer"] = ref[
                 "empty_experts_by_layer"]

@@ -44,7 +44,7 @@ from repro_torch.distributed.runtime import ProcessMesh
 __all__ = ["all_gather", "reduce_scatter", "all_reduce", "copy_to",
            "gather_from", "split_to", "all_reduce_max", "all_reduce_",
            "gather_dim", "block_range", "axis_size", "axis_index", "active",
-           "launches", "bytes_moved", "reset_counts"]
+           "batch_axes", "launches", "bytes_moved", "reset_counts"]
 
 launches: collections.Counter = collections.Counter()
 bytes_moved: collections.Counter = collections.Counter()
@@ -66,6 +66,15 @@ def active():
 def axis_size(axis: str) -> int:
     pm = active()
     return 1 if pm is None else pm.axis_size(axis)
+
+
+def batch_axes() -> Tuple[str, ...]:
+    """The axes of the active process mesh that carry batch rows:
+    ``("pod", "data")`` where the mesh has both (``sharding.batch_axes``);
+    () without a process mesh."""
+    pm = active()
+    return () if pm is None else tuple(a for a in ("pod", "data")
+                                       if a in pm.shape)
 
 
 def axis_index(axis: str) -> int:

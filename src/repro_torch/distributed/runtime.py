@@ -44,8 +44,11 @@ __all__ = ["ProcessMesh", "init", "process_mesh", "spawn", "free_port",
            "destroy", "BACKENDS", "MESH_AXES"]
 
 BACKENDS = ("nccl", "gloo")
-# The axes of a training mesh (3-D meshes with "pod" are ROADMAP item 7e).
-MESH_AXES = ("data", "model")
+# The axes of a training mesh by its number of dims, as the JAX package
+# names them: "pod" is pure data parallelism (gradients summed over it),
+# "data" FSDP and batch rows, "model" tensor parallelism.
+MESH_AXES = {1: ("data",), 2: ("data", "model"),
+             3: ("pod", "data", "model")}
 DEFAULT_TIMEOUT_S = 300.0
 
 
@@ -89,11 +92,16 @@ def init(address: str, port: int, world_size: int, rank: int, *,
          timeout_s: float = DEFAULT_TIMEOUT_S) -> ProcessMesh:
     """Join the process group at ``tcp://address:port`` as ``rank`` of
     ``world_size`` and return the process mesh of ``shape`` (default
-    ``(world_size, 1)``) over ``MESH_AXES``. ``device``
-    is this rank's (``cuda:i`` or ``cpu``); with NCCL it becomes the
-    current CUDA device."""
+    ``(world_size, 1)``) over ``MESH_AXES`` of its number of dims
+    (``("pod", "data", "model")`` for a 3-part shape; any other number
+    raises ``ValueError``). ``device`` is this rank's (``cuda:i`` or
+    ``cpu``); with NCCL it becomes the current CUDA device."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
+    shape = tuple(shape or (world_size, 1))
+    if len(shape) not in MESH_AXES:
+        raise ValueError(f"a mesh of shape {shape}: training meshes are "
+                         f"{tuple(MESH_AXES.values())}")
     device = torch.device(device)
     if backend == "nccl":
         if device.type != "cuda":
@@ -104,7 +112,7 @@ def init(address: str, port: int, world_size: int, rank: int, *,
         backend, init_method=f"tcp://{address}:{port}",
         world_size=world_size, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s), **kw)
-    return process_mesh(shape or (world_size, 1), MESH_AXES, device,
+    return process_mesh(shape, MESH_AXES[len(shape)], device,
                         timeout_s=timeout_s)
 
 

@@ -14,6 +14,8 @@ Examples:
       --smoke --mesh 2x2 --spawn --steps 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
       --smoke --mesh 1x4 --spawn --steps 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --smoke --mesh 2x2x1 --spawn --steps 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch \\
       seamless-m4t-medium --smoke --mesh 2x2 --spawn --steps 2 --device cpu
   # one process a rank, e.g. rank 1 of 4 (every rank the same flags):
@@ -26,14 +28,20 @@ config is the published one at full width and depth: run it on the card
 only. With ``--mesh DxM``, params, AdamW moments and batch rows are
 sharded by ``param_pspecs``/``opt_pspecs``/``batch_pspecs`` over a
 ``(data=D, model=M)`` process mesh (FSDP over ``data``, TP over
-``model``; ``training.Trainer(shardings=...)``), one process a rank:
-``--spawn`` starts all ``D*M`` ranks on this host, otherwise this process
+``model``; ``training.Trainer(shardings=...)``), with ``--mesh PxDxM``
+over ``(pod=P, data=D, model=M)`` (``pod`` pure data parallelism: params
+copied, batch rows split, gradients summed over it), one process a rank:
+``--spawn`` starts every rank on this host, otherwise this process
 is rank ``--rank`` of ``--world-size`` and joins ``tcp://ADDRESS:PORT``.
+A batch that does not divide ``data`` is copied over it, as the JAX
+package lays it out. A ``--mesh`` of one part raises ``ValueError``, as
+the JAX package's launcher does (``Trainer`` itself takes a ``("data",)``
+mesh).
 ``--backend`` is ``gloo`` on the CPU; on the card ``nccl`` when there is
 a card a rank, else ``gloo`` (ranks sharing a card). Rank ``r`` runs on
-``cuda:(r % cards)``. Every family trains over a mesh; 3-D meshes are
-refused with the ROADMAP item that ports them, and rwkv6 or zamba2 heads
-(or MoE experts) that the model axis would split by name. The task is
+``cuda:(r % cards)``. Every family trains over a mesh; rwkv6 or zamba2
+heads (or MoE experts) that the model axis would split are refused by
+name. The task is
 ``data.token_batch``'s ``"repeat"``; the enc-dec's encoder frames are
 drawn from a ``torch.Generator`` seeded with the step, so they differ
 from the JAX launcher's (``jax.random.normal``) while the tokens agree.
@@ -63,7 +71,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--mesh", default=None,
-                    help="DxM: (data=D, model=M) over D*M ranks")
+                    help="DxM: (data=D, model=M) over D*M ranks; PxDxM: "
+                         "(pod=P, data=D, model=M) over P*D*M ranks")
     ap.add_argument("--world-size", type=int, default=None)
     ap.add_argument("--rank", type=int, default=None)
     ap.add_argument("--address", default="localhost")
@@ -80,11 +89,13 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _mesh_shape(text: str, cfg):
+    """``--mesh``'s shape: ``DxM`` over ``("data", "model")``, ``PxDxM``
+    over ``("pod", "data", "model")``; any other number of parts raises
+    ``ValueError``, as the JAX package's launcher does."""
     shape = tuple(int(x) for x in text.split("x"))
     if len(shape) not in (2, 3):
         raise ValueError(f"--mesh {text}: DxM (or PxDxM)")
-    refuse_unsupported(cfg, ("pod",) * (len(shape) - 2) + runtime.MESH_AXES,
-                       shape[-1])
+    refuse_unsupported(cfg, runtime.MESH_AXES[len(shape)], shape[-1])
     return shape
 
 

@@ -15,9 +15,9 @@ Layers run as a Python loop over the stacked layer axis (``scan_layers``
 selects nothing; ``remat`` recomputes each encoder and decoder layer in
 the backward, ``layers.remat``).
 
-Under a process mesh (training over ``("data", "model")``) the frames
-are the rank's ``data`` rows, ``frontend_proj`` is gathered at use over
-``data``, every attention (the encoder's, the decoder's self- and
+Under a process mesh (training over a mesh of ``runtime.MESH_AXES``)
+the frames are the rank's batch rows, ``frontend_proj`` is gathered at
+use over ``data``, every attention (the encoder's, the decoder's self- and
 cross-attention, whose ``kv_x`` enters through ``copy_to``) runs on the
 rank's heads and the MLPs are tensor-parallel (``layers``); the
 embedding is vocab-parallel (``layers.embed_lookup``) and so is the head

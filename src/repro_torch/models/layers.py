@@ -11,15 +11,16 @@ only kernel below is K3, which ``dense`` reaches for a ternary-packed
 weight.
 
 Under an active process mesh (``distributed.runtime``; training over
-a ``("data", "model")`` mesh) each rank holds blocks of the parameters
+a mesh of ``runtime.MESH_AXES``) each rank holds blocks of the parameters
 (``sharding.local_block``) and the layers place the collectives that
 GSPMD places in the JAX package, at the JAX package's sites:
 ``unshard_fsdp`` gathers a weight's FSDP (``data``) dims at use, and the
 ``model`` axis is Megatron's tensor parallelism. Activations between
 blocks are replicated over ``model`` (the batch rows are the rank's
-``data`` block); ``dense`` is column-parallel for ``role="up"`` (behind
-``copy_to``, the output this rank's columns) and row-parallel for
-``role="down"`` (followed by an ``all_reduce``), each as the weight's
+block over ``pod`` and ``data``); ``dense`` is column-parallel for
+``role="up"`` (behind ``copy_to``, the output this rank's columns) and
+row-parallel for ``role="down"`` (followed by an ``all_reduce``), each
+as the weight's
 chosen layout says; attention runs on this rank's heads; the MoE
 experts are parallel over ``model`` (``moe_apply``); the embedding and
 the LM head are vocab-parallel (``embed_lookup``, ``head_logits``: the
@@ -47,6 +48,7 @@ __all__ = [
     "rms_norm", "rope_freqs", "apply_rope", "mrope_positions",
     "attention_defs", "attention_apply", "attention_decode",
     "mlp_defs", "mlp_apply", "moe_defs", "moe_apply", "moe_groups",
+    "moe_check_batch",
     "dense", "blockwise_attention", "layer_norm", "logits_f32", "remat",
     "layer_params", "embed_lookup", "head_logits",
 ]
@@ -623,27 +625,35 @@ def moe_route(router: torch.Tensor, xg: torch.Tensor, cfg: ModelConfig,
 
 def moe_groups(b: int, s: int, cfg: ModelConfig) -> Tuple[int, int, int]:
     """``(g, ng, cap)``: the group size, the number of groups and the
-    expert capacity of ``moe_apply`` over ``b`` rows of ``s`` tokens.
-
-    Under a process mesh the rows are this rank's ``data`` block of a
-    global batch of ``b * |data|`` rows, and the JAX package groups the
-    global batch. The groups and capacity here are those only when the
-    global group size is the rank's own and a rank's tokens fill whole
-    groups; anything else would drop another set of tokens, so it raises
-    ``ValueError``."""
+    expert capacity of ``moe_apply`` over ``b`` rows of ``s`` tokens, as
+    the JAX package groups them (``g = min(moe_group_size, b * s)``);
+    tokens that do not fill whole groups raise ``ValueError``. Under a
+    process mesh the rows are the rank's: ``moe_check_batch`` holds them
+    to the global batch's groups."""
     n = b * s
     g = min(cfg.moe_group_size, n)
-    dsz = C.axis_size("data")
-    g_all = min(cfg.moe_group_size, n * dsz)
-    if g != g_all or n % g:
-        raise ValueError(
-            f"MoE groups over {dsz} data ranks: a rank holds {b} x {s} = "
-            f"{n} tokens of a {b * dsz} x {s} global batch, grouped in "
-            f"{g_all} tokens (moe_group_size {cfg.moe_group_size}); a "
-            f"rank's tokens must fill whole groups of that size")
+    if n % g:
+        raise ValueError(f"MoE groups: {b} x {s} = {n} tokens do not fill "
+                         f"whole groups of {g} tokens")
     cap = min(int(math.ceil(g * cfg.top_k * cfg.capacity_factor
                             / cfg.num_experts)), g)
     return g, n // g, cap
+
+
+def moe_check_batch(b: int, s: int, b_all: int, cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` unless a rank's ``b`` rows of ``s`` tokens, its
+    share of a global batch of ``b_all`` rows, group as the JAX package
+    groups the global batch: the rank's group size must be the global
+    one and its tokens must fill whole groups. Anything else would drop
+    another set of tokens. ``Trainer.local_batch`` checks each batch."""
+    n = b * s
+    g_all = min(cfg.moe_group_size, b_all * s)
+    if min(cfg.moe_group_size, n) != g_all or n % g_all:
+        raise ValueError(
+            f"MoE groups: a rank holds {b} x {s} = {n} tokens of a "
+            f"{b_all} x {s} global batch, grouped in {g_all} tokens "
+            f"(moe_group_size {cfg.moe_group_size}); a rank's tokens must "
+            f"fill whole groups of that size")
 
 
 def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
@@ -662,9 +672,11 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
     (``split_to``: the combine's gradient, and through it the router's,
     is whole on every rank), and the rank's partial combine is summed
     over ``model``. The aux loss's statistics are means over the global
-    groups: averaged over ``data`` (``all_reduce``, whose backward is the
-    identity, for ``me``; ``ce_frac`` has no gradient), so the loss
-    counts it once. The shared experts are ``dense``'s TP. Off a process
+    groups: averaged over every batch axis (``pod``, ``data``:
+    ``all_reduce``, whose backward is the identity, for ``me``;
+    ``ce_frac`` has no gradient), so the loss counts it once, rows
+    replicated over an axis included (each rank's mean is then the
+    same). The shared experts are ``dense``'s TP. Off a process
     mesh every collective is the identity. Experts that do not divide
     ``model`` (the specs then put the experts' ``mlp`` dim there) raise
     ``NotImplementedError``."""
@@ -687,10 +699,10 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
     me = r["probs"].mean(dim=(0, 1))
     ce_frac = _one_hot(r["gate_idx"][..., 0], e,
                        torch.float32).mean(dim=(0, 1))
-    dsz = C.axis_size("data")
-    if dsz > 1:
-        me = C.all_reduce(me, "data") / dsz
-        ce_frac = C.all_reduce_(ce_frac, "data") / dsz
+    for a in C.batch_axes():
+        if C.axis_size(a) > 1:
+            me = C.all_reduce(me, a) / C.axis_size(a)
+            ce_frac = C.all_reduce_(ce_frac, a) / C.axis_size(a)
     aux = e * torch.sum(me * ce_frac)
 
     # dispatch (ng, g, e, cap) one-hot routing tensor in x's dtype.

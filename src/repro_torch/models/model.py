@@ -35,7 +35,7 @@ __all__ = ["Model", "build_model", "lm_loss"]
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
             aux: Optional[torch.Tensor] = None, aux_coef: float = 0.01, *,
             vocab_axis: Optional[str] = None,
-            batch_axis: Optional[str] = None
+            batch_axes: Tuple[str, ...] = ()
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (f32). targets: (B, S) int, -1 = pad.
 
@@ -48,10 +48,14 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
     Over a process mesh: with ``vocab_axis`` the logits are this rank's
     block of the vocabulary along that axis (vocab-parallel
     cross-entropy: the max, the sum of exponentials and the target's
-    logit each reduced over it); with ``batch_axis`` the rows are this
-    rank's, and the sum of NLL and the token count are summed over that
-    axis before dividing (a mean of the ranks' means would weigh their
-    rows by their pads).
+    logit each reduced over it); with ``batch_axes`` (every batch axis of
+    the mesh) the rows are this rank's, and the sum of NLL and the token
+    count are summed over each axis before dividing (a mean of the ranks'
+    means would weigh their rows by their pads). Rows replicated over an
+    axis (a batch that does not divide it) are counted once a rank of it
+    in both sums, so the loss is the global batch's mean, and the
+    gradient, which the FSDP reduce-scatter and the trainer sum over the
+    same axes, counts each row once.
     """
     mask = (targets >= 0).float()
     tgt = torch.clamp(targets, min=0).long()
@@ -69,9 +73,11 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
         t_logit = C.all_reduce(picked[..., 0] * inside.float(), vocab_axis)
         nll = torch.log(sumexp) + m - t_logit
     total, count = (nll * mask).sum(), mask.sum()
-    if batch_axis is not None:
-        total = C.all_reduce(total, batch_axis)
-        count = C.all_reduce_(count.clone(), batch_axis)
+    if batch_axes:
+        count = count.clone()
+        for a in batch_axes:
+            total = C.all_reduce(total, a)
+            count = C.all_reduce_(count, a)
     loss = total / torch.clamp(count, min=1.0)
     metrics = {"ce": loss, "tokens": count}
     if aux is not None:
@@ -102,8 +108,10 @@ class Model:
     def loss(self, params, batch, *, scan_layers: bool = True,
              remat: bool = False):
         """``lm_loss`` of the next-token logits. Under a process mesh the
-        batch rows are this rank's ``data`` block, and logits narrower
-        than the vocabulary are its ``model`` block of it."""
+        batch rows are this rank's block of the global batch, copies of
+        it over the batch axes that the batch does not divide, and logits
+        narrower than the vocabulary are the rank's ``model`` block of
+        it."""
         logits, aux = self.apply(params, batch, scan_layers=scan_layers,
                                  remat=remat)
         sharded = C.active() is not None
@@ -111,7 +119,7 @@ class Model:
             logits[:, :-1], batch["targets"][:, 1:], aux,
             vocab_axis=("model" if sharded
                         and logits.shape[-1] < self.cfg.vocab_size else None),
-            batch_axis="data" if sharded else None)
+            batch_axes=C.batch_axes())
 
     def num_params(self) -> int:
         return P.tree_num_params(self.defs())

@@ -15,9 +15,10 @@ the tests. Both agree with K4 within rounding.
 Parameters are a nested dict of tensors with the layers stacked on a
 leading axis, in the JAX package's layouts (projection weights (K, N)),
 and the layers run as a Python loop over that axis. Under a process mesh
-(training over ``("data", "model")``) the model is tensor-parallel over
-heads: ``wr/wk/wv/wg`` are column-parallel (``heads_x``), so each rank
-runs the WKV -- K4 on the card -- on its ``H/|model|`` heads, with its
+(training over a mesh of ``runtime.MESH_AXES``) the model is
+tensor-parallel over heads: ``wr/wk/wv/wg`` are column-parallel
+(``heads_x``), so each rank runs the WKV -- K4 on the card -- on its
+``H/|model|`` heads, with its
 heads' block of ``u`` and its channels of ``w0``, ``gn_s`` and ``gn_b``
 (``split_to``: the replicated leaves' gradients come back whole); ``wo``
 and the channel mix's ``wv`` are row-parallel; the embedding and the

@@ -12,8 +12,8 @@ the JAX package applies ``jax.checkpoint``). A ternary-packed MLP weight
 everything else is plain torch ops, as XLA computes it in the JAX
 package.
 
-Under a process mesh (training over ``("data", "model")``) the
-embedding and the head are vocab-parallel and the layers tensor-parallel
+Under a process mesh (training over a mesh of ``runtime.MESH_AXES``)
+the embedding and the head are vocab-parallel and the layers tensor-parallel
 (``layers``); the logits are then this rank's vocab columns, which
 ``model.lm_loss`` reduces over ``model``.
 

@@ -18,8 +18,8 @@ recomputes each Mamba layer in the backward, ``layers.remat``).
 A decode step keeps ``pos`` a 0-d device tensor and never reads a value
 back to the host.
 
-Under a process mesh (training over ``("data", "model")``) each
-``model`` rank runs the SSD on its block of ``ssm_heads / |model|``
+Under a process mesh (training over a mesh of ``runtime.MESH_AXES``)
+each ``model`` rank runs the SSD on its block of ``ssm_heads / |model|``
 heads and holds only their state (``_heads_in``): ``in_proj``, ``conv_w``
 and ``conv_b`` are gathered whole at use (their stored blocks do not
 line up with the ``z | x | B | C | dt`` split points; the all-gather's

@@ -16,7 +16,9 @@ the host.
 Over a process mesh (``specs`` given) each rank holds a block of each
 leaf; the threshold is still the whole leaf's: the blocks' |acc| are
 gathered over the leaf's axes, so every rank sends exactly the entries
-the one-device mask sends, ties included.
+the one-device mask sends, ties included. The specs never name ``pod``:
+the grads come summed over it (``trainer.reduce_grads``), the same on
+every pod, as the JAX package compresses the whole gradient.
 """
 from __future__ import annotations
 

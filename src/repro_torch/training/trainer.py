@@ -19,22 +19,27 @@ configured, then ``adamw_update``. Parameters stay in the model's dtype
 ``shardings`` (a :class:`~repro_torch.distributed.NamedSharding` tree over
 a :class:`~repro_torch.distributed.runtime.ProcessMesh`, as
 ``shardings(pmesh, {"params": param_pspecs(...), "opt": opt_pspecs(...),
-"err": ...})`` gives it) trains over a ``("data", "model")`` mesh, one
+"err": ...})`` gives it) trains over a ``("pod", "data", "model")``,
+``("data", "model")`` or ``("data",)`` mesh (``runtime.MESH_AXES``), one
 process a rank, as the JAX package's ``Trainer(shardings=...)`` does
 under GSPMD: each rank keeps its block of params, AdamW moments and
-error-feedback state (``sharding.local_block``), the batch rows of its
-``data`` block (``batch_pspecs``), and runs the step under the process
-mesh, where the model gathers FSDP dims at use and is tensor-parallel
-over ``model`` (``models.layers``). Gradients of leaves replicated over
-``data`` are summed over it; the metrics are global. ``init_state``,
+error-feedback state (``sharding.local_block``; ``pod`` holds copies:
+pure data parallelism), its block of the batch rows (``batch_pspecs``:
+over the prefix of ``(pod, data)`` that divides the batch, copies over
+the rest), and runs the step under the process mesh, where the model
+gathers FSDP dims at use and is tensor-parallel over ``model``
+(``models.layers``). Gradients of leaves replicated over ``data`` are
+summed over it, then every gradient over ``pod`` (``reduce_grads``);
+the loss, the MoE aux statistics and the metrics are the global
+batch's, each row counted once. ``init_state``,
 ``run(start_state=...)`` and ``restore`` each give a rank its block, so a
 restart may run on another mesh ("elastic scaling"): rank 0 writes whole
 arrays (``sharding.gather_logical``), the files the one-device trainer
 writes for the same state. Only rank 0 prints and writes. Every family
 trains: ``dense``, ``vlm``, ``moe`` (experts over ``model``), ``rwkv6``,
-``zamba2`` (SSD heads over ``model``) and ``encdec``; meshes with other
-axes are refused with the ROADMAP item that ports them, and heads or
-experts that the model axis would split by name. ``failure_hook`` runs on
+``zamba2`` (SSD heads over ``model``) and ``encdec``; meshes over other
+axes, and heads or experts that the model axis would split, are refused
+by name. ``failure_hook`` runs on
 every rank, so a simulated failure (:class:`SimulatedFailure`) raises on
 all of them at the same step, and ``run_with_restarts`` waits for every
 rank and restores on all of them from the same checkpoint. Over a process
@@ -61,6 +66,7 @@ from repro_torch.distributed import annotate as A
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.runtime import MESH_AXES
+from repro_torch.models import layers as L
 from repro_torch.models.model import Model
 from repro_torch.training import checkpoint as CKPT
 from repro_torch.training.compression import compress_grads, compression_init
@@ -69,7 +75,7 @@ from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update, tree_map)
 
 __all__ = ["TrainerConfig", "Trainer", "SimulatedFailure", "loss_and_grads",
-           "refuse_unsupported", "state_shardings"]
+           "reduce_grads", "refuse_unsupported", "state_shardings"]
 
 
 class SimulatedFailure(RuntimeError):
@@ -101,9 +107,8 @@ def loss_and_grads(model: Model, params: Any, batch: Dict[str, Any],
 
     ``specs``: the params' spec tree when ``params`` are this rank's
     blocks under an active process mesh: each autograd leaf is tagged
-    with its spec (``annotate.unshard_fsdp`` reads it), and the gradient
-    of a leaf replicated over ``data`` is summed over ``data`` (a leaf on
-    ``data`` has had its sum reduce-scattered by the FSDP gather)."""
+    with its spec (``annotate.unshard_fsdp`` reads it), and the grads are
+    summed over the batch axes (``reduce_grads``)."""
     flat: List[torch.Tensor] = []
 
     def live(p, s=None):
@@ -116,11 +121,22 @@ def loss_and_grads(model: Model, params: Any, batch: Dict[str, Any],
     got = iter(torch.autograd.grad(loss, flat, allow_unused=True))
     grads = tree_map(lambda p: _or_zeros(next(got), p), params)
     if specs is not None:
-        grads = tree_map(lambda g, s: g if "data" in s
-                         else C.all_reduce_(g.contiguous(), "data"),
-                         grads, specs)
+        grads = reduce_grads(grads, specs)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
+
+
+def reduce_grads(grads: Any, specs: Any) -> Any:
+    """A rank's gradient blocks summed over the batch axes of the active
+    process mesh: a leaf replicated over ``data`` summed over it (a leaf
+    on ``data`` has had its sum reduce-scattered by the FSDP gather),
+    then every leaf over ``pod``, whose ranks hold copies of the params.
+    The JAX package compresses the whole gradient, so ``compress_grads``
+    comes after this."""
+    grads = tree_map(lambda g, s: g if "data" in s
+                     else C.all_reduce_(g.contiguous(), "data"),
+                     grads, specs)
+    return tree_map(lambda g: C.all_reduce_(g.contiguous(), "pod"), grads)
 
 
 def _or_zeros(g, p):
@@ -137,21 +153,17 @@ def _on(device: torch.device, tree: Any) -> Any:
     return tree_map(leaf, tree)
 
 
-# The ROADMAP item that ports the meshes a sharded Trainer refuses.
-_NEXT_MESH = "7e (3-D meshes with 'pod')"
-
-
 def refuse_unsupported(cfg, axis_names, model_size: int) -> None:
     """Raise ``NotImplementedError`` for what sharded training does not
-    cover: meshes over other axes than ``("data", "model")`` (naming the
-    ROADMAP item that ports them), rwkv6 and zamba2 heads that a model
-    axis would split, and MoE experts that do not divide it (the specs'
-    fallback layout, each expert's ``mlp`` dim on ``model``, which is not
-    trained)."""
-    if tuple(axis_names) != MESH_AXES:
+    cover: meshes over other axes than those of ``MESH_AXES`` (``("pod",
+    "data", "model")``, ``("data", "model")``, ``("data",)``), rwkv6 and
+    zamba2 heads that a model axis would split, and MoE experts that do
+    not divide it (the specs' fallback layout, each expert's ``mlp`` dim
+    on ``model``, which is not trained)."""
+    if tuple(axis_names) not in MESH_AXES.values():
         raise NotImplementedError(
             f"a {tuple(axis_names)} mesh: sharded training runs over "
-            f"{MESH_AXES}; ROADMAP item {_NEXT_MESH}")
+            f"{MESH_AXES[3]}, {MESH_AXES[2]} or {MESH_AXES[1]}")
     if cfg.family == "moe" and cfg.num_experts % model_size:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.num_experts} experts over a model axis of "
@@ -259,20 +271,23 @@ class Trainer:
         return SH.local_block(state, self.specs, self.pmesh)
 
     def local_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """The batch on the device, and over a process mesh its rows of
-        this rank's ``data`` block (``batch_pspecs``)."""
+        """The batch on the device, and over a process mesh this rank's
+        block of its rows under ``batch_pspecs`` (split over the axes of
+        ``(pod, data)`` that divide the batch, copied over the others:
+        every row where it divides neither). A MoE model's rows must
+        group as the global batch does (``layers.moe_check_batch``)."""
         batch = {k: v.to(self.device) for k, v in batch.items()}
         if self.pmesh is None:
             return batch
         b = next(iter(batch.values())).shape[0]
         specs = SH.batch_pspecs(self.model.cfg, self.pmesh, b, "train")
-        if self.pmesh.axis_size("data") > 1 and specs["tokens"][0] is None:
-            raise ValueError(f"a global batch of {b} rows does not divide "
-                             f"over {self.pmesh.axis_size('data')} data "
-                             f"ranks")
-        return {k: v[SH.NamedSharding(self.pmesh, specs.get(k, ()))
-                     .devices_indices_map(tuple(v.shape))[self.pmesh.rank]]
-                for k, v in batch.items()}
+        local = {k: v[SH.NamedSharding(self.pmesh, specs.get(k, ()))
+                      .devices_indices_map(tuple(v.shape))[self.pmesh.rank]]
+                 for k, v in batch.items()}
+        if self.model.cfg.family == "moe":
+            rows, seq = local["tokens"].shape
+            L.moe_check_batch(rows, seq, b, self.model.cfg)
+        return local
 
     # -- state lifecycle ---------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None

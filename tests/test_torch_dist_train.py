@@ -1,14 +1,19 @@
 """Sharded LM training in the port: ``Trainer(shardings=...)`` over a
-process mesh of 4 ``gloo`` ranks on the CPU, meshes (2, 2), (4, 1) and
-(1, 4), SMOKE llama3.2-1b, rwkv6-7b, deepseek-moe-16b,
+process mesh of 4 ``gloo`` ranks on the CPU, ``("data", "model")``
+meshes (2, 2), (4, 1) and (1, 4) and ``("pod", "data", "model")`` meshes
+(2, 2, 1) and (2, 1, 2), SMOKE llama3.2-1b, rwkv6-7b, deepseek-moe-16b,
 llama4-scout-17b-a16e, qwen2-vl-2b (with patch embeddings), zamba2-1.2b
 and seamless-m4t-medium (with encoder frames) in f32, B=4, S=16, 3
-steps, from the same params and batches (``torch_dist_workers``),
+steps, from the same params and batches (``torch_dist_workers``); and
+llama3.2-1b and deepseek-moe-16b on global batches that do not divide
+``data`` (B=3 over (2, 2): rows copied over ``data``; B=2 over (2, 2, 1):
+rows over ``pod`` alone) and over a 1-D ``("data",)`` mesh of 4,
 against:
 
   (a) the port's one-device ``Trainer``, with chip_smoke's
       ``_lt_compare`` measures, tighter than its ``LT_*`` gates: each
-      step's loss within rtol 1e-6 (``LT_LOSS_RTOL`` 1e-5; seen 3.1e-7);
+      step's loss within rtol 1e-6 (``LT_LOSS_RTOL`` 1e-5; seen 3.1e-7)
+      and its gradient norm within 1e-5 (``GRAD_NORM_RTOL``);
       after the first step the first moments within 1e-5 of each leaf's
       largest (``LT_GRAD_TOL`` 1e-3; seen 2.6e-6) and the params within
       1e-3 lr where the moment is well above its error (``LT_PARAM_TOL``
@@ -20,13 +25,14 @@ against:
       within their bound 2 lr (1 + wd |p|). The sharded step differs from
       the one-device step only in the order of its sums (the MoE aux
       loss's statistics are means of the data ranks' means);
-  (b) the JAX package's ``Trainer(shardings=...)`` on a (2, 2) mesh of
-      4 forced host devices, in a subprocess: losses within 1e-5
-      relative (with the MoE aux loss counted once);
+  (b) the JAX package's ``Trainer(shardings=...)`` on the same mesh of
+      4 forced host devices, the same batches, in subprocesses: losses
+      within 1e-5 relative (with the MoE aux loss counted once);
   (c) the collectives each step issues, counted from the specs
       (``param_pspecs``) and the layers' TP, expert-parallel and SSD-head
-      sites, and K4's and zamba2's SSD calls on every rank: layers x
-      steps, each on the rank's (B/|data|, S, H/|model|, 64 or 16) block;
+      sites, the gradients' sums over ``pod``, and K4's and zamba2's SSD
+      calls on every rank: layers x steps, each on the rank's
+      (B/(|pod| |data|), S, H/|model|, 64 or 16) block;
   (d) sharded ``moe_apply`` of one layer on every mesh against the
       one-device call: the chosen experts and ``keep`` the same bits on
       every ``model`` rank and equal to one device's, output, aux and
@@ -36,7 +42,7 @@ against:
       rank's SSD on its ssm_heads/|model| heads, their state, output and
       gradients within 1e-5 of their largest.
 
-One spawn of 4 ranks runs every case, beside the JAX subprocess.
+One spawn of 4 ranks runs every case, beside the JAX subprocesses.
 """
 import collections
 import json
@@ -59,8 +65,18 @@ from repro_torch.models import build_model  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 LOSS_RTOL, M1_TOL, M3_TOL, PARAM1_TOL = 1e-6, 1e-5, 1e-4, 1e-3
+# Each step's gradient norm before clipping (seen 3.0e-6 at most, zamba2
+# at (2, 1, 2)): the norms are 4-9, so clipping and AdamW take out the
+# gradients' scale, and a row counted twice would show here alone.
+GRAD_NORM_RTOL = 1e-5
 JAX_LOSS_RTOL = 1e-5
-CASES = [(a, m) for m in W.MESHES for a in W.ARCHS]
+# (arch, mesh shape, global batch)
+CASES = [(a, m, W.BATCH) for m in W.MESHES for a in W.ARCHS]
+BATCH_CASES = [(a, m, b) for m, b in W.BATCH_MESHES for a in W.BATCH_ARCHS]
+# The cases the JAX package's sharded trainer runs too (every one but the
+# (4, 1) and (1, 4) meshes).
+JAX_CASES = [c for c in CASES + BATCH_CASES if c[1] not in ((4, 1), (1, 4))]
+JAX_PROCS = 3
 MOE_CASES = [(a, m) for m in W.MESHES for a in W.MOE_ARCHS]
 # Sharded moe_apply against one device: every value within MOE_TOL of
 # its largest (seen 2.6e-6 and less), or within MOE_FLOOR times the
@@ -85,9 +101,12 @@ from repro.training import AdamWConfig, Trainer, TrainerConfig
 from repro.training.optimizer import adamw_init
 
 d, steps, lr = sys.argv[1], int(sys.argv[2]), float(sys.argv[3])
+AXES = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}
 out = {}
-for arch in sys.argv[4:]:
-    z = np.load(f"{d}/{arch}.npz")
+for job in sys.argv[4:]:
+    arch, shape, batch = job.split(":")
+    shape = tuple(int(x) for x in shape.split("x"))
+    z = np.load(f"{d}/{arch}_b{batch}.npz")
     params = {}
     for k in z.files:
         if k.startswith("p/"):
@@ -97,7 +116,7 @@ for arch in sys.argv[4:]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = jnp.asarray(z[k])
     model = build_model(get_config(arch, smoke=True))
-    mesh = make_mesh((2, 2), ("data", "model"))
+    mesh = make_mesh(shape, AXES[len(shape)])
     sh = shardings(mesh, {"params": param_pspecs(model.defs(), mesh),
                           "opt": opt_pspecs(model.defs(), mesh),
                           "err": P()})
@@ -106,45 +125,56 @@ for arch in sys.argv[4:]:
     batches = lambda s: {k.split("/", 1)[1]: jnp.asarray(z[k])
                          for k in z.files if k.startswith(f"b{s}/")}
     tc = TrainerConfig(total_steps=steps, ckpt_every=1000,
-                       ckpt_dir=f"{d}/ckpt_{arch}", log_every=1000,
+                       ckpt_dir=f"{d}/ckpt_{job}", log_every=1000,
                        opt=AdamWConfig(lr=lr, warmup_steps=1,
                                        total_steps=steps))
     tr = Trainer(model, tc, batches, shardings=sh)
     with mesh:
         res = tr.run(jax.random.PRNGKey(0),
                      start_state=jax.device_put(state, sh))
-    out[arch] = [h["loss"] for h in res["history"]]
+    out[job] = [h["loss"] for h in res["history"]]
 print("LOSSES " + json.dumps(out))
 """
 
 
+def _job(case):
+    arch, shape, batch = case
+    return f"{arch}:{W.mesh_name(shape)}:{batch}"
+
+
 def _jax_reference(d):
     """Start the JAX package's sharded trainer on 4 forced host devices
-    (the params and batches of ``torch_dist_workers``, through npz)."""
-    for arch in W.ARCHS:
+    for every case of ``JAX_CASES`` (the params and batches of
+    ``torch_dist_workers``, through npz), in ``JAX_PROCS`` subprocesses
+    of a share of the cases each."""
+    for arch, batch in sorted({(a, b) for a, _, b in JAX_CASES}):
         arrays = {"p/" + k: v for k, v in W.flat(W.params(arch)).items()}
         for s in range(W.STEPS):
             arrays.update({f"b{s}/{k}": v
-                           for k, v in W.np_inputs(arch, s).items()})
-        np.savez(os.path.join(d, f"{arch}.npz"), **arrays)
+                           for k, v in W.np_inputs(arch, s, batch).items()})
+        np.savez(os.path.join(d, f"{arch}_b{batch}.npz"), **arrays)
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    return subprocess.Popen(
+    jobs = [_job(c) for c in JAX_CASES]
+    return [subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(_JAX_RUN), str(d),
-         str(W.STEPS), str(W.LR), *W.ARCHS],
+         str(W.STEPS), str(W.LR), *jobs[i::JAX_PROCS]],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for i in range(JAX_PROCS)]
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("dist_train")
-    jax_proc = _jax_reference(d)
+    procs = _jax_reference(d)
     try:
         R.spawn(W.train_rank, 4, (R.free_port(), str(d)))
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         try:
-            one = {arch: W.one_device(arch) for arch in W.ARCHS}
+            one = {(arch, batch): W.one_device(arch, batch=batch)
+                   for arch, batch in sorted({(a, b) for a, _, b in
+                                              CASES + BATCH_CASES})}
             cfg, p, x, ct = W.mamba_inputs()
             one["mamba"] = W.mamba_call(cfg, p, x, ct)
             one["mamba_floor"] = W.mamba_call(cfg, p, x, ct * (
@@ -160,47 +190,58 @@ def runs(tmp_path_factory):
                         .astype(np.float32))))["grads"]
         finally:
             torch.set_num_threads(threads)
-        out, err = jax_proc.communicate(timeout=600)
+        jax = {}
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            assert proc.returncode == 0, err[-3000:]
+            line = [x for x in out.splitlines()
+                    if x.startswith("LOSSES ")][-1]
+            jax.update(json.loads(line[len("LOSSES "):]))
     finally:
-        jax_proc.kill()
-    assert jax_proc.returncode == 0, err[-3000:]
-    line = [x for x in out.splitlines() if x.startswith("LOSSES ")][-1]
+        for proc in procs:
+            proc.kill()
     cases = {}
-    for arch, shape in CASES:
-        case = f"{arch}_{shape[0]}x{shape[1]}"
+    for arch, shape, batch in CASES + BATCH_CASES:
+        case = W.case_name(arch, shape, batch)
         with open(d / f"{case}.pkl", "rb") as f:
-            cases[(arch, shape)] = pickle.load(f)
+            got = cases[(arch, shape, batch)] = pickle.load(f)
         scans = [json.loads((d / f"wkv_{case}_{r}.json").read_text())
                  for r in range(4)]
         for key in ("wkv", "ssd"):
-            cases[(arch, shape)][key] = [x[key] for x in scans]
+            got[key] = [x[key] for x in scans]
     moe = {}
     for arch, shape in MOE_CASES:
-        case = f"{arch}_{shape[0]}x{shape[1]}"
+        case = W.case_name(arch, shape)
         moe[(arch, shape)] = []
         for r in range(4):
             with open(d / f"moe_{case}_{r}.pkl", "rb") as f:
                 moe[(arch, shape)].append(pickle.load(f))
     mamba = {}
     for shape in W.MESHES:
-        case = f"{W.MAMBA_ARCH}_{shape[0]}x{shape[1]}"
+        case = W.case_name(W.MAMBA_ARCH, shape)
         mamba[shape] = []
         for r in range(4):
             with open(d / f"mamba_{case}_{r}.pkl", "rb") as f:
                 mamba[shape].append(pickle.load(f))
-    return dict(one=one, jax=json.loads(line[len("LOSSES "):]),
-                cases=cases, moe=moe, mamba=mamba)
+    return dict(one=one, jax=jax, cases=cases, moe=moe, mamba=mamba)
 
 
 def _id(case):
-    arch, shape = case
-    return f"{arch}-{shape[0]}x{shape[1]}"
+    arch, shape, *batch = case
+    return f"{arch}-{W.mesh_name(shape)}" + (
+        f"-b{batch[0]}" if batch and batch[0] != W.BATCH else "")
 
 
-@pytest.mark.parametrize("case", CASES, ids=_id)
+def _mesh_id(shape):
+    return W.mesh_name(shape)
+
+
+@pytest.mark.parametrize("case", CASES + BATCH_CASES, ids=_id)
 def test_sharded_trainer_matches_one_device(runs, case):
-    got, one = runs["cases"][case], runs["one"][case[0]]
+    got, one = runs["cases"][case], runs["one"][(case[0], case[2])]
     np.testing.assert_allclose(got["losses"], one["losses"], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got["grad_norms"], one["grad_norms"],
+                               rtol=GRAD_NORM_RTOL)
     assert sorted(got["params"]) == sorted(one["params"])
     first = W.compare(got["params1"], got["m1"], one["params1"], one["m1"],
                       W.LR)
@@ -214,14 +255,26 @@ def test_sharded_trainer_matches_one_device(runs, case):
 
 @pytest.mark.parametrize("arch", W.ARCHS)
 def test_sharded_losses_match_the_jax_sharded_trainer(runs, arch):
-    got = runs["cases"][(arch, (2, 2))]["losses"]
-    np.testing.assert_allclose(got, runs["jax"][arch], rtol=JAX_LOSS_RTOL)
+    case = (arch, (2, 2), W.BATCH)
+    np.testing.assert_allclose(runs["cases"][case]["losses"],
+                               runs["jax"][_job(case)], rtol=JAX_LOSS_RTOL)
+
+
+@pytest.mark.parametrize("case", [c for c in JAX_CASES if c[1] != (2, 2)
+                                  or c[2] != W.BATCH], ids=_id)
+def test_pod_mesh_and_batch_losses_match_the_jax_sharded_trainer(runs,
+                                                                  case):
+    """The pod meshes, the batches that do not divide ``data`` and the
+    1-D mesh against the JAX package's sharded trainer on the same mesh
+    and batches."""
+    np.testing.assert_allclose(runs["cases"][case]["losses"],
+                               runs["jax"][_job(case)], rtol=JAX_LOSS_RTOL)
 
 
 def _specs(arch, shape):
     """{leaf path: (spec of one layer's block, logical shape of it, number
     of layers)} from ``param_pspecs`` on a meta mesh of ``shape``."""
-    mesh = make_mesh(shape, ("data", "model"),
+    mesh = make_mesh(shape, R.MESH_AXES[len(shape)],
                      devices=[torch.device("meta")] * 4)
     model = build_model(get_config(arch, smoke=True))
     specs, defs = param_pspecs(model.defs(), mesh), model.defs()
@@ -241,8 +294,11 @@ def _specs(arch, shape):
 
 
 def _layout(shape, cands, sizes):
+    """The layout ``annotate.fsdp_layout`` picks (axes the mesh lacks
+    dropped, so they divide)."""
     for cand in tuple(cands) + ((None,) * len(shape),):
         cand = tuple(cand) + (None,) * (len(shape) - len(cand))
+        cand = tuple(e if e in sizes else None for e in cand)
         if all(n % (sizes[e] if e else 1) == 0 for n, e in zip(shape, cand)):
             return cand
 
@@ -339,11 +395,13 @@ def expected_counts(arch, shape):
     reduce-scatters) and ``model`` moves of every use, from the specs;
     the TP sites of the layers (``copy_to``/row-parallel all-reduces,
     zamba2's SSD heads, the vocab-parallel embedding and loss); the
-    loss's and the global norm's reductions and the gradient sums of the
-    leaves replicated over ``data``."""
+    loss's and the global norm's reductions over every batch axis, the
+    gradient sums of the leaves replicated over ``data`` and of every
+    leaf over ``pod``. A batch that does not divide ``data`` issues the
+    same collectives (its rows are copied over the axis)."""
     cfg = get_config(arch, smoke=True)
-    dsz, tp = shape
-    sizes = {"data": dsz, "model": tp}
+    sizes = W.sizes(shape)
+    dsz, tp, psz = (sizes.get(a, 1) for a in ("data", "model", "pod"))
     specs = _specs(arch, shape)
     n = collections.Counter()
     for path, cands in _uses(cfg, tp):
@@ -368,6 +426,11 @@ def expected_counts(arch, shape):
             "data" not in s for s, _, _ in specs.values())
         if cfg.family == "moe":        # the aux loss's me and ce_frac
             n["all_reduce/data"] += 2 * cfg.num_layers
+    if psz > 1:
+        # every leaf's gradient; the loss's total and count, the global
+        # norm; the MoE aux loss's me and ce_frac
+        n["all_reduce/pod"] += len(specs) + 3 + 2 * cfg.num_layers * (
+            cfg.family == "moe")
     if tp > 1:
         nl = cfg.num_layers
         if cfg.family == "rwkv6":
@@ -402,28 +465,30 @@ def expected_counts(arch, shape):
     return {k: v * W.STEPS for k, v in sorted(n.items())}
 
 
-@pytest.mark.parametrize("case", CASES, ids=_id)
+@pytest.mark.parametrize("case", CASES + BATCH_CASES, ids=_id)
 def test_collective_tallies_equal_the_count_from_the_specs(runs, case):
-    assert runs["cases"][case]["counts"] == expected_counts(*case)
+    assert runs["cases"][case]["counts"] == expected_counts(case[0], case[1])
 
 
-@pytest.mark.parametrize("shape", W.MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", W.MESHES, ids=_mesh_id)
 def test_ssd_runs_on_each_ranks_heads(runs, shape):
     """zamba2's SSD scan on every rank: layers x steps calls, each on the
-    rank's (B/|data|, S, ssm_heads/|model|, head_dim) block."""
+    rank's (B/(|pod| |data|), S, ssm_heads/|model|, head_dim) block."""
     cfg = get_config(W.MAMBA_ARCH, smoke=True)
-    want = [[W.BATCH // shape[0], W.SEQ, cfg.ssm_heads // shape[1],
+    want = [[W.BATCH // W.row_blocks(shape), W.SEQ,
+             cfg.ssm_heads // W.sizes(shape)["model"],
              cfg.ssm_head_dim]] * (cfg.num_layers * W.STEPS)
-    for rank_calls in runs["cases"][(W.MAMBA_ARCH, shape)]["ssd"]:
+    for rank_calls in runs["cases"][(W.MAMBA_ARCH, shape, W.BATCH)]["ssd"]:
         assert rank_calls == want
 
 
-@pytest.mark.parametrize("shape", W.MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", W.MESHES, ids=_mesh_id)
 def test_k4_runs_on_each_ranks_heads(runs, shape):
     cfg = get_config("rwkv6-7b", smoke=True)
-    want = [[W.BATCH // shape[0], W.SEQ, cfg.rwkv_heads // shape[1],
+    want = [[W.BATCH // W.row_blocks(shape), W.SEQ,
+             cfg.rwkv_heads // W.sizes(shape)["model"],
              cfg.rwkv_head_dim]] * (cfg.num_layers * W.STEPS)
-    for rank_calls in runs["cases"][("rwkv6-7b", shape)]["wkv"]:
+    for rank_calls in runs["cases"][("rwkv6-7b", shape, W.BATCH)]["wkv"]:
         assert rank_calls == want
 
 
@@ -437,13 +502,13 @@ DISAGREE = {arch: [((64, 2, 4), ("data", None, "model"), (None, None, None))]
                          ("qwen2-vl-2b", (1, 4)))}
 
 
-@pytest.mark.parametrize("case", CASES, ids=_id)
+@pytest.mark.parametrize("case", CASES + BATCH_CASES, ids=_id)
 def test_layouts_that_disagree_with_the_stored_spec(runs, case):
     got = [(tuple(shape), tuple(stored), tuple(lay))
            for shape, stored, lay in runs["cases"][case]["layouts"]
            if (stored.index("model") if "model" in stored else None)
            != (lay.index("model") if "model" in lay else None)]
-    assert got == DISAGREE.get(case, [])
+    assert got == DISAGREE.get(case[:2], [])
 
 
 def _near(got, want, what, floor=0.0):
@@ -486,7 +551,7 @@ def test_sharded_moe_apply_against_one_device(runs, case, record_property):
         _near(got["x_grad"], one["x_grad"].numpy()[lo:hi], "x grad")
         np.testing.assert_allclose(got["aux"], float(one["aux"]),
                                    rtol=MOE_TOL)
-    assert len(by_rows) == shape[0]
+    assert len(by_rows) == W.row_blocks(shape)
     grads = ranks[0]["grads"]
     assert sorted(grads) == sorted(one["grads"])
     nudged = runs["one"][("moe_floor", arch)]
@@ -495,7 +560,7 @@ def test_sharded_moe_apply_against_one_device(runs, case, record_property):
               float((v - nudged[k]).abs().max()))
 
 
-@pytest.mark.parametrize("shape", W.MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", W.MESHES, ids=_mesh_id)
 def test_sharded_mamba_forward_against_one_device(runs, shape):
     """Layer 0's ``_mamba_forward`` of SMOKE zamba2 on every rank's blocks
     and rows: each rank's SSD ran on its ssm_heads/|model| heads and
@@ -507,7 +572,7 @@ def test_sharded_mamba_forward_against_one_device(runs, shape):
     cfg = get_config(W.MAMBA_ARCH, smoke=True)
     one, nudged = runs["one"]["mamba"], runs["one"]["mamba_floor"]
     ranks = runs["mamba"][shape]
-    per = cfg.ssm_heads // shape[1]
+    per = cfg.ssm_heads // W.sizes(shape)["model"]
     for got in ranks:
         lo, hi = got["rows"]
         h0, h1 = got["heads"]
@@ -517,7 +582,7 @@ def test_sharded_mamba_forward_against_one_device(runs, shape):
         _near(got["out"], one["out"].numpy()[lo:hi], "out")
         _near(got["x_grad"], one["x_grad"].numpy()[lo:hi], "x grad")
     assert sorted({r["heads"] for r in ranks}) == [
-        (i * per, (i + 1) * per) for i in range(shape[1])]
+        (i * per, (i + 1) * per) for i in range(W.sizes(shape)["model"])]
     grads = ranks[0]["grads"]
     assert sorted(grads) == sorted(one["grads"])
     for k, v in one["grads"].items():

@@ -332,11 +332,12 @@ def test_cli_trains_rwkv6_smoke_on_the_cpu(tmp_path, capsys):
 
 
 def test_cli_refuses_a_mesh():
-    """``--mesh`` trains over (data, model) meshes
-    (``tests/test_torch_dist_checkpoint.py``); a 3-D mesh is refused with
-    its ROADMAP item, and a mesh without ``--spawn`` needs the rank and
-    port of this process."""
-    with pytest.raises(NotImplementedError, match="item 7e"):
-        train_cli.main(["--smoke", "--device", "cpu", "--mesh", "1x2x4"])
+    """``--mesh`` trains over (data, model) and (pod, data, model) meshes
+    (``tests/test_torch_dist_checkpoint.py``); a mesh of one part raises
+    ``ValueError``, as the JAX package's launcher does (its ``make_mesh``
+    pairs the shape with three axes), and a mesh without ``--spawn``
+    needs the rank and port of this process."""
+    with pytest.raises(ValueError, match="--mesh 4: DxM"):
+        train_cli.main(["--smoke", "--device", "cpu", "--mesh", "4"])
     with pytest.raises(ValueError, match="--rank and --port"):
         train_cli.main(["--smoke", "--device", "cpu", "--mesh", "2x4"])

@@ -16,6 +16,7 @@ arrays, ``sharding.gather_logical``).
 from __future__ import annotations
 
 import json
+import math
 import os
 import pickle
 
@@ -33,7 +34,8 @@ from repro_torch.models import zamba2 as ZB
 from repro_torch.models.params import tree_map
 from repro_torch.training import (AdamWConfig, Trainer, TrainerConfig,
                                   adamw_init)
-from repro_torch.training.trainer import SimulatedFailure, state_shardings
+from repro_torch.training.trainer import (SimulatedFailure, reduce_grads,
+                                          state_shardings)
 
 ARCHS = ("llama3.2-1b", "rwkv6-7b", "deepseek-moe-16b",
          "llama4-scout-17b-a16e", "qwen2-vl-2b", "zamba2-1.2b",
@@ -43,9 +45,43 @@ MOE_ARCHS = tuple(a for a in ARCHS if get_config(a, smoke=True).family
 # One arch of each of the vlm, zamba2 and encdec families.
 FAMILY_ARCHS = ("qwen2-vl-2b", "zamba2-1.2b", "seamless-m4t-medium")
 MAMBA_ARCH = "zamba2-1.2b"
-MESHES = ((2, 2), (4, 1), (1, 4))
+# (data, model) meshes, then (pod, data, model): runtime.MESH_AXES by the
+# number of dims.
+MESHES = ((2, 2), (4, 1), (1, 4), (2, 2, 1), (2, 1, 2))
 BATCH, SEQ, STEPS, LR = 4, 16, 3, 1e-3
 PATCHES = 4          # the VLM's patch rows (a 2 x 2 grid) at the head
+# Global batches that do not divide every batch axis, and the 1-D
+# ("data",) mesh, as (mesh, batch), for BATCH_ARCHS: 3 rows over (2, 2)
+# are copied over 'data'; 2 rows over (2, 2, 1) are split over 'pod'
+# alone and copied over 'data'.
+BATCH_MESHES = (((2, 2), 3), ((2, 2, 1), 2), ((4,), 4))
+BATCH_ARCHS = ("llama3.2-1b", "deepseek-moe-16b")
+
+
+def mesh_name(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+def case_name(arch: str, shape, batch: int = BATCH) -> str:
+    """The file stem of a sharded run's results."""
+    return f"{arch}_{mesh_name(shape)}" + (
+        "" if batch == BATCH else f"_b{batch}")
+
+
+def sizes(shape):
+    """{axis: size} of a mesh shape over ``runtime.MESH_AXES``."""
+    return dict(zip(R.MESH_AXES[len(shape)], shape))
+
+
+def row_blocks(shape, batch: int = BATCH) -> int:
+    """The blocks a global batch of ``batch`` rows is cut into over a
+    mesh of ``shape`` (``batch_pspecs``: the prefix of (pod, data) that
+    divides it)."""
+    n = 1
+    for a in ("pod", "data"):
+        if batch % (n * sizes(shape).get(a, 1)) == 0:
+            n *= sizes(shape).get(a, 1)
+    return n
 
 
 def params(arch: str, seed: int = 0, device="cpu"):
@@ -85,29 +121,29 @@ def np_batch(vocab: int, step: int, batch: int = BATCH, seq: int = SEQ):
     return tokens, targets
 
 
-def np_inputs(arch: str, step: int):
+def np_inputs(arch: str, step: int, batch: int = BATCH):
     """The whole batch of ``step`` (numpy): ``np_batch``'s tokens and
     targets, and the VLM's ``patch_embeds`` (B, PATCHES, D) or the
     enc-dec's ``frames`` (B, SEQ, frontend_dim), f32 from a numpy
     seed."""
     cfg = get_config(arch, smoke=True)
-    t, g = np_batch(cfg.vocab_size, step)
+    t, g = np_batch(cfg.vocab_size, step, batch)
     out = {"tokens": t, "targets": g}
     rng = np.random.default_rng(3000 + step)
     if cfg.family == "vlm":
         out["patch_embeds"] = rng.normal(
-            size=(BATCH, PATCHES, cfg.d_model)).astype(np.float32)
+            size=(batch, PATCHES, cfg.d_model)).astype(np.float32)
     if cfg.family == "encdec":
         out["frames"] = rng.normal(
-            size=(BATCH, SEQ, cfg.frontend_dim or cfg.d_model)).astype(
+            size=(batch, SEQ, cfg.frontend_dim or cfg.d_model)).astype(
                 np.float32)
     return out
 
 
-def batch_fn(arch: str, device="cpu"):
+def batch_fn(arch: str, device="cpu", batch: int = BATCH):
     def fn(step):
         return {k: torch.from_numpy(v).to(device)
-                for k, v in np_inputs(arch, step).items()}
+                for k, v in np_inputs(arch, step, batch).items()}
     return fn
 
 
@@ -119,12 +155,14 @@ def trainer_config(ckpt_dir="unused", ckpt_every=0, steps=STEPS,
         opt=AdamWConfig(lr=LR, warmup_steps=1, total_steps=steps))
 
 
-def trainer(arch, pmesh=None, device="cpu", **cfg_kw) -> Trainer:
+def trainer(arch, pmesh=None, device="cpu", batch=BATCH,
+            **cfg_kw) -> Trainer:
     model = build_model(get_config(arch, smoke=True))
     sh = None if pmesh is None else state_shardings(
         model, pmesh, cfg_kw.get("compression") is not None)
-    return Trainer(model, trainer_config(**cfg_kw), batch_fn(arch, device),
-                   shardings=sh, device=device)
+    return Trainer(model, trainer_config(**cfg_kw),
+                   batch_fn(arch, device, batch), shardings=sh,
+                   device=device)
 
 
 def flat(tree, prefix=""):
@@ -140,27 +178,31 @@ def flat(tree, prefix=""):
 
 def keep_first_step(tr: Trainer) -> dict:
     """Make ``tr`` keep the params and AdamW state its first step makes
-    (in the returned dict, as "params" and "opt")."""
-    first, step_fn = {}, tr._step_fn
+    (in the returned dict, as "params" and "opt"), and every step's
+    gradient norm before clipping ("grad_norms": the gradients' scale,
+    which clipping and AdamW's moments do not show)."""
+    first, step_fn = {"grad_norms": []}, tr._step_fn
 
     def keep(*args):
         out = step_fn(*args)
-        if not first:
+        if "params" not in first:
             first.update(params=out[0], opt=out[1])
+        first["grad_norms"].append(float(out[3]["grad_norm"]))
         return out
     tr._step_fn = keep
     return first
 
 
-def one_device(arch: str, device="cpu"):
+def one_device(arch: str, device="cpu", batch: int = BATCH):
     """The port's one-device Trainer over ``STEPS`` steps: losses, and the
     params and first moments after the first step and after the last
     (flat numpy)."""
-    tr = trainer(arch, device=device)
+    tr = trainer(arch, device=device, batch=batch)
     first = keep_first_step(tr)
     res = tr.run(start_state=start_state(arch, device=device))
     st = res["state"]
     return dict(losses=[h["loss"] for h in res["history"]],
+                grad_norms=first["grad_norms"],
                 params=flat(st["params"]), m=flat(st["opt"]["m"]),
                 params1=flat(first["params"]), m1=flat(first["opt"]["m"]))
 
@@ -199,51 +241,70 @@ class Recorder:
 
 
 def train_rank(rank, world, port, out_dir, device="cpu", backend="gloo",
-               meshes=MESHES, archs=ARCHS):
-    """Every (arch, mesh) of ``ARCHS`` x ``meshes`` over the same ranks:
-    ``STEPS`` steps of the sharded Trainer from ``start_state``, on the
-    CPU or on ``cuda:(rank % cards)``. Rank 0 writes per case the losses,
-    the collective tallies, the whole params and moments after the first
-    step and the last; every rank writes its WKV call shapes."""
+               meshes=MESHES, archs=ARCHS, batch_meshes=BATCH_MESHES):
+    """Every (arch, mesh) of ``ARCHS`` x ``meshes`` over the same ranks,
+    then ``BATCH_ARCHS`` over each (mesh, global batch) of
+    ``batch_meshes`` of this world's size: ``STEPS`` steps of the sharded
+    Trainer from ``start_state``, on the CPU or on ``cuda:(rank %
+    cards)``. Rank 0 writes per case the losses, the collective tallies,
+    the whole params and moments after the first step and the last; every
+    rank writes its WKV and SSD call shapes."""
     torch.set_num_threads(1)
     if device != "cpu":
         device = f"cuda:{rank % torch.cuda.device_count()}"
     pm = R.init("localhost", port, world, rank, backend=backend,
                 device=device, shape=meshes[0])
+    made = {tuple(meshes[0]): pm}
+
+    def mesh_of(shape):
+        if shape not in made:
+            made[shape] = R.process_mesh(shape, R.MESH_AXES[len(shape)],
+                                         device)
+        return made[shape]
     for shape in meshes:
-        mesh = pm if shape == meshes[0] else R.process_mesh(
-            shape, pm.axis_names, device)
+        mesh = mesh_of(shape)
         for arch in archs:
             if arch in MOE_ARCHS:
                 moe_rank_call(arch, mesh, out_dir, device)
             if arch == MAMBA_ARCH:
                 mamba_rank_call(mesh, out_dir, device)
         for arch in archs:
-            tr = trainer(arch, mesh, device)
-            first = keep_first_step(tr)
-            C.reset_counts()
-            with Recorder() as rec:
-                res = tr.run(start_state=start_state(arch, device=device))
-            counts = {f"{op}/{axis}": n for (op, axis), n in
-                      sorted(C.launches.items())}
-            whole = SH.gather_logical(res["state"], tr.specs, mesh, root=0)
-            whole1 = SH.gather_logical(
-                {"params": first["params"], "m": first["opt"]["m"]},
-                {"params": tr.specs["params"], "m": tr.specs["params"]},
-                mesh, root=0)
-            case = f"{arch}_{shape[0]}x{shape[1]}"
-            with open(os.path.join(out_dir, f"wkv_{case}_{rank}.json"),
-                      "w") as f:
-                json.dump({"wkv": rec.wkv, "ssd": rec.ssd}, f)
-            if rank == 0:
-                with open(os.path.join(out_dir, f"{case}.pkl"), "wb") as f:
-                    pickle.dump(dict(
-                        losses=[h["loss"] for h in res["history"]],
-                        counts=counts, layouts=sorted(rec.layouts, key=str),
-                        params=flat(whole["params"]),
-                        m=flat(whole["opt"]["m"]),
-                        params1=flat(whole1["params"]),
-                        m1=flat(whole1["m"])), f)
+            train_case(arch, mesh, out_dir, device)
+    for shape, batch in batch_meshes:
+        if math.prod(shape) == world:
+            for arch in BATCH_ARCHS:
+                train_case(arch, mesh_of(shape), out_dir, device, batch)
+
+
+def train_case(arch, mesh, out_dir, device, batch=BATCH):
+    """One run of ``train_rank``: ``STEPS`` steps of ``arch`` over
+    ``mesh`` on global batches of ``batch`` rows; writes its results."""
+    rank = mesh.rank
+    tr = trainer(arch, mesh, device, batch)
+    first = keep_first_step(tr)
+    C.reset_counts()
+    with Recorder() as rec:
+        res = tr.run(start_state=start_state(arch, device=device))
+    counts = {f"{op}/{axis}": n for (op, axis), n in
+              sorted(C.launches.items())}
+    whole = SH.gather_logical(res["state"], tr.specs, mesh, root=0)
+    whole1 = SH.gather_logical(
+        {"params": first["params"], "m": first["opt"]["m"]},
+        {"params": tr.specs["params"], "m": tr.specs["params"]},
+        mesh, root=0)
+    case = case_name(arch, mesh.axis_sizes, batch)
+    with open(os.path.join(out_dir, f"wkv_{case}_{rank}.json"), "w") as f:
+        json.dump({"wkv": rec.wkv, "ssd": rec.ssd}, f)
+    if rank == 0:
+        with open(os.path.join(out_dir, f"{case}.pkl"), "wb") as f:
+            pickle.dump(dict(
+                losses=[h["loss"] for h in res["history"]],
+                grad_norms=first["grad_norms"],
+                counts=counts, layouts=sorted(rec.layouts, key=str),
+                params=flat(whole["params"]),
+                m=flat(whole["opt"]["m"]),
+                params1=flat(whole1["params"]),
+                m1=flat(whole1["m"])), f)
 
 
 def _nest(flat_tree):
@@ -306,26 +367,41 @@ def moe_call(cfg, p, x, ct, specs=None):
     grads = torch.autograd.grad((out * ct).sum() + aux,
                                 [leaves[n] for n in names] + [xin])
     return dict(out=out.detach(), aux=aux.detach(),
-                grads=dict(zip(names, grads[:-1])), x_grad=grads[-1],
-                routes=routes)
+                grads=_summed(dict(zip(names, grads[:-1])), specs),
+                x_grad=grads[-1], routes=routes)
+
+
+def _summed(grads, specs):
+    """Gradient blocks summed over the batch axes as the trainer sums them
+    (``reduce_grads``), under a process mesh."""
+    return grads if specs is None else reduce_grads(grads, specs)
+
+
+def rows_of(mesh, batch: int = BATCH) -> slice:
+    """This rank's rows of a global batch of ``batch`` rows
+    (``batch_pspecs``)."""
+    spec = SH.batch_pspecs(get_config(ARCHS[0], smoke=True), mesh, batch,
+                           "train")["tokens"]
+    return SH.NamedSharding(mesh, spec).devices_indices_map(
+        (batch, 1))[mesh.rank][0]
 
 
 def moe_rank_call(arch, mesh, out_dir, device="cpu"):
     """Sharded ``moe_apply`` of layer 0 of SMOKE ``arch`` on this rank:
-    its rows of ``x`` (the ``data`` block), its blocks of the params;
+    its rows of ``x`` (its block over ``pod`` and ``data``), its blocks
+    of the params;
     every rank writes its output rows, routing and x gradient, rank 0 the
     whole parameter gradients (``gather_logical``)."""
     cfg, p, x, ct = moe_inputs(arch)
     specs = {k: tuple(v)[1:] for k, v in _paths(SH.param_pspecs(
         build_model(cfg).defs(), mesh)["layers"]["moe"]).items()}
     blocks = SH.local_block(p, specs, mesh, device)
-    n = BATCH // mesh.axis_size("data")
-    rows = slice(mesh.coord("data") * n, (mesh.coord("data") + 1) * n)
+    rows = rows_of(mesh)
     with mesh:
         res = moe_call(cfg, blocks, x[rows].to(device), ct[rows].to(device),
                        specs)
     whole = SH.gather_logical(res["grads"], specs, mesh, root=0)
-    case = f"{arch}_{mesh.shape['data']}x{mesh.shape['model']}"
+    case = f"{arch}_{mesh_name(mesh.axis_sizes)}"
     with open(os.path.join(out_dir, f"moe_{case}_{mesh.rank}.pkl"),
               "wb") as f:
         pickle.dump(dict(
@@ -363,9 +439,9 @@ def mamba_call(cfg, p, x, ct, specs=None):
     """``zamba2._mamba_forward`` on the params ``p`` by path (this rank's
     blocks, tagged with ``specs``, under the active process mesh; whole
     tensors without) and ``x``: the output, the SSM state it leaves, the
-    gradients of ``sum(out * ct)`` with respect to ``p`` (by path; a
-    leaf replicated over ``data`` summed over it, as the trainer sums
-    it) and ``x``, and the x shape of every SSD scan."""
+    gradients of ``sum(out * ct)`` with respect to ``p`` (by path; summed
+    over the batch axes as the trainer sums them) and ``x``, and the x
+    shape of every SSD scan."""
     seen, real = [], ZB.mamba2_chunked
 
     def record(xs, *a, **k):
@@ -383,18 +459,15 @@ def mamba_call(cfg, p, x, ct, specs=None):
     names = sorted(leaves)
     got = torch.autograd.grad((out * ct).sum(),
                               [leaves[n] for n in names] + [xin])
-    grads = dict(zip(names, got[:-1]))
-    if specs is not None:
-        grads = {k: g if "data" in specs[k]
-                 else C.all_reduce_(g.contiguous(), "data")
-                 for k, g in grads.items()}
-    return dict(out=out.detach(), state=state.detach(), grads=grads,
+    return dict(out=out.detach(), state=state.detach(),
+                grads=_summed(dict(zip(names, got[:-1])), specs),
                 x_grad=got[-1], ssd=seen)
 
 
 def mamba_rank_call(mesh, out_dir, device="cpu"):
     """Sharded ``_mamba_forward`` of layer 0 of SMOKE zamba2 on this rank:
-    its rows of ``x`` (the ``data`` block), its blocks of the params;
+    its rows of ``x`` (its block over ``pod`` and ``data``), its blocks
+    of the params;
     every rank writes its output rows, its heads' SSM state, its x
     gradient and its SSD shapes, rank 0 the whole parameter gradients
     (``gather_logical``)."""
@@ -402,13 +475,12 @@ def mamba_rank_call(mesh, out_dir, device="cpu"):
     specs = {k: tuple(v)[1:] for k, v in _paths(SH.param_pspecs(
         build_model(cfg).defs(), mesh)["layers"]).items() if k in p}
     blocks = SH.local_block(p, specs, mesh, device)
-    n = BATCH // mesh.axis_size("data")
-    rows = slice(mesh.coord("data") * n, (mesh.coord("data") + 1) * n)
+    rows = rows_of(mesh)
     with mesh:
         res = mamba_call(cfg, blocks, x[rows].to(device),
                          ct[rows].to(device), specs)
     whole = SH.gather_logical(res["grads"], specs, mesh, root=0)
-    case = f"{MAMBA_ARCH}_{mesh.shape['data']}x{mesh.shape['model']}"
+    case = f"{MAMBA_ARCH}_{mesh_name(mesh.axis_sizes)}"
     with open(os.path.join(out_dir, f"mamba_{case}_{mesh.rank}.pkl"),
               "wb") as f:
         pickle.dump(dict(
@@ -590,33 +662,85 @@ def tree_map_specs(fn, tree, specs):
     return fn(tree, specs)
 
 
+def _pod_part(tree, specs, mesh):
+    """A rank's part of a whole gradient tree as a step leaves it before
+    ``reduce_grads``: each pod's rows give it 1/|pod| of the gradient, and
+    a leaf replicated over ``data`` is split evenly over the data ranks
+    (powers of two: the sums give back the whole tree exactly)."""
+    return tree_map_specs(
+        lambda g, s: g / (mesh.axis_size("pod") * (
+            1 if "data" in s else mesh.axis_size("data"))), tree, specs)
+
+
+def _compress_steps(tree_fn, specs, mesh, pod=False):
+    """Three steps of ``compress_grads`` with error feedback on this
+    rank's blocks of ``tree_fn``'s whole gradients over ``mesh`` (with
+    ``pod``: each rank's ``_pod_part`` of them, summed by
+    ``reduce_grads`` first, as the trainer sums them); rank 0 gets the
+    whole sent gradients, residuals and norms."""
+    from repro_torch.training import compress_grads, compression_init
+    out = []
+    with mesh:
+        whole = [tree_map(torch.from_numpy, tree_fn(s)) for s in range(3)]
+        err = SH.local_block(compression_init(whole[0]), specs, mesh)
+        for g in whole:
+            if pod:
+                g = reduce_grads(SH.local_block(_pod_part(g, specs, mesh),
+                                                specs, mesh), specs)
+            else:
+                g = SH.local_block(g, specs, mesh)
+            sent, err, m = compress_grads(g, err, ratio=COMP_RATIO,
+                                          specs=specs)
+            out.append(SH.gather_logical({"sent": sent, "err": err},
+                                         {"sent": specs, "err": specs},
+                                         mesh, root=0))
+            out[-1]["norm"] = float(m["compressed_grad_norm"])
+    return out
+
+
+def _everywhere(pm, ok: bool) -> bool:
+    """Whether ``ok`` holds on every rank of ``pm``."""
+    flag = torch.tensor([float(ok)])
+    with pm:
+        for a in pm.axis_names:
+            C.all_reduce_(flag, a, torch.distributed.ReduceOp.MIN)
+    return bool(flag.item() == 1.0)
+
+
+# The pod meshes of ckpt_rank, and a restore's (name, mesh, source dir).
+POD_MESHES = ((2, 2, 1), (2, 1, 2))
+RESTORES = (("pod_from_one", (2, 2, 1), "save1"),
+            ("pod_from_2x2", (2, 2, 1), "save4_float32"),
+            ("2x2_from_pod", (2, 2), "save_pod"))
+
+
 def ckpt_rank(rank, world, port, out_dir):
     """On a (2, 2) mesh: three steps of ``compress_grads`` on sharded
-    leaves; the sharded Trainer's checkpoint of ``start_state`` (f32 and
-    bf16 params); per arch, a 3-step run with checkpoints every step and
-    the same run crashed before step 2 and restarted; then a (1, 4) mesh
-    relaunched from the (2, 2) run's step-2 checkpoint. Rank 0 writes
-    what the test compares."""
+    leaves, and on the pod meshes on the gradients ``reduce_grads`` sums
+    over them; the sharded Trainer's checkpoint of ``start_state`` (f32
+    and bf16 params) and (2, 2, 1)'s; each of them, and one device's,
+    restored onto another mesh; per arch, a 3-step run with checkpoints
+    every step and the same run crashed before step 2 and restarted; then
+    a (1, 4) mesh and a (2, 2, 1) mesh relaunched from the (2, 2) run's
+    step-2 checkpoint. Rank 0 writes what the test compares."""
     import shutil
-    from repro_torch.training import compress_grads, compression_init
+    from repro_torch.training.optimizer import tree_leaves
     torch.set_num_threads(1)
     pm = R.init("localhost", port, world, rank, backend="gloo",
                 device="cpu", shape=(2, 2))
+    pods = {shape: R.process_mesh(shape, R.MESH_AXES[3], "cpu")
+            for shape in POD_MESHES}
     res = {"collectives": _collective_checks(pm)}
     for key, tree_fn, specs in (("comp", grad_tree, COMP_SPECS),
                                 ("moe_comp", moe_grad_tree, MOE_COMP_SPECS)):
-        with pm:
-            whole = [tree_map(torch.from_numpy, tree_fn(s))
-                     for s in range(3)]
-            err = SH.local_block(compression_init(whole[0]), specs, pm)
-            for s, g in enumerate(whole):
-                sent, err, m = compress_grads(SH.local_block(g, specs, pm),
-                                              err, ratio=COMP_RATIO,
-                                              specs=specs)
-                res[f"{key}{s}"] = SH.gather_logical(
-                    {"sent": sent, "err": err}, {"sent": specs,
-                                                 "err": specs}, pm, root=0)
-                res[f"{key}{s}"]["norm"] = float(m["compressed_grad_norm"])
+        for s, row in enumerate(_compress_steps(tree_fn, specs, pm)):
+            res[f"{key}{s}"] = row
+    for key, tree_fn, specs, shape in (
+            ("pod_comp", grad_tree, COMP_SPECS, (2, 2, 1)),
+            ("pod_moe_comp", moe_grad_tree, MOE_COMP_SPECS, (2, 1, 2))):
+        for s, row in enumerate(_compress_steps(tree_fn, specs, pods[shape],
+                                                pod=True)):
+            res[f"{key}{s}"] = row
     for arch in ARCHS:
         tr = trainer(arch, pm)
         st = SH.local_block(start_state(arch), tr.specs, pm)
@@ -642,6 +766,26 @@ def ckpt_rank(rank, world, port, out_dir):
         tr = trainer(arch, pm, ckpt_dir=os.path.join(out_dir,
                                                      f"save4_{arch}"))
         tr.save(5, SH.local_block(start_state(arch), tr.specs, pm))
+    # llama3.2-1b's start state written by (2, 2, 1) and by one device,
+    # then each restore of RESTORES against the rank's blocks
+    st = start_state("llama3.2-1b")
+    if rank == 0:
+        trainer("llama3.2-1b", ckpt_dir=os.path.join(out_dir, "save1")
+                ).save(5, st)
+    torch.distributed.barrier()
+    mesh = pods[(2, 2, 1)]
+    tr = trainer("llama3.2-1b", mesh, ckpt_dir=os.path.join(out_dir,
+                                                            "save_pod"))
+    tr.save(5, SH.local_block(st, tr.specs, mesh))
+    for name, shape, src in RESTORES:
+        mesh = pods.get(shape, pm)
+        tr = trainer("llama3.2-1b", mesh, ckpt_dir=os.path.join(out_dir,
+                                                                src))
+        step, got, _ = tr.restore(tr.init_state())
+        want = SH.local_block(st, tr.specs, mesh)
+        res[f"restore_{name}"] = _everywhere(pm, step == 5 and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in
+            zip(tree_leaves(got), tree_leaves(want))))
 
     def final(out, tr, mesh):
         whole = SH.gather_logical(out["state"], tr.specs, mesh, root=0)
@@ -663,11 +807,16 @@ def ckpt_rank(rank, world, port, out_dir):
             shutil.copytree(os.path.join(out_dir, f"{arch}_plain",
                                          "step_00000002"),
                             os.path.join(elastic, "step_00000002"))
+            shutil.copytree(elastic, elastic + "_pod")
         torch.distributed.barrier()
         pm14 = R.process_mesh((1, 4), pm.axis_names, "cpu")
         tr = trainer(arch, pm14, ckpt_dir=elastic, ckpt_every=1)
         res[arch]["elastic"] = final(
             tr.run_with_restarts(gen, failure_hook=crash_at(0)), tr, pm14)
+        mesh = pods[(2, 2, 1)]
+        tr = trainer(arch, mesh, ckpt_dir=elastic + "_pod", ckpt_every=1)
+        res[arch]["elastic_pod"] = final(
+            tr.run_with_restarts(gen, failure_hook=crash_at(0)), tr, mesh)
     if rank == 0:
         with open(os.path.join(out_dir, "ckpt.pkl"), "wb") as f:
             pickle.dump(res, f)

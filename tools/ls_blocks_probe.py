@@ -29,7 +29,8 @@ def per_leaf_blocks(torch, model, tree):
     from repro_torch.distributed.runtime import MESH_AXES
     from repro_torch.training.optimizer import tree_map
     import chip_smoke as c
-    mesh = Mesh(MESH_AXES, c.LS_MESH, (torch.device("cpu"),) * 4)
+    mesh = Mesh(MESH_AXES[len(c.LS_MESH)], c.LS_MESH,
+                (torch.device("cpu"),) * 4)
     specs = SH.param_pspecs(model.defs(), mesh)
 
     def block(rank):
