@@ -108,6 +108,18 @@ non-zero:
      uninterrupted run. Reported: graphs, keys, pool bytes and capture ms
      a shard, windows/s sharded and unsharded (3 samples in turns; on one
      card a logical mesh replays n graphs a step, so no gain is claimed);
+  7c. the port's examples (``examples``): the six serving examples
+     (quickstart, closed_loop_control, multi_stream_control,
+     hetero_control, fusion_control, fault_tolerant_control) and
+     serve_ternary_lm through their ``main`` at --smoke on the card and
+     on the CPU in this process: every decision's label equal and PWM
+     within 1e-6, the migration and the supervised recoveries bit for
+     bit, serve_ternary_lm's quantization and greedy tokens equal (both
+     untrained, --steps 0); K1, K2, K3 and the currents entry must
+     launch. Reported: multi-stream and hetero windows/s, the batched
+     speedup, fusion_control's fused/separate ratio (a reading here: the
+     example gates on it when run as a script) and serve_ternary_lm's
+     tokens/s after its 8 smoke training steps;
   8. STBP training (``train``), the Table II network at full width as
      ``examples/torch_train_dvs_gesture.py`` trains it
      (``training.stbp_step``: ``snn_loss`` under autograd, AdamW;
@@ -191,10 +203,11 @@ non-zero:
      rwkv6-7b's heads (H 64, hd 64, B 2, T 256; bf16 and f32) on the
      card against the CPU, K4 once a forward and never in the backward;
      (b) one ``make_train_step`` step a family in f32 at full width
-     (llama3.2-1b, deepseek-moe-16b, qwen2-vl-2b, rwkv6-7b at 2 layers,
-     zamba2-1.2b at 7, seamless at 2 + 2) against the CPU: loss, every
+     (llama3.2-1b, qwen2-vl-2b, rwkv6-7b at 2 layers, deepseek-moe-16b at
+     1, zamba2-1.2b at 7, seamless at 2 + 2) against the CPU: loss, every
      leaf's first moment, the updated params, deepseek's routing; (c)
-     llama3.2-1b at full width and depth in bf16 through ``Trainer``, 20
+     llama3.2-1b at full width and 4 of 16 layers in bf16 through
+     ``Trainer``, 20
      steps, a RuntimeError at step 10 and a restart from the checkpoints
      (every 10 steps, under checkpoints/; the uninterrupted run writes
      none) bit for bit against the uninterrupted run, the loss below half
@@ -242,7 +255,11 @@ non-zero:
      here) with the trace's K3 and K4 shape-only calls equal to the launch
      counters' deltas of the real step; the shape-only outputs' shapes and
      dtypes against the kernels'; the host time of a K3 call through
-     ``ternary_matmul_fwd`` beside ``ternary_matmul_cuda``;
+     ``ternary_matmul_fwd`` beside ``ternary_matmul_cuda``; the dry run's
+     collectives (``launch.collective_analysis``): one rank's step of
+     ``lm_train_sharded``'s pod run traced on fake tensors over a fake
+     (2, 2, 1) process group, its tallies and bytes a step equal to
+     those every gloo rank of that run measured;
   14. each phase's seconds (``phase_seconds``), the ``kernels`` line,
      then the card line, then the ``ok`` line.
 
@@ -253,7 +270,10 @@ lm_train's llama3.2-1b checkpoints every 10 steps in the restarted run
 and none in the uninterrupted one (``LT_CKPT_EVERY``: the saves at 5 and
 15 were deleted unread, the uninterrupted run's final save never read);
 the sharded phase's reference blocks copied to shared memory in one
-segment a rank.
+segment a rank; lm_train's f32 step of deepseek-moe-16b against the CPU
+at 1 layer (``LT_MOE_CPU_LAYERS``; the transformer phase holds its
+forward at 2); lm_train's restarted llama3.2-1b run at 4 of 16 layers
+(``LT_TRAINER_LAYERS``; its checkpoint I/O was half of it).
 
 Weights are random from a numpy seed. For the event wing's served
 comparison they are rounded to multiples of 2**-8: every conv and fc
@@ -358,6 +378,7 @@ def main() -> int:
                     k3, smi)
     fleet = timed("fleet", fleet_phase, torch, dev, k1, k2, k3, smi)
     sharded = timed("sharded", sharded_phase, torch, dev, k1, k2, k3, smi)
+    ex = timed("examples", examples_phase, torch, dev, k1, k2, k3, smi)
     train = timed("train", train_phase, torch, dev, k1, k2, smi)
     lm = timed("lm_slice", lm_slice, torch, dev, k3, k4)
     tf = timed("transformer", transformer_phase, torch, dev, k3)
@@ -365,7 +386,8 @@ def main() -> int:
     lt = timed("lm_train", lm_train_phase, torch, dev, k4, smi)
     ls = timed("lm_train_sharded", lm_train_sharded_phase, torch, dev, k4,
                smi)
-    dr = timed("dryrun", dryrun_phase, torch, dev, k3, k4, smi, lm["dryrun"])
+    dr = timed("dryrun", dryrun_phase, torch, dev, k3, k4, smi, lm["dryrun"],
+               ls["pod"])
     emit("phase_seconds", total=time.perf_counter() - t0, **seconds)
 
     kernels = [
@@ -376,6 +398,7 @@ def main() -> int:
              serving_surface_launches=surface["lif_scan"],
              fleet_launches=fleet["lif_scan"],
              sharded_launches=sharded["launches"]["lif_scan"],
+             examples_launches=ex["launches"]["lif_scan"],
              train_launches=train["launches"]["lif_scan"],
              max_abs_err=max(err["lif_scan"],
                              train["max_abs_err"]["lif_scan"],
@@ -388,6 +411,7 @@ def main() -> int:
              serving_surface_launches=surface["fc_lif_scan"],
              fleet_launches=fleet["fc_lif_scan"],
              sharded_launches=sharded["launches"]["fc_lif_scan"],
+             examples_launches=ex["launches"]["fc_lif_scan"],
              train_launches=train["launches"]["fc_lif_scan"],
              max_abs_err=max(err["fc_lif_scan"],
                              train["max_abs_err"]["fc_lif_scan"],
@@ -401,6 +425,7 @@ def main() -> int:
              serving_surface_launches=surface["fc_currents"],
              fleet_launches=fleet["fc_currents"],
              sharded_launches=sharded["launches"]["fc_currents"],
+             examples_launches=ex["launches"]["fc_currents"],
              train_launches=train["launches"]["fc_currents"],
              max_abs_err=max(err["fc_currents"],
                              train["max_abs_err"]["fc_currents"],
@@ -417,6 +442,7 @@ def main() -> int:
              serving_surface_launches=surface["ternary_matmul"],
              fleet_launches=fleet["ternary_matmul"],
              sharded_launches=sharded["launches"]["ternary_matmul"],
+             examples_launches=ex["launches"]["ternary_matmul"],
              max_abs_err=max(err["ternary_matmul"],
                              sharded["max_abs_err"]["ternary_matmul"],
                              lm["max_abs_err"]["ternary_matmul"],
@@ -3223,6 +3249,160 @@ def sharded_phase(torch, dev, k1, k2, k3, smi):
 
 
 # ----------------------------------------------------------------------
+# Phase 7c: the port's examples (examples/torch_*.py) on the card, each
+# held against the same example run on the CPU in this process.
+# ----------------------------------------------------------------------
+
+# The examples run here, at --smoke, and what each gate holds (serve's
+# pair at --steps 0: the same untrained params on both devices).
+EX_NAMES = ("torch_quickstart", "torch_closed_loop_control",
+            "torch_multi_stream_control", "torch_hetero_control",
+            "torch_fusion_control", "torch_fault_tolerant_control",
+            "torch_serve_ternary_lm")
+
+
+def _ex_modules():
+    import importlib
+    path = os.path.join(ROOT, "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return {name: importlib.import_module(name) for name in EX_NAMES}
+
+
+def _ex_run(mods, name, device, *extra):
+    """``main`` of example ``name`` at --smoke on ``device``, its printout
+    kept out of this script's output; returns (figures, seconds)."""
+    import contextlib
+    import io
+    argv = ["--device", str(device), "--smoke", *extra]
+    kw = {"ratio_gate": False} if name == "torch_fusion_control" else {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = mods[name].main(argv, **kw)
+    return out, time.perf_counter() - t0
+
+
+def _ex_decisions(name, out):
+    """The (key -> (label, PWM)) decisions of an example's figures."""
+    if name == "torch_quickstart":
+        return {None: (out["label"], out["pwm"])}
+    if name == "torch_closed_loop_control":
+        return {i: (lab, pwm) for i, (lab, pwm) in
+                enumerate(zip(out["labels"], out["pwm"]))}
+    if name in ("torch_multi_stream_control", "torch_hetero_control"):
+        return {(r["stream"], r["seq"]): (r["label"], r["pwm"])
+                for r in out["rows"]}
+    if name == "torch_fusion_control":
+        return {t["seq"]: (t["label"], t["pwm"]) for t in out["ticks"]}
+    return {}
+
+
+def _ex_compare(name, gpu, cpu):
+    """The card's figures of one example against the CPU's: labels equal
+    and PWM within ``PWM_ATOL`` (decision rows), the fault-tolerant
+    acts' statuses, labels and supervisor counts equal, serve's quant
+    stats and greedy tokens equal; returns (report, ok)."""
+    rep = {}
+    a, b = _ex_decisions(name, gpu), _ex_decisions(name, cpu)
+    ok = sorted(a, key=str) == sorted(b, key=str)
+    if a:
+        keys = [k for k in a if k in b]
+        rep["decisions"] = len(a)
+        rep["labels_equal"] = all(a[k][0] == b[k][0] for k in keys)
+        rep["pwm_max_abs_diff"] = max(
+            float(np.max(np.abs(np.asarray(a[k][1]) - np.asarray(b[k][1]))))
+            for k in keys)
+        ok = ok and rep["labels_equal"] and \
+            rep["pwm_max_abs_diff"] <= PWM_ATOL
+    if name == "torch_multi_stream_control":
+        rep["fc1_rates_equal"] = gpu["fc1_rates"] == cpu["fc1_rates"]
+        ok = ok and rep["fc1_rates_equal"]
+    if name == "torch_fusion_control":
+        rep["migration_bitwise"] = [gpu["migration_bitwise"],
+                                    cpu["migration_bitwise"]]
+        ok = ok and all(rep["migration_bitwise"])
+    if name == "torch_fault_tolerant_control":
+        for act in ("act1", "act2"):
+            keys = ("statuses", "labels", "ticks_fused", "ticks_degraded") \
+                if act == "act1" else ("ok", "failed", "labels",
+                                       "supervisor")
+            rep[act] = {k: gpu[act][k] == cpu[act][k] for k in keys}
+            ok = ok and all(rep[act].values())
+        rep["bitwise"] = [gpu["act1"]["fused_bitwise"],
+                          gpu["act2"]["recovered_bitwise"]]
+        ok = ok and all(rep["bitwise"])
+    if name == "torch_serve_ternary_lm":
+        rep["quant_stats_equal"] = gpu["quant_stats"] == cpu["quant_stats"]
+        rep["tokens_fp_equal"] = gpu["tokens_fp"] == cpu["tokens_fp"]
+        rep["tokens_ternary_equal"] = \
+            gpu["tokens_ternary"] == cpu["tokens_ternary"]
+        ok = ok and all(rep.values())
+    return rep, ok
+
+
+def examples_phase(torch, dev, k1, k2, k3, smi):
+    """Phase 7c: the six serving examples and ``torch_serve_ternary_lm``
+    (``examples/torch_*.py``) through their ``main`` at --smoke, on the
+    card and on the CPU in this process: every decision's label equal and
+    its PWM within 1e-6, fusion_control's migration and
+    fault_tolerant_control's fused and recovered windows bit for bit
+    (their own checks) with the same statuses and supervisor counts,
+    serve_ternary_lm's quantization and fp and ternary greedy tokens
+    equal (both at --steps 0: the same params). Kernel launches of the
+    card runs are counted. Reported, not gated: the card's multi-stream
+    windows/s and batched speedup, hetero windows/s, fusion_control's
+    fused/separate ratio and serve_ternary_lm's tokens/s after its smoke
+    training (8 steps)."""
+    t0 = time.perf_counter()
+    mods = _ex_modules()
+    _zero_counts(k1, k2, k3)
+    gpu, seconds = {}, {}
+    for name in EX_NAMES:
+        extra = ("--steps", "0") if name == "torch_serve_ternary_lm" else ()
+        gpu[name], seconds[name] = _ex_run(mods, name, dev, *extra)
+    trained, seconds["torch_serve_ternary_lm_trained"] = _ex_run(
+        mods, "torch_serve_ternary_lm", dev)
+    _sync(torch, dev)
+    launches = _counts(k1, k2, k3)
+    rows, failed = {}, []
+    for name in EX_NAMES:
+        extra = ("--steps", "0") if name == "torch_serve_ternary_lm" else ()
+        cpu, cpu_s = _ex_run(mods, name, "cpu", *extra)
+        rows[name], ok = _ex_compare(name, gpu[name], cpu)
+        rows[name].update(card_s=seconds[name], cpu_s=cpu_s)
+        if not ok:
+            failed.append(name)
+    ms, he = gpu["torch_multi_stream_control"], gpu["torch_hetero_control"]
+    fu = gpu["torch_fusion_control"]
+    readings = dict(
+        multi_stream_windows_per_s=ms["windows_per_s"],
+        multi_stream_looped_windows_per_s=ms["looped_windows_per_s"],
+        multi_stream_batched_speedup=ms["batched_speedup"],
+        hetero_windows_per_s=he["windows_per_s"],
+        fusion_fused_vs_separate=fu["ratio"],
+        fusion_fused_ticks_per_s=fu["fused_ticks_per_s"],
+        fusion_separate_ticks_per_s=fu["separate_ticks_per_s"],
+        serve_trained_steps=trained["steps"],
+        serve_losses=trained["losses"],
+        serve_fp_tokens_per_s=trained["fp_tokens_per_s"],
+        serve_ternary_tokens_per_s=trained["ternary_tokens_per_s"],
+        serve_agreement=trained["agreement"],
+        quickstart_modelled_kraken=dict(
+            latency_ms=gpu["torch_quickstart"]["latency_ms"],
+            energy_mj=gpu["torch_quickstart"]["energy_mj"]))
+    print(f"fusion_control fused/separate ratio on the card: "
+          f"{fu['ratio']:.4f}", flush=True)
+    emit("examples", nvidia_smi=smi, size="--smoke", pwm_atol=PWM_ATOL,
+         launches=launches, checks=rows, readings=readings,
+         seconds=time.perf_counter() - t0)
+    check(not failed, f"examples differ between the card and the CPU: "
+                      f"{failed}")
+    check(all(launches[k] > 0 for k in launches),
+          f"the examples did not launch every serving kernel: {launches}")
+    return {"launches": launches}
+
+
+# ----------------------------------------------------------------------
 # Phase 8: STBP training of the Table II SCNN -- snn_loss under autograd
 # in both modes, AdamW and step-atomic checkpoints.
 # ----------------------------------------------------------------------
@@ -5386,11 +5566,16 @@ LT_WKV_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 1e-2}
 # B=2, S=32 and the enc-dec's 32 frames. The CPU steps are bound by the
 # weights, not the tokens: at S=16 b_vs_cpu took 117.1 s, at S=32 113.5.
 LT_CPU_BATCH, LT_CPU_SEQ, LT_CPU_ENC = 2, 32, 32
+# deepseek-moe-16b's layers in (b): every layer is an MoE layer (the
+# uniform stack), and its f32 CPU step is bound by the 0.55 B weights a
+# layer (39.4 s at 2 layers on the H100 machine's host); the transformer
+# phase's (b) holds its forward and routing at 2 layers.
+LT_MOE_CPU_LAYERS = 1
 LT_LOSS_RTOL = 1e-5
 LT_GRAD_TOL = 1e-3
 LT_PARAM_TOL = 1e-2                          # times lr
 LT_LR = 1e-3
-# (c) llama3.2-1b at full width and depth, bf16, the "repeat" task over
+# (c) llama3.2-1b at full width, bf16, the "repeat" task over
 # its first 64 token ids (the logits stay 128,256-way). A batch holds 4
 # tokens; over the whole vocabulary each step's are new, and copying an
 # unseen token is not learned in 20 steps at any lr tried on the H100
@@ -5399,10 +5584,15 @@ LT_LR = 1e-3
 # 3e-4).
 LT_BATCH, LT_SEQ, LT_TASK_VOCAB = 4, 1024, 64
 # Checkpoints every 10 steps, at the crash's step: with keep_last=1 the
-# restart reads only the newest, so a save between (12.4 GB, ~19 s)
-# would be deleted unread. The uninterrupted run saves nothing: the gate
-# compares its state in memory.
+# restart reads only the newest, so a save between (12.4 GB, ~19 s at
+# full depth) would be deleted unread. The uninterrupted run saves
+# nothing: the gate compares its state in memory.
 LT_STEPS, LT_CRASH_AT, LT_CKPT_EVERY = 20, 10, 10
+# (c)'s depth: its two saves and a restore of 12.4 GB took ~60 s of a
+# ~114 s run at 16 layers; 4 layers (as lm_train_sharded's llama3.2-1b)
+# keep the restart, the loss and the profile gates. (d), (f) and the
+# dryrun phase run the full depth.
+LT_TRAINER_LAYERS = 4
 LT_TRAIN_LR = 3e-4
 LT_PROFILE_STEPS = 2
 # (e) rwkv6-7b at full width, 4 of 32 layers (AdamW for all 32 needs
@@ -5415,9 +5605,11 @@ LT_RATIO = 0.05
 
 def _lt_full():
     """What ``lm_train_phase`` trains: (a) K4 at rwkv6-7b's heads, (b) each
-    family at full width cut to 2 layers (zamba2 to 7, two shared-block
-    invocations; seamless to 2 + 2) in f32, (c)-(d) and (f) llama3.2-1b
-    at full width and depth in bf16, B=4, S=1024 ((c) over a 64-token
+    family at full width cut to 2 layers (deepseek-moe-16b to
+    ``LT_MOE_CPU_LAYERS``; zamba2 to 7, two shared-block invocations;
+    seamless to 2 + 2) in f32, (c) llama3.2-1b at full width and
+    ``LT_TRAINER_LAYERS`` layers, (d) and (f) at full width and depth, in
+    bf16, B=4, S=1024 ((c) over a 64-token
     task), (e) rwkv6-7b at full width and 4 layers, bf16, B=2, S=1024."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -5428,14 +5620,17 @@ def _lt_full():
     return dict(
         wkv=LT_WKV_SHAPE,
         cpu=dict(llama=cut("llama3.2-1b", 2),
-                 moe=cut("deepseek-moe-16b", 2),
+                 moe=cut("deepseek-moe-16b", LT_MOE_CPU_LAYERS),
                  vlm=cut("qwen2-vl-2b", 2),
                  rwkv=cut("rwkv6-7b", 2),
                  zamba=cut("zamba2-1.2b", HY_ZAMBA_CUT),
                  encdec=cut("seamless-m4t-medium", 2, encoder_layers=2,
                             decoder_layers=2)),
         cpu_batch=LT_CPU_BATCH, cpu_seq=LT_CPU_SEQ, cpu_enc=LT_CPU_ENC,
-        llama=get_config("llama3.2-1b"), batch=LT_BATCH, seq=LT_SEQ,
+        llama=get_config("llama3.2-1b"),
+        trainer_llama=dataclasses.replace(get_config("llama3.2-1b"),
+                                          num_layers=LT_TRAINER_LAYERS),
+        batch=LT_BATCH, seq=LT_SEQ,
         task_vocab=LT_TASK_VOCAB, steps=LT_STEPS, crash_at=LT_CRASH_AT,
         ckpt_every=LT_CKPT_EVERY, profile_steps=LT_PROFILE_STEPS,
         rwkv=dataclasses.replace(get_config("rwkv6-7b"),
@@ -5661,8 +5856,9 @@ def _lt_trainer(full, cfg, dev, ckpt_dir, ckpt_every):
 
 
 def lt_llama(torch, dev, full):
-    """(c) llama3.2-1b at full width and depth in bf16 through
-    ``Trainer``: an uninterrupted run of ``steps`` steps, then the same
+    """(c) llama3.2-1b at full width and ``LT_TRAINER_LAYERS`` layers in
+    bf16 through ``Trainer``: an uninterrupted run of ``steps`` steps,
+    then the same
     run with a RuntimeError at step ``crash_at`` through
     ``run_with_restarts``, checkpoints every ``ckpt_every`` steps under
     checkpoints/: losses and final params equal bit for bit, the loss
@@ -5670,7 +5866,7 @@ def lt_llama(torch, dev, full):
     and a profile of steady steps (host launches, device busy share)."""
     import shutil
     from repro_torch.training.optimizer import tree_leaves
-    cfg, root = full["llama"], full["ckpt_root"]
+    cfg, root = full["trainer_llama"], full["ckpt_root"]
     shutil.rmtree(root, ignore_errors=True)
     gen = torch.Generator(device=dev).manual_seed(SEED + 53)
     on_card = torch.device(dev).type == "cuda"
@@ -5718,7 +5914,8 @@ def lt_llama(torch, dev, full):
     same_params = all(torch.equal(a, b) for a, b in zip(
         tree_leaves(res["state"]["params"]), want))
     times = [h["time_s"] for h in ref["history"][2:]]
-    row = dict(config=f"{cfg.name} full width and depth, {cfg.dtype}",
+    row = dict(config=f"{cfg.name} full width, {cfg.num_layers} layers, "
+                      f"{cfg.dtype}",
                batch=full["batch"], seq=full["seq"], steps=full["steps"],
                crash_at=full["crash_at"], ckpt_every=full["ckpt_every"],
                losses=losses, restarted_losses=got,
@@ -7063,7 +7260,12 @@ def lm_train_sharded_phase(torch, dev, k4, smi):
     check(not failed, f"lm_train_sharded: {failed}")
     del refs
     _free(torch, dev)
-    return {"launches": launches, "max_abs_err": k4_err}
+    pod = dict(cfg=full["pod"], seq=full["seq"], batch=LT_BATCH,
+               per_rank=[dict(launches=x["pod"]["collectives_per_step"],
+                              tensor_bytes=x["pod"][
+                                  "collective_bytes_per_step"])
+                         for x in rows])
+    return {"launches": launches, "max_abs_err": k4_err, "pod": pod}
 
 
 # ----------------------------------------------------------------------
@@ -7145,7 +7347,35 @@ def dryrun_decode(torch, dev, k3, k4, model, weights, cache_len=DR_CACHE,
     return out
 
 
-def dryrun_phase(torch, dev, k3, k4, smi, rwkv):
+def dryrun_collectives(dev, pod):
+    """The dry run's collectives (``launch.collective_analysis``): one
+    rank's step of ``lm_train_sharded``'s pod run (llama3.2-1b at full
+    width and 4 layers, bf16, B=4, S=1024, remat) traced on fake tensors
+    of the card over a fake (2, 2, 1) process group, against the
+    tallies a step every gloo rank of that run measured in this run."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import collective_analysis as CA
+    t0 = time.perf_counter()
+    with CA.fake_process_mesh(LS_POD_MESH, dev) as pm:
+        got = CA.trace_step(pod["cfg"], ShapeSpec(
+            "chip_smoke_train", "train", pod["seq"], pod["batch"]), pm,
+            remat=True)
+        sizes = dict(pm.shape)
+    trace_s = time.perf_counter() - t0
+    equal = [all(got[part] == {k: v for k, v in rank[part].items()}
+                 for part in ("launches", "tensor_bytes"))
+             for rank in pod["per_rank"]]
+    return dict(config=f"{pod['cfg'].name} widths, "
+                       f"{pod['cfg'].num_layers} layers, {pod['cfg'].dtype}, "
+                       f"B={pod['batch']}, S={pod['seq']}, remat",
+                mesh=list(LS_POD_MESH), trace_s=trace_s, traced=got,
+                measured_rank0=pod["per_rank"][0],
+                equal_by_rank=equal,
+                record=CA.collective_bytes(got["launches"],
+                                           got["tensor_bytes"], sizes))
+
+
+def dryrun_phase(torch, dev, k3, k4, smi, rwkv, pod):
     """Phase 13: (a) llama3.2-1b at full width and depth, bf16, B=4,
     S=1024 (the ``lm_train`` shape): the dry run's FLOPs against
     ``FlopCounterMode`` over one real ``make_train_step`` step on the
@@ -7244,10 +7474,16 @@ def dryrun_phase(torch, dev, k3, k4, smi, rwkv):
           f"shape-only outputs differ from the kernels': {shapes}")
     del q, up, w, s, x, wkv
     _free(torch, dev)
+    collectives = dryrun_collectives(dev, pod)
+    check(len(collectives["equal_by_rank"]) == 4
+          and all(collectives["equal_by_rank"]),
+          f"the dry run's collectives differ from lm_train_sharded's pod "
+          f"run: {collectives}")
     seconds = time.perf_counter() - t0
     emit("dryrun", nvidia_smi=smi, seconds=seconds, train=train,
          decode={**rwkv["steps"], **decode}, rwkv_seconds=rwkv["seconds"],
-         shape_only_outputs=shapes, k3_host_us=host)
+         shape_only_outputs=shapes, k3_host_us=host,
+         collectives=collectives)
     steps = {**rwkv["steps"], **decode}
     return {name: dict(shape_only_calls=sum(r["shape_only"][name]["calls"]
                                             for r in steps.values()),

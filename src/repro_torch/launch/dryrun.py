@@ -21,17 +21,24 @@ weights or device memory:
     elsewhere); and each device's argument bytes on the JAX package's
     production meshes (``pod16x16``, ``pod2x16x16``): every leaf's bytes
     over the product of the axis sizes in its spec
-    (``distributed.sharding``).
+    (``distributed.sharding``);
+  * what each device sends over the links in a step on those meshes
+    (``collectives``, the role of the JAX package's
+    ``launch/hlo_analysis.py``): one rank's sharded step -- the one
+    ``Trainer(shardings=...)`` runs, with remat; a prefill cell's
+    forward -- traced on fake tensors over a fake process group of the
+    mesh's world, its collectives tallied by ``distributed.collectives``
+    and turned into the JAX record's ``bytes_by_kind``, ``count_by_kind``
+    and ``total_bytes`` (``launch.collective_analysis``). A cell that
+    cannot be traced holds its reason under ``"error"``: a decode cell
+    (the port has no sharded decode step) or one the sharded trainer
+    refuses.
 
 What the JAX dry run records and this one leaves out:
   * the ``L1``/``L2`` depth variants: XLA counts a scan body once, so the
     JAX package fits an affine model to two shallow compiles; the port's
     steps loop over the layers in Python and ``FlopCounterMode`` counts
     every layer the loop runs, so the full-depth count is exact;
-  * ``collectives`` and ``launch/hlo_analysis.py``: there is no SPMD
-    partitioner and no HLO; the specs say where shards would lie, the
-    per-device bytes follow from them, and the collectives wait for the
-    multi-GPU runtime (ROADMAP item 7);
   * ``bytes_accessed``/``transcendentals``: no counter of the port's
     sees them.
 
@@ -72,6 +79,7 @@ from repro_torch.distributed.mesh import Mesh
 from repro_torch.kernels import ternary_matmul as k3
 from repro_torch.kernels import wkv6_scan as k4
 from repro_torch.launch import steps as ST
+from repro_torch.launch.collective_analysis import mesh_collectives
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import build_model
 from repro_torch.models.params import tree_map
@@ -299,11 +307,12 @@ def run_cell(arch: str, shape_name: str, *, meshes=_MESHES["both"],
         lowered = lower_cell(cfg, shape, dev, quant=quant)
         rec["full"] = analyze(lowered, dev)
         rec["trace_s"] = round(lowered["trace_s"], 1)
-        rec["meshes"] = {
-            name: mesh_bytes(cfg, shape, lowered["abstract"],
-                             make_production_mesh(
-                                 multi_pod=name == "pod2x16x16"), quant)
-            for name in meshes}
+        rec["meshes"] = {}
+        for name in meshes:
+            mesh = make_production_mesh(multi_pod=name == "pod2x16x16")
+            rec["meshes"][name] = {
+                **mesh_bytes(cfg, shape, lowered["abstract"], mesh, quant),
+                "collectives": mesh_collectives(cfg, shape, mesh, dev)}
         rec["status"] = "ok"
     except Exception as e:   # a cell's failure is its record's result
         rec["status"] = "error"

@@ -36,10 +36,11 @@ from repro_torch.serving import (BatchScheduler, StreamEngine,  # noqa: E402
                                  generate)
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 P = LIFParams()
 
 _IMPORT_ALL = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -51,22 +52,32 @@ for first in names:
     importlib.import_module(first)
 for name in names:
     importlib.import_module(name)
+# The port's examples (examples/torch_*.py and the helpers they share).
+sys.path.insert(0, sys.argv[1])
+examples = sorted(f[:-3] for f in os.listdir(sys.argv[1])
+                  if f.startswith("torch_") and f.endswith(".py"))
+for name in examples:
+    importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
 assert not bad, bad
-print(len(names))
+print(len(names), len(examples))
 """
 
 
 def test_port_imports_neither_jax_nor_repro():
     """Every module of the port imports cleanly when it is the first one
-    imported, and the whole package pulls in neither jax nor repro."""
+    imported, and the whole package, with the port's examples
+    (``examples/torch_*.py``), pulls in neither jax nor repro."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
-    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL,
+                           os.path.abspath(EXAMPLES)], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 38
+    n_modules, n_examples = map(int, proc.stdout.split()[:2])
+    assert n_modules >= 38
+    assert n_examples >= 10
 
 
 def _params():

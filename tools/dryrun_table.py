@@ -1,6 +1,6 @@
 """Print the port's dry-run records as a markdown table.
 
-    python tools/dryrun_table.py [RECORDS_DIR]
+    python tools/dryrun_table.py [RECORDS_DIR] [--collectives]
 
 ``RECORDS_DIR`` holds the JSON records of ``python -m
 repro_torch.launch.dryrun`` (default ``results/dryrun_torch``). One row a
@@ -10,6 +10,11 @@ cache, inputs, the peak of live bytes over the step, and each device's
 argument bytes on the production meshes pod16x16 and pod2x16x16 (bf16).
 Then whether the step fits the card, its FLOPs (K3's and K4's tallies
 included), K3's and K4's shape-only calls and the trace's seconds.
+
+``--collectives`` prints instead what a device sends over the links in
+a step of each cell on both production meshes (``collectives``: GB by
+kind under the ring formulas of ``launch.collective_analysis``, the
+calls of each kind, the total), or the reason a cell has none.
 """
 import json
 import pathlib
@@ -64,9 +69,42 @@ def rows(records_dir):
     return out
 
 
+KINDS = ("all-gather", "reduce-scatter", "all-reduce")
+
+
+def collective_rows(records_dir):
+    out = []
+    for path in sorted(pathlib.Path(records_dir).glob("*.json")):
+        rec = json.loads(path.read_text())
+        if rec.get("quant") or rec["status"] != "ok":
+            continue
+        for mesh, m in sorted(rec["meshes"].items()):
+            col = m.get("collectives", {"error": "not recorded"})
+            head = f"| {rec['arch']} {rec['shape']} | {mesh} | "
+            if "error" in col:
+                out.append(head + f"{col['error'][:120]} |||||")
+                continue
+            out.append(head + " | ".join(
+                [f"{_gb(col['bytes_by_kind'].get(k, 0))} "
+                 f"({col['count_by_kind'].get(k, 0)})" for k in KINDS]
+                + [_gb(col["total_bytes"]),
+                   _gb(m["argument_bytes"])]) + " |")
+    return out
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    collectives = "--collectives" in argv
+    argv = [a for a in argv if a != "--collectives"]
     records = argv[0] if argv else "results/dryrun_torch"
+    if collectives:
+        print("| cell | mesh | all-gather GB (calls) | reduce-scatter GB "
+              "(calls) | all-reduce GB (calls) | total GB a device a step "
+              "| argument GB a device |")
+        print("|---" * 7 + "|")
+        for row in collective_rows(records):
+            print(row)
+        return
     print("| cell | params GB | AdamW GB | cache GB | inputs GB | peak GB "
           "| fits | FLOPs | K3 / K4 calls | trace s "
           "| GB a device (2 meshes) |")
