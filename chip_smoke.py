@@ -245,6 +245,25 @@ non-zero:
      each rank's peak, collectives and their bytes a step, deepseek's
      routings that differ from the one-device step per layer (and in the
      noise floor) and its experts that got no token;
+  12c. LM decode over a mesh (``lm_decode_sharded``): one-device
+     references on the card (a 64-token prompt prefilled by stepping the
+     decoder, then 8 greedy serve steps at B=8) for llama3.2-1b at full
+     width and depth (bf16 and ternary; f32 at 4 layers),
+     h2o-danube-1.8b at full width and 2 layers with a ring of 64 slots
+     (every step wraps it) and rwkv6-7b at full width and 4 layers (bf16
+     and ternary); then four ranks (gloo on cuda:0 at (2, 2), or NCCL
+     one rank a card) run ``launch.steps.make_serve_step`` in serve mode
+     on their blocks of the same params and prefilled caches (llama3.2-1b
+     bf16 also over (2, 2, 1)), fed the one-device tokens: f32 logits
+     within 1e-4, bf16 and ternary logits' relative L2 under a gate that
+     must sit between the measured noise floor (one device, bf16 against
+     f32) and a planted fault (rank 0's block of layer 0's output
+     projection zeroed), greedy tokens equal where the one-device top-2
+     gap is sure, each rank's collectives and bytes a step equal to the
+     count from the specs, K3 (3 a layer a step, 8 for rwkv6) and K4 (1
+     a layer a step) launches on every rank, each kernel bit for bit
+     with its plain version on a rank's first call's inputs; step ms a
+     rank beside the one-device step;
   13. the dry run (``dryrun``; ``launch.dryrun``'s fake trace of a step
      held against the same step on the card): llama3.2-1b at full width
      and depth, bf16, B=4, S=1024 with remat, the trace's FLOPs equal to
@@ -259,7 +278,9 @@ non-zero:
      collectives (``launch.collective_analysis``): one rank's step of
      ``lm_train_sharded``'s pod run traced on fake tensors over a fake
      (2, 2, 1) process group, its tallies and bytes a step equal to
-     those every gloo rank of that run measured;
+     those every gloo rank of that run measured; and one rank's decode
+     step of ``lm_decode_sharded``'s llama3.2-1b run over a fake (2, 2)
+     group, equal to every rank's tallies of that run;
   14. each phase's seconds (``phase_seconds``), the ``kernels`` line,
      then the card line, then the ``ok`` line.
 
@@ -273,7 +294,9 @@ the sharded phase's reference blocks copied to shared memory in one
 segment a rank; lm_train's f32 step of deepseek-moe-16b against the CPU
 at 1 layer (``LT_MOE_CPU_LAYERS``; the transformer phase holds its
 forward at 2); lm_train's restarted llama3.2-1b run at 4 of 16 layers
-(``LT_TRAINER_LAYERS``; its checkpoint I/O was half of it).
+(``LT_TRAINER_LAYERS``; its checkpoint I/O was half of it);
+lm_decode_sharded's f32 llama3.2-1b run at 4 of 16 layers
+(``LD_F32_LAYERS``; the bf16 and ternary runs keep the full depth).
 
 Weights are random from a numpy seed. For the event wing's served
 comparison they are rounded to multiples of 2**-8: every conv and fc
@@ -287,6 +310,7 @@ the phase counts them and bounds their effect on the logits.
 """
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -386,8 +410,10 @@ def main() -> int:
     lt = timed("lm_train", lm_train_phase, torch, dev, k4, smi)
     ls = timed("lm_train_sharded", lm_train_sharded_phase, torch, dev, k4,
                smi)
+    ld = timed("lm_decode_sharded", lm_decode_sharded_phase, torch, dev, k3,
+               k4, smi)
     dr = timed("dryrun", dryrun_phase, torch, dev, k3, k4, smi, lm["dryrun"],
-               ls["pod"])
+               ls["pod"], ld["llama"])
     emit("phase_seconds", total=time.perf_counter() - t0, **seconds)
 
     kernels = [
@@ -436,8 +462,10 @@ def main() -> int:
              replaces="src/repro/kernels/ternary_matmul.py:92",
              launches=(fused["launches"]["ternary_matmul"]
                        + lm["launches"]["ternary_matmul"]
-                       + tf["launches"] + hy["launches"]),
+                       + tf["launches"] + hy["launches"]
+                       + ld["launches"]["ternary_matmul"]),
              transformer_launches=tf["launches"],
+             sharded_decode_launches=ld["launches"]["ternary_matmul"],
              hybrid_launches=hy["launches"],
              serving_surface_launches=surface["ternary_matmul"],
              fleet_launches=fleet["ternary_matmul"],
@@ -446,7 +474,8 @@ def main() -> int:
              max_abs_err=max(err["ternary_matmul"],
                              sharded["max_abs_err"]["ternary_matmul"],
                              lm["max_abs_err"]["ternary_matmul"],
-                             tf["max_abs_err"], hy["max_abs_err"]),
+                             tf["max_abs_err"], hy["max_abs_err"],
+                             ld["max_abs_err"]["ternary_matmul"]),
              transformer_times=tf["times"],
              hybrid_times=hy["times"],
              dryrun=dr["ternary_matmul"],
@@ -459,9 +488,11 @@ def main() -> int:
              train_grad_rel_err=lt["max_abs_err"],
              sharded_train_launches=ls["launches"],
              sharded_train_max_abs_err=ls["max_abs_err"],
+             sharded_decode_launches=ld["launches"]["wkv6_scan"],
              dryrun=dr["wkv6_scan"],
              max_abs_err=max(lm["max_abs_err"]["wkv6_scan"],
-                             ls["max_abs_err"]),
+                             ls["max_abs_err"],
+                             ld["max_abs_err"]["wkv6_scan"]),
              **lm["times"]["wkv6_scan"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -7269,6 +7300,606 @@ def lm_train_sharded_phase(torch, dev, k4, smi):
 
 
 # ----------------------------------------------------------------------
+# Phase 12c: LM decode over a mesh -- launch.steps.make_serve_step on each
+# rank's blocks in serve mode (every weight read as the block the rank
+# stores; rows of activations, token ids, softmax statistics and partial
+# sums cross ranks), four gloo ranks sharing cuda:0 at (2, 2) on one card
+# (NCCL one rank a card with four cards), and at (2, 2, 1) for
+# llama3.2-1b.
+# ----------------------------------------------------------------------
+
+LD_MESH, LD_POD_MESH = (2, 2), (2, 2, 1)
+# B=8 (two rows a rank at (2, 2), data=2; one at (2, 2, 1)), a 64-token
+# prompt prefilled on one device, then LD_STEPS decode steps from the
+# placed cache blocks, every run fed the one-device run's greedy tokens.
+LD_BATCH, LD_PROMPT, LD_STEPS = 8, 64, 8
+# llama3.2-1b at full width and depth (bf16, ternary and the pod mesh;
+# f32 at LD_F32_LAYERS); h2o-danube-1.8b at full width cut to 2 of 24 layers, its
+# sliding window cut to a ring of 64 slots, so the prompt fills it and
+# every decode step wraps it (each of the two 'model' ranks holds 32
+# slots); rwkv6-7b at full width cut to 4 of 32 layers, bf16 and
+# ternary (K4 on 32 of its 64 heads a rank).
+LD_DANUBE_LAYERS, LD_DANUBE_RING, LD_RWKV_LAYERS = 2, 64, 4
+# llama3.2-1b's f32 run cut to 4 of 16 layers (at 16 its ranks took 9.9
+# s of the phase's 85 on the H100; the bf16 and ternary runs keep the
+# full depth).
+LD_F32_LAYERS = 4
+LD_RUNS = ("llama", "pod", "llama_q", "llama_f32", "danube", "rwkv",
+           "rwkv_q")
+LD_TIMEOUT_S = 120.0
+# f32: the sharded step differs from one device in the order of its sums
+# alone (the CPU tests hold SMOKE widths to 1e-5).
+LD_F32_ATOL = 1e-4
+# bf16 and ternary: the logits' relative L2 a (step, row), worst over the
+# run, against the one-device step, gated between the bf16 noise floor
+# (the one-device bf16 step against the same step in f32 from the same
+# params and cache, measured every run) and a planted fault (rank 0's
+# block of layer 0's output projection zeroed on one device, measured
+# every run). The phase fails if the floor or the sharded step passes
+# the gate, or the planted fault does not.
+LD_REL_L2 = 0.05
+# The leaf whose rank-0 block of layer 0 the planted fault zeroes.
+LD_PLANT = {"llama": "layers/attn/wo", "pod": "layers/attn/wo",
+            "llama_q": "layers/attn/wo", "danube": "layers/attn/wo",
+            "rwkv": "layers/tm/wo", "rwkv_q": "layers/tm/wo"}
+
+
+def _ld_full():
+    import dataclasses
+    from repro_torch.configs import get_config
+    llama = get_config("llama3.2-1b")
+    rwkv = dataclasses.replace(get_config("rwkv6-7b"),
+                               num_layers=LD_RWKV_LAYERS)
+    return dict(
+        llama=llama, pod=llama, llama_q=llama,
+        llama_f32=dataclasses.replace(llama, dtype="float32",
+                                      num_layers=LD_F32_LAYERS),
+        danube=dataclasses.replace(get_config("h2o-danube-1.8b"),
+                                   num_layers=LD_DANUBE_LAYERS,
+                                   sliding_window=LD_DANUBE_RING),
+        rwkv=rwkv, rwkv_q=rwkv, batch=LD_BATCH, prompt=LD_PROMPT,
+        steps=LD_STEPS, rank_device=None,
+        out_dir=os.path.join(ROOT, "checkpoints", "chip_smoke_lm_decode"))
+
+
+def _ld_shape(name):
+    return LD_POD_MESH if name == "pod" else LD_MESH
+
+
+def _ld_params(torch, name, cfg, dev):
+    """The serving params of run ``name`` drawn on ``dev`` (every rank
+    draws the same): llama3.2-1b's and h2o-danube's from ``model.init``,
+    rwkv6-7b's with ``_lm_params``; packed by ``quantize_for_serving``
+    for the ternary runs."""
+    from repro_torch.models import build_model
+    from repro_torch.serving import quantize_for_serving
+    model = build_model(cfg)
+    if cfg.family == "rwkv6":
+        params = _lm_params(torch, model, SEED + 71, dev)
+    else:
+        params = _tf_params(torch, model, SEED + (72 if name == "danube"
+                                                  else 70), dev)
+    if name.endswith("_q"):
+        params = quantize_for_serving(params)[0]
+    return params
+
+
+class _LdLogits:
+    """Records the logits each serve step takes its argmax of
+    (``layers.greedy_tokens``) inside ``with``."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.got, self._real = [], L.greedy_tokens
+
+        def record(logits, vocab):
+            self.got.append(logits[:, -1].detach().float().clone())
+            return self._real(logits, vocab)
+        L.greedy_tokens = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L.greedy_tokens = self._real
+
+
+def _ld_forced(torch, cfg, params, cache, inputs, dev, steps=None):
+    """``make_serve_step`` steps of ``cfg`` from ``cache`` fed the token
+    rows ``inputs`` (steps, B, 1), or, with ``steps``, greedy from the
+    rows ``inputs`` (B, 1) on: each step's logits (steps, B, V) f32,
+    greedy tokens (steps, B) and ms."""
+    from repro_torch.launch.steps import make_serve_step
+    step = make_serve_step(cfg)
+    toks, ms = [], []
+    tok = inputs
+    with _LdLogits() as rec:
+        for s in range(steps or inputs.shape[0]):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            tok, cache = step(params, cache, tok if steps else inputs[s])
+            _sync(torch, dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok[:, 0])
+    return torch.stack(rec.got), torch.stack(toks), ms
+
+
+def _ld_rel(torch, got, ref):
+    """Relative L2 over the vocabulary of each (step, row)."""
+    d = (got.double() - ref.double()).square().sum(-1)
+    return (d / ref.double().square().sum(-1).clamp(min=1e-300)).sqrt()
+
+
+def _ld_planted(torch, cfg, params, leaf, shape):
+    """A copy of ``params`` with rank 0's block of layer 0 of ``leaf`` (its
+    block under ``decode_pspecs``: for a packed leaf, its scale's) zeroed
+    -- a fault in one rank's block."""
+    from repro_torch.distributed import sharding as SH
+    mesh = _ls_mesh(torch, shape)
+    specs = SH.decode_pspecs(cfg, mesh, params, {}, LD_BATCH)["params"]
+    out = dict(params)
+    node, spec, path = out, specs, leaf.split("/")
+    for k in path[:-1]:
+        node[k] = dict(node[k])
+        node, spec = node[k], spec[k]
+    w, s = node[path[-1]], spec[path[-1]]
+    if isinstance(w, dict):
+        w, s = dict(w), s["scale"]
+        t = w["scale"].clone()
+        t[SH.NamedSharding(mesh, s).devices_indices_map(
+            tuple(t.shape))[0]][0] = 0
+        w["scale"] = t
+        node[path[-1]] = w
+    else:
+        t = w.clone()
+        t[SH.NamedSharding(mesh, s).devices_indices_map(
+            tuple(t.shape))[0]][0] = 0
+        node[path[-1]] = t
+    return out
+
+
+def ld_one_device(torch, dev, full):
+    """The one-device references on the card, for each run: a 64-token
+    prompt prefilled by stepping the decoder, then ``LD_STEPS`` greedy
+    serve steps (their tokens are every run's inputs): the logits, the
+    tokens, the top-2 gaps and the step ms; for the bf16 and ternary
+    runs the noise floor (the same steps in f32 from the same params and
+    cache) and the planted fault (``_ld_planted``), each as the worst
+    relative L2 of a (step, row)'s logits."""
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_map
+    out = {}
+    b, steps = full["batch"], full["steps"]
+    for name in LD_RUNS:
+        t0 = time.perf_counter()
+        cfg = full[name]
+        if name == "pod":
+            out[name] = out["llama"]
+            continue
+        model = build_model(cfg)
+        params = _ld_params(torch, name, cfg, dev)
+        prompt = torch.from_numpy(np.random.default_rng(SEED + 73).integers(
+            0, cfg.vocab_size, (b, full["prompt"]), dtype=np.int32)).to(dev)
+        cache = model.init_cache(b, full["prompt"] + steps, device=dev)
+        for i in range(full["prompt"]):
+            logits, cache = model.decode(params, cache, prompt[:, i:i + 1])
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        logits, toks, ms = _ld_forced(torch, cfg, params, cache, tok, dev,
+                                      steps)
+        inputs = torch.cat([tok[None], toks[:-1, :, None]])
+        top2 = torch.topk(logits, 2, dim=-1).values
+        row = dict(cache={k: v.cpu() for k, v in cache.items()},
+                   inputs=inputs.cpu(), logits=logits.cpu(),
+                   tokens=toks.cpu(), gap=(top2[..., 0] - top2[..., 1]).cpu(),
+                   step_ms=statistics.median(ms[1:]), step_ms_all=ms)
+        if cfg.dtype != "float32":
+            import dataclasses
+            f32 = dataclasses.replace(cfg, dtype="float32")
+            up = lambda t: t.float() if t.is_floating_point() else t
+            lf = _ld_forced(torch, f32, tree_map(up, params),
+                            tree_map(up, cache), inputs, dev)[0]
+            row["floor"] = float(_ld_rel(torch, logits, lf).max())
+            planted = _ld_planted(torch, cfg, params, LD_PLANT[name],
+                                  _ld_shape(name))
+            lp = _ld_forced(torch, cfg, planted, cache, inputs, dev)[0]
+            row["planted"] = float(_ld_rel(torch, lp, logits).max())
+            del lf, lp, planted
+        row["seconds"] = time.perf_counter() - t0
+        out[name] = row
+        del params, cache, logits
+        _free(torch, dev)
+    return out
+
+
+def _ld_product(n, nbytes, eq, x, w, spec, sizes, elem, out_elem):
+    """Count the collectives of ``layers.serve_einsum(eq, x, w)`` from the
+    shapes alone: ``x`` this rank's (rows, ...) as it holds them, ``w``
+    the whole weight's shape, ``spec`` its stored spec. Returns the
+    output's shape on this rank."""
+    xs, rest = eq.split(",")
+    ws, out = rest.split("->")
+    axis = dict(zip(ws, spec))
+    size = lambda a: sizes.get(a, 1) if a else 1
+    x = list(x)
+
+    def add(op, ax, shape, e):
+        n[f"{op}/{ax}"] += 1
+        nbytes[f"{op}/{ax}"] += math.prod(shape) * e
+    rows = "data" in spec and size("data") > 1
+    if rows:
+        x[0] *= size("data")
+        add("all_gather", "data", x, elem)
+    for d, c in enumerate(xs[1:], 1):
+        if c not in axis:
+            continue
+        whole, a = w[ws.index(c)], axis[c]
+        if x[d] != whole:
+            if a == "model":
+                continue
+            x[d] = whole
+            add("all_gather", "model", x, elem)
+        x[d] = whole // size(a)
+    dims = {c: x[i] for i, c in enumerate(xs)}
+    dims.update({c: w[ws.index(c)] // size(axis[c]) for c in ws
+                 if c not in xs})
+    y = [dims[c] for c in out]
+    summed = {axis[c] for c in ws if c in xs and c not in out} - {None}
+    r = out.index(xs[0])
+    if "data" in summed and size("data") > 1:
+        add("reduce_scatter", "data", y, out_elem)
+        y[r] //= size("data")
+    if "model" in summed and size("model") > 1:
+        add("all_reduce", "model", y, out_elem)
+    if rows and "data" not in summed:
+        add("all_to_all", "data", y, out_elem)
+        col = next(c for c in out if axis.get(c) == "data")
+        y[r] //= size("data")
+        y[out.index(col)] *= size("data")
+    return y
+
+
+def _ld_expected(torch, cfg, quant, shape, batch):
+    """The collectives (count, bytes) a rank issues in one sharded decode
+    step of ``cfg`` over a mesh of ``shape``, counted from the specs
+    (``decode_pspecs``) and the rule of ``layers.serve_einsum`` at each
+    product: the attention's q/k/v (each gathered over 'model' to whole
+    heads) and output projection, the flash-decoding max and sum over
+    'model', the MLP or rwkv6's time and channel mixes, the embedding
+    (token ids gathered over 'data', lookups summed over 'model', rows
+    traded for columns) and the head, and the vocab-parallel argmax."""
+    import collections
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.steps import abstract_cache
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.models import build_model
+    from repro_torch.models.params import as_dtype
+    from repro_torch.serving import quantize_for_serving
+    mesh = _ls_mesh(torch, shape)
+    sizes = dict(mesh.shape)
+    dsz, msz = sizes.get("data", 1), sizes.get("model", 1)
+    model = build_model(cfg)
+    params = model.abstract_params()
+    if quant:
+        params = quantize_for_serving(params)[0]
+    cache = abstract_cache(cfg, ShapeSpec("d", "decode", 8, batch))
+    specs = SH.decode_pspecs(cfg, mesh, params, cache, batch)["params"]
+    e = torch.empty((), dtype=as_dtype(cfg.dtype)).element_size()
+    n, nbytes = collections.Counter(), collections.Counter()
+    parts = 1
+    for a in ("pod", "data"):
+        if batch % (parts * sizes.get(a, 1)) == 0:
+            parts *= sizes.get(a, 1)
+    br = batch // parts
+
+    def prod(eq, x, leaf, node, spec, oe=e):
+        w = node[leaf]
+        if isinstance(w, dict):
+            pk, s = w["packed"], spec[leaf]["packed"]
+            return _ld_product(n, nbytes, eq, x, (pk.shape[-2] * 4,
+                                                  pk.shape[-1]),
+                               s[1:], sizes, e, oe)
+        return _ld_product(n, nbytes, eq, x, tuple(w.shape[1:]),
+                           spec[leaf][1:], sizes, e, oe)
+
+    def add(op, ax, numel, el):
+        if sizes.get(ax, 1) > 1:
+            n[f"{op}/{ax}"] += 1
+            nbytes[f"{op}/{ax}"] += numel * el
+    d = cfg.d_model
+    emb = params["embed"]
+    vs, ds = specs["embed"]
+    if ds == "data":
+        add("all_gather", "data", br * dsz, 4)
+    bg = br * (dsz if ds == "data" else 1)
+    dd = d // (dsz if ds == "data" else 1)
+    if vs == "model":
+        add("all_reduce", "model", bg * dd, e)
+    if ds == "data":
+        add("all_to_all", "data", bg * dd, e)
+    x = (br, 1, d)
+    for _ in range(cfg.num_layers):
+        lay, sp = params["layers"], specs["layers"]
+        if cfg.family == "rwkv6":
+            tm, ts = lay["tm"], sp["tm"]
+            r = cfg.rwkv_lora_rank
+            lo = prod("bsd,dkr->bskr", x, "lora_a", tm, ts)
+            prod("bskr,krd->kbsd", lo, "lora_b", tm, ts)
+            for k in ("wr", "wk", "wv"):
+                prod("bsk,kn->bsn", x, k, tm, ts)
+            g = prod("bsk,kn->bsn", x, "wg", tm, ts)
+            a = prod("bsd,dr->bsr", x, "wa", tm, ts)
+            prod("bsr,rd->bsd", a, "wb", tm, ts)
+            prod("bsk,kn->bsn", g, "wo", tm, ts)
+            cm, cs = lay["cm"], sp["cm"]
+            h = prod("bsk,kn->bsn", x, "wk", cm, cs)
+            prod("bsk,kn->bsn", h, "wv", cm, cs)
+            y = prod("bsk,kn->bsn", x, "wr", cm, cs)
+            if y[-1] != d:
+                add("all_gather", "model", br * d, e)
+            del r
+            continue
+        at, ats = lay["attn"], sp["attn"]
+        hd = cfg.head_dim
+        for k, heads in (("wq", cfg.num_heads), ("wk", cfg.num_kv_heads),
+                         ("wv", cfg.num_kv_heads)):
+            y = prod("bsd,dhk->bshk", x, k, at, ats)
+            for have, want in ((y[2], heads), (y[3], hd)):
+                if have != want:
+                    add("all_gather", "model", br * heads * hd, e)
+        add("all_reduce", "model", br * cfg.num_heads, 4)
+        add("all_reduce", "model", br * cfg.num_heads * (hd + 1), 4)
+        prod("bshk,hkd->bsd", (br, 1, cfg.num_heads, hd), "wo", at, ats)
+        ml, mls = lay["mlp"], sp["mlp"]
+        h = prod("bsk,kn->bsn", x, "w_gate", ml, mls)
+        prod("bsk,kn->bsn", x, "w_up", ml, mls)
+        prod("bsk,kn->bsn", h, "w_down", ml, mls)
+    if cfg.family == "rwkv6" or not cfg.tie_embeddings:
+        w = params["lm_head"]
+        y = _ld_product(n, nbytes, "bsd,dv->bsv", x, tuple(w.shape),
+                        specs["lm_head"], sizes, e, 4)
+    else:
+        y = _ld_product(n, nbytes, "bsd,vd->bsv", x, tuple(emb.shape),
+                        specs["embed"], sizes, e, 4)
+    if y[-1] != cfg.vocab_size:
+        add("all_reduce", "model", br, 4)
+        add("all_reduce", "model", br, 8)
+    return dict(sorted(n.items())), dict(sorted(nbytes.items()))
+
+
+def ld_decode(torch, pm, full, name, ref, k3, k4):
+    """One run of the phase on this rank: its blocks of the params (drawn
+    on its device, then cut) and of the one-device run's prefilled
+    cache, ``LD_STEPS`` serve steps fed the one-device tokens; against
+    the one-device run: the logits' worst relative L2 and absolute error
+    (maxed over the mesh, outside the tallies), the greedy tokens where
+    the one-device top-2 gap is more than twice the row's error; the
+    rank's collectives a step, step ms, K3 and K4 launches, and each
+    kernel against its plain version on its first call's inputs."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.steps import make_serve_step
+    cfg, dev = full[name], pm.device
+    whole = _ld_params(torch, name, cfg, dev)
+    cache = {k: v.to(dev) for k, v in ref["cache"].items()}
+    specs = SH.decode_pspecs(cfg, pm, whole, cache, full["batch"])
+    blocks = SH.local_block(whole, specs["params"], pm)
+    cache_b = SH.local_block(cache, specs["cache"], pm)
+    del whole, cache
+    _free(torch, dev)
+    inputs = [SH.local_block(t, specs["tokens"], pm)
+              for t in ref["inputs"]]
+    lo, hi = _ls_rows(pm, full["batch"])
+    step = make_serve_step(cfg)
+    seen = {}
+    reals = {"k3": k3.ternary_matmul_cuda, "k4": k4.wkv6_scan_cuda}
+
+    def keep(key):
+        def call(*args):
+            if key not in seen:
+                seen[key] = [None if a is None else a.detach().clone()
+                             for a in args]
+            return reals[key](*args)
+        return call
+    k3.ternary_matmul_cuda, k4.wkv6_scan_cuda = keep("k3"), keep("k4")
+    counts, ms, toks = [], [], []
+    _sync(torch, dev)
+    k3.launches = k4.launches = 0
+    try:
+        with pm, _LdLogits() as rec:
+            for s in range(full["steps"]):
+                C.reset_counts()
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                tok, cache_b = step(blocks, cache_b, inputs[s])
+                _sync(torch, dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                counts.append(_ls_counts())
+                toks.append(tok[:, 0])
+    finally:
+        k3.ternary_matmul_cuda, k4.wkv6_scan_cuda = reals["k3"], reals["k4"]
+    launches = {"ternary_matmul": k3.launches, "wkv6_scan": k4.launches}
+    got = torch.stack(rec.got)                      # (steps, rows, V_r)
+    v_r = got.shape[-1]
+    v_lo = pm.coord("model") * v_r if v_r < cfg.vocab_size else 0
+    want = ref["logits"][:, lo:hi, v_lo:v_lo + v_r].to(dev)
+    diff = (got.double() - want.double())
+    sums = torch.stack([diff.square().sum(-1),
+                        want.double().square().sum(-1)])
+    err = diff.abs().amax(-1)
+    _ls_reduce(pm, sums, dist.ReduceOp.SUM, ["model"])
+    _ls_reduce(pm, err, dist.ReduceOp.MAX, ["model"])
+    rel = (sums[0] / sums[1].clamp(min=1e-300)).sqrt()
+    gap = ref["gap"][:, lo:hi].to(dev).double()
+    sure = gap > 2 * err
+    same = torch.stack(toks).cpu() == ref["tokens"][:, lo:hi]
+    worst = torch.tensor([float(rel.max()), float(err.max()),
+                          float((sure.cpu() & ~same).sum())],
+                         dtype=torch.float64, device=dev)
+    _ls_reduce(pm, worst, dist.ReduceOp.MAX)
+    checks = {}
+    for key, plain, real in (("k3", k3.ternary_matmul_plain, reals["k3"]),
+                             ("k4", k4.wkv6_scan_plain, reals["k4"])):
+        if key in seen:
+            a, b = plain(*seen[key]), real(*seen[key])
+            a, b = (a if isinstance(a, tuple) else (a,)), (
+                b if isinstance(b, tuple) else (b,))
+            _sync(torch, dev)
+            checks[key] = dict(shape=list(seen[key][0].shape),
+                               bitwise=_bitwise(torch, a, b),
+                               max_abs_err=_max_err(a, b))
+    first = counts[0]
+    return dict(
+        config=f"{cfg.name} widths, {cfg.num_layers} layers, {cfg.dtype}"
+               f"{', ternary' if name.endswith('_q') else ''}, "
+               f"B={full['batch']}, mesh {dict(pm.shape)}",
+        rows=[lo, hi], rel_l2=worst[0].item(), max_abs_err=worst[1].item(),
+        tokens_differ_where_sure=int(worst[2].item()),
+        sure_share=float(sure.double().mean()),
+        step_ms=ms, step_ms_median=statistics.median(ms[1:]),
+        launches=launches, kernels_vs_plain=checks,
+        collectives_per_step=first[0], collective_bytes_per_step=first[1],
+        steps_alike=all(c == first for c in counts))
+
+
+def ld_rank(rank, world, port, backend, full, refs, out_dir):
+    """One rank of the phase: joins the process group and runs every run
+    of ``LD_RUNS`` over its mesh; writes its rows."""
+    import torch
+    from repro_torch.distributed import runtime as R
+    from repro_torch.kernels import ternary_matmul as k3
+    from repro_torch.kernels import wkv6_scan as k4
+    dev = torch.device(full["rank_device"] or "cuda",
+                       rank % max(torch.cuda.device_count(), 1))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    pm = R.init("localhost", port, world, rank, backend=backend,
+                device=dev, shape=LD_MESH, timeout_s=LD_TIMEOUT_S)
+    meshes = {LD_MESH: pm, LD_POD_MESH: R.process_mesh(
+        LD_POD_MESH, R.MESH_AXES[3], dev, timeout_s=LD_TIMEOUT_S)}
+    out = dict(rank=rank, device=str(dev), init_s=time.perf_counter() - t0)
+    for name in LD_RUNS:
+        t1 = time.perf_counter()
+        out[name] = ld_decode(torch, meshes[_ld_shape(name)], full, name,
+                              refs[name], k3, k4)
+        out[name + "_s"] = time.perf_counter() - t1
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def lm_decode_sharded_phase(torch, dev, k3, k4, smi):
+    """Phase 12c: the one-device references on the card, then four ranks
+    (``runtime.spawn``; gloo on cuda:0, or NCCL one rank a card with four
+    cards) run ``make_serve_step`` on their blocks of llama3.2-1b (bf16
+    over (2, 2) and (2, 2, 1), ternary, f32), h2o-danube-1.8b (its ring
+    wrapping) and rwkv6-7b (bf16 and ternary) from the same prefilled
+    caches and tokens: the logits against one device (f32 within
+    ``LD_F32_ATOL``; bf16 and ternary under ``LD_REL_L2``, which must sit
+    between the measured noise floor and a planted fault), greedy tokens
+    equal where one device's top-2 gap is sure, every rank's collectives
+    a step equal to ``_ld_expected``'s count from the specs, its K3 and
+    K4 launches counted and each kernel bit for bit with its plain
+    version on the rank's first call's inputs; each rank's step ms
+    beside the one-device step's. Returns the kernels' numbers and a
+    rank's tallies of the (2, 2) llama3.2-1b run (for ``dryrun``)."""
+    import shutil
+    from repro_torch.distributed import runtime as R
+    full = _ld_full()
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 4 else "gloo"
+    refs = ld_one_device(torch, dev, full)
+    ref_s = time.perf_counter() - t0
+    shutil.rmtree(full["out_dir"], ignore_errors=True)
+    os.makedirs(full["out_dir"])
+    t1 = time.perf_counter()
+    R.spawn(ld_rank, 4, (R.free_port(), backend, full, refs,
+                         full["out_dir"]))
+    ranks_s = time.perf_counter() - t1
+    rows = []
+    for r in range(4):
+        with open(os.path.join(full["out_dir"], f"rank{r}.json")) as f:
+            rows.append(json.load(f))
+    shutil.rmtree(full["out_dir"], ignore_errors=True)
+    out = dict(nvidia_smi=smi, backend=backend, cards=cards, mesh=LD_MESH,
+               pod_mesh=LD_POD_MESH, ranks=4,
+               tolerance=dict(f32_atol=LD_F32_ATOL, rel_l2=LD_REL_L2,
+                              tokens="equal where the one-device top-2 "
+                                     "gap exceeds twice the row's error"))
+    failed, launches, errs = [], {"ternary_matmul": 0, "wkv6_scan": 0}, {
+        "ternary_matmul": 0.0, "wkv6_scan": 0.0}
+    for name in LD_RUNS:
+        ref, lead, cfg = refs[name], rows[0][name], full[name]
+        quant = name.endswith("_q")
+        counts, nbytes = _ld_expected(torch, cfg, quant, _ld_shape(name),
+                                      full["batch"])
+        row = dict(lead, one_device_step_ms=ref["step_ms"],
+                   one_device_step_ms_all=ref["step_ms_all"],
+                   reference_s=ref["seconds"],
+                   step_ms_by_rank=[x[name]["step_ms_median"] for x in rows],
+                   seconds_by_rank=[x[name + "_s"] for x in rows],
+                   launches_by_rank=[x[name]["launches"] for x in rows],
+                   expected_collectives_per_step=counts,
+                   expected_bytes_per_step=nbytes)
+        for k in ("floor", "planted"):
+            if k in ref:
+                row[k] = ref[k]
+        if not all(x[name]["collectives_per_step"] == counts
+                   and x[name]["collective_bytes_per_step"] == nbytes
+                   and x[name]["steps_alike"] for x in rows):
+            failed.append(f"{name}: collectives a step against the "
+                          f"specs' count")
+        if lead["tokens_differ_where_sure"]:
+            failed.append(f"{name}: greedy tokens where the gap is sure")
+        if cfg.dtype == "float32":
+            if not lead["max_abs_err"] <= LD_F32_ATOL:
+                failed.append(f"{name}: f32 logits against one device")
+        else:
+            if not (row["floor"] <= LD_REL_L2 < row["planted"]):
+                failed.append(f"{name}: the gate not between the noise "
+                              f"floor and the planted fault")
+            if not lead["rel_l2"] <= LD_REL_L2:
+                failed.append(f"{name}: logits against one device")
+        if dev.type == "cuda":
+            want = {"ternary_matmul": 3 * cfg.num_layers * full["steps"]
+                    if quant and cfg.family != "rwkv6" else
+                    8 * cfg.num_layers * full["steps"] if quant else 0,
+                    "wkv6_scan": cfg.num_layers * full["steps"]
+                    if cfg.family == "rwkv6" else 0}
+            row["expected_launches_by_rank"] = want
+            for x in rows:
+                if x[name]["launches"] != want:
+                    failed.append(f"{name}: rank {x['rank']}'s launches "
+                                  f"{x[name]['launches']}, want {want}")
+                for key, kname in (("k3", "ternary_matmul"),
+                                   ("k4", "wkv6_scan")):
+                    chk = x[name]["kernels_vs_plain"].get(key)
+                    if want[kname] and not (chk and chk["bitwise"]):
+                        failed.append(f"{name}: {kname} on rank "
+                                      f"{x['rank']}: {chk}")
+                    if chk:
+                        errs[kname] = max(errs[kname], chk["max_abs_err"])
+                launches = {k: launches[k] + x[name]["launches"][k]
+                            for k in launches}
+        out[name] = row
+    out["seconds"] = dict(one_device=ref_s, ranks=ranks_s,
+                          total=time.perf_counter() - t0,
+                          rank_init=[x["init_s"] for x in rows])
+    emit("lm_decode_sharded", **out)
+    check(not failed, f"lm_decode_sharded: {failed}")
+    del refs
+    _free(torch, dev)
+    return {"launches": launches, "max_abs_err": errs,
+            "llama": dict(cfg=full["llama"], batch=full["batch"],
+                          cache=full["prompt"] + full["steps"],
+                          per_rank=[dict(
+                              launches=x["llama"]["collectives_per_step"],
+                              tensor_bytes=x["llama"][
+                                  "collective_bytes_per_step"])
+                              for x in rows])}
+
+
+# ----------------------------------------------------------------------
 # Phase 13: the dry run (``launch.dryrun``) against the card: the fake
 # trace of a step against the same step run for real in this run.
 # ----------------------------------------------------------------------
@@ -7347,12 +7978,15 @@ def dryrun_decode(torch, dev, k3, k4, model, weights, cache_len=DR_CACHE,
     return out
 
 
-def dryrun_collectives(dev, pod):
+def dryrun_collectives(dev, pod, decode):
     """The dry run's collectives (``launch.collective_analysis``): one
     rank's step of ``lm_train_sharded``'s pod run (llama3.2-1b at full
     width and 4 layers, bf16, B=4, S=1024, remat) traced on fake tensors
-    of the card over a fake (2, 2, 1) process group, against the
-    tallies a step every gloo rank of that run measured in this run."""
+    of the card over a fake (2, 2, 1) process group, and one rank's
+    decode step of ``lm_decode_sharded``'s llama3.2-1b run (full width
+    and depth, bf16, B=8, a 72-slot cache) over a fake (2, 2) group,
+    each against the tallies a step every rank of that run measured in
+    this run."""
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch import collective_analysis as CA
     t0 = time.perf_counter()
@@ -7365,7 +7999,23 @@ def dryrun_collectives(dev, pod):
     equal = [all(got[part] == {k: v for k, v in rank[part].items()}
                  for part in ("launches", "tensor_bytes"))
              for rank in pod["per_rank"]]
-    return dict(config=f"{pod['cfg'].name} widths, "
+    t0 = time.perf_counter()
+    with CA.fake_process_mesh(LD_MESH, dev) as pm:
+        dec = CA.trace_step(decode["cfg"], ShapeSpec(
+            "chip_smoke_decode", "decode", decode["cache"], decode["batch"]),
+            pm)
+    decode_s = time.perf_counter() - t0
+    dec_equal = [all(dec[part] == rank[part]
+                     for part in ("launches", "tensor_bytes"))
+                 for rank in decode["per_rank"]]
+    return dict(decode=dict(
+                    config=f"{decode['cfg'].name} full width and depth, "
+                           f"{decode['cfg'].dtype}, B={decode['batch']}, "
+                           f"a {decode['cache']}-slot cache",
+                    mesh=list(LD_MESH), trace_s=decode_s, traced=dec,
+                    measured_rank0=decode["per_rank"][0],
+                    equal_by_rank=dec_equal),
+                config=f"{pod['cfg'].name} widths, "
                        f"{pod['cfg'].num_layers} layers, {pod['cfg'].dtype}, "
                        f"B={pod['batch']}, S={pod['seq']}, remat",
                 mesh=list(LS_POD_MESH), trace_s=trace_s, traced=got,
@@ -7375,7 +8025,7 @@ def dryrun_collectives(dev, pod):
                                            got["tensor_bytes"], sizes))
 
 
-def dryrun_phase(torch, dev, k3, k4, smi, rwkv, pod):
+def dryrun_phase(torch, dev, k3, k4, smi, rwkv, pod, sharded_decode):
     """Phase 13: (a) llama3.2-1b at full width and depth, bf16, B=4,
     S=1024 (the ``lm_train`` shape): the dry run's FLOPs against
     ``FlopCounterMode`` over one real ``make_train_step`` step on the
@@ -7387,7 +8037,10 @@ def dryrun_phase(torch, dev, k3, k4, smi, rwkv, pod):
     K3's and K4's shape-only outputs against the kernels' at the decode
     shapes, and the host time of a K3 call through ``ternary_matmul_fwd``
     (which also tests for a tensor without storage) beside a direct
-    ``ternary_matmul_cuda`` call, in alternating rounds."""
+    ``ternary_matmul_cuda`` call, in alternating rounds. (d) the dry
+    run's collectives (``dryrun_collectives``) against the tallies of
+    ``lm_train_sharded``'s pod run (``pod``) and of
+    ``lm_decode_sharded``'s llama3.2-1b run (``sharded_decode``)."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun as DR
@@ -7474,11 +8127,15 @@ def dryrun_phase(torch, dev, k3, k4, smi, rwkv, pod):
           f"shape-only outputs differ from the kernels': {shapes}")
     del q, up, w, s, x, wkv
     _free(torch, dev)
-    collectives = dryrun_collectives(dev, pod)
+    collectives = dryrun_collectives(dev, pod, sharded_decode)
     check(len(collectives["equal_by_rank"]) == 4
           and all(collectives["equal_by_rank"]),
           f"the dry run's collectives differ from lm_train_sharded's pod "
           f"run: {collectives}")
+    check(len(collectives["decode"]["equal_by_rank"]) == 4
+          and all(collectives["decode"]["equal_by_rank"]),
+          f"the dry run's decode collectives differ from "
+          f"lm_decode_sharded's llama3.2-1b run: {collectives['decode']}")
     seconds = time.perf_counter() - t0
     emit("dryrun", nvidia_smi=smi, seconds=seconds, train=train,
          decode={**rwkv["steps"], **decode}, rwkv_seconds=rwkv["seconds"],

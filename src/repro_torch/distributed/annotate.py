@@ -11,10 +11,19 @@ mesh. The port runs one process per mesh position
     puts on ``data`` (FSDP gather at use; the gradient is
     reduce-scattered) and leaves ``w`` in the layout of the first
     candidate that divides (the JAX package's rule), moving a ``model``
-    dim where the candidate wants another one. Off a process mesh, and
-    in ``"serve"`` mode, it is the identity, as in the JAX package.
-    ``gather_whole(w)`` gathers every sharded dim, for a use in which
-    each rank reads its own part of the whole weight.
+    dim where the candidate wants another one. Off a process mesh it is
+    the identity, as in the JAX package. ``gather_whole(w)`` gathers
+    every sharded dim, for a use in which each rank reads its own part
+    of the whole weight.
+  * ``"serve"`` mode under a process mesh (the sharded decode step,
+    ``launch.steps.make_serve_step``): weights stay in the blocks the
+    ranks store, as the JAX package leaves them 2-D sharded at use, and
+    only activations cross ranks. A layer with a serve rule reads a
+    block's stored spec through :func:`serve_layout`; ``unshard_fsdp``,
+    ``gather_whole`` and :func:`fsdp_layout` raise ``NotImplementedError``
+    there, so a layer without one never computes on a block as if it
+    were the whole weight. :func:`tp_size` is the ``model`` axis's size
+    in both modes.
   * ``constrain`` stays the identity: the layers' explicit TP ops
     (``layers.dense``, ``attention_apply``, the vocab-parallel embedding
     and loss) already lay each activation out as the JAX package's
@@ -44,8 +53,9 @@ from repro_torch.distributed import collectives as C
 from repro_torch.distributed.mesh import Mesh, _active_meshes
 
 __all__ = ["constrain", "current_mesh", "unshard_fsdp", "gather_at_use",
-           "gather_whole", "fsdp_layout", "tag", "spec_of", "tp_size", "recompute_context",
-           "execution_mode", "get_execution_mode"]
+           "gather_whole", "fsdp_layout", "tag", "spec_of", "tp_size",
+           "recompute_context", "execution_mode", "get_execution_mode",
+           "serving", "serve_layout"]
 
 AxisLike = Union[None, str, Tuple[str, ...]]
 _SPEC_ATTR = "_repro_spec"
@@ -79,7 +89,7 @@ def execution_mode(mode: str):
     """'train' (default): weights are gathered at use (FSDP gather-at-use,
     right for high-arithmetic-intensity steps). 'serve': weights stay
     sharded and the small decode activations carry the collectives. Read
-    by ``unshard_fsdp``."""
+    by ``unshard_fsdp`` and :func:`serving`."""
     prev = get_execution_mode()
     _MODE.mode = mode
     try:
@@ -125,10 +135,29 @@ def spec_of(t: torch.Tensor):
 
 def tp_size() -> int:
     """The size of the active process mesh's ``model`` axis (1 without
-    one, or in ``"serve"`` mode)."""
-    if get_execution_mode() == "serve":
-        return 1
+    one)."""
     return C.axis_size("model")
+
+
+def serving() -> bool:
+    """Whether a process mesh is active in ``"serve"`` mode: the layers
+    then read each weight as the block this rank stores."""
+    return C.active() is not None and get_execution_mode() == "serve"
+
+
+def serve_layout(w: torch.Tensor):
+    """The stored spec of the block ``w`` (one entry a dim: None, or the
+    mesh axis the dim is split over) while :func:`serving`, else None. A
+    dim over several axes raises ``NotImplementedError``."""
+    return _stored(w) if serving() else None
+
+
+def _refuse_serve(what: str) -> None:
+    if serving():
+        raise NotImplementedError(
+            f"{what} in serve mode under a process mesh: weights stay in "
+            f"the blocks each rank stores (serve_layout), and this use has "
+            f"no serve-mode rule")
 
 
 def _logical(w: torch.Tensor, stored) -> Tuple[int, ...]:
@@ -148,8 +177,9 @@ def fsdp_layout(w: torch.Tensor, *candidates: Sequence[AxisLike]):
     dims of the whole parameter, with axes the mesh lacks dropped. None
     when no process mesh is active."""
     pm = C.active()
-    if pm is None or get_execution_mode() == "serve":
+    if pm is None:
         return None
+    _refuse_serve(f"the gather at use of a {tuple(w.shape)} weight")
     stored = _stored(w)
     shape = _logical(w, stored)
     for cand in candidates + ((None,) * w.ndim,):
@@ -205,9 +235,11 @@ def gather_whole(w: torch.Tensor) -> torch.Tensor:
     that its stored blocks do not line up with (zamba2's ``in_proj`` and
     conv): every dim its spec puts on a mesh axis all-gathered, whose
     backward sums the ranks' parts of the gradient and keeps this rank's
-    block (``collectives.all_gather``). Otherwise ``w`` unchanged."""
-    if C.active() is None or get_execution_mode() == "serve":
+    block (``collectives.all_gather``). Off a process mesh ``w``
+    unchanged; in ``"serve"`` mode under one ``NotImplementedError``."""
+    if C.active() is None:
         return w
+    _refuse_serve(f"the gather of a whole {tuple(w.shape)} weight")
     for dim, e in enumerate(_stored(w)):
         if e is not None:
             w = C.all_gather(w, dim, e)
@@ -218,8 +250,10 @@ def unshard_fsdp(w, *candidates: Sequence[AxisLike]):
     """FSDP gather-at-use of a parameter block, in ``"train"`` mode under
     an active process mesh: the dims its spec puts on ``data`` gathered,
     and only the ``model`` dim of the first dividing candidate sharded
-    (no candidate divides: fully replicated use). Off a process mesh,
-    and in ``"serve"`` mode, ``w`` unchanged, as in the JAX package."""
+    (no candidate divides: fully replicated use). Off a process mesh
+    ``w`` unchanged, as in the JAX package; in ``"serve"`` mode under
+    one ``NotImplementedError`` (the JAX package's no-op leaves GSPMD a
+    sharded weight; here the caller would get a block)."""
     if not isinstance(w, torch.Tensor):
         return w
     return gather_at_use(w, *candidates)[0]

@@ -20,13 +20,17 @@ rank. Their gradients follow the two conventions of the sharded step:
     its inverse).
 
 ``all_reduce_max`` and ``all_reduce_`` reduce without a gradient (the
-softmax's max, gradients after the backward, metrics).
+softmax's max, gradients after the backward, metrics). The sharded
+decode step (serve mode, no autograd) moves rows of activations with
+``gather_dim``, ``scatter_dim`` (rows of partial products summed back to
+their rank) and ``all_to_all`` (rows traded for columns).
 
 Every collective issued adds one to ``launches[(op, axis)]`` (op one of
-``"all_gather"``, ``"reduce_scatter"``, ``"all_reduce"``) and its bytes to
-``bytes_moved[(op, axis)]``, the bytes of the full tensor it produces
-(all_gather, all_reduce) or consumes (reduce_scatter), as the kernels'
-launch counters do: tests and ``chip_smoke.py`` assert the counts.
+``"all_gather"``, ``"reduce_scatter"``, ``"all_reduce"``, ``"all_to_all"``)
+and its bytes to ``bytes_moved[(op, axis)]``, the bytes of the full
+tensor it produces (all_gather, all_reduce, all_to_all) or consumes
+(reduce_scatter), as the kernels' launch counters do: tests and
+``chip_smoke.py`` assert the counts.
 Both backends take the same calls (``runtime``).
 """
 from __future__ import annotations
@@ -43,7 +47,8 @@ from repro_torch.distributed.runtime import ProcessMesh
 
 __all__ = ["all_gather", "reduce_scatter", "all_reduce", "copy_to",
            "gather_from", "split_to", "all_reduce_max", "all_reduce_",
-           "gather_dim", "block_range", "axis_size", "axis_index", "active",
+           "gather_dim", "scatter_dim", "all_to_all", "block_range",
+           "axis_size", "axis_index", "active",
            "batch_axes", "launches", "bytes_moved", "reset_counts"]
 
 launches: collections.Counter = collections.Counter()
@@ -113,8 +118,8 @@ def gather_dim(x: torch.Tensor, dim: int, axis: str, pm=None
     return out.movedim(0, dim)
 
 
-def _scatter_dim(x: torch.Tensor, dim: int, axis: str, pm=None
-                 ) -> torch.Tensor:
+def scatter_dim(x: torch.Tensor, dim: int, axis: str, pm=None
+                ) -> torch.Tensor:
     """The sum of ``x`` over the ranks of ``axis``, this rank's block of
     it along ``dim`` (no gradient)."""
     group, n = _group(axis, pm)
@@ -131,6 +136,29 @@ def _scatter_dim(x: torch.Tensor, dim: int, axis: str, pm=None
         dist.reduce_scatter_tensor(out, xt, group=group)
     _count("reduce_scatter", axis, xt)
     return out.movedim(0, dim)
+
+
+def all_to_all(x: torch.Tensor, split: int, cat: int, axis: str, pm=None
+               ) -> torch.Tensor:
+    """Blocks traded over ``axis`` (no gradient): ``x``'s dim ``split`` is
+    cut into one block a rank of the axis, block ``i`` goes to rank
+    ``i``, and the blocks this rank receives are joined along ``cat`` in
+    rank order. With ``split`` the rows gathered over the axis and
+    ``cat`` a dim whose columns the axis splits, each rank gets its own
+    rows with every column."""
+    group, n = _group(axis, pm)
+    if group is None:
+        return x
+    split, cat = split % x.ndim, cat % x.ndim
+    if x.shape[split] % n:
+        raise ValueError(f"dim of {x.shape[split]} over {n} ranks")
+    xt = x.movedim(split, 0).contiguous()
+    out = torch.empty_like(xt)
+    dist.all_to_all_single(out, xt, group=group)
+    _count("all_to_all", axis, out)
+    # (n, rows/n, ...) in x's order, the sender's rank leading
+    out = out.unflatten(0, (n, -1)).movedim(1, split + 1)
+    return out.movedim(0, cat).flatten(cat, cat + 1)
 
 
 def _block(x: torch.Tensor, dim: int, axis: str, pm) -> torch.Tensor:
@@ -175,14 +203,14 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter_dim(g, ctx.dim, ctx.axis, ctx.pm), None, None
+        return scatter_dim(g, ctx.dim, ctx.axis, ctx.pm), None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, axis):
         ctx.dim, ctx.axis, ctx.pm = dim, axis, active()
-        return _scatter_dim(x, dim, axis, ctx.pm)
+        return scatter_dim(x, dim, axis, ctx.pm)
 
     @staticmethod
     def backward(ctx, g):

@@ -53,7 +53,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, tree_map, tree_num_params
 
 __all__ = [
-    "param_pspecs", "batch_pspecs", "cache_pspecs",
+    "param_pspecs", "batch_pspecs", "cache_pspecs", "decode_pspecs",
     "batch_axes", "opt_pspecs", "resolve_spec", "spec",
     "slot_pspec", "slot_state_pspecs", "NamedSharding", "ShardedTensor",
     "shardings", "slot_shardings", "place", "gather", "local_block",
@@ -271,6 +271,44 @@ def _state_spec(shape, b, mesh) -> Spec:
     if b is None and x % dsz == 0:
         xdim = "data"
     return spec(None, b, hdim, xdim, None)
+
+
+def _quantized_pspecs(pspecs, params_abs, mesh: Mesh):
+    """Mirror float specs onto the quantized tree: packed keeps the
+    source's output-dim sharding (divisibility-checked), scale follows."""
+    sizes = mesh.shape
+
+    def walk(spec, abs_):
+        if isinstance(abs_, dict) and "packed" in abs_:
+            src = tuple(spec) + (None,) * (abs_["packed"].ndim - len(spec))
+            out_axis = src[-1]
+            packed = [None] * abs_["packed"].ndim
+            scale = [None] * abs_["scale"].ndim
+            if (out_axis is not None
+                    and abs_["packed"].shape[-1] % sizes.get(out_axis, 1)
+                    == 0):
+                packed[-1] = out_axis
+                scale[-1] = out_axis
+            return {"packed": tuple(packed), "scale": tuple(scale)}
+        if isinstance(abs_, dict):
+            return {k: walk(spec[k], abs_[k]) for k in abs_}
+        return spec
+
+    return walk(pspecs, params_abs)
+
+
+def decode_pspecs(cfg: ModelConfig, mesh: Mesh, params: Any, cache: Any,
+                  global_batch: int) -> Dict[str, Any]:
+    """The specs of a decode step's arguments as the JAX package's dry
+    run jits its serve step (``lower_cell``): ``params`` on the train
+    specs (FSDP over ``data``, TP over ``model``; a ternary tree's packed
+    leaves by :func:`_quantized_pspecs`), ``cache`` on
+    :func:`cache_pspecs`, ``tokens`` over :func:`_batch_dim_spec`."""
+    from repro_torch.models import build_model
+    pspecs = param_pspecs(build_model(cfg).defs(), mesh, mode="train")
+    return {"params": _quantized_pspecs(pspecs, params, mesh),
+            "cache": cache_pspecs(cfg, mesh, cache, global_batch),
+            "tokens": spec(_batch_dim_spec(mesh, global_batch), None)}
 
 
 # ----------------------------------------------------------------------

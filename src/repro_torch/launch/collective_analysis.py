@@ -16,24 +16,29 @@ HLO's kind names, with ``hlo_analysis``' ring formulas on the group size
     all-gather          result_bytes * (g-1)/g
     reduce-scatter      result_bytes * g * (g-1)/g   (input is g x result)
     all-reduce          result_bytes * 2 * (g-1)/g   (RS + AG)
+    all-to-all          result_bytes * (g-1)/g
 
-The tallies count the gathered tensor of an all-gather and the whole
-input of a reduce-scatter (``g`` x its result), so every kind's volume
-is its tallied bytes times ``(g-1)/g``, twice for an all-reduce.
+The tallies count the gathered tensor of an all-gather, the whole
+input of a reduce-scatter (``g`` x its result) and the result of an
+all-to-all, so every kind's volume is its tallied bytes times
+``(g-1)/g``, twice for an all-reduce.
 
 :func:`trace_step` is the step ``Trainer(shardings=...)`` runs on a rank
 -- its blocks of the params and AdamW moments under ``param_pspecs``,
 its rows of the batch under ``batch_pspecs``, ``loss_and_grads`` with the
 specs, ``reduce_grads`` and ``adamw_update`` with the specs -- or, for a
 prefill cell, the same model's forward (``Model.apply``) on those
-blocks. Nothing is allocated and no kernel runs: it costs the trace's
-host time alone.
+blocks, or, for a decode cell, the serve step
+(``launch.steps.make_serve_step``) on the rank's blocks of the params
+(ternary ones with ``--quant ternary``), the cache and the tokens under
+``sharding.decode_pspecs``. Nothing is allocated and no kernel runs: it
+costs the trace's host time alone.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 import torch.distributed as dist
@@ -46,11 +51,11 @@ from repro_torch.launch import steps as ST
 from repro_torch.models import build_model
 
 __all__ = ["KINDS", "collective_bytes", "fake_process_mesh", "trace_step",
-           "mesh_collectives"]
+           "trace_decode", "mesh_collectives"]
 
 # The port's collective ops and HLO's names of them.
 KINDS = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
-         "all_reduce": "all-reduce"}
+         "all_reduce": "all-reduce", "all_to_all": "all-to-all"}
 
 
 def collective_bytes(launches: Mapping, tensor_bytes: Mapping,
@@ -108,22 +113,60 @@ def _fake_tree(tree: Any, device) -> Any:
     return torch.empty(tree.shape, dtype=tree.dtype, device=device)
 
 
-def trace_step(cfg, shape, pm, *, remat: bool = True
-               ) -> Dict[str, Dict[str, int]]:
+def _tallies() -> Dict[str, Dict[str, int]]:
+    out = {"launches": {f"{op}/{axis}": n for (op, axis), n in
+                        sorted(C.launches.items())},
+           "tensor_bytes": {f"{op}/{axis}": n for (op, axis), n in
+                            sorted(C.bytes_moved.items())}}
+    C.reset_counts()
+    return out
+
+
+def trace_decode(cfg, shape, pm, *, quant: Optional[str] = None
+                 ) -> Dict[str, Dict[str, int]]:
+    """:func:`trace_step` of a decode cell: the serve step on rank
+    ``pm.rank``'s blocks (``sharding.decode_pspecs``) of the params
+    (``serving.quantize_for_serving``'s tree with ``quant="ternary"``),
+    a cache of ``shape.seq_len`` slots and the rank's rows of
+    ``shape.global_batch`` tokens. Raises the step's refusals
+    (``layers.check_sharded_decode``)."""
+    from repro_torch.serving.serve import quantize_for_serving
+    model = build_model(cfg)
+    b = shape.global_batch
+    with FakeTensorMode():
+        params = _fake_tree(model.abstract_params(), pm.device)
+        if quant == "ternary":
+            params = quantize_for_serving(params)[0]
+        cache = _fake_tree(ST.abstract_cache(cfg, shape), pm.device)
+        tokens = torch.zeros((b, 1), dtype=torch.int32, device=pm.device)
+        specs = SH.decode_pspecs(cfg, pm, params, cache, b)
+        blocks = SH.local_block(params, specs["params"], pm)
+        cache_b = SH.local_block(cache, specs["cache"], pm)
+        rows = SH.local_block(tokens, specs["tokens"], pm)
+        del params, cache
+        C.reset_counts()
+        with torch.no_grad(), pm:
+            ST.make_serve_step(cfg)(blocks, cache_b, rows)
+    return _tallies()
+
+
+def trace_step(cfg, shape, pm, *, remat: bool = True,
+               quant: Optional[str] = None) -> Dict[str, Dict[str, int]]:
     """The collectives rank ``pm.rank`` issues in one step of cell
-    ``shape`` (a ``configs.shapes.ShapeSpec``, kind ``train`` or
-    ``prefill``) over the process mesh ``pm``, traced on fake tensors of
-    ``pm.device``: ``{"launches": {"op/axis": n}, "tensor_bytes":
-    {"op/axis": bytes}}``. A train cell runs ``Trainer._step_fn`` (with
-    ``remat``, as the dry run's train step); a prefill cell
-    ``Model.apply`` under the mesh, without gradients. Raises what the
-    step raises (``refuse_unsupported``'s ``NotImplementedError`` among
+    ``shape`` (a ``configs.shapes.ShapeSpec``) over the process mesh
+    ``pm``, traced on fake tensors of ``pm.device``: ``{"launches":
+    {"op/axis": n}, "tensor_bytes": {"op/axis": bytes}}``. A train cell
+    runs ``Trainer._step_fn`` (with ``remat``, as the dry run's train
+    step); a prefill cell ``Model.apply`` under the mesh, without
+    gradients; a decode cell the serve step (:func:`trace_decode`, with
+    ``quant``). Raises what the step raises (``refuse_unsupported``'s
+    and ``check_sharded_decode``'s ``NotImplementedError`` among
     them)."""
     from repro_torch.training import Trainer, TrainerConfig
     from repro_torch.training.optimizer import adamw_init
     from repro_torch.training.trainer import state_shardings
-    if shape.kind not in ("train", "prefill"):
-        raise ValueError(f"a {shape.kind} cell has no sharded step")
+    if shape.kind == "decode":
+        return trace_decode(cfg, shape, pm, quant=quant)
     model = build_model(cfg)
     tr = Trainer(model, TrainerConfig(remat=remat), batch_fn=None,
                  shardings=state_shardings(model, pm), device=pm.device)
@@ -140,33 +183,25 @@ def trace_step(cfg, shape, pm, *, remat: bool = True
         else:
             with torch.no_grad(), pm:
                 ST.make_prefill_step(cfg)(params, rows)
-    out = {"launches": {f"{op}/{axis}": n for (op, axis), n in
-                        sorted(C.launches.items())},
-           "tensor_bytes": {f"{op}/{axis}": n for (op, axis), n in
-                            sorted(C.bytes_moved.items())}}
-    C.reset_counts()
-    return out
+    return _tallies()
 
 
-def mesh_collectives(cfg, shape, mesh, device, *, remat: bool = True
-                     ) -> Dict[str, Any]:
+def mesh_collectives(cfg, shape, mesh, device, *, remat: bool = True,
+                     quant: Optional[str] = None) -> Dict[str, Any]:
     """A cell's ``collectives`` record on ``mesh`` (a production mesh:
     its shape and axis names): :func:`collective_bytes` of
     :func:`trace_step` over a fake process mesh of the same shape, or
-    ``{"error": reason}`` where the step cannot be traced (a decode cell:
-    the port has no sharded decode step; a model, mesh or batch the
-    sharded trainer refuses). Any other failure raises, a missing fake
-    backend included."""
-    if shape.kind == "decode":
-        return {"error": "decode: the port has no sharded decode step "
-                         "(training and the forward run over a process "
-                         "mesh; decode runs on one device)"}
+    ``{"error": reason}`` where the step cannot be traced (a model, mesh
+    or batch the sharded trainer refuses; a decode the sharded serve
+    step refuses, with the ROADMAP item that brings it). Any other
+    failure raises, a missing fake backend included."""
     sizes = dict(zip(mesh.axis_names, mesh.axis_sizes))
     try:
         with fake_process_mesh(tuple(sizes.values()), device) as pm:
-            tallies = trace_step(cfg, shape, pm, remat=remat)
+            tallies = trace_step(cfg, shape, pm, remat=remat, quant=quant)
     except (NotImplementedError, ValueError) as e:
         return {"error": f"{type(e).__name__}: {e}"}
     return {**collective_bytes(tallies["launches"], tallies["tensor_bytes"],
                                sizes), "step": shape.kind,
-            "remat": remat if shape.kind == "train" else None}
+            "remat": remat if shape.kind == "train" else None,
+            "quant": quant if shape.kind == "decode" else None}

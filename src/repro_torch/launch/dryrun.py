@@ -29,10 +29,12 @@ weights or device memory:
     forward -- traced on fake tensors over a fake process group of the
     mesh's world, its collectives tallied by ``distributed.collectives``
     and turned into the JAX record's ``bytes_by_kind``, ``count_by_kind``
-    and ``total_bytes`` (``launch.collective_analysis``). A cell that
-    cannot be traced holds its reason under ``"error"``: a decode cell
-    (the port has no sharded decode step) or one the sharded trainer
-    refuses.
+    and ``total_bytes`` (``launch.collective_analysis``); a decode cell's
+    serve step on the rank's blocks, as the JAX dry run jits it. A cell
+    that cannot be traced holds its reason under ``"error"``: a model
+    the sharded trainer refuses, or a decode the sharded serve step does
+    not run yet (its family, or a batch the batch axes do not divide),
+    with the ROADMAP item that brings it.
 
 What the JAX dry run records and this one leaves out:
   * the ``L1``/``L2`` depth variants: XLA counts a scan body once, so the
@@ -75,6 +77,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.shapes import SHAPES, ShapeSpec, cells_for
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import _quantized_pspecs
 from repro_torch.distributed.mesh import Mesh
 from repro_torch.kernels import ternary_matmul as k3
 from repro_torch.kernels import wkv6_scan as k4
@@ -211,30 +214,6 @@ def analyze(lowered: Dict[str, Any], device) -> Dict[str, Any]:
     }
 
 
-def _quantized_pspecs(pspecs, params_abs, mesh: Mesh):
-    """Mirror float specs onto the quantized tree: packed keeps the
-    source's output-dim sharding (divisibility-checked), scale follows."""
-    sizes = mesh.shape
-
-    def walk(spec, abs_):
-        if isinstance(abs_, dict) and "packed" in abs_:
-            src = tuple(spec) + (None,) * (abs_["packed"].ndim - len(spec))
-            out_axis = src[-1]
-            packed = [None] * abs_["packed"].ndim
-            scale = [None] * abs_["scale"].ndim
-            if (out_axis is not None
-                    and abs_["packed"].shape[-1] % sizes.get(out_axis, 1)
-                    == 0):
-                packed[-1] = out_axis
-                scale[-1] = out_axis
-            return {"packed": tuple(packed), "scale": tuple(scale)}
-        if isinstance(abs_, dict):
-            return {k: walk(spec[k], abs_[k]) for k in abs_}
-        return spec
-
-    return walk(pspecs, params_abs)
-
-
 def _per_device(tree, specs, sizes: Dict[str, int]) -> int:
     """Bytes a device holds of ``tree`` laid out by ``specs``: each leaf's
     bytes over the product of the axis sizes its spec names."""
@@ -312,7 +291,9 @@ def run_cell(arch: str, shape_name: str, *, meshes=_MESHES["both"],
             mesh = make_production_mesh(multi_pod=name == "pod2x16x16")
             rec["meshes"][name] = {
                 **mesh_bytes(cfg, shape, lowered["abstract"], mesh, quant),
-                "collectives": mesh_collectives(cfg, shape, mesh, dev)}
+                "collectives": mesh_collectives(
+                    cfg, shape, mesh, dev,
+                    quant=quant if _ternary(shape, quant) else None)}
         rec["status"] = "ok"
     except Exception as e:   # a cell's failure is its record's result
         rec["status"] = "error"

@@ -15,6 +15,15 @@ A prefill or train batch is ``Model.apply``'s: ``{"tokens"}`` (plus
 ``"frames"`` (B, S_enc, frontend_dim) for the enc-dec family. The steps
 are eager (no compilation); a train step runs inside
 ``training.deterministic(all_ops=True)``, as ``Trainer``'s does.
+
+A serve step runs in ``execution_mode("serve")``, as the JAX package's
+does. Under a process mesh (``distributed.runtime``) it takes this
+rank's blocks -- the params under ``sharding.decode_pspecs``' specs (the
+train layout, ``_quantized_pspecs`` for a ternary tree), the cache under
+``cache_pspecs``, the rank's rows of the tokens -- and returns the
+rank's rows of the next tokens and its block of the new cache: the
+weights stay in their blocks and only activations cross ranks
+(``models.layers``).
 """
 from __future__ import annotations
 
@@ -23,7 +32,9 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.distributed.annotate import execution_mode
 from repro_torch.models import build_model
+from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.determinism import deterministic
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
@@ -108,8 +119,9 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
     model = build_model(cfg)
 
     def serve_step(params, cache, tokens):
-        logits, new_cache = model.decode(params, cache, tokens)
-        next_tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        return next_tok, new_cache
+        with execution_mode("serve"):
+            logits, new_cache = model.decode(params, cache, tokens)
+            next_tok = L.greedy_tokens(logits[:, -1:], cfg.vocab_size)
+        return next_tok.to(torch.int32), new_cache
 
     return serve_step

@@ -185,8 +185,11 @@ def encdec_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
                   *, scan_layers: bool = True
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder step attending the precomputed cross K/V. Returns
-    (logits f32, new cache); the cache passed in is not modified."""
+    (logits f32, new cache); the cache passed in is not modified. Over a
+    process mesh it raises ``NotImplementedError`` (ROADMAP item 11e,
+    ``layers.check_sharded_decode``)."""
     del scan_layers
+    L.check_sharded_decode(cfg, cache)
     h = _embed(params, tokens, cfg)
     pos = cache["pos"]
     k_new, v_new = cache["k"].clone(), cache["v"].clone()

@@ -27,6 +27,19 @@ the LM head are vocab-parallel (``embed_lookup``, ``head_logits``: the
 rank's vocab columns) where the vocabulary divides ``model``. Off a
 process mesh every collective is the identity and the layers are the
 one-device ones.
+
+A decode step under a process mesh runs in ``"serve"`` mode
+(``launch.steps.make_serve_step``), as the JAX package's does: each
+weight is read only as the block the rank stores (``annotate.
+serve_layout``), and rows of activations, token ids, softmax statistics
+and partial sums cross ranks instead (:func:`serve_einsum`, the rule of
+``dense``, the attention projections, the embedding and the LM head;
+K3 on the rank's output columns of a packed weight with whole-K rows).
+The residual stream is the rank's rows, whole; a decode step's attention
+attends over the rank's stripe of the KV cache's sequence
+(flash-decoding: the max, the sum and the weighted values combined over
+``model``), and :func:`greedy_tokens` takes the argmax of
+vocab-parallel logits.
 """
 from __future__ import annotations
 
@@ -34,6 +47,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
@@ -50,7 +64,8 @@ __all__ = [
     "mlp_defs", "mlp_apply", "moe_defs", "moe_apply", "moe_groups",
     "moe_check_batch",
     "dense", "blockwise_attention", "layer_norm", "logits_f32", "remat",
-    "layer_params", "embed_lookup", "head_logits",
+    "layer_params", "embed_lookup", "head_logits", "serve_einsum",
+    "greedy_tokens", "check_sharded_decode", "kv_stripe", "keep_spec",
 ]
 
 # ----------------------------------------------------------------------
@@ -93,6 +108,93 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
 
 
+def serve_einsum(eq: str, x: torch.Tensor, w: Any, *, spec=None,
+                 wshape=None, product=None) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` in serve mode under a process mesh, on
+    the block ``w`` this rank stores and this rank's rows of ``x`` (its
+    first letter). ``x``'s other dims are whole, or split over
+    ``model`` (a column-parallel output, told from its size against the
+    whole weight's). The rule, from the block's stored spec:
+
+      * a weight dim on an axis that ``x`` shares: ``x``'s block of it
+        (a dim ``x`` holds split over ``model`` is used as it is where
+        the weight splits it over ``model`` too, else gathered first);
+      * a weight with a dim on ``data``: ``x``'s rows are gathered over
+        ``data`` first, since every row needs each data rank's slice;
+      * a contracted dim on ``data``: the partial products are
+        reduce-scattered back to each rank's rows; on ``model``:
+        all-reduced;
+      * an output dim on ``data`` while the rows are still gathered:
+        rows traded for columns (``all_to_all``), so each rank gets its
+        rows whole; an output dim on ``model`` stays split.
+
+    No collective moves the weight. ``spec``/``wshape``: the block's
+    spec and shape where ``w`` is no tagged tensor (a packed weight's
+    (K, N)); ``product(x, w)``: the local product (default
+    ``torch.einsum(eq, x, w)``)."""
+    xs, rest = eq.split(",")
+    ws, out = rest.split("->")
+    spec = tuple(A.serve_layout(w) if spec is None else spec)
+    wshape = tuple(w.shape if wshape is None else wshape)
+    axis = dict(zip(ws, spec))
+    if not set(axis.values()) <= {None, "data", "model"}:
+        raise NotImplementedError(f"a weight block of spec {spec} in a "
+                                  f"decode step")
+    m = C.axis_size("model")
+    rows = "data" in spec and C.axis_size("data") > 1
+    if rows:            # before any narrowing: the other ranks' blocks differ
+        x = C.gather_dim(x, 0, "data")
+    for d, letter in enumerate(xs[1:], 1):
+        if letter not in axis:
+            continue
+        a = axis[letter]
+        whole = wshape[ws.index(letter)] * (C.axis_size(a) if a else 1)
+        if x.shape[d] != whole:
+            if x.shape[d] * m != whole:
+                raise ValueError(f"{eq}: x's dim {d} of {x.shape[d]} "
+                                 f"against a weight dim of {whole}")
+            if a == "model":
+                continue
+            x = C.gather_dim(x, d, "model")
+        if a is not None:
+            lo, hi = C.block_range(x.shape[d], a)
+            x = x.narrow(d, lo, hi - lo)
+    y = torch.einsum(eq, x, w) if product is None else product(x, w)
+    summed = {axis[c] for c in ws if c in xs and c not in out} - {None}
+    r = out.index(xs[0])
+    if "data" in summed:
+        y = C.scatter_dim(y, r, "data")
+    if "model" in summed:
+        y = C.all_reduce_(y, "model")
+    if rows and "data" not in summed:
+        col = next(c for c in out if axis.get(c) == "data")
+        y = C.all_to_all(y, r, out.index(col), "data")
+    return y
+
+
+def _serve_dense(x: torch.Tensor, w: Any, gather_output: bool
+                 ) -> torch.Tensor:
+    """``dense`` in serve mode under a process mesh: :func:`serve_einsum`
+    over the last dim; a packed weight's product is K3 on its block of
+    output columns (``_quantized_pspecs``: K whole), so each output
+    element is the one-device K3's for the same row."""
+    lead = "abcdefgh"[:x.ndim - 1]
+    eq = f"{lead}k,kn->{lead}n"
+    if isinstance(w, dict) and "packed" in w:
+        pk = w["packed"]
+        spec = A.serve_layout(pk)
+        y = serve_einsum(eq, x, pk, spec=spec,
+                         wshape=(pk.shape[0] * 4, pk.shape[1]),
+                         product=lambda a, b: ops.ternary_matmul(
+                             a, b, w["scale"]))
+    else:
+        spec = A.serve_layout(w)
+        y = serve_einsum(eq, x, w)
+    if gather_output and spec[-1] == "model":
+        y = C.gather_dim(y, -1, "model")
+    return y
+
+
 def dense(x: torch.Tensor, w: Any, role: str = "up", *,
           gather_output: bool = False) -> torch.Tensor:
     """``x @ w`` against a float (K, N) weight or a ternary-packed dict.
@@ -113,8 +215,13 @@ def dense(x: torch.Tensor, w: Any, role: str = "up", *,
     takes the output of an "up" over the same dim: split when its K is
     on ``model`` (``all_reduce`` of the partial product), else
     replicated. Both return a replicated output unless an "up" is
-    column-parallel.
+    column-parallel. In serve mode under a process mesh the product
+    follows the block's stored layout (:func:`serve_einsum`; ``role``
+    selects nothing there): the output is this rank's rows, split over
+    ``model`` where the weight's N is (gathered when ``gather_output``).
     """
+    if A.serving():
+        return _serve_dense(x, w, gather_output)
     if isinstance(w, dict) and "packed" in w:
         return ops.ternary_matmul(x, w["packed"], w["scale"])
     if role == "down":
@@ -152,7 +259,15 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     (``unshard_fsdp(table, ("model", None))``); with its vocab rows on
     ``model`` the lookup is vocab-parallel: rows outside this rank's range
     give zeros, and an ``all_reduce`` over ``model`` adds the ranks'
-    lookups (the gradient lands on the rank holding each row)."""
+    lookups (the gradient lands on the rank holding each row).
+
+    In serve mode the table stays in its stored (vocab, embed) block: the
+    token ids are gathered over ``data`` where the embed dim is split
+    there, each rank looks up its vocab rows of its embed columns, the
+    lookups are summed over ``model`` (one rank's row and zeros: exact)
+    and rows are traded for columns over ``data``."""
+    if A.serving():
+        return _serve_embed(table, tokens)
     table, lay = A.gather_at_use(table, ("model", None))
     idx = tokens.long()
     if lay is None or lay[0] != "model":
@@ -165,6 +280,47 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return C.all_reduce(rows, "model")
 
 
+def _serve_embed(table: torch.Tensor, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    vspec, dspec = A.serve_layout(table)
+    if vspec not in (None, "model") or dspec not in (None, "data"):
+        raise NotImplementedError(f"an embedding block of spec "
+                                  f"{(vspec, dspec)} in a decode step")
+    if dspec == "data":
+        tokens = C.gather_dim(tokens, 0, "data")
+    idx = tokens.long()
+    if vspec is None:
+        rows = table[idx]
+    else:
+        local = idx - C.axis_index("model") * table.shape[0]
+        inside = (local >= 0) & (local < table.shape[0])
+        rows = table[torch.where(inside, local, 0)]
+        rows = C.all_reduce_(rows * inside[..., None].to(rows.dtype),
+                             "model")
+    if dspec == "data":
+        rows = C.all_to_all(rows, 0, -1, "data")
+    return rows
+
+
+def greedy_tokens(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The argmax over the last dim of ``logits``, as ``torch.argmax``
+    takes it (ties to the lowest index). Logits narrower than ``vocab``
+    are this rank's vocab-parallel block over ``model`` (serve mode):
+    each rank's best value and index, the max of the values over
+    ``model``, and the lowest global index that holds it."""
+    idx = torch.argmax(logits, dim=-1)
+    if logits.shape[-1] == vocab:
+        return idx
+    if logits.shape[-1] * C.axis_size("model") != vocab:
+        raise ValueError(f"logits of {logits.shape[-1]} columns for a "
+                         f"vocabulary of {vocab}")
+    val = torch.gather(logits, -1, idx[..., None])[..., 0]
+    best = C.all_reduce_max(val, "model")
+    glob = idx + C.axis_index("model") * logits.shape[-1]
+    cand = torch.where(val == best, glob, torch.full_like(glob, vocab))
+    return C.all_reduce_(cand, "model", dist.ReduceOp.MIN)
+
+
 def head_logits(h: torch.Tensor, w: torch.Tensor, *, tied: bool = False
                 ) -> torch.Tensor:
     """The LM head: ``logits_f32(h, w)`` against a (D, V) head, or against
@@ -172,7 +328,15 @@ def head_logits(h: torch.Tensor, w: torch.Tensor, *, tied: bool = False
     the head is gathered at use with its vocab on ``model`` where that
     divides (vocab-parallel: the logits are this rank's vocab columns,
     from ``copy_to`` of ``h``), else whole (every rank all the logits,
-    e.g. seamless' 256,206 rows over a model axis of 4)."""
+    e.g. seamless' 256,206 rows over a model axis of 4). In serve mode
+    the head stays in its stored block (:func:`serve_einsum`): the
+    logits are this rank's rows, vocab-parallel where the vocab is on
+    ``model``."""
+    if A.serving():
+        if tied:
+            return serve_einsum("bsd,vd->bsv", h, w,
+                                product=lambda a, b: logits_f32(a, b.t()))
+        return serve_einsum("bsd,dv->bsv", h, w, product=logits_f32)
     if tied:
         w, lay = A.gather_at_use(w, ("model", None))
         w = w.t()
@@ -462,13 +626,168 @@ def attention_apply(
     return C.all_reduce(y, "model") if part else y
 
 
+# The ROADMAP items that bring a family's decode over a process mesh.
+_DECODE_ITEMS = {"vlm": "11b", "moe": "11c", "zamba2": "11d",
+                 "encdec": "11e"}
+_CP_ITEM = "11f"
+
+
+def check_sharded_decode(cfg: ModelConfig, cache: Dict[str, Any]) -> None:
+    """Under a process mesh, raise ``NotImplementedError`` (naming the
+    ROADMAP item that brings it) for a decode the port does not run
+    sharded: a family of ``_DECODE_ITEMS``, a step outside serve mode
+    (``launch.steps.make_serve_step`` sets it), and a cache whose spec
+    puts ``data`` on a sequence or state dim (context parallelism: a
+    global batch the batch axes do not divide). A cache leaf without a
+    spec raises ``ValueError``: caches reach the model as the blocks
+    ``sharding.local_block`` cuts under ``cache_pspecs``."""
+    if C.active() is None:
+        return
+    if cfg.family in _DECODE_ITEMS:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.family} decode over a process mesh is "
+            f"ROADMAP item {_DECODE_ITEMS[cfg.family]}, not yet ported")
+    if not A.serving():
+        raise NotImplementedError(
+            f"{cfg.name}: a decode step under a process mesh runs in serve "
+            f"mode (launch.steps.make_serve_step)")
+    for name, t in cache.items():
+        if name == "pos":
+            continue
+        spec = A.spec_of(t)
+        if spec is None:
+            raise ValueError(f"the cache's {name!r} without a spec under a "
+                             f"process mesh: place it with sharding."
+                             f"local_block under cache_pspecs")
+        if any("data" in _axes(e) for i, e in enumerate(spec) if i != 1):
+            raise NotImplementedError(
+                f"{cfg.name}: a cache spec {spec} for {name!r} puts 'data' "
+                f"on a sequence or state dim (context parallelism: a "
+                f"global batch the batch axes do not divide); ROADMAP item "
+                f"{_CP_ITEM}")
+
+
+def keep_spec(new: Dict[str, Any], old: Dict[str, Any]) -> Dict[str, Any]:
+    """``new`` (a decode step's new cache) with each leaf tagged with the
+    spec of ``old``'s leaf of that name, where it has one: the next
+    step reads the blocks' layout from the tags."""
+    for name, t in new.items():
+        spec = A.spec_of(old[name]) if name in old else None
+        if spec is not None:
+            A.tag(t, spec)
+    return new
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def kv_stripe(k_cache: torch.Tensor) -> Optional[Tuple[int, int]]:
+    """``(lo, S)`` of a stacked (L, B, S, KVH, hd) KV cache block in serve
+    mode under a process mesh: this rank's stripe of the sequence starts
+    at slot ``lo`` of ``S`` (the sequence over ``model``, ``cache_pspecs``'
+    flash-decoding layout). None otherwise. A cache split over its heads
+    (a sequence that ``model`` does not divide) raises
+    ``NotImplementedError``."""
+    if not A.serving():
+        return None
+    spec = A.spec_of(k_cache)
+    if spec[3:] != (None, None) or spec[2] not in (None, "model"):
+        raise NotImplementedError(
+            f"a KV cache of spec {spec}: the sharded decode attends over "
+            f"a stripe of the sequence on 'model' with whole heads")
+    n = k_cache.shape[2]
+    if spec[2] is None:
+        return 0, n
+    return C.axis_index("model") * n, n * C.axis_size("model")
+
+
+def _heads_whole(t: torch.Tensor, heads: int, head_dim: int
+                 ) -> torch.Tensor:
+    """(B, 1, heads, head_dim) from a projection's output, gathering the
+    dim it holds split over ``model``."""
+    for dim, n in ((2, heads), (3, head_dim)):
+        if t.shape[dim] != n:
+            t = C.gather_dim(t, dim, "model")
+    return t
+
+
+def _attend_decode_serve(p, x, k_cache, v_cache, pos, cfg: ModelConfig, *,
+                         window: Optional[int], mrope: bool,
+                         stripe: Tuple[int, int]) -> torch.Tensor:
+    """``_attend_decode`` on this rank's rows and stripe ``[lo, lo + S_r)``
+    of the sequence's ``S`` slots (``kv_stripe``): q, k and v of every
+    head from the projections' serve rule; only the owner of the token's
+    slot writes it (a select, so nothing waits for the device); scores
+    at global key positions; the softmax's max over ``model``, then the
+    sum and the weighted values, combined in one sum over ``model``; the
+    output projection on the stored block of ``wo``."""
+    b = x.shape[0]
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    secs = cfg.mrope_sections if mrope else None
+    posb = pos.reshape(1, 1).expand(b, 1)
+    if mrope:
+        posb = posb[None].expand(3, b, 1)
+    q, k, v = (_heads_whole(serve_einsum("bsd,dhk->bshk", x, p[name]), n,
+                            hd)
+               for name, n in (("wq", h), ("wk", kvh), ("wv", kvh)))
+    q = apply_rope(q, posb, cfg.rope_theta, secs)
+    k = apply_rope(k, posb, cfg.rope_theta, secs)
+
+    lo, s_all = stripe
+    s_loc = k_cache.shape[1]
+    slot = pos % s_all if window is not None \
+        else torch.clamp(pos, max=s_all - 1)
+    local = slot.reshape(1).long() - lo
+    mine = (local >= 0) & (local < s_loc)
+    at = torch.clamp(local, 0, s_loc - 1)
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        keep = cache.index_select(1, at)
+        cache.index_copy_(1, at, torch.where(mine, new.to(cache.dtype),
+                                             keep))
+
+    g = h // kvh
+    qg = q.reshape(b, 1, kvh, g, hd).float()
+    scale = 1.0 / math.sqrt(hd)
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float()) * scale
+    k_idx = lo + torch.arange(s_loc, device=x.device)
+    valid = k_idx <= pos
+    if window is not None:
+        valid = valid | (pos >= s_all)
+    sc = sc.masked_fill(~valid, -math.inf)
+    # slot 0 is always valid, so the max over the ranks is finite
+    top = C.all_reduce_max(sc.amax(dim=-1), "model")
+    w_att = torch.exp(sc - top[..., None])
+    acc = torch.einsum("bkgqs,bskd->bkgqd", w_att, v_cache.float())
+    both = C.all_reduce_(torch.cat([acc.flatten(),
+                                    w_att.sum(dim=-1).flatten()]), "model")
+    acc = both[:acc.numel()].view(acc.shape)
+    tot = both[acc.numel():].view(acc.shape[:-1])
+    out = acc / tot[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(x.dtype)
+    return serve_einsum("bshk,hkd->bsd", out, p["wo"])
+
+
 def _attend_decode(p, x, k_cache, v_cache, pos, cfg: ModelConfig, *,
-                   window: Optional[int], mrope: bool) -> torch.Tensor:
+                   window: Optional[int], mrope: bool,
+                   stripe: Optional[Tuple[int, int]] = None
+                   ) -> torch.Tensor:
     """One token's attention at position ``pos`` (a 0-d int tensor on the
     device): writes this token's k and v into ``k_cache``/``v_cache``
     (B, S, KVH, hd) in place with an indexed copy, then attends over the
     valid slots. No value goes to the host, so a step never waits for
-    the device."""
+    the device. In serve mode under a process mesh ``stripe`` is the
+    cache block's (``kv_stripe``) and the step is
+    ``_attend_decode_serve``'s."""
+    if A.serving():
+        if stripe is None:
+            raise NotImplementedError("a decode attention under a process "
+                                      "mesh without its cache's stripe")
+        return _attend_decode_serve(p, x, k_cache, v_cache, pos, cfg,
+                                    window=window, mrope=mrope,
+                                    stripe=stripe)
     b = x.shape[0]
     secs = cfg.mrope_sections if mrope else None
     posb = pos.reshape(1, 1).expand(b, 1)

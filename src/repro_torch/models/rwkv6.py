@@ -23,7 +23,12 @@ heads' block of ``u`` and its channels of ``w0``, ``gn_s`` and ``gn_b``
 (``split_to``: the replicated leaves' gradients come back whole); ``wo``
 and the channel mix's ``wv`` are row-parallel; the embedding and the
 head are vocab-parallel; ``unshard_fsdp`` gathers the FSDP dims at the
-JAX package's sites.
+JAX package's sites. A decode step over a process mesh runs in serve
+mode (``launch.steps.make_serve_step``): every product reads the block
+its rank stores (``layers.serve_einsum``; ``dense`` and K3 on a packed
+block's columns), the rank's rows go through K4 on its heads from its
+block of the cache's state, and the token-shift caches keep the rank's
+rows.
 
 Numerics note (as in the JAX package): the per-step log-decay is clamped
 to >= -4, so the chunked form's exp(-cumsum) stays in f32 range at chunk
@@ -131,14 +136,22 @@ def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor] = None):
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
+def _product(eq, x, w):
+    """``torch.einsum(eq, x, w)`` of a weight gathered at use
+    (``unshard_fsdp``: tiny, replicated), or on the stored block in serve
+    mode under a process mesh (``layers.serve_einsum``)."""
+    if A.serving():
+        return L.serve_einsum(eq, x, w)
+    return torch.einsum(eq, x, A.unshard_fsdp(w))
+
+
 def _ddlerp(tm, x, sx):
     """Data-dependent interpolation producing (r,k,v,w,g) inputs."""
     xx = sx - x
     base = x + xx * tm["mu"][:, None, None]            # (5, B, S, D)
-    lora_a = A.unshard_fsdp(tm["lora_a"])              # tiny: replicate
-    lora_b = A.unshard_fsdp(tm["lora_b"])
-    lora = torch.tanh(torch.einsum("bsd,dkr->bskr", x + xx * 0.5, lora_a))
-    adj = torch.einsum("bskr,krd->kbsd", lora, lora_b)
+    lora = torch.tanh(_product("bsd,dkr->bskr", x + xx * 0.5,
+                               tm["lora_a"]))
+    adj = _product("bskr,krd->kbsd", lora, tm["lora_b"])
     return base + xx[None] * adj                        # (5, B, S, D)
 
 
@@ -161,14 +174,24 @@ def _time_mix(tm, x, cfg: ModelConfig, *, sx=None, state0=None):
     k = L.dense(xk, tm["wk"]).reshape(b, s, hl, hd)
     v = L.dense(xv, tm["wv"]).reshape(b, s, hl, hd)
     g = L.dense(xg, tm["wg"])
-    dec = torch.tanh(xw @ A.unshard_fsdp(tm["wa"])) @ A.unshard_fsdp(
-        tm["wb"])
+    if A.serving():
+        dec = L.serve_einsum("bsr,rd->bsd", torch.tanh(L.serve_einsum(
+            "bsd,dr->bsr", xw, tm["wa"])), tm["wb"])
+    else:
+        dec = torch.tanh(xw @ A.unshard_fsdp(tm["wa"])) @ A.unshard_fsdp(
+            tm["wb"])
     w0, gn_s, gn_b = tm["w0"], tm["gn_s"], tm["gn_b"]
     u = tm["u"]
     if dl != d:                                # this rank's heads
         dec, w0, gn_s, gn_b = (C.split_to(t, -1, "model")
                                for t in (dec, w0, gn_s, gn_b))
-        u = A.unshard_fsdp(u, ("model", None))
+        if not A.serving():                    # else: the stored block
+            u = A.unshard_fsdp(u, ("model", None))
+        if u.shape[0] != hl or (state0 is not None
+                                and state0.shape[1] != hl):
+            raise NotImplementedError(
+                f"{hl} heads a rank against u of {u.shape[0]} heads and a "
+                f"state of {None if state0 is None else state0.shape[1]}")
     logw = -torch.exp((w0 + dec).float())
     logw = torch.clamp(logw, min=_LOGW_MIN).reshape(b, s, hl, hd)
     o, state = ops.wkv6_scan(r, k, v, logw, u, state0)
@@ -202,14 +225,11 @@ def _embed(params, tokens, cfg: ModelConfig):
 
 
 def _unembed(params, h, cfg: ModelConfig):
-    """Final norm and f32 logits (``layers.logits_f32``: the JAX
+    """Final norm and f32 logits (``layers.head_logits``: the JAX
     package's ``preferred_element_type=float32`` product); under a process
     mesh this rank's vocab columns where ``model`` divides the vocab."""
     h = L.layer_norm(h, params["ln_f_s"], params["ln_f_b"], cfg.norm_eps)
-    w, lay = A.gather_at_use(params["lm_head"], (None, "model"))
-    if lay is not None and lay[1] == "model":
-        h = C.copy_to(h, "model")
-    return L.logits_f32(h, w)
+    return L.head_logits(h, params["lm_head"])
 
 
 def _layer_body(h, lp, cfg: ModelConfig):
@@ -272,8 +292,12 @@ def rwkv6_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
                  *, scan_layers: bool = True
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step. tokens (B, 1). Returns (logits f32, new cache);
-    the cache passed in is not modified."""
+    the cache passed in is not modified. Over a process mesh (serve
+    mode): this rank's rows of the logits (its vocab block) and its
+    block of the new cache (``cache_pspecs``: the state's heads over
+    ``model``, every leaf's rows over the batch axes)."""
     del scan_layers
+    L.check_sharded_decode(cfg, cache)
     h = _embed(params, tokens, cfg)
     states, tm_xs, cm_xs = [], [], []
     for i in range(cfg.num_layers):
@@ -288,6 +312,6 @@ def rwkv6_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
         tm_xs.append(x[:, 0])
         cm_xs.append(x2[:, 0])
     logits = _unembed(params, h, cfg)
-    return logits, {"state": torch.stack(states),
-                    "tm_x": torch.stack(tm_xs), "cm_x": torch.stack(cm_xs),
-                    "pos": cache["pos"] + 1}
+    return logits, L.keep_spec(
+        {"state": torch.stack(states), "tm_x": torch.stack(tm_xs),
+         "cm_x": torch.stack(cm_xs), "pos": cache["pos"] + 1}, cache)

@@ -19,7 +19,12 @@ the embedding and the head are vocab-parallel and the layers tensor-parallel
 
 A decode step keeps the cache's position ``pos`` a 0-d int tensor on the
 device and writes each layer's k and v with an indexed copy, so it never
-reads a value back to the host.
+reads a value back to the host. Over a process mesh (serve mode,
+``launch.steps.make_serve_step``) a dense model's decode runs on the
+rank's rows, its blocks of the weights and its stripe of the cache's
+sequence (``layers``: ``serve_einsum``, ``_attend_decode_serve``); the
+MoE and VLM families raise ``NotImplementedError`` there
+(``layers.check_sharded_decode``).
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import ParamDef, as_dtype, tree_map
+from repro_torch.models.params import ParamDef, as_dtype
 
 __all__ = [
     "transformer_defs", "transformer_apply", "transformer_decode",
@@ -157,22 +162,28 @@ def transformer_decode(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step over the stacked cache. Returns (logits f32, new
     cache); the cache passed in is not modified (the new one is a copy
-    written layer by layer)."""
+    written layer by layer). Over a process mesh: this rank's rows of
+    the logits (its vocab block where the head is vocab-parallel) and
+    its block of the new cache."""
     del scan_layers
+    L.check_sharded_decode(cfg, cache)
     h = _embed(params, tokens, cfg)
     mrope = cfg.family == "vlm"
     window = window_override or cfg.sliding_window
     pos = cache["pos"]
+    stripe = L.kv_stripe(cache["k"])
     k_new, v_new = cache["k"].clone(), cache["v"].clone()
     for i in range(cfg.num_layers):
-        lp = tree_map(lambda x: x[i], params["layers"])
+        lp = L.layer_params(params["layers"], i)
         a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
         h = h + L._attend_decode(lp["attn"], a_in, k_new[i], v_new[i], pos,
-                                 cfg, window=window, mrope=mrope)
+                                 cfg, window=window, mrope=mrope,
+                                 stripe=stripe)
         m_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
         if cfg.family == "moe":
             h = h + L.moe_apply(lp["moe"], m_in, cfg)[0]
         else:
             h = h + L.mlp_apply(lp["mlp"], m_in, cfg)
     logits = unembed(params, h, cfg)
-    return logits, {"k": k_new, "v": v_new, "pos": pos + 1}
+    return logits, L.keep_spec({"k": k_new, "v": v_new, "pos": pos + 1},
+                               cache)

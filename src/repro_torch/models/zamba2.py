@@ -234,7 +234,8 @@ def _mamba_forward(lp, x, cfg: ModelConfig, *, conv_state=None,
     sharded = C.active() is not None
     if sharded:
         if decode:
-            raise NotImplementedError("zamba2 decode over a process mesh")
+            raise NotImplementedError("zamba2 decode over a process mesh "
+                                      "is ROADMAP item 11d")
         proj, conv_w, conv_b, h = _heads_in(lp, x, cfg)
     else:
         proj = L.dense(x, lp["in_proj"])
@@ -365,8 +366,11 @@ def zamba2_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step. Returns (logits f32, new cache); the cache passed
     in is not modified. The shared block attends over a ring exactly when
-    the cache was clamped to ``long_context_window`` at init."""
+    the cache was clamped to ``long_context_window`` at init. Over a
+    process mesh it raises ``NotImplementedError`` (ROADMAP item 11d,
+    ``layers.check_sharded_decode``)."""
     del scan_layers
+    L.check_sharded_decode(cfg, cache)
     h = _embed(params, tokens, cfg)
     pos = cache["pos"]
     ck_len = cache["attn_k"].shape[2]

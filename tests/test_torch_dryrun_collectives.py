@@ -13,9 +13,14 @@ the role of the JAX package's ``launch/hlo_analysis.py``) on the CPU.
   * llama3.2-1b at full width and 4 of 16 layers, bf16, B=4, S=1024,
     with remat, over a fake (2, 2, 1) mesh: the tallies four gloo ranks
     measured on the H100 (chip_smoke's ``lm_train_sharded``, PERF.md);
+  * one rank's sharded SMOKE decode step (the serve step on its blocks,
+    float and ternary) issues exactly what
+    ``test_torch_dist_decode.expected_counts`` counts from the specs (the
+    real four-rank runs of that file are held to the same count);
   * the dry run's records: ``collectives`` for both production meshes of
-    a train cell, and the reason where there is none (a decode cell, a
-    model the sharded trainer refuses).
+    a train and a decode cell, and the reason where there is none (a
+    model the sharded trainer refuses; a decode family the sharded serve
+    step does not run yet, with its ROADMAP item).
 """
 import dataclasses
 import json
@@ -29,6 +34,8 @@ from repro_torch.configs.shapes import SHAPES, ShapeSpec  # noqa: E402
 from repro_torch.launch import collective_analysis as CA  # noqa: E402
 from repro_torch.launch import dryrun as DR  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from test_torch_dist_decode import W as DW  # noqa: E402
+from test_torch_dist_decode import expected_counts as decode_counts  # noqa
 from test_torch_dist_train import W, expected_counts  # noqa: E402
 
 # One rank's step a pod run of llama3.2-1b at 4 layers (PR 31's card run,
@@ -48,7 +55,7 @@ SMOKE_CASES = [("llama3.2-1b", (2, 2)), ("rwkv6-7b", (1, 4)),
                ("deepseek-moe-16b", (2, 2, 1)), ("zamba2-1.2b", (2, 2))]
 
 _HLO_OPS = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
-            "all_reduce": "all-reduce"}
+            "all_reduce": "all-reduce", "all_to_all": "all-to-all"}
 
 
 def _hlo(ops):
@@ -69,7 +76,7 @@ def _hlo(ops):
 def _tallies(ops, axis_of):
     """The tallies ``distributed.collectives`` keeps of ``ops``: one
     launch each, the gathered tensor of an all-gather, the whole input of
-    a reduce-scatter, the tensor of an all-reduce."""
+    a reduce-scatter, the tensor of an all-reduce or an all-to-all."""
     size = {"bf16": 2, "f32": 4}
     launches, nbytes = {}, {}
     for op, g, shape, dtype in ops:
@@ -92,7 +99,9 @@ def _tallies(ops, axis_of):
      ("reduce_scatter", 16, (4, 32), "bf16"),
      ("all_reduce", 16, (1000,), "f32"), ("all_reduce", 2, (512, 3), "bf16"),
      ("all_gather", 16, (128,), "f32")],
-], ids=["gather", "scatter", "reduce", "mixed"])
+    [("all_to_all", 16, (128, 2048), "bf16"),
+     ("all_to_all", 2, (8, 1, 64), "f32"), ("all_gather", 16, (8,), "f32")],
+], ids=["gather", "scatter", "reduce", "mixed", "all_to_all"])
 def test_ring_formulas_equal_hlo_analysis(ops):
     from repro.launch.hlo_analysis import collective_bytes as jax_bytes
     axis_of = {2: "pod", 16: "data"}
@@ -119,6 +128,25 @@ def test_smoke_trace_equals_the_count_from_the_specs(arch, shape):
     assert got["launches"] == want
 
 
+DECODE_CASES = [("llama3.2-1b", None, (2, 2)),
+                ("h2o-danube-1.8b", "ternary", (1, 4)),
+                ("rwkv6-7b", "ternary", (2, 2)),
+                ("rwkv6-7b", None, (2, 2, 1))]
+
+
+@pytest.mark.parametrize(
+    "arch,quant,shape", DECODE_CASES,
+    ids=[f"{a}-{q or 'float'}-{W.mesh_name(m)}" for a, q, m in DECODE_CASES])
+def test_smoke_decode_trace_equals_the_count_from_the_specs(arch, quant,
+                                                            shape):
+    cfg = DW.config(arch, quant)
+    with CA.fake_process_mesh(shape, "cpu") as pm:
+        got = CA.trace_step(cfg, ShapeSpec("d", "decode", DW.CACHE,
+                                           DW.BATCH), pm, quant=quant)
+    assert (got["launches"], got["tensor_bytes"]) == decode_counts(
+        arch, quant, shape)
+
+
 def test_llama_pod_trace_equals_the_card_run():
     cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=4)
     assert cfg.dtype == "bfloat16"
@@ -136,8 +164,10 @@ def test_llama_pod_trace_equals_the_card_run():
 
 def test_records_hold_collectives_or_their_reason(monkeypatch, tmp_path):
     """A SMOKE llama train cell's record (one layer) has ``collectives``
-    on both production meshes; its decode cell's say why it has none; a
-    SMOKE rwkv6 (one head) on a model axis of 16 holds the trainer's
+    on both production meshes, and so has its decode cell (the serve
+    step's all-to-alls among them); a decode cell of a family the
+    sharded serve step does not run yet says why it has none; a SMOKE
+    rwkv6 (four heads) on a model axis of 16 holds the trainer's
     refusal."""
     monkeypatch.setattr(DR, "get_config", lambda arch: dataclasses.replace(
         get_config(arch, smoke=True), num_layers=1))
@@ -159,7 +189,12 @@ def test_records_hold_collectives_or_their_reason(monkeypatch, tmp_path):
     mesh = make_production_mesh(multi_pod=False)
     dec = CA.mesh_collectives(get_config("llama3.2-1b", smoke=True),
                               SHAPES["decode_32k"], mesh, "cpu")
-    assert dec["error"].startswith("decode: the port has no sharded decode")
+    assert dec["step"] == "decode" and dec["count_by_kind"]["all-to-all"] > 0
+    assert set(dec["count_by_kind"]) <= set(CA.KINDS.values())
+    moe = CA.mesh_collectives(get_config("deepseek-moe-16b", smoke=True),
+                              SHAPES["decode_32k"], mesh, "cpu")
+    assert moe["error"].startswith("NotImplementedError: deepseek-moe")
+    assert "ROADMAP item 11c" in moe["error"]
     ref = CA.mesh_collectives(get_config("rwkv6-7b", smoke=True),
                               SHAPES["train_4k"], mesh, "cpu")
     assert ref["error"].startswith("NotImplementedError: rwkv6-7b-smoke")

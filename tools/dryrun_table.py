@@ -14,7 +14,8 @@ included), K3's and K4's shape-only calls and the trace's seconds.
 ``--collectives`` prints instead what a device sends over the links in
 a step of each cell on both production meshes (``collectives``: GB by
 kind under the ring formulas of ``launch.collective_analysis``, the
-calls of each kind, the total), or the reason a cell has none.
+calls of each kind, the total; a ternary decode record a row of its
+own), or the reason a cell has none.
 """
 import json
 import pathlib
@@ -69,20 +70,21 @@ def rows(records_dir):
     return out
 
 
-KINDS = ("all-gather", "reduce-scatter", "all-reduce")
+KINDS = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")
 
 
 def collective_rows(records_dir):
     out = []
     for path in sorted(pathlib.Path(records_dir).glob("*.json")):
         rec = json.loads(path.read_text())
-        if rec.get("quant") or rec["status"] != "ok":
+        if rec["status"] != "ok":
             continue
+        quant = f" {rec['quant']}" if rec.get("quant") else ""
         for mesh, m in sorted(rec["meshes"].items()):
             col = m.get("collectives", {"error": "not recorded"})
-            head = f"| {rec['arch']} {rec['shape']} | {mesh} | "
+            head = f"| {rec['arch']} {rec['shape']}{quant} | {mesh} | "
             if "error" in col:
-                out.append(head + f"{col['error'][:120]} |||||")
+                out.append(head + f"{col['error'][:120]} ||||||")
                 continue
             out.append(head + " | ".join(
                 [f"{_gb(col['bytes_by_kind'].get(k, 0))} "
@@ -99,9 +101,9 @@ def main(argv=None):
     records = argv[0] if argv else "results/dryrun_torch"
     if collectives:
         print("| cell | mesh | all-gather GB (calls) | reduce-scatter GB "
-              "(calls) | all-reduce GB (calls) | total GB a device a step "
-              "| argument GB a device |")
-        print("|---" * 7 + "|")
+              "(calls) | all-reduce GB (calls) | all-to-all GB (calls) "
+              "| total GB a device a step | argument GB a device |")
+        print("|---" * 8 + "|")
         for row in collective_rows(records):
             print(row)
         return
