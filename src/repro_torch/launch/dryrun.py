@@ -33,8 +33,8 @@ weights or device memory:
     serve step on the rank's blocks, as the JAX dry run jits it. A cell
     that cannot be traced holds its reason under ``"error"``: a model
     the sharded trainer refuses, or a decode the sharded serve step does
-    not run yet (its family, or a batch the batch axes do not divide),
-    with the ROADMAP item that brings it.
+    not run yet (a batch the batch axes do not divide: context
+    parallelism), with the ROADMAP item that brings it.
 
 What the JAX dry run records and this one leaves out:
   * the ``L1``/``L2`` depth variants: XLA counts a scan body once, so the

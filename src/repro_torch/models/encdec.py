@@ -24,7 +24,8 @@ embedding is vocab-parallel (``layers.embed_lookup``) and so is the head
 where the vocabulary divides ``model`` (``layers.head_logits``; where it
 does not, as seamless' 256,206 rows over 4, every rank computes every
 logit). A decode step keeps
-``pos`` a 0-d device tensor and never reads a value back to the host.
+``pos`` a 0-d device tensor and never reads a value back to the host;
+over a process mesh it runs in serve mode (``encdec_decode``).
 """
 from __future__ import annotations
 
@@ -186,26 +187,29 @@ def encdec_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder step attending the precomputed cross K/V. Returns
     (logits f32, new cache); the cache passed in is not modified. Over a
-    process mesh it raises ``NotImplementedError`` (ROADMAP item 11e,
-    ``layers.check_sharded_decode``)."""
+    process mesh (serve mode) the self-attention attends over the rank's
+    stripe of its KV cache, the cross-attention over the rank's stripe of
+    the encoder sequence (``layers.cross_decode``; both combined over
+    ``model``), the MLP and the head by their serve rules: the result is
+    this rank's rows of the logits and its block of the new cache."""
     del scan_layers
     L.check_sharded_decode(cfg, cache)
     h = _embed(params, tokens, cfg)
     pos = cache["pos"]
+    stripe = L.kv_stripe(cache["k"])
+    L.kv_stripe(cache["ck"])
     k_new, v_new = cache["k"].clone(), cache["v"].clone()
     for i in range(cfg.decoder_layers):
         lp = L.layer_params(params["decoder"], i)
         a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
         h = h + L._attend_decode(lp["self_attn"], a_in, k_new[i], v_new[i],
-                                 pos, cfg, window=None, mrope=False)
+                                 pos, cfg, window=None, mrope=False,
+                                 stripe=stripe)
         c_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-        q = torch.einsum("bsd,dhk->bshk", c_in, lp["cross_attn"]["wq"])
-        cross = L.blockwise_attention(q, cache["ck"][i], cache["cv"][i],
-                                      causal=False)
-        h = h + torch.einsum("bshk,hkd->bsd", cross,
-                             lp["cross_attn"]["wo"])
+        h = h + L.cross_decode(lp["cross_attn"], c_in, cache["ck"][i],
+                               cache["cv"][i], cfg)
         m_in = L.rms_norm(h, lp["ln3"], cfg.norm_eps)
         h = h + L.mlp_apply(lp["mlp"], m_in, cfg)
-    return _unembed(params, h, cfg), {
+    return _unembed(params, h, cfg), L.keep_spec({
         "k": k_new, "v": v_new, "ck": cache["ck"], "cv": cache["cv"],
-        "pos": pos + 1}
+        "pos": pos + 1}, cache)

@@ -38,8 +38,10 @@ K3 on the rank's output columns of a packed weight with whole-K rows).
 The residual stream is the rank's rows, whole; a decode step's attention
 attends over the rank's stripe of the KV cache's sequence
 (flash-decoding: the max, the sum and the weighted values combined over
-``model``), and :func:`greedy_tokens` takes the argmax of
-vocab-parallel logits.
+``model``), the enc-dec's cross-attention over its stripe of the encoder
+sequence (:func:`cross_decode`), the MoE routes the global batch's
+groups on every rank (``_moe_serve``), and :func:`greedy_tokens` takes
+the argmax of vocab-parallel logits.
 """
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ __all__ = [
     "rms_norm", "rope_freqs", "apply_rope", "mrope_positions",
     "attention_defs", "attention_apply", "attention_decode",
     "mlp_defs", "mlp_apply", "moe_defs", "moe_apply", "moe_groups",
-    "moe_check_batch",
+    "moe_check_batch", "moe_route_logits", "cross_decode",
     "dense", "blockwise_attention", "layer_norm", "logits_f32", "remat",
     "layer_params", "embed_lookup", "head_logits", "serve_einsum",
     "greedy_tokens", "check_sharded_decode", "kv_stripe", "keep_spec",
@@ -626,27 +628,21 @@ def attention_apply(
     return C.all_reduce(y, "model") if part else y
 
 
-# The ROADMAP items that bring a family's decode over a process mesh.
-_DECODE_ITEMS = {"vlm": "11b", "moe": "11c", "zamba2": "11d",
-                 "encdec": "11e"}
+# The ROADMAP item that brings context-parallel decode caches.
 _CP_ITEM = "11f"
 
 
 def check_sharded_decode(cfg: ModelConfig, cache: Dict[str, Any]) -> None:
     """Under a process mesh, raise ``NotImplementedError`` (naming the
     ROADMAP item that brings it) for a decode the port does not run
-    sharded: a family of ``_DECODE_ITEMS``, a step outside serve mode
-    (``launch.steps.make_serve_step`` sets it), and a cache whose spec
-    puts ``data`` on a sequence or state dim (context parallelism: a
-    global batch the batch axes do not divide). A cache leaf without a
-    spec raises ``ValueError``: caches reach the model as the blocks
-    ``sharding.local_block`` cuts under ``cache_pspecs``."""
+    sharded: a step outside serve mode (``launch.steps.make_serve_step``
+    sets it), and a cache whose spec puts ``data`` on a sequence or state
+    dim (context parallelism: a global batch the batch axes do not
+    divide). A cache leaf without a spec raises ``ValueError``: caches
+    reach the model as the blocks ``sharding.local_block`` cuts under
+    ``cache_pspecs``."""
     if C.active() is None:
         return
-    if cfg.family in _DECODE_ITEMS:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family} decode over a process mesh is "
-            f"ROADMAP item {_DECODE_ITEMS[cfg.family]}, not yet ported")
     if not A.serving():
         raise NotImplementedError(
             f"{cfg.name}: a decode step under a process mesh runs in serve "
@@ -721,9 +717,8 @@ def _attend_decode_serve(p, x, k_cache, v_cache, pos, cfg: ModelConfig, *,
     of the sequence's ``S`` slots (``kv_stripe``): q, k and v of every
     head from the projections' serve rule; only the owner of the token's
     slot writes it (a select, so nothing waits for the device); scores
-    at global key positions; the softmax's max over ``model``, then the
-    sum and the weighted values, combined in one sum over ``model``; the
-    output projection on the stored block of ``wo``."""
+    at global key positions (:func:`_stripe_attend`); the output
+    projection on the stored block of ``wo``."""
     b = x.shape[0]
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     secs = cfg.mrope_sections if mrope else None
@@ -748,16 +743,31 @@ def _attend_decode_serve(p, x, k_cache, v_cache, pos, cfg: ModelConfig, *,
         cache.index_copy_(1, at, torch.where(mine, new.to(cache.dtype),
                                              keep))
 
-    g = h // kvh
-    qg = q.reshape(b, 1, kvh, g, hd).float()
-    scale = 1.0 / math.sqrt(hd)
-    sc = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float()) * scale
     k_idx = lo + torch.arange(s_loc, device=x.device)
     valid = k_idx <= pos
     if window is not None:
         valid = valid | (pos >= s_all)
-    sc = sc.masked_fill(~valid, -math.inf)
-    # slot 0 is always valid, so the max over the ranks is finite
+    out = _stripe_attend(q, k_cache, v_cache, valid)
+    return serve_einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+
+
+def _stripe_attend(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor,
+                   valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """One query's attention (B, 1, H, hd) over this rank's stripe of the
+    keys (B, S_r, KVH, hd), flash-decoding over ``model``: f32 scores
+    (masked to -inf where ``valid`` is False), the softmax's max over
+    ``model``, then the weighted values and the sum, combined in one sum
+    over ``model``. Returns the f32 output (B, 1, H, hd). At least one
+    key of the whole sequence must be valid (slot 0 is, in a decode
+    step), so the max over the ranks is finite."""
+    b, _, h, hd = q.shape
+    kvh = k_cache.shape[2]
+    qg = q.reshape(b, 1, kvh, h // kvh, hd).float()
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float()) \
+        * (1.0 / math.sqrt(hd))
+    if valid is not None:
+        sc = sc.masked_fill(~valid, -math.inf)
     top = C.all_reduce_max(sc.amax(dim=-1), "model")
     w_att = torch.exp(sc - top[..., None])
     acc = torch.einsum("bkgqs,bskd->bkgqd", w_att, v_cache.float())
@@ -766,8 +776,27 @@ def _attend_decode_serve(p, x, k_cache, v_cache, pos, cfg: ModelConfig, *,
     acc = both[:acc.numel()].view(acc.shape)
     tot = both[acc.numel():].view(acc.shape[:-1])
     out = acc / tot[..., None]
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(x.dtype)
-    return serve_einsum("bshk,hkd->bsd", out, p["wo"])
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
+
+
+def cross_decode(p: Dict[str, Any], x: torch.Tensor, ck: torch.Tensor,
+                 cv: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One decode step's cross-attention of ``x`` (B, 1, D) over the
+    precomputed encoder keys and values ``ck``/``cv`` (B, S_enc, KVH, hd):
+    non-causal, nothing written, the output projected by ``wo``. In serve
+    mode under a process mesh ``ck``/``cv`` are this rank's stripe of the
+    encoder sequence (``cache_pspecs``' KV layout, which the caller checks
+    with :func:`kv_stripe`): q of every head from the projection's serve
+    rule, attention over the stripe combined over ``model``
+    (:func:`_stripe_attend`), ``wo`` on its stored block."""
+    if A.serving():
+        h, hd = cfg.num_heads, cfg.head_dim
+        q = _heads_whole(serve_einsum("bsd,dhk->bshk", x, p["wq"]), h, hd)
+        out = _stripe_attend(q, ck, cv, None)
+        return serve_einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    out = blockwise_attention(q, ck, cv, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def _attend_decode(p, x, k_cache, v_cache, pos, cfg: ModelConfig, *,
@@ -923,17 +952,23 @@ def moe_route(router: torch.Tensor, xg: torch.Tensor, cfg: ModelConfig,
     (``gather_from``: the backward keeps the rank's block), so every rank
     of the axis routes from the same bits.
     """
-    e, k = cfg.num_experts, cfg.top_k
     logits = torch.einsum("ngd,de->nge", xg, router).float()
     if expert_axis is not None:
         logits = C.gather_from(logits, -1, expert_axis)
+    return moe_route_logits(logits, cfg, cap)
+
+
+def moe_route_logits(logits: torch.Tensor, cfg: ModelConfig, cap: int
+                     ) -> Dict[str, torch.Tensor]:
+    """:func:`moe_route` from the f32 router logits (NG, G, E)."""
+    e, k = cfg.num_experts, cfg.top_k
     probs = torch.softmax(logits, dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = top.values[..., :k], top.indices[..., :k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
     onehot = _one_hot(gate_idx, e, torch.float32)            # (ng,g,k,e)
-    ng, g = xg.shape[:2]
+    ng, g = logits.shape[:2]
     flat = onehot.reshape(ng, g * k, e)
     pos = (torch.cumsum(flat, dim=1) - flat).reshape(ng, g, k, e)
     pos = torch.sum(pos * onehot, dim=-1)                    # (ng, g, k)
@@ -998,7 +1033,10 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
     same). The shared experts are ``dense``'s TP. Off a process
     mesh every collective is the identity. Experts that do not divide
     ``model`` (the specs then put the experts' ``mlp`` dim there) raise
-    ``NotImplementedError``."""
+    ``NotImplementedError``. In serve mode the rule is
+    :func:`_moe_serve`'s."""
+    if A.serving():
+        return _moe_serve(p, x, cfg)
     b, s, d = x.shape
     e = cfg.num_experts
     g, ng, cap = moe_groups(b, s, cfg)
@@ -1024,15 +1062,7 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
             ce_frac = C.all_reduce_(ce_frac, a) / C.axis_size(a)
     aux = e * torch.sum(me * ce_frac)
 
-    # dispatch (ng, g, e, cap) one-hot routing tensor in x's dtype.
-    pos_oh = _one_hot(r["pos"], cap, x.dtype) * r["keep"][..., None].to(
-        x.dtype)
-    onehot = r["onehot"]
-    disp = torch.einsum("ngke,ngkc->ngec", onehot.to(x.dtype), pos_oh)
-    # combine: gate-weighted inverse of dispatch.
-    comb = torch.einsum("ngke,ngkc->ngec",
-                        (onehot * r["gate_vals"][..., None]).to(x.dtype),
-                        pos_oh)
+    disp, comb = _dispatch_combine(r, cap, x.dtype)
     if ep:                                   # this rank's experts
         disp = C.split_to(disp, 2, "model")
         comb = C.split_to(comb, 2, "model")
@@ -1046,9 +1076,107 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
 
     y = torch.einsum("ngec,necd->ngd", comb, ye)
     out = (C.all_reduce(y, "model") if ep else y).reshape(b, s, d)
-
     if cfg.num_shared_experts:
-        sh = p["shared"]
-        hs = F.silu(dense(x, sh["w_gate"])) * dense(x, sh["w_up"])
-        out = out + dense(hs, sh["w_down"], role="down")
+        out = out + _shared_experts(p["shared"], x)
     return out, aux
+
+
+def _dispatch_combine(r: Dict[str, torch.Tensor], cap: int,
+                      dtype: torch.dtype
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (NG, G, E, cap) one-hot dispatch of a routing ``r``
+    (:func:`moe_route_logits`) and the combine, its gate-weighted
+    inverse, in ``dtype``."""
+    pos_oh = _one_hot(r["pos"], cap, dtype) * r["keep"][..., None].to(dtype)
+    onehot = r["onehot"]
+    disp = torch.einsum("ngke,ngkc->ngec", onehot.to(dtype), pos_oh)
+    comb = torch.einsum("ngke,ngkc->ngec",
+                        (onehot * r["gate_vals"][..., None]).to(dtype),
+                        pos_oh)
+    return disp, comb
+
+
+def _shared_experts(sh: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """The MoE's shared experts, a SwiGLU MLP by ``dense``'s rules."""
+    hs = F.silu(dense(x, sh["w_gate"])) * dense(x, sh["w_up"])
+    return dense(hs, sh["w_down"], role="down")
+
+
+def _moe_serve(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply`` in serve mode under a process mesh, on this rank's
+    rows ``x`` (B_r, S, D) and the blocks it stores: the router (D over
+    ``data``, experts over ``model``), each expert's weights (experts
+    over ``model``, D over ``data``, F whole) and the shared experts
+    (``dense``'s serve rule, K3 when packed).
+
+    The JAX package groups the tokens of the global batch, so a rank that
+    routed its own rows alone would form other groups, another capacity
+    and other drops. So every row goes to every rank first: rows are
+    traded for columns over ``data`` (``all_to_all``: every row of the
+    data axis, this rank's block of D, the block its weights hold) and
+    gathered over ``pod`` (the weights are whole there). Then each rank:
+
+      * the router logits of its experts from its D block, f32 partial
+        sums all-reduced over ``data`` and rounded to ``x``'s dtype (the
+        one-device product's rounding), gathered over ``model``: every
+        rank routes the whole (NG, G, E) from the same bits
+        (:func:`moe_route_logits`);
+      * its experts' dispatch and combine, their gate and up products on
+        its D block, the partial sums all-reduced over ``data`` (both in
+        one call). This is the way back of a sum over ``data`` here: at
+        decode a group holds B tokens and the capacity is ~B k / E slots
+        (1 for deepseek-moe-16b at B=8), so the slots cannot be split
+        over ``data``; the all-reduce moves 2 E_r cap F values, less
+        than the rows themselves;
+      * the down product onto its D block, the combine over its experts,
+        summed over ``model`` (all-reduce), its pod's rows cut out and
+        columns traded back for rows over ``data`` (``all_to_all``).
+
+    No weight crosses ranks. The aux loss is the one-device loss of the
+    global groups (decode discards it). Experts that do not divide
+    ``model`` raise ``NotImplementedError``."""
+    b, s, d = x.shape
+    e = cfg.num_experts
+    d_on, e_on = A.serve_layout(p["router"])
+    if e_on != "model" and C.axis_size("model") > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: {e} experts over a model axis of "
+            f"{C.axis_size('model')}: the fallback layout (each expert's mlp "
+            f"dim on 'model') has no serve rule")
+    cols = d_on == "data" and C.axis_size("data") > 1
+    xa = C.all_to_all(x, -1, 0, "data") if cols \
+        else C.gather_dim(x, 0, "data")
+    xa = C.gather_dim(xa, 0, "pod")
+    na = xa.shape[0]
+    g, ng, cap = moe_groups(na, s, cfg)
+    xg = xa.reshape(ng, g, -1)
+    part = torch.einsum("ngd,de->nge", xg.float(), p["router"].float())
+    if cols:
+        part = C.all_reduce_(part, "data")
+    logits = C.gather_dim(part.to(x.dtype), -1, "model").float()
+    r = moe_route_logits(logits, cfg, cap)
+    me = r["probs"].mean(dim=(0, 1))
+    ce_frac = _one_hot(r["gate_idx"][..., 0], e,
+                       torch.float32).mean(dim=(0, 1))
+    aux = e * torch.sum(me * ce_frac)
+
+    lo, hi = C.block_range(e, "model")
+    disp, comb = (t[:, :, lo:hi] for t in _dispatch_combine(r, cap, x.dtype))
+    xe = torch.einsum("ngd,ngec->necd", xg, disp)        # (ng,e_r,cap,d_r)
+    gu = torch.stack([torch.einsum("necd,edf->necf", xe, p[k])
+                      for k in ("we_gate", "we_up")])
+    if cols:
+        gu = C.all_reduce_(gu, "data")
+    ye = torch.einsum("necf,efd->necd", F.silu(gu[0]) * gu[1], p["we_down"])
+    y = C.all_reduce_(torch.einsum("ngec,necd->ngd", comb, ye), "model")
+    lo, hi = C.block_range(na, "pod")
+    y = y.reshape(na, s, -1)[lo:hi]
+    if cols:
+        y = C.all_to_all(y, 0, -1, "data")
+    else:
+        lo, hi = C.block_range(y.shape[0], "data")
+        y = y[lo:hi]
+    if cfg.num_shared_experts:
+        y = y + _shared_experts(p["shared"], x)
+    return y, aux

@@ -20,11 +20,11 @@ the embedding and the head are vocab-parallel and the layers tensor-parallel
 A decode step keeps the cache's position ``pos`` a 0-d int tensor on the
 device and writes each layer's k and v with an indexed copy, so it never
 reads a value back to the host. Over a process mesh (serve mode,
-``launch.steps.make_serve_step``) a dense model's decode runs on the
-rank's rows, its blocks of the weights and its stripe of the cache's
-sequence (``layers``: ``serve_einsum``, ``_attend_decode_serve``); the
-MoE and VLM families raise ``NotImplementedError`` there
-(``layers.check_sharded_decode``).
+``launch.steps.make_serve_step``) the decode of every family here runs
+on the rank's rows, its blocks of the weights and its stripe of the
+cache's sequence (``layers``: ``serve_einsum``, ``_attend_decode_serve``
+with M-RoPE positions for the VLM, ``_moe_serve`` for the MoE, a tied
+head on the embedding's stored block).
 """
 from __future__ import annotations
 

@@ -29,7 +29,9 @@ and ``C`` behind ``copy_to`` of the input, ``a_log``/``dt_bias``/
 ``d_skip`` are its stored blocks, ``norm_s``'s statistic is reduced over
 ``model`` (``_rms_norm_heads``) and ``out_proj`` is row-parallel. The
 shared block is the dense family's TP, the embedding and the head
-vocab-parallel (``layers.embed_lookup``, ``layers.head_logits``).
+vocab-parallel (``layers.embed_lookup``, ``layers.head_logits``). A
+decode step there runs in serve mode, where no weight is gathered:
+``_mamba_decode_serve`` moves activations instead.
 """
 from __future__ import annotations
 
@@ -234,8 +236,7 @@ def _mamba_forward(lp, x, cfg: ModelConfig, *, conv_state=None,
     sharded = C.active() is not None
     if sharded:
         if decode:
-            raise NotImplementedError("zamba2 decode over a process mesh "
-                                      "is ROADMAP item 11d")
+            return _mamba_decode_serve(lp, x, cfg, conv_state, ssm_state)
         proj, conv_w, conv_b, h = _heads_in(lp, x, cfg)
     else:
         proj = L.dense(x, lp["in_proj"])
@@ -277,6 +278,54 @@ def _mamba_forward(lp, x, cfg: ModelConfig, *, conv_state=None,
         y = L.rms_norm(y * F.silu(z), lp["norm_s"], cfg.norm_eps)
     out = L.dense(y, lp["out_proj"], role="down")
     return out, (new_conv_state, ssm_state)
+
+
+def _mamba_decode_serve(lp, x, cfg: ModelConfig, conv_state, ssm_state):
+    """One Mamba-2 layer's decode step in serve mode under a process mesh
+    (``_mamba_forward(decode=True)`` there), on this rank's rows ``x``
+    (B_r, 1, D), its blocks of the weights and of the cache.
+
+    ``in_proj``'s output columns (``z | x | B | C | dt``) are split over
+    ``model`` in blocks that do not line up with the SSD heads, and
+    ``conv_w``/``conv_b``'s channels in blocks that do not either, so
+    activations move instead of weights: the product on the stored block
+    (``dense``'s serve rule, K3 on the rank's columns when packed)
+    gathered over ``model`` into every column; the new conv state from
+    the whole ``x | B | C`` (the cache keeps the whole conv dim on every
+    ``model`` rank, so each writes the same bits); the conv on the stored
+    channels, gathered over ``model``; then each rank takes its heads'
+    ``z``, ``x`` and ``dt`` and the shared ``B`` and ``C``, steps the SSM
+    state of its heads (the cache's block) with its blocks of ``a_log``,
+    ``dt_bias`` and ``d_skip``, normalizes with the statistic summed over
+    ``model`` (``_rms_norm_heads``) and ends in ``out_proj``'s serve rule
+    (row-parallel on its heads). Heads or conv channels that ``model``
+    does not divide raise ``NotImplementedError``, as in training.
+    Returns (out, (conv_state, ssm_state))."""
+    din, n, p = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    h = cfg.ssm_heads
+    if (A.serve_layout(lp["a_log"])[0],
+            A.serve_layout(lp["conv_b"])[0]) != ("model", "model"):
+        raise NotImplementedError(
+            f"{cfg.name}: {h} SSM heads or {din + 2 * n} conv channels over "
+            f"a model axis of {C.axis_size('model')}")
+    proj = L.dense(x, lp["in_proj"], gather_output=True)
+    z, xbc, dt_raw = torch.split(proj, [din, din + 2 * n, h], dim=-1)
+    window = torch.cat([conv_state, xbc], dim=1)           # (B, k, cd)
+    lo, hi = C.block_range(din + 2 * n, "model")
+    conv = C.gather_dim(F.silu((window[..., lo:hi] * lp["conv_w"]).sum(
+        dim=1, keepdim=True) + lp["conv_b"]), -1, "model")
+    lo, hi = C.block_range(h, "model")
+    xs = conv[..., lo * p:hi * p].reshape(x.shape[0], 1, hi - lo, p)
+    b_in, c_in = conv[..., din:din + n], conv[..., din + n:]
+    dt = _softplus(dt_raw[..., lo:hi].float() + lp["dt_bias"].float())
+    a = -torch.exp(lp["a_log"].float())
+    y, ssm_state = _mamba_step(xs[:, 0], dt[:, 0], a, b_in[:, 0],
+                               c_in[:, 0], ssm_state)
+    y = (y[:, None] + xs * lp["d_skip"][:, None]).reshape(
+        x.shape[0], 1, -1) * F.silu(z[..., lo * p:hi * p])
+    y = _rms_norm_heads(y, lp["norm_s"], cfg.norm_eps, din)
+    return L.dense(y, lp["out_proj"], role="down"), (window[:, 1:],
+                                                     ssm_state)
 
 
 def _mamba_layer(h, lp, cfg: ModelConfig):
@@ -367,13 +416,16 @@ def zamba2_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
     """One decode step. Returns (logits f32, new cache); the cache passed
     in is not modified. The shared block attends over a ring exactly when
     the cache was clamped to ``long_context_window`` at init. Over a
-    process mesh it raises ``NotImplementedError`` (ROADMAP item 11d,
-    ``layers.check_sharded_decode``)."""
+    process mesh (serve mode) each Mamba layer is
+    ``_mamba_decode_serve``'s, the shared block attends over the rank's
+    stripe of its KV cache (a ring too), and the result is this rank's
+    rows of the logits and its block of the new cache."""
     del scan_layers
     L.check_sharded_decode(cfg, cache)
     h = _embed(params, tokens, cfg)
     pos = cache["pos"]
-    ck_len = cache["attn_k"].shape[2]
+    stripe = L.kv_stripe(cache["attn_k"])
+    ck_len = cache["attn_k"].shape[2] if stripe is None else stripe[1]
     ring = (cfg.long_context_window is not None
             and ck_len == cfg.long_context_window)
     window = ck_len if ring else None
@@ -392,9 +444,10 @@ def zamba2_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
             ssm_new.append(ssm_st)
         a_in = L.rms_norm(h, sp["ln1"], cfg.norm_eps)
         h = h + L._attend_decode(sp["attn"], a_in, k_new[si], v_new[si],
-                                 pos, cfg, window=window, mrope=False)
+                                 pos, cfg, window=window, mrope=False,
+                                 stripe=stripe)
         m_in = L.rms_norm(h, sp["ln2"], cfg.norm_eps)
         h = h + L.mlp_apply(sp["mlp"], m_in, cfg)
-    return _unembed(params, h, cfg), {
+    return _unembed(params, h, cfg), L.keep_spec({
         "conv": torch.stack(conv_new), "ssm": torch.stack(ssm_new),
-        "attn_k": k_new, "attn_v": v_new, "pos": pos + 1}
+        "attn_k": k_new, "attn_v": v_new, "pos": pos + 1}, cache)

@@ -14,13 +14,13 @@ the role of the JAX package's ``launch/hlo_analysis.py``) on the CPU.
     with remat, over a fake (2, 2, 1) mesh: the tallies four gloo ranks
     measured on the H100 (chip_smoke's ``lm_train_sharded``, PERF.md);
   * one rank's sharded SMOKE decode step (the serve step on its blocks,
-    float and ternary) issues exactly what
+    float and ternary, of every family) issues exactly what
     ``test_torch_dist_decode.expected_counts`` counts from the specs (the
     real four-rank runs of that file are held to the same count);
   * the dry run's records: ``collectives`` for both production meshes of
     a train and a decode cell, and the reason where there is none (a
-    model the sharded trainer refuses; a decode family the sharded serve
-    step does not run yet, with its ROADMAP item).
+    model the sharded trainer refuses; a context-parallel decode cache,
+    with its ROADMAP item).
 """
 import dataclasses
 import json
@@ -131,7 +131,13 @@ def test_smoke_trace_equals_the_count_from_the_specs(arch, shape):
 DECODE_CASES = [("llama3.2-1b", None, (2, 2)),
                 ("h2o-danube-1.8b", "ternary", (1, 4)),
                 ("rwkv6-7b", "ternary", (2, 2)),
-                ("rwkv6-7b", None, (2, 2, 1))]
+                ("rwkv6-7b", None, (2, 2, 1)),
+                ("qwen2-vl-2b", "ternary", (1, 4)),
+                ("deepseek-moe-16b", None, (2, 2, 1)),
+                ("llama4-scout-17b-a16e", "ternary", (2, 2)),
+                ("zamba2-1.2b", "ternary", (2, 2)),
+                ("zamba2-1.2b", None, (1, 4)),
+                ("seamless-m4t-medium", None, (2, 2))]
 
 
 @pytest.mark.parametrize(
@@ -165,10 +171,10 @@ def test_llama_pod_trace_equals_the_card_run():
 def test_records_hold_collectives_or_their_reason(monkeypatch, tmp_path):
     """A SMOKE llama train cell's record (one layer) has ``collectives``
     on both production meshes, and so has its decode cell (the serve
-    step's all-to-alls among them); a decode cell of a family the
-    sharded serve step does not run yet says why it has none; a SMOKE
-    rwkv6 (four heads) on a model axis of 16 holds the trainer's
-    refusal."""
+    step's all-to-alls among them), and a MoE's (16 experts, so that they
+    divide the model axis); a long_500k cell (B=1: a context-parallel
+    cache) says why it has none, naming its ROADMAP item; a SMOKE rwkv6
+    (four heads) on a model axis of 16 holds the trainer's refusal."""
     monkeypatch.setattr(DR, "get_config", lambda arch: dataclasses.replace(
         get_config(arch, smoke=True), num_layers=1))
     monkeypatch.setattr(DR, "OUT_DIR", tmp_path)
@@ -191,10 +197,14 @@ def test_records_hold_collectives_or_their_reason(monkeypatch, tmp_path):
                               SHAPES["decode_32k"], mesh, "cpu")
     assert dec["step"] == "decode" and dec["count_by_kind"]["all-to-all"] > 0
     assert set(dec["count_by_kind"]) <= set(CA.KINDS.values())
-    moe = CA.mesh_collectives(get_config("deepseek-moe-16b", smoke=True),
-                              SHAPES["decode_32k"], mesh, "cpu")
-    assert moe["error"].startswith("NotImplementedError: deepseek-moe")
-    assert "ROADMAP item 11c" in moe["error"]
+    moe = CA.mesh_collectives(dataclasses.replace(
+        get_config("deepseek-moe-16b", smoke=True), num_layers=1,
+        num_experts=16), SHAPES["decode_32k"], mesh, "cpu")
+    assert moe["step"] == "decode" and moe["count_by_kind"]["all-to-all"] > 0
+    long = CA.mesh_collectives(get_config("zamba2-1.2b", smoke=True),
+                               SHAPES["long_500k"], mesh, "cpu")
+    assert long["error"].startswith("NotImplementedError: zamba2")
+    assert "ROADMAP item 11f" in long["error"]
     ref = CA.mesh_collectives(get_config("rwkv6-7b", smoke=True),
                               SHAPES["train_4k"], mesh, "cpu")
     assert ref["error"].startswith("NotImplementedError: rwkv6-7b-smoke")

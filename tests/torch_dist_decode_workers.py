@@ -4,12 +4,15 @@
 ``runtime.spawn`` starts each rank in a fresh process that imports this
 module by name, so it imports nothing of JAX. The parent draws every
 case's params from a seeded CPU generator (rwkv6's ``u``, ``mu``,
-``mu_k`` and ``mu_r`` from a numpy seed, since they init to constants),
-prefills a cache by stepping the one-device port over a prompt from a
-numpy seed, and writes both, with the first tokens, to an npz file that
-the ranks and the JAX package's reference read. A rank cuts its blocks
-out of the whole trees (``sharding.decode_pspecs``), runs ``STEPS``
-steps of ``launch.steps.make_serve_step`` and writes its results.
+``mu_k`` and ``mu_r`` and zamba2's ``a_log``, ``dt_bias``, ``d_skip``,
+``conv_b`` and ``norm_s`` from a numpy seed, since they init to
+constants), fills the enc-dec's cross K/V from frames of a numpy seed
+(``encode``, ``prefill_cross_kv``), prefills a cache by stepping the
+one-device port over a prompt from a numpy seed, and writes both, with
+the first tokens, to an npz file that the ranks and the JAX package's
+reference read. A rank cuts its blocks out of the whole trees
+(``sharding.decode_pspecs``), runs ``STEPS`` steps of
+``launch.steps.make_serve_step`` and writes its results.
 """
 from __future__ import annotations
 
@@ -21,39 +24,71 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.distributed import annotate as A
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import runtime as R
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import build_model
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.serving import quantize_for_serving
 
-ARCHS = ("llama3.2-1b", "h2o-danube-1.8b", "rwkv6-7b")
+ARCHS = ("llama3.2-1b", "h2o-danube-1.8b", "rwkv6-7b", "qwen2-vl-2b",
+         "deepseek-moe-16b", "llama4-scout-17b-a16e", "zamba2-1.2b",
+         "seamless-m4t-medium")
 QUANTS = (None, "ternary")
 # (data, model) meshes, then (pod, data, model): runtime.MESH_AXES by the
-# number of dims.
+# number of dims. The dense archs and rwkv6 run on all four, the others
+# on the (data, model) three, deepseek-moe-16b on the pod mesh too.
 MESHES = ((2, 2), (4, 1), (1, 4), (2, 2, 1))
+POD_ARCHS = ("llama3.2-1b", "h2o-danube-1.8b", "rwkv6-7b",
+             "deepseek-moe-16b")
+CASES = [(a, q, m) for m in MESHES for a in ARCHS for q in QUANTS
+         if len(m) == 2 or a in POD_ARCHS]
 BATCH, PROMPT, STEPS, CACHE = 8, 6, 4, 16
 # Ternary serving packs dims >= 256 only: the SMOKE configs widened so
-# that the MLP (and rwkv6's projections) pack; rwkv6's d_ff keeps its
-# 3.5 x d_model.
+# that the MLP (and rwkv6's projections, the MoE's shared experts,
+# zamba2's in_proj and out_proj) pack; rwkv6's d_ff keeps its 3.5 x
+# d_model.
 WIDE = {"dense": dict(d_model=256, d_ff=512, head_dim=64),
-         "rwkv6": dict(d_model=256, d_ff=896)}
+        "rwkv6": dict(d_model=256, d_ff=896),
+        "vlm": dict(d_model=256, d_ff=512),
+        "moe": dict(d_model=256, d_ff=256, expert_d_ff=256),
+        "zamba2": dict(d_model=256, d_ff=512),
+        "encdec": dict(d_model=256, d_ff=512)}
+# zamba2's shared block on a ring of 8 slots (the cache clamped to its
+# long_context_window), so that the steps wrap it, as h2o-danube's.
+RING = {"zamba2-1.2b": dict(long_context_window=8)}
 # The case whose step is run again with wq gathered over 'data' first
 # (an FSDP gather: a parameter crossing ranks).
 PLANT = ("llama3.2-1b", None, (2, 2))
+# The case whose step is run again with each rank routing its own rows
+# (the MoE groups formed rank by rank).
+ROUTE_PLANT = ("deepseek-moe-16b", None, (2, 2))
+# A fault a family: rank 0's block of the leaf (of layer 0) zeroed, one
+# step run again.
+FAULTS = {("qwen2-vl-2b", None, (2, 2)): "embed",
+          ("deepseek-moe-16b", None, (2, 2)): "layers/moe/we_down",
+          ("zamba2-1.2b", None, (2, 2)): "layers/out_proj",
+          ("seamless-m4t-medium", None, (2, 2)): "decoder/cross_attn/wo"}
+
+
+def overrides(arch: str, quant=None) -> dict:
+    """The fields ``config`` replaces in ``arch``'s SMOKE config."""
+    out = dict(RING.get(arch, {}))
+    if quant == "ternary":
+        cfg = get_config(arch, smoke=True)
+        out.update(WIDE[cfg.family], name=cfg.name + "-q")
+    return out
 
 
 def config(arch: str, quant=None):
-    """The SMOKE config of ``arch`` (f32; h2o-danube's ring of 8 slots,
-    so that the steps wrap it), widened for ternary cases."""
-    cfg = get_config(arch, smoke=True)
-    if quant == "ternary":
-        cfg = dataclasses.replace(cfg, name=cfg.name + "-q",
-                                  **WIDE[cfg.family])
-    return cfg
+    """The SMOKE config of ``arch`` (f32; h2o-danube's ring of 8 slots and
+    zamba2's, so that the steps wrap them), widened for ternary cases."""
+    return dataclasses.replace(get_config(arch, smoke=True),
+                               **overrides(arch, quant))
 
 
 def mesh_name(shape) -> str:
@@ -77,6 +112,14 @@ def params(cfg, seed: int = 0):
         for tree, key in ((tm, "mu"), (cm, "mu_k"), (cm, "mu_r")):
             tree[key] = torch.from_numpy(
                 rng.uniform(0.0, 1.0, tree[key].shape).astype(np.float32))
+    if cfg.family == "zamba2":
+        rng = np.random.default_rng(seed + 1)
+        lay = p["layers"]
+        for key, lo, hi in (("a_log", -1.0, 1.0), ("dt_bias", -1.0, 0.5),
+                            ("d_skip", 0.5, 1.5), ("conv_b", -0.2, 0.2),
+                            ("norm_s", 0.5, 1.5)):
+            lay[key] = torch.from_numpy(
+                rng.uniform(lo, hi, lay[key].shape).astype(np.float32))
     return p
 
 
@@ -133,14 +176,22 @@ def run_steps(cfg, params_, cache, tokens, steps: int = STEPS):
     return rec.got, toks, cache
 
 
-def prefill(cfg, params_, seed: int = 0):
-    """A cache of ``CACHE`` slots (h2o-danube's ring of its window) after
-    ``PROMPT`` one-device decode steps over a prompt from a numpy seed,
-    and the first tokens to serve (the last logits' argmax)."""
+def prefill(cfg, params_, float_params, seed: int = 0):
+    """A cache of ``CACHE`` slots (h2o-danube's and zamba2's rings of
+    their windows) after ``PROMPT`` one-device decode steps over a prompt
+    from a numpy seed, and the first tokens to serve (the last logits'
+    argmax). The enc-dec's cross K/V: ``CACHE`` frames from a numpy seed
+    through ``encode`` (``float_params``: it takes a float
+    ``frontend_proj``) and ``prefill_cross_kv``."""
     model = build_model(cfg)
     prompt = torch.from_numpy(np.random.default_rng(500 + seed).integers(
         0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32))
     cache = model.init_cache(BATCH, CACHE, device="cpu")
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(np.random.default_rng(600 + seed).normal(
+            size=(BATCH, CACHE, cfg.frontend_dim)).astype(np.float32))
+        cache["ck"], cache["cv"] = ED.prefill_cross_kv(
+            params_, ED.encode(float_params, frames, cfg), cfg)
     for i in range(PROMPT):
         logits, cache = model.decode(params_, cache, prompt[:, i:i + 1])
     return cache, torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
@@ -156,7 +207,7 @@ def write_case(out_dir, arch, quant):
     cfg = config(arch, quant)
     p = params(cfg)
     q = quantize_for_serving(p)[0] if quant == "ternary" else p
-    cache, tokens = prefill(cfg, q)
+    cache, tokens = prefill(cfg, q, p)
     np.savez(case_file(out_dir, arch, quant),
              tokens=tokens.numpy(),
              **{"p/" + k: v for k, v in flat(p).items()},
@@ -215,11 +266,13 @@ def _k3_bits(whole, specs, calls, mesh):
     rows on the whole packed weight it holds a block of (its columns over
     the packed leaf's spec): the matching columns bit for bit. Returns
     (calls, calls equal)."""
-    leaves = list(zip(_packed(whole), _packed(specs)))
+    leaves = [({k: v if v.ndim == 3 - (k == "scale") else v[None]
+                for k, v in leaf.items()}, spec)
+              for leaf, spec in zip(_packed(whole), _packed(specs))]
     equal = 0
     for x, pk, sc, out in calls:
         n = pk.shape[-1]
-        for leaf, spec in leaves:
+        for leaf, spec in leaves:       # layers stacked; a shared one alone
             ax = spec["packed"][-1]
             lo = (mesh.coord(ax) if ax in mesh.shape else 0) * n
             hit = [w for w in range(leaf["packed"].shape[0]) if torch.equal(
@@ -242,12 +295,53 @@ def _packed(tree):
     return []
 
 
-def decode_case(arch, quant, mesh, out_dir, plant=False):
+def _route_alone(real):
+    """``layers.moe_route_logits`` as a rank that routed its own rows
+    alone would: the logits of the global groups cut into the rows of
+    each rank of the batch axes, each routed as a group of its own with
+    its own capacity, the results laid back in the global groups."""
+    def route(logits, cfg, cap):
+        parts = C.axis_size("data") * C.axis_size("pod")
+        ng, g, e = logits.shape
+        r = real(logits.reshape(ng * parts, g // parts, e), cfg,
+                 L.moe_groups(g // parts, 1, cfg)[2])
+        return {k: v.reshape(ng, g, *v.shape[2:]) for k, v in r.items()}
+    return route
+
+
+def _zeroed(blocks, leaf, rank):
+    """``blocks`` with this rank's block of ``leaf`` (its layer 0 where
+    stacked; a packed leaf's scale) zeroed on rank ``rank`` only."""
+    out = dict(blocks)
+    node, path = out, leaf.split("/")
+    for k in path[:-1]:
+        node[k] = dict(node[k])
+        node = node[k]
+    w = node[path[-1]]
+    if rank == 0:
+        if isinstance(w, dict):
+            src = w["scale"]
+            w = dict(w, scale=A.tag(src.clone(), A.spec_of(src)))
+            t = w["scale"]
+        else:
+            w = t = A.tag(w.clone(), A.spec_of(w))
+        (t[0] if leaf.startswith(("layers", "decoder")) else t).zero_()
+        node[path[-1]] = w
+    return out
+
+
+def decode_case(arch, quant, mesh, out_dir):
     """``STEPS`` sharded serve steps of a case on this rank from its
     blocks: rank 0 writes the whole logits, tokens and last cache
     (``gather_logical``); every rank writes the first step's collective
     tallies and bytes, the largest tensor a collective moved, its K3
-    calls against the one-device K3 and its K4 call shapes."""
+    calls against the one-device K3, its K4 call shapes and zamba2's
+    conv state blocks after each step. The planted cases run one step
+    again from the first cache: ``PLANT`` with ``wq`` gathered over
+    'data' (the largest tensor moved), ``ROUTE_PLANT`` with each rank
+    routing its own rows and ``FAULTS`` with a zeroed block (the first
+    step's whole logits, on rank 0)."""
+    case = (arch, quant, tuple(mesh.axis_sizes))
     cfg = config(arch, quant)
     whole, cache, tokens = read_case(out_dir, arch, quant)
     specs = SH.decode_pspecs(cfg, mesh, whole, cache, BATCH)
@@ -255,7 +349,7 @@ def decode_case(arch, quant, mesh, out_dir, plant=False):
     cache_b = SH.local_block(cache, specs["cache"], mesh)
     tok_b = SH.local_block(tokens, specs["tokens"], mesh)
     step = make_serve_step(cfg)
-    counts, logits, toks = [], [], []
+    counts, logits, toks, conv = [], [], [], []
     with mesh, Watch() as watch, Logits() as rec:
         for i in range(STEPS):
             C.reset_counts()
@@ -265,59 +359,75 @@ def decode_case(arch, quant, mesh, out_dir, plant=False):
                            {f"{op}/{axis}": n for (op, axis), n in
                             sorted(C.bytes_moved.items())}))
             toks.append(tok_b)
+            if "conv" in cache_b:
+                conv.append(cache_b["conv"].numpy().copy())
     largest = watch.largest
-    planted = None
-    if plant:
+    v = cfg.vocab_size
+    lspec = (specs["tokens"][0], None,
+             "model" if rec.got[0].shape[-1] < v else None)
+
+    def again(params_):
+        """One step from the first cache: (the largest tensor moved, the
+        step's whole logits on rank 0)."""
+        with mesh, Watch() as w, Logits() as r:
+            step(params_, SH.local_block(cache, specs["cache"], mesh),
+                 SH.local_block(tokens, specs["tokens"], mesh))
+        return w.largest, SH.gather_logical(r.got[0], lspec, mesh, root=0)
+    planted, planted_logits = None, {}
+    if case == PLANT:
         real = L.serve_einsum
 
         def fsdp_gather(eq, x, w, **kw):
             if eq == "bsd,dhk->bshk":
                 C.gather_dim(w, 0, "data")     # a parameter moved
             return real(eq, x, w, **kw)
-        first_cache = SH.local_block(cache, specs["cache"], mesh)
-        with mesh, Watch() as again:
-            L.serve_einsum = fsdp_gather
-            try:
-                step(blocks, first_cache, SH.local_block(
-                    tokens, specs["tokens"], mesh))
-            finally:
-                L.serve_einsum = real
-        planted = again.largest
+        L.serve_einsum = fsdp_gather
+        try:
+            planted = again(blocks)[0]
+        finally:
+            L.serve_einsum = real
+    if case == ROUTE_PLANT:
+        real = L.moe_route_logits
+        L.moe_route_logits = _route_alone(real)
+        try:
+            planted_logits["route"] = again(blocks)[1]
+        finally:
+            L.moe_route_logits = real
+    if case in FAULTS:
+        planted_logits["fault"] = again(_zeroed(blocks, FAULTS[case],
+                                                mesh.rank))[1]
     k3 = _k3_bits(whole, specs["params"], watch.k3, mesh)
-    v = cfg.vocab_size
-    lspec = (specs["tokens"][0], None,
-             "model" if rec.got[0].shape[-1] < v else None)
     got = SH.gather_logical(
         {"logits": torch.stack(rec.got, 0), "tokens": torch.stack(toks, 0),
          "cache": cache_b},
         {"logits": (None,) + lspec, "tokens": (None,) + tuple(
             specs["tokens"]), "cache": specs["cache"]}, mesh, root=0)
     row = dict(counts=counts, largest=largest, planted=planted, k3=k3,
-               k4=watch.k4, coords=dict(mesh.coords))
+               k4=watch.k4, conv=conv, coords=dict(mesh.coords))
     if mesh.rank == 0:
         row.update(logits=got["logits"].numpy(), tokens=got["tokens"].numpy(),
                    cache={k: t.numpy() for k, t in got["cache"].items()})
+        row.update({k: t.numpy() for k, t in planted_logits.items()})
     name = case_name(arch, quant, mesh.axis_sizes)
     with open(os.path.join(out_dir, f"{name}_{mesh.rank}.pkl"), "wb") as f:
         pickle.dump(row, f)
 
 
-def decode_rank(rank, world, port, out_dir, meshes=MESHES, archs=ARCHS,
-                quants=QUANTS):
-    """Every case of ``archs`` x ``quants`` x ``meshes`` over the same
-    ranks (gloo on the CPU, one torch thread a rank)."""
+def decode_rank(rank, world, port, out_dir, cases=None):
+    """Every case of ``cases`` (default ``CASES``) over the same ranks
+    (gloo on the CPU, one torch thread a rank), mesh by mesh."""
     torch.set_num_threads(1)
+    cases = CASES if cases is None else cases
+    first = tuple(cases[0][2])
     pm = R.init("localhost", port, world, rank, backend="gloo",
-                device="cpu", shape=meshes[0])
-    made = {tuple(meshes[0]): pm}
-    for shape in meshes:
+                device="cpu", shape=first)
+    made = {first: pm}
+    for arch, quant, shape in cases:
+        shape = tuple(shape)
         if shape not in made:
             made[shape] = R.process_mesh(shape, R.MESH_AXES[len(shape)],
                                          "cpu")
-        for arch in archs:
-            for quant in quants:
-                decode_case(arch, quant, made[shape], out_dir,
-                            plant=(arch, quant, shape) == PLANT)
+        decode_case(arch, quant, made[shape], out_dir)
 
 
 def one_device(out_dir, arch, quant):
