@@ -268,7 +268,19 @@ non-zero:
      zamba2 at 6 layers) and K4 (1 a layer a step) launches on every
      rank, each kernel bit for bit
      with its plain version on a rank's first call's inputs; step ms a
-     rank beside the one-device step;
+     rank beside the one-device step. Context parallelism, in the
+     same spawn: B=1 over (2, 2) for llama3.2-1b at full depth (an
+     8,192-slot cache over ("data", "model") filled by one forward over a
+     4,096-token prompt), h2o-danube-1.8b at 2 layers on its real
+     4,096-slot ring (a 4,092-token prompt: the steps wrap it), rwkv6-7b
+     at 4 layers, bf16 and ternary (the state's dk over 'data', 32 rows a
+     rank through K4's stripe entry, 4 a step on every rank, bit for bit
+     with its plain version and, combined over 'data', with the
+     whole-state K4), zamba2-1.2b at 6 layers on its 4,096-slot window
+     (the SSM head dim over 'data'); llama3.2-1b at B=2 over (2, 2, 1)
+     (rows over 'pod', whole over 'data') and at B=8 over (2, 2) with a
+     73-slot cache (the KV heads over 'model'); the stripe entry's device
+     ms at that call beside its bound and the whole-state K4's;
   13. the dry run (``dryrun``; ``launch.dryrun``'s fake trace of a step
      held against the same step on the card): llama3.2-1b at full width
      and depth, bf16, B=4, S=1024 with remat, the trace's FLOPs equal to
@@ -499,6 +511,18 @@ def main() -> int:
                              ls["max_abs_err"],
                              ld["max_abs_err"]["wkv6_scan"]),
              **lm["times"]["wkv6_scan"]),
+        dict(name="wkv6_stripe", entry_of="wkv6_scan", route="cuda",
+             source="src/repro_torch/csrc/wkv6_scan.cu",
+             replaces="src/repro/kernels/wkv6_scan.py:69",
+             note="K4 on a stripe of the state's dk rows (the state's dk "
+                  "over 'data' at B=1); rwkv6-7b's decode on the ranks of "
+                  "lm_decode_sharded",
+             launches=ld["launches"]["wkv6_stripe"],
+             max_abs_err=max(ld["max_abs_err"]["wkv6_stripe"],
+                             ld["stripe"]["max_abs_err"]),
+             **{k: ld["stripe"][k] for k in (
+                 "ms", "warm_l2_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "whole_state", "shape")}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -7340,9 +7364,35 @@ LD_F32_LAYERS = 4
 LD_QWEN_LAYERS, LD_MOE_LAYERS, LD_ZAMBA_LAYERS, LD_SEAMLESS_LAYERS = (
     4, 2, 6, 2)
 LD_ZAMBA_RING, LD_FRAMES = 64, 128
+# Context parallelism: global batches the batch axes do not
+# divide, so the rows are whole on every rank of an axis and the cache is
+# split over a sequence or state dim there. B=1 over (2, 2): llama3.2-1b
+# at full depth, an LD_CP_CACHE-slot cache over ("data", "model") filled
+# by one forward over an LD_CP_PROMPT-token prompt (each layer's K and V
+# taken from its attention, ``_ld_forward_prefill``); h2o-danube-1.8b at
+# LD_DANUBE_LAYERS on its real 4,096-slot ring, an LD_CP_DANUBE_PROMPT-
+# token prompt so that the steps wrap it; rwkv6-7b at LD_RWKV_LAYERS, bf16
+# and ternary (hd 64 over data 2: 32 rows a rank through K4's stripe
+# entry); zamba2-1.2b at LD_ZAMBA_LAYERS on its 4,096-slot window, the
+# SSM head dim over 'data'. llama3.2-1b at full depth again at B=2 over
+# (2, 2, 1) (rows over 'pod', whole over 'data') and at B=8 over (2, 2)
+# with LD_ODD_CACHE slots, which 'model' does not divide (its KV heads
+# over 'model'). The widths are the configs' own.
+LD_CP_PROMPT, LD_CP_CACHE, LD_CP_DANUBE_PROMPT = 4096, 8192, 4092
+LD_CP_WINDOW = 4096
+LD_ODD_CACHE = LD_PROMPT + LD_STEPS + 1
+LD_CP_RUNS = {
+    "cp_llama": dict(batch=1, prompt=LD_CP_PROMPT, cache=LD_CP_CACHE,
+                     forward=True),
+    "cp_danube": dict(batch=1, prompt=LD_CP_DANUBE_PROMPT,
+                      cache=LD_CP_DANUBE_PROMPT + LD_STEPS, forward=True),
+    "cp_rwkv": dict(batch=1), "cp_rwkv_q": dict(batch=1),
+    "cp_zamba": dict(batch=1, cache=LD_CP_WINDOW),
+    "cp_pod": dict(batch=2, mesh=LD_POD_MESH),
+    "odd_llama": dict(cache=LD_ODD_CACHE)}
 LD_RUNS = ("llama", "pod", "llama_q", "llama_f32", "danube", "rwkv",
            "rwkv_q", "qwen", "qwen_q", "deepseek", "zamba", "zamba_q",
-           "seamless")
+           "seamless") + tuple(LD_CP_RUNS)
 LD_TIMEOUT_S = 120.0
 # f32: the sharded step differs from one device in the order of its sums
 # alone (the CPU tests hold SMOKE widths to 1e-5).
@@ -7358,7 +7408,7 @@ LD_F32_ATOL = 1e-4
 # LD_REL_L2 (every other run's 0.6-2.2%). The phase fails if the sharded
 # step passes the gate, or the planted fault does not.
 LD_REL_L2, LD_FLOOR_X = 0.05, 2.0
-LD_FLOOR_RUNS = ("zamba", "zamba_q")
+LD_FLOOR_RUNS = ("zamba", "zamba_q", "cp_zamba")
 # The leaf whose rank-0 block of layer 0 the planted fault zeroes.
 LD_PLANT = {"llama": "layers/attn/wo", "pod": "layers/attn/wo",
             "llama_q": "layers/attn/wo", "danube": "layers/attn/wo",
@@ -7366,7 +7416,11 @@ LD_PLANT = {"llama": "layers/attn/wo", "pod": "layers/attn/wo",
             "qwen": "layers/attn/wo", "qwen_q": "layers/attn/wo",
             "deepseek": "layers/moe/we_down", "zamba": "layers/out_proj",
             "zamba_q": "layers/out_proj",
-            "seamless": "decoder/cross_attn/wo"}
+            "seamless": "decoder/cross_attn/wo",
+            "cp_llama": "layers/attn/wo", "cp_danube": "layers/attn/wo",
+            "cp_rwkv": "layers/tm/wo", "cp_rwkv_q": "layers/tm/wo",
+            "cp_zamba": "layers/out_proj", "cp_pod": "layers/attn/wo",
+            "odd_llama": "layers/attn/wo"}
 
 
 def _ld_full():
@@ -7391,17 +7445,37 @@ def _ld_full():
         deepseek=dataclasses.replace(get_config("deepseek-moe-16b"),
                                      num_layers=LD_MOE_LAYERS),
         zamba=zamba, zamba_q=zamba,
+        cp_llama=llama, cp_pod=llama, odd_llama=llama,
+        cp_danube=dataclasses.replace(get_config("h2o-danube-1.8b"),
+                                      num_layers=LD_DANUBE_LAYERS),
+        cp_rwkv=rwkv, cp_rwkv_q=rwkv,
+        cp_zamba=dataclasses.replace(get_config("zamba2-1.2b"),
+                                     num_layers=LD_ZAMBA_LAYERS),
         seamless=dataclasses.replace(
             get_config("seamless-m4t-medium"), num_layers=LD_SEAMLESS_LAYERS,
             encoder_layers=LD_SEAMLESS_LAYERS,
             decoder_layers=LD_SEAMLESS_LAYERS),
         frames=LD_FRAMES, batch=LD_BATCH, prompt=LD_PROMPT,
         steps=LD_STEPS, rank_device=None,
+        runs={name: _ld_run(name) for name in LD_RUNS},
         out_dir=os.path.join(ROOT, "checkpoints", "chip_smoke_lm_decode"))
 
 
+def _ld_run(name):
+    """Run ``name``'s batch, prompt, cache slots, mesh shape and whether
+    its prompt is prefilled by one forward (else by stepping the
+    decoder); ``_ld_full()["runs"]`` holds every run's."""
+    run = dict(batch=LD_BATCH, prompt=LD_PROMPT, cache=None,
+               mesh=LD_POD_MESH if name == "pod" else LD_MESH,
+               forward=False)
+    run.update(LD_CP_RUNS.get(name, {}))
+    if run["cache"] is None:
+        run["cache"] = run["prompt"] + LD_STEPS
+    return run
+
+
 def _ld_shape(name):
-    return LD_POD_MESH if name == "pod" else LD_MESH
+    return _ld_run(name)["mesh"]
 
 
 # The seed a run's params are drawn from (its ternary run's too).
@@ -7540,6 +7614,32 @@ def _ld_planted(torch, cfg, params, leaf, shape):
     return out
 
 
+def _ld_forward_prefill(torch, model, params, prompt, cache):
+    """``cache`` (a dense model's, empty) filled by one forward over
+    ``prompt`` (B, S): each layer's K (after RoPE) and V as its attention
+    hands them to ``layers.blockwise_attention``, written to slots
+    [0, S) (S at most the cache's slots: a ring's slots too), ``pos`` S.
+    Returns the last position's logits (B, 1, V) and the cache."""
+    from repro_torch.models import layers as L
+    kv, real = [], L.blockwise_attention
+
+    def record(q, k, v, **kw):
+        kv.append((k, v))
+        return real(q, k, v, **kw)
+    L.blockwise_attention = record
+    try:
+        logits, _ = model.apply(params, {"tokens": prompt})
+    finally:
+        L.blockwise_attention = real
+    s = prompt.shape[1]
+    for i, (k, v) in enumerate(kv):
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+    cache["pos"] = torch.full((), s, dtype=torch.int32,
+                              device=prompt.device)
+    return logits[:, -1:].clone(), cache
+
+
 def ld_one_device(torch, dev, full):
     """The one-device references on the card, for each run: a 64-token
     prompt prefilled by stepping the decoder (seamless' cross K/V first,
@@ -7553,18 +7653,19 @@ def ld_one_device(torch, dev, full):
     from repro_torch.models import build_model
     from repro_torch.models.params import tree_map
     out = {}
-    b, steps = full["batch"], full["steps"]
+    steps = full["steps"]
     for name in LD_RUNS:
         t0 = time.perf_counter()
-        cfg = full[name]
+        cfg, run = full[name], full["runs"][name]
         if name == "pod":
             out[name] = out["llama"]
             continue
+        b = run["batch"]
         model = build_model(cfg)
         params = _ld_params(torch, name, cfg, dev)
         prompt = torch.from_numpy(np.random.default_rng(SEED + 73).integers(
-            0, cfg.vocab_size, (b, full["prompt"]), dtype=np.int32)).to(dev)
-        cache = model.init_cache(b, full["prompt"] + steps, device=dev)
+            0, cfg.vocab_size, (b, run["prompt"]), dtype=np.int32)).to(dev)
+        cache = model.init_cache(b, run["cache"], device=dev)
         if cfg.family == "encdec":
             from repro_torch.models import encdec
             frames = torch.from_numpy(np.random.default_rng(
@@ -7573,9 +7674,15 @@ def ld_one_device(torch, dev, full):
                                             np.float32)).to(dev)
             cache["ck"], cache["cv"] = encdec.prefill_cross_kv(
                 params, encdec.encode(params, frames, cfg), cfg)
-        for i in range(full["prompt"]):
-            logits, cache = model.decode(params, cache, prompt[:, i:i + 1])
+        if run["forward"]:
+            logits, cache = _ld_forward_prefill(torch, model, params, prompt,
+                                                cache)
+        else:
+            for i in range(run["prompt"]):
+                logits, cache = model.decode(params, cache,
+                                             prompt[:, i:i + 1])
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        del logits
         with _LdRoutes() as rec:
             logits, toks, ms = _ld_forced(torch, cfg, params, cache, tok,
                                           dev, steps)
@@ -7612,227 +7719,44 @@ def ld_one_device(torch, dev, full):
     return out
 
 
-def _ld_product(n, nbytes, eq, x, w, spec, sizes, elem, out_elem):
-    """Count the collectives of ``layers.serve_einsum(eq, x, w)`` from the
-    shapes alone: ``x`` this rank's (rows, ...) as it holds them, ``w``
-    the whole weight's shape, ``spec`` its stored spec. Returns the
-    output's shape on this rank."""
-    xs, rest = eq.split(",")
-    ws, out = rest.split("->")
-    axis = dict(zip(ws, spec))
-    size = lambda a: sizes.get(a, 1) if a else 1
-    x = list(x)
-
-    def add(op, ax, shape, e):
-        n[f"{op}/{ax}"] += 1
-        nbytes[f"{op}/{ax}"] += math.prod(shape) * e
-    rows = "data" in spec and size("data") > 1
-    if rows:
-        x[0] *= size("data")
-        add("all_gather", "data", x, elem)
-    for d, c in enumerate(xs[1:], 1):
-        if c not in axis:
-            continue
-        whole, a = w[ws.index(c)], axis[c]
-        if x[d] != whole:
-            if a == "model":
-                continue
-            x[d] = whole
-            add("all_gather", "model", x, elem)
-        x[d] = whole // size(a)
-    dims = {c: x[i] for i, c in enumerate(xs)}
-    dims.update({c: w[ws.index(c)] // size(axis[c]) for c in ws
-                 if c not in xs})
-    y = [dims[c] for c in out]
-    summed = {axis[c] for c in ws if c in xs and c not in out} - {None}
-    r = out.index(xs[0])
-    if "data" in summed and size("data") > 1:
-        add("reduce_scatter", "data", y, out_elem)
-        y[r] //= size("data")
-    if "model" in summed and size("model") > 1:
-        add("all_reduce", "model", y, out_elem)
-    if rows and "data" not in summed:
-        add("all_to_all", "data", y, out_elem)
-        col = next(c for c in out if axis.get(c) == "data")
-        y[r] //= size("data")
-        y[out.index(col)] *= size("data")
-    return y
+def _ld_counter():
+    """``tools/decode_collectives.py``: the collectives of a sharded decode
+    step counted from the specs (the CPU tests hold the ranks against the
+    same count)."""
+    path = os.path.join(ROOT, "tools")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import decode_collectives
+    return decode_collectives
 
 
-def _ld_expected(torch, cfg, quant, shape, batch):
+def _ld_expected(torch, cfg, quant, shape, batch, cache_len, frames):
     """The collectives (count, bytes) a rank issues in one sharded decode
-    step of ``cfg`` over a mesh of ``shape``, counted from the specs
-    (``decode_pspecs``) and the rule of ``layers.serve_einsum`` at each
-    product: the attention's q/k/v (each gathered over 'model' to whole
-    heads) and output projection, the flash-decoding max and sum over
-    'model' (self- and cross-attention), the MLP, rwkv6's time and
-    channel mixes, the MoE's rule (``layers._moe_serve``: rows traded for
-    columns over 'data' and gathered over 'pod', the router's partial
-    sums over 'data' and logits over 'model', the gate and up sums over
-    'data', the combine over 'model', rows traded back), zamba2's
-    (``_mamba_decode_serve``: in_proj's columns and the conv's channels
-    gathered over 'model', the norm's statistic summed there), the
-    embedding (token ids gathered over 'data', lookups summed over
-    'model', rows traded for columns) and the head, and the
-    vocab-parallel argmax."""
-    import collections
+    step of ``cfg`` over a mesh of ``shape`` at a global batch of
+    ``batch`` from a cache of ``cache_len`` slots (the enc-dec's cross K/V
+    of ``frames``), counted from the specs (``decode_pspecs``) by
+    ``decode_collectives.decode_counts``."""
     from repro_torch.distributed import sharding as SH
-    from repro_torch.launch.steps import abstract_cache
-    from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
     from repro_torch.models.params import as_dtype
     from repro_torch.serving import quantize_for_serving
     mesh = _ls_mesh(torch, shape)
-    sizes = dict(mesh.shape)
-    dsz, msz = sizes.get("data", 1), sizes.get("model", 1)
     model = build_model(cfg)
     params = model.abstract_params()
     if quant:
         params = quantize_for_serving(params)[0]
-    cache = abstract_cache(cfg, ShapeSpec("d", "decode", 8, batch))
-    specs = SH.decode_pspecs(cfg, mesh, params, cache, batch)["params"]
-    e = torch.empty((), dtype=as_dtype(cfg.dtype)).element_size()
-    n, nbytes = collections.Counter(), collections.Counter()
-    parts = 1
-    for a in ("pod", "data"):
-        if batch % (parts * sizes.get(a, 1)) == 0:
-            parts *= sizes.get(a, 1)
-    br = batch // parts
-
-    def prod(eq, x, leaf, node, spec, oe=e, lead=1):
-        """``lead``: the leaf's stacked layer dims (0 for a shared one)."""
-        w = node[leaf]
-        if isinstance(w, dict):
-            pk, s = w["packed"], spec[leaf]["packed"]
-            return _ld_product(n, nbytes, eq, x, (pk.shape[-2] * 4,
-                                                  pk.shape[-1]),
-                               s[lead:], sizes, e, oe)
-        return _ld_product(n, nbytes, eq, x, tuple(w.shape[lead:]),
-                           spec[leaf][lead:], sizes, e, oe)
-
-    def add(op, ax, numel, el):
-        if sizes.get(ax, 1) > 1:
-            n[f"{op}/{ax}"] += 1
-            nbytes[f"{op}/{ax}"] += numel * el
-
-    def attention(at, ats, lead=1, cross=False):
-        hd = cfg.head_dim
-        names = (("wq", cfg.num_heads),) if cross else (
-            ("wq", cfg.num_heads), ("wk", cfg.num_kv_heads),
-            ("wv", cfg.num_kv_heads))
-        for k, heads in names:
-            y = prod("bsd,dhk->bshk", x, k, at, ats, lead=lead)
-            for have, want in ((y[2], heads), (y[3], hd)):
-                if have != want:
-                    add("all_gather", "model", br * heads * hd, e)
-        add("all_reduce", "model", br * cfg.num_heads, 4)
-        add("all_reduce", "model", br * cfg.num_heads * (hd + 1), 4)
-        prod("bshk,hkd->bsd", (br, 1, cfg.num_heads, hd), "wo", at, ats,
-             lead=lead)
-
-    def mlp(ml, mls, lead=1):
-        h = prod("bsk,kn->bsn", x, "w_up", ml, mls, lead=lead)
-        if "w_gate" in ml:
-            prod("bsk,kn->bsn", x, "w_gate", ml, mls, lead=lead)
-        prod("bsk,kn->bsn", h, "w_down", ml, mls, lead=lead)
-
-    def moe(mo, ms):
-        ef, ne = cfg.expert_d_ff or cfg.d_ff, cfg.num_experts
-        cols = ms["router"][1] == "data" and dsz > 1
-        dc = d // dsz if cols else d
-        if cols:
-            add("all_to_all", "data", br * d, e)
-        else:
-            add("all_gather", "data", br * dsz * d, e)
-        add("all_gather", "pod", batch * dc, e)
-        g, _, cap = L.moe_groups(batch, 1, cfg)
-        if cols:
-            add("all_reduce", "data", batch * ne // msz, 4)
-        add("all_gather", "model", batch * ne, e)
-        if cols:
-            add("all_reduce", "data",
-                2 * (batch // g) * (ne // msz) * cap * ef, e)
-        add("all_reduce", "model", batch * dc, e)
-        if cols:
-            add("all_to_all", "data", br * dsz * dc, e)
-        if cfg.num_shared_experts:
-            mlp(mo["shared"], ms["shared"])
-
-    def mamba(lay, sp):
-        din, ns, hh = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
-        width = 2 * din + 2 * ns + hh
-        if prod("bsk,kn->bsn", x, "in_proj", lay, sp)[-1] != width:
-            add("all_gather", "model", br * width, e)
-        if sp["conv_b"][1] == "model":
-            add("all_gather", "model", br * (din + 2 * ns), e)
-        heads = sp["a_log"][1] == "model"
-        if heads:
-            add("all_reduce", "model", br, 4)
-        prod("bsk,kn->bsn", (br, 1, din // msz if heads else din),
-             "out_proj", lay, sp)
-    d = cfg.d_model
-    emb = params["embed"]
-    vs, ds = specs["embed"]
-    if ds == "data":
-        add("all_gather", "data", br * dsz, 4)
-    bg = br * (dsz if ds == "data" else 1)
-    dd = d // (dsz if ds == "data" else 1)
-    if vs == "model":
-        add("all_reduce", "model", bg * dd, e)
-    if ds == "data":
-        add("all_to_all", "data", bg * dd, e)
-    x = (br, 1, d)
-    if cfg.family == "zamba2":
-        from repro_torch.models import zamba2
-        for i, j in zamba2._stage_bounds(cfg):
-            for _ in range(i, j):
-                mamba(params["layers"], specs["layers"])
-            attention(params["shared"]["attn"], specs["shared"]["attn"],
-                      lead=0)
-            mlp(params["shared"]["mlp"], specs["shared"]["mlp"], lead=0)
+    cache = model.init_cache(batch, cache_len, device="meta")
     if cfg.family == "encdec":
-        de, des = params["decoder"], specs["decoder"]
-        for _ in range(cfg.decoder_layers):
-            attention(de["self_attn"], des["self_attn"])
-            attention(de["cross_attn"], des["cross_attn"], cross=True)
-            mlp(de["mlp"], des["mlp"])
-    for _ in range(cfg.num_layers if cfg.family in (
-            "dense", "vlm", "moe", "rwkv6") else 0):
-        lay, sp = params["layers"], specs["layers"]
-        if cfg.family == "rwkv6":
-            tm, ts = lay["tm"], sp["tm"]
-            lo = prod("bsd,dkr->bskr", x, "lora_a", tm, ts)
-            prod("bskr,krd->kbsd", lo, "lora_b", tm, ts)
-            for k in ("wr", "wk", "wv"):
-                prod("bsk,kn->bsn", x, k, tm, ts)
-            g = prod("bsk,kn->bsn", x, "wg", tm, ts)
-            a = prod("bsd,dr->bsr", x, "wa", tm, ts)
-            prod("bsr,rd->bsd", a, "wb", tm, ts)
-            prod("bsk,kn->bsn", g, "wo", tm, ts)
-            cm, cs = lay["cm"], sp["cm"]
-            h = prod("bsk,kn->bsn", x, "wk", cm, cs)
-            prod("bsk,kn->bsn", h, "wv", cm, cs)
-            y = prod("bsk,kn->bsn", x, "wr", cm, cs)
-            if y[-1] != d:
-                add("all_gather", "model", br * d, e)
-            continue
-        attention(lay["attn"], sp["attn"])
-        if cfg.family == "moe":
-            moe(lay["moe"], sp["moe"])
-        else:
-            mlp(lay["mlp"], sp["mlp"])
-    if "lm_head" in params:
-        w = params["lm_head"]
-        y = _ld_product(n, nbytes, "bsd,dv->bsv", x, tuple(w.shape),
-                        specs["lm_head"], sizes, e, 4)
-    else:
-        y = _ld_product(n, nbytes, "bsd,vd->bsv", x, tuple(emb.shape),
-                        specs["embed"], sizes, e, 4)
-    if y[-1] != cfg.vocab_size:
-        add("all_reduce", "model", br, 4)
-        add("all_reduce", "model", br, 8)
-    return dict(sorted(n.items())), dict(sorted(nbytes.items()))
+        cache["ck"] = cache["cv"] = torch.empty(
+            cache["k"].shape[:2] + (frames,) + cache["k"].shape[3:],
+            device="meta")
+    allspec = SH.decode_pspecs(cfg, mesh, params, cache, batch)
+    e = torch.empty((), dtype=as_dtype(cfg.dtype)).element_size()
+    groups = L.moe_groups(batch, 1, cfg) if cfg.family == "moe" else None
+    return _ld_counter().decode_counts(
+        cfg, dict(mesh.shape), params, allspec["params"], cache,
+        allspec["cache"], batch, e, groups)
 
 
 def _ld_k3_per_step(cfg):
@@ -7860,31 +7784,34 @@ def ld_decode(torch, pm, full, name, ref, k3, k4):
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch.steps import make_serve_step
     cfg, dev = full[name], pm.device
+    batch = full["runs"][name]["batch"]
     whole = _ld_params(torch, name, cfg, dev)
     cache = {k: v.to(dev) for k, v in ref["cache"].items()}
-    specs = SH.decode_pspecs(cfg, pm, whole, cache, full["batch"])
+    specs = SH.decode_pspecs(cfg, pm, whole, cache, batch)
     blocks = SH.local_block(whole, specs["params"], pm)
     cache_b = SH.local_block(cache, specs["cache"], pm)
     del whole, cache
     _free(torch, dev)
     inputs = [SH.local_block(t, specs["tokens"], pm)
               for t in ref["inputs"]]
-    lo, hi = _ls_rows(pm, full["batch"])
+    lo, hi = _ls_rows(pm, batch)
     step = make_serve_step(cfg)
     seen = {}
-    reals = {"k3": k3.ternary_matmul_cuda, "k4": k4.wkv6_scan_cuda}
+    reals = {"k3": k3.ternary_matmul_cuda, "k4": k4.wkv6_scan_cuda,
+             "stripe": k4.wkv6_stripe_cuda}
 
     def keep(key):
         def call(*args):
             if key not in seen:
-                seen[key] = [None if a is None else a.detach().clone()
-                             for a in args]
+                seen[key] = [a.detach().clone() if hasattr(a, "detach")
+                             else a for a in args]
             return reals[key](*args)
         return call
     k3.ternary_matmul_cuda, k4.wkv6_scan_cuda = keep("k3"), keep("k4")
+    k4.wkv6_stripe_cuda = keep("stripe")
     counts, ms, toks = [], [], []
     _sync(torch, dev)
-    k3.launches = k4.launches = 0
+    k3.launches = k4.launches = k4.stripe_launches = 0
     try:
         with pm, _LdLogits() as rec, _LdRoutes(ref["routes"]) as routes:
             for s in range(full["steps"]):
@@ -7898,7 +7825,9 @@ def ld_decode(torch, pm, full, name, ref, k3, k4):
                 toks.append(tok[:, 0])
     finally:
         k3.ternary_matmul_cuda, k4.wkv6_scan_cuda = reals["k3"], reals["k4"]
-    launches = {"ternary_matmul": k3.launches, "wkv6_scan": k4.launches}
+        k4.wkv6_stripe_cuda = reals["stripe"]
+    launches = {"ternary_matmul": k3.launches, "wkv6_scan": k4.launches,
+                "wkv6_stripe": k4.stripe_launches}
     got = torch.stack(rec.got)                      # (steps, rows, V_r)
     v_r = got.shape[-1]
     v_lo = pm.coord("model") * v_r if v_r < cfg.vocab_size else 0
@@ -7919,7 +7848,9 @@ def ld_decode(torch, pm, full, name, ref, k3, k4):
     _ls_reduce(pm, worst, dist.ReduceOp.MAX)
     checks = {}
     for key, plain, real in (("k3", k3.ternary_matmul_plain, reals["k3"]),
-                             ("k4", k4.wkv6_scan_plain, reals["k4"])):
+                             ("k4", k4.wkv6_scan_plain, reals["k4"]),
+                             ("stripe", k4.wkv6_stripe_plain,
+                              reals["stripe"])):
         if key in seen:
             a, b = plain(*seen[key]), real(*seen[key])
             a, b = (a if isinstance(a, tuple) else (a,)), (
@@ -7928,11 +7859,15 @@ def ld_decode(torch, pm, full, name, ref, k3, k4):
             checks[key] = dict(shape=list(seen[key][0].shape),
                                bitwise=_bitwise(torch, a, b),
                                max_abs_err=_max_err(a, b))
+    if "stripe" in seen:
+        checks["stripe"]["vs_whole_state"] = _ld_stripe_vs_whole(
+            torch, pm, k4, seen["stripe"], reals["stripe"])
     first = counts[0]
     return dict(
         config=f"{cfg.name} widths, {cfg.num_layers} layers, {cfg.dtype}"
                f"{', ternary' if name.endswith('_q') else ''}, "
-               f"B={full['batch']}, mesh {dict(pm.shape)}",
+               f"B={batch}, {full['runs'][name]['cache']} cache slots, "
+               f"mesh {dict(pm.shape)}",
         rows=[lo, hi], rel_l2=worst[0].item(), max_abs_err=worst[1].item(),
         tokens_differ_where_sure=int(worst[2].item()),
         sure_share=float(sure.double().mean()),
@@ -7941,6 +7876,27 @@ def ld_decode(torch, pm, full, name, ref, k3, k4):
         routings_differ=[int(routes.differ), routes.total],
         collectives_per_step=first[0], collective_bytes_per_step=first[1],
         steps_alike=all(c == first for c in counts))
+
+
+def _ld_stripe_vs_whole(torch, pm, k4, args, stripe):
+    """K4's stripe entry on a rank's first call's inputs against the
+    whole-state kernel: the stripes' partials and rows gathered over
+    'data' (outside the step's tallies), combined in ascending row order
+    (``wkv6_stripe_combine``), against ``wkv6_scan_cuda`` on the gathered
+    state: ``o`` and the rows bit for bit (where the stripe is a multiple
+    of 16 rows ``o`` is; else its largest error)."""
+    from repro_torch.distributed import collectives as C
+    r, k, v, logw, u, rows, lo = args
+    part, beta, new_rows = stripe(*args)
+    parts = C.gather_dim(part, 3, "data", pm)
+    state0 = C.gather_dim(rows, 2, "data", pm)
+    o, state = k4.wkv6_scan_cuda(r, k, v, logw, u, state0.contiguous())
+    got = k4.wkv6_stripe_combine(parts, beta, v)
+    dk = rows.shape[2]
+    return dict(rows=dk, o_bitwise=bool(torch.equal(got, o)),
+                o_max_abs_err=_max_err([o], [got]),
+                state_bitwise=bool(torch.equal(
+                    new_rows, state[:, :, lo:lo + dk])))
 
 
 def ld_rank(rank, world, port, backend, full, refs, out_dir):
@@ -7962,11 +7918,66 @@ def ld_rank(rank, world, port, backend, full, refs, out_dir):
     out = dict(rank=rank, device=str(dev), init_s=time.perf_counter() - t0)
     for name in LD_RUNS:
         t1 = time.perf_counter()
-        out[name] = ld_decode(torch, meshes[_ld_shape(name)], full, name,
-                              refs[name], k3, k4)
+        out[name] = ld_decode(torch, meshes[tuple(full["runs"][name][
+            "mesh"])], full, name, refs[name], k3, k4)
         out[name + "_s"] = time.perf_counter() - t1
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def ld_stripe_times(torch, dev, k4):
+    """K4's stripe entry at the decode call of the cp_rwkv runs' ranks (B=1,
+    T=1, 32 heads a model rank, hd 64, 32 rows a data rank; bf16 r/k/v/u,
+    f32 logw and state rows): both stripes bit for bit with the plain
+    version, and combined (``wkv6_stripe_combine``) bit for bit with the
+    whole-state kernel's ``o`` and state; its device ms from a cold L2
+    and warm, the plain version's, the whole-state K4's at the same heads,
+    each beside its bound. The stripe's bytes: r, k, v, u in bf16 read
+    once whole, logw in f32 on the stripe's rows alone (all the kernel
+    reads of it), the state rows read and written, the partials and
+    beta written; its operations 7 dk_loc hd a (b, t, h) (the dry run's
+    count; the bound reads them at the f32 rate)."""
+    g = torch.Generator().manual_seed(SEED + 79)
+    flush = torch.ones(FLUSH_BYTES // 4, device=dev)
+    b, t, h, hd, dk = 1, 1, 32, 64, 32
+    r, k, v, lw, u, s0 = _wkv_inputs(torch, g, dev, b, t, h, hd,
+                                     torch.bfloat16, True)
+    rows = [s0[:, :, lo:lo + dk].contiguous() for lo in range(0, hd, dk)]
+    got = [k4.wkv6_stripe_cuda(r, k, v, lw, u, x, i * dk)
+           for i, x in enumerate(rows)]
+    plain = [k4.wkv6_stripe_plain(r, k, v, lw, u, x, i * dk)
+             for i, x in enumerate(rows)]
+    o, state = k4.wkv6_scan_cuda(r, k, v, lw, u, s0)
+    comb = k4.wkv6_stripe_combine(torch.cat([x[0] for x in got], dim=3),
+                                  got[0][1], v)
+    _sync(torch, dev)
+    bitwise = all(_bitwise(torch, p, q) for p, q in zip(plain, got))
+    whole = bool(torch.equal(comb, o)) and bool(torch.equal(
+        torch.cat([x[2] for x in got], dim=2), state))
+    check(bitwise and whole, f"K4's stripe entry: bitwise {bitwise} with "
+          f"its plain version, {whole} with the whole-state kernel")
+    n, g_loc = b * t * h * hd, dk // min(k4.IS, dk)
+    nbytes = (3 * 2 * n + 2 * h * hd + 4 * b * t * h * dk
+              + 2 * 4 * b * h * dk * hd + 4 * b * t * h * g_loc * hd
+              + 4 * b * t * h)
+    bound, by = _bound_ms(nbytes, 7 * b * t * h * dk * hd)
+    run = lambda: k4.wkv6_stripe_cuda(r, k, v, lw, u, rows[0], 0)
+    full = lambda: k4.wkv6_scan_cuda(r, k, v, lw, u, s0)
+    wbound, wby = _bound_ms(*_k4_cost(b, t, h, hd, True))
+    out = dict(shape=dict(batch=b, steps=t, heads=h, head_dim=hd,
+                          rows=dk),
+               ms=_device_ms(torch, run, flush),
+               warm_l2_ms=_warm_ms(torch, run), call_ms=_call_ms(torch, run),
+               plain_ms=_device_ms(torch, lambda: k4.wkv6_stripe_plain(
+                   r, k, v, lw, u, rows[0], 0), flush, reps=3),
+               bound_ms=bound, bound_by=by, library_ms=None,
+               whole_state=dict(ms=_device_ms(torch, full, flush),
+                                warm_l2_ms=_warm_ms(torch, full),
+                                bound_ms=wbound, bound_by=wby),
+               bitwise=bitwise, combined_equals_whole=whole,
+               max_abs_err=max(_max_err(p, q) for p, q in zip(plain, got)))
+    del flush
+    return out
 
 
 def lm_decode_sharded_phase(torch, dev, k3, k4, smi):
@@ -7983,14 +7994,19 @@ def lm_decode_sharded_phase(torch, dev, k3, k4, smi):
     a step equal to ``_ld_expected``'s count from the specs, its K3 and
     K4 launches counted and each kernel bit for bit with its plain
     version on the rank's first call's inputs; each rank's step ms
-    beside the one-device step's. Returns the kernels' numbers and a
-    rank's tallies of the (2, 2) llama3.2-1b run (for ``dryrun``)."""
+    beside the one-device step's. The runs of ``LD_CP_RUNS`` take global
+    batches the batch axes do not divide (context-parallel caches, K4's
+    stripe entry) and a cache that 'model' does not divide; the stripe
+    entry is timed first (``ld_stripe_times``). Returns the kernels'
+    numbers and a rank's tallies of the (2, 2) llama3.2-1b run (for
+    ``dryrun``)."""
     import shutil
     from repro_torch.distributed import runtime as R
     full = _ld_full()
     t0 = time.perf_counter()
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= 4 else "gloo"
+    stripe = ld_stripe_times(torch, dev, k4) if dev.type == "cuda" else None
     refs = ld_one_device(torch, dev, full)
     ref_s = time.perf_counter() - t0
     shutil.rmtree(full["out_dir"], ignore_errors=True)
@@ -8011,13 +8027,16 @@ def lm_decode_sharded_phase(torch, dev, k3, k4, smi):
                               floor_runs=list(LD_FLOOR_RUNS),
                               tokens="equal where the one-device top-2 "
                                      "gap exceeds twice the row's error"))
-    failed, launches, errs = [], {"ternary_matmul": 0, "wkv6_scan": 0}, {
-        "ternary_matmul": 0.0, "wkv6_scan": 0.0}
+    kinds = ("ternary_matmul", "wkv6_scan", "wkv6_stripe")
+    failed, launches = [], dict.fromkeys(kinds, 0)
+    errs = dict.fromkeys(kinds, 0.0)
     for name in LD_RUNS:
         ref, lead, cfg = refs[name], rows[0][name], full[name]
+        run = full["runs"][name]
         quant = name.endswith("_q")
-        counts, nbytes = _ld_expected(torch, cfg, quant, _ld_shape(name),
-                                      full["batch"])
+        counts, nbytes = _ld_expected(torch, cfg, quant, run["mesh"],
+                                      run["batch"], run["cache"],
+                                      full["frames"])
         row = dict(lead, one_device_step_ms=ref["step_ms"],
                    one_device_step_ms_all=ref["step_ms_all"],
                    reference_s=ref["seconds"],
@@ -8048,36 +8067,53 @@ def lm_decode_sharded_phase(torch, dev, k3, k4, smi):
             if not lead["rel_l2"] <= row["gate"]:
                 failed.append(f"{name}: logits against one device")
         if dev.type == "cuda":
+            # rwkv6's state rows split over 'data' where no batch axis
+            # splits the rows (B=1): the stripe entry
+            sizes = dict(_ls_mesh(torch, run["mesh"]).shape)
+            split = (cfg.family == "rwkv6" and sizes.get("data", 1) > 1
+                     and _ld_counter().row_parts(sizes, run["batch"]) == 1)
+            wkv = cfg.num_layers * full["steps"] \
+                if cfg.family == "rwkv6" else 0
             want = {"ternary_matmul": _ld_k3_per_step(cfg) * full["steps"]
                     if quant else 0,
-                    "wkv6_scan": cfg.num_layers * full["steps"]
-                    if cfg.family == "rwkv6" else 0}
+                    "wkv6_scan": 0 if split else wkv,
+                    "wkv6_stripe": wkv if split else 0}
             row["expected_launches_by_rank"] = want
             for x in rows:
                 if x[name]["launches"] != want:
                     failed.append(f"{name}: rank {x['rank']}'s launches "
                                   f"{x[name]['launches']}, want {want}")
                 for key, kname in (("k3", "ternary_matmul"),
-                                   ("k4", "wkv6_scan")):
+                                   ("k4", "wkv6_scan"),
+                                   ("stripe", "wkv6_stripe")):
                     chk = x[name]["kernels_vs_plain"].get(key)
                     if want[kname] and not (chk and chk["bitwise"]):
                         failed.append(f"{name}: {kname} on rank "
                                       f"{x['rank']}: {chk}")
                     if chk:
                         errs[kname] = max(errs[kname], chk["max_abs_err"])
+                whole = x[name]["kernels_vs_plain"].get("stripe", {}).get(
+                    "vs_whole_state")
+                if want["wkv6_stripe"] and not (
+                        whole and whole["state_bitwise"]
+                        and (whole["o_bitwise"] or whole["rows"] % 16)):
+                    failed.append(f"{name}: the stripes against the "
+                                  f"whole-state K4 on rank {x['rank']}: "
+                                  f"{whole}")
                 launches = {k: launches[k] + x[name]["launches"][k]
                             for k in launches}
         out[name] = row
     out["seconds"] = dict(one_device=ref_s, ranks=ranks_s,
                           total=time.perf_counter() - t0,
                           rank_init=[x["init_s"] for x in rows])
+    out["wkv6_stripe_times"] = stripe
     emit("lm_decode_sharded", **out)
     check(not failed, f"lm_decode_sharded: {failed}")
     del refs
     _free(torch, dev)
-    return {"launches": launches, "max_abs_err": errs,
+    return {"launches": launches, "max_abs_err": errs, "stripe": stripe,
             "llama": dict(cfg=full["llama"], batch=full["batch"],
-                          cache=full["prompt"] + full["steps"],
+                          cache=full["runs"]["llama"]["cache"],
                           per_rank=[dict(
                               launches=x["llama"]["collectives_per_step"],
                               tensor_bytes=x["llama"][

@@ -70,6 +70,24 @@
 // One launch a call; no workspace, no atomics, nothing kept between
 // calls. Types: r, k, v, u f32 or bf16 (all the same); logw f32 or r's
 // type; o in r's type; the state always f32. hd in {16, 32, 64}.
+//
+// The stripe entry (wkv6_stripe_*, at the end of this file) is the same
+// recurrence on rows [lo, lo + DK) of each (b, h) state, for a decode step
+// whose state has dk split over the data ranks (context parallelism: a
+// global batch the batch axes do not divide). The rank holds only its DK
+// rows; r, k, v and u are whole (beta and v_j need every row), logw is
+// read on the stripe's rows alone. Per (b, h, t) it writes the
+// partials p_g,j of the stripe's segments (SEG = min(IS, DK) rows each,
+// in the order above), beta whole, and the new state rows, each op rounded
+// as above; the caller gathers the partials of every stripe and adds them
+// in ascending row order, then beta v_j (kernels/wkv6_scan.py,
+// wkv6_stripe_combine). Where DK is a multiple of IS that is the order
+// above, so o equals the whole-state kernel's bit for bit. A block owns
+// one (b, h): thread (g, j) holds the SEG rows of segment g of column j in
+// registers, the step's r, k and v rows and the stripe's DK values of
+// w = expf(logw) are staged in shared memory, and thread 0 takes beta's
+// hd-long chain. Decode calls
+// are one step of B x H_r blocks, bound by the launch: it is kept plain.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -547,4 +565,185 @@ extern "C" int wkv6_scan_bf16_lwf32(const void* r, const void* k,
                                     int n_t, int n_h, int hd, void* stream) {
   return launch<__nv_bfloat16, float>(r, k, v, logw, u, state0, o, state_out,
                                       n_b, n_t, n_h, hd, stream);
+}
+
+// ----------------------------------------------------------------------
+// The stripe entry.
+// ----------------------------------------------------------------------
+
+namespace {
+
+template <int HD, int DK> struct StripeCfg {
+  static_assert(DK <= HD, "a stripe of at most hd rows");
+  static constexpr int SEG = IS < DK ? IS : DK;           // rows a segment
+  static constexpr int G = DK / SEG;                      // segments
+  static constexpr int NT = G * HD;                       // state threads
+  static constexpr int THREADS = (NT + 31) / 32 * 32;
+  static_assert(DK % SEG == 0, "whole segments");
+};
+
+template <typename T, typename TW, int HD, int DK>
+__global__ void __launch_bounds__(StripeCfg<HD, DK>::THREADS)
+wkv6_stripe_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                   const T* __restrict__ v, const TW* __restrict__ logw,
+                   const T* __restrict__ u, const float* __restrict__ state0,
+                   float* __restrict__ part, float* __restrict__ beta_out,
+                   float* __restrict__ state_out, int n_t, int n_h, int lo) {
+  using C = StripeCfg<HD, DK>;
+  constexpr int SEG = C::SEG, G = C::G, NT = C::NT, NB = C::THREADS;
+  __shared__ float rs[HD], ks[HD], ws[DK], vs[HD], us[HD];
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / n_h, h = bh - b * n_h;
+  const int g = tid / HD, j = tid - g * HD;
+  const bool holds = tid < NT;
+  const long long row_stride = (long long)n_h * HD;        // one t
+  const long long base = (long long)b * n_t * row_stride + (long long)h * HD;
+  const long long sbase = (long long)bh * DK * HD;
+  float s[SEG];
+#pragma unroll
+  for (int ii = 0; ii < SEG; ++ii)
+    s[ii] = holds && state0 != nullptr
+        ? state0[sbase + (long long)(g * SEG + ii) * HD + j]
+        : 0.0f;
+  for (int i = tid; i < HD; i += NB) us[i] = to_f32(u[h * HD + i]);
+#pragma unroll 1
+  for (int t = 0; t < n_t; ++t) {
+    const long long at = base + (long long)t * row_stride;
+    for (int i = tid; i < HD; i += NB) {
+      rs[i] = to_f32(r[at + i]);
+      ks[i] = to_f32(k[at + i]);
+      vs[i] = to_f32(v[at + i]);
+    }
+    for (int i = tid; i < DK; i += NB)    // the stripe's rows of w alone
+      ws[i] = expf(to_f32(logw[at + lo + i]));
+    __syncthreads();
+    const long long bht = ((long long)b * n_t + t) * n_h + h;
+    if (tid == 0) {                    // beta: i = 0..hd-1, ascending
+      float acc = 0.0f;
+#pragma unroll 1
+      for (int i = 0; i < HD; ++i)
+        acc = fma_free(acc, __fmul_rn(rs[i], us[i]), ks[i]);
+      beta_out[bht] = acc;
+    }
+    if (holds) {
+      const float* R = rs + lo + g * SEG;
+      const float* W = ws + g * SEG;
+      const float* K = ks + lo + g * SEG;
+      float p = 0.0f;
+#pragma unroll
+      for (int ii = 0; ii < SEG; ++ii) p = fma_free(p, R[ii], s[ii]);
+      part[(bht * G + g) * HD + j] = p;
+      const float vj = vs[j];
+#pragma unroll
+      for (int ii = 0; ii < SEG; ++ii)
+        s[ii] = __fadd_rn(__fmul_rn(W[ii], s[ii]), __fmul_rn(K[ii], vj));
+    }
+    __syncthreads();
+  }
+  if (holds) {
+#pragma unroll
+    for (int ii = 0; ii < SEG; ++ii)
+      state_out[sbase + (long long)(g * SEG + ii) * HD + j] = s[ii];
+  }
+}
+
+template <typename T, typename TW, int HD, int DK>
+int run_stripe(const void* r, const void* k, const void* v, const void* logw,
+               const void* u, const void* state0, void* part, void* beta,
+               void* state_out, int n_b, int n_t, int n_h, int lo,
+               cudaStream_t st) {
+  const long long blocks = (long long)n_b * n_h;
+  if (blocks == 0) return (int)cudaGetLastError();
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  wkv6_stripe_kernel<T, TW, HD, DK>
+      <<<(unsigned)blocks, StripeCfg<HD, DK>::THREADS, 0, st>>>(
+          (const T*)r, (const T*)k, (const T*)v, (const TW*)logw,
+          (const T*)u, (const float*)state0, (float*)part, (float*)beta,
+          (float*)state_out, n_t, n_h, lo);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename TW, int HD>
+int stripe_rows(const void* r, const void* k, const void* v, const void* logw,
+                const void* u, const void* state0, void* part, void* beta,
+                void* state_out, int n_b, int n_t, int n_h, int dk, int lo,
+                cudaStream_t st) {
+  switch (dk) {
+#define WKV6_STRIPE_CASE(D)                                                  \
+    case D:                                                                  \
+      if (D <= HD)                                                           \
+        return run_stripe<T, TW, HD, (D <= HD ? D : HD)>(                   \
+            r, k, v, logw, u, state0, part, beta, state_out, n_b, n_t, n_h, \
+            lo, st);                                                         \
+      return (int)cudaErrorInvalidValue;
+    WKV6_STRIPE_CASE(4)
+    WKV6_STRIPE_CASE(8)
+    WKV6_STRIPE_CASE(16)
+    WKV6_STRIPE_CASE(32)
+    WKV6_STRIPE_CASE(64)
+#undef WKV6_STRIPE_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, typename TW>
+int launch_stripe(const void* r, const void* k, const void* v,
+                  const void* logw, const void* u, const void* state0,
+                  void* part, void* beta, void* state_out, int n_b, int n_t,
+                  int n_h, int hd, int dk, int lo, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dk <= 0 || lo < 0 || lo % dk || lo + dk > hd)
+    return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return stripe_rows<T, TW, 16>(r, k, v, logw, u, state0, part,
+                                           beta, state_out, n_b, n_t, n_h,
+                                           dk, lo, st);
+    case 32: return stripe_rows<T, TW, 32>(r, k, v, logw, u, state0, part,
+                                           beta, state_out, n_b, n_t, n_h,
+                                           dk, lo, st);
+    case 64: return stripe_rows<T, TW, 64>(r, k, v, logw, u, state0, part,
+                                           beta, state_out, n_b, n_t, n_h,
+                                           dk, lo, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The stripe entry: r, k, v, u, logw (B, T, H, hd) / (H, hd) whole (of
+// logw only the rows [lo, lo + dk) are read); state0 and state_out (B, H,
+// dk, hd) f32 rows [lo, lo + dk); part (B, T, H, dk / min(IS, dk), hd) f32;
+// beta (B, T, H) f32. dk in {4, 8, 16, 32, 64}, at most hd, lo a multiple
+// of dk. Returns a CUDA error code.
+extern "C" int wkv6_stripe_f32(const void* r, const void* k, const void* v,
+                               const void* logw, const void* u,
+                               const void* state0, void* part, void* beta,
+                               void* state_out, int n_b, int n_t, int n_h,
+                               int hd, int dk, int lo, void* stream) {
+  return launch_stripe<float, float>(r, k, v, logw, u, state0, part, beta,
+                                     state_out, n_b, n_t, n_h, hd, dk, lo,
+                                     stream);
+}
+
+extern "C" int wkv6_stripe_bf16(const void* r, const void* k, const void* v,
+                                const void* logw, const void* u,
+                                const void* state0, void* part, void* beta,
+                                void* state_out, int n_b, int n_t, int n_h,
+                                int hd, int dk, int lo, void* stream) {
+  return launch_stripe<__nv_bfloat16, __nv_bfloat16>(
+      r, k, v, logw, u, state0, part, beta, state_out, n_b, n_t, n_h, hd, dk,
+      lo, stream);
+}
+
+extern "C" int wkv6_stripe_bf16_lwf32(const void* r, const void* k,
+                                      const void* v, const void* logw,
+                                      const void* u, const void* state0,
+                                      void* part, void* beta,
+                                      void* state_out, int n_b, int n_t,
+                                      int n_h, int hd, int dk, int lo,
+                                      void* stream) {
+  return launch_stripe<__nv_bfloat16, float>(
+      r, k, v, logw, u, state0, part, beta, state_out, n_b, n_t, n_h, hd, dk,
+      lo, stream);
 }

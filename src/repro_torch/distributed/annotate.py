@@ -23,7 +23,10 @@ mesh. The port runs one process per mesh position
     ``gather_whole`` and :func:`fsdp_layout` raise ``NotImplementedError``
     there, so a layer without one never computes on a block as if it
     were the whole weight. :func:`tp_size` is the ``model`` axis's size
-    in both modes.
+    in both modes. A serve step states which batch axes split its rows
+    (:func:`serve_rows`, from the tokens' spec): a global batch that an
+    axis does not divide is whole on every rank of that axis, and
+    :func:`rows_split` tells the layers which.
   * ``constrain`` stays the identity: the layers' explicit TP ops
     (``layers.dense``, ``attention_apply``, the vocab-parallel embedding
     and loss) already lay each activation out as the JAX package's
@@ -55,7 +58,7 @@ from repro_torch.distributed.mesh import Mesh, _active_meshes
 __all__ = ["constrain", "current_mesh", "unshard_fsdp", "gather_at_use",
            "gather_whole", "fsdp_layout", "tag", "spec_of", "tp_size",
            "recompute_context", "execution_mode", "get_execution_mode",
-           "serving", "serve_layout"]
+           "serving", "serve_layout", "serve_rows", "rows_split"]
 
 AxisLike = Union[None, str, Tuple[str, ...]]
 _SPEC_ATTR = "_repro_spec"
@@ -143,6 +146,30 @@ def serving() -> bool:
     """Whether a process mesh is active in ``"serve"`` mode: the layers
     then read each weight as the block this rank stores."""
     return C.active() is not None and get_execution_mode() == "serve"
+
+
+@contextlib.contextmanager
+def serve_rows(entry):
+    """Inside ``with``: the serve step's rows are split over the batch
+    axes of ``entry`` (the batch dim's entry of the tokens' spec,
+    ``sharding.decode_pspecs``: None, an axis name or a tuple of them)
+    and whole on every rank of the others."""
+    prev = getattr(_MODE, "rows", None)
+    _MODE.rows = _axes(entry)
+    try:
+        yield
+    finally:
+        _MODE.rows = prev
+
+
+def rows_split(axis: str) -> bool:
+    """Whether the rows of the active serve step are split over ``axis``
+    (an axis of one rank splits nothing). Outside :func:`serve_rows` the
+    rows are split over every batch axis of the process mesh."""
+    if C.axis_size(axis) == 1:
+        return False
+    rows = getattr(_MODE, "rows", None)
+    return axis in (C.batch_axes() if rows is None else rows)
 
 
 def serve_layout(w: torch.Tensor):

@@ -9,6 +9,8 @@
 ``pack_ternary_weights`` -- (K, N) float weights -> K3's packed layout.
 ``wkv6_scan``            -- the RWKV-6 WKV recurrence (K4), with the
                             chunked form's gradient.
+``wkv6_stripe``          -- K4's stripe entry: one decode step's WKV on a
+                            stripe of the state's rows (forward only).
 
 The forward of each is the CUDA kernel on a CUDA tensor and the kernel's
 plain version on a CPU tensor (see ``lif_scan_fwd``/``fc_lif_scan_fwd``/
@@ -40,12 +42,12 @@ from repro_torch.kernels.fc_lif_scan import fc_lif_scan_fwd
 from repro_torch.kernels.lif_scan import lif_scan_fwd
 from repro_torch.kernels.ternary_matmul import ternary_matmul_fwd
 from repro_torch.kernels.wkv6_scan import (CHUNK, wkv6_chunked,
-                                          wkv6_scan_fwd)
+                                          wkv6_scan_fwd, wkv6_stripe_fwd)
 
 __all__ = ["lif_scan", "lif_scan_batched", "fc_lif_scan",
            "fc_lif_scan_batched", "fc_currents", "pack_ternary_weights",
            "ternary_matmul",
-           "wkv6_scan"]
+           "wkv6_scan", "wkv6_stripe"]
 
 
 def _recompute_grads(fn, inputs, grads_out):
@@ -278,3 +280,15 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"T={t}")
         return _Wkv6Scan.apply(*ins)
     return wkv6_scan_fwd(*ins)
+
+
+def wkv6_stripe(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                logw: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
+                lo: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4's stripe entry (``kernels.wkv6_scan.wkv6_stripe_fwd``): the WKV
+    of the rank's heads on rows ``[lo, lo + dk_loc)`` of each state, for a
+    decode step whose state has dk over ``data``. Returns the f32
+    partials of the stripe's segments, the f32 ``beta`` and the new state
+    rows; a serving op with no gradient, as ``ternary_matmul``."""
+    return wkv6_stripe_fwd(*(x.contiguous() for x in (r, k, v, logw, u,
+                                                      state0)), lo)

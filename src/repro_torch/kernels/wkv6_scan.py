@@ -36,6 +36,26 @@ scan chained through ``state0`` equals the unbroken one bit for bit.
 for bit on the card; :func:`wkv6_scan_fwd` picks between the two by the
 tensor's device alone.
 
+The stripe entry (:func:`wkv6_stripe_fwd`) is the same recurrence on a
+stripe of the state's rows, for a decode step whose state has dk split
+over the ``data`` ranks (``sharding.cache_pspecs`` at a global batch the
+batch axes do not divide: context parallelism). It takes the whole r,
+k, u, v and logw of the rank's heads and the rows ``[lo, lo + dk_loc)``
+of each (b, h) state, and returns, per (b, t, h), the f32 partial
+``p_g,j`` of each :data:`IS`-row segment g of the stripe (one segment
+of dk_loc rows where dk_loc < IS), ``beta`` whole, and the new state
+rows. The caller gathers the partials of every stripe over ``data`` in
+ascending row order and adds them by :func:`wkv6_stripe_combine`:
+
+    o_j = (((+0 + p_0,j) + p_1,j) ... + p_last,j) + beta v_j
+
+the module's order wherever dk_loc is a multiple of IS, so ``o`` is the
+one-device kernel's bit for bit there (rwkv6-7b's hd 64 over ``data`` 2:
+32 rows a rank); stripes of 1 to 8 rows sum each stripe's rows as one
+segment, which moves ``o`` by rounding (rwkv6-7b's 4 rows a rank over a
+data axis of 16). The state rows' update is the
+module's, bit for bit at any stripe.
+
 On tensors without storage (meta, or the fake tensors of the dry run's
 trace, ``launch.dryrun``) :func:`wkv6_scan_fwd` launches nothing: it
 returns empty outputs of the kernel's shapes, dtypes and device and adds
@@ -62,7 +82,10 @@ from repro_torch.kernels._build import load_library
 __all__ = ["wkv6_scan_cuda", "wkv6_scan_plain", "wkv6_scan_fwd",
            "wkv6_scan_shape_only", "wkv6_chunked", "launches",
            "shape_only_calls", "shape_only_flops", "KERNEL", "HEAD_DIMS",
-           "IS", "geometry", "CHUNK"]
+           "IS", "geometry", "CHUNK", "wkv6_stripe_plain",
+           "wkv6_stripe_cuda", "wkv6_stripe_shape_only", "wkv6_stripe_fwd",
+           "wkv6_stripe_combine", "stripe_launches",
+           "stripe_shape_only_calls", "STRIPE_ROWS"]
 
 KERNEL = "wkv6_scan"
 
@@ -74,6 +97,17 @@ launches = 0
 # wkv6_scan_shape_only adds to them; no launch is made for them.
 shape_only_calls = 0
 shape_only_flops = 0
+# The same for the stripe entry: launches of its kernel (wkv6_stripe_cuda
+# alone adds to it), and its calls on tensors without storage, which
+# wkv6_stripe_shape_only also adds to shape_only_calls and (7 * dk_loc *
+# hd a (b, t, h)) to shape_only_flops.
+stripe_launches = 0
+stripe_shape_only_calls = 0
+# Rows a stripe the stripe entry's kernel and its plain version take
+# (dk_loc): rwkv6-7b's hd 64 over a data axis of 2 to 16, and the SMOKE
+# config's hd 16 over 2 or 4. The shape-only path takes any divisor of hd
+# (a SMOKE config's dry run over a data axis of 16).
+STRIPE_ROWS = (4, 8, 16, 32, 64)
 
 HEAD_DIMS = (16, 32, 64)
 # Width of the i-segments of r.S (Tentpole order above). csrc/wkv6_scan.cu
@@ -91,6 +125,9 @@ _FN = {(torch.float32, torch.float32): "wkv6_scan_f32",
 CHUNK = 16
 
 _GEOMETRY = ("IS", "TC", "threads", "smem_bytes", "blocks_per_sm")
+_STRIPE_FN = {(torch.float32, torch.float32): "wkv6_stripe_f32",
+              (torch.bfloat16, torch.bfloat16): "wkv6_stripe_bf16",
+              (torch.bfloat16, torch.float32): "wkv6_stripe_bf16_lwf32"}
 
 
 def geometry(hd: int = 64) -> dict:
@@ -112,8 +149,12 @@ def _fn(name: str):
         raise RuntimeError(f"csrc/wkv6_scan.cu's IS {found} differs from "
                            f"the wrapper's {IS}")
     fn = getattr(load_library(KERNEL), name)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    if name.startswith("wkv6_stripe"):
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -242,6 +283,158 @@ def wkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return wkv6_scan_shape_only(r, k, v, logw, u, state0)
     if r.device.type == "cpu":
         return wkv6_scan_plain(r, k, v, logw, u, state0)
+    raise ValueError(f"unsupported device {r.device}")
+
+
+def _check_stripe(r, k, v, logw, u, state0, lo, any_divisor=False):
+    """(B, H, hd, dk_loc) of a stripe call; dk_loc in STRIPE_ROWS, or any
+    divisor of hd where ``any_divisor`` (the shape-only path)."""
+    _check(r, k, v, logw, u, None)
+    b, _, h, hd = r.shape
+    dk = state0.shape[2] if state0.ndim == 4 else -1
+    if any_divisor:
+        rows, ok = "a divisor of hd", dk > 0 and hd % dk == 0
+    else:
+        rows, ok = f"in {STRIPE_ROWS}, at most hd", dk in STRIPE_ROWS \
+            and dk <= hd
+    if state0.shape != (b, h, dk, hd) or not ok:
+        raise ValueError(f"state rows {tuple(state0.shape)}: need (B, H, "
+                         f"dk_loc, hd) = ({b}, {h}, dk_loc, {hd}) with "
+                         f"dk_loc {rows}")
+    if lo % dk or not 0 <= lo <= hd - dk:
+        raise ValueError(f"a stripe of {dk} rows at {lo} of {hd}")
+    return b, h, hd, dk
+
+
+def wkv6_stripe_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      logw: torch.Tensor, u: torch.Tensor,
+                      state0: torch.Tensor, lo: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The stripe entry's plain version (its order, above), step by step
+    over t: ``r, k, v, logw`` (B, T, H, hd) and ``u`` (H, hd) whole,
+    ``state0`` (B, H, dk_loc, hd) f32 the rows ``[lo, lo + dk_loc)``.
+    Returns the f32 partials (B, T, H, G, hd) of the stripe's G segments
+    (``min(IS, dk_loc)`` rows each, ascending from +0), the f32 ``beta``
+    (B, T, H) of the whole head, and the new f32 state rows."""
+    b, h, hd, dk = _check_stripe(r, k, v, logw, u, state0, lo)
+    t = r.shape[1]
+    seg = min(IS, dk)
+    n_seg = dk // seg
+    rf, kf, vf = r.float(), k.float(), v.float()
+    wf = torch.exp(logw.float()[..., lo:lo + dk])
+    q = (rf * u.float()) * kf
+    beta = torch.zeros((b, t, h), dtype=torch.float32, device=r.device)
+    for i in range(hd):
+        beta = beta + q[..., i]
+    rs, ks = rf[..., lo:lo + dk], kf[..., lo:lo + dk]
+    s = state0.float().clone()
+    part = torch.empty((b, t, h, n_seg, hd), dtype=torch.float32,
+                       device=r.device)
+    for step in range(t):
+        r_t = rs[:, step].reshape(b, h, n_seg, seg)
+        s_g = s.reshape(b, h, n_seg, seg, hd)
+        p = torch.zeros((b, h, n_seg, hd), dtype=torch.float32,
+                        device=r.device)
+        for ii in range(seg):
+            p = p + r_t[..., ii, None] * s_g[:, :, :, ii]
+        part[:, step] = p
+        s = (wf[:, step, :, :, None] * s
+             + ks[:, step, :, :, None] * vf[:, step, :, None, :])
+    return part, beta, s
+
+
+def wkv6_stripe_combine(parts: torch.Tensor, beta: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """``o`` (B, T, H, hd) in ``v``'s dtype from the partials of every
+    stripe (B, T, H, G_all, hd), in ascending row order, and ``beta``
+    (B, T, H): the segments added in ascending order from +0, then
+    ``beta v_j`` (the module's order); elementwise, so the bits are the
+    same on any device."""
+    acc = torch.zeros_like(parts[..., 0, :])
+    for g in range(parts.shape[-2]):
+        acc = acc + parts[..., g, :]
+    return (acc + beta[..., None] * v.float()).to(v.dtype)
+
+
+def wkv6_stripe_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     logw: torch.Tensor, u: torch.Tensor,
+                     state0: torch.Tensor, lo: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the stripe entry (``wkv6_stripe_*`` in ``csrc/wkv6_scan.cu``)
+    on contiguous tensors of one CUDA device. Returns ``(partials, beta,
+    state rows)`` queued on the current stream (no synchronisation)."""
+    global stripe_launches
+    name = _STRIPE_FN.get((r.dtype, logw.dtype))
+    if name is None:
+        raise TypeError(f"wkv6_stripe_cuda takes float32 or bfloat16 r/k/v/u "
+                        f"with float32 logw or logw in r's dtype, got r "
+                        f"{r.dtype} and logw {logw.dtype}")
+    for nm, x in (("k", k), ("v", v), ("u", u)):
+        if x.dtype != r.dtype:
+            raise TypeError(f"{nm} dtype {x.dtype} != r dtype {r.dtype}")
+    if state0.dtype != torch.float32:
+        raise TypeError(f"state0 must be float32, got {state0.dtype}")
+    b, h, hd, dk = _check_stripe(r, k, v, logw, u, state0, lo)
+    ins = (r, k, v, logw, u, state0)
+    if not all(x.is_contiguous() for x in ins):
+        raise ValueError("wkv6_stripe_cuda needs contiguous tensors")
+    if not r.is_cuda or any(x.device != r.device for x in ins):
+        raise ValueError(f"wkv6_stripe_cuda needs CUDA tensors on one "
+                         f"device, got r on {r.device}")
+    t = r.shape[1]
+    part = torch.empty((b, t, h, dk // min(IS, dk), hd), dtype=torch.float32,
+                       device=r.device)
+    beta = torch.empty((b, t, h), dtype=torch.float32, device=r.device)
+    state = torch.empty_like(state0)
+    fn = _fn(name)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+                u.data_ptr(), state0.data_ptr(), part.data_ptr(),
+                beta.data_ptr(), state.data_ptr(), b, t, h, hd, dk, lo,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_stripe kernel launch failed: CUDA error "
+                           f"{rc}")
+    stripe_launches += 1
+    return part, beta, state
+
+
+def wkv6_stripe_shape_only(r: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, logw: torch.Tensor,
+                           u: torch.Tensor, state0: torch.Tensor, lo: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The stripe entry's outputs without computing them, for tensors
+    without storage; adds one to :data:`stripe_shape_only_calls` and
+    :data:`shape_only_calls` and ``7 * B * T * H * dk_loc * hd`` to
+    :data:`shape_only_flops` (``wkv6_scan_shape_only``'s count on the
+    stripe's rows)."""
+    global shape_only_calls, shape_only_flops, stripe_shape_only_calls
+    b, h, hd, dk = _check_stripe(r, k, v, logw, u, state0, lo,
+                                 any_divisor=True)
+    t = r.shape[1]
+    stripe_shape_only_calls += 1
+    shape_only_calls += 1
+    shape_only_flops += 7 * b * t * h * dk * hd
+    return (r.new_empty((b, t, h, dk // min(IS, dk), hd),
+                        dtype=torch.float32),
+            r.new_empty((b, t, h), dtype=torch.float32),
+            r.new_empty(state0.shape, dtype=torch.float32))
+
+
+def wkv6_stripe_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    logw: torch.Tensor, u: torch.Tensor,
+                    state0: torch.Tensor, lo: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The stripe entry on CUDA tensors, its plain version on CPU tensors,
+    its shapes alone on tensors without storage (meta or fake)."""
+    if r.is_cuda and type(r) is not FakeTensor:
+        return wkv6_stripe_cuda(r, k, v, logw, u, state0, lo)
+    if r.is_meta or isinstance(r, FakeTensor):
+        return wkv6_stripe_shape_only(r, k, v, logw, u, state0, lo)
+    if r.device.type == "cpu":
+        return wkv6_stripe_plain(r, k, v, logw, u, state0, lo)
     raise ValueError(f"unsupported device {r.device}")
 
 

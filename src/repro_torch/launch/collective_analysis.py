@@ -192,8 +192,8 @@ def mesh_collectives(cfg, shape, mesh, device, *, remat: bool = True,
     its shape and axis names): :func:`collective_bytes` of
     :func:`trace_step` over a fake process mesh of the same shape, or
     ``{"error": reason}`` where the step cannot be traced (a model, mesh
-    or batch the sharded trainer refuses; a decode the sharded serve
-    step refuses, with the ROADMAP item that brings it). Any other
+    or batch the sharded trainer refuses; a decode layout the sharded
+    serve step has no rule for). Any other
     failure raises, a missing fake backend included."""
     sizes = dict(zip(mesh.axis_names, mesh.axis_sizes))
     try:

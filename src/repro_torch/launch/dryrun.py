@@ -30,11 +30,11 @@ weights or device memory:
     mesh's world, its collectives tallied by ``distributed.collectives``
     and turned into the JAX record's ``bytes_by_kind``, ``count_by_kind``
     and ``total_bytes`` (``launch.collective_analysis``); a decode cell's
-    serve step on the rank's blocks, as the JAX dry run jits it. A cell
-    that cannot be traced holds its reason under ``"error"``: a model
-    the sharded trainer refuses, or a decode the sharded serve step does
-    not run yet (a batch the batch axes do not divide: context
-    parallelism), with the ROADMAP item that brings it.
+    serve step on the rank's blocks, as the JAX dry run jits it (a
+    ``long_500k`` cell's B=1 on context-parallel caches: the KV sequence,
+    rwkv6's dk and zamba2's SSM head dim over ``data``). A cell that
+    cannot be traced holds its reason under ``"error"``: a model the
+    sharded trainer refuses, or a layout the serve step has no rule for.
 
 What the JAX dry run records and this one leaves out:
   * the ``L1``/``L2`` depth variants: XLA counts a scan body once, so the

@@ -20,10 +20,15 @@ A serve step runs in ``execution_mode("serve")``, as the JAX package's
 does. Under a process mesh (``distributed.runtime``) it takes this
 rank's blocks -- the params under ``sharding.decode_pspecs``' specs (the
 train layout, ``_quantized_pspecs`` for a ternary tree), the cache under
-``cache_pspecs``, the rank's rows of the tokens -- and returns the
-rank's rows of the next tokens and its block of the new cache: the
-weights stay in their blocks and only activations cross ranks
-(``models.layers``).
+``cache_pspecs``, the rank's rows of the tokens, tagged with their spec
+by ``sharding.local_block`` -- and returns the rank's rows of the next
+tokens (tagged with the same spec, so steps chain) and its block of the
+new cache: the weights stay in their blocks and only activations cross
+ranks (``models.layers``). The tokens' spec says which batch axes split
+the rows (``annotate.serve_rows``): a global batch that an axis does not
+divide (B=1, the ``long_500k`` cells) is whole on every rank of it, and
+the cache is then split over a sequence or state dim instead (context
+parallelism).
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.distributed import annotate as A
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.annotate import execution_mode
 from repro_torch.models import build_model
 from repro_torch.models import layers as L
@@ -119,9 +126,17 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
     model = build_model(cfg)
 
     def serve_step(params, cache, tokens):
-        with execution_mode("serve"):
+        spec = A.spec_of(tokens)
+        with execution_mode("serve"), A.serve_rows(
+                None if spec is None else spec[0]):
+            if spec is None and C.active() is not None:
+                raise ValueError(
+                    "tokens without a spec under a process mesh: place "
+                    "them with sharding.local_block under decode_pspecs")
             logits, new_cache = model.decode(params, cache, tokens)
             next_tok = L.greedy_tokens(logits[:, -1:], cfg.vocab_size)
-        return next_tok.to(torch.int32), new_cache
+        next_tok = next_tok.to(torch.int32)
+        return (next_tok if spec is None else A.tag(next_tok, spec)), \
+            new_cache
 
     return serve_step

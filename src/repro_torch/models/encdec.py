@@ -188,16 +188,18 @@ def encdec_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
     """One decoder step attending the precomputed cross K/V. Returns
     (logits f32, new cache); the cache passed in is not modified. Over a
     process mesh (serve mode) the self-attention attends over the rank's
-    stripe of its KV cache, the cross-attention over the rank's stripe of
-    the encoder sequence (``layers.cross_decode``; both combined over
-    ``model``), the MLP and the head by their serve rules: the result is
-    this rank's rows of the logits and its block of the new cache."""
+    part of its KV cache, the cross-attention over the rank's part of the
+    encoder K/V (``layers.cross_decode``; each in its own layout,
+    ``layers.kv_stripe``: a stripe of the sequence combined over the axes
+    that split it, or the rank's KV heads or head-dim block), the MLP and
+    the head by their serve rules: the result is this rank's rows of the
+    logits and its block of the new cache."""
     del scan_layers
     L.check_sharded_decode(cfg, cache)
     h = _embed(params, tokens, cfg)
     pos = cache["pos"]
     stripe = L.kv_stripe(cache["k"])
-    L.kv_stripe(cache["ck"])
+    cstripe = L.kv_stripe(cache["ck"])
     k_new, v_new = cache["k"].clone(), cache["v"].clone()
     for i in range(cfg.decoder_layers):
         lp = L.layer_params(params["decoder"], i)
@@ -207,7 +209,7 @@ def encdec_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
                                  stripe=stripe)
         c_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
         h = h + L.cross_decode(lp["cross_attn"], c_in, cache["ck"][i],
-                               cache["cv"][i], cfg)
+                               cache["cv"][i], cfg, cstripe)
         m_in = L.rms_norm(h, lp["ln3"], cfg.norm_eps)
         h = h + L.mlp_apply(lp["mlp"], m_in, cfg)
     return _unembed(params, h, cfg), L.keep_spec({

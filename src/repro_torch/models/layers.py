@@ -35,18 +35,22 @@ serve_layout``), and rows of activations, token ids, softmax statistics
 and partial sums cross ranks instead (:func:`serve_einsum`, the rule of
 ``dense``, the attention projections, the embedding and the LM head;
 K3 on the rank's output columns of a packed weight with whole-K rows).
-The residual stream is the rank's rows, whole; a decode step's attention
-attends over the rank's stripe of the KV cache's sequence
-(flash-decoding: the max, the sum and the weighted values combined over
-``model``), the enc-dec's cross-attention over its stripe of the encoder
-sequence (:func:`cross_decode`), the MoE routes the global batch's
-groups on every rank (``_moe_serve``), and :func:`greedy_tokens` takes
-the argmax of vocab-parallel logits.
+The residual stream is the rank's rows, whole; the rows are split over
+the batch axes that divide the global batch and whole on every rank of
+the others (``annotate.rows_split``, from the tokens' spec). A decode
+step's attention attends over the rank's part of the KV cache
+(:func:`kv_stripe`: a stripe of the sequence over ``model``, ``data`` or
+both -- flash-decoding, the max, the sum and the weighted values combined
+over exactly those axes -- or the rank's KV heads or head-dim block), the
+enc-dec's cross-attention over its part of the encoder K/V
+(:func:`cross_decode`), the MoE routes the global batch's groups on every
+rank (``_moe_serve``), and :func:`greedy_tokens` takes the argmax of
+vocab-parallel logits.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -67,7 +71,8 @@ __all__ = [
     "moe_check_batch", "moe_route_logits", "cross_decode",
     "dense", "blockwise_attention", "layer_norm", "logits_f32", "remat",
     "layer_params", "embed_lookup", "head_logits", "serve_einsum",
-    "greedy_tokens", "check_sharded_decode", "kv_stripe", "keep_spec",
+    "greedy_tokens", "check_sharded_decode", "cache_rule", "state_split",
+    "kv_stripe", "KVStripe", "keep_spec",
 ]
 
 # ----------------------------------------------------------------------
@@ -116,19 +121,23 @@ def serve_einsum(eq: str, x: torch.Tensor, w: Any, *, spec=None,
     the block ``w`` this rank stores and this rank's rows of ``x`` (its
     first letter). ``x``'s other dims are whole, or split over
     ``model`` (a column-parallel output, told from its size against the
-    whole weight's). The rule, from the block's stored spec:
+    whole weight's). The rule, from the block's stored spec and the
+    step's rows (``annotate.rows_split``):
 
       * a weight dim on an axis that ``x`` shares: ``x``'s block of it
         (a dim ``x`` holds split over ``model`` is used as it is where
         the weight splits it over ``model`` too, else gathered first);
-      * a weight with a dim on ``data``: ``x``'s rows are gathered over
-        ``data`` first, since every row needs each data rank's slice;
+      * a weight with a dim on ``data`` while the rows are split over
+        ``data``: ``x``'s rows are gathered over ``data`` first, since
+        every row needs each data rank's slice (rows whole over ``data``
+        are already on every rank);
       * a contracted dim on ``data``: the partial products are
-        reduce-scattered back to each rank's rows; on ``model``:
-        all-reduced;
-      * an output dim on ``data`` while the rows are still gathered:
-        rows traded for columns (``all_to_all``), so each rank gets its
-        rows whole; an output dim on ``model`` stays split.
+        reduce-scattered back to each rank's rows (rows whole: all-reduced
+        over ``data``); on ``model``: all-reduced;
+      * an output dim on ``data``: with the rows gathered, rows traded for
+        columns (``all_to_all``), so each rank gets its rows whole; with
+        the rows whole, the columns gathered; an output dim on ``model``
+        stays split.
 
     No collective moves the weight. ``spec``/``wshape``: the block's
     spec and shape where ``w`` is no tagged tensor (a packed weight's
@@ -143,7 +152,8 @@ def serve_einsum(eq: str, x: torch.Tensor, w: Any, *, spec=None,
         raise NotImplementedError(f"a weight block of spec {spec} in a "
                                   f"decode step")
     m = C.axis_size("model")
-    rows = "data" in spec and C.axis_size("data") > 1
+    live = "data" in spec and C.axis_size("data") > 1
+    rows = live and A.rows_split("data")
     if rows:            # before any narrowing: the other ranks' blocks differ
         x = C.gather_dim(x, 0, "data")
     for d, letter in enumerate(xs[1:], 1):
@@ -165,12 +175,13 @@ def serve_einsum(eq: str, x: torch.Tensor, w: Any, *, spec=None,
     summed = {axis[c] for c in ws if c in xs and c not in out} - {None}
     r = out.index(xs[0])
     if "data" in summed:
-        y = C.scatter_dim(y, r, "data")
+        y = C.scatter_dim(y, r, "data") if rows else C.all_reduce_(y, "data")
     if "model" in summed:
         y = C.all_reduce_(y, "model")
-    if rows and "data" not in summed:
-        col = next(c for c in out if axis.get(c) == "data")
-        y = C.all_to_all(y, r, out.index(col), "data")
+    if live and "data" not in summed:
+        col = out.index(next(c for c in out if axis.get(c) == "data"))
+        y = C.all_to_all(y, r, col, "data") if rows \
+            else C.gather_dim(y, col, "data")
     return y
 
 
@@ -265,9 +276,10 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
     In serve mode the table stays in its stored (vocab, embed) block: the
     token ids are gathered over ``data`` where the embed dim is split
-    there, each rank looks up its vocab rows of its embed columns, the
-    lookups are summed over ``model`` (one rank's row and zeros: exact)
-    and rows are traded for columns over ``data``."""
+    there and the rows are too, each rank looks up its vocab rows of its
+    embed columns, the lookups are summed over ``model`` (one rank's row
+    and zeros: exact) and rows are traded for columns over ``data`` (rows
+    whole over ``data``: the columns gathered)."""
     if A.serving():
         return _serve_embed(table, tokens)
     table, lay = A.gather_at_use(table, ("model", None))
@@ -288,20 +300,21 @@ def _serve_embed(table: torch.Tensor, tokens: torch.Tensor
     if vspec not in (None, "model") or dspec not in (None, "data"):
         raise NotImplementedError(f"an embedding block of spec "
                                   f"{(vspec, dspec)} in a decode step")
-    if dspec == "data":
+    rows = dspec == "data" and A.rows_split("data")
+    if rows:
         tokens = C.gather_dim(tokens, 0, "data")
     idx = tokens.long()
     if vspec is None:
-        rows = table[idx]
+        out = table[idx]
     else:
         local = idx - C.axis_index("model") * table.shape[0]
         inside = (local >= 0) & (local < table.shape[0])
-        rows = table[torch.where(inside, local, 0)]
-        rows = C.all_reduce_(rows * inside[..., None].to(rows.dtype),
-                             "model")
+        out = table[torch.where(inside, local, 0)]
+        out = C.all_reduce_(out * inside[..., None].to(out.dtype), "model")
     if dspec == "data":
-        rows = C.all_to_all(rows, 0, -1, "data")
-    return rows
+        out = C.all_to_all(out, 0, -1, "data") if rows \
+            else C.gather_dim(out, -1, "data")
+    return out
 
 
 def greedy_tokens(logits: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -628,19 +641,13 @@ def attention_apply(
     return C.all_reduce(y, "model") if part else y
 
 
-# The ROADMAP item that brings context-parallel decode caches.
-_CP_ITEM = "11f"
-
-
 def check_sharded_decode(cfg: ModelConfig, cache: Dict[str, Any]) -> None:
-    """Under a process mesh, raise ``NotImplementedError`` (naming the
-    ROADMAP item that brings it) for a decode the port does not run
-    sharded: a step outside serve mode (``launch.steps.make_serve_step``
-    sets it), and a cache whose spec puts ``data`` on a sequence or state
-    dim (context parallelism: a global batch the batch axes do not
-    divide). A cache leaf without a spec raises ``ValueError``: caches
-    reach the model as the blocks ``sharding.local_block`` cuts under
-    ``cache_pspecs``."""
+    """Under a process mesh, raise for a decode the port does not run
+    sharded: ``NotImplementedError`` for a step outside serve mode
+    (``launch.steps.make_serve_step`` sets it) and for a cache leaf whose
+    spec has no serve rule (:func:`cache_rule` names the rules); a cache
+    leaf without a spec raises ``ValueError``: caches reach the model as
+    the blocks ``sharding.local_block`` cuts under ``cache_pspecs``."""
     if C.active() is None:
         return
     if not A.serving():
@@ -655,12 +662,56 @@ def check_sharded_decode(cfg: ModelConfig, cache: Dict[str, Any]) -> None:
             raise ValueError(f"the cache's {name!r} without a spec under a "
                              f"process mesh: place it with sharding."
                              f"local_block under cache_pspecs")
-        if any("data" in _axes(e) for i, e in enumerate(spec) if i != 1):
-            raise NotImplementedError(
-                f"{cfg.name}: a cache spec {spec} for {name!r} puts 'data' "
-                f"on a sequence or state dim (context parallelism: a "
-                f"global batch the batch axes do not divide); ROADMAP item "
-                f"{_CP_ITEM}")
+        cache_rule(name, spec, t.ndim)
+
+
+# The layouts a cache leaf may take in a sharded decode step, by the
+# leaf's kind: what ``sharding.cache_pspecs`` gives, dim by dim after the
+# stacked layer axis (batch, then the rest).
+_KV_RULE = ("a KV cache (L, B, S, KVH, hd): the sequence over 'data', "
+            "'model' or ('data', 'model'), or the KV heads or head_dim "
+            "over 'model'")
+_STATE_RULE = ("a recurrent state (L, B, H, x, y): the heads over 'model', "
+               "x over 'data'")
+_WHOLE_RULE = "a token-shift or conv cache: whole but for its rows"
+
+
+def cache_rule(name: str, spec, ndim: int) -> str:
+    """The serve rule of a cache leaf ``name`` of ``ndim`` dims under
+    ``spec`` (its stacked layer dim first, then the batch dim over the
+    batch axes or None); raises ``NotImplementedError`` naming the rule
+    the spec breaks."""
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    rest = spec[2:]
+    if name in ("k", "v", "ck", "cv", "attn_k", "attn_v"):
+        rule = _KV_RULE
+        ok = (rest[0] in (None, "data", "model", ("data", "model"))
+              and rest[1] in (None, "model") and rest[2] in (None, "model")
+              and sum("model" in _axes(e) for e in rest) <= 1)
+    elif name in ("state", "ssm"):
+        rule = _STATE_RULE
+        ok = rest[0] in (None, "model") and rest[1] in (None, "data") \
+            and rest[2] is None
+    else:
+        rule = _WHOLE_RULE
+        ok = all(e is None for e in rest)
+    if spec[0] is not None or not ok:
+        raise NotImplementedError(
+            f"a cache spec {spec} for {name!r} has no serve rule; the "
+            f"sharded decode takes {rule}")
+    return rule
+
+
+def state_split(name: str, state: torch.Tensor) -> bool:
+    """Whether the stacked recurrent state ``name`` (L, B, H, x, y), in
+    serve mode under a process mesh, holds this rank's stripe of x over a
+    ``data`` axis of more than one rank: its spec (``cache_pspecs`` at a
+    global batch the batch axes do not divide) puts x there."""
+    if not A.serving():
+        return False
+    spec = A.spec_of(state)
+    cache_rule(name, spec, state.ndim)
+    return spec[3] == "data" and C.axis_size("data") > 1
 
 
 def keep_spec(new: Dict[str, Any], old: Dict[str, Any]) -> Dict[str, Any]:
@@ -680,58 +731,108 @@ def _axes(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def kv_stripe(k_cache: torch.Tensor) -> Optional[Tuple[int, int]]:
-    """``(lo, S)`` of a stacked (L, B, S, KVH, hd) KV cache block in serve
-    mode under a process mesh: this rank's stripe of the sequence starts
-    at slot ``lo`` of ``S`` (the sequence over ``model``, ``cache_pspecs``'
-    flash-decoding layout). None otherwise. A cache split over its heads
-    (a sequence that ``model`` does not divide) raises
-    ``NotImplementedError``."""
+class KVStripe(NamedTuple):
+    """This rank's part of a KV cache in serve mode under a process mesh
+    (:func:`kv_stripe`): slots ``[lo, lo + S_r)`` of the sequence's
+    ``length`` slots, the mesh axes the sequence is split over (major
+    first, axes of one rank left out), and whether the KV heads or the
+    head dim are split over ``model``."""
+    lo: int
+    length: int
+    seq_axes: Tuple[str, ...]
+    heads: bool
+    head_dim: bool
+
+
+def kv_stripe(k_cache: torch.Tensor) -> Optional[KVStripe]:
+    """The :class:`KVStripe` of a stacked (L, B, S, KVH, hd) KV cache block
+    in serve mode under a process mesh, from its spec (``cache_pspecs``):
+    the sequence over ``model`` (flash-decoding), over ``data`` or over
+    ``("data", "model")`` (context parallelism: a global batch the batch
+    axes do not divide), or a sequence that ``model`` does not divide
+    with the KV heads or the head dim over ``model``. None outside serve
+    mode. Any other spec raises ``NotImplementedError``
+    (:func:`cache_rule`)."""
     if not A.serving():
         return None
     spec = A.spec_of(k_cache)
-    if spec[3:] != (None, None) or spec[2] not in (None, "model"):
-        raise NotImplementedError(
-            f"a KV cache of spec {spec}: the sharded decode attends over "
-            f"a stripe of the sequence on 'model' with whole heads")
+    cache_rule("k", spec, k_cache.ndim)
     n = k_cache.shape[2]
-    if spec[2] is None:
-        return 0, n
-    return C.axis_index("model") * n, n * C.axis_size("model")
+    block, parts, axes = 0, 1, []
+    for a in _axes(spec[2]):
+        block = block * C.axis_size(a) + C.axis_index(a)
+        parts *= C.axis_size(a)
+        if C.axis_size(a) > 1:
+            axes.append(a)
+    live = C.axis_size("model") > 1
+    return KVStripe(block * n, n * parts, tuple(axes),
+                    spec[3] == "model" and live, spec[4] == "model" and live)
 
 
-def _heads_whole(t: torch.Tensor, heads: int, head_dim: int
-                 ) -> torch.Tensor:
-    """(B, 1, heads, head_dim) from a projection's output, gathering the
-    dim it holds split over ``model``."""
-    for dim, n in ((2, heads), (3, head_dim)):
-        if t.shape[dim] != n:
-            t = C.gather_dim(t, dim, "model")
-    return t
+def _heads_to(t: torch.Tensor, heads: int, split: bool) -> torch.Tensor:
+    """A projection's output (B, 1, heads or this rank's block, ...) with
+    all its heads (gathered over ``model``) or, when ``split``, this
+    rank's block of them."""
+    if split:
+        if t.shape[2] == heads:
+            lo, hi = C.block_range(heads, "model")
+            t = t[:, :, lo:hi]
+        return t
+    return t if t.shape[2] == heads else C.gather_dim(t, 2, "model")
+
+
+def _hd_to(t: torch.Tensor, head_dim: int, split: bool) -> torch.Tensor:
+    """``t`` (B, 1, H, head_dim or this rank's block) with the whole head
+    dim (gathered over ``model``) or, when ``split``, this rank's
+    block."""
+    if split:
+        if t.shape[3] == head_dim:
+            lo, hi = C.block_range(head_dim, "model")
+            t = t[..., lo:hi]
+        return t
+    return t if t.shape[3] == head_dim else C.gather_dim(t, 3, "model")
+
+
+def _serve_qkv(p, x, cfg: ModelConfig, st: KVStripe, names, posb, secs):
+    """The serve rule's q (and k, v) of ``x`` in the layout of a cache of
+    stripe ``st``: each projection on its stored block, then every head
+    or, with the KV heads over ``model``, this rank's heads (its q heads
+    are those of its KV heads' groups); rotated on the whole head dim
+    (``posb`` None: no rotation), then cut to this rank's block of the
+    head dim where the cache splits it."""
+    out = []
+    for name in names:
+        n = cfg.num_heads if name == "wq" else cfg.num_kv_heads
+        t = _heads_to(serve_einsum("bsd,dhk->bshk", x, p[name]), n, st.heads)
+        if name == "wv":
+            out.append(_hd_to(t, cfg.head_dim, st.head_dim))
+            continue
+        t = _hd_to(t, cfg.head_dim, False)
+        if posb is not None:
+            t = apply_rope(t, posb, cfg.rope_theta, secs)
+        out.append(_hd_to(t, cfg.head_dim, st.head_dim))
+    return out
 
 
 def _attend_decode_serve(p, x, k_cache, v_cache, pos, cfg: ModelConfig, *,
                          window: Optional[int], mrope: bool,
-                         stripe: Tuple[int, int]) -> torch.Tensor:
-    """``_attend_decode`` on this rank's rows and stripe ``[lo, lo + S_r)``
-    of the sequence's ``S`` slots (``kv_stripe``): q, k and v of every
-    head from the projections' serve rule; only the owner of the token's
-    slot writes it (a select, so nothing waits for the device); scores
-    at global key positions (:func:`_stripe_attend`); the output
-    projection on the stored block of ``wo``."""
+                         stripe: KVStripe) -> torch.Tensor:
+    """``_attend_decode`` on this rank's rows and its part of the cache
+    (``kv_stripe``: slots ``[lo, lo + S_r)`` of the sequence's ``S``, its
+    KV heads or head-dim block): q, k and v from the projections' serve
+    rule in the cache's layout (:func:`_serve_qkv`); only the owner of the
+    token's slot writes it (a select, so nothing waits for the device;
+    the ring's slot too); scores at global key positions
+    (:func:`_stripe_attend`); the output projection on the stored block of
+    ``wo``."""
     b = x.shape[0]
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     secs = cfg.mrope_sections if mrope else None
     posb = pos.reshape(1, 1).expand(b, 1)
     if mrope:
         posb = posb[None].expand(3, b, 1)
-    q, k, v = (_heads_whole(serve_einsum("bsd,dhk->bshk", x, p[name]), n,
-                            hd)
-               for name, n in (("wq", h), ("wk", kvh), ("wv", kvh)))
-    q = apply_rope(q, posb, cfg.rope_theta, secs)
-    k = apply_rope(k, posb, cfg.rope_theta, secs)
+    q, k, v = _serve_qkv(p, x, cfg, stripe, ("wq", "wk", "wv"), posb, secs)
 
-    lo, s_all = stripe
+    lo, s_all = stripe.lo, stripe.length
     s_loc = k_cache.shape[1]
     slot = pos % s_all if window is not None \
         else torch.clamp(pos, max=s_all - 1)
@@ -747,52 +848,64 @@ def _attend_decode_serve(p, x, k_cache, v_cache, pos, cfg: ModelConfig, *,
     valid = k_idx <= pos
     if window is not None:
         valid = valid | (pos >= s_all)
-    out = _stripe_attend(q, k_cache, v_cache, valid)
+    out = _stripe_attend(q, k_cache, v_cache, valid, stripe, cfg.head_dim)
     return serve_einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
 
 
 def _stripe_attend(q: torch.Tensor, k_cache: torch.Tensor,
-                   v_cache: torch.Tensor,
-                   valid: Optional[torch.Tensor]) -> torch.Tensor:
-    """One query's attention (B, 1, H, hd) over this rank's stripe of the
-    keys (B, S_r, KVH, hd), flash-decoding over ``model``: f32 scores
-    (masked to -inf where ``valid`` is False), the softmax's max over
-    ``model``, then the weighted values and the sum, combined in one sum
-    over ``model``. Returns the f32 output (B, 1, H, hd). At least one
-    key of the whole sequence must be valid (slot 0 is, in a decode
-    step), so the max over the ranks is finite."""
+                   v_cache: torch.Tensor, valid: Optional[torch.Tensor],
+                   stripe: KVStripe, head_dim: int) -> torch.Tensor:
+    """One query's attention (B, 1, H_r, hd_r) over this rank's part of
+    the keys (B, S_r, KVH_r, hd_r), flash-decoding over the sequence's
+    axes (``stripe.seq_axes``): f32 scores (with the head dim over
+    ``model``, the partial dot products all-reduced over ``model`` first),
+    masked to -inf where ``valid`` is False, the softmax's max over the
+    sequence's axes, then the weighted values and the sum, combined in one
+    sum over each of them. Returns the f32 output (B, 1, H_r, hd): the
+    rank's q heads, the values' head-dim blocks gathered over ``model``.
+    At least one key of the whole sequence must be valid (slot 0 is, in a
+    decode step), so the max over the ranks is finite."""
     b, _, h, hd = q.shape
     kvh = k_cache.shape[2]
     qg = q.reshape(b, 1, kvh, h // kvh, hd).float()
-    sc = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float()) \
-        * (1.0 / math.sqrt(hd))
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float())
+    if stripe.head_dim:
+        sc = C.all_reduce_(sc, "model")
+    sc = sc * (1.0 / math.sqrt(head_dim))
     if valid is not None:
         sc = sc.masked_fill(~valid, -math.inf)
-    top = C.all_reduce_max(sc.amax(dim=-1), "model")
+    top = sc.amax(dim=-1)
+    for a in stripe.seq_axes:
+        top = C.all_reduce_max(top, a)
     w_att = torch.exp(sc - top[..., None])
     acc = torch.einsum("bkgqs,bskd->bkgqd", w_att, v_cache.float())
-    both = C.all_reduce_(torch.cat([acc.flatten(),
-                                    w_att.sum(dim=-1).flatten()]), "model")
+    both = torch.cat([acc.flatten(), w_att.sum(dim=-1).flatten()])
+    for a in stripe.seq_axes:
+        both = C.all_reduce_(both, a)
     acc = both[:acc.numel()].view(acc.shape)
     tot = both[acc.numel():].view(acc.shape[:-1])
-    out = acc / tot[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
+    out = (acc / tot[..., None]).permute(0, 3, 1, 2, 4).reshape(
+        b, 1, h, hd)
+    return C.gather_dim(out, 3, "model") if stripe.head_dim else out
 
 
 def cross_decode(p: Dict[str, Any], x: torch.Tensor, ck: torch.Tensor,
-                 cv: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                 cv: torch.Tensor, cfg: ModelConfig,
+                 stripe: Optional[KVStripe] = None) -> torch.Tensor:
     """One decode step's cross-attention of ``x`` (B, 1, D) over the
     precomputed encoder keys and values ``ck``/``cv`` (B, S_enc, KVH, hd):
     non-causal, nothing written, the output projected by ``wo``. In serve
-    mode under a process mesh ``ck``/``cv`` are this rank's stripe of the
-    encoder sequence (``cache_pspecs``' KV layout, which the caller checks
-    with :func:`kv_stripe`): q of every head from the projection's serve
-    rule, attention over the stripe combined over ``model``
+    mode under a process mesh ``ck``/``cv`` are this rank's part of the
+    encoder K/V (``cache_pspecs``' KV layout) and ``stripe`` its
+    :func:`kv_stripe`: q from the projection's serve rule in that layout,
+    attention over the rank's part combined over the sequence's axes
     (:func:`_stripe_attend`), ``wo`` on its stored block."""
     if A.serving():
-        h, hd = cfg.num_heads, cfg.head_dim
-        q = _heads_whole(serve_einsum("bsd,dhk->bshk", x, p["wq"]), h, hd)
-        out = _stripe_attend(q, ck, cv, None)
+        if stripe is None:
+            raise NotImplementedError("a cross-attention under a process "
+                                      "mesh without its K/V's stripe")
+        q, = _serve_qkv(p, x, cfg, stripe, ("wq",), None, None)
+        out = _stripe_attend(q, ck, cv, None, stripe, cfg.head_dim)
         return serve_einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     out = blockwise_attention(q, ck, cv, causal=False)
@@ -801,7 +914,7 @@ def cross_decode(p: Dict[str, Any], x: torch.Tensor, ck: torch.Tensor,
 
 def _attend_decode(p, x, k_cache, v_cache, pos, cfg: ModelConfig, *,
                    window: Optional[int], mrope: bool,
-                   stripe: Optional[Tuple[int, int]] = None
+                   stripe: Optional[KVStripe] = None
                    ) -> torch.Tensor:
     """One token's attention at position ``pos`` (a 0-d int tensor on the
     device): writes this token's k and v into ``k_cache``/``v_cache``
@@ -1112,10 +1225,16 @@ def _moe_serve(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
 
     The JAX package groups the tokens of the global batch, so a rank that
     routed its own rows alone would form other groups, another capacity
-    and other drops. So every row goes to every rank first: rows are
-    traded for columns over ``data`` (``all_to_all``: every row of the
-    data axis, this rank's block of D, the block its weights hold) and
-    gathered over ``pod`` (the weights are whole there). Then each rank:
+    and other drops. So every row of the global batch reaches every rank
+    first, once: rows split over ``data`` are traded for columns
+    (``all_to_all``: every row of the data axis, this rank's block of D,
+    the block its weights hold; rows whole over ``data`` are on every rank
+    already, and the rank takes its D block of them) and rows split over
+    ``pod`` gathered (the weights are whole there). A row whole over an
+    axis is never gathered over it: its copies would enter the group as
+    tokens of their own (at B=1 over ``data`` of 2, a group of 2 tokens,
+    whose second copy of each choice is dropped at capacity 1). Then each
+    rank:
 
       * the router logits of its experts from its D block, f32 partial
         sums all-reduced over ``data`` and rounded to ``x``'s dtype (the
@@ -1131,7 +1250,8 @@ def _moe_serve(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
         than the rows themselves;
       * the down product onto its D block, the combine over its experts,
         summed over ``model`` (all-reduce), its pod's rows cut out and
-        columns traded back for rows over ``data`` (``all_to_all``).
+        columns traded back for rows over ``data`` (``all_to_all``; rows
+        whole over ``data``: the D blocks gathered).
 
     No weight crosses ranks. The aux loss is the one-device loss of the
     global groups (decode discards it). Experts that do not divide
@@ -1145,9 +1265,14 @@ def _moe_serve(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
             f"{C.axis_size('model')}: the fallback layout (each expert's mlp "
             f"dim on 'model') has no serve rule")
     cols = d_on == "data" and C.axis_size("data") > 1
-    xa = C.all_to_all(x, -1, 0, "data") if cols \
-        else C.gather_dim(x, 0, "data")
-    xa = C.gather_dim(xa, 0, "pod")
+    rows_d, rows_p = A.rows_split("data"), A.rows_split("pod")
+    if cols:
+        xa = C.all_to_all(x, -1, 0, "data") if rows_d else x.narrow(
+            -1, *_span(d, "data"))
+    else:
+        xa = C.gather_dim(x, 0, "data") if rows_d else x
+    if rows_p:
+        xa = C.gather_dim(xa, 0, "pod")
     na = xa.shape[0]
     g, ng, cap = moe_groups(na, s, cfg)
     xg = xa.reshape(ng, g, -1)
@@ -1170,13 +1295,21 @@ def _moe_serve(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
         gu = C.all_reduce_(gu, "data")
     ye = torch.einsum("necf,efd->necd", F.silu(gu[0]) * gu[1], p["we_down"])
     y = C.all_reduce_(torch.einsum("ngec,necd->ngd", comb, ye), "model")
-    lo, hi = C.block_range(na, "pod")
-    y = y.reshape(na, s, -1)[lo:hi]
+    y = y.reshape(na, s, -1)
+    if rows_p:
+        y = y.narrow(0, *_span(na, "pod"))
     if cols:
-        y = C.all_to_all(y, 0, -1, "data")
-    else:
-        lo, hi = C.block_range(y.shape[0], "data")
-        y = y[lo:hi]
+        y = C.all_to_all(y, 0, -1, "data") if rows_d \
+            else C.gather_dim(y, -1, "data")
+    elif rows_d:
+        y = y.narrow(0, *_span(y.shape[0], "data"))
     if cfg.num_shared_experts:
         y = y + _shared_experts(p["shared"], x)
     return y, aux
+
+
+def _span(size: int, axis: str) -> Tuple[int, int]:
+    """``(start, length)`` of this rank's block of a dim of ``size`` over
+    ``axis``."""
+    lo, hi = C.block_range(size, axis)
+    return lo, hi - lo

@@ -28,7 +28,10 @@ mode (``launch.steps.make_serve_step``): every product reads the block
 its rank stores (``layers.serve_einsum``; ``dense`` and K3 on a packed
 block's columns), the rank's rows go through K4 on its heads from its
 block of the cache's state, and the token-shift caches keep the rank's
-rows.
+rows. Where the global batch does not divide the batch axes the rows are
+whole on every rank of them and the state's dk is split over ``data``:
+each rank steps its stripe of rows through K4's stripe entry
+(``_wkv_stripe``).
 
 Numerics note (as in the JAX package): the per-step log-decay is clamped
 to >= -4, so the chunked form's exp(-cumsum) stays in f32 range at chunk
@@ -46,7 +49,7 @@ from repro_torch.distributed import annotate as A
 from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.kernels.wkv6_scan import CHUNK as _WKV_CHUNK
-from repro_torch.kernels.wkv6_scan import wkv6_chunked
+from repro_torch.kernels.wkv6_scan import wkv6_chunked, wkv6_stripe_combine
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, as_dtype
@@ -155,12 +158,15 @@ def _ddlerp(tm, x, sx):
     return base + xx[None] * adj                        # (5, B, S, D)
 
 
-def _time_mix(tm, x, cfg: ModelConfig, *, sx=None, state0=None):
+def _time_mix(tm, x, cfg: ModelConfig, *, sx=None, state0=None,
+              stripe=False):
     """The time mix of one layer. The WKV runs through K4 in both modes:
     the whole sequence from a zero state (``state0`` None), or a decode
-    step from the cache's ``state0`` and token-shift ``sx``. Returns
-    (output, final WKV state). Under a process mesh r/k/v/g are this
-    rank's channels (column-parallel), which must be whole heads."""
+    step from the cache's ``state0`` and token-shift ``sx``; with
+    ``stripe``, ``state0`` is this rank's stripe of dk rows over ``data``
+    (``_wkv_stripe``). Returns (output, final WKV state). Under a process
+    mesh r/k/v/g are this rank's channels (column-parallel), which must
+    be whole heads."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     sx = _token_shift(x, sx)
@@ -194,7 +200,10 @@ def _time_mix(tm, x, cfg: ModelConfig, *, sx=None, state0=None):
                 f"state of {None if state0 is None else state0.shape[1]}")
     logw = -torch.exp((w0 + dec).float())
     logw = torch.clamp(logw, min=_LOGW_MIN).reshape(b, s, hl, hd)
-    o, state = ops.wkv6_scan(r, k, v, logw, u, state0)
+    if stripe:
+        o, state = _wkv_stripe(r, k, v, logw, u, state0)
+    else:
+        o, state = ops.wkv6_scan(r, k, v, logw, u, state0)
     # Per-head group norm (population variance, as jnp.var), then the
     # SiLU(g) gate (RWKV-6 output block).
     mu = o.mean(dim=-1, keepdim=True)
@@ -203,6 +212,26 @@ def _time_mix(tm, x, cfg: ModelConfig, *, sx=None, state0=None):
     o = o * gn_s + gn_b
     o = o * F.silu(g)
     return L.dense(o, tm["wo"], role="down"), state
+
+
+def _wkv_stripe(r, k, v, logw, u, state0):
+    """The WKV of a decode step whose state block holds this rank's stripe
+    of dk rows over ``data`` (``cache_pspecs`` at a global batch the batch
+    axes do not divide): r, k, v, logw and u are whole on every ``data``
+    rank (the projections' sums all-reduced there), K4's stripe entry
+    steps the rank's rows and returns their segments' partials of r.S,
+    which are gathered over ``data`` (activations, never the state) and
+    added in ascending row order with the whole bonus term
+    (``wkv6_stripe_combine``): one-device K4's ``o`` bit for bit where the
+    stripe is a multiple of 16 rows."""
+    dk, hd = state0.shape[2], r.shape[-1]
+    if dk * C.axis_size("data") != hd:
+        raise ValueError(f"a state block of {dk} of {hd} rows over a data "
+                         f"axis of {C.axis_size('data')}")
+    part, beta, state = ops.wkv6_stripe(r, k, v, logw, u, state0,
+                                        C.axis_index("data") * dk)
+    return wkv6_stripe_combine(C.gather_dim(part, 3, "data"), beta,
+                               v), state
 
 
 def _channel_mix(cm, x, *, sx=None):
@@ -295,16 +324,18 @@ def rwkv6_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
     the cache passed in is not modified. Over a process mesh (serve
     mode): this rank's rows of the logits (its vocab block) and its
     block of the new cache (``cache_pspecs``: the state's heads over
-    ``model``, every leaf's rows over the batch axes)."""
+    ``model``, every leaf's rows over the batch axes that divide the
+    batch; where none divides it, the state's dk over ``data``)."""
     del scan_layers
     L.check_sharded_decode(cfg, cache)
+    stripe = L.state_split("state", cache["state"])
     h = _embed(params, tokens, cfg)
     states, tm_xs, cm_xs = [], [], []
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         x = L.layer_norm(h, lp["ln1_s"], lp["ln1_b"], cfg.norm_eps)
         tm_out, state = _time_mix(lp["tm"], x, cfg, sx=cache["tm_x"][i],
-                                  state0=cache["state"][i])
+                                  state0=cache["state"][i], stripe=stripe)
         h = h + tm_out
         x2 = L.layer_norm(h, lp["ln2_s"], lp["ln2_b"], cfg.norm_eps)
         h = h + _channel_mix(lp["cm"], x2, sx=cache["cm_x"][i])

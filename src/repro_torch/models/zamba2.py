@@ -222,7 +222,8 @@ def _rms_norm_heads(y, scale, eps: float, width: int):
 
 
 def _mamba_forward(lp, x, cfg: ModelConfig, *, conv_state=None,
-                   ssm_state=None, decode: bool = False):
+                   ssm_state=None, decode: bool = False,
+                   p_split: bool = False):
     """Apply one Mamba-2 layer (pre-norm; the caller adds the residual).
 
     Returns (out, (conv_state, ssm_state)): the last ``conv_kernel - 1``
@@ -236,7 +237,8 @@ def _mamba_forward(lp, x, cfg: ModelConfig, *, conv_state=None,
     sharded = C.active() is not None
     if sharded:
         if decode:
-            return _mamba_decode_serve(lp, x, cfg, conv_state, ssm_state)
+            return _mamba_decode_serve(lp, x, cfg, conv_state, ssm_state,
+                                       p_split)
         proj, conv_w, conv_b, h = _heads_in(lp, x, cfg)
     else:
         proj = L.dense(x, lp["in_proj"])
@@ -280,7 +282,8 @@ def _mamba_forward(lp, x, cfg: ModelConfig, *, conv_state=None,
     return out, (new_conv_state, ssm_state)
 
 
-def _mamba_decode_serve(lp, x, cfg: ModelConfig, conv_state, ssm_state):
+def _mamba_decode_serve(lp, x, cfg: ModelConfig, conv_state, ssm_state,
+                        p_split: bool = False):
     """One Mamba-2 layer's decode step in serve mode under a process mesh
     (``_mamba_forward(decode=True)`` there), on this rank's rows ``x``
     (B_r, 1, D), its blocks of the weights and of the cache.
@@ -298,7 +301,13 @@ def _mamba_decode_serve(lp, x, cfg: ModelConfig, conv_state, ssm_state):
     state of its heads (the cache's block) with its blocks of ``a_log``,
     ``dt_bias`` and ``d_skip``, normalizes with the statistic summed over
     ``model`` (``_rms_norm_heads``) and ends in ``out_proj``'s serve rule
-    (row-parallel on its heads). Heads or conv channels that ``model``
+    (row-parallel on its heads). Where the global batch does not divide
+    the batch axes (rows whole on every rank of them) the state's head
+    dim P may be split over ``data`` (``p_split``, from the cache's spec):
+    each rank steps its P rows of its heads
+    and the y rows are gathered over ``data`` before ``d_skip``, the gate
+    and the norm; the conv state, whole over ``data`` and ``model``, gets
+    the same bits on every rank. Heads or conv channels that ``model``
     does not divide raise ``NotImplementedError``, as in training.
     Returns (out, (conv_state, ssm_state))."""
     din, n, p = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_head_dim
@@ -319,8 +328,18 @@ def _mamba_decode_serve(lp, x, cfg: ModelConfig, conv_state, ssm_state):
     b_in, c_in = conv[..., din:din + n], conv[..., din + n:]
     dt = _softplus(dt_raw[..., lo:hi].float() + lp["dt_bias"].float())
     a = -torch.exp(lp["a_log"].float())
-    y, ssm_state = _mamba_step(xs[:, 0], dt[:, 0], a, b_in[:, 0],
-                               c_in[:, 0], ssm_state)
+    p_loc = ssm_state.shape[2]
+    if p_split:                         # P over data: this rank's rows
+        if p_loc * C.axis_size("data") != p:
+            raise ValueError(f"an SSM state block of {p_loc} of {p} rows "
+                             f"over a data axis of {C.axis_size('data')}")
+        lo_p = C.axis_index("data") * p_loc
+        y, ssm_state = _mamba_step(xs[:, 0, :, lo_p:lo_p + p_loc], dt[:, 0],
+                                   a, b_in[:, 0], c_in[:, 0], ssm_state)
+        y = C.gather_dim(y, 2, "data")
+    else:
+        y, ssm_state = _mamba_step(xs[:, 0], dt[:, 0], a, b_in[:, 0],
+                                   c_in[:, 0], ssm_state)
     y = (y[:, None] + xs * lp["d_skip"][:, None]).reshape(
         x.shape[0], 1, -1) * F.silu(z[..., lo * p:hi * p])
     y = _rms_norm_heads(y, lp["norm_s"], cfg.norm_eps, din)
@@ -425,12 +444,13 @@ def zamba2_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
     h = _embed(params, tokens, cfg)
     pos = cache["pos"]
     stripe = L.kv_stripe(cache["attn_k"])
-    ck_len = cache["attn_k"].shape[2] if stripe is None else stripe[1]
+    ck_len = cache["attn_k"].shape[2] if stripe is None else stripe.length
     ring = (cfg.long_context_window is not None
             and ck_len == cfg.long_context_window)
     window = ck_len if ring else None
     k_new, v_new = cache["attn_k"].clone(), cache["attn_v"].clone()
     conv_new, ssm_new = [], []
+    p_split = L.state_split("ssm", cache["ssm"])
     sp = params["shared"]
     for si, (i, j) in enumerate(_stage_bounds(cfg)):
         for li in range(i, j):
@@ -438,7 +458,7 @@ def zamba2_decode(params: Dict[str, Any], cache: Dict[str, torch.Tensor],
             out, (conv_st, ssm_st) = _mamba_forward(
                 lp, L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg,
                 conv_state=cache["conv"][li], ssm_state=cache["ssm"][li],
-                decode=True)
+                decode=True, p_split=p_split)
             h = h + out
             conv_new.append(conv_st)
             ssm_new.append(ssm_st)

@@ -304,6 +304,35 @@ def test_k4_matches_plain_chains_and_rows_are_batch_invariant(
     assert torch.equal(row[1][0], got[1][b - 1])
 
 
+@pytest.mark.parametrize("b,t,h,hd,dk,dtype,lw_dtype", [
+    (1, 1, 32, 64, 32, torch.bfloat16, torch.float32),
+    (1, 1, 32, 64, 4, torch.bfloat16, torch.float32),
+    (2, 3, 4, 64, 16, torch.float32, torch.float32),
+    (2, 2, 4, 64, 64, torch.bfloat16, torch.bfloat16),
+    (3, 1, 4, 32, 8, torch.float32, torch.float32),
+    (2, 2, 4, 16, 16, torch.bfloat16, torch.float32)])
+def test_k4_stripe_matches_plain_and_the_whole_state_kernel(
+        card, b, t, h, hd, dk, dtype, lw_dtype):
+    """K4's stripe entry against its plain version bit for bit, stripe by
+    stripe; the stripes' rows are the whole-state kernel's rows, and
+    where dk is a multiple of 16 their combined partials are its ``o``,
+    bit for bit."""
+    r, k, v, logw, u = _wkv(card, b, t, h, hd, dtype, lw_dtype)
+    s0 = torch.randn(b, h, hd, hd, generator=torch.Generator().manual_seed(
+        6)).to(card)
+    o, state = k4.wkv6_scan_cuda(r, k, v, logw, u, s0)
+    parts = []
+    for lo in range(0, hd, dk):
+        rows = s0[:, :, lo:lo + dk].contiguous()
+        got = k4.wkv6_stripe_cuda(r, k, v, logw, u, rows, lo)
+        assert _same(k4.wkv6_stripe_plain(r, k, v, logw, u, rows, lo), got)
+        assert torch.equal(got[2], state[:, :, lo:lo + dk])
+        parts.append(got[0])
+    comb = k4.wkv6_stripe_combine(torch.cat(parts, dim=3), got[1], v)
+    if dk % k4.IS == 0:
+        assert torch.equal(comb, o)
+
+
 def _misaligned(x):
     """A contiguous copy of ``x`` whose data starts one element past a
     16-byte boundary."""

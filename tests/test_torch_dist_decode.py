@@ -35,13 +35,11 @@ cache under ``cache_pspecs``, its rows of the tokens. Against:
       head, deepseek's ``we_down``, zamba2's ``out_proj``, seamless'
       cross-attention ``wo``) move the logits; every ``model`` rank
       writes the same zamba2 conv state bit for bit;
-  (f) the refusals: a cache spec with ``data`` on a sequence or state dim
-      (context parallelism), a step outside serve mode, a cache without
-      specs.
+  (f) the refusals: a cache spec without a serve rule, a step outside
+      serve mode, a cache or tokens without specs.
 
 One spawn of 4 ranks runs every case, beside the JAX subprocesses.
 """
-import collections
 import json
 import os
 import pickle
@@ -55,6 +53,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch_dist_decode_workers as W  # noqa: E402
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import decode_collectives as DC  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.distributed import runtime as R  # noqa: E402
@@ -69,7 +69,7 @@ from repro_torch.serving import quantize_for_serving  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 TOL = 1e-5
-CASES = W.CASES
+CASES = W.ALL_CASES
 JAX_PROCS = 3
 
 _JAX_RUN = r"""
@@ -87,8 +87,8 @@ from repro.models import build_model
 from repro.serving.serve import quantize_for_serving
 import repro.launch.dryrun as DR
 
-d, steps, batch, over = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
-                         json.loads(sys.argv[4]))
+d, steps, variants, over = (sys.argv[1], int(sys.argv[2]),
+                            json.loads(sys.argv[3]), json.loads(sys.argv[4]))
 AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 
 
@@ -104,12 +104,14 @@ def nest(z, pre):
 
 
 for job in sys.argv[5:]:
-    arch, quant, shape = job.split(":")
+    arch, quant, shape, variant = job.split(":")
     shape = tuple(int(x) for x in shape.split("x"))
+    batch, kv = variants[variant]["batch"], variants[variant].get("kv")
     cfg = dataclasses.replace(get_config(arch, smoke=True), **{
         k: tuple(v) if isinstance(v, list) else v
         for k, v in over[f"{arch}:{quant}"].items()})
-    z = np.load(f"{d}/{arch}_{quant}.npz")
+    z = np.load(f"{d}/{arch}_{quant}" + (f"_{variant}" if variant else "")
+                + ".npz")
     params, cache = nest(z, "p/"), nest(z, "c/")
     tokens = jnp.asarray(z["tokens"])
     if quant == "ternary":
@@ -122,6 +124,8 @@ for job in sys.argv[5:]:
         pspecs = DR._quantized_pspecs(pspecs, params, mesh)
     param_sh = SH.shardings(mesh, pspecs)
     cspecs = SH.cache_pspecs(cfg, mesh, cache, batch)
+    if kv is not None:
+        cspecs.update(k=P(*kv), v=P(*kv))
     cache_sh = {k: NamedSharding(mesh, s) for k, s in cspecs.items()}
     b = SH._batch_dim_spec(mesh, batch)
     tok_sh = NamedSharding(mesh, P(b, None))
@@ -151,8 +155,8 @@ print("DONE")
 
 
 def _job(case):
-    arch, quant, shape = case
-    return f"{arch}:{quant or 'float'}:{W.mesh_name(shape)}"
+    arch, quant, shape, variant = case
+    return f"{arch}:{quant or 'float'}:{W.mesh_name(shape)}:{variant}"
 
 
 def _jax_reference(d):
@@ -163,7 +167,7 @@ def _jax_reference(d):
                        for a in W.ARCHS for q in W.QUANTS})
     return [subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(_JAX_RUN), str(d),
-         str(W.STEPS), str(W.BATCH), over, *jobs[i::JAX_PROCS]],
+         str(W.STEPS), json.dumps(W.VARIANTS), over, *jobs[i::JAX_PROCS]],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
         for i in range(JAX_PROCS)]
 
@@ -174,14 +178,12 @@ def runs(tmp_path_factory):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        for arch in W.ARCHS:
-            for quant in W.QUANTS:
-                W.write_case(str(d), arch, quant)
+        for f in W.FILES:
+            W.write_case(str(d), *f)
         procs = _jax_reference(d)
         try:
             R.spawn(W.decode_rank, 4, (R.free_port(), str(d)))
-            one = {(a, q): W.one_device(str(d), a, q)
-                   for a in W.ARCHS for q in W.QUANTS}
+            one = {f: W.one_device(str(d), *f) for f in W.FILES}
             for proc in procs:
                 out, err = proc.communicate(timeout=600)
                 assert proc.returncode == 0, err[-3000:]
@@ -205,8 +207,14 @@ def runs(tmp_path_factory):
 
 
 def _id(case):
-    arch, quant, shape = case
-    return f"{arch}-{quant or 'float'}-{W.mesh_name(shape)}"
+    arch, quant, shape, variant = case
+    return f"{arch}-{quant or 'float'}-{W.mesh_name(shape)}" + (
+        f"-{variant}" if variant else "")
+
+
+def _key(case):
+    """The case file (and one-device run) of a case."""
+    return case[0], case[1], case[3]
 
 
 def _near(got, want):
@@ -237,7 +245,7 @@ def _against(got, want):
 
 @pytest.mark.parametrize("case", CASES, ids=_id)
 def test_sharded_serve_step_matches_one_device(runs, case):
-    _against(runs["ranks"][case][0], runs["one"][case[:2]])
+    _against(runs["ranks"][case][0], runs["one"][_key(case)])
 
 
 @pytest.mark.parametrize("case", CASES, ids=_id)
@@ -277,221 +285,64 @@ def k3_per_step(cfg) -> int:
     return 3 * cfg.num_layers
 
 
+def _sizes(case):
+    return dict(zip(R.MESH_AXES[len(case[2])], case[2]))
+
+
 @pytest.mark.parametrize("case", [c for c in CASES if c[0] == "rwkv6-7b"],
                          ids=_id)
 def test_k4_runs_on_each_ranks_heads_and_rows(runs, case):
+    """K4 on the rank's heads and rows, or, where the state's dk is split
+    over 'data' (B=1 over a data axis of 2 or 4), K4's stripe entry on the
+    rank's heads and its stripe of dk rows at its place."""
     cfg = W.config(case[0], case[1])
-    sizes = dict(zip(R.MESH_AXES[len(case[2])], case[2]))
-    rows = W.BATCH // (sizes.get("pod", 1) * sizes.get("data", 1))
+    sizes = _sizes(case)
+    batch = W.VARIANTS[case[3]]["batch"]
+    rows = batch // DC.row_parts(sizes, batch)
     heads = cfg.rwkv_heads // sizes["model"]
+    hd = cfg.rwkv_head_dim
+    split = rows == batch and sizes["data"] > 1 and case[3]
+    calls = cfg.num_layers * W.STEPS
     for row in runs["ranks"][case]:
-        assert row["k4"] == [[rows, 1, heads, cfg.rwkv_head_dim]] * (
-            cfg.num_layers * W.STEPS)
+        if split:
+            dk = hd // sizes["data"]
+            lo = row["coords"]["data"] * dk
+            assert row["k4"] == []
+            assert row["stripe"] == [([rows, 1, heads, hd],
+                                      [rows, heads, dk, hd], lo)] * calls
+        else:
+            assert row["stripe"] == []
+            assert row["k4"] == [[rows, 1, heads, hd]] * calls
 
 
-def _product(n, nbytes, eq, x, w, spec, sizes, elem, out_elem):
-    """The collectives of ``serve_einsum(eq, x, w)`` by its rule, from the
-    shapes: ``x`` as the rank holds it, ``w`` the whole weight's shape,
-    ``spec`` its stored spec; returns the output's shape on the rank."""
-    xs, rest = eq.split(",")
-    ws, out = rest.split("->")
-    axis = dict(zip(ws, spec))
-    size = lambda a: sizes.get(a, 1) if a else 1
-
-    def add(op, ax, shape, e):
-        n[f"{op}/{ax}"] += 1
-        nbytes[f"{op}/{ax}"] += int(np.prod(shape)) * e
-    x = list(x)
-    rows = "data" in spec and size("data") > 1
-    if rows:                           # every row needs each data block
-        x[0] *= size("data")
-        add("all_gather", "data", x, elem)
-    for d, c in enumerate(xs[1:], 1):
-        if c not in axis:
-            continue
-        whole, a = w[ws.index(c)], axis[c]
-        if x[d] != whole:              # x split over 'model'
-            if a == "model":
-                continue
-            x[d] = whole
-            add("all_gather", "model", x, elem)
-        x[d] = whole // size(a)
-    dims = dict(zip(xs, x))
-    dims.update({c: w[ws.index(c)] // size(axis[c]) for c in ws
-                 if c not in xs})
-    y = [dims[c] for c in out]
-    summed = {axis[c] for c in ws if c in xs and c not in out} - {None}
-    r = out.index(xs[0])
-    if "data" in summed and size("data") > 1:
-        add("reduce_scatter", "data", y, out_elem)
-        y[r] //= size("data")
-    if "model" in summed and size("model") > 1:
-        add("all_reduce", "model", y, out_elem)
-    if rows and "data" not in summed:
-        add("all_to_all", "data", y, out_elem)
-        col = next(c for c in out if axis.get(c) == "data")
-        y[r] //= size("data")
-        y[out.index(col)] *= size("data")
-    return y
-
-
-def expected_counts(arch, quant, shape, batch=W.BATCH):
+def expected_counts(arch, quant, shape, variant=""):
     """(launches, bytes) of one sharded decode step on a rank, from the
-    specs: each product by the serve rule (``_product``), the attention's
-    q/k/v gathered to whole heads over 'model', the flash-decoding max
-    and sum over 'model' (self- and cross-attention), the embedding
-    (token ids over 'data', the lookups summed over 'model', rows traded
-    for columns over 'data'), the MoE's rule (rows traded for columns
-    over 'data' and gathered over 'pod', the router's partial sums over
-    'data' and logits over 'model', the gate and up sums over 'data',
-    the combine over 'model', rows traded back), zamba2's (in_proj's
-    columns and the conv's channels gathered over 'model', the norm's
-    statistic summed there) and the vocab-parallel argmax (a max and a
-    min over 'model')."""
+    specs (``tools/decode_collectives.decode_counts``, which
+    ``chip_smoke.py`` holds the card's ranks against too), with the
+    variant's batch, cache and cross K/V lengths and, for "dh", its KV
+    spec."""
     cfg = W.config(arch, quant)
+    var = W.VARIANTS[variant]
+    batch = var["batch"]
     axes = R.MESH_AXES[len(shape)]
     mesh = Mesh(axes, tuple(shape), (torch.device("cpu"),) * int(
         np.prod(shape)))
-    sizes = dict(zip(axes, shape))
-    dsz, msz = sizes.get("data", 1), sizes.get("model", 1)
     params = build_model(cfg).abstract_params()
     if quant:
         params = quantize_for_serving(params)[0]
-    cache = abstract_cache(cfg, ShapeSpec("d", "decode", W.CACHE, batch))
-    specs = SH.decode_pspecs(cfg, mesh, params, cache, batch)["params"]
-    e = torch.empty((), dtype=as_dtype(cfg.dtype)).element_size()
-    n, nbytes = collections.Counter(), collections.Counter()
-    br = batch // (sizes.get("pod", 1) * dsz)
-
-    def live(op, ax, numel, el):
-        if sizes.get(ax, 1) > 1:
-            n[f"{op}/{ax}"] += 1
-            nbytes[f"{op}/{ax}"] += numel * el
-
-    def prod(eq, x, node, spec, leaf, oe=e, lead=1):
-        """``lead``: the leaf's stacked layer dims (0 for a shared one)."""
-        w = node[leaf]
-        if isinstance(w, dict):
-            pk = w["packed"]
-            return _product(n, nbytes, eq, x, (pk.shape[-2] * 4,
-                                                pk.shape[-1]),
-                            spec[leaf]["packed"][lead:], sizes, e, oe)
-        return _product(n, nbytes, eq, x, tuple(w.shape[lead:]),
-                        spec[leaf][lead:], sizes, e, oe)
-
-    def attention(at, ats, lead=1, cross=False):
-        hd, heads = cfg.head_dim, cfg.num_heads
-        names = (("wq", heads),) if cross else (
-            ("wq", heads), ("wk", cfg.num_kv_heads),
-            ("wv", cfg.num_kv_heads))
-        for k, nh in names:
-            y = prod("bsd,dhk->bshk", x, at, ats, k, lead=lead)
-            if (y[2], y[3]) != (nh, hd):
-                live("all_gather", "model", br * nh * hd, e)
-        live("all_reduce", "model", br * heads, 4)
-        live("all_reduce", "model", br * heads * (hd + 1), 4)
-        prod("bshk,hkd->bsd", (br, 1, heads, hd), at, ats, "wo", lead=lead)
-
-    def mlp(ml, mls, lead=1):
-        h = prod("bsk,kn->bsn", x, ml, mls, "w_up", lead=lead)
-        if "w_gate" in ml:
-            prod("bsk,kn->bsn", x, ml, mls, "w_gate", lead=lead)
-        prod("bsk,kn->bsn", h, ml, mls, "w_down", lead=lead)
-
-    def moe(mo, ms):
-        ef, ne = cfg.expert_d_ff or cfg.d_ff, cfg.num_experts
-        cols = ms["router"][1] == "data" and dsz > 1
-        dc = d // dsz if cols else d
-        if cols:
-            live("all_to_all", "data", br * d, e)
-        else:
-            live("all_gather", "data", br * dsz * d, e)
-        live("all_gather", "pod", batch * dc, e)
-        g, _, cap = L.moe_groups(batch, 1, cfg)
-        if cols:
-            live("all_reduce", "data", batch * ne // msz, 4)
-        live("all_gather", "model", batch * ne, e)
-        if cols:
-            live("all_reduce", "data",
-                 2 * (batch // g) * (ne // msz) * cap * ef, e)
-        live("all_reduce", "model", batch * dc, e)
-        if cols:
-            live("all_to_all", "data", br * dsz * dc, e)
-        if cfg.num_shared_experts:
-            mlp(mo["shared"], ms["shared"])
-
-    def mamba(lay, sp):
-        din, ns, hh = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
-        width = 2 * din + 2 * ns + hh
-        if prod("bsk,kn->bsn", x, lay, sp, "in_proj")[-1] != width:
-            live("all_gather", "model", br * width, e)
-        if sp["conv_b"][1] == "model":
-            live("all_gather", "model", br * (din + 2 * ns), e)
-        heads = sp["a_log"][1] == "model"
-        if heads:
-            live("all_reduce", "model", br, 4)
-        prod("bsk,kn->bsn", (br, 1, din // msz if heads else din), lay, sp,
-             "out_proj")
-    d = cfg.d_model
-    vs, ds = specs["embed"]
-    rows = ds == "data" and dsz > 1
-    bg, dd = (br * dsz, d // dsz) if rows else (br, d)
-    if rows:
-        live("all_gather", "data", bg, 4)
-    if vs == "model":
-        live("all_reduce", "model", bg * dd, e)
-    if rows:
-        live("all_to_all", "data", bg * dd, e)
-    x = (br, 1, d)
-    if cfg.family == "zamba2":
-        period = cfg.attn_every or cfg.num_layers
-        sh, shs = params["shared"], specs["shared"]
-        for i in range(cfg.num_layers):
-            mamba(params["layers"], specs["layers"])
-            if (i + 1) % period == 0 or i + 1 == cfg.num_layers:
-                attention(sh["attn"], shs["attn"], lead=0)
-                mlp(sh["mlp"], shs["mlp"], lead=0)
+    cache = build_model(cfg).init_cache(batch, var["cache"], device="meta")
     if cfg.family == "encdec":
-        de, des = params["decoder"], specs["decoder"]
-        for _ in range(cfg.decoder_layers):
-            attention(de["self_attn"], des["self_attn"])
-            attention(de["cross_attn"], des["cross_attn"], cross=True)
-            mlp(de["mlp"], des["mlp"])
-    lay, sp = params.get("layers"), specs.get("layers")
-    for _ in range(cfg.num_layers if cfg.family in (
-            "dense", "vlm", "moe", "rwkv6") else 0):
-        if cfg.family == "rwkv6":
-            tm, ts, cm, cs = lay["tm"], sp["tm"], lay["cm"], sp["cm"]
-            lo = prod("bsd,dkr->bskr", x, tm, ts, "lora_a")
-            prod("bskr,krd->kbsd", lo, tm, ts, "lora_b")
-            for k in ("wr", "wk", "wv"):
-                prod("bsk,kn->bsn", x, tm, ts, k)
-            g = prod("bsk,kn->bsn", x, tm, ts, "wg")
-            a = prod("bsd,dr->bsr", x, tm, ts, "wa")
-            prod("bsr,rd->bsd", a, tm, ts, "wb")
-            prod("bsk,kn->bsn", g, tm, ts, "wo")
-            h = prod("bsk,kn->bsn", x, cm, cs, "wk")
-            prod("bsk,kn->bsn", h, cm, cs, "wv")
-            if prod("bsk,kn->bsn", x, cm, cs, "wr")[-1] != d:
-                live("all_gather", "model", br * d, e)
-            continue
-        attention(lay["attn"], sp["attn"])
-        if cfg.family == "moe":
-            moe(lay["moe"], sp["moe"])
-        else:
-            mlp(lay["mlp"], sp["mlp"])
-    if "lm_head" in params:
-        y = _product(n, nbytes, "bsd,dv->bsv", x,
-                     tuple(params["lm_head"].shape), specs["lm_head"],
-                     sizes, e, 4)
-    else:
-        y = _product(n, nbytes, "bsd,vd->bsv", x,
-                     tuple(params["embed"].shape), specs["embed"], sizes,
-                     e, 4)
-    if y[-1] != cfg.vocab_size:
-        live("all_reduce", "model", br, 4)
-        live("all_reduce", "model", br, 8)
-    return dict(sorted(n.items())), dict(sorted(nbytes.items()))
+        cache["ck"] = cache["cv"] = torch.empty(
+            cache["k"].shape[:2] + (var["frames"],) + cache["k"].shape[3:],
+            device="meta")
+    allspec = SH.decode_pspecs(cfg, mesh, params, cache, batch)
+    specs, cspecs = allspec["params"], allspec["cache"]
+    if var.get("kv"):
+        cspecs.update(k=var["kv"], v=var["kv"])
+    e = torch.empty((), dtype=as_dtype(cfg.dtype)).element_size()
+    groups = L.moe_groups(batch, 1, cfg) if cfg.family == "moe" else None
+    return DC.decode_counts(cfg, _sizes((arch, quant, shape)), params,
+                            specs, cache, cspecs, batch, e, groups)
 
 
 @pytest.mark.parametrize("case", CASES, ids=_id)
@@ -506,20 +357,28 @@ def _largest_activation(case):
     widest of d_model, d_ff, a vocab block, zamba2's in_proj output, the
     MoE's router logits and its shared experts' hidden layer, or the
     MoE's stacked gate and up products of a rank's experts (2 x E /
-    |model| x capacity x expert d_ff)."""
+    |model| x capacity x expert d_ff); where rwkv6's rows are whole over
+    a 'data' axis of more than one rank, also its five token-shift mixes
+    (the ddlerp's (5, B, 1, d_model), which such a step gathers whole
+    over 'data'; a step with its rows split there moves none of it, so a
+    gather of a layer's lora block stays above its bound)."""
     cfg = W.config(case[0], case[1])
-    sizes = dict(zip(R.MESH_AXES[len(case[2])], case[2]))
+    sizes = _sizes(case)
+    batch = W.VARIANTS[case[3]]["batch"]
     widths = [cfg.d_model, cfg.d_ff, cfg.vocab_size // sizes["model"]]
+    if cfg.family == "rwkv6" and sizes["data"] > 1 and not DC.rows_split(
+            sizes, batch):
+        widths.append(5 * cfg.d_model)
     moe = 0
     if cfg.family == "zamba2":
         widths.append(2 * cfg.ssm_d_inner + 2 * cfg.ssm_state
                       + cfg.ssm_heads)
     if cfg.family == "moe":
         widths += [cfg.num_experts, cfg.num_shared_experts * cfg.expert_d_ff]
-        g, _, cap = L.moe_groups(W.BATCH, 1, cfg)
-        moe = (2 * (W.BATCH // g) * cfg.num_experts // sizes["model"] * cap
+        g, _, cap = L.moe_groups(batch, 1, cfg)
+        moe = (2 * (batch // g) * cfg.num_experts // sizes["model"] * cap
                * cfg.expert_d_ff)
-    return max(W.BATCH * max(widths), moe) * 4
+    return max(batch * max(widths), moe) * 4
 
 
 @pytest.mark.parametrize("case", CASES, ids=_id)
@@ -529,8 +388,7 @@ def test_no_collective_moves_a_parameter(runs, case):
         assert row["largest"][0] <= bound, row["largest"]
 
 
-def test_a_planted_fsdp_gather_of_wq_is_caught(runs):
-    case = W.PLANT
+def _planted_is_caught(runs, case):
     bound = _largest_activation(case)
     rows = runs["ranks"][case]
     assert all(r["largest"][0] <= bound for r in rows)
@@ -539,13 +397,25 @@ def test_a_planted_fsdp_gather_of_wq_is_caught(runs):
     assert all(r["planted"][1] == "all_gather/data" for r in rows)
 
 
+def test_a_planted_fsdp_gather_of_wq_is_caught(runs):
+    _planted_is_caught(runs, W.PLANT)
+
+
+def test_a_planted_gather_of_the_rwkv6_state_is_caught(runs):
+    """rwkv6-7b at B=1 over (2, 2) with its state block gathered over
+    'data' before K4 (the whole state rather than the stripe's
+    partials): the largest tensor moved leaves the bound of the step's
+    largest activation."""
+    _planted_is_caught(runs, W.STATE_PLANT)
+
+
 # Far above the sharded step's distance from one device (TOL).
 CAUGHT = 1e-3
 
 
 def _first_step_distance(runs, case, key):
     got = runs["ranks"][case][0][key]
-    want = runs["one"][case[:2]]["logits"][0]
+    want = runs["one"][_key(case)]["logits"][0]
     return _near(got.reshape(want.shape), want)
 
 
@@ -559,8 +429,33 @@ def test_each_rank_routing_its_own_rows_is_caught(runs):
     assert L.moe_groups(W.BATCH, 1, cfg)[2] == 3
     assert L.moe_groups(W.BATCH // 2, 1, cfg)[2] == 2
     assert _near(runs["ranks"][case][0]["logits"][0],
-                 runs["one"][case[:2]]["logits"][0]) <= TOL
+                 runs["one"][_key(case)]["logits"][0]) <= TOL
     assert _first_step_distance(runs, case, "route") > CAUGHT
+
+
+def test_copies_of_a_whole_row_change_the_moe_alone(runs):
+    """B=1 over (2, 2) with the rows taken as split over 'data' (the rule
+    before the step read the rows' layout from the tokens' spec): the row
+    is gathered into two copies. The dense products still sum each
+    row's partial products once (llama3.2-1b within ``TOL`` of one
+    device on every rank), but the MoE routes
+    both copies as one group of 2 tokens: capacity 1 drops the second
+    copy's choices, and the ranks of data coordinate 1 get that copy's
+    output (deepseek's logits move there, not on data rank 0). Without
+    copies the group is the JAX package's: 1 token, capacity 1."""
+    moe, dense = W.COPIES_PLANT
+    cfg = W.config(*moe[:2])
+    assert L.moe_groups(1, 1, cfg)[2] == 1
+    assert L.moe_groups(2, 1, cfg)[2] == 1
+
+    def distance(case):
+        want = runs["one"][_key(case)]["logits"][0]
+        return {r["coords"]["data"]: _near(
+            r["copies"].reshape(want.shape), want)
+            for r in runs["ranks"][case]}
+    got = distance(moe)
+    assert got[0] <= TOL and got[1] > CAUGHT, got
+    assert max(distance(dense).values()) <= TOL
 
 
 @pytest.mark.parametrize("case", list(W.FAULTS), ids=_id)
@@ -571,15 +466,20 @@ def test_a_planted_fault_of_each_family_is_caught(runs, case):
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c[0] == "zamba2-1.2b"
-                                  and c[2][-1] > 1], ids=_id)
+                                  and (c[2][-1] > 1 or c[3] == "b1")],
+                         ids=_id)
 def test_every_model_rank_writes_the_same_zamba2_conv_state(runs, case):
     """The conv cache keeps the whole conv dim on every ``model`` rank
-    (``cache_pspecs``): after every step the ranks of one data block hold
-    the same bits."""
+    (``cache_pspecs``), and its rows on every ``data`` rank where the
+    batch does not divide 'data' (B=1): after every step the ranks that
+    hold one block hold the same bits."""
     rows = runs["ranks"][case]
+    whole = case[3] == "b1"
     for data in {r["coords"].get("data", 0) for r in rows}:
-        mine = [r["conv"] for r in rows if r["coords"].get("data", 0) == data]
-        assert len(mine) == case[2][-1] and len(mine[0]) == W.STEPS
+        mine = [r["conv"] for r in rows
+                if whole or r["coords"].get("data", 0) == data]
+        assert len(mine) == (4 if whole else case[2][-1])
+        assert len(mine[0]) == W.STEPS
         for other in mine[1:]:
             assert all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
                        for a, b in zip(mine[0], other))
@@ -617,14 +517,38 @@ def _serve_on_fake_mesh(cfg, shape, batch, cache_len=16, serve=True,
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-7b", "zamba2-1.2b",
                                   "seamless-m4t-medium"])
-def test_context_parallel_caches_are_refused(arch):
+def test_context_parallel_caches_trace(arch):
     """B=1 over (2, 2): the batch does not divide ``data``, so
     ``cache_pspecs`` puts ``data`` on the sequence (KV, the enc-dec's
     cross K/V, zamba2's shared block) or on a state dim (rwkv6's dk,
-    zamba2's SSM head dim)."""
-    with pytest.raises(NotImplementedError,
-                       match="context parallelism.*ROADMAP item 11f"):
-        _serve_on_fake_mesh(get_config(arch, smoke=True), (2, 2), 1)
+    zamba2's SSM head dim); the step traces on fake tensors and returns
+    the tokens and a block of the new cache, tagged with their specs."""
+    from repro_torch.distributed import annotate as A
+    tok, cache = _serve_on_fake_mesh(get_config(arch, smoke=True), (2, 2),
+                                     1)
+    assert tuple(tok.shape) == (1, 1) and A.spec_of(tok) == (None, None)
+    assert all(A.spec_of(t) is not None for k, t in cache.items()
+               if k != "pos")
+
+
+@pytest.mark.parametrize("leaf,spec", [
+    ("k", (None, None, None, None, "data")),
+    ("attn_k", (None, None, "data", "model", "model")),
+    ("state", (None, None, "model", None, "data")),
+    ("tm_x", (None, None, "data"))],
+    ids=["kv_head_dim_on_data", "kv_two_on_model", "state_dv_on_data",
+         "token_shift_on_data"])
+def test_cache_specs_without_a_serve_rule_are_refused(leaf, spec):
+    """A cache spec that ``cache_pspecs`` never gives has no serve rule:
+    the step refuses it, naming the rule of its kind of leaf."""
+    from repro_torch.distributed import annotate as A
+    cfg = get_config("llama3.2-1b", smoke=True)
+    t = torch.zeros((2,) * len(spec))
+    A.tag(t, spec)
+    with CA.fake_process_mesh((2, 2), "cpu") as pm, pm, \
+            A.execution_mode("serve"):
+        with pytest.raises(NotImplementedError, match="has no serve rule"):
+            L.check_sharded_decode(cfg, {leaf: t})
 
 
 @pytest.mark.parametrize("arch,match", [
@@ -644,6 +568,29 @@ def test_decode_outside_serve_mode_and_untagged_caches_are_refused():
         _serve_on_fake_mesh(cfg, (2, 2), 8, serve=False)
     with pytest.raises(ValueError, match="without a spec"):
         _serve_on_fake_mesh(cfg, (2, 2), 8, tag_cache=False)
+
+
+def test_untagged_tokens_are_refused_and_the_step_tags_its_tokens():
+    """Under a process mesh the step reads the rows' layout from the
+    tokens' spec: untagged tokens raise; the tokens it returns carry the
+    spec of those it took, so steps chain."""
+    from repro_torch.distributed import annotate as A
+    cfg = get_config("llama3.2-1b", smoke=True)
+    tok, _ = _serve_on_fake_mesh(cfg, (2, 2), 8)
+    assert A.spec_of(tok) == ("data", None)
+    real = SH.local_block
+
+    def untagged(tree, specs, pm, device=None):
+        out = real(tree, specs, pm, device)
+        if isinstance(out, torch.Tensor) and out.dtype == torch.int32:
+            out = out.clone()             # a copy carries no tag
+        return out
+    SH.local_block = untagged
+    try:
+        with pytest.raises(ValueError, match="tokens without a spec"):
+            _serve_on_fake_mesh(cfg, (2, 2), 8)
+    finally:
+        SH.local_block = real
 
 
 def test_serve_mode_refuses_a_gather_at_use():

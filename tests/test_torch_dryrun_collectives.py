@@ -172,9 +172,10 @@ def test_records_hold_collectives_or_their_reason(monkeypatch, tmp_path):
     """A SMOKE llama train cell's record (one layer) has ``collectives``
     on both production meshes, and so has its decode cell (the serve
     step's all-to-alls among them), and a MoE's (16 experts, so that they
-    divide the model axis); a long_500k cell (B=1: a context-parallel
-    cache) says why it has none, naming its ROADMAP item; a SMOKE rwkv6
-    (four heads) on a model axis of 16 holds the trainer's refusal."""
+    divide the model axis), and a long_500k cell (B=1: a
+    context-parallel cache, the rows whole on every rank: all-reduces
+    and gathers over 'data', no all-to-all); a SMOKE rwkv6 (four heads)
+    on a model axis of 16 holds the trainer's refusal."""
     monkeypatch.setattr(DR, "get_config", lambda arch: dataclasses.replace(
         get_config(arch, smoke=True), num_layers=1))
     monkeypatch.setattr(DR, "OUT_DIR", tmp_path)
@@ -201,11 +202,41 @@ def test_records_hold_collectives_or_their_reason(monkeypatch, tmp_path):
         get_config("deepseek-moe-16b", smoke=True), num_layers=1,
         num_experts=16), SHAPES["decode_32k"], mesh, "cpu")
     assert moe["step"] == "decode" and moe["count_by_kind"]["all-to-all"] > 0
-    long = CA.mesh_collectives(get_config("zamba2-1.2b", smoke=True),
-                               SHAPES["long_500k"], mesh, "cpu")
-    assert long["error"].startswith("NotImplementedError: zamba2")
-    assert "ROADMAP item 11f" in long["error"]
+    # SMOKE zamba2 at d_model 128, so that its 16 SSM heads divide the
+    # model axis of 16: B=1 puts the SSM head dim over 'data' and the
+    # shared block's 16-slot window over 'model'.
+    long = CA.mesh_collectives(dataclasses.replace(
+        get_config("zamba2-1.2b", smoke=True), d_model=128),
+        SHAPES["long_500k"], mesh, "cpu")
+    assert long["step"] == "decode" and "error" not in long
+    assert long["by_op_axis"]["all_reduce/data"]["count"] > 0
+    assert long["by_op_axis"]["all_gather/data"]["count"] > 0
+    assert "all_to_all/data" not in long["by_op_axis"]
+    assert "reduce_scatter/data" not in long["by_op_axis"]
     ref = CA.mesh_collectives(get_config("rwkv6-7b", smoke=True),
                               SHAPES["train_4k"], mesh, "cpu")
     assert ref["error"].startswith("NotImplementedError: rwkv6-7b-smoke")
     assert "would split a head" in ref["error"]
+
+
+def test_rwkv6_long_500k_cell_runs_the_stripe_entry():
+    """rwkv6's long_500k cell on pod16x16 (SMOKE at 16 heads of 64, so that
+    the heads divide the model axis; one layer): B=1 puts the state's dk
+    over 'data', 4 rows a rank. The trace's K4 calls are the stripe
+    entry's, one a layer, with its 7 * dk_loc * hd FLOPs a head; the
+    partials are gathered over 'data' (4 segments of one row-stripe each
+    over 16 ranks: (1, 1, 1, 16, 64) f32), and the record has
+    collectives."""
+    from repro_torch.kernels import wkv6_scan as k4
+    cfg = dataclasses.replace(get_config("rwkv6-7b", smoke=True),
+                              d_model=1024, rwkv_head_dim=64, num_layers=1)
+    mesh = make_production_mesh(multi_pod=False)
+    calls, flops = k4.stripe_shape_only_calls, k4.shape_only_flops
+    with CA.fake_process_mesh((16, 16), "cpu") as pm:
+        got = CA.trace_step(cfg, SHAPES["long_500k"], pm)
+    assert k4.stripe_shape_only_calls == calls + 1
+    assert k4.shape_only_flops == flops + 7 * 1 * 4 * 64
+    assert got["launches"]["all_gather/data"] >= 1
+    rec = CA.mesh_collectives(cfg, SHAPES["long_500k"], mesh, "cpu")
+    assert "error" not in rec and rec["total_bytes"] > 0
+    assert "all_to_all/data" not in rec["by_op_axis"]

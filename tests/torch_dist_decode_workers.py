@@ -2,7 +2,11 @@
 (``test_torch_dist_decode.py``).
 
 ``runtime.spawn`` starts each rank in a fresh process that imports this
-module by name, so it imports nothing of JAX. The parent draws every
+module by name, so it imports nothing of JAX. A case is ``(arch, quant,
+mesh shape, variant)``: the variant ``""`` is B=8 over a 16-slot cache;
+``VARIANTS`` lists the others (B=1 and B=2, which the batch axes do not
+divide: context-parallel caches; odd cache lengths, which ``model`` does
+not divide: KV heads or head_dim over ``model``). The parent draws every
 case's params from a seeded CPU generator (rwkv6's ``u``, ``mu``,
 ``mu_k`` and ``mu_r`` and zamba2's ``a_log``, ``dt_bias``, ``d_skip``,
 ``conv_b`` and ``norm_s`` from a numpy seed, since they init to
@@ -45,9 +49,36 @@ QUANTS = (None, "ternary")
 MESHES = ((2, 2), (4, 1), (1, 4), (2, 2, 1))
 POD_ARCHS = ("llama3.2-1b", "h2o-danube-1.8b", "rwkv6-7b",
              "deepseek-moe-16b")
-CASES = [(a, q, m) for m in MESHES for a in ARCHS for q in QUANTS
+CASES = [(a, q, m, "") for m in MESHES for a in ARCHS for q in QUANTS
          if len(m) == 2 or a in POD_ARCHS]
 BATCH, PROMPT, STEPS, CACHE = 8, 6, 4, 16
+# A variant's batch, cache slots and the enc-dec's encoder frames, and a
+# KV cache spec that replaces cache_pspecs' (``kv``). "b1": B=1 (whole
+# rows on every rank; the KV sequence, rwkv6's dk and zamba2's P over
+# 'data'; 18 frames, which 4 does not divide); "b2": B=2 over (2, 2, 1)
+# (rows over 'pod', whole over 'data'); "odd": 15 slots (KV heads over
+# 'model' at (2, 2), llama3.2-1b's head_dim at (1, 4)); "dh": B=1 with
+# the KV sequence over 'data' and the KV heads over 'model', the layout
+# cache_pspecs gives where 'data' divides the sequence and 'model' does
+# not (a data axis of another size than model's: no 4-rank mesh has one).
+VARIANTS = {"": dict(batch=BATCH, cache=CACHE, frames=CACHE),
+            "b1": dict(batch=1, cache=CACHE, frames=18),
+            "b2": dict(batch=2, cache=CACHE, frames=CACHE),
+            "odd": dict(batch=BATCH, cache=15, frames=CACHE),
+            "dh": dict(batch=1, cache=CACHE, frames=CACHE,
+                       kv=(None, None, "data", "model", None))}
+CP_ARCHS = ("llama3.2-1b", "h2o-danube-1.8b", "rwkv6-7b", "zamba2-1.2b",
+            "deepseek-moe-16b", "seamless-m4t-medium")
+CP_CASES = ([(a, None, m, "b1") for m in MESHES[:3] for a in CP_ARCHS]
+            + [(a, "ternary", (2, 2), "b1") for a in CP_ARCHS]
+            + [("rwkv6-7b", "ternary", (4, 1), "b1")]
+            + [(a, None, (2, 2, 1), "b2") for a in CP_ARCHS]
+            + [("llama3.2-1b", None, m, "odd") for m in ((2, 2), (1, 4))]
+            + [("llama3.2-1b", None, (2, 2), "dh")])
+ALL_CASES = CASES + CP_CASES
+# Each case file: (arch, quant, variant).
+FILES = sorted({(a, q, v) for a, q, _, v in ALL_CASES},
+               key=lambda f: (f[0], f[1] or "", f[2]))
 # Ternary serving packs dims >= 256 only: the SMOKE configs widened so
 # that the MLP (and rwkv6's projections, the MoE's shared experts,
 # zamba2's in_proj and out_proj) pack; rwkv6's d_ff keeps its 3.5 x
@@ -63,16 +94,25 @@ WIDE = {"dense": dict(d_model=256, d_ff=512, head_dim=64),
 RING = {"zamba2-1.2b": dict(long_context_window=8)}
 # The case whose step is run again with wq gathered over 'data' first
 # (an FSDP gather: a parameter crossing ranks).
-PLANT = ("llama3.2-1b", None, (2, 2))
+PLANT = ("llama3.2-1b", None, (2, 2), "")
 # The case whose step is run again with each rank routing its own rows
 # (the MoE groups formed rank by rank).
-ROUTE_PLANT = ("deepseek-moe-16b", None, (2, 2))
+ROUTE_PLANT = ("deepseek-moe-16b", None, (2, 2), "")
+# The case whose step is run again with rwkv6's state gathered over
+# 'data' before K4 (a state block crossing ranks).
+STATE_PLANT = ("rwkv6-7b", None, (2, 2), "b1")
+# The cases whose step is run again with the rows taken as split over
+# every batch axis, whole as they are (the rule before the rows' layout
+# was read from the tokens' spec): copies of a row gathered over 'data'.
+COPIES_PLANT = (("deepseek-moe-16b", None, (2, 2), "b1"),
+                ("llama3.2-1b", None, (2, 2), "b1"))
 # A fault a family: rank 0's block of the leaf (of layer 0) zeroed, one
 # step run again.
-FAULTS = {("qwen2-vl-2b", None, (2, 2)): "embed",
-          ("deepseek-moe-16b", None, (2, 2)): "layers/moe/we_down",
-          ("zamba2-1.2b", None, (2, 2)): "layers/out_proj",
-          ("seamless-m4t-medium", None, (2, 2)): "decoder/cross_attn/wo"}
+FAULTS = {("qwen2-vl-2b", None, (2, 2), ""): "embed",
+          ("deepseek-moe-16b", None, (2, 2), ""): "layers/moe/we_down",
+          ("zamba2-1.2b", None, (2, 2), ""): "layers/out_proj",
+          ("seamless-m4t-medium", None, (2, 2), ""):
+              "decoder/cross_attn/wo"}
 
 
 def overrides(arch: str, quant=None) -> dict:
@@ -95,8 +135,9 @@ def mesh_name(shape) -> str:
     return "x".join(map(str, shape))
 
 
-def case_name(arch, quant, shape) -> str:
-    return f"{arch}_{quant or 'float'}_{mesh_name(shape)}"
+def case_name(arch, quant, shape, variant="") -> str:
+    return f"{arch}_{quant or 'float'}_{mesh_name(shape)}" + (
+        f"_{variant}" if variant else "")
 
 
 def params(cfg, seed: int = 0):
@@ -176,20 +217,23 @@ def run_steps(cfg, params_, cache, tokens, steps: int = STEPS):
     return rec.got, toks, cache
 
 
-def prefill(cfg, params_, float_params, seed: int = 0):
-    """A cache of ``CACHE`` slots (h2o-danube's and zamba2's rings of
+def prefill(cfg, params_, float_params, seed: int = 0, variant: str = ""):
+    """A cache of the variant's slots (h2o-danube's and zamba2's rings of
     their windows) after ``PROMPT`` one-device decode steps over a prompt
-    from a numpy seed, and the first tokens to serve (the last logits'
-    argmax). The enc-dec's cross K/V: ``CACHE`` frames from a numpy seed
-    through ``encode`` (``float_params``: it takes a float
-    ``frontend_proj``) and ``prefill_cross_kv``."""
+    of the variant's batch from a numpy seed, and the first tokens to
+    serve (the last logits' argmax). The enc-dec's cross K/V: the
+    variant's frames from a numpy seed through ``encode``
+    (``float_params``: it takes a float ``frontend_proj``) and
+    ``prefill_cross_kv``."""
     model = build_model(cfg)
+    var = VARIANTS[variant]
+    b = var["batch"]
     prompt = torch.from_numpy(np.random.default_rng(500 + seed).integers(
-        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32))
-    cache = model.init_cache(BATCH, CACHE, device="cpu")
+        0, cfg.vocab_size, (b, PROMPT)).astype(np.int32))
+    cache = model.init_cache(b, var["cache"], device="cpu")
     if cfg.family == "encdec":
         frames = torch.from_numpy(np.random.default_rng(600 + seed).normal(
-            size=(BATCH, CACHE, cfg.frontend_dim)).astype(np.float32))
+            size=(b, var["frames"], cfg.frontend_dim)).astype(np.float32))
         cache["ck"], cache["cv"] = ED.prefill_cross_kv(
             params_, ED.encode(float_params, frames, cfg), cfg)
     for i in range(PROMPT):
@@ -197,26 +241,27 @@ def prefill(cfg, params_, float_params, seed: int = 0):
     return cache, torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
 
 
-def case_file(out_dir, arch, quant) -> str:
-    return os.path.join(out_dir, f"{arch}_{quant or 'float'}.npz")
+def case_file(out_dir, arch, quant, variant="") -> str:
+    return os.path.join(out_dir, f"{arch}_{quant or 'float'}"
+                        + (f"_{variant}" if variant else "") + ".npz")
 
 
-def write_case(out_dir, arch, quant):
+def write_case(out_dir, arch, quant, variant=""):
     """The case's float params (``p/``), prefilled cache (``c/``) and first
     tokens, for the ranks and the JAX reference."""
     cfg = config(arch, quant)
     p = params(cfg)
     q = quantize_for_serving(p)[0] if quant == "ternary" else p
-    cache, tokens = prefill(cfg, q, p)
-    np.savez(case_file(out_dir, arch, quant),
+    cache, tokens = prefill(cfg, q, p, variant=variant)
+    np.savez(case_file(out_dir, arch, quant, variant),
              tokens=tokens.numpy(),
              **{"p/" + k: v for k, v in flat(p).items()},
              **{"c/" + k: v for k, v in flat(cache).items()})
 
 
-def read_case(out_dir, arch, quant):
+def read_case(out_dir, arch, quant, variant=""):
     """(serving params, cache, first tokens) of a case file."""
-    z = np.load(case_file(out_dir, arch, quant))
+    z = np.load(case_file(out_dir, arch, quant, variant))
     p = nest({k[2:]: torch.from_numpy(z[k]) for k in z.files
               if k.startswith("p/")})
     cache = nest({k[2:]: torch.from_numpy(z[k]) for k in z.files
@@ -229,15 +274,17 @@ def read_case(out_dir, arch, quant):
 class Watch:
     """On this rank, inside ``with``: the largest tensor a collective
     moved (bytes, op and axis), and each K3 call's input, output and
-    blocks of the packed weight (``ops.ternary_matmul``) and each K4
-    call's r shape (``ops.wkv6_scan``)."""
+    blocks of the packed weight (``ops.ternary_matmul``), each K4 call's r
+    shape (``ops.wkv6_scan``) and each call of K4's stripe entry's r and
+    state shapes and first row (``ops.wkv6_stripe``)."""
 
     def __init__(self):
-        self.largest, self.k3, self.k4 = (0, None), [], []
+        self.largest, self.k3, self.k4, self.stripe = (0, None), [], [], []
 
     def __enter__(self):
         self._count, self._k3, self._k4 = C._count, ops.ternary_matmul, \
             ops.wkv6_scan
+        self._stripe = ops.wkv6_stripe
 
         def count(op, axis, t):
             n = t.numel() * t.element_size()
@@ -253,12 +300,18 @@ class Watch:
         def k4(r, *a, **k):
             self.k4.append(list(r.shape))
             return self._k4(r, *a, **k)
+
+        def stripe(r, k, v, logw, u, state0, lo):
+            self.stripe.append((list(r.shape), list(state0.shape), lo))
+            return self._stripe(r, k, v, logw, u, state0, lo)
         C._count, ops.ternary_matmul, ops.wkv6_scan = count, k3, k4
+        ops.wkv6_stripe = stripe
         return self
 
     def __exit__(self, *exc):
         C._count, ops.ternary_matmul, ops.wkv6_scan = self._count, \
             self._k3, self._k4
+        ops.wkv6_stripe = self._stripe
 
 
 def _k3_bits(whole, specs, calls, mesh):
@@ -330,21 +383,43 @@ def _zeroed(blocks, leaf, rank):
     return out
 
 
-def decode_case(arch, quant, mesh, out_dir):
+def specs_for(cfg, mesh, whole, cache, variant=""):
+    """``sharding.decode_pspecs`` of a case, the variant's KV spec in
+    place of ``cache_pspecs``' where it names one."""
+    specs = SH.decode_pspecs(cfg, mesh, whole, cache,
+                             VARIANTS[variant]["batch"])
+    kv = VARIANTS[variant].get("kv")
+    if kv is not None:
+        specs["cache"].update(k=kv, v=kv)
+    return specs
+
+
+def _copies(real):
+    """``annotate.rows_split`` as the rule was before the rows' layout was
+    read from the tokens' spec: rows split over every batch axis."""
+    def split(axis):
+        return C.axis_size(axis) > 1 and axis in C.batch_axes()
+    return split
+
+
+def decode_case(arch, quant, mesh, out_dir, variant=""):
     """``STEPS`` sharded serve steps of a case on this rank from its
     blocks: rank 0 writes the whole logits, tokens and last cache
     (``gather_logical``); every rank writes the first step's collective
     tallies and bytes, the largest tensor a collective moved, its K3
-    calls against the one-device K3, its K4 call shapes and zamba2's
-    conv state blocks after each step. The planted cases run one step
-    again from the first cache: ``PLANT`` with ``wq`` gathered over
-    'data' (the largest tensor moved), ``ROUTE_PLANT`` with each rank
-    routing its own rows and ``FAULTS`` with a zeroed block (the first
-    step's whole logits, on rank 0)."""
-    case = (arch, quant, tuple(mesh.axis_sizes))
+    calls against the one-device K3, its K4 and K4 stripe calls' shapes
+    and zamba2's conv state blocks after each step. The planted cases run
+    one step again from the first cache: ``PLANT`` with ``wq`` gathered
+    over 'data' and ``STATE_PLANT`` with the state gathered over 'data'
+    (the largest tensor moved), ``ROUTE_PLANT`` with each rank routing its
+    own rows and ``FAULTS`` with a zeroed block (the first step's whole
+    logits, on rank 0), ``COPIES_PLANT`` with whole rows taken as split
+    (copies gathered: the largest tensor moved, and every rank's logits
+    of its row)."""
+    case = (arch, quant, tuple(mesh.axis_sizes), variant)
     cfg = config(arch, quant)
-    whole, cache, tokens = read_case(out_dir, arch, quant)
-    specs = SH.decode_pspecs(cfg, mesh, whole, cache, BATCH)
+    whole, cache, tokens = read_case(out_dir, arch, quant, variant)
+    specs = specs_for(cfg, mesh, whole, cache, variant)
     blocks = SH.local_block(whole, specs["params"], mesh)
     cache_b = SH.local_block(cache, specs["cache"], mesh)
     tok_b = SH.local_block(tokens, specs["tokens"], mesh)
@@ -366,33 +441,46 @@ def decode_case(arch, quant, mesh, out_dir):
     lspec = (specs["tokens"][0], None,
              "model" if rec.got[0].shape[-1] < v else None)
 
-    def again(params_):
+    def again(params_, root=0):
         """One step from the first cache: (the largest tensor moved, the
-        step's whole logits on rank 0)."""
+        step's logits gathered whole on rank ``root``; with ``root`` None,
+        each rank's rows with every column on that rank)."""
         with mesh, Watch() as w, Logits() as r:
             step(params_, SH.local_block(cache, specs["cache"], mesh),
                  SH.local_block(tokens, specs["tokens"], mesh))
-        return w.largest, SH.gather_logical(r.got[0], lspec, mesh, root=0)
+        return w.largest, SH.gather_logical(r.got[0], lspec, mesh,
+                                            root=root)
+
+    def patched(module, name, fn, params_=blocks, root=0):
+        real = getattr(module, name)
+        setattr(module, name, fn(real))
+        try:
+            return again(params_, root)
+        finally:
+            setattr(module, name, real)
     planted, planted_logits = None, {}
     if case == PLANT:
-        real = L.serve_einsum
-
-        def fsdp_gather(eq, x, w, **kw):
-            if eq == "bsd,dhk->bshk":
-                C.gather_dim(w, 0, "data")     # a parameter moved
-            return real(eq, x, w, **kw)
-        L.serve_einsum = fsdp_gather
-        try:
-            planted = again(blocks)[0]
-        finally:
-            L.serve_einsum = real
+        def fsdp_gather(real):
+            def run(eq, x, w, **kw):
+                if eq == "bsd,dhk->bshk":
+                    C.gather_dim(w, 0, "data")     # a parameter moved
+                return real(eq, x, w, **kw)
+            return run
+        planted = patched(L, "serve_einsum", fsdp_gather)[0]
+    if case == STATE_PLANT:
+        def state_gather(real):
+            def run(r, k, v_, logw, u, state0, lo):
+                C.gather_dim(state0, 2, "data")    # a state block moved
+                return real(r, k, v_, logw, u, state0, lo)
+            return run
+        planted = patched(ops, "wkv6_stripe", state_gather)[0]
     if case == ROUTE_PLANT:
-        real = L.moe_route_logits
-        L.moe_route_logits = _route_alone(real)
-        try:
-            planted_logits["route"] = again(blocks)[1]
-        finally:
-            L.moe_route_logits = real
+        planted_logits["route"] = patched(L, "moe_route_logits",
+                                          _route_alone)[1]
+    copies = None
+    if case in COPIES_PLANT:     # every rank's row: the copies differ
+        planted, copies = patched(A, "rows_split", _copies, root=None)
+        copies = copies.numpy()
     if case in FAULTS:
         planted_logits["fault"] = again(_zeroed(blocks, FAULTS[case],
                                                 mesh.rank))[1]
@@ -403,45 +491,45 @@ def decode_case(arch, quant, mesh, out_dir):
         {"logits": (None,) + lspec, "tokens": (None,) + tuple(
             specs["tokens"]), "cache": specs["cache"]}, mesh, root=0)
     row = dict(counts=counts, largest=largest, planted=planted, k3=k3,
-               k4=watch.k4, conv=conv, coords=dict(mesh.coords))
+               k4=watch.k4, stripe=watch.stripe, conv=conv, copies=copies,
+               coords=dict(mesh.coords))
     if mesh.rank == 0:
         row.update(logits=got["logits"].numpy(), tokens=got["tokens"].numpy(),
                    cache={k: t.numpy() for k, t in got["cache"].items()})
         row.update({k: t.numpy() for k, t in planted_logits.items()})
-    name = case_name(arch, quant, mesh.axis_sizes)
+    name = case_name(arch, quant, mesh.axis_sizes, variant)
     with open(os.path.join(out_dir, f"{name}_{mesh.rank}.pkl"), "wb") as f:
         pickle.dump(row, f)
 
 
 def decode_rank(rank, world, port, out_dir, cases=None):
-    """Every case of ``cases`` (default ``CASES``) over the same ranks
+    """Every case of ``cases`` (default ``ALL_CASES``) over the same ranks
     (gloo on the CPU, one torch thread a rank), mesh by mesh."""
     torch.set_num_threads(1)
-    cases = CASES if cases is None else cases
+    cases = ALL_CASES if cases is None else cases
     first = tuple(cases[0][2])
     pm = R.init("localhost", port, world, rank, backend="gloo",
                 device="cpu", shape=first)
     made = {first: pm}
-    for arch, quant, shape in cases:
+    for arch, quant, shape, variant in cases:
         shape = tuple(shape)
         if shape not in made:
             made[shape] = R.process_mesh(shape, R.MESH_AXES[len(shape)],
                                          "cpu")
-        decode_case(arch, quant, made[shape], out_dir)
+        decode_case(arch, quant, made[shape], out_dir, variant)
 
 
-def one_device(out_dir, arch, quant):
+def one_device(out_dir, arch, quant, variant=""):
     """The one-device port's ``STEPS`` serve steps of a case: logits,
     tokens and the last cache (numpy)."""
     cfg = config(arch, quant)
-    p, cache, tokens = read_case(out_dir, arch, quant)
+    p, cache, tokens = read_case(out_dir, arch, quant, variant)
     logits, toks, cache = run_steps(cfg, p, cache, tokens)
     return dict(logits=torch.stack(logits).numpy(),
                 tokens=torch.stack(toks).numpy(),
                 cache={k: t.numpy() for k, t in cache.items()})
 
 
-def rank_file(out_dir, arch, quant, shape, rank):
-    return os.path.join(out_dir,
-                        f"{case_name(arch, quant, shape)}_{rank}.pkl")
-
+def rank_file(out_dir, arch, quant, shape, variant, rank):
+    return os.path.join(out_dir, f"{case_name(arch, quant, shape, variant)}"
+                                 f"_{rank}.pkl")
